@@ -20,10 +20,10 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
-from fqss_tpu.utils.audio import normalize_audio, read_audio, resample_audio, save_audio
 from fqss_tpu_torch.models.factory import create_pretrained_model
 from fqss_tpu_torch.separation.ola import ola_infer
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
+from fqss_tpu_torch.utils.audio import normalize_audio, read_audio, resample_audio, save_audio
 
 ENGINES = ("fake_quant", "folded")
 

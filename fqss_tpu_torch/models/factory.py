@@ -1,4 +1,5 @@
-"""Model factory (``fqss_tpu/models/factory.py``): name -> quantized model with weights.
+"""Model factory (``fqss_tpu/models/factory.py``): name -> quantized model with weights,
+and the student/teacher pair of KD training.
 
 The port holds the ConvTasNet slice; the other model names of the JAX
 factory raise ``NotImplementedError`` until their slices land (ROADMAP.md,
@@ -13,6 +14,7 @@ from typing import Any, Mapping
 import torch
 
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
+from fqss_tpu_torch.nn.io_layers import expand_encoder_kernel
 from fqss_tpu_torch.quant.spec import QuantSpec
 
 MODEL_NAMES = ("ConvTasNet",)
@@ -67,3 +69,51 @@ def create_pretrained_model(model_cfg: Mapping[str, Any], observer: bool | None 
         state = torch.load(path, map_location="cpu", weights_only=True)
         model.load_state_dict(state)
     return model.to(device).eval()
+
+
+def create_model_and_teacher(model_cfg: Mapping[str, Any], pretrained: str | None = None,
+                             generator: torch.Generator | None = None) -> tuple[ConvTasNet, ConvTasNet]:
+    """(quantized student, float teacher) for KD training, on the CPU (train_utils.py:8-27).
+
+    The teacher is the same architecture with ``QuantSpec()``: no
+    quantizers, one splitter plane. Both draw their initial weights from
+    ``generator`` (teacher first). ``pretrained`` is None, or the path of a
+    float model's state dict saved with ``torch.save``: the teacher loads
+    it, and the student takes its shared weights through
+    :func:`merge_float_params`; the student's quantizer ranges and
+    QAT-only layers keep their initial values.
+    """
+    q = quant_spec_from_cfg(model_cfg)
+    teacher = create_model(model_cfg, QuantSpec(), generator=generator)
+    model = create_model(model_cfg, q, generator=generator)
+    if pretrained is not None:
+        teacher.load_state_dict(torch.load(pretrained, map_location="cpu", weights_only=True))
+        model.load_state_dict(merge_float_params(model.state_dict(), teacher.state_dict(), q.n_splitter,
+                                                 generator=generator))
+    teacher.requires_grad_(False)
+    return model, teacher.eval()
+
+
+def merge_float_params(q_state: Mapping[str, torch.Tensor], float_state: Mapping[str, torch.Tensor],
+                       n_splitter: int = 1, lsb_init: str = "gauss",
+                       generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+    """Load float-teacher weights into a QAT state dict.
+
+    Shared entries are overwritten from the float model; QAT-only entries
+    (quantizer ranges and counters, combiner residual blocks) keep their
+    values; the encoder weight is splitter-widened along its input-channel
+    axis (1) when the shapes differ (:func:`expand_encoder_kernel`).
+    """
+    out = dict(q_state)
+    for k, fv in float_state.items():
+        if k not in out:
+            continue
+        qv = out[k]
+        if qv.shape == fv.shape:
+            out[k] = fv.clone()
+        elif qv.ndim == fv.ndim == 3 and qv.shape[1] == n_splitter * fv.shape[1]:
+            out[k] = expand_encoder_kernel(fv, n_splitter, generator, lsb_init=lsb_init)
+        else:
+            raise ValueError(f"Error: mismatch model weights for {k} ({tuple(fv.shape)} vs {tuple(qv.shape)}). "
+                             "Please check if the model configuration matches the checkpoint.")
+    return out

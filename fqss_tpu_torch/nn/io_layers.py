@@ -21,6 +21,36 @@ from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 Tensor = torch.Tensor
 
 
+def expand_encoder_kernel(kernel: Tensor, n_splitter: int, generator: torch.Generator | None = None,
+                          lsb_init: str = "gauss") -> Tensor:
+    """Widen a float encoder weight ``[Cout, Cin, k]`` to ``n_splitter * Cin`` input channels.
+
+    The new channel groups (the LSB-plane inputs) are initialised per
+    ``lsb_init``:
+
+    * ``"gauss"`` — for input channel c of group n, Gaussian noise with the
+      mean of the original channel's weights and their (population) std to
+      the power n, the reference's scheme (qat_layers.py:1009-1026). The
+      numbers come from ``generator`` and differ from ``jax.random``'s.
+    * ``"zeros"`` — zero LSB groups: the widened encoder computes exactly
+      the float model's encoder on the MSB plane.
+    """
+    if n_splitter < 2:
+        return kernel
+    groups = [kernel]
+    for n in range(1, n_splitter):
+        if lsb_init == "zeros":
+            groups.append(torch.zeros_like(kernel))
+            continue
+        block = []
+        for c in range(kernel.shape[1]):
+            w = kernel[:, c]
+            noise = torch.randn(w.shape, generator=generator, dtype=w.dtype, device=w.device)
+            block.append(w.mean() + noise * w.std(correction=0) ** n)
+        groups.append(torch.stack(block, dim=1))
+    return torch.cat(groups, dim=1)
+
+
 class QConv1dEncoder(nn.Module):
     """[in-quant] -> Conv1d (no bias) -> act-quant (Conv1dEncoderQ, qat_layers.py:993-1046).
 

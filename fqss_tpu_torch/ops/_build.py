@@ -79,10 +79,16 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build().path))
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
         lib.fqss_act_fake_quant.argtypes = [p, p, p, p, i64, i32, p]
         lib.fqss_act_fake_quant.restype = i32
         lib.fqss_weight_fake_quant.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
         lib.fqss_weight_fake_quant.restype = i32
+        lib.fqss_act_bwd_blocks.argtypes = [i64]
+        lib.fqss_act_bwd_blocks.restype = i32
+        lib.fqss_act_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i32, f32, p]
+        lib.fqss_act_fake_quant_bwd.restype = i32
+        lib.fqss_weight_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, f32, p]
+        lib.fqss_weight_fake_quant_bwd.restype = i32
         _lib = lib
     return _lib

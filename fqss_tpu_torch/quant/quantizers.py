@@ -17,8 +17,11 @@ input and writes nothing, as a JAX call without mutable collections does
 (``fqss_tpu/quant/quantizers.py:21-24``). The window test stays on the
 device (``torch.where`` on the counter): no call waits for the card.
 
-The quantize op itself is :mod:`fqss_tpu_torch.ops.fake_quant`: a CUDA
-kernel on CUDA tensors, the plain version on CPU tensors.
+The quantize op itself is :mod:`fqss_tpu_torch.ops.fake_quant`: CUDA
+kernels forward and backward on CUDA tensors, the plain versions on CPU
+tensors. Gradients reach the input and, with ``gradient_based``, the ranges,
+with the JAX package's rules; ``scale_grad`` (LSQ step-size scaling) is off
+by default, as on the JAX ConvTasNet path.
 """
 
 from __future__ import annotations
@@ -42,9 +45,10 @@ class ActQuantizer(nn.Module):
     ALPHA = 0.9  # EMA weight of the old range (qat_quant.py:227-242)
 
     def __init__(self, n_bits: int = 8, gradient_based: bool = True, observer: bool = True,
-                 max_observations: int = 50):
+                 max_observations: int = 50, scale_grad: bool = False):
         super().__init__()
         self.n_bits = n_bits
+        self.scale_grad = scale_grad
         self.observer = observer
         self.max_observations = max_observations
         self.min_range = nn.Parameter(torch.full((1,), -0.5), requires_grad=gradient_based)
@@ -52,10 +56,12 @@ class ActQuantizer(nn.Module):
         self.register_buffer("n_iter", torch.zeros((), dtype=torch.int32))
 
     def forward(self, x: Tensor) -> Tensor:
+        # Quantize with the ranges as they are before the observer's write
+        # below, as the JAX module does.
+        y = act_fake_quant(x, self.min_range, self.max_range, self.n_bits, self.scale_grad)
         if not self.observer:
-            return act_fake_quant(x, self.min_range, self.max_range, self.n_bits)
+            return y
         observing = self.n_iter < self.max_observations
-        y = act_fake_quant(x, self.min_range, self.max_range, self.n_bits)
         if self.training:
             with torch.no_grad():
                 a = self.ALPHA
@@ -77,9 +83,10 @@ class WeightQuantizer(nn.Module):
     """
 
     def __init__(self, weight_shape: Sequence[int], n_bits: int = 8, ch_axis: int = 0,
-                 gradient_based: bool = True, observer: bool = True):
+                 gradient_based: bool = True, observer: bool = True, scale_grad: bool = False):
         super().__init__()
         self.n_bits = n_bits
+        self.scale_grad = scale_grad
         self.ch_axis = ch_axis
         self.observer = observer
         shape = [1] * len(weight_shape)
@@ -91,12 +98,12 @@ class WeightQuantizer(nn.Module):
 
     def forward(self, w: Tensor) -> Tensor:
         if not self.observer:
-            return weight_fake_quant(w, self.min_range, self.max_range, self.n_bits, self.ch_axis)
+            return weight_fake_quant(w, self.min_range, self.max_range, self.n_bits, self.ch_axis, self.scale_grad)
         observing = ~self.observed
         if self.training:
             with torch.no_grad():
                 self.min_range.copy_(torch.where(observing, w.amin(self.reduce_dims, keepdim=True), self.min_range))
                 self.max_range.copy_(torch.where(observing, w.amax(self.reduce_dims, keepdim=True), self.max_range))
                 self.observed.fill_(True)
-        y = weight_fake_quant(w, self.min_range, self.max_range, self.n_bits, self.ch_axis)
+        y = weight_fake_quant(w, self.min_range, self.max_range, self.n_bits, self.ch_axis, self.scale_grad)
         return torch.where(observing, w, y)

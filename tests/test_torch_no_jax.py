@@ -12,8 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from fqss_tpu.data import synth_batch
-from fqss_tpu.utils.audio import read_audio, save_audio
+from fqss_tpu_torch.data import synth_batch
+from fqss_tpu_torch.utils.audio import read_audio, resample_audio, save_audio
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,9 +23,14 @@ import fqss_tpu_torch
 for mod in pkgutil.walk_packages(fqss_tpu_torch.__path__, "fqss_tpu_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
-loaded = sorted(m for m in ("jax", "flax", "yaml") if m in sys.modules)
+loaded = sorted(m for m in ("jax", "flax", "yaml", "pandas", "fqss_tpu") if m in sys.modules)
 print("LOADED", loaded)
+print("MODULES", sorted(m for m in sys.modules if m.startswith("fqss_tpu_torch")))
 """
+# The training slice's modules, named so that a rename cannot drop them from the walk unnoticed.
+TRAINING_MODULES = ("fqss_tpu_torch.data.synthetic", "fqss_tpu_torch.utils.audio", "fqss_tpu_torch.quant.ste",
+                    "fqss_tpu_torch.separation.losses", "fqss_tpu_torch.train.state", "fqss_tpu_torch.train.trainer", "fqss_tpu_torch.train.checkpoints",
+                    "fqss_tpu_torch.train.recipes", "fqss_tpu_torch.train.__main__", "fqss_tpu_torch.utils.logging")
 
 
 def _run(args, cwd=REPO, timeout=240):
@@ -39,6 +44,33 @@ def test_port_and_chip_smoke_import_no_jax_flax_or_yaml():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
+    for mod in TRAINING_MODULES:
+        assert f"'{mod}'" in proc.stdout, mod
+
+
+def test_synth_batch_equals_the_jax_packages():
+    from fqss_tpu.data.synthetic import synth_batch as jax_package_synth_batch
+
+    for args in ((2, 2, 3000), (1, 3, 1001)):
+        got = synth_batch(np.random.default_rng(7), *args)
+        want = jax_package_synth_batch(np.random.default_rng(7), *args)
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+
+
+def test_audio_helpers_equal_the_jax_packages(tmp_path):
+    from fqss_tpu.utils import audio as jax_package_audio
+
+    mix, src = synth_batch(np.random.default_rng(3), 1, 2, 4000)
+    for name, wav in (("mono.wav", mix[0]), ("stereo.wav", src[0])):
+        save_audio(str(tmp_path / name), wav, 16000)
+        jax_package_audio.save_audio(str(tmp_path / f"ref_{name}"), wav, 16000)
+        assert (tmp_path / name).read_bytes() == (tmp_path / f"ref_{name}").read_bytes()
+        got, want = read_audio(str(tmp_path / name)), jax_package_audio.read_audio(str(tmp_path / name))
+        np.testing.assert_array_equal(got[0], want[0])
+        assert got[1] == want[1] == 16000
+        np.testing.assert_array_equal(resample_audio(got[0], 16000, 8000),
+                                      jax_package_audio.resample_audio(want[0], 16000, 8000))
 
 
 def test_chip_smoke_model_cfg_equals_the_config_file():

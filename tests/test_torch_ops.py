@@ -101,7 +101,7 @@ def test_cpu_tensors_launch_no_kernel():
     fq.act_fake_quant(x, *r)
     fq.fake_quant(x, *r)
     fq.weight_fake_quant(x.reshape(7, 43), torch.full((7, 1), -1.0), torch.full((7, 1), 1.0), 8, 0)
-    assert fq.LAUNCHES == {"act": 0, "weight": 0}
+    assert fq.LAUNCHES == {"act": 0, "weight": 0, "act_bwd": 0, "weight_bwd": 0}
 
 
 def test_devices_without_a_kernel_raise():

@@ -3,14 +3,15 @@
 
 Usage: python3 chip_smoke.py     (from the repository root; needs one CUDA device)
 
-Drives the port's two paths, the FQSS-8bit ConvTasNet serving forward and its
-KD train step, at full width (512 filters, bottleneck 128, hidden 512,
-8 blocks x 3 repeats, n_splitter = n_combiner = 2, 8-bit weights and
-activations), with random weights from seeded ``torch.Generator``s. It prints
-one line per phase and lets any failure propagate:
+Drives the port's paths, the FQSS-8bit ConvTasNet serving forward, its KD
+train step, and its int8 serving engine and evaluation, at full width (512
+filters, bottleneck 128, hidden 512, 8 blocks x 3 repeats, n_splitter =
+n_combiner = 2, 8-bit weights and activations), with random weights from
+seeded ``torch.Generator``s. It prints one line per phase and lets any
+failure propagate:
 
 0. device: the card's name and power limit (nvidia-smi); TF32 off.
-1. build: compile ``fqss_tpu_torch/csrc/fake_quant.cu`` with nvcc.
+1. build: compile ``fqss_tpu_torch/csrc/*.cu`` with nvcc, one process per source.
 2. kernels vs their plain PyTorch versions on the card, bitwise
    (``torch.equal``), at the main path's shapes, with planted edge and
    half-step tie values; CUDA-event times of both.
@@ -37,6 +38,24 @@ one line per phase and lets any failure propagate:
     and whole-gradient cosine within LOSS_DB_TOL and GRAD_COS_MIN.
 11. train-step time at 16 x 3 s: ms per step, seconds of audio trained per
     second, peak device memory.
+12. the int8 kernel (K4) vs its plain version on the card, bitwise, at the
+    engine's three full-width shapes (M = 32 x 11999 rows; K -> N of
+    512 -> 128, 128 -> 512, 128 -> 1024), with planted extremes (rows of
+    -128 against columns of -128 and 127) and outputs on exact half-step
+    ties, and at odd sizes; CUDA-event times of the kernel, the plain
+    version and ``torch._int_mm`` (the product alone).
+13. the int8 engine at full width from phase 3's model, float32 and
+    bfloat16 operands, 32 x 12 s: K4 launches = the 1x1 convs of the module
+    tree (74) and no fake-quant launch; output against phase 3's at the
+    fake-quant forward's own noise floor (phase 4's card-vs-CPU distance;
+    see INT8_FLOOR); card vs CPU for both engines at 1 x 1 s (see
+    INT8_CARD_VS_CPU).
+14. three 20 s requests through ``fqss_tpu_torch.infer`` with the int8
+    engine.
+15. throughput of the int8 engine (float32 and bfloat16) at 32 x 12 s.
+16. evaluation: ``fqss_tpu_torch.val.evaluate`` of the fake_quant and int8
+    engines on a LibriMix-layout folder of 4 synthetic 3 s mixtures:
+    finite metrics, mean SI-SDR within EVAL_SISDR_DB of each other.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -56,14 +75,17 @@ import time
 import numpy as np
 import torch
 
-from fqss_tpu_torch import infer
+from fqss_tpu_torch import infer, val
 from fqss_tpu_torch.data.synthetic import synth_batch
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
 from fqss_tpu_torch.models.factory import create_model_and_teacher
+from fqss_tpu_torch.nn.layers import QConv1d
 from fqss_tpu_torch.ops import _build
 from fqss_tpu_torch.ops import fake_quant as fq
+from fqss_tpu_torch.ops import int8_matmul as im
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
 from fqss_tpu_torch.quant.spec import QuantSpec
+from fqss_tpu_torch.serve import make_int8_engine
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
 from fqss_tpu_torch.train.state import TrainState
 from fqss_tpu_torch.train.trainer import TrainConfig, make_optimizer, make_train_step
@@ -113,6 +135,29 @@ TRAIN_STEPS = 8
 # more than 10x room.
 LOSS_DB_TOL = 0.1
 GRAD_COS_MIN = 0.999
+# The int8 engine against the fake-quant forward (phase 13). The two differ where the int32 sum and
+# cuDNN's float32 sum land on two sides of a rounding tie, and at full width with random weights such
+# flips cascade through the 24 blocks: on an H100 the fake-quant forward itself is 27.7/28.0 dB (a mean
+# of 1.74 output steps) from its own CPU run (phase 4). The engine is held to that floor as
+# tests/test_serve_int8.py holds the JAX engine to the model's own eager-vs-jit agreement: SNR no more
+# than 3 dB (bf16: 5 dB) below the floor's, mean |difference| at most 1.5x (bf16: 2x) the floor's.
+# The absolute bounds of that test (max 10, mean 1.5 steps; bf16 mean 2) hold on the tiny model
+# (tests/test_torch_int8.py), not here, where the floor alone breaks them.
+INT8_FLOOR = {"float32": (3.0, 1.5), "bfloat16": (5.0, 2.0)}  # (SNR margin in dB, mean-difference factor)
+# The int8 engine card vs CPU on the same weights (phase 13): (minimum SNR in dB per output, largest share
+# of samples more than half an output step apart). The int8 products are exact on both devices, so only
+# the float convs' sum order differs. On an H100 the float32 engine read 112.9-113.2 dB with 0.0001 of
+# samples apart; on the tiny model of the CPU tests, 0.2-0.5% of samples one step apart read 52-62 dB.
+# The bfloat16 engine is held to the bound that those tests hold it to against the JAX engine
+# (tests/test_torch_int8.py:JAX_BOUND).
+INT8_CARD_VS_CPU = {"float32": (90.0, 1e-3), "bfloat16": (40.0, 1e-2)}
+EVAL_SISDR_DB = 0.5  # int8 vs fake_quant mean SI-SDR on the same weights (phase 16)
+INT8_ROWS = BATCH * ((SEG - 16) // 8 + 1)  # M of the engine's 1x1 convs: 32 x 11999
+# (K, N, launches per forward) of the engine's 1x1 convs: bottleneck + 24 res + 24 skip, 24 conv_in, the mask.
+INT8_SHAPES = ((512, 128, 49), (128, 512, 24), (128, 1024, 1))
+INT8_TIE_DELTA, INT8_TIE_MN = 2.0**-6, -2.0  # the out grid of phase 12's planted ties
+# The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8 and float32 rates.
+HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1.979e15, 67e12
 
 
 def log(msg: str) -> None:
@@ -129,6 +174,12 @@ def cuda_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def bound_of(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
+    """The least time the card could take: bytes over the memory rate or operations over the peak, the larger."""
+    t_bytes, t_ops = bytes_moved / HBM_BYTES_S * 1e3, ops / ops_per_s * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
 def compare(name: str, kernel_out: torch.Tensor, plain_out: torch.Tensor) -> float:
@@ -158,6 +209,7 @@ def check_act_kernel(dev) -> dict:
     results["max_abs_err"] = max(results["max_abs_err"], compare(f"act {ACT_SHAPE}", y, fq.act_fake_quant_ref(x, mn, mx, 8)))
     results["ms"] = cuda_ms(lambda: fq.act_fake_quant(x, mn, mx, 8), 20)
     results["plain_ms"] = cuda_ms(lambda: fq.act_fake_quant_ref(x, mn, mx, 8), 5)
+    results.update(bound_of(8 * x.numel(), 7 * x.numel(), F32_OPS_S))  # x in, y out; sub, div, round, 2 clips, mul, add
     gb = 2 * x.numel() * 4 / 1e9
     log(f"[2] act_fake_quant {tuple(x.shape)}: bitwise equal; kernel {results['ms']:.3f} ms "
         f"({gb / results['ms'] * 1e3:.0f} GB/s of {gb:.2f} GB moved), plain {results['plain_ms']:.3f} ms")
@@ -194,6 +246,8 @@ def check_weight_kernel(dev) -> dict:
         log(f"[2] weight_fake_quant {shape} ch_axis={ch_axis}: bitwise equal; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
         if shape == (1024, 128, 1):
             results["ms"], results["plain_ms"] = ms, plain_ms
+            # w in, y out, two ranges of 1024; per element div, round, 2 clips, mul (+ the step per channel)
+            results.update(bound_of(8 * w.numel() + 8 * shape[0], 5 * w.numel(), F32_OPS_S))
     return results
 
 
@@ -233,6 +287,7 @@ def check_act_bwd_kernel(dev) -> dict:
         check(f"act bwd {TRAIN_ACT_SHAPE} s={s:.4g}", x, g, mn, mx, s)
     results["ms"] = cuda_ms(lambda: fq.act_fake_quant_bwd(x, g, mn, mx, 8, 1.0), 20)
     results["plain_ms"] = cuda_ms(lambda: fq.act_fake_quant_bwd_ref(x, g, mn, mx, 8, 1.0), 5)
+    results.update(bound_of(12 * x.numel(), 15 * x.numel(), F32_OPS_S))  # x, g in; dx out; mask, dx and two terms
     gb = 3 * x.numel() * 4 / 1e9
     log(f"[8] act_fake_quant_bwd {TRAIN_ACT_SHAPE}: dx bitwise equal, sums within {SUM_RTOL} of sum |term|; "
         f"kernel {results['ms']:.3f} ms ({gb / results['ms'] * 1e3:.0f} GB/s of {gb:.2f} GB moved), "
@@ -278,6 +333,8 @@ def check_weight_bwd_kernel(dev) -> dict:
                 f"tolerance; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
             if (shape, ch_axis) == ((1024, 128, 1), 0):
                 results["ms"], results["plain_ms"] = ms, plain_ms
+                # w, g in; dw out; two ranges in, two range gradients out
+                results.update(bound_of(12 * w.numel() + 16 * shape[ch_axis], 10 * w.numel(), F32_OPS_S))
     return results
 
 
@@ -300,7 +357,8 @@ def snr_db(ref: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
     return 10 * torch.log10(ref.pow(2).sum(-1) / (ref - est).pow(2).sum(-1))
 
 
-def serve_requests(dev, served: ConvTasNet, model_cfg: dict, seconds: int = 20) -> list[float]:
+def serve_requests(dev, served: ConvTasNet, model_cfg: dict, engine: str = "folded",
+                   seconds: int = 20) -> list[float]:
     """Serve three synthetic mixtures through the infer entry; returns each request's seconds."""
     latencies = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -308,7 +366,7 @@ def serve_requests(dev, served: ConvTasNet, model_cfg: dict, seconds: int = 20) 
         torch.save(served.state_dict(), ckpt)
         conf = {"model_cfg": {**model_cfg, "model_path": ckpt},
                 "testing_cfg": {"segment_samples": 16000, "overlap": 0.25}}
-        apply_fn = infer.load_engine(conf["model_cfg"], "folded", dev)
+        apply_fn = infer.load_engine(conf["model_cfg"], engine, dev)
         mixes, _ = synth_batch(np.random.default_rng(2), 3, 2, seconds * SR)
         for i, mix in enumerate(mixes):
             path = os.path.join(tmp, f"mixture_{i}.wav")
@@ -324,6 +382,156 @@ def serve_requests(dev, served: ConvTasNet, model_cfg: dict, seconds: int = 20) 
                     raise AssertionError(f"request {i} source {s + 1}: {wav.shape[-1]} samples at {fs} Hz, "
                                          f"expected {mix.shape[-1]} at {SR}")
     return latencies
+
+
+def int8_case(dev, m: int, k: int, n: int, gen: torch.Generator):
+    """Random int8 operands [M, K] and [N, K], per-channel scale and corr, with planted extremes and ties.
+
+    Row 0 of xs is all -128, against output channel 0 of all -128 and channel N-1 of all 127: the
+    largest |acc| of the shape, 128 * 128 * K. Channels 1..8 (where N allows) pick one activation each,
+    with scale = INT8_TIE_DELTA and corr = INT8_TIE_DELTA / 2, so their outputs lie on exact half steps
+    of the out grid (INT8_TIE_DELTA, INT8_TIE_MN): (v - mn) / delta = x + 128.5."""
+    xs = torch.randint(-128, 128, (m, k), device=dev, generator=gen, dtype=torch.int8)
+    w = torch.randint(-128, 128, (n, k), device=dev, generator=gen, dtype=torch.int8)
+    scale = (torch.rand(n, device=dev, generator=gen) * 1.5 + 0.5) * 1e-4
+    corr = torch.randn(n, device=dev, generator=gen) * 0.5
+    xs[0] = -128
+    w[0], w[-1] = -128, 127
+    ties = torch.arange(1, min(9, n - 1), device=dev)
+    w[ties] = 0
+    w[ties, (ties - 1) % k] = 1
+    scale[ties], corr[ties] = INT8_TIE_DELTA, INT8_TIE_DELTA / 2
+    return xs, w, scale, corr
+
+
+def check_int8_kernel(dev) -> dict:
+    """Phase 12: K4 against its plain version, bitwise, at the engine's shapes and odd ones; times per forward."""
+    gen = torch.Generator(device=dev).manual_seed(12)
+    results = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "int_mm_ms": 0.0}
+    bytes_moved = ops = 0
+    args = (INT8_TIE_DELTA, INT8_TIE_MN)
+    for k, n, per_forward in INT8_SHAPES:
+        xs, w, scale, corr = int8_case(dev, INT8_ROWS, k, n, gen)
+        for alpha in (1.0, 0.25, 0.0):
+            got = im.int8_matmul_requant(xs, w, scale, corr, alpha, *args)
+            compare(f"int8_matmul_requant [{INT8_ROWS},{k}]x[{n},{k}] alpha={alpha}", got,
+                    im.int8_matmul_requant_ref(xs, w, scale, corr, alpha, *args))
+        ms = cuda_ms(lambda: im.int8_matmul_requant(xs, w, scale, corr, 0.25, *args), 20)
+        plain_ms = cuda_ms(lambda: im.int8_matmul_requant_ref(xs, w, scale, corr, 0.25, *args), 3)
+        int_mm_ms = cuda_ms(lambda: torch._int_mm(xs, w.t()), 20)
+        moved = INT8_ROWS * (k + n) + n * k + 8 * n  # activations in, int8 out, weight, scale and corr
+        b = bound_of(moved, 2 * INT8_ROWS * k * n, INT8_OPS_S)
+        log(f"[12] int8_matmul_requant [{INT8_ROWS},{k}] x [{n},{k}]: bitwise equal for alpha 1, 0.25, 0 with "
+            f"planted extremes and ties; kernel {ms:.4f} ms ({moved / ms / 1e6:.0f} GB/s of {moved / 1e9:.3f} GB, "
+            f"{b['bound_ms'] / ms:.1%} of its {b['bound_ms']:.4f} ms bound by {b['bound_by']}), "
+            f"plain {plain_ms:.3f} ms, "
+            f"torch._int_mm (product only, int32 out) {int_mm_ms:.4f} ms; {per_forward} launches per forward")
+        results["ms"] += per_forward * ms
+        results["plain_ms"] += per_forward * plain_ms
+        results["int_mm_ms"] += per_forward * int_mm_ms
+        bytes_moved += per_forward * moved
+        ops += per_forward * 2 * INT8_ROWS * k * n
+        del xs, w, got
+        torch.cuda.empty_cache()
+    results.update(bound_of(bytes_moved, ops, INT8_OPS_S))
+    for m in (1, 17, 1023):
+        xs, w, scale, corr = int8_case(dev, m, 48, 40, gen)
+        for alpha in (1.0, 0.25, 0.0):
+            compare(f"int8_matmul_requant [{m},48]x[40,48] alpha={alpha}",
+                    im.int8_matmul_requant(xs, w, scale, corr, alpha, *args),
+                    im.int8_matmul_requant_ref(xs, w, scale, corr, alpha, *args))
+    log(f"[12] int8_matmul_requant at M 1, 17, 1023 x K 48 x N 40, alpha 1, 0.25, 0: bitwise equal; one forward's "
+        f"74 launches: kernel {results['ms']:.3f} ms, bound {results['bound_ms']:.3f} ms "
+        f"({results['bound_ms'] / results['ms']:.1%}), plain {results['plain_ms']:.1f} ms, "
+        f"torch._int_mm {results['int_mm_ms']:.3f} ms")
+    return results
+
+
+def int8_sites(model: ConvTasNet) -> int:
+    """The 1x1 convs that the int8 engine runs through K4: all of the masker's, the mask conv only with ReLU."""
+    n = sum(isinstance(m, QConv1d) and m.weight.shape[-1] == 1 for m in model.masker.modules())
+    return n if model.masker.mask_conv.nl.kind == "relu" else n - 1
+
+
+def out_step(model: ConvTasNet) -> float:
+    aq = model.decoder.activation_fake_quantize
+    return float(aq.max_range.detach() - aq.min_range.detach()) / 255.0
+
+
+def int8_engine_at_full_width(dev, served: ConvTasNet, x: torch.Tensor, y: torch.Tensor,
+                              floor: tuple[float, float]) -> tuple[dict, int]:
+    """Phase 13: the int8 engines against the fake-quant forward ``y``; returns them and the f32 run's K4 launches.
+
+    ``floor``: (SNR in dB, mean |difference| in output steps) of the fake-quant forward against itself on
+    the CPU (phase 4)."""
+    sites, lsb = int8_sites(served), out_step(served)
+    engines, launches = {}, 0
+    for dtype, (snr_margin, mean_factor) in INT8_FLOOR.items():
+        engine = engines[dtype] = make_int8_engine(served, compute_dtype=dtype)
+        fq.reset_launches()
+        im.reset_launches()
+        y8 = engine(x)
+        torch.cuda.synchronize()
+        got = {"int8_mm": im.LAUNCHES["int8_mm"], **fq.LAUNCHES}
+        if got != {"int8_mm": sites, "act": 0, "weight": 0, "act_bwd": 0, "weight_bwd": 0}:
+            raise AssertionError(f"int8 engine ({dtype}) launches {got}, expected {sites} int8_mm and no other")
+        if dtype == "float32":
+            launches = got["int8_mm"]
+        if y8.shape != y.shape or not torch.isfinite(y8).all():
+            raise AssertionError(f"int8 engine ({dtype}) gave shape {tuple(y8.shape)}, "
+                                 f"finite={bool(torch.isfinite(y8).all())}")
+        diff = (y8 - y).abs()
+        max_lsb, mean_lsb = diff.max().item() / lsb, diff.mean().item() / lsb
+        snr = snr_db(y, y8)
+        snr_min, mean_max = floor[0] - snr_margin, floor[1] * mean_factor
+        if snr.min().item() < snr_min or mean_lsb > mean_max:
+            raise AssertionError(f"int8 engine ({dtype}) vs fake-quant: SNR {snr.min().item():.2f} dB (minimum "
+                                 f"{snr_min:.2f}), mean {mean_lsb:.3f} output steps (maximum {mean_max:.3f})")
+        log(f"[13] int8 engine ({dtype} float convs) {tuple(x.shape)} -> {tuple(y8.shape)}, finite; launches "
+            f"int8_mm={sites} (= 1x1 convs of the module tree), fake-quant 0; vs fake-quant forward SNR "
+            f"{snr.min().item():.2f}-{snr.max().item():.2f} dB (>= {snr_min:.2f}), mean {mean_lsb:.4f} output steps "
+            f"(<= {mean_max:.3f}), max {max_lsb:.2f}")
+        del y8, diff
+    cpu_model = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=SPEC)
+    cpu_model.load_state_dict(served.state_dict())
+    cpu_model.eval()
+    x1 = x[:1, :SR]
+    for dtype, (snr_min, share_max) in INT8_CARD_VS_CPU.items():
+        y_card = engines[dtype](x1).cpu()
+        y_cpu = make_int8_engine(cpu_model, compute_dtype=dtype)(x1.cpu())
+        snr, share = snr_db(y_cpu, y_card), ((y_card - y_cpu).abs() > 0.5 * lsb).float().mean().item()
+        if not bool((snr >= snr_min).all()) or share > share_max:
+            raise AssertionError(f"int8 engine ({dtype}) card vs CPU: SNR {snr.tolist()} dB (minimum {snr_min}), "
+                                 f"{share} of samples half a step apart (maximum {share_max})")
+        log(f"[13] int8 engine ({dtype}) card vs CPU at 1 x {SR}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} "
+            f"dB (>= {snr_min}), {(y_card != y_cpu).float().mean().item():.4f} of samples differ, {share:.4f} by "
+            f"more than half a step (<= {share_max})")
+    return engines, launches
+
+
+def evaluate_engines(dev, served: ConvTasNet) -> dict:
+    """Phase 16: ``val.evaluate`` of the fake_quant and int8 engines on 4 synthetic 3 s mixtures."""
+    mixes, sources = synth_batch(np.random.default_rng(16), 4, 2, 3 * SR)
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, (mix, src) in enumerate(zip(mixes, sources)):
+            save_audio(os.path.join(tmp, "test", "mix_clean", f"utt{i}.wav"), mix, SR)
+            for s in range(2):
+                save_audio(os.path.join(tmp, "test", f"s{s + 1}", f"utt{i}.wav"), src[s], SR)
+        ckpt = os.path.join(tmp, "convtasnet_fqss8bit.pt")
+        torch.save(served.state_dict(), ckpt)
+        conf = {"model_cfg": {**MODEL_CFG, "model_path": ckpt}, "dataset_cfg": {"name": "librimix"},
+                "testing_cfg": {"test_dir": os.path.join(tmp, "test"), "segment_samples": 16000, "overlap": 0.25}}
+        results = {engine: val.evaluate(conf, engine, dev) for engine in ("fake_quant", "int8")}
+    for engine, m in results.items():
+        if not np.isfinite(list(m.values())).all():
+            raise AssertionError(f"evaluation of {engine}: non-finite metrics {m}")
+        log(f"[16] val.evaluate --engine {engine}, 4 mixtures of 3 s: "
+            + ", ".join(f"{k} {v:.4f}" for k, v in m.items()))
+    gap = abs(results["int8"]["si_sdr"] - results["fake_quant"]["si_sdr"])
+    if gap > EVAL_SISDR_DB:
+        raise AssertionError(f"int8 mean SI-SDR {gap:.3f} dB from fake_quant's (bound {EVAL_SISDR_DB})")
+    log(f"[16] int8 vs fake_quant mean SI-SDR: {gap:.4f} dB apart (<= {EVAL_SISDR_DB})")
+    return results
 
 
 def new_train_state(model: ConvTasNet, teacher: ConvTasNet) -> TrainState:
@@ -489,8 +697,9 @@ def main() -> None:
     snr = snr_db(y_cpu, y_card)
     if not bool((snr >= 20).all()):
         raise AssertionError(f"card vs CPU SNR {snr.tolist()} dB < 20 dB")
+    fq_floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / out_step(served))
     log(f"[4] card vs CPU at 1 x {SR}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20), "
-        f"{(y_card != y_cpu).float().mean().item():.4f} of samples differ")
+        f"{(y_card != y_cpu).float().mean().item():.4f} of samples differ, mean {fq_floor[1]:.4f} output steps")
 
     # 5. folded engine
     folded = fold_quantized_weights(served)
@@ -517,7 +726,7 @@ def main() -> None:
             ms = cuda_ms(lambda: model(x), 3)
         log(f"[7] throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
             f"{BATCH} x {SEG // SR} s) on {smi}")
-    del served, folded, model, x, y, y_folded
+    del folded, model, y_folded
     torch.cuda.empty_cache()
 
     # 8. backward kernels vs plain versions on the card
@@ -533,17 +742,44 @@ def main() -> None:
 
     # 11. train-step time
     train_step_time(dev, state, smi)
+    del state
+    torch.cuda.empty_cache()
+
+    # 12. the int8 kernel vs its plain version on the card
+    int8 = check_int8_kernel(dev)
+
+    # 13. the int8 engine at full width (launch counts set to 0 inside, read after each forward)
+    engines, int8_launches = int8_engine_at_full_width(dev, served, x, y, fq_floor)
+
+    # 14. requests through the infer entry with the int8 engine
+    for i, s in enumerate(serve_requests(dev, served, MODEL_CFG, "int8")):
+        log(f"[14] request {i} (int8 engine): 20 s mixture -> 2 sources of 20 s, {s * 1000:.1f} ms")
+
+    # 15. throughput of the int8 engine
+    for dtype, engine in engines.items():
+        ms = cuda_ms(lambda: engine(x), 3)
+        log(f"[15] throughput int8 ({dtype} float convs): {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per "
+            f"forward of {BATCH} x {SEG // SR} s) on {smi}")
+    del engines
+    torch.cuda.empty_cache()
+
+    # 16. evaluation of two engines on a LibriMix-layout folder
+    evaluate_engines(dev, served)
 
     source = "fqss_tpu_torch/csrc/fake_quant.cu"
     kernels = [
         dict(name="act_fake_quant", route="cuda", source=source, replaces="fqss_tpu/ops/pallas_qat.py:87",
-             launches=launches["act"], **act),
+             launches=launches["act"], library_ms=None, **act),
         dict(name="weight_fake_quant", route="cuda", source=source, replaces="fqss_tpu/ops/pallas_qat.py:204",
-             launches=launches["weight"], **weight),
+             launches=launches["weight"], library_ms=None, **weight),
         dict(name="act_fake_quant_bwd", route="cuda", source=source, replaces="fqss_tpu/ops/pallas_qat.py:95",
-             launches=train_launches["act_bwd"], **act_bwd),
+             launches=train_launches["act_bwd"], library_ms=None, **act_bwd),
         dict(name="weight_fake_quant_bwd", route="cuda", source=source, replaces="fqss_tpu/ops/pallas_qat.py:214",
-             launches=train_launches["weight_bwd"], **weight_bwd),
+             launches=train_launches["weight_bwd"], library_ms=None, **weight_bwd),
+        # ms, plain_ms, bound_ms: one forward's 74 launches; int_mm_ms: torch._int_mm, the product alone
+        # (int32 out, no epilogue), so no library call computes this function: library_ms is null.
+        dict(name="int8_matmul_requant", route="cuda", source="fqss_tpu_torch/csrc/int8_matmul.cu",
+             replaces="fqss_tpu/ops/pallas_quant.py:168", launches=int8_launches, library_ms=None, **int8),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

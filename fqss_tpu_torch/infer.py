@@ -5,7 +5,9 @@ Usage: python -m fqss_tpu_torch.infer -y cfg.yaml -a mixture.wav [-o out_dir] [-
 Writes one WAV per separated source. The model runs on ``--device``
 (default ``cuda``, which must be present; pass ``--device cpu`` to run the
 plain PyTorch versions of the kernels on the CPU). TF32 is turned off: it
-would move values off the 8-bit grids.
+would move values off the 8-bit grids. ``--engine`` picks the serving path:
+the per-forward fake-quant model, its weight-folded copy, or the int8
+engine (``serve/convtasnet_int8.py``, bf16 operands for its float convs).
 
 :func:`load_engine` and :func:`separate_file` are the same path as a
 library: build the serving model once, then serve one file per call.
@@ -22,10 +24,11 @@ import torch
 
 from fqss_tpu_torch.models.factory import create_pretrained_model
 from fqss_tpu_torch.separation.ola import ola_infer
-from fqss_tpu_torch.serve.fold import fold_quantized_weights
+from fqss_tpu_torch.serve import fold_quantized_weights, make_int8_engine
 from fqss_tpu_torch.utils.audio import normalize_audio, read_audio, resample_audio, save_audio
+from fqss_tpu_torch.utils.config import load_config
 
-ENGINES = ("fake_quant", "folded")
+ENGINES = ("fake_quant", "folded", "int8")
 
 
 def disable_tf32() -> None:
@@ -44,15 +47,17 @@ def resolve_device(name: str) -> torch.device:
 def load_engine(model_cfg: Mapping[str, Any], engine: str = "fake_quant",
                 device: torch.device | str = "cuda") -> Callable[[torch.Tensor], torch.Tensor]:
     """The serving forward ``[K, T] -> [K, S, T]`` for ``engine`` on ``device``."""
-    if engine in ("int8", "auto"):
-        raise NotImplementedError(f"--engine {engine} is not ported yet (ROADMAP.md, queue 2: the int8 "
-                                  "engine's kernel); use --engine folded")
+    if engine == "auto":
+        raise NotImplementedError("--engine auto is not ported yet (ROADMAP.md, queue 1: a table of the "
+                                  "fastest path per model, measured on the H100); use --engine folded")
     if engine not in ENGINES:
         raise ValueError(f"unknown engine {engine!r}; choose from {ENGINES}")
     disable_tf32()
     model = create_pretrained_model(model_cfg, observer=False, device=device)
     if engine == "folded":
-        model = fold_quantized_weights(model)
+        return fold_quantized_weights(model)
+    if engine == "int8":
+        return make_int8_engine(model)
     return model
 
 
@@ -88,9 +93,10 @@ def argument_handler(argv=None):
     parser.add_argument("--audio_path", "-a", type=str, required=True, help="Input mixture WAV")
     parser.add_argument("--output_dir", "-o", type=str, default=None, help="Output directory")
     parser.add_argument("--normalize", action="store_true", help="Peak-normalize the input")
-    parser.add_argument("--engine", choices=[*ENGINES, "int8", "auto"], default="fake_quant",
-                        help="Serving path: per-forward fake-quant, or weight-folded fake-quant "
-                        "(bitwise identical, weights pre-quantized). int8 and auto are not ported yet.")
+    parser.add_argument("--engine", choices=[*ENGINES, "auto"], default="fake_quant",
+                        help="Serving path: per-forward fake-quant, weight-folded fake-quant "
+                        "(bitwise identical, weights pre-quantized), or the int8 engine "
+                        "(int8 1x1 convs, ConvTasNet). auto is not ported yet.")
     parser.add_argument("--stream", type=int, default=None, metavar="PUSH",
                         help="Streaming serving (not ported yet)")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
@@ -101,8 +107,6 @@ def main(argv=None) -> None:
     args = argument_handler(argv)
     if args.stream:
         raise NotImplementedError("--stream is not ported yet (serve/streaming.py, ROADMAP.md queue 1)")
-    from fqss_tpu.utils.config import load_config  # yaml is needed by the CLI only
-
     conf = load_config(args.yml_path)
     device = resolve_device(args.device)
     apply_fn = load_engine(conf["model_cfg"], args.engine, device)

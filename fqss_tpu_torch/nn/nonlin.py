@@ -1,7 +1,8 @@
 """Nonlinearities of the quantized layers (``fqss_tpu/nn/nonlin.py``).
 
-The ConvTasNet slice needs ReLU and PReLU (one learnable slope, torch's
-init 0.25); the other kinds of the JAX module come with later slices.
+The ConvTasNet slice needs ReLU, PReLU (one learnable slope, torch's init
+0.25) and the sigmoid of its ``mask_act="sigmoid"`` option; the other kinds
+of the JAX module come with later slices.
 """
 
 from __future__ import annotations
@@ -19,7 +20,7 @@ class Nl(nn.Module):
         self.kind = (kind or "identity").lower()
         if self.kind == "prelu":
             self.alpha = nn.Parameter(torch.full((1,), 0.25))
-        elif self.kind not in ("identity", "none", "relu"):
+        elif self.kind not in ("identity", "none", "relu", "sigmoid"):
             raise NotImplementedError(f"nonlinearity {kind!r} is not ported yet (ROADMAP.md, queue 1)")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -27,4 +28,6 @@ class Nl(nn.Module):
             return F.relu(x)
         if self.kind == "prelu":
             return F.prelu(x, self.alpha)
+        if self.kind == "sigmoid":
+            return torch.sigmoid(x)
         return x

@@ -1,8 +1,9 @@
 """Build and load the CUDA kernels of ``fqss_tpu_torch/csrc`` at first use.
 
-``nvcc`` compiles the sources into a shared library with a plain C interface
-under ``fqss_tpu_torch/build/`` (listed in ``.gitignore``), named by a hash of
-the sources and flags so that an edited source is rebuilt. The library is
+``nvcc`` compiles each source into an object file, all sources at once in
+parallel processes, and links them into one shared library with a plain C
+interface under ``fqss_tpu_torch/build/`` (listed in ``.gitignore``), named
+by a hash of the sources and flags so that an edited source is rebuilt. The library is
 loaded with ``ctypes``; nothing here includes PyTorch's headers, so a build
 takes seconds. Nothing is built or loaded when this module is imported.
 """
@@ -19,12 +20,10 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "fake_quant.cu",)
+SOURCES = (_PKG / "csrc" / "fake_quant.cu", _PKG / "csrc" / "int8_matmul.cu")
 BUILD_DIR = _PKG / "build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lib: ctypes.CDLL | None = None
 
@@ -56,20 +55,33 @@ def _library_path() -> Path:
     return BUILD_DIR / f"libfqss_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run(cmds: list[list[str]]) -> str:
+    """Run the commands at once; their joined output, or raise naming the first that failed."""
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    return "".join(logs)
+
+
 def build() -> BuildResult:
     """Compile the sources unless a library for them exists."""
     path = _library_path()
     if path.exists():
         return BuildResult(path, compiled=False)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    try:
+        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(SOURCES, objects)])
+        log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
+    finally:
+        for obj in objects:
+            obj.unlink(missing_ok=True)
     seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, path)  # atomic: a concurrent loader never sees half a file
     return BuildResult(path, compiled=True, seconds=seconds, log=log)
 
@@ -90,5 +102,7 @@ def library() -> ctypes.CDLL:
         lib.fqss_act_fake_quant_bwd.restype = i32
         lib.fqss_weight_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, f32, p]
         lib.fqss_weight_fake_quant_bwd.restype = i32
+        lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, f32, f32, f32, p, i64, i64, i64, p]
+        lib.fqss_int8_matmul_requant.restype = i32
         _lib = lib
     return _lib

@@ -4,7 +4,9 @@ All chunks of a track are cut on the host, pushed through the model in
 batches of ``chunk_batch`` on the device, and recombined on the host with
 the reference's triangular cross-fade weights (process.py:154-194). Chunks
 are batched and zero-padded exactly as the JAX function does, because the
-splitter normalises by the max-abs of the whole batch.
+splitter normalises by the max-abs of the whole batch. Optional per-chunk
+PIT re-alignment against a target (``swap_channel_order``,
+process.py:105-123) matches the reference's eval behaviour.
 """
 
 from __future__ import annotations
@@ -13,6 +15,8 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from fqss_tpu_torch.separation.metrics import swap_channel_order
 
 
 def triangular_weight(segment: int) -> np.ndarray:
@@ -38,12 +42,13 @@ def ola_infer(
     apply_fn: model forward over a [K, segment] (or [K, C, segment]) batch
               of chunks on ``device`` -> [K, S, segment'] separations.
     mix: [C, T] numpy waveform. Returns [S, T] (or [S, C, T] for C > 1).
+    target: the clean sources [S, T]; each chunk's outputs are re-ordered to
+    match them before the overlap-add (eval only).
 
-    The per-chunk PIT re-alignment (``target``), chunk sharding (``mesh``)
-    and centred padding (``center_pad_to``) are not ported yet (ROADMAP.md,
-    queue 1) and raise ``NotImplementedError``.
+    Chunk sharding (``mesh``) and centred padding (``center_pad_to``) are
+    not ported yet (ROADMAP.md, queue 1) and raise ``NotImplementedError``.
     """
-    for name, value in (("target", target), ("mesh", mesh), ("center_pad_to", center_pad_to)):
+    for name, value in (("mesh", mesh), ("center_pad_to", center_pad_to)):
         if value is not None:
             raise NotImplementedError(f"ola_infer({name}=...) is not ported yet (ROADMAP.md, queue 1)")
     mix = np.asarray(mix, np.float32)
@@ -89,7 +94,10 @@ def ola_infer(
     sum_weight = np.zeros(length, np.float32)
     for i, off in enumerate(offsets):
         clen = chunk_lens[i]
-        out[..., off : off + clen] += weight[:clen] * chunk_out[i][..., :clen]
+        co = chunk_out[i][..., :clen]
+        if target is not None and n_srcs > 1:
+            co = swap_channel_order(co, target[..., off : off + clen])
+        out[..., off : off + clen] += weight[:clen] * co
         sum_weight[off : off + clen] += weight[:clen]
     if sum_weight.min() <= 0:
         raise ValueError(f"overlap={overlap} leaves samples that no chunk covers")

@@ -29,8 +29,8 @@ def main(argv=None) -> None:
     args = argument_handler(argv)
     if args.env_name in ("tasnet", "htdemucs"):
         raise NotImplementedError(f"-env {args.env_name} is not ported yet (the music recipes, ROADMAP.md queue 1)")
-    from fqss_tpu.utils.config import load_config  # yaml is needed by the CLI only
     from fqss_tpu_torch.train.recipes import train_speech
+    from fqss_tpu_torch.utils.config import load_config
 
     conf = load_config(args.yml_path)
     device = resolve_device(args.device)

@@ -2,16 +2,15 @@
 
 ``train_speech`` is the asteroid recipe (asteroid_librimix_trainer.py:140-214)
 and, with ``env_name="speechbrain"``, the speechbrain recipe's data
-augmentation and loss thresholding (speechbrain_librimix_trainer.py:52-197):
+augmentation, loss thresholding and test report (speechbrain_librimix_trainer.py:52-197, 336-441):
 LibriMix data, KD from a float teacher into the quantized student,
 ReduceLROnPlateau (half_lr) or StepLR, EarlyStopping(30), clip 5.0,
 best/latest exports, a ``conf.yml`` dump and ``results.txt`` logging, from
 the same YAML schema as the JAX package. It runs on one device; data
 parallelism is not ported yet (ROADMAP.md, queue 1).
 
-The data comes from the JAX package's host-side loader
-(``fqss_tpu.data.librimix``, numpy and pandas, no JAX), imported inside
-:func:`train_speech`: the GPU machine that runs the kernels has no pandas.
+The data comes from the port's LibriMix loader (``data/librimix.py``, numpy,
+scipy and the standard ``csv`` module).
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
+from fqss_tpu_torch.data.librimix import LibriMix, batch_iterator
 from fqss_tpu_torch.models.factory import create_model_and_teacher
 from fqss_tpu_torch.train.checkpoints import CheckpointManager, dump_config, export_model, save_log
 from fqss_tpu_torch.train.state import TrainState
@@ -35,6 +35,7 @@ from fqss_tpu_torch.train.trainer import (
     make_optimizer,
     make_train_step,
 )
+from fqss_tpu_torch.train.validate import save_results
 from fqss_tpu_torch.utils.audio import set_seed
 from fqss_tpu_torch.utils.logging import log_metrics
 
@@ -42,8 +43,6 @@ from fqss_tpu_torch.utils.logging import log_metrics
 def _make_datasets(dataset_cfg: Mapping[str, Any], seed: int, use_speedperturb: bool = False,
                    use_rand_shift: bool = False, shift_range: tuple[int, int] = (-8000, 8000),
                    use_wavedrop: bool = False):
-    from fqss_tpu.data.librimix import LibriMix
-
     name = dataset_cfg.get("name", "librimix")
     if name != "librimix":
         raise ValueError(f"Dataset {name} is not supported for the speech recipe")
@@ -66,8 +65,6 @@ def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: to
 
     Returns ``{"best_val_loss", "epochs_run", "state"}``.
     """
-    from fqss_tpu.data.librimix import batch_iterator
-
     work_dir = conf["work_dir"]
     model_cfg = conf["model_cfg"]
     dataset_cfg = conf["dataset_cfg"]
@@ -170,7 +167,11 @@ def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: to
             save_log(work_dir, f"Early stopping at epoch {epoch}")
             break
 
-    if is_sb and conf.get("testing_cfg", {}).get("test_dir"):
-        save_log(work_dir, "the speechbrain recipe's test report (train/validate.py:save_results) is not "
-                 "ported yet (ROADMAP.md, queue 1); run it from the exported best_model.pt later")
+    # speechbrain env: per-utterance test report after training
+    # (speechbrain_librimix_trainer.py:336-441 save_results -> test_results.csv)
+    testing_cfg = conf.get("testing_cfg", {})
+    if is_sb and testing_cfg.get("test_dir") and os.path.isdir(testing_cfg["test_dir"]):
+        avg = save_results(state.model.eval(), model_cfg, dataset_cfg, testing_cfg, work_dir,
+                           limit=testing_cfg.get("limit"), device=device)
+        save_log(work_dir, f"test_results.csv avg: {avg}")
     return {"best_val_loss": best_val, "epochs_run": epoch + 1, "state": state}

@@ -1,0 +1,97 @@
+#!/usr/bin/env python3
+"""Where the device time of the port's serving engines goes, on one NVIDIA GPU.
+
+Usage: python3 scripts/profile_torch_engines.py
+
+Builds the full-width FQSS-8bit ConvTasNet of ``chip_smoke.py`` (phase 3:
+seeded weights, ranges from a 3-step observer pass), then for each engine
+(fake_quant, folded, int8 with float32 and with bfloat16 float convs) times
+forwards of 32 x 12 s with CUDA events and traces one with
+``torch.profiler``: the device time by the operator that launched it, the
+union of the kernel intervals (busy time) against the profiled forward's
+wall time, and the forward's kernel launches. Needs a CUDA device; prints
+one block per engine.
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import chip_smoke  # noqa: E402  (the main path's model, sizes and timing helpers)
+from fqss_tpu_torch.infer import disable_tf32  # noqa: E402
+from fqss_tpu_torch.serve import fold_quantized_weights, make_int8_engine  # noqa: E402
+
+
+def busy_ms(events) -> float:
+    """The union of the device kernels' intervals, in ms."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, end = 0, None
+    for start, stop in spans:
+        if end is None or start > end:
+            total += stop - start
+            end = stop
+        elif stop > end:
+            total += stop - end
+            end = stop
+    return total / 1e3
+
+
+TOP = 15  # operators listed per engine
+
+
+def main() -> None:
+    if not torch.cuda.is_available():
+        raise SystemExit("profile_torch_engines: no CUDA device")
+    dev = torch.device("cuda", 0)
+    disable_tf32()
+    mix, _ = chip_smoke.synth_batch(np.random.default_rng(0), chip_smoke.BATCH, 2, chip_smoke.SEG)
+    served = chip_smoke.build_served_model(dev, mix[:4])
+    x = torch.from_numpy(mix).to(dev)
+    builders = {
+        "fake_quant": lambda: served,
+        "folded": lambda: fold_quantized_weights(served),
+        "int8_float32": lambda: make_int8_engine(served, compute_dtype="float32"),
+        "int8_bfloat16": lambda: make_int8_engine(served, compute_dtype="bfloat16"),
+    }
+    print(torch.cuda.get_device_name(0))
+    for name, build in builders.items():
+        engine = build()
+
+        def forward():
+            with torch.inference_mode():
+                return engine(x)
+
+        ms = chip_smoke.cuda_ms(forward, 3)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            forward()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.events()
+        kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
+        busy = busy_ms(events)
+        print(f"== {name}: {ms:.1f} ms per forward of {chip_smoke.BATCH} x {chip_smoke.SEG // chip_smoke.SR} s "
+              f"(CUDA events, 3 after 1 warm-up); profiled forward: wall {wall:.1f} ms, {len(kernels)} kernels, "
+              f"device time {device_ms:.1f} ms, busy (union) {busy:.1f} ms, idle {1 - busy / wall:.1%} of the wall")
+        # device time by the operator that launched it (its own kernels, not its children's)
+        rows = [(getattr(r, "self_device_time_total", 0) / 1e3, r.count, r.key) for r in prof.key_averages()]
+        for total, count, key in sorted(rows, reverse=True)[:TOP]:
+            if total > 0:
+                print(f"   {total:9.2f} ms {total / device_ms:6.1%} {count:5d} x  {key[:100]}")
+        del engine
+        torch.cuda.empty_cache()
+
+
+if __name__ == "__main__":
+    main()

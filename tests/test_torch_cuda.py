@@ -147,3 +147,100 @@ def test_tiny_train_step_runs_the_backward_kernels(dev):
         assert torch.isfinite(metrics["loss"]) and not metrics["skipped"]
         # 24 act and 13 weight quantizers; the last block's res_conv and add (2 act, 1 weight) feed nothing
         assert fq.LAUNCHES == {"act": 24, "weight": 13, "act_bwd": 22, "weight_bwd": 12}
+
+
+def _int8_case(dev, m, k, n, seed):
+    """Random int8 operands with planted extremes, and per-channel scale/corr."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.randint(-128, 128, (m, k), device=dev, generator=gen, dtype=torch.int8)
+    w = torch.randint(-128, 128, (n, k), device=dev, generator=gen, dtype=torch.int8)
+    xs[0] = -128  # against the columns of -128 and 127 below: the largest |acc|, 128 * 128 * k
+    w[0], w[-1] = -128, 127
+    scale = torch.rand(n, device=dev, generator=gen) * 1e-4 + 1e-6
+    corr = torch.randn(n, device=dev, generator=gen) * 0.1
+    return xs, w, scale, corr
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 48, 40), (17, 48, 40), (1023, 48, 40), (300, 7, 3), (129, 130, 257),
+                                   (2048, 512, 128), (2048, 128, 1024)])
+@pytest.mark.parametrize("alpha", [1.0, 0.25, 0.0])
+def test_int8_matmul_kernel_bitwise_equals_plain(dev, m, k, n, alpha):
+    from fqss_tpu_torch.ops import int8_matmul as im
+
+    xs, w, scale, corr = _int8_case(dev, m, k, n, m + k + n)
+    delta, mn = 2.0**-6, -1.0
+    before = im.LAUNCHES["int8_mm"]
+    got = im.int8_matmul_requant(xs, w, scale, corr, alpha, delta, mn)
+    assert im.LAUNCHES["int8_mm"] == before + 1
+    assert got.dtype == torch.int8 and got.shape == (m, n)
+    assert torch.equal(got, im.int8_matmul_requant_ref(xs, w, scale, corr, alpha, delta, mn))
+
+
+def test_int8_matmul_kernel_on_exact_ties(dev):
+    """Products placed on half steps of the out grid: rint must round them half to even."""
+    from fqss_tpu_torch.ops import int8_matmul as im
+
+    m, k, n = 512, 64, 96
+    xs = torch.zeros(m, k, dtype=torch.int8, device=dev)
+    w = torch.zeros(n, k, dtype=torch.int8, device=dev)
+    xs[:, 0] = (torch.arange(m, device=dev) % 255 - 127).to(torch.int8)
+    w[:, 0] = 1
+    delta, mn = 2.0**-4, -8.0
+    scale = torch.full((n,), delta, device=dev)  # v = acc * delta + corr
+    corr = torch.full((n,), delta / 2, device=dev)  # every v sits half a step off the grid
+    got = im.int8_matmul_requant(xs, w, scale, corr, 1.0, delta, mn)
+    want = im.int8_matmul_requant_ref(xs, w, scale, corr, 1.0, delta, mn)
+    assert torch.equal(got, want)
+    # half to even: (acc + 0.5) + 128 rounds to the even neighbour
+    X = (xs[:, 0].float() + 128.5).round().clamp(0, 255)
+    assert torch.equal(want[:, 0], (X - 128).to(torch.int8))
+
+
+def test_int8_matmul_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from fqss_tpu_torch.ops import int8_matmul as im
+
+    xs, w, scale, corr = _int8_case(dev, 8, 32, 16, 0)
+    with pytest.raises(TypeError):
+        im.int8_matmul_requant(xs.float(), w, scale, corr, 1.0, 0.1, 0.0)
+    with pytest.raises(TypeError):
+        im.int8_matmul_requant(xs, w, scale.double(), corr, 1.0, 0.1, 0.0)
+    with pytest.raises(ValueError):
+        im.int8_matmul_requant(xs.t(), w, scale, corr, 1.0, 0.1, 0.0)
+    with pytest.raises(ValueError):
+        im.int8_matmul_requant(xs, w.t().contiguous(), scale, corr, 1.0, 0.1, 0.0)
+    with pytest.raises(ValueError):
+        im.int8_matmul_requant(xs, w, scale.cpu(), corr, 1.0, 0.1, 0.0)
+    with pytest.raises(ValueError):
+        im.int8_matmul_requant(xs, w, scale[:-1], corr[:-1], 1.0, 0.1, 0.0)
+
+
+# The int8 engine card vs CPU: the minimum SNR per output in dB, as chip_smoke.py's INT8_CARD_VS_CPU.
+INT8_CARD_VS_CPU_DB = {"float32": 90.0, "bfloat16": 40.0}
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_tiny_int8_engine_runs_k4_at_every_1x1_conv(dev, compute_dtype):
+    import numpy as np
+
+    from fqss_tpu_torch.models.convtasnet import ConvTasNet
+    from fqss_tpu_torch.ops import int8_matmul as im
+    from fqss_tpu_torch.quant.spec import QuantSpec
+    from fqss_tpu_torch.serve import make_int8_engine
+
+    arch = dict(n_srcs=2, kernel_size=16, stride=8, n_filters=32, bn_chan=8, hid_chan=16, n_blocks=2, n_repeats=1)
+    observe = QuantSpec(qat=True, n_splitter=2, n_combiner=2, out_quant=True, max_observations=2)
+    model = ConvTasNet(q=observe, generator=torch.Generator().manual_seed(0), **arch).train()
+    x = torch.randn(2, 1600, generator=torch.Generator().manual_seed(1)) * 0.3
+    with torch.no_grad():
+        for _ in range(2):
+            model(x)
+    served = ConvTasNet(q=QuantSpec(qat=True, n_splitter=2, n_combiner=2, out_quant=True, observer=False), **arch)
+    served.load_state_dict(model.state_dict())
+    cpu = make_int8_engine(served.eval(), compute_dtype=compute_dtype)(x)
+    card_engine = make_int8_engine(served.to(dev), compute_dtype=compute_dtype)
+    im.reset_launches()
+    card = card_engine(x.to(dev)).cpu()
+    assert im.LAUNCHES["int8_mm"] == 1 + 3 * 2 + 1  # bottleneck, 2 blocks x (conv_in, res, skip), mask
+    snr = 10 * torch.log10(cpu.pow(2).sum(-1) / (cpu - card).pow(2).sum(-1).clamp_min(1e-30))
+    assert bool((snr >= INT8_CARD_VS_CPU_DB[compute_dtype]).all()), snr
+    assert np.isfinite(card.numpy()).all()

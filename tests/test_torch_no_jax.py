@@ -1,9 +1,11 @@
-"""The port runs without JAX: import checks and the CLI, in fresh processes.
+"""The port runs without JAX: a static check of its imports, import checks and the CLI, in fresh processes.
 
 ``tests/conftest.py`` imports jax into the test process, so every check that
 JAX stays out runs in a subprocess.
 """
 
+import ast
+import glob
 import os
 import subprocess
 import sys
@@ -27,10 +29,45 @@ loaded = sorted(m for m in ("jax", "flax", "yaml", "pandas", "fqss_tpu") if m in
 print("LOADED", loaded)
 print("MODULES", sorted(m for m in sys.modules if m.startswith("fqss_tpu_torch")))
 """
-# The training slice's modules, named so that a rename cannot drop them from the walk unnoticed.
+# The training and int8-serving slices' modules, named so that a rename cannot drop them from the walk unnoticed.
 TRAINING_MODULES = ("fqss_tpu_torch.data.synthetic", "fqss_tpu_torch.utils.audio", "fqss_tpu_torch.quant.ste",
                     "fqss_tpu_torch.separation.losses", "fqss_tpu_torch.train.state", "fqss_tpu_torch.train.trainer", "fqss_tpu_torch.train.checkpoints",
                     "fqss_tpu_torch.train.recipes", "fqss_tpu_torch.train.__main__", "fqss_tpu_torch.utils.logging")
+SERVING_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
+    "serve.common", "serve.convtasnet_int8", "ops.int8_matmul", "separation.metrics", "separation.stoi",
+    "separation.bss_eval", "train.validate", "val", "utils.config", "data.librimix", "data.augment"))
+
+
+def jax_package_imports(path: str) -> list[str]:
+    """Every import of ``jax``, ``flax`` or the JAX package ``fqss_tpu`` in a Python file, at any depth."""
+    found = []
+    for node in ast.walk(ast.parse(open(path).read(), path)):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            names = [node.module]
+        else:
+            continue
+        found += [f"{path}:{node.lineno}: {name}" for name in names
+                  if name.split(".")[0] in ("fqss_tpu", "jax", "jaxlib", "flax")]
+    return found
+
+
+def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
+    files = sorted(glob.glob(os.path.join(REPO, "fqss_tpu_torch", "**", "*.py"), recursive=True))
+    files.append(os.path.join(REPO, "chip_smoke.py"))
+    assert len(files) > 40
+    assert [hit for path in files for hit in jax_package_imports(path)] == []
+
+
+def test_the_static_import_check_finds_imports_at_any_depth(tmp_path):
+    src = tmp_path / "mod.py"
+    src.write_text("import fqss_tpu_torch.ops\nfrom fqss_tpu_torch import serve\n"
+                   "def f():\n    from fqss_tpu.utils.config import load_config\n"
+                   "    if True:\n        import jax.numpy as jnp, os\n"
+                   "class C:\n    def g(self):\n        from fqss_tpu import data\n")
+    assert [hit.split(": ")[1] for hit in jax_package_imports(str(src))] == ["fqss_tpu.utils.config", "jax.numpy",
+                                                                            "fqss_tpu"]
 
 
 def _run(args, cwd=REPO, timeout=240):
@@ -44,7 +81,7 @@ def test_port_and_chip_smoke_import_no_jax_flax_or_yaml():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
-    for mod in TRAINING_MODULES:
+    for mod in TRAINING_MODULES + SERVING_MODULES:
         assert f"'{mod}'" in proc.stdout, mod
 
 
@@ -141,7 +178,7 @@ def test_infer_cli_on_cpu(tmp_path, tiny_request):
 
 @pytest.mark.parametrize("args,message", [
     (["--device", "cuda"], "CUDA is not available"),
-    (["--device", "cpu", "--engine", "int8"], "not ported yet"),
+    (["--device", "cpu", "--engine", "auto"], "not ported yet"),
     (["--device", "cpu", "--stream", "400"], "not ported yet"),
 ])
 def test_infer_cli_refuses_what_it_cannot_do(tiny_request, args, message):

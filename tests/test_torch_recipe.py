@@ -92,8 +92,12 @@ def test_train_speech_speechbrain_env_thresholds_and_refuses_what_is_not_ported(
     train_dir, val_dir = mini_librimix
     conf = recipe_conf(tmp_path / "sb", train_dir, val_dir, epochs=1)
     conf["training_cfg"].update(threshold_byloss=True, threshold=-1e9, use_speedperturb=False)
+    conf["testing_cfg"]["test_dir"] = os.path.join(os.path.dirname(train_dir), "test")
     result = train_speech(conf, "speechbrain", device="cpu")
     assert result["epochs_run"] == 1 and result["state"].step == 2
+    # the speechbrain recipe's test report: one row per test mixture and the average
+    with open(tmp_path / "sb" / "test_results.csv") as fh:
+        assert [line.split(",")[0] for line in fh.read().split()][1:] == ["test_0.wav", "test_1.wav", "avg"]
     conf["training_cfg"]["wandb"] = True
     with pytest.raises(NotImplementedError, match="wandb"):
         train_speech(conf, "speechbrain", device="cpu")

@@ -3,12 +3,14 @@
 
 Usage: python3 chip_smoke.py     (from the repository root; needs one CUDA device)
 
-Drives the port's paths, the FQSS-8bit ConvTasNet serving forward, its KD
-train step, and its int8 serving engine and evaluation, at full width (512
-filters, bottleneck 128, hidden 512, 8 blocks x 3 repeats, n_splitter =
-n_combiner = 2, 8-bit weights and activations), with random weights from
-seeded ``torch.Generator``s. It prints one line per phase and lets any
-failure propagate:
+Drives the port's paths at full width, with random weights from seeded
+``torch.Generator``s: the FQSS-8bit ConvTasNet serving forward, its KD
+train step, and its int8 serving engine and evaluation (512 filters,
+bottleneck 128, hidden 512, 8 blocks x 3 repeats), then the FQSS-8bit
+DPTNet serving path (``configs/dptnet_2spks_8k.yaml``'s model: encoder 256,
+features 64, LSTM hidden 128, 6 dual-path layers, segments of 250); both
+with n_splitter = n_combiner = 2 and 8-bit weights and activations. It
+prints one line per phase and lets any failure propagate:
 
 0. device: the card's name and power limit (nvidia-smi); TF32 off.
 1. build: compile ``fqss_tpu_torch/csrc/*.cu`` with nvcc, one process per source.
@@ -56,6 +58,33 @@ failure propagate:
 16. evaluation: ``fqss_tpu_torch.val.evaluate`` of the fake_quant and int8
     engines on a LibriMix-layout folder of 4 synthetic 3 s mixtures:
     finite metrics, mean SI-SDR within EVAL_SISDR_DB of each other.
+17. the LSTM kernel (K7 both directions, K6 one) vs its plain version on the
+    card, max |difference| <= LSTM_TOL, at DPTNet's row and column shapes
+    (T 250 x B' 2064 and T 258 x B' 2000, H 128) and at T 7 x B' 3 x H 96;
+    how far a recurrence with the i and f gates swapped, or with the reverse
+    direction left unflipped, reads (what the bound must catch); CUDA-event
+    times of the kernels, the plain versions and cuDNN's ``nn.LSTM`` (same
+    weights and input, its own input projection) beside the port's QLSTM
+    (projection + K7).
+18. the full-width DPTNet from ``create_pretrained_model``, ranges from the
+    config's 50-step observer window (on 2 x 4 s), one forward of 8 x 4 s:
+    output [8, 2, 32000], finite; the launch counters rise by the quantizer
+    modules that run (all but the attention's two no-op sites of each layer)
+    and K7 by 12, K6 by 0.
+19. card vs CPU on the same weights (1 x 1 s): SNR >= 20 dB per output.
+20. the folded DPTNet: bitwise equal to the fake-quant forward, no
+    weight-kernel launch.
+21. three 20 s requests through ``fqss_tpu_torch.infer`` (folded, OLA) with
+    ``configs/dptnet_2spks_8k.yaml``'s ``model_cfg``.
+22. K4 bitwise against its plain version at the DPTNet engine's shapes and
+    epilogues (identity, ReLU, tanh, sigmoid); the DPTNet int8 engine,
+    float32 and bfloat16 operands, 8 x 4 s: K4 launches = its int8 products
+    (``dptnet_int8_sites``), K7 12, the LSTMs' 12 output quantizers and no
+    other fake-quant launch; output against phase 18's at the fake-quant
+    forward's floor (phase 19) with phase 13's rule; card vs CPU at 1 x 1 s
+    >= 20 dB per output.
+23. throughput of the DPTNet engines (fake_quant, folded, int8 f32 and bf16)
+    at 8 x 4 s.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -67,6 +96,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import tempfile
@@ -78,11 +108,15 @@ import torch
 from fqss_tpu_torch import infer, val
 from fqss_tpu_torch.data.synthetic import synth_batch
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
-from fqss_tpu_torch.models.factory import create_model_and_teacher
+from fqss_tpu_torch.models.dptnet import DPTNet, split_segments
+from fqss_tpu_torch.models.factory import create_model_and_teacher, create_pretrained_model
+from fqss_tpu_torch.nn.attention import QMultiheadAttention
 from fqss_tpu_torch.nn.layers import QConv1d
+from fqss_tpu_torch.nn.lstm import QLSTM
 from fqss_tpu_torch.ops import _build
 from fqss_tpu_torch.ops import fake_quant as fq
 from fqss_tpu_torch.ops import int8_matmul as im
+from fqss_tpu_torch.ops import lstm as lk
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
 from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.serve import make_int8_engine
@@ -156,6 +190,31 @@ INT8_ROWS = BATCH * ((SEG - 16) // 8 + 1)  # M of the engine's 1x1 convs: 32 x 1
 # (K, N, launches per forward) of the engine's 1x1 convs: bottleneck + 24 res + 24 skip, 24 conv_in, the mask.
 INT8_SHAPES = ((512, 128, 49), (128, 512, 24), (128, 1024, 1))
 INT8_TIE_DELTA, INT8_TIE_MN = 2.0**-6, -2.0  # the out grid of phase 12's planted ties
+# The DPTNet slice (phases 17-23): configs/dptnet_2spks_8k.yaml's model_cfg, written out as MODEL_CFG is, at
+# the JAX package's DPTNet serving shape (BENCH_models_r05.json): 8 x 4 s at 8 kHz.
+DPTNET_CFG = {
+    "name": "DPTNet",
+    "model_path": None,
+    "n_src": 2,
+    "kernel_size": 2,
+    "quantization": MODEL_CFG["quantization"],
+}
+# The config's own observer window (QuantSpec's default of 50 steps, which the YAML keeps). A 3-step window, as
+# the ConvTasNet phases use, leaves the ranges at 73% of their initial +-0.5: the random-weight output then spans
+# about 3.5 steps of its grid rms, and one-step rounding flips alone put card and CPU 18.2/20.4 dB apart
+# (scripts/dptnet_noise_floor.py); with 50 steps the output spans about 32 steps.
+DPT_OBSERVE_STEPS = 50
+DPT_BATCH, DPT_SEG = 8, 32000
+# The LSTM kernel against its plain version (phase 17). The kernel sums h @ W in k order with FMAs and adds ih
+# after, as cuBLAS's float32 product and ih_t + h @ w_hh do; expf/tanhf may differ from PyTorch's by ulps.
+# Differences of ~1e-7 per step stay ~1e-7 through a contracting recurrence: 1e-5 leaves 100x room, and a
+# recurrence with swapped gates or an unflipped reverse direction reads ~1e-1.
+LSTM_TOL = 1e-5
+LSTM_ODD = (7, 3, 96)  # T, B', H: a ragged batch tile and an H the TPU kernel refuses
+LSTM_PLAIN_REPS = 7  # the plain recurrences' time is the median of this many calls
+# The DPTNet int8 engine card vs CPU (phase 22): its LSTMs, attention and norms are float32 sums, which flip
+# rounding ties between devices as the fake-quant forward's do (phase 19), so it is held to phase 19's bound.
+DPT_INT8_CARD_VS_CPU_DB = 20.0
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8 and float32 rates.
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1.979e15, 67e12
 
@@ -174,6 +233,21 @@ def cuda_ms(fn, n: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / n
+
+
+def median_ms(fn, n: int) -> tuple[float, float, float]:
+    """Median, least and most milliseconds of n calls of ``fn()``, each timed by its own CUDA events, after a
+    warm-up: for a call long enough (tens of ms) that its time varies with the host between readings."""
+    fn()
+    times = []
+    for _ in range(n):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times)), min(times), max(times)
 
 
 def bound_of(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
@@ -357,12 +431,12 @@ def snr_db(ref: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
     return 10 * torch.log10(ref.pow(2).sum(-1) / (ref - est).pow(2).sum(-1))
 
 
-def serve_requests(dev, served: ConvTasNet, model_cfg: dict, engine: str = "folded",
+def serve_requests(dev, served: torch.nn.Module, model_cfg: dict, engine: str = "folded",
                    seconds: int = 20) -> list[float]:
     """Serve three synthetic mixtures through the infer entry; returns each request's seconds."""
     latencies = []
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "convtasnet_fqss8bit.pt")
+        ckpt = os.path.join(tmp, "model_fqss8bit.pt")
         torch.save(served.state_dict(), ckpt)
         conf = {"model_cfg": {**model_cfg, "model_path": ckpt},
                 "testing_cfg": {"segment_samples": 16000, "overlap": 0.25}}
@@ -640,6 +714,286 @@ def train_step_time(dev, state: TrainState, smi: str) -> tuple[float, float]:
     return ms, peak_gb
 
 
+def dpt_lstm_shapes(batch: int, seconds_samples: int, model: DPTNet) -> list[tuple[str, int, int, int]]:
+    """(side, T, B', H) of the full-width DPTNet's row and column LSTMs at ``batch`` x ``seconds_samples``."""
+    frames = seconds_samples - model.kernel_size + 1  # the encoder's stride is kernel_size // 2 = 1
+    segs, _ = split_segments(torch.empty(1, frames, 1), model.separator.segment_size)
+    k, s = segs.shape[1], segs.shape[2]
+    return [("row", k, batch * s, model.hidden_dim), ("col", s, batch * k, model.hidden_dim)]
+
+
+def lstm_bound(dirs: int, T: int, B: int, H: int) -> tuple[int, int]:
+    """Bytes (ih in, W in, hs out, float32) and operations (the recurrent product and the ih add) of a launch."""
+    return 4 * dirs * (T * B * 4 * H + H * 4 * H + T * B * H), dirs * T * B * (8 * H * H + 4 * H)
+
+
+def swap_if(t: torch.Tensor, H: int) -> torch.Tensor:
+    """The i and f gate columns of ``[..., 4H]`` exchanged: a recurrence on these reads its gates swapped."""
+    return torch.cat([t[..., H : 2 * H], t[..., :H], t[..., 2 * H :]], dim=-1).contiguous()
+
+
+def torch_lstm_like(q_lstm: QLSTM) -> torch.nn.LSTM:
+    """cuDNN's ``nn.LSTM`` with a float QLSTM's weights (torch keeps them transposed)."""
+    H = q_lstm.fw.w_hh.shape[0]
+    cell = torch.nn.LSTM(q_lstm.fw.w_ih.shape[0], H, batch_first=True, bidirectional=q_lstm.bw is not None)
+    with torch.no_grad():
+        for suffix, d in (("", q_lstm.fw), ("_reverse", q_lstm.bw)):
+            if d is not None:
+                getattr(cell, f"weight_ih_l0{suffix}").copy_(d.w_ih.t())
+                getattr(cell, f"weight_hh_l0{suffix}").copy_(d.w_hh.t())
+                getattr(cell, f"bias_ih_l0{suffix}").copy_(d.b_ih)
+                getattr(cell, f"bias_hh_l0{suffix}").copy_(d.b_hh)
+    return cell.to(q_lstm.fw.w_ih.device)
+
+
+def check_lstm_kernels(dev, shapes: list[tuple[str, int, int, int]], per_forward: int) -> tuple[dict, dict]:
+    """Phase 17: K7 and K6 against their plain versions; K7's times per forward (``per_forward`` launches at
+    each shape), K6's per launch at the row shape. Returns (K6 results, K7 results)."""
+    gen = torch.Generator(device=dev).manual_seed(17)
+    k6 = {"max_abs_err": 0.0}
+    k7 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    moved = ops = 0
+    for side, T, B, H in [*shapes, ("odd", *LSTM_ODD)]:
+        ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(2)]
+        w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / math.sqrt(H) for _ in range(2)]
+        with torch.no_grad():
+            hf, hb = lk.bilstm_sequence(ih[0], ih[1], w[0], w[1])
+            h1 = lk.lstm_sequence(ih[1], w[1])
+            rf, rb = lk.bilstm_sequence_ref(ih[0], ih[1], w[0], w[1])
+        torch.cuda.synchronize()
+        err7 = max((hf - rf).abs().max().item(), (hb - rb).abs().max().item())
+        err6 = (h1 - rb).abs().max().item()
+        if not (err7 <= LSTM_TOL and err6 <= LSTM_TOL):
+            raise AssertionError(f"LSTM kernel at T {T} x B' {B} x H {H}: max |difference| K7 {err7}, K6 {err6} "
+                                 f"> {LSTM_TOL}")
+        k6["max_abs_err"], k7["max_abs_err"] = max(k6["max_abs_err"], err6), max(k7["max_abs_err"], err7)
+        swapped = (lk.lstm_sequence_ref(swap_if(ih[0], H), swap_if(w[0], H)) - rf).abs().max().item()
+        unflipped = (lk.lstm_sequence_ref(ih[1].flip(0), w[1]).flip(0) - rb).abs().max().item()
+        line = (f"[17] LSTM kernel {side} T {T} x B' {B} x H {H}: max |kernel - plain| K7 {err7:.3g}, K6 {err6:.3g} "
+                f"(<= {LSTM_TOL}); i/f swapped would read {swapped:.3g}, the reverse direction unflipped "
+                f"{unflipped:.3g}")
+        if side == "odd":
+            log(line)
+            continue
+        ms7 = cuda_ms(lambda: lk.bilstm_sequence(ih[0], ih[1], w[0], w[1]), 10)
+        ms6 = cuda_ms(lambda: lk.lstm_sequence(ih[0], w[0]), 10)
+        # the plain time loops (~50-90 ms a call, host-bound: 250 steps of a few small launches) by the median
+        plain7, lo7, hi7 = median_ms(lambda: lk.bilstm_sequence_ref(ih[0], ih[1], w[0], w[1]), LSTM_PLAIN_REPS)
+        plain6, lo6, hi6 = median_ms(lambda: lk.lstm_sequence_ref(ih[0], w[0]), LSTM_PLAIN_REPS)
+        # cuDNN's LSTM on the same weights and input, with its own input projection, beside the port's QLSTM
+        # (the projection in one product, then K7); float32, TF32 off.
+        q_bi = QLSTM(64, H, generator=torch.Generator().manual_seed(T)).to(dev)
+        q_uni = QLSTM(64, H, bidirectional=False, generator=torch.Generator().manual_seed(T)).to(dev)
+        x = torch.randn(B, T, 64, device=dev, generator=gen)
+        with torch.no_grad():
+            cudnn_bi, cudnn_uni = torch_lstm_like(q_bi), torch_lstm_like(q_uni)
+            agree = (cudnn_bi(x)[0] - q_bi(x)).abs().max().item()
+            lib7 = cuda_ms(lambda: cudnn_bi(x), 5)
+            lib6 = cuda_ms(lambda: cudnn_uni(x), 5)
+            qlstm_ms = cuda_ms(lambda: q_bi(x), 5)
+        b7, b6 = bound_of(*lstm_bound(2, T, B, H), F32_OPS_S), bound_of(*lstm_bound(1, T, B, H), F32_OPS_S)
+        log(f"{line}; K7 {ms7:.3f} ms ({b7['bound_ms'] / ms7:.1%} of its {b7['bound_ms']:.3f} ms bound by "
+            f"{b7['bound_by']}), K6 {ms6:.3f} ms ({b6['bound_ms'] / ms6:.1%} of {b6['bound_ms']:.3f}), plain "
+            f"{plain7:.1f} / {plain6:.1f} ms (medians of {LSTM_PLAIN_REPS}, {lo7:.1f}-{hi7:.1f} / {lo6:.1f}-{hi6:.1f}); "
+            f"cuDNN nn.LSTM bidirectional {lib7:.3f} ms, unidirectional "
+            f"{lib6:.3f} ms, against the port's QLSTM (projection + K7) {qlstm_ms:.3f} ms; cuDNN vs QLSTM max "
+            f"|difference| {agree:.3g}")
+        k7["ms"] += per_forward * ms7
+        k7["plain_ms"] += per_forward * plain7
+        k7["library_ms"] += per_forward * lib7
+        b_moved, b_ops = lstm_bound(2, T, B, H)
+        moved, ops = moved + per_forward * b_moved, ops + per_forward * b_ops
+        if side == "row":
+            k6.update(ms=ms6, plain_ms=plain6, library_ms=lib6, **b6)
+        del ih, w, hf, hb, rf, rb, h1, x, q_bi, q_uni, cudnn_bi, cudnn_uni
+        torch.cuda.empty_cache()
+    k7.update(bound_of(moved, ops, F32_OPS_S))
+    log(f"[17] one DPTNet forward's {2 * per_forward} K7 launches: {k7['ms']:.2f} ms against a "
+        f"{k7['bound_ms']:.2f} ms bound by {k7['bound_by']} ({k7['bound_ms'] / k7['ms']:.1%}), plain "
+        f"{k7['plain_ms']:.1f} ms, cuDNN nn.LSTM {k7['library_ms']:.2f} ms")
+    return k6, k7
+
+
+def build_served_dptnet(dev, mix: np.ndarray, steps: int = DPT_OBSERVE_STEPS) -> DPTNet:
+    """The full-width DPTNet from ``create_pretrained_model``; ranges from ``steps`` observer steps on ``mix``."""
+    cfg = {**DPTNET_CFG, "quantization": {**DPTNET_CFG["quantization"], "max_observations": steps}}
+    observer = create_pretrained_model(cfg, observer=True, device=dev).train()
+    x = torch.from_numpy(mix).to(dev)
+    with torch.no_grad():
+        for _ in range(steps):
+            observer(x)
+    served = create_pretrained_model(DPTNET_CFG, observer=False, device=dev)
+    served.load_state_dict(observer.state_dict())
+    return served
+
+
+def all_launches() -> dict:
+    return {**fq.LAUNCHES, **lk.LAUNCHES, **im.LAUNCHES}
+
+
+def reset_all_launches() -> None:
+    for module in (fq, lk, im):
+        module.reset_launches()
+
+
+def dptnet_int8_sites(model: DPTNet) -> int:
+    """The DPTNet int8 engine's K4 launches: BN, out_conv, the two gates, the mask, and in every dual-path layer
+    the out-projection and, but for row_0 (off the grid), the in-projection's three thirds."""
+    layers = 2 * model.layer
+    return 5 + layers + 3 * (layers - 1)
+
+
+def check_int8_at_dptnet_shapes(dev, dpt: DPTNet, shapes) -> None:
+    """Phase 22: K4 against its plain version, bitwise, at the DPTNet engine's shapes, with the epilogues it
+    uses there: identity, ReLU (the mask), tanh and sigmoid (the gated output)."""
+    gen = torch.Generator(device=dev).manual_seed(22)
+    frames = DPT_SEG - dpt.kernel_size + 1
+    n, e, spk = dpt.feature_dim, dpt.enc_dim, dpt.n_srcs
+    cases = [(DPT_BATCH * frames, e, n, "prelu", 1.0, "BN")]
+    for side, T, B, _ in shapes:
+        cases += [(T * B, n, n, "prelu", 1.0, f"{side} in-projection third and out-projection")]
+    cases += [(shapes[0][1] * shapes[0][2], n, spk * n, "prelu", 1.0, "out_conv"),
+              (DPT_BATCH * spk * frames, n, n, "tanh", 1.0, "output"),
+              (DPT_BATCH * spk * frames, n, n, "sigmoid", 1.0, "output_gate"),
+              (DPT_BATCH * spk * frames, n, e, "prelu", 0.0, "mask")]
+    args = (INT8_TIE_DELTA, INT8_TIE_MN)
+    for m, k, n_out, nl, alpha, what in cases:
+        xs, w, scale, corr = int8_case(dev, m, k, n_out, gen)
+        if nl != "prelu":  # products spread over the nonlinearity's working range, not only its saturated ends
+            scale = scale * 0.05
+        compare(f"int8_matmul_requant {what} [{m},{k}]x[{n_out},{k}] {nl}",
+                im.int8_matmul_requant(xs, w, scale, corr, alpha, *args, nl=nl),
+                im.int8_matmul_requant_ref(xs, w, scale, corr, alpha, *args, nl=nl))
+        ms = cuda_ms(lambda: im.int8_matmul_requant(xs, w, scale, corr, alpha, *args, nl=nl), 10)
+        log(f"[22] int8_matmul_requant at the DPTNet engine's {what} [{m},{k}] x [{n_out},{k}], {nl}"
+            f"{f' alpha {alpha}' if nl == 'prelu' else ''}: bitwise equal to its plain version; {ms:.4f} ms")
+        del xs, w
+
+
+def dptnet_int8_at_full_width(dpt: DPTNet, cpu_dpt: DPTNet, x: torch.Tensor, y: torch.Tensor,
+                              floor: tuple[float, float]) -> dict:
+    """Phase 22: the DPTNet int8 engines against the fake-quant forward ``y``; returns them by compute dtype."""
+    sites, lsb, layers = dptnet_int8_sites(dpt), out_step(dpt), 2 * dpt.layer
+    want = {"act": layers, "weight": 0, "act_bwd": 0, "weight_bwd": 0, "lstm": 0, "bilstm": layers,
+            "int8_mm": sites}
+    engines = {}
+    for dtype, (snr_margin, mean_factor) in INT8_FLOOR.items():
+        engine = engines[dtype] = make_int8_engine(dpt, compute_dtype=dtype)
+        reset_all_launches()
+        y8 = engine(x)
+        torch.cuda.synchronize()
+        got = all_launches()
+        if got != want:
+            raise AssertionError(f"DPTNet int8 engine ({dtype}) launches {got} != {want}")
+        if y8.shape != y.shape or not torch.isfinite(y8).all():
+            raise AssertionError(f"DPTNet int8 engine ({dtype}) gave shape {tuple(y8.shape)}, "
+                                 f"finite={bool(torch.isfinite(y8).all())}")
+        diff = (y8 - y).abs()
+        snr, mean_lsb = snr_db(y, y8), diff.mean().item() / lsb
+        snr_min, mean_max = floor[0] - snr_margin, floor[1] * mean_factor
+        if snr.min().item() < snr_min or mean_lsb > mean_max:
+            raise AssertionError(f"DPTNet int8 engine ({dtype}) vs fake-quant: SNR {snr.min().item():.2f} dB "
+                                 f"(minimum {snr_min:.2f}), mean {mean_lsb:.3f} output steps (maximum {mean_max:.3f})")
+        log(f"[22] DPTNet int8 engine ({dtype} float products) {tuple(x.shape)} -> {tuple(y8.shape)}, finite; "
+            f"launches int8_mm={sites} (= its int8 products), bilstm={layers}, act={layers} (the LSTMs' output "
+            f"quantizers), weight 0; vs fake-quant forward SNR {snr.min().item():.2f}-{snr.max().item():.2f} dB "
+            f"(>= {snr_min:.2f}), mean {mean_lsb:.4f} output steps (<= {mean_max:.3f}), max "
+            f"{diff.max().item() / lsb:.2f}")
+        del y8, diff
+    x1 = x[:1, :SR]
+    for dtype, engine in engines.items():
+        y_card = engine(x1).cpu()
+        y_cpu = make_int8_engine(cpu_dpt, compute_dtype=dtype)(x1.cpu())
+        snr = snr_db(y_cpu, y_card)
+        if not bool((snr >= DPT_INT8_CARD_VS_CPU_DB).all()):
+            raise AssertionError(f"DPTNet int8 engine ({dtype}) card vs CPU SNR {snr.tolist()} dB < "
+                                 f"{DPT_INT8_CARD_VS_CPU_DB}")
+        log(f"[22] DPTNet int8 engine ({dtype}) card vs CPU at 1 x {SR}: SNR "
+            f"{[round(v, 2) for v in snr.flatten().tolist()]} dB (>= {DPT_INT8_CARD_VS_CPU_DB}), "
+            f"{(y_card != y_cpu).float().mean().item():.4f} of samples differ, mean "
+            f"{(y_card - y_cpu).abs().mean().item() / lsb:.4f} output steps")
+    return engines
+
+
+def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict]:
+    """Phases 17-23, the DPTNet serving path. Returns (K6 results, K7 results, the launches of phase 18's
+    forward)."""
+    dmix, _ = synth_batch(np.random.default_rng(18), DPT_BATCH, 2, DPT_SEG)
+    dpt = build_served_dptnet(dev, dmix[:2])
+    shapes = dpt_lstm_shapes(DPT_BATCH, DPT_SEG, dpt)
+    k6, k7 = check_lstm_kernels(dev, shapes, dpt.layer)  # 17.
+    torch.cuda.empty_cache()
+
+    # 18. the full-width forward
+    counts = count_quantizers(dpt.modules())
+    noop = 2 * sum(isinstance(m, QMultiheadAttention) for m in dpt.modules())  # attn and softmax sites, skipped
+    n_params = sum(p.numel() for n, p in dpt.named_parameters() if "fake_quantize" not in n and ".wq_" not in n)
+    x = torch.from_numpy(dmix).to(dev)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = dpt(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    want = {"act": counts["act"] - noop, "weight": counts["weight"], "act_bwd": 0, "weight_bwd": 0, "lstm": 0,
+            "bilstm": 2 * dpt.layer, "int8_mm": 0}
+    if tuple(y.shape) != (DPT_BATCH, 2, DPT_SEG) or not torch.isfinite(y).all():
+        raise AssertionError(f"DPTNet forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
+    if launches != want:
+        raise AssertionError(f"DPTNet launches {launches} != {want}")
+    log(f"[18] full-width DPTNet {tuple(x.shape)} -> {tuple(y.shape)}, finite, {n_params} parameters, LSTMs "
+        f"{', '.join(f'{s} T {T} x B {B}' for s, T, B, _ in shapes)}, first call {first_s:.2f} s; launches "
+        f"act={launches['act']} (= {counts['act']} act quantizers - {noop} no-op attention sites) "
+        f"weight={launches['weight']} (= weight quantizers) bilstm={launches['bilstm']} lstm=0")
+
+    # 19. card vs CPU on the same weights
+    cpu_dpt = create_pretrained_model(DPTNET_CFG, observer=False)
+    cpu_dpt.load_state_dict(dpt.state_dict())
+    x1 = torch.from_numpy(dmix[:1, :SR])
+    with torch.inference_mode():
+        y_card = dpt(x1.to(dev)).cpu()
+        y_cpu = cpu_dpt(x1)
+    snr = snr_db(y_cpu, y_card)
+    if not bool((snr >= 20).all()):
+        raise AssertionError(f"DPTNet card vs CPU SNR {snr.tolist()} dB < 20 dB")
+    floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / out_step(dpt))
+    log(f"[19] DPTNet card vs CPU at 1 x {SR}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20), "
+        f"{(y_card != y_cpu).float().mean().item():.4f} of samples differ, mean {floor[1]:.4f} output steps")
+
+    # 20. the folded engine
+    folded = fold_quantized_weights(dpt)
+    reset_all_launches()
+    with torch.inference_mode():
+        y_folded = folded(x)
+    torch.cuda.synchronize()
+    if lk.LAUNCHES["bilstm"] != 2 * dpt.layer or fq.LAUNCHES["weight"] != 0:
+        raise AssertionError(f"the folded DPTNet launched {all_launches()}")
+    if not torch.equal(y_folded, y):
+        raise AssertionError(f"folded DPTNet != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
+    log(f"[20] folded DPTNet: bitwise equal to fake-quant; act launches {fq.LAUNCHES['act']}, weight 0, "
+        f"bilstm {lk.LAUNCHES['bilstm']}")
+    del y_folded
+    torch.cuda.empty_cache()
+
+    # 21. requests through the infer entry
+    for i, s in enumerate(serve_requests(dev, dpt, DPTNET_CFG)):
+        log(f"[21] DPTNet request {i} (folded): 20 s mixture -> 2 sources of 20 s, {s * 1000:.1f} ms")
+
+    # 22. K4 at the int8 engine's shapes, then the engine (launch counts set to 0 inside, read after each forward)
+    check_int8_at_dptnet_shapes(dev, dpt, shapes)
+    engines = dptnet_int8_at_full_width(dpt, cpu_dpt, x, y, floor)
+
+    # 23. throughput
+    audio_s = DPT_BATCH * DPT_SEG / SR
+    for name, fn in (("fake_quant", dpt), ("folded", folded), *((f"int8 {d}", e) for d, e in engines.items())):
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: fn(x), 3)
+        log(f"[23] DPTNet throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
+            f"{DPT_BATCH} x {DPT_SEG // SR} s) on {smi}")
+    return k6, k7, launches
+
+
 def main() -> None:
     # 0. device
     if not torch.cuda.is_available():
@@ -765,6 +1119,11 @@ def main() -> None:
 
     # 16. evaluation of two engines on a LibriMix-layout folder
     evaluate_engines(dev, served)
+    del served, x, y
+    torch.cuda.empty_cache()
+
+    # 17-23. the DPTNet serving path (launch counts set to 0 inside before each run they check)
+    k6, k7, dpt_launches = serve_dptnet(dev, smi)
 
     source = "fqss_tpu_torch/csrc/fake_quant.cu"
     kernels = [
@@ -780,6 +1139,15 @@ def main() -> None:
         # (int32 out, no epilogue), so no library call computes this function: library_ms is null.
         dict(name="int8_matmul_requant", route="cuda", source="fqss_tpu_torch/csrc/int8_matmul.cu",
              replaces="fqss_tpu/ops/pallas_quant.py:168", launches=int8_launches, library_ms=None, **int8),
+        # ms, plain_ms, bound_ms, library_ms: one DPTNet forward's 12 launches (6 at the row shape, 6 at the
+        # column shape); library_ms: cuDNN's bidirectional nn.LSTM on the same weights and input, its own input
+        # projection included. launches: phase 18's forward.
+        dict(name="bilstm_sequence", route="cuda", source="fqss_tpu_torch/csrc/lstm.cu",
+             replaces="fqss_tpu/ops/pallas_lstm.py:114", launches=dpt_launches["bilstm"], **k7),
+        # One direction at the row shape, per launch. DPTNet's LSTMs are bidirectional, so K6 is not launched
+        # on its path (launches 0 in phase 18's forward; phase 17 checks and times it).
+        dict(name="lstm_sequence", route="cuda", source="fqss_tpu_torch/csrc/lstm.cu",
+             replaces="fqss_tpu/ops/pallas_lstm.py:54", launches=dpt_launches["lstm"], **k6),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

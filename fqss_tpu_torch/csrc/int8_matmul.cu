@@ -9,6 +9,11 @@
 //                             v   = v >= 0 ? v : alpha * v          (PReLU; 1 = identity, 0 = ReLU)
 //                             X   = clip(rint((v - mn) / delta), 0, 255)
 //                             out[m, n] = int8(X - 128)
+//                           The epilogue's nonlinearity may instead be tanh or
+//                           the sigmoid 1 / (1 + exp(-v)) (nl = 1, 2): the
+//                           TPU kernel has only the PReLU, and the JAX
+//                           engines apply those two outside it, to the
+//                           dequantized product (DPTNet's gated output).
 //
 // Layout: xs is [M, K] row-major (the engine's channels-last activations,
 // M = batch x time) and w is [N, K] row-major (the port's conv weight
@@ -96,15 +101,26 @@ __device__ __forceinline__ void load_tile(const int8_t* __restrict__ src, int64_
   }
 }
 
+// The epilogue's nonlinearity (fqss_int8_matmul_requant's nl), a template parameter of the kernel so that
+// each instantiation carries only its own epilogue.
+enum Nl : int { kPrelu = 0, kTanh = 1, kSigmoid = 2 };
+
+template <int kNl>
 __device__ __forceinline__ int8_t requant(int acc, float scale, float corr, float alpha, float delta, float mn) {
   float v = __fadd_rn(__fmul_rn(__int2float_rn(acc), scale), corr);
-  v = v >= 0.0f ? v : __fmul_rn(alpha, v);
+  if (kNl == kTanh) {
+    v = tanhf(v);
+  } else if (kNl == kSigmoid) {
+    v = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));  // PyTorch's sigmoid, operation for operation
+  } else {
+    v = v >= 0.0f ? v : __fmul_rn(alpha, v);
+  }
   float X = rintf(__fdiv_rn(__fsub_rn(v, mn), delta));
   X = X < 0.0f ? 0.0f : (X > 255.0f ? 255.0f : X);
   return static_cast<int8_t>(static_cast<int>(X) - 128);
 }
 
-template <bool kVec>
+template <bool kVec, int kNl>
 __global__ void __launch_bounds__(kThreads) int8_mm_requant_kernel(
     const int8_t* __restrict__ xs, const int8_t* __restrict__ w, const float* __restrict__ scale,
     const float* __restrict__ corr, float alpha, float delta, float mn, int8_t* __restrict__ out, int64_t M,
@@ -175,11 +191,11 @@ __global__ void __launch_bounds__(kThreads) int8_mm_requant_kernel(
         const int64_t row = m0 + wm + mi * 16 + g + 8 * h;
         if (row >= M) continue;
         int8_t* o = out + row * N + col;
-        const int8_t q0 = requant(acc[mi][ni][2 * h], s0, c0, alpha, delta, mn);
+        const int8_t q0 = requant<kNl>(acc[mi][ni][2 * h], s0, c0, alpha, delta, mn);
         if (!pair) {
           o[0] = q0;
         } else {
-          const int8_t q1 = requant(acc[mi][ni][2 * h + 1], s1, c1, alpha, delta, mn);
+          const int8_t q1 = requant<kNl>(acc[mi][ni][2 * h + 1], s1, c1, alpha, delta, mn);
           if (N % 2 == 0) {
             *reinterpret_cast<char2*>(o) = make_char2(q0, q1);  // col is even: 2-byte aligned
           } else {
@@ -192,23 +208,38 @@ __global__ void __launch_bounds__(kThreads) int8_mm_requant_kernel(
   }
 }
 
+template <bool kVec>
+void launch(const int8_t* xs, const int8_t* w, const float* scale, const float* corr, int nl, float alpha, float delta,
+            float mn, int8_t* out, int64_t M, int64_t N, int64_t K, unsigned int blocks, unsigned int n_tiles,
+            cudaStream_t st) {
+  if (nl == kTanh) {
+    int8_mm_requant_kernel<kVec, kTanh><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, delta, mn, out, M, N,
+                                                                     K, n_tiles);
+  } else if (nl == kSigmoid) {
+    int8_mm_requant_kernel<kVec, kSigmoid><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, delta, mn, out, M,
+                                                                        N, K, n_tiles);
+  } else {
+    int8_mm_requant_kernel<kVec, kPrelu><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, delta, mn, out, M, N,
+                                                                      K, n_tiles);
+  }
+}
+
 }  // namespace
 
 // xs: [M, K] int8, w: [N, K] int8, scale and corr: [N] float32, out: [M, N] int8;
-// all contiguous on the current device. Returns the launch's CUDA error code.
+// all contiguous on the current device. nl: 0 PReLU with slope alpha, 1 tanh,
+// 2 sigmoid. Returns the launch's CUDA error code.
 extern "C" int fqss_int8_matmul_requant(const int8_t* xs, const int8_t* w, const float* scale, const float* corr,
-                                        float alpha, float delta, float mn, int8_t* out, int64_t M, int64_t N,
-                                        int64_t K, void* stream) {
+                                        int nl, float alpha, float delta, float mn, int8_t* out, int64_t M,
+                                        int64_t N, int64_t K, void* stream) {
   const unsigned int n_tiles = static_cast<unsigned int>((N + kBN - 1) / kBN);
   const unsigned int blocks = n_tiles * static_cast<unsigned int>((M + kBM - 1) / kBM);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   if (vec) {
-    int8_mm_requant_kernel<true><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, delta, mn, out, M, N, K,
-                                                                n_tiles);
+    launch<true>(xs, w, scale, corr, nl, alpha, delta, mn, out, M, N, K, blocks, n_tiles, st);
   } else {
-    int8_mm_requant_kernel<false><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, delta, mn, out, M, N, K,
-                                                                 n_tiles);
+    launch<false>(xs, w, scale, corr, nl, alpha, delta, mn, out, M, N, K, blocks, n_tiles, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

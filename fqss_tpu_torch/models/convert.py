@@ -1,16 +1,23 @@
 """Bridge from the JAX package's variables to a port state dict.
 
-:func:`convtasnet_from_jax` takes the flax variables of a
-``fqss_tpu.models.ConvTasNet`` (or of one of its layers) as nested dicts of
-numpy arrays — collections ``params``, ``qparams`` and ``qstats`` — and
-returns the ``state_dict`` of the matching ``fqss_tpu_torch`` module. Scope
-names carry over unchanged; what changes is the layout:
+:func:`convtasnet_from_jax` and :func:`dptnet_from_jax` take the flax
+variables of a ``fqss_tpu.models`` model (or of one of its layers) as nested
+dicts of numpy arrays — collections ``params``, ``qparams`` and ``qstats`` —
+and return the ``state_dict`` of the matching ``fqss_tpu_torch`` module.
+Scope names carry over unchanged; what changes is the layout:
 
 * conv kernels ``(k, Cin/g, Cout)`` -> ``[Cout, Cin/g, k]``, and their
   weight ranges ``(1, 1, C)`` -> ``[C, 1, 1]``;
 * transposed-conv kernels ``(k, Cin, Cout)`` -> ``[Cin, Cout, k]``, and
   their ranges ``(1, 1, C)`` -> ``[1, C, 1]``;
-* ``kernel`` -> ``weight``, GroupNorm ``scale`` -> ``weight``.
+* dense kernels ``(in, out)`` -> ``[out, in]``, and their ranges ``(1, C)``
+  -> ``[C, 1]``: ``kernel``, and the attention's ``in_proj_kernel`` /
+  ``out_proj_kernel`` and the Linear decoder's ``residual_encoder_kernel``,
+  renamed ``*_weight``;
+* ``kernel`` -> ``weight``, norm ``scale`` -> ``weight``.
+
+The LSTM's ``w_ih``/``w_hh`` and their quantizers (``wq_ih``/``wq_hh``)
+keep the JAX layout, which the port's LSTM uses as it is.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ import torch
 
 _CONV = (2, 1, 0)
 _CONV_TRANSPOSE = (1, 2, 0)
+_DENSE_KERNELS = ("in_proj_kernel", "out_proj_kernel", "residual_encoder_kernel")
 
 
 def _leaves(tree: Mapping, path: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], np.ndarray]]:
@@ -32,18 +40,19 @@ def _leaves(tree: Mapping, path: tuple[str, ...] = ()) -> Iterator[tuple[tuple[s
             yield path + (k,), np.asarray(v)
 
 
-def convtasnet_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
-    """State dict for the port's module from JAX ConvTasNet variables.
+def _from_jax(variables: Mapping, transposed_conv_scopes: tuple[tuple[str, ...], ...]) -> dict[str, torch.Tensor]:
+    def conv_order(scope: list[str]) -> tuple[int, ...]:
+        return _CONV_TRANSPOSE if tuple(scope) in transposed_conv_scopes else _CONV
 
-    The ``kernel`` of the ``decoder`` scope is the transposed conv; a
-    standalone decoder's variables go in under a ``decoder`` scope.
-    """
     sd: dict[str, torch.Tensor] = {}
     for path, v in _leaves(variables.get("params", {})):
         *scope, name = path
         if name == "kernel":
-            v = v.transpose(_CONV_TRANSPOSE if scope == ["decoder"] else _CONV)
+            v = v.transpose(conv_order(scope)) if v.ndim == 3 else v.T
             name = "weight"
+        elif name in _DENSE_KERNELS:
+            v = v.T
+            name = name.replace("_kernel", "_weight")
         elif name == "scale":
             name = "weight"
         sd[".".join([*scope, name])] = torch.from_numpy(np.array(v))
@@ -51,6 +60,22 @@ def convtasnet_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
         for path, v in _leaves(variables.get(collection, {})):
             *scope, quantizer, name = path
             if quantizer.startswith("weight_fake_quantize") and v.ndim == 3:
-                v = v.transpose(_CONV_TRANSPOSE if scope == ["decoder"] else _CONV)
+                v = v.transpose(conv_order(scope))
+            elif quantizer.startswith("weight_fake_quantize") and v.ndim == 2:
+                v = v.T
             sd[".".join([*scope, quantizer, name])] = torch.from_numpy(np.array(v))
     return sd
+
+
+def convtasnet_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """State dict for the port's module from JAX ConvTasNet variables.
+
+    The ``kernel`` of the ``decoder`` scope is the transposed conv; a
+    standalone decoder's variables go in under a ``decoder`` scope.
+    """
+    return _from_jax(variables, (("decoder",),))
+
+
+def dptnet_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """State dict for the port's module from JAX DPTNet variables (or one of its layers')."""
+    return _from_jax(variables, ())

@@ -1,7 +1,7 @@
 """Model factory (``fqss_tpu/models/factory.py``): name -> quantized model with weights,
 and the student/teacher pair of KD training.
 
-The port holds the ConvTasNet slice; the other model names of the JAX
+The port holds ConvTasNet and DPTNet; the other model names of the JAX
 factory raise ``NotImplementedError`` until their slices land (ROADMAP.md,
 queue 1).
 """
@@ -13,22 +13,30 @@ from typing import Any, Mapping
 
 import torch
 
+from torch import nn
+
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
+from fqss_tpu_torch.models.dptnet import DPTNet
 from fqss_tpu_torch.nn.io_layers import expand_encoder_kernel
 from fqss_tpu_torch.quant.spec import QuantSpec
 
-MODEL_NAMES = ("ConvTasNet",)
+MODEL_NAMES = ("ConvTasNet", "DPTNet")
 _ARCH_KEYS = ("n_filters", "bn_chan", "hid_chan", "n_blocks", "n_repeats", "mask_act", "mask_kernel_size")
+_DPTNET_KEYS = ("enc_dim", "feature_dim", "hidden_dim", "layer", "segment_size")
 
 
 def create_model(model_cfg: Mapping[str, Any], q: QuantSpec | None = None,
-                 generator: torch.Generator | None = None) -> ConvTasNet:
+                 generator: torch.Generator | None = None) -> nn.Module:
     """Build a model by config name (load_model.py:21-51), on the CPU."""
     name = model_cfg["name"]
     if q is None:
         q = QuantSpec.from_config(model_cfg.get("quantization"))
         if not model_cfg.get("quantization", {}).get("qat", False):
             q = QuantSpec()
+    if name == "DPTNet":
+        extra = {k: model_cfg[k] for k in _DPTNET_KEYS if k in model_cfg}
+        return DPTNet(n_srcs=model_cfg.get("n_src", 2), kernel_size=model_cfg.get("kernel_size", 2), q=q,
+                      generator=generator, **extra)
     if name != "ConvTasNet":
         raise NotImplementedError(f"model {name!r} is not ported yet; the port has {MODEL_NAMES} "
                                   "(ROADMAP.md, queue 1)")
@@ -54,7 +62,7 @@ def quant_spec_from_cfg(model_cfg: Mapping[str, Any], observer: bool | None = No
 
 
 def create_pretrained_model(model_cfg: Mapping[str, Any], observer: bool | None = None,
-                            device: torch.device | str = "cpu") -> ConvTasNet:
+                            device: torch.device | str = "cpu") -> nn.Module:
     """The quantized model with its weights, in eval mode on ``device``.
 
     ``model_cfg['model_path']``: None for a seeded init (``torch.Generator``
@@ -72,7 +80,7 @@ def create_pretrained_model(model_cfg: Mapping[str, Any], observer: bool | None 
 
 
 def create_model_and_teacher(model_cfg: Mapping[str, Any], pretrained: str | None = None,
-                             generator: torch.Generator | None = None) -> tuple[ConvTasNet, ConvTasNet]:
+                             generator: torch.Generator | None = None) -> tuple[nn.Module, nn.Module]:
     """(quantized student, float teacher) for KD training, on the CPU (train_utils.py:8-27).
 
     The teacher is the same architecture with ``QuantSpec()``: no

@@ -1,10 +1,11 @@
 """Model I/O layers: splitter encoder and combiner decoder (``fqss_tpu/nn/io_layers.py``).
 
-Encoder: [in-quant] -> Conv1d -> act-quant, on the splitter-widened input.
-Decoder: ConvTranspose1d -> out-quant; with ``n_combiner >= 2`` a chain of
-residual-error blocks re-encodes the quantized output, quantizes the latent
-residual ``Y - Y_q`` and decodes it (shared decoder weights) into more
-output planes, stacked ``[n_combiner, ...]`` for the combiner.
+Encoder: [in-quant] -> Conv1d [-> NL] -> act-quant, on the splitter-widened
+input. Decoders (ConvTranspose1d for ConvTasNet, Linear for DPTNet) ->
+out-quant; with ``n_combiner >= 2`` a chain of residual-error blocks
+re-encodes the quantized output, quantizes the latent residual ``Y - Y_q``
+and decodes it (shared decoder weights) into more output planes, stacked
+``[n_combiner, ...]`` for the combiner.
 """
 
 from __future__ import annotations
@@ -52,17 +53,17 @@ def expand_encoder_kernel(kernel: Tensor, n_splitter: int, generator: torch.Gene
 
 
 class QConv1dEncoder(nn.Module):
-    """[in-quant] -> Conv1d (no bias) -> act-quant (Conv1dEncoderQ, qat_layers.py:993-1046).
+    """[in-quant] -> Conv1d (no bias) [-> NL] -> act-quant (Conv1dEncoderQ, qat_layers.py:993-1046).
 
     Expects the splitter-widened input [B, n_splitter * audio_channels, T].
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-                 q: QuantSpec = FLOAT, generator: torch.Generator | None = None):
+                 nl: str | None = None, q: QuantSpec = FLOAT, generator: torch.Generator | None = None):
         super().__init__()
         self.in_quantizer = make_act_quantizer(q, enabled=q.in_quant, n_bits=q.in_act_n_bits,
                                                nl_quant=q.inout_nl_quant)
-        self.conv = QConv1d(in_channels, out_channels, kernel_size, stride=stride, use_bias=False, q=q,
+        self.conv = QConv1d(in_channels, out_channels, kernel_size, stride=stride, use_bias=False, nl=nl, q=q,
                             generator=generator)
 
     def forward(self, x: Tensor) -> Tensor:
@@ -128,6 +129,87 @@ class QConvTr1dDecoder(nn.Module):
         if self.weight_fake_quantize is not None:
             w_decoder = self.weight_fake_quantize(w_decoder)
         x0 = F.conv_transpose1d(x, w_decoder, stride=self.stride)
+        out_q = self.activation_fake_quantize
+        y = out_q(x0) if out_q is not None else x0
+        if self.n_combiner == 1:
+            return y
+        res_out_q = self.activation_fake_quantize_residual
+        outs = [y]
+        for _ in range(1, self.n_combiner):
+            x = self.residual_error_block(x, y, w_decoder)
+            y = res_out_q(x) if res_out_q is not None else x
+            outs.append(y)
+        return torch.stack(outs)
+
+
+class _ResidualErrorBlockDense(nn.Module):
+    """Combiner residual block for Linear decoders (qat_layers.py:1110-1121, 1179-1187).
+
+    forward(Y, y_q, w_decoder): re-encode the quantized decoder output y_q
+    ``[..., out]`` with a Linear to the latent width, quantize the latent
+    residual Y - Y_q, and decode it with the shared (already quantized)
+    decoder weight ``[out, latent]``.
+    """
+
+    WEIGHT_QUANTIZERS = {"weight_fake_quantize": "residual_encoder_weight"}
+
+    def __init__(self, latent_features: int, out_features: int, use_bias: bool = True, q: QuantSpec = FLOAT,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if q.train_res_dec:
+            raise NotImplementedError("train_res_dec is not ported yet (ROADMAP.md, queue 1)")
+        bound = 1.0 / math.sqrt(out_features)
+        wshape = (latent_features, out_features)
+        self.residual_encoder_weight = nn.Parameter(uniform_(torch.empty(wshape), bound, generator))
+        self.residual_encoder_bias = (nn.Parameter(uniform_(torch.empty(latent_features), bound, generator))
+                                      if use_bias else None)
+        self.weight_fake_quantize = make_weight_quantizer(q, wshape, ch_axis=0)
+        self.activation_fake_quantize = make_act_quantizer(q)
+
+    def forward(self, Y: Tensor, y_q: Tensor, w_decoder: Tensor) -> Tensor:
+        w_enc = self.residual_encoder_weight
+        if self.weight_fake_quantize is not None:
+            w_enc = self.weight_fake_quantize(w_enc)
+        Y_q = torch.matmul(y_q, w_enc.t())
+        if self.residual_encoder_bias is not None:
+            Y_q = Y_q + self.residual_encoder_bias
+        Y1 = Y - Y_q
+        if self.activation_fake_quantize is not None:
+            Y1 = self.activation_fake_quantize(Y1)
+        return torch.matmul(Y1, w_decoder.t())
+
+
+class QLinearDecoder(nn.Module):
+    """Linear decoder (over the last axis) -> out-quant [+ combiner planes]
+    (LinearDecoderQ, qat_layers.py:1256-1302).
+
+    Input [..., Cin]; weight [F, Cin], quantized per out-channel (axis 0).
+    Returns [..., F] when n_combiner == 1, else [n_combiner, ..., F].
+    """
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = False, q: QuantSpec = FLOAT,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.n_combiner = q.n_combiner
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = nn.Parameter(uniform_(torch.empty(features, in_features), bound, generator))
+        self.bias = nn.Parameter(uniform_(torch.empty(features), bound, generator)) if use_bias else None
+        self.weight_fake_quantize = make_weight_quantizer(q, (features, in_features), ch_axis=0)
+        self.activation_fake_quantize = make_act_quantizer(q, enabled=q.out_quant, n_bits=q.out_act_n_bits,
+                                                           nl_quant=q.inout_nl_quant)
+        if q.n_combiner > 1:
+            self.residual_error_block = _ResidualErrorBlockDense(in_features, features, use_bias=use_bias, q=q,
+                                                                 generator=generator)
+            self.activation_fake_quantize_residual = make_act_quantizer(q, enabled=q.out_quant,
+                                                                        n_bits=q.out_act_n_bits)
+
+    def forward(self, x: Tensor) -> Tensor:
+        w_decoder = self.weight
+        if self.weight_fake_quantize is not None:
+            w_decoder = self.weight_fake_quantize(w_decoder)
+        x0 = torch.matmul(x, w_decoder.t())
+        if self.bias is not None:
+            x0 = x0 + self.bias
         out_q = self.activation_fake_quantize
         y = out_q(x0) if out_q is not None else x0
         if self.n_combiner == 1:

@@ -5,11 +5,16 @@ configured from a :class:`~fqss_tpu_torch.quant.QuantSpec`; with
 ``q.qat=False`` the same module is the float teacher. Submodule and
 parameter names follow the JAX modules (``weight_fake_quantize``,
 ``activation_fake_quantize``, ``norm``, ``nl``) so that
-:func:`fqss_tpu_torch.models.convert.convtasnet_from_jax` maps one tree onto
-the other.
+:mod:`fqss_tpu_torch.models.convert` maps one tree onto the other. Weights
+are in torch's layout (``[out, in(, k)]``, quantized per out-channel on
+axis 0). A layer whose weight quantizers are other than one
+``weight_fake_quantize`` of its ``weight`` maps each quantizer's name to
+its parameter's in a class attribute ``WEIGHT_QUANTIZERS``, for
+:func:`fqss_tpu_torch.serve.fold.fold_quantized_weights`.
 
-The convolutions themselves are PyTorch's (``F.conv1d``): the JAX package
-computes them outside any Pallas kernel too.
+The convolutions and matrix products themselves are PyTorch's
+(``F.conv1d``, ``torch.matmul``): the JAX package computes them outside any
+Pallas kernel too.
 """
 
 from __future__ import annotations
@@ -106,6 +111,67 @@ class QGroupNorm(nn.Module):
     def __init__(self, num_groups: int, num_channels: int, epsilon: float = 1e-5, q: QuantSpec = FLOAT):
         super().__init__()
         self.norm = nn.GroupNorm(num_groups, num_channels, eps=epsilon)
+        self.activation_fake_quantize = make_act_quantizer(q)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return _quantize(self.activation_fake_quantize, self.norm(x))
+
+
+class QDense(nn.Module):
+    """Fake-quant Linear with bias -> act-quant (LinearQ, qat_layers.py:521-568).
+
+    The JAX ``QDense`` at its defaults (bias, no NL, act-quant as the spec
+    says), the only form DPTNet builds.
+
+    Over the last axis: ``[..., in] -> [..., out]``. Weight ``[out, in]``
+    quantized per out-channel (axis 0; the JAX kernel is its transpose,
+    quantized on axis 1). The product and the bias add are two steps, as
+    ``jnp.dot(x, w) + b``.
+    """
+
+    def __init__(self, in_features: int, features: int, q: QuantSpec = FLOAT,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        bound = 1.0 / math.sqrt(in_features)
+        self.weight = nn.Parameter(uniform_(torch.empty(features, in_features), bound, generator))
+        self.bias = nn.Parameter(uniform_(torch.empty(features), bound, generator))
+        self.weight_fake_quantize = make_weight_quantizer(q, (features, in_features), ch_axis=0)
+        self.activation_fake_quantize = make_act_quantizer(q)
+
+    def forward(self, x: Tensor) -> Tensor:
+        w = self.weight
+        if self.weight_fake_quantize is not None:
+            w = self.weight_fake_quantize(w)
+        return _quantize(self.activation_fake_quantize, torch.matmul(x, w.t()) + self.bias)
+
+
+class LayerNorm(nn.Module):
+    """flax's ``nn.LayerNorm`` over the last axis, with its arithmetic.
+
+    flax takes the variance as E[x²] − E[x]² (clipped at 0) and scales the
+    centred input by ``rsqrt(var + eps) * scale``; ``F.layer_norm`` takes a
+    Welford variance instead, whose last bits differ and move values across
+    the next quantizer's rounding ties.
+    """
+
+    def __init__(self, features: int, epsilon: float = 1e-5):
+        super().__init__()
+        self.epsilon = epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: Tensor) -> Tensor:
+        mu = x.mean(-1, keepdim=True)
+        var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mu * mu, 0.0)
+        return (x - mu) * (torch.rsqrt(var + self.epsilon) * self.weight) + self.bias
+
+
+class QLayerNorm(nn.Module):
+    """LayerNorm over the last axis -> act-quant (LayerNormQ, qat_layers.py:455-469)."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5, q: QuantSpec = FLOAT):
+        super().__init__()
+        self.norm = LayerNorm(features, epsilon)
         self.activation_fake_quantize = make_act_quantizer(q)
 
     def forward(self, x: Tensor) -> Tensor:

@@ -1,8 +1,8 @@
 """Nonlinearities of the quantized layers (``fqss_tpu/nn/nonlin.py``).
 
 The ConvTasNet slice needs ReLU, PReLU (one learnable slope, torch's init
-0.25) and the sigmoid of its ``mask_act="sigmoid"`` option; the other kinds
-of the JAX module come with later slices.
+0.25) and the sigmoid of its ``mask_act="sigmoid"`` option; DPTNet's gated
+output adds tanh. The other kinds of the JAX module come with later slices.
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ class Nl(nn.Module):
         self.kind = (kind or "identity").lower()
         if self.kind == "prelu":
             self.alpha = nn.Parameter(torch.full((1,), 0.25))
-        elif self.kind not in ("identity", "none", "relu", "sigmoid"):
+        elif self.kind not in ("identity", "none", "relu", "sigmoid", "tanh"):
             raise NotImplementedError(f"nonlinearity {kind!r} is not ported yet (ROADMAP.md, queue 1)")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -30,4 +30,6 @@ class Nl(nn.Module):
             return F.prelu(x, self.alpha)
         if self.kind == "sigmoid":
             return torch.sigmoid(x)
+        if self.kind == "tanh":
+            return torch.tanh(x)
         return x

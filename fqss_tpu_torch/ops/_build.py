@@ -20,7 +20,7 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "fake_quant.cu", _PKG / "csrc" / "int8_matmul.cu")
+SOURCES = (_PKG / "csrc" / "fake_quant.cu", _PKG / "csrc" / "int8_matmul.cu", _PKG / "csrc" / "lstm.cu")
 BUILD_DIR = _PKG / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -102,7 +102,11 @@ def library() -> ctypes.CDLL:
         lib.fqss_act_fake_quant_bwd.restype = i32
         lib.fqss_weight_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, f32, p]
         lib.fqss_weight_fake_quant_bwd.restype = i32
-        lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, f32, f32, f32, p, i64, i64, i64, p]
+        lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, i32, f32, f32, f32, p, i64, i64, i64, p]
         lib.fqss_int8_matmul_requant.restype = i32
+        lib.fqss_lstm_max_hidden.argtypes = []
+        lib.fqss_lstm_max_hidden.restype = i32
+        lib.fqss_lstm_recurrence.argtypes = [p, p, p, p, p, p, i32, i64, i64, i64, p]
+        lib.fqss_lstm_recurrence.restype = i32
         _lib = lib
     return _lib

@@ -6,6 +6,10 @@ int8 serving engine, ``fqss_tpu/ops/pallas_quant.py:int8_matmul_requant_pallas``
 
     out = int8(clip(round((prelu(float(xs @ w.T) * scale + corr, alpha) - mn) / delta), 0, 255) - 128)
 
+with ``nl="tanh"`` or ``nl="sigmoid"`` in the PReLU's place (the TPU kernel
+has only the PReLU; the JAX engines apply the other two to the dequantized
+product outside it, as DPTNet's gated output does).
+
 ``xs`` is ``[M, K]`` int8 (channels-last activations, shifted by -128 from
 the ``[0, 255]`` grid), ``w`` is ``[N, K]`` int8 (the port's conv weight
 ``[Cout, Cin, 1]`` squeezed; the JAX function takes its transpose),
@@ -29,6 +33,7 @@ from fqss_tpu_torch.ops import _build
 Tensor = torch.Tensor
 
 LAUNCHES = {"int8_mm": 0}
+NLS = ("prelu", "tanh", "sigmoid")  # the epilogue's nonlinearities, in the kernel's numbering
 
 
 def reset_launches() -> None:
@@ -41,13 +46,18 @@ def int8_product(xs: Tensor, w: Tensor) -> Tensor:
 
 
 def int8_matmul_requant_ref(xs: Tensor, w: Tensor, scale: Tensor, corr: Tensor, alpha: float, delta: float,
-                            mn: float) -> Tensor:
+                            mn: float, nl: str = "prelu") -> Tensor:
     """Plain version: the exact product, then the epilogue as separate float32 operations.
 
     The division is by a tensor: on CUDA PyTorch divides by a Python number
     through its reciprocal, which can differ from IEEE division by one ulp."""
     v = int8_product(xs, w) * scale + corr
-    v = torch.where(v >= 0, v, alpha * v)
+    if nl == "tanh":
+        v = torch.tanh(v)
+    elif nl == "sigmoid":
+        v = torch.sigmoid(v)
+    else:
+        v = torch.where(v >= 0, v, alpha * v)
     X = torch.round((v - mn) / torch.full((1,), delta, device=v.device)).clamp(0, 255)
     return (X - 128).to(torch.int8)
 
@@ -71,21 +81,23 @@ def _check(xs: Tensor, w: Tensor, scale: Tensor, corr: Tensor) -> None:
 
 
 def int8_matmul_requant(xs: Tensor, w: Tensor, scale: Tensor, corr: Tensor, alpha: float, delta: float,
-                        mn: float) -> Tensor:
+                        mn: float, nl: str = "prelu") -> Tensor:
     """``[M, K] x [N, K] -> [M, N]`` int8, requantized to the grid ``(delta, mn)`` (module docstring)."""
     if xs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"int8_matmul_requant: no kernel for device {xs.device}")
+    if nl not in NLS:
+        raise ValueError(f"int8_matmul_requant: nl must be one of {NLS}, got {nl!r}")
     _check(xs, w, scale, corr)  # on the CPU too, so that the CPU tests hold callers to what the kernel takes
     if xs.device.type == "cpu":
-        return int8_matmul_requant_ref(xs, w, scale, corr, alpha, delta, mn)
+        return int8_matmul_requant_ref(xs, w, scale, corr, alpha, delta, mn, nl)
     m, n = xs.shape[0], w.shape[0]
     out = torch.empty(m, n, dtype=torch.int8, device=xs.device)
     if out.numel() == 0:
         return out
     with torch.cuda.device(xs.device):
         rc = _build.library().fqss_int8_matmul_requant(
-            xs.data_ptr(), w.data_ptr(), scale.data_ptr(), corr.data_ptr(), alpha, delta, mn, out.data_ptr(),
-            m, n, xs.shape[1], torch.cuda.current_stream(xs.device).cuda_stream)
+            xs.data_ptr(), w.data_ptr(), scale.data_ptr(), corr.data_ptr(), NLS.index(nl), alpha, delta, mn,
+            out.data_ptr(), m, n, xs.shape[1], torch.cuda.current_stream(xs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_matmul_requant: CUDA launch failed with error {rc}")
     LAUNCHES["int8_mm"] += 1

@@ -1,0 +1,122 @@
+"""LSTM recurrence: wrappers, plain versions and launch counters.
+
+The CUDA kernel in ``csrc/lstm.cu`` replaces the TPU kernels of the LSTM
+recurrence, ``fqss_tpu/ops/pallas_lstm.py``:
+
+* :func:`lstm_sequence` — one direction (``lstm_sequence``, ``_lstm_kernel``);
+* :func:`bilstm_sequence` — both directions of a bidirectional LSTM in one
+  launch (``bilstm_sequence``, ``_bilstm_kernel``).
+
+Both take the hoisted input projections ``ih = x @ W_ih + b_ih + b_hh``
+time-major, ``[T, B, 4H]`` in torch's gate order (i, f, g, o), each
+direction's in its own scan order (the caller flips the reverse direction),
+and ``w_hh`` as ``[H, 4H]``; they return ``hs [T, B, H]`` in the same order,
+from zero initial state. Unlike the TPU kernel (``H % 128 == 0``), the
+Hopper kernel takes any H up to its shared-memory limit and any B.
+
+A CUDA tensor launches the kernel, or the wrapper raises: there is no
+fallback. A CPU tensor takes the plain version (:func:`lstm_sequence_ref`,
+:func:`bilstm_sequence_ref`: a Python time loop of ``h @ w_hh`` and the
+gates, JAX's ``_lstm_scan``), which autograd differentiates. The kernel has
+no backward yet: on the card a call that needs a gradient raises.
+``LAUNCHES`` counts the kernel's launches, one per call that launches it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from fqss_tpu_torch.ops import _build
+from fqss_tpu_torch.ops.fake_quant import _check_device, _needs_grad
+
+Tensor = torch.Tensor
+
+LAUNCHES = {"lstm": 0, "bilstm": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def lstm_sequence_ref(ih: Tensor, w_hh: Tensor) -> Tensor:
+    """Plain version: ``[T, B, 4H]``, ``[H, 4H]`` -> ``hs [T, B, H]`` (``pallas_lstm.py:_lstm_scan``)."""
+    T, B, G = ih.shape
+    H = G // 4
+    h = ih.new_zeros(B, H)
+    c = ih.new_zeros(B, H)
+    hs = []
+    for t in range(T):
+        i, f, g, o = (ih[t] + h @ w_hh).split(H, dim=-1)
+        c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+        h = torch.sigmoid(o) * torch.tanh(c)
+        hs.append(h)
+    return torch.stack(hs) if hs else ih.new_zeros(0, B, H)
+
+
+def bilstm_sequence_ref(ih_f: Tensor, ih_b: Tensor, w_f: Tensor, w_b: Tensor) -> tuple[Tensor, Tensor]:
+    """Plain version of :func:`bilstm_sequence`: the two recurrences one after the other."""
+    return lstm_sequence_ref(ih_f, w_f), lstm_sequence_ref(ih_b, w_b)
+
+
+def _check(name: str, ih: Tensor, w_hh: Tensor) -> None:
+    """Hold a direction's operands to what the kernel takes."""
+    if ih.ndim != 3 or ih.shape[2] % 4 or w_hh.shape != (ih.shape[2] // 4, ih.shape[2]):
+        raise ValueError(f"{name}: ih [T, B, 4H] and w_hh [H, 4H] expected, got {tuple(ih.shape)} and "
+                         f"{tuple(w_hh.shape)}")
+    for arg, t in (("ih", ih), ("w_hh", w_hh)):
+        if t.device != ih.device:
+            raise ValueError(f"{name}: {arg} is on {t.device}, ih on {ih.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the kernel takes float32, {arg} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors ({arg} is not)")
+
+
+def _launch(name: str, key: str, pairs: list[tuple[Tensor, Tensor]]) -> list[Tensor]:
+    """One kernel launch over one or two directions' ``(ih, w_hh)``, counted under ``key``; their ``hs``."""
+    ih = pairs[0][0]
+    T, B, G = ih.shape
+    H = G // 4
+    if _needs_grad(*(t for pair in pairs for t in pair)):
+        raise NotImplementedError(f"{name}: the CUDA kernel has no backward yet (DPTNet training, ROADMAP.md "
+                                  "queue 2); run under torch.no_grad() or on the CPU")
+    outs = [torch.empty(T, B, H, device=ih.device) for _ in pairs]
+    if not ih.numel():
+        return outs
+    lib = _build.library()
+    if H > lib.fqss_lstm_max_hidden():
+        raise ValueError(f"{name}: H = {H} exceeds the kernel's shared memory (at most {lib.fqss_lstm_max_hidden()})")
+    (ih0, w0), (ih1, w1) = pairs[0], pairs[-1]
+    with torch.cuda.device(ih.device):
+        rc = lib.fqss_lstm_recurrence(ih0.data_ptr(), w0.data_ptr(), outs[0].data_ptr(), ih1.data_ptr(),
+                                      w1.data_ptr(), outs[-1].data_ptr(), len(pairs), T, B, H,
+                                      torch.cuda.current_stream(ih.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[key] += 1
+    return outs
+
+
+def lstm_sequence(ih: Tensor, w_hh: Tensor) -> Tensor:
+    """LSTM recurrence over hoisted input projections: ``[T, B, 4H]``, ``[H, 4H]`` -> ``[T, B, H]``."""
+    _check_device("lstm_sequence", ih)
+    _check("lstm_sequence", ih, w_hh)
+    if ih.device.type == "cpu":
+        return lstm_sequence_ref(ih, w_hh)
+    (hs,) = _launch("lstm_sequence", "lstm", [(ih, w_hh)])
+    return hs
+
+
+def bilstm_sequence(ih_f: Tensor, ih_b: Tensor, w_f: Tensor, w_b: Tensor) -> tuple[Tensor, Tensor]:
+    """Both directions of a BiLSTM in one launch; each input and output in its own scan order."""
+    _check_device("bilstm_sequence", ih_f)
+    _check("bilstm_sequence", ih_f, w_f)
+    _check("bilstm_sequence", ih_b, w_b)
+    if ih_b.shape != ih_f.shape or ih_b.device != ih_f.device:
+        raise ValueError(f"bilstm_sequence: the directions differ: {tuple(ih_f.shape)} on {ih_f.device}, "
+                         f"{tuple(ih_b.shape)} on {ih_b.device}")
+    if ih_f.device.type == "cpu":
+        return bilstm_sequence_ref(ih_f, ih_b, w_f, w_b)
+    hs_f, hs_b = _launch("bilstm_sequence", "bilstm", [(ih_f, w_f), (ih_b, w_b)])
+    return hs_f, hs_b

@@ -18,7 +18,10 @@ bitwise the JAX engine's. Weights are in the port's layout: a 1x1 conv
 weight ``[N, K, 1]`` or ``[N, K]`` (the JAX kernel's transpose).
 
 The device-side pieces (:func:`requant`, :func:`int8_matmul`, :func:`gn1`,
-the convolutions) are plain PyTorch, as the JAX engine leaves them to XLA.
+:func:`layer_norm`, the convolutions) are plain PyTorch, as the JAX engines
+leave them to XLA; :class:`Int8Site` runs a product of grid values through
+the int8 kernel (K4, :mod:`fqss_tpu_torch.ops.int8_matmul`), fused with the
+dequantization, the nonlinearity and the requantization.
 Every division by a grid step is IEEE division by a one-element tensor on
 the device: on CUDA PyTorch divides by a Python number through its
 reciprocal, which can differ by one ulp and move a value across a rounding
@@ -33,7 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from fqss_tpu_torch.ops.int8_matmul import int8_product
+from fqss_tpu_torch.ops.int8_matmul import int8_matmul_requant, int8_product
 
 Tensor = torch.Tensor
 
@@ -73,6 +76,11 @@ class Int8Weight:
                 arrays["bias"] = self.bias
             t = self._tensors[device] = {k: torch.from_numpy(v).to(device) for k, v in arrays.items()}
         return t
+
+
+def quantizer_grid(quantizer, n_bits: int = 8) -> Grid:
+    """The :class:`Grid` of an activation quantizer module's ranges."""
+    return act_grid(quantizer.min_range, quantizer.max_range, n_bits)
 
 
 def act_grid(min_range, max_range, n_bits: int = 8) -> Grid:
@@ -169,6 +177,34 @@ def int8_matmul(qa: QAct, w: Int8Weight) -> Tensor:
     return out.reshape(*lead, -1)
 
 
+class Int8Site:
+    """One product of grid values through K4: its int8 weight and the epilogue's constants, on the device.
+
+    ``scale = delta_in * s_w`` and ``corr = (mn_in + 128 delta_in) s_w sum_w + bias``
+    are computed once in numpy float32, with the JAX engine's expressions
+    (``fqss_tpu/serve/convtasnet_int8.py:204-206``). ``nl``: the epilogue's
+    nonlinearity, ``"prelu"`` with slope ``alpha`` (1 = identity, 0 = ReLU),
+    ``"tanh"`` or ``"sigmoid"``. Called with a channels-last :class:`QAct`
+    ``[..., K]`` on ``g_in``; returns ``[..., N]`` on ``g_out``."""
+
+    def __init__(self, g_in: Grid, w: Int8Weight, g_out: Grid, alpha: float, device: torch.device,
+                 nl: str = "prelu"):
+        corr = (g_in.mn + 128.0 * g_in.delta) * w.scale * w.sum_w
+        if w.bias is not None:
+            corr = corr + w.bias
+        self.w = torch.from_numpy(w.w_int).to(device)
+        self.scale = torch.from_numpy(np.asarray(g_in.delta * w.scale, np.float32)).to(device)
+        self.corr = torch.from_numpy(np.asarray(corr, np.float32)).to(device)
+        self.alpha, self.nl = alpha, nl
+        self.g_out = g_out
+
+    def __call__(self, qa: QAct) -> QAct:
+        *lead, k = qa.Xs.shape
+        out = int8_matmul_requant(qa.Xs.reshape(-1, k).contiguous(), self.w, self.scale, self.corr, self.alpha,
+                                  float(self.g_out.delta), float(self.g_out.mn), self.nl)
+        return QAct(out.reshape(*lead, -1), self.g_out)
+
+
 def prelu(x: Tensor, alpha: float) -> Tensor:
     return torch.where(x >= 0, x, alpha * x)
 
@@ -182,20 +218,32 @@ def gn1(x: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tensor:
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
 
 
+def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tensor:
+    """LayerNorm over the last axis, as the JAX engine's ``layer_norm`` computes it (variance as E[(x - mu)^2])."""
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    return (x - mu) * torch.rsqrt(var + eps) * scale + bias
+
+
+def bf16_round(x: Tensor) -> Tensor:
+    """A float32 tensor's values rounded to bfloat16, kept in float32: a bf16 operand of a float32 sum."""
+    return x.to(torch.bfloat16).float()
+
+
 def conv1d(x: Tensor, w: Tensor, stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1,
            bf16: bool = False) -> Tensor:
     """NCT conv with host-folded weights. ``bf16``: the operands rounded to bfloat16, the sums in
     float32, as JAX's bf16 conv with ``preferred_element_type=float32`` computes (``w`` arrives
     rounded already)."""
     if bf16:
-        x = x.to(torch.bfloat16).float()
+        x = bf16_round(x)
     return F.conv1d(x, w, None, stride, padding, dilation, groups)
 
 
 def conv_transpose1d(x: Tensor, w: Tensor, stride: int, bf16: bool = False) -> Tensor:
     """NCT transposed conv (zero padding and output padding), operands as in :func:`conv1d`."""
     if bf16:
-        x = x.to(torch.bfloat16).float()
+        x = bf16_round(x)
     return F.conv_transpose1d(x, w, stride=stride)
 
 

@@ -31,17 +31,15 @@ float32. It buys no speed over ``"float32"``.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from fqss_tpu_torch.models.convtasnet import EPS, ConvTasNet
-from fqss_tpu_torch.ops.int8_matmul import int8_matmul_requant
 from fqss_tpu_torch.separation.splitter import postprocess, preprocess
 from fqss_tpu_torch.serve.common import (
     Grid,
+    Int8Site,
     Int8Weight,
-    QAct,
-    act_grid,
+    bf16_round,
     check_8bit_spec,
     conv1d,
     conv_transpose1d,
@@ -50,43 +48,16 @@ from fqss_tpu_torch.serve.common import (
     int8_matmul,
     int8_weight,
     prelu,
+    quantizer_grid,
     requant,
 )
 
 Tensor = torch.Tensor
 
 
-class _Site:
-    """One 1x1 conv through K4: its int8 weight and the epilogue's constants, on the device.
-
-    ``scale = delta_in * s_w`` and ``corr = (mn_in + 128 delta_in) s_w sum_w + bias``
-    are computed once in numpy float32, with the JAX engine's expressions
-    (``convtasnet_int8.py:204-206``)."""
-
-    def __init__(self, g_in: Grid, w: Int8Weight, g_out: Grid, alpha: float, device: torch.device):
-        corr = (g_in.mn + 128.0 * g_in.delta) * w.scale * w.sum_w
-        if w.bias is not None:
-            corr = corr + w.bias
-        self.w = torch.from_numpy(w.w_int).to(device)
-        self.scale = torch.from_numpy(np.asarray(g_in.delta * w.scale, np.float32)).to(device)
-        self.corr = torch.from_numpy(np.asarray(corr, np.float32)).to(device)
-        self.alpha = alpha
-        self.g_out = g_out
-
-    def __call__(self, qa: QAct) -> QAct:
-        b, t, k = qa.Xs.shape
-        out = int8_matmul_requant(qa.Xs.reshape(b * t, k).contiguous(), self.w, self.scale, self.corr, self.alpha,
-                                  float(self.g_out.delta), float(self.g_out.mn))
-        return QAct(out.reshape(b, t, -1), self.g_out)
-
-
 def _alpha(nl) -> float:
     """The one PReLU slope as a Python float (exactly its float32 value)."""
     return float(nl.alpha.detach().reshape(-1)[0])
-
-
-def _grid(quantizer, n_bits: int = 8) -> Grid:
-    return act_grid(quantizer.min_range, quantizer.max_range, n_bits)
 
 
 def _int8_weight(conv, n_bits: int) -> Int8Weight:
@@ -123,51 +94,51 @@ class ConvTasNetInt8Engine:
         def conv_weight(layer) -> Tensor:
             wq = layer.weight_fake_quantize
             w = torch.from_numpy(dequant_weight(layer.weight, wq.min_range, wq.max_range, q.weight_n_bits)).to(dev)
-            return w.to(torch.bfloat16).float() if self.bf16 else w
+            return bf16_round(w) if self.bf16 else w
 
         def vec(p) -> Tensor:
             return p.detach().to(dev, torch.float32).clone()
 
-        def site(g_in: Grid, conv, alpha: float = 1.0) -> tuple[_Site, Grid]:
-            g_out = _grid(conv.activation_fake_quantize)
-            return _Site(g_in, _int8_weight(conv, q.weight_n_bits), g_out, alpha, dev), g_out
+        def site(g_in: Grid, conv, alpha: float = 1.0) -> tuple[Int8Site, Grid]:
+            g_out = quantizer_grid(conv.activation_fake_quantize)
+            return Int8Site(g_in, _int8_weight(conv, q.weight_n_bits), g_out, alpha, dev), g_out
 
         # encoder (float conv; weight fake-quant folded on the host)
         enc = model.encoder
-        self.g_enc_in = _grid(enc.in_quantizer, q.in_act_n_bits) if enc.in_quantizer is not None else None
+        self.g_enc_in = quantizer_grid(enc.in_quantizer, q.in_act_n_bits) if enc.in_quantizer is not None else None
         self.enc_w = conv_weight(enc.conv)
-        self.g_enc = _grid(enc.conv.activation_fake_quantize)
+        self.g_enc = quantizer_grid(enc.conv.activation_fake_quantize)
 
         # masker
         mk = model.masker
         self.bn_norm = (vec(mk.bottleneck_norm.norm.weight), vec(mk.bottleneck_norm.norm.bias))
-        self.g_bn_norm = _grid(mk.bottleneck_norm.activation_fake_quantize)
+        self.g_bn_norm = quantizer_grid(mk.bottleneck_norm.activation_fake_quantize)
         self.bn_conv, g = site(self.g_bn_norm, mk.bottleneck_conv)
         self.blocks = []
         g_skip_sum = None
         for i, blk in enumerate(mk.blocks):
             conv_in, _ = site(g, blk.conv_in, _alpha(blk.conv_in.nl))
-            g_ni = _grid(blk.norm_in.activation_fake_quantize)
-            g_nd = _grid(blk.norm_dw.activation_fake_quantize)
+            g_ni = quantizer_grid(blk.norm_in.activation_fake_quantize)
+            g_nd = quantizer_grid(blk.norm_dw.activation_fake_quantize)
             res, _ = site(g_nd, blk.res_conv)
             skip, _ = site(g_nd, blk.skip_conv)
-            g_add = _grid(blk.add.activation_fake_quantize)
+            g_add = quantizer_grid(blk.add.activation_fake_quantize)
             if i > 0:
-                g_skip_sum = _grid(mk.skip_adds[i - 1].activation_fake_quantize)
+                g_skip_sum = quantizer_grid(mk.skip_adds[i - 1].activation_fake_quantize)
             self.blocks.append({
                 "conv_in": conv_in,
                 "ni": (vec(blk.norm_in.norm.weight), vec(blk.norm_in.norm.bias)), "g_ni": g_ni,
                 "w_dw": conv_weight(blk.conv_dw),
                 "b_dw": vec(blk.conv_dw.bias) if blk.conv_dw.bias is not None else None,
-                "a_dw": _alpha(blk.conv_dw.nl), "g_dw": _grid(blk.conv_dw.activation_fake_quantize),
+                "a_dw": _alpha(blk.conv_dw.nl), "g_dw": quantizer_grid(blk.conv_dw.activation_fake_quantize),
                 "nd": (vec(blk.norm_dw.norm.weight), vec(blk.norm_dw.norm.bias)), "g_nd": g_nd,
                 "res": res, "skip": skip, "g_add": g_add,
                 "g_skip_sum": g_skip_sum, "dilation": blk.conv_dw.dilation,
             })
             g = g_add
         self.mask_prelu_alpha = _alpha(mk.mask_prelu.nl)
-        self.g_mask_prelu = _grid(mk.mask_prelu.activation_fake_quantize)
-        self.g_mask = _grid(mk.mask_conv.activation_fake_quantize)
+        self.g_mask_prelu = quantizer_grid(mk.mask_prelu.activation_fake_quantize)
+        self.g_mask = quantizer_grid(mk.mask_conv.activation_fake_quantize)
         if mask_kind == "relu":  # ReLU is PReLU with slope 0, in the kernel
             self.mask_site, _ = site(self.g_mask_prelu, mk.mask_conv, 0.0)
             self.mask_w = None
@@ -175,17 +146,17 @@ class ConvTasNetInt8Engine:
             self.mask_site = None
             self.mask_w = _int8_weight(mk.mask_conv, q.weight_n_bits)
             self.mask_w.on(dev)
-        self.g_mul = _grid(model.mul.activation_fake_quantize)
+        self.g_mul = quantizer_grid(model.mul.activation_fake_quantize)
 
         # decoder (+ combiner residual plane)
         dec = model.decoder
         self.dec_w = conv_weight(dec)
-        self.g_dec = _grid(dec.activation_fake_quantize, q.out_act_n_bits) if q.out_quant else None
+        self.g_dec = quantizer_grid(dec.activation_fake_quantize, q.out_act_n_bits) if q.out_quant else None
         if q.n_combiner == 2:
             reb = dec.residual_error_block
             self.re_w = conv_weight(reb.residual_encoder)
-            self.g_re = _grid(reb.activation_fake_quantize)
-            self.g_dec_res = (_grid(dec.activation_fake_quantize_residual, q.out_act_n_bits)
+            self.g_re = quantizer_grid(reb.activation_fake_quantize)
+            self.g_dec_res = (quantizer_grid(dec.activation_fake_quantize_residual, q.out_act_n_bits)
                               if q.out_quant else None)
 
     def __call__(self, x: Tensor) -> Tensor:

@@ -18,14 +18,22 @@ from torch import nn
 from fqss_tpu_torch.ops.fake_quant import weight_fake_quant
 from fqss_tpu_torch.quant.quantizers import WeightQuantizer
 
+# A layer's weight quantizers and the parameter each quantizes, where the layer does not name them itself
+# (``WEIGHT_QUANTIZERS``, fqss_tpu_torch/nn/layers.py).
+DEFAULT_WEIGHT_QUANTIZERS = {"weight_fake_quantize": "weight"}
+
 
 def fold_quantized_weights(model: nn.Module) -> nn.Module:
     """A serving copy of ``model`` with the weight fake-quant applied once.
 
-    Every layer whose ``weight_fake_quantize`` is a WeightQuantizer gets its
-    ``weight`` replaced by the per-channel symmetric grid values and loses
-    the quantizer; the copy's spec has ``weight_quant=False``. Activation
-    quantizers are untouched. ``model`` itself is not changed.
+    Every (weight, WeightQuantizer) pair of every layer — ``weight`` and its
+    ``weight_fake_quantize``, or the pairs a layer lists in
+    ``WEIGHT_QUANTIZERS`` (the LSTM's ``w_ih``/``w_hh`` per direction, the
+    attention's in- and out-projections, the Linear decoder's residual
+    encoder) — gets the weight replaced by its per-channel symmetric grid
+    values and the quantizer removed; the copy's spec has
+    ``weight_quant=False``. Activation quantizers are untouched. ``model``
+    itself is not changed. Raises if a WeightQuantizer is left unfolded.
     """
     q = model.q
     if not (q.qat and q.weight_quant):
@@ -33,9 +41,14 @@ def fold_quantized_weights(model: nn.Module) -> nn.Module:
     serving = copy.deepcopy(model)
     with torch.no_grad():
         for layer in serving.modules():
-            wq = getattr(layer, "weight_fake_quantize", None)
-            if isinstance(wq, WeightQuantizer):
-                layer.weight.copy_(weight_fake_quant(layer.weight, wq.min_range, wq.max_range, wq.n_bits, wq.ch_axis))
-                layer.weight_fake_quantize = None
+            for quantizer_name, weight_name in getattr(layer, "WEIGHT_QUANTIZERS", DEFAULT_WEIGHT_QUANTIZERS).items():
+                wq = getattr(layer, quantizer_name, None)
+                if isinstance(wq, WeightQuantizer):
+                    w = getattr(layer, weight_name)
+                    w.copy_(weight_fake_quant(w, wq.min_range, wq.max_range, wq.n_bits, wq.ch_axis))
+                    setattr(layer, quantizer_name, None)
+    left = [name for name, m in serving.named_modules() if isinstance(m, WeightQuantizer)]
+    if left:
+        raise ValueError(f"fold_quantized_weights: no weight is known for the quantizers {left}")
     serving.q = dataclasses.replace(q, weight_quant=False)
     return serving

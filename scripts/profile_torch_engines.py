@@ -1,20 +1,22 @@
 #!/usr/bin/env python3
 """Where the device time of the port's serving engines goes, on one NVIDIA GPU.
 
-Usage: python3 scripts/profile_torch_engines.py
+Usage: python3 scripts/profile_torch_engines.py [--model convtasnet|dptnet]
 
-Builds the full-width FQSS-8bit ConvTasNet of ``chip_smoke.py`` (phase 3:
-seeded weights, ranges from a 3-step observer pass), then for each engine
-(fake_quant, folded, int8 with float32 and with bfloat16 float convs) times
-forwards of 32 x 12 s with CUDA events and traces one with
-``torch.profiler``: the device time by the operator that launched it, the
-union of the kernel intervals (busy time) against the profiled forward's
-wall time, and the forward's kernel launches. Needs a CUDA device; prints
-one block per engine.
+Builds the full-width FQSS-8bit model of ``chip_smoke.py`` (seeded weights):
+the ConvTasNet of phase 3 at 32 x 12 s, ranges from a 3-step observer pass,
+or the DPTNet of phase 18 at 8 x 4 s, ranges from the config's 50-step
+observer window (``chip_smoke.DPT_OBSERVE_STEPS``). Then for each engine (fake_quant,
+folded, int8 with float32 and with bfloat16 float products) it times
+forwards with CUDA events and traces one with ``torch.profiler``: the device
+time by the operator that launched it, the union of the kernel intervals
+(busy time) against the profiled forward's wall time, and the forward's
+kernel launches. Needs a CUDA device; prints one block per engine.
 """
 
 from __future__ import annotations
 
+import argparse
 import os
 import sys
 import time
@@ -49,12 +51,21 @@ TOP = 15  # operators listed per engine
 
 
 def main() -> None:
+    parser = argparse.ArgumentParser(prog="python3 scripts/profile_torch_engines.py")
+    parser.add_argument("--model", choices=("convtasnet", "dptnet"), default="convtasnet")
+    model = parser.parse_args().model
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_engines: no CUDA device")
     dev = torch.device("cuda", 0)
     disable_tf32()
-    mix, _ = chip_smoke.synth_batch(np.random.default_rng(0), chip_smoke.BATCH, 2, chip_smoke.SEG)
-    served = chip_smoke.build_served_model(dev, mix[:4])
+    if model == "convtasnet":
+        batch, seg = chip_smoke.BATCH, chip_smoke.SEG
+        mix, _ = chip_smoke.synth_batch(np.random.default_rng(0), batch, 2, seg)
+        served = chip_smoke.build_served_model(dev, mix[:4])
+    else:
+        batch, seg = chip_smoke.DPT_BATCH, chip_smoke.DPT_SEG
+        mix, _ = chip_smoke.synth_batch(np.random.default_rng(18), batch, 2, seg)
+        served = chip_smoke.build_served_dptnet(dev, mix[:2])
     x = torch.from_numpy(mix).to(dev)
     builders = {
         "fake_quant": lambda: served,
@@ -81,7 +92,7 @@ def main() -> None:
         kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
         device_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
         busy = busy_ms(events)
-        print(f"== {name}: {ms:.1f} ms per forward of {chip_smoke.BATCH} x {chip_smoke.SEG // chip_smoke.SR} s "
+        print(f"== {model} {name}: {ms:.1f} ms per forward of {batch} x {seg // chip_smoke.SR} s "
               f"(CUDA events, 3 after 1 warm-up); profiled forward: wall {wall:.1f} ms, {len(kernels)} kernels, "
               f"device time {device_ms:.1f} ms, busy (union) {busy:.1f} ms, idle {1 - busy / wall:.1%} of the wall")
         # device time by the operator that launched it (its own kernels, not its children's)

@@ -244,3 +244,98 @@ def test_tiny_int8_engine_runs_k4_at_every_1x1_conv(dev, compute_dtype):
     snr = 10 * torch.log10(cpu.pow(2).sum(-1) / (cpu - card).pow(2).sum(-1).clamp_min(1e-30))
     assert bool((snr >= INT8_CARD_VS_CPU_DB[compute_dtype]).all()), snr
     assert np.isfinite(card.numpy()).all()
+
+
+# LSTM recurrence (K7 both directions, K6 one) against its plain version: max |difference| <= 1e-5 (float32
+# sums in another order than cuBLAS's, ulp-level transcendentals; chip_smoke.py's LSTM_TOL).
+LSTM_TOL = 1e-5
+
+
+@pytest.mark.parametrize("T,B,H", [(40, 300, 128), (7, 3, 96), (5, 17, 130), (33, 20, 64)])
+def test_lstm_kernels_match_plain(dev, T, B, H):
+    from fqss_tpu_torch.ops import lstm
+
+    gen = torch.Generator(device=dev).manual_seed(T * B + H)
+    ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(2)]
+    w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / H**0.5 for _ in range(2)]
+    before = dict(lstm.LAUNCHES)
+    with torch.no_grad():
+        hf, hb = lstm.bilstm_sequence(ih[0], ih[1], w[0], w[1])
+        h1 = lstm.lstm_sequence(ih[1], w[1])
+        rf, rb = lstm.bilstm_sequence_ref(ih[0], ih[1], w[0], w[1])
+    torch.cuda.synchronize()
+    assert lstm.LAUNCHES == {"lstm": before["lstm"] + 1, "bilstm": before["bilstm"] + 1}
+    assert hf.shape == hb.shape == h1.shape == (T, B, H)
+    for got, want in ((hf, rf), (hb, rb), (h1, rb)):
+        assert (got - want).abs().max().item() <= LSTM_TOL
+
+
+def test_lstm_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from fqss_tpu_torch.ops import lstm
+
+    ih, w = torch.randn(4, 3, 32, device=dev), torch.randn(8, 32, device=dev)
+    with pytest.raises(TypeError):
+        lstm.lstm_sequence(ih.double(), w.double())
+    with pytest.raises(ValueError):
+        lstm.lstm_sequence(ih.transpose(0, 1).contiguous().transpose(0, 1), w)
+    with pytest.raises(ValueError):
+        lstm.bilstm_sequence(ih, ih.cpu(), w, w.cpu())
+    with pytest.raises(NotImplementedError, match="backward"):
+        lstm.lstm_sequence(ih, w.requires_grad_())
+
+
+@pytest.mark.parametrize("m,k,n", [(1, 64, 64), (1023, 64, 64), (4096, 256, 64), (300, 7, 3)])
+@pytest.mark.parametrize("nl", ["tanh", "sigmoid"])
+def test_int8_matmul_kernel_epilogues_bitwise_equal_plain(dev, m, k, n, nl):
+    from fqss_tpu_torch.ops import int8_matmul as im
+
+    xs, w, scale, corr = _int8_case(dev, m, k, n, m + k + n)
+    args = (xs, w, scale * 0.05, corr, 1.0, 2.0**-6, -2.0)
+    before = im.LAUNCHES["int8_mm"]
+    got = im.int8_matmul_requant(*args, nl=nl)
+    assert im.LAUNCHES["int8_mm"] == before + 1
+    assert torch.equal(got, im.int8_matmul_requant_ref(*args, nl=nl))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_tiny_dptnet_serving_runs_k7_and_k4(dev, compute_dtype):
+    from fqss_tpu_torch.models.dptnet import DPTNet
+    from fqss_tpu_torch.ops import int8_matmul as im
+    from fqss_tpu_torch.ops import lstm
+    from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
+    from fqss_tpu_torch.quant.spec import QuantSpec
+    from fqss_tpu_torch.serve import make_int8_engine
+    from fqss_tpu_torch.serve.fold import fold_quantized_weights
+
+    arch = dict(n_srcs=2, kernel_size=2, enc_dim=32, feature_dim=16, hidden_dim=32, layer=2, segment_size=40)
+    spec = dict(qat=True, n_splitter=2, n_combiner=2, out_quant=True)
+    model = DPTNet(q=QuantSpec(max_observations=2, **spec), generator=torch.Generator().manual_seed(0), **arch)
+    x = torch.randn(2, 2000, generator=torch.Generator().manual_seed(1)) * 0.3
+    with torch.no_grad():
+        for _ in range(2):
+            model.train()(x)
+    served = DPTNet(q=QuantSpec(observer=False, **spec), **arch)
+    served.load_state_dict(model.state_dict())
+    cpu = served.eval()
+    card = DPTNet(q=QuantSpec(observer=False, **spec), **arch)
+    card.load_state_dict(model.state_dict())
+    card = card.to(dev).eval()
+    n_act = sum(isinstance(m, ActQuantizer) for m in card.modules())
+    n_weight = sum(isinstance(m, WeightQuantizer) for m in card.modules())
+    fq.reset_launches()
+    lstm.reset_launches()
+    with torch.inference_mode():
+        y = card(x.to(dev))
+        want = cpu(x)
+    assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 4}
+    assert fq.LAUNCHES["act"] == n_act - 8 and fq.LAUNCHES["weight"] == n_weight  # 4 MHAs x 2 no-op sites
+    snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
+    assert bool((snr >= 20).all()), snr
+    with torch.inference_mode():
+        assert torch.equal(fold_quantized_weights(card)(x.to(dev)), y)
+    im.reset_launches()
+    y8 = make_int8_engine(card, compute_dtype=compute_dtype)(x.to(dev)).cpu()
+    assert im.LAUNCHES["int8_mm"] == 5 + 4 + 3 * 3  # BN, out_conv, 2 gates, mask; 4 out- and 3 in-projections
+    want8 = make_int8_engine(cpu, compute_dtype=compute_dtype)(x)
+    snr8 = 10 * torch.log10(want8.pow(2).sum(-1) / (want8 - y8).pow(2).sum(-1).clamp_min(1e-30))
+    assert bool((snr8 >= 20).all()), snr8

@@ -29,13 +29,14 @@ loaded = sorted(m for m in ("jax", "flax", "yaml", "pandas", "fqss_tpu") if m in
 print("LOADED", loaded)
 print("MODULES", sorted(m for m in sys.modules if m.startswith("fqss_tpu_torch")))
 """
-# The training and int8-serving slices' modules, named so that a rename cannot drop them from the walk unnoticed.
+# The training and serving slices' modules, named so that a rename cannot drop them from the walk unnoticed.
 TRAINING_MODULES = ("fqss_tpu_torch.data.synthetic", "fqss_tpu_torch.utils.audio", "fqss_tpu_torch.quant.ste",
                     "fqss_tpu_torch.separation.losses", "fqss_tpu_torch.train.state", "fqss_tpu_torch.train.trainer", "fqss_tpu_torch.train.checkpoints",
                     "fqss_tpu_torch.train.recipes", "fqss_tpu_torch.train.__main__", "fqss_tpu_torch.utils.logging")
 SERVING_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
     "serve.common", "serve.convtasnet_int8", "ops.int8_matmul", "separation.metrics", "separation.stoi",
-    "separation.bss_eval", "train.validate", "val", "utils.config", "data.librimix", "data.augment"))
+    "separation.bss_eval", "train.validate", "val", "utils.config", "data.librimix", "data.augment",
+    "ops.lstm", "nn.lstm", "nn.attention", "models.dptnet", "serve.dptnet_int8"))
 
 
 def jax_package_imports(path: str) -> list[str]:
@@ -120,6 +121,18 @@ def test_chip_smoke_model_cfg_equals_the_config_file():
         sys.path.remove(REPO)
     with open(os.path.join(REPO, "configs", "convtasnet_2spks_8k.yaml")) as f:
         assert chip_smoke.MODEL_CFG == yaml.safe_load(f)["model_cfg"]
+
+
+def test_chip_smoke_dptnet_model_cfg_equals_the_config_file():
+    import yaml
+
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    with open(os.path.join(REPO, "configs", "dptnet_2spks_8k.yaml")) as f:
+        assert chip_smoke.DPTNET_CFG == yaml.safe_load(f)["model_cfg"]
 
 
 def test_chip_smoke_without_a_card_fails_and_prints_no_result():

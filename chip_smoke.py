@@ -8,9 +8,12 @@ Drives the port's paths at full width, with random weights from seeded
 train step, and its int8 serving engine and evaluation (512 filters,
 bottleneck 128, hidden 512, 8 blocks x 3 repeats), then the FQSS-8bit
 DPTNet serving path (``configs/dptnet_2spks_8k.yaml``'s model: encoder 256,
-features 64, LSTM hidden 128, 6 dual-path layers, segments of 250); both
-with n_splitter = n_combiner = 2 and 8-bit weights and activations. It
-prints one line per phase and lets any failure propagate:
+features 64, LSTM hidden 128, 6 dual-path layers, segments of 250), then the
+FQSS-8bit Sepformer serving path (``configs/sepformer_2spks_8k.yaml``'s
+model: 256 filters, 8 heads, 2 dual-path blocks of 8 + 8 transformer layers,
+feed-forward 1024, chunks of 250); all with n_splitter = n_combiner = 2 and
+8-bit weights and activations. It prints one line per phase and lets any
+failure propagate:
 
 0. device: the card's name and power limit (nvidia-smi); TF32 off.
 1. build: compile ``fqss_tpu_torch/csrc/*.cu`` with nvcc, one process per source.
@@ -69,8 +72,9 @@ prints one line per phase and lets any failure propagate:
 18. the full-width DPTNet from ``create_pretrained_model``, ranges from the
     config's 50-step observer window (on 2 x 4 s), one forward of 8 x 4 s:
     output [8, 2, 32000], finite; the launch counters rise by the quantizer
-    modules that run (all but the attention's two no-op sites of each layer)
-    and K7 by 12, K6 by 0.
+    modules that run (all but the attention's two no-op sites of each layer,
+    and its head quantizer, whose grid K8 applies), K7 by 12, K6 by 0 and
+    K8 (the fused attention) by 12.
 19. card vs CPU on the same weights (1 x 1 s): SNR >= 20 dB per output.
 20. the folded DPTNet: bitwise equal to the fake-quant forward, no
     weight-kernel launch.
@@ -85,6 +89,35 @@ prints one line per phase and lets any failure propagate:
     >= 20 dB per output.
 23. throughput of the DPTNet engines (fake_quant, folded, int8 f32 and bf16)
     at 8 x 4 s.
+24. the fused attention kernel (K8) vs its plain version on the card, at the
+    Sepformer's intra- and inter-chunk shapes, DPTNet's row and column shapes
+    (all recomputed from the models) and at BH 3 x Lq 37 x Lk 53 x d 24, the
+    first query of every head planted 100x (logits far past expf's range):
+    float heads within ATTN_REL_TOL of their magnitude; on the head grid
+    within one step, at most ATTN_GRID_SHARE a step apart, and each equal to
+    its own float head put through the plain grid; how far a core with K and
+    V swapped, or one without the max subtraction, reads; the backward
+    through the autograd.Function equal to the plain composition's gradient;
+    CUDA-event times of the kernel, the plain version (median of 7) and
+    ``F.scaled_dot_product_attention`` + K1 (the library call), with the bound.
+25. the full-width Sepformer from ``create_pretrained_model``, ranges from the
+    config's 50-step observer window on 2 x 4 s, one forward of 8 x 4 s:
+    output [8, 2, 32000], finite; the launch counters rise by the quantizer
+    modules that run and K8 by 32.
+26. card vs CPU on the same weights (1 x 1 s): SNR >= SEP_CARD_VS_CPU_DB per
+    output; the float model on the same weights >= SEP_FLOAT_CARD_VS_CPU_DB.
+27. the folded Sepformer: bitwise equal to the fake-quant forward, no
+    weight-kernel launch (the trained residual decoder included).
+28. three 20 s requests through ``fqss_tpu_torch.infer`` (folded, OLA) with
+    ``configs/sepformer_2spks_8k.yaml``'s ``model_cfg``.
+29. K4 bitwise against its plain version at the Sepformer engine's seven
+    shapes and epilogues (the in-projection with its three output grids, the
+    end conv with ReLU); the Sepformer int8 engine, float32 and bfloat16
+    operands, 8 x 4 s: K4 launches = 4 per transformer layer + 3 (131), no
+    other launch; output against phase 25's at the fake-quant forward's floor
+    (phase 26) with phase 13's rule; card vs CPU at 1 x 1 s >= 20 dB.
+30. throughput of the Sepformer engines (fake_quant, folded, int8 f32 and
+    bf16) at 8 x 4 s.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -104,16 +137,19 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from fqss_tpu_torch import infer, val
 from fqss_tpu_torch.data.synthetic import synth_batch
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
 from fqss_tpu_torch.models.dptnet import DPTNet, split_segments
-from fqss_tpu_torch.models.factory import create_model_and_teacher, create_pretrained_model
+from fqss_tpu_torch.models.sepformer import Sepformer, TransformerLayer
+from fqss_tpu_torch.models.factory import create_model, create_model_and_teacher, create_pretrained_model
 from fqss_tpu_torch.nn.attention import QMultiheadAttention
 from fqss_tpu_torch.nn.layers import QConv1d
 from fqss_tpu_torch.nn.lstm import QLSTM
 from fqss_tpu_torch.ops import _build
+from fqss_tpu_torch.ops import attention as k8
 from fqss_tpu_torch.ops import fake_quant as fq
 from fqss_tpu_torch.ops import int8_matmul as im
 from fqss_tpu_torch.ops import lstm as lk
@@ -190,6 +226,8 @@ INT8_ROWS = BATCH * ((SEG - 16) // 8 + 1)  # M of the engine's 1x1 convs: 32 x 1
 # (K, N, launches per forward) of the engine's 1x1 convs: bottleneck + 24 res + 24 skip, 24 conv_in, the mask.
 INT8_SHAPES = ((512, 128, 49), (128, 512, 24), (128, 1024, 1))
 INT8_TIE_DELTA, INT8_TIE_MN = 2.0**-6, -2.0  # the out grid of phase 12's planted ties
+# Three output grids of an attention in-projection's Q, K and V thirds (phases 22, 29): the first carries the ties.
+QKV_GRIDS = ([INT8_TIE_DELTA, 0.013, 2.0**-5], [INT8_TIE_MN, -2.5, -0.25])
 # The DPTNet slice (phases 17-23): configs/dptnet_2spks_8k.yaml's model_cfg, written out as MODEL_CFG is, at
 # the JAX package's DPTNet serving shape (BENCH_models_r05.json): 8 x 4 s at 8 kHz.
 DPTNET_CFG = {
@@ -215,6 +253,34 @@ LSTM_PLAIN_REPS = 7  # the plain recurrences' time is the median of this many ca
 # The DPTNet int8 engine card vs CPU (phase 22): its LSTMs, attention and norms are float32 sums, which flip
 # rounding ties between devices as the fake-quant forward's do (phase 19), so it is held to phase 19's bound.
 DPT_INT8_CARD_VS_CPU_DB = 20.0
+# The Sepformer slice (phases 24-30): configs/sepformer_2spks_8k.yaml's model_cfg, at the JAX package's Sepformer
+# serving shape (BENCH_models_r05.json): 8 x 4 s at 8 kHz, ranges from the config's 50-step observer window.
+SEPFORMER_CFG = {
+    "name": "Sepformer",
+    "model_path": None,
+    "n_src": 2,
+    "kernel_size": 16,
+    "stride": 8,
+    # the ConvTasNet's quantization; the Sepformer's YAML leaves in_act_n_bits at its default (in_quant is off)
+    "quantization": {k: v for k, v in MODEL_CFG["quantization"].items() if k != "in_act_n_bits"},
+}
+SEP_OBSERVE_STEPS = 50
+SEP_BATCH, SEP_SEG = 8, 32000
+# K8 against its plain version (phase 24). The kernel sums the products in another order than cuBLAS and takes
+# the softmax online (the accumulator rescaled as the running max grows), so its float heads differ from the plain
+# version's by float32 rounding, about 1e-6 of their largest magnitude (phase 24 prints it); a core with K and V
+# swapped reads ~1, one without the max subtraction NaN. A head that close can still cross a rounding tie of the
+# head grid, which moves it one step: ATTN_GRID_SHARE bounds how many do.
+ATTN_REL_TOL = 1e-5
+ATTN_GRID_SHARE = 1e-3
+ATTN_ODD = (3, 37, 53, 24)  # BH, Lq, Lk, d: ragged tiles on every axis, a d the TPU kernel's gate refuses
+ATTN_PLANT = 100.0  # the first query of every head scaled by this: its logits overflow expf without the max
+ATTN_PLAIN_REPS = 7
+# The Sepformer card vs CPU (phase 26): the bound of every other model's phase (ConvTasNet 27.7/28.0 dB, DPTNet
+# 25.4/27.1 dB on an H100); the float model on the same weights, whose differences are float32 sums alone.
+SEP_CARD_VS_CPU_DB = 20.0
+SEP_FLOAT_CARD_VS_CPU_DB = 100.0
+SEP_INT8_CARD_VS_CPU_DB = 20.0  # the engine's float attention and norms flip ties as the fake-quant forward's do
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8 and float32 rates.
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1.979e15, 67e12
 
@@ -828,19 +894,24 @@ def build_served_dptnet(dev, mix: np.ndarray, steps: int = DPT_OBSERVE_STEPS) ->
 
 
 def all_launches() -> dict:
-    return {**fq.LAUNCHES, **lk.LAUNCHES, **im.LAUNCHES}
+    return {**fq.LAUNCHES, **lk.LAUNCHES, **im.LAUNCHES, **k8.LAUNCHES}
 
 
 def reset_all_launches() -> None:
-    for module in (fq, lk, im):
+    for module in (fq, lk, im, k8):
         module.reset_launches()
+
+
+def no_launches(**counts) -> dict:
+    """The launch counters all at 0 but ``counts``."""
+    return {**{k: 0 for k in all_launches()}, **counts}
 
 
 def dptnet_int8_sites(model: DPTNet) -> int:
     """The DPTNet int8 engine's K4 launches: BN, out_conv, the two gates, the mask, and in every dual-path layer
-    the out-projection and, but for row_0 (off the grid), the in-projection's three thirds."""
+    the out-projection and, but for row_0 (off the grid), the in-projection."""
     layers = 2 * model.layer
-    return 5 + layers + 3 * (layers - 1)
+    return 5 + layers + (layers - 1)
 
 
 def check_int8_at_dptnet_shapes(dev, dpt: DPTNet, shapes) -> None:
@@ -849,15 +920,16 @@ def check_int8_at_dptnet_shapes(dev, dpt: DPTNet, shapes) -> None:
     gen = torch.Generator(device=dev).manual_seed(22)
     frames = DPT_SEG - dpt.kernel_size + 1
     n, e, spk = dpt.feature_dim, dpt.enc_dim, dpt.n_srcs
-    cases = [(DPT_BATCH * frames, e, n, "prelu", 1.0, "BN")]
+    one = (INT8_TIE_DELTA, INT8_TIE_MN)
+    cases = [(DPT_BATCH * frames, e, n, "prelu", 1.0, one, "BN")]
     for side, T, B, _ in shapes:
-        cases += [(T * B, n, n, "prelu", 1.0, f"{side} in-projection third and out-projection")]
-    cases += [(shapes[0][1] * shapes[0][2], n, spk * n, "prelu", 1.0, "out_conv"),
-              (DPT_BATCH * spk * frames, n, n, "tanh", 1.0, "output"),
-              (DPT_BATCH * spk * frames, n, n, "sigmoid", 1.0, "output_gate"),
-              (DPT_BATCH * spk * frames, n, e, "prelu", 0.0, "mask")]
-    args = (INT8_TIE_DELTA, INT8_TIE_MN)
-    for m, k, n_out, nl, alpha, what in cases:
+        cases += [(T * B, n, 3 * n, "prelu", 1.0, QKV_GRIDS, f"{side} in-projection (three output grids)"),
+                  (T * B, n, n, "prelu", 1.0, one, f"{side} out-projection")]
+    cases += [(shapes[0][1] * shapes[0][2], n, spk * n, "prelu", 1.0, one, "out_conv"),
+              (DPT_BATCH * spk * frames, n, n, "tanh", 1.0, one, "output"),
+              (DPT_BATCH * spk * frames, n, n, "sigmoid", 1.0, one, "output_gate"),
+              (DPT_BATCH * spk * frames, n, e, "prelu", 0.0, one, "mask")]
+    for m, k, n_out, nl, alpha, args, what in cases:
         xs, w, scale, corr = int8_case(dev, m, k, n_out, gen)
         if nl != "prelu":  # products spread over the nonlinearity's working range, not only its saturated ends
             scale = scale * 0.05
@@ -870,54 +942,50 @@ def check_int8_at_dptnet_shapes(dev, dpt: DPTNet, shapes) -> None:
         del xs, w
 
 
-def dptnet_int8_at_full_width(dpt: DPTNet, cpu_dpt: DPTNet, x: torch.Tensor, y: torch.Tensor,
-                              floor: tuple[float, float]) -> dict:
-    """Phase 22: the DPTNet int8 engines against the fake-quant forward ``y``; returns them by compute dtype."""
-    sites, lsb, layers = dptnet_int8_sites(dpt), out_step(dpt), 2 * dpt.layer
-    want = {"act": layers, "weight": 0, "act_bwd": 0, "weight_bwd": 0, "lstm": 0, "bilstm": layers,
-            "int8_mm": sites}
-    engines = {}
+def int8_engines_vs_fake_quant(phase: int, name: str, model, cpu_model, x: torch.Tensor, y: torch.Tensor,
+                               floor: tuple[float, float], want: dict, card_vs_cpu_db: float) -> dict:
+    """The int8 engines of ``model`` (float32, bfloat16 float products) against its fake-quant forward ``y``:
+    launches ``want``, phase 13's floor rule, card vs CPU at 1 x 1 s; returns the engines by compute dtype."""
+    lsb, engines = out_step(model), {}
     for dtype, (snr_margin, mean_factor) in INT8_FLOOR.items():
-        engine = engines[dtype] = make_int8_engine(dpt, compute_dtype=dtype)
+        engine = engines[dtype] = make_int8_engine(model, compute_dtype=dtype)
         reset_all_launches()
         y8 = engine(x)
         torch.cuda.synchronize()
         got = all_launches()
         if got != want:
-            raise AssertionError(f"DPTNet int8 engine ({dtype}) launches {got} != {want}")
+            raise AssertionError(f"{name} int8 engine ({dtype}) launches {got} != {want}")
         if y8.shape != y.shape or not torch.isfinite(y8).all():
-            raise AssertionError(f"DPTNet int8 engine ({dtype}) gave shape {tuple(y8.shape)}, "
+            raise AssertionError(f"{name} int8 engine ({dtype}) gave shape {tuple(y8.shape)}, "
                                  f"finite={bool(torch.isfinite(y8).all())}")
         diff = (y8 - y).abs()
         snr, mean_lsb = snr_db(y, y8), diff.mean().item() / lsb
         snr_min, mean_max = floor[0] - snr_margin, floor[1] * mean_factor
         if snr.min().item() < snr_min or mean_lsb > mean_max:
-            raise AssertionError(f"DPTNet int8 engine ({dtype}) vs fake-quant: SNR {snr.min().item():.2f} dB "
+            raise AssertionError(f"{name} int8 engine ({dtype}) vs fake-quant: SNR {snr.min().item():.2f} dB "
                                  f"(minimum {snr_min:.2f}), mean {mean_lsb:.3f} output steps (maximum {mean_max:.3f})")
-        log(f"[22] DPTNet int8 engine ({dtype} float products) {tuple(x.shape)} -> {tuple(y8.shape)}, finite; "
-            f"launches int8_mm={sites} (= its int8 products), bilstm={layers}, act={layers} (the LSTMs' output "
-            f"quantizers), weight 0; vs fake-quant forward SNR {snr.min().item():.2f}-{snr.max().item():.2f} dB "
-            f"(>= {snr_min:.2f}), mean {mean_lsb:.4f} output steps (<= {mean_max:.3f}), max "
-            f"{diff.max().item() / lsb:.2f}")
+        log(f"[{phase}] {name} int8 engine ({dtype} float products) {tuple(x.shape)} -> {tuple(y8.shape)}, finite; "
+            f"launches {', '.join(f'{k}={v}' for k, v in got.items() if v)}, all others 0; vs fake-quant forward SNR "
+            f"{snr.min().item():.2f}-{snr.max().item():.2f} dB (>= {snr_min:.2f}), mean {mean_lsb:.4f} output steps "
+            f"(<= {mean_max:.3f}), max {diff.max().item() / lsb:.2f}")
         del y8, diff
     x1 = x[:1, :SR]
     for dtype, engine in engines.items():
         y_card = engine(x1).cpu()
-        y_cpu = make_int8_engine(cpu_dpt, compute_dtype=dtype)(x1.cpu())
+        y_cpu = make_int8_engine(cpu_model, compute_dtype=dtype)(x1.cpu())
         snr = snr_db(y_cpu, y_card)
-        if not bool((snr >= DPT_INT8_CARD_VS_CPU_DB).all()):
-            raise AssertionError(f"DPTNet int8 engine ({dtype}) card vs CPU SNR {snr.tolist()} dB < "
-                                 f"{DPT_INT8_CARD_VS_CPU_DB}")
-        log(f"[22] DPTNet int8 engine ({dtype}) card vs CPU at 1 x {SR}: SNR "
-            f"{[round(v, 2) for v in snr.flatten().tolist()]} dB (>= {DPT_INT8_CARD_VS_CPU_DB}), "
+        if not bool((snr >= card_vs_cpu_db).all()):
+            raise AssertionError(f"{name} int8 engine ({dtype}) card vs CPU SNR {snr.tolist()} dB < {card_vs_cpu_db}")
+        log(f"[{phase}] {name} int8 engine ({dtype}) card vs CPU at 1 x {SR}: SNR "
+            f"{[round(v, 2) for v in snr.flatten().tolist()]} dB (>= {card_vs_cpu_db}), "
             f"{(y_card != y_cpu).float().mean().item():.4f} of samples differ, mean "
             f"{(y_card - y_cpu).abs().mean().item() / lsb:.4f} output steps")
     return engines
 
 
-def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict]:
+def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
     """Phases 17-23, the DPTNet serving path. Returns (K6 results, K7 results, the launches of phase 18's
-    forward)."""
+    forward, its attention shapes for phase 24)."""
     dmix, _ = synth_batch(np.random.default_rng(18), DPT_BATCH, 2, DPT_SEG)
     dpt = build_served_dptnet(dev, dmix[:2])
     shapes = dpt_lstm_shapes(DPT_BATCH, DPT_SEG, dpt)
@@ -926,7 +994,8 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict]:
 
     # 18. the full-width forward
     counts = count_quantizers(dpt.modules())
-    noop = 2 * sum(isinstance(m, QMultiheadAttention) for m in dpt.modules())  # attn and softmax sites, skipped
+    n_mha = sum(isinstance(m, QMultiheadAttention) for m in dpt.modules())
+    noop = 2 * n_mha  # attn and softmax sites, skipped
     n_params = sum(p.numel() for n, p in dpt.named_parameters() if "fake_quantize" not in n and ".wq_" not in n)
     x = torch.from_numpy(dmix).to(dev)
     reset_all_launches()
@@ -936,16 +1005,17 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict]:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = all_launches()
-    want = {"act": counts["act"] - noop, "weight": counts["weight"], "act_bwd": 0, "weight_bwd": 0, "lstm": 0,
-            "bilstm": 2 * dpt.layer, "int8_mm": 0}
+    want = no_launches(act=counts["act"] - noop - n_mha, weight=counts["weight"], bilstm=2 * dpt.layer,
+                       attention=n_mha)
     if tuple(y.shape) != (DPT_BATCH, 2, DPT_SEG) or not torch.isfinite(y).all():
         raise AssertionError(f"DPTNet forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
     if launches != want:
         raise AssertionError(f"DPTNet launches {launches} != {want}")
     log(f"[18] full-width DPTNet {tuple(x.shape)} -> {tuple(y.shape)}, finite, {n_params} parameters, LSTMs "
         f"{', '.join(f'{s} T {T} x B {B}' for s, T, B, _ in shapes)}, first call {first_s:.2f} s; launches "
-        f"act={launches['act']} (= {counts['act']} act quantizers - {noop} no-op attention sites) "
-        f"weight={launches['weight']} (= weight quantizers) bilstm={launches['bilstm']} lstm=0")
+        f"act={launches['act']} (= {counts['act']} act quantizers - {noop} no-op attention sites - {n_mha} head "
+        f"grids in K8's epilogue) weight={launches['weight']} (= weight quantizers) bilstm={launches['bilstm']} "
+        f"lstm=0 attention={launches['attention']}")
 
     # 19. card vs CPU on the same weights
     cpu_dpt = create_pretrained_model(DPTNET_CFG, observer=False)
@@ -972,7 +1042,7 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict]:
     if not torch.equal(y_folded, y):
         raise AssertionError(f"folded DPTNet != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
     log(f"[20] folded DPTNet: bitwise equal to fake-quant; act launches {fq.LAUNCHES['act']}, weight 0, "
-        f"bilstm {lk.LAUNCHES['bilstm']}")
+        f"bilstm {lk.LAUNCHES['bilstm']}, attention {k8.LAUNCHES['attention']}")
     del y_folded
     torch.cuda.empty_cache()
 
@@ -982,7 +1052,11 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict]:
 
     # 22. K4 at the int8 engine's shapes, then the engine (launch counts set to 0 inside, read after each forward)
     check_int8_at_dptnet_shapes(dev, dpt, shapes)
-    engines = dptnet_int8_at_full_width(dpt, cpu_dpt, x, y, floor)
+    # K4 = its int8 products; K7 and K1 = the LSTMs and their output quantizers, run as the model runs them
+    layers = 2 * dpt.layer
+    engines = int8_engines_vs_fake_quant(22, "DPTNet", dpt, cpu_dpt, x, y, floor,
+                                         no_launches(act=layers, bilstm=layers, int8_mm=dptnet_int8_sites(dpt)),
+                                         DPT_INT8_CARD_VS_CPU_DB)
 
     # 23. throughput
     audio_s = DPT_BATCH * DPT_SEG / SR
@@ -991,7 +1065,240 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict]:
             ms = cuda_ms(lambda: fn(x), 3)
         log(f"[23] DPTNet throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
             f"{DPT_BATCH} x {DPT_SEG // SR} s) on {smi}")
-    return k6, k7, launches
+    heads, d = 4, dpt.feature_dim // 4  # the DPT's layers have 4 heads
+    attn_shapes = [(f"DPTNet {side}", B * heads, T, T, d, dpt.layer, False) for side, T, B, _ in shapes]
+    return k6, k7, launches, attn_shapes
+
+
+def sepformer_attention_shapes(sep: Sepformer) -> list[tuple]:
+    """(name, BH, Lq, Lk, d, launches per forward, on the Sepformer's path) of its intra- and inter-chunk
+    attention at SEP_BATCH x SEP_SEG."""
+    frames = (SEP_SEG - sep.encoder.conv.weight.shape[-1]) // sep.encoder.conv.stride + 1
+    segs, _ = split_segments(torch.empty(1, frames, 1), sep.masker.chunk_size)
+    k, s = segs.shape[1], segs.shape[2]
+    h, d = sep.n_heads, sep.n_filters // sep.n_heads
+    per_forward = len(sep.masker.blocks) * len(sep.masker.blocks[0].intra_transformer_block.layers)
+    return [("Sepformer intra", SEP_BATCH * s * h, k, k, d, per_forward, True),
+            ("Sepformer inter", SEP_BATCH * k * h, s, s, d, per_forward, True)]
+
+
+def attention_bound(bh: int, lq: int, lk: int, d: int) -> tuple[int, int]:
+    """Bytes (q, k, v in, heads out, float32) and operations (the two products) of a launch."""
+    return 4 * (2 * bh * lq * d + 2 * bh * lk * d), 4 * bh * lq * lk * d
+
+
+def check_attention_kernel(dev, shapes: list[tuple]) -> dict:
+    """Phase 24: K8 against its plain version at ``shapes`` and ATTN_ODD; its times per Sepformer forward."""
+    gen = torch.Generator(device=dev).manual_seed(24)
+    results = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    moved = ops = 0
+    for name, bh, lq, lk, d, per_forward, on_path in [*shapes, ("odd", *ATTN_ODD, 0, False)]:
+        qs = torch.randn(bh, lq, d, device=dev, generator=gen) * 0.3
+        qs[:, 0] *= ATTN_PLANT
+        k, v = (torch.randn(bh, lk, d, device=dev, generator=gen) for _ in range(2))
+        with torch.no_grad():
+            ref = k8.fused_attention_ref(qs, k, v, quantize=False)
+            mn, mx = ref.min().reshape(1), ref.max().reshape(1)
+            heads = k8.fused_attention(qs, k, v, quantize=False)
+            got = k8.fused_attention(qs, k, v, mn, mx, 8)
+            plain = k8.fused_attention_ref(qs, k, v, mn, mx, 8)
+            swapped = (k8.fused_attention_ref(qs, v, k, quantize=False) - ref).abs().max().item()
+            p = torch.exp(torch.matmul(qs, k.transpose(-1, -2)))  # no max subtracted
+            no_max = (torch.matmul(p, v) / p.sum(-1, keepdim=True) - ref).abs().max().item()
+            del p
+        torch.cuda.synchronize()
+        scale, err = ref.abs().max().item(), (heads - ref).abs().max().item()
+        step = (mx - mn).item() / 255
+        diff = (got - plain).abs()
+        share = (diff > 0.5 * step).float().mean().item()
+        if not err <= ATTN_REL_TOL * scale:
+            raise AssertionError(f"K8 {name} [{bh},{lq},{lk},{d}]: float heads {err:.3g} from the plain version's, "
+                                 f"more than {ATTN_REL_TOL} x {scale:.3g}")
+        if not torch.equal(got, fq.act_fake_quant_ref(heads, mn, mx, 8)):
+            raise AssertionError(f"K8 {name}: the epilogue is not the plain grid of the kernel's own float heads")
+        if diff.max().item() > step * (1 + 1e-4) or share > ATTN_GRID_SHARE:
+            raise AssertionError(f"K8 {name}: quantized heads {diff.max().item() / step:.3f} steps from the plain "
+                                 f"version's, {share:.2e} of them a step apart (at most {ATTN_GRID_SHARE})")
+        results["max_abs_err"] = max(results["max_abs_err"], err)
+        line = (f"[24] K8 {name} BH {bh} x Lq {lq} x Lk {lk} x d {d}: float heads max |kernel - plain| {err:.3g} "
+                f"({err / scale:.2e} of max |heads| {scale:.3g}, <= {ATTN_REL_TOL}); on the grid max "
+                f"{diff.max().item() / step:.0f} step, {share:.2e} of values a step apart (<= {ATTN_GRID_SHARE}), "
+                f"each its own float head on the plain grid; K and V swapped would read {swapped:.3g}, no max "
+                f"subtracted {no_max:.3g}")
+        if name in ("odd", "Sepformer inter"):  # the backward: the plain composition's gradient at the saved inputs
+            g = torch.randn_like(qs)
+            grads = []
+            for fn in (k8.fused_attention, k8.fused_attention_ref):
+                t = [a.clone().requires_grad_(True) for a in (qs, k, v, mn, mx)]
+                (fn(*t, 8) * g).sum().backward()
+                grads.append([a.grad for a in t])
+            if not all(torch.equal(a, b) for a, b in zip(*grads)):
+                raise AssertionError(f"K8 {name}: the autograd.Function's gradients differ from the plain version's")
+            line += "; backward equal to the plain composition's gradient"
+        if name == "odd":
+            log(line)
+            continue
+        ms = cuda_ms(lambda: k8.fused_attention(qs, k, v, mn, mx, 8), 10)
+        plain_ms, lo, hi = median_ms(lambda: k8.fused_attention_ref(qs, k, v, mn, mx, 8), ATTN_PLAIN_REPS)
+        lib_ms = cuda_ms(lambda: fq.act_fake_quant(F.scaled_dot_product_attention(qs, k, v, scale=1.0), mn, mx, 8),
+                         10)
+        b = bound_of(*attention_bound(bh, lq, lk, d), F32_OPS_S)
+        log(f"{line}; kernel {ms:.4f} ms ({b['bound_ms'] / ms:.1%} of its {b['bound_ms']:.4f} ms bound by "
+            f"{b['bound_by']}), plain {plain_ms:.4f} ms (median of {ATTN_PLAIN_REPS}, {lo:.4f}-{hi:.4f}), "
+            f"scaled_dot_product_attention + K1 {lib_ms:.4f} ms; {per_forward} launches a forward")
+        if on_path:
+            results["ms"] += per_forward * ms
+            results["plain_ms"] += per_forward * plain_ms
+            results["library_ms"] += per_forward * lib_ms
+            b_moved, b_ops = attention_bound(bh, lq, lk, d)
+            moved, ops = moved + per_forward * b_moved, ops + per_forward * b_ops
+        del qs, k, v, ref, heads, got, plain, diff
+        torch.cuda.empty_cache()
+    results.update(bound_of(moved, ops, F32_OPS_S))
+    log(f"[24] one Sepformer forward's K8 launches: {results['ms']:.3f} ms against a {results['bound_ms']:.3f} ms "
+        f"bound by {results['bound_by']} ({results['bound_ms'] / results['ms']:.1%}), plain {results['plain_ms']:.2f} "
+        f"ms, scaled_dot_product_attention + K1 {results['library_ms']:.3f} ms")
+    return results
+
+
+def build_served_sepformer(dev, mix: np.ndarray, steps: int = SEP_OBSERVE_STEPS) -> Sepformer:
+    """The full-width Sepformer from ``create_pretrained_model``; ranges from ``steps`` observer steps on ``mix``."""
+    cfg = {**SEPFORMER_CFG, "quantization": {**SEPFORMER_CFG["quantization"], "max_observations": steps}}
+    observer = create_pretrained_model(cfg, observer=True, device=dev).train()
+    x = torch.from_numpy(mix).to(dev)
+    with torch.no_grad():
+        for _ in range(steps):
+            observer(x)
+    served = create_pretrained_model(SEPFORMER_CFG, observer=False, device=dev)
+    served.load_state_dict(observer.state_dict())
+    return served
+
+
+def sepformer_int8_sites(model: Sepformer) -> int:
+    """The Sepformer int8 engine's K4 launches: four a transformer layer (the in-projection in one, its
+    out-projection, the two feed-forward linears) and the masker's bottleneck, Conv2d and end conv."""
+    return 4 * sum(isinstance(m, TransformerLayer) for m in model.modules()) + 3
+
+
+def check_int8_at_sepformer_shapes(dev, sep: Sepformer) -> None:
+    """Phase 29: K4 against its plain version, bitwise, at the Sepformer engine's seven shapes and epilogues."""
+    gen = torch.Generator(device=dev).manual_seed(29)
+    frames = (SEP_SEG - sep.encoder.conv.weight.shape[-1]) // sep.encoder.conv.stride + 1
+    (_, _, k, *_), (_, _, s, *_) = sepformer_attention_shapes(sep)
+    tokens, f = SEP_BATCH * k * s, sep.n_filters
+    n_ffn = sep.masker.blocks[0].intra_transformer_block.layers[0].ffn_in.weight.shape[0]
+    cases = [(tokens, f, 3 * f, 1.0, QKV_GRIDS, "in-projection (three output grids)"),
+             (tokens, f, f, 1.0, None, "out-projection"), (tokens, f, n_ffn, 1.0, None, "ffn_in"),
+             (tokens, n_ffn, f, 1.0, None, "ffn_out"), (SEP_BATCH * frames, f, f, 1.0, None, "bottleneck"),
+             (tokens, f, sep.n_srcs * f, 1.0, None, "conv2d"),
+             (SEP_BATCH * sep.n_srcs * frames, f, f, 0.0, None, "end_conv (ReLU)")]
+    for m, k_in, n_out, alpha, grids, what in cases:
+        xs, w, scale, corr = int8_case(dev, m, k_in, n_out, gen)
+        args = (alpha, *(grids or (INT8_TIE_DELTA, INT8_TIE_MN)))
+        compare(f"int8_matmul_requant {what} [{m},{k_in}]x[{n_out},{k_in}]",
+                im.int8_matmul_requant(xs, w, scale, corr, *args),
+                im.int8_matmul_requant_ref(xs, w, scale, corr, *args))
+        ms = cuda_ms(lambda: im.int8_matmul_requant(xs, w, scale, corr, *args), 10)
+        log(f"[29] int8_matmul_requant at the Sepformer engine's {what} [{m},{k_in}] x [{n_out},{k_in}], alpha "
+            f"{alpha}: bitwise equal to its plain version; {ms:.4f} ms")
+        del xs, w
+
+
+def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, dict]:
+    """Phases 24-30: K8 at every attention shape, then the Sepformer serving path. Returns (K8 results, the
+    launches of phase 25's forward)."""
+    smix, _ = synth_batch(np.random.default_rng(25), SEP_BATCH, 2, SEP_SEG)
+    t0 = time.perf_counter()
+    sep = build_served_sepformer(dev, smix[:2])
+    calib_s = time.perf_counter() - t0
+    shapes = sepformer_attention_shapes(sep)
+    attn = check_attention_kernel(dev, [*shapes, *dpt_attn_shapes])  # 24.
+    torch.cuda.empty_cache()
+
+    # 25. the full-width forward
+    counts = count_quantizers(sep.modules())
+    n_mha = sum(isinstance(m, QMultiheadAttention) for m in sep.modules())
+    n_params = sum(p.numel() for n, p in sep.named_parameters() if "fake_quantize" not in n)
+    x = torch.from_numpy(smix).to(dev)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = sep(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    # every act quantizer but the attention's two no-op sites and its head grid (in K8's epilogue)
+    want = no_launches(act=counts["act"] - 3 * n_mha, weight=counts["weight"], attention=n_mha)
+    if tuple(y.shape) != (SEP_BATCH, 2, SEP_SEG) or not torch.isfinite(y).all():
+        raise AssertionError(f"Sepformer forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
+    if launches != want:
+        raise AssertionError(f"Sepformer launches {launches} != {want}")
+    log(f"[25] full-width Sepformer {tuple(x.shape)} -> {tuple(y.shape)}, finite, {n_params} parameters, "
+        f"{', '.join(f'{n} BH {bh} x L {lq}' for n, bh, lq, *_ in shapes)}, d {shapes[0][4]}; ranges from "
+        f"{SEP_OBSERVE_STEPS} observer steps on 2 x {SEP_SEG // SR} s in {calib_s:.1f} s; first call {first_s:.2f} s; "
+        f"launches act={launches['act']} (= {counts['act']} act quantizers - {3 * n_mha} no-op sites and head grids of "
+        f"{n_mha} attentions) weight={launches['weight']} (= weight quantizers) attention={launches['attention']}")
+
+    # 26. card vs CPU on the same weights, quantized and float
+    cpu_sep = create_pretrained_model(SEPFORMER_CFG, observer=False)
+    cpu_sep.load_state_dict(sep.state_dict())
+    x1 = torch.from_numpy(smix[:1, :SR])
+    with torch.inference_mode():
+        y_card = sep(x1.to(dev)).cpu()
+        y_cpu = cpu_sep(x1)
+    snr = snr_db(y_cpu, y_card)
+    lsb = out_step(sep)
+    floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / lsb)
+    weights = {k: v for k, v in sep.state_dict().items() if "quantiz" not in k}
+    floats = []
+    for device in (dev, torch.device("cpu")):  # no quantizers: the float model on the same weights
+        m = create_model(SEPFORMER_CFG, QuantSpec(n_splitter=2, n_combiner=2, train_res_dec=True))
+        m.load_state_dict(weights)
+        with torch.inference_mode():
+            floats.append(m.to(device).eval()(x1.to(device)).cpu())
+    snr_float = snr_db(floats[1], floats[0])
+    log(f"[26] Sepformer card vs CPU at 1 x {SR}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} dB "
+        f"(>= {SEP_CARD_VS_CPU_DB}), {(y_card != y_cpu).float().mean().item():.4f} of samples differ, mean "
+        f"{floor[1]:.4f} output steps, output rms {y_cpu.pow(2).mean().sqrt().item() / lsb:.2f} steps; the float "
+        f"model on the same weights {[round(v, 2) for v in snr_float.flatten().tolist()]} dB "
+        f"(>= {SEP_FLOAT_CARD_VS_CPU_DB})")
+    if not bool((snr >= SEP_CARD_VS_CPU_DB).all()) or not bool((snr_float >= SEP_FLOAT_CARD_VS_CPU_DB).all()):
+        raise AssertionError(f"Sepformer card vs CPU SNR {snr.tolist()} dB (minimum {SEP_CARD_VS_CPU_DB}), float "
+                             f"{snr_float.tolist()} dB (minimum {SEP_FLOAT_CARD_VS_CPU_DB})")
+    del floats
+
+    # 27. the folded engine
+    folded = fold_quantized_weights(sep)
+    reset_all_launches()
+    with torch.inference_mode():
+        y_folded = folded(x)
+    torch.cuda.synchronize()
+    if fq.LAUNCHES["weight"] != 0 or k8.LAUNCHES["attention"] != n_mha:
+        raise AssertionError(f"the folded Sepformer launched {all_launches()}")
+    if not torch.equal(y_folded, y):
+        raise AssertionError(f"folded Sepformer != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
+    log(f"[27] folded Sepformer: bitwise equal to fake-quant; act launches {fq.LAUNCHES['act']}, weight 0 (the "
+        f"residual decoder folded too), attention {k8.LAUNCHES['attention']}")
+    del y_folded
+    torch.cuda.empty_cache()
+
+    # 28. requests through the infer entry
+    for i, sec in enumerate(serve_requests(dev, sep, SEPFORMER_CFG)):
+        log(f"[28] Sepformer request {i} (folded): 20 s mixture -> 2 sources of 20 s, {sec * 1000:.1f} ms")
+
+    # 29. K4 at the int8 engine's shapes, then the engine (launch counts set to 0 inside, read after each forward)
+    check_int8_at_sepformer_shapes(dev, sep)
+    engines = int8_engines_vs_fake_quant(29, "Sepformer", sep, cpu_sep, x, y, floor,
+                                         no_launches(int8_mm=sepformer_int8_sites(sep)), SEP_INT8_CARD_VS_CPU_DB)
+
+    # 30. throughput
+    audio_s = SEP_BATCH * SEP_SEG / SR
+    for name, fn in (("fake_quant", sep), ("folded", folded), *((f"int8 {d}", e) for d, e in engines.items())):
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: fn(x), 3)
+        log(f"[30] Sepformer throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
+            f"{SEP_BATCH} x {SEP_SEG // SR} s) on {smi}")
+    return attn, launches
 
 
 def main() -> None:
@@ -1123,7 +1430,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 17-23. the DPTNet serving path (launch counts set to 0 inside before each run they check)
-    k6, k7, dpt_launches = serve_dptnet(dev, smi)
+    k6, k7, dpt_launches, dpt_attn_shapes = serve_dptnet(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 24-30. K8 and the Sepformer serving path (launch counts set to 0 inside before each run they check)
+    attn, sep_launches = serve_sepformer(dev, smi, dpt_attn_shapes)
 
     source = "fqss_tpu_torch/csrc/fake_quant.cu"
     kernels = [
@@ -1148,6 +1459,11 @@ def main() -> None:
         # on its path (launches 0 in phase 18's forward; phase 17 checks and times it).
         dict(name="lstm_sequence", route="cuda", source="fqss_tpu_torch/csrc/lstm.cu",
              replaces="fqss_tpu/ops/pallas_lstm.py:54", launches=dpt_launches["lstm"], **k6),
+        # ms, plain_ms, bound_ms, library_ms: one Sepformer forward's 32 launches (16 intra-chunk, 16 inter-chunk);
+        # library_ms: F.scaled_dot_product_attention, then K1 for the head grid. launches: phase 25's forward
+        # (phase 18's DPTNet forward launched it 12 times).
+        dict(name="fused_attention", route="cuda", source="fqss_tpu_torch/csrc/attention.cu",
+             replaces="fqss_tpu/ops/pallas_attention.py:83", launches=sep_launches["attention"], **attn),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -64,14 +64,15 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "fake_quant.cuh"
+
 namespace {
+
+using fqss::clip;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int64_t kMaxBlocks = 4096;
-
-// clip(X, lo, hi) that keeps a NaN (fminf/fmaxf would drop it).
-__device__ __forceinline__ float clip(float X, float lo, float hi) { return X < lo ? lo : (X > hi ? hi : X); }
 
 // The clip's gradient mask (fqss_tpu/ops/pallas_qat.py:_tie_mask): 1 inside,
 // 0.5 exactly at a bound, 0 outside and for NaN.
@@ -107,11 +108,10 @@ __global__ void act_fake_quant_kernel(const float* __restrict__ x, const float* 
                                       int64_t n, int n_bits) {
   const float q = static_cast<float>((1 << n_bits) - 1);
   const float mn = __ldg(mn_ptr);
-  const float delta = __fdiv_rn(__fsub_rn(__ldg(mx_ptr), mn), q);
+  const float delta = fqss::act_grid_step(mn, __ldg(mx_ptr), q);
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
-    const float C = clip(rintf(__fdiv_rn(__fsub_rn(x[i], mn), delta)), 0.0f, q);
-    y[i] = __fadd_rn(__fmul_rn(delta, C), mn);
+    y[i] = fqss::act_grid_value(x[i], mn, delta, q);
   }
 }
 

@@ -7,8 +7,13 @@
 //                             acc = sum_k xs[m, k] * w[n, k]        (exact int32)
 //                             v   = float(acc) * scale[n] + corr[n]
 //                             v   = v >= 0 ? v : alpha * v          (PReLU; 1 = identity, 0 = ReLU)
-//                             X   = clip(rint((v - mn) / delta), 0, 255)
+//                             X   = clip(rint((v - mn_g) / delta_g), 0, 255)
 //                             out[m, n] = int8(X - 128)
+//                           where (delta_g, mn_g) is the output grid of
+//                           column n's group g = n / cols: one grid for all
+//                           N columns, or up to three (the Sepformer
+//                           engine's attention in-projection requantizes its
+//                           Q, K and V thirds to their own grids in one launch).
 //                           The epilogue's nonlinearity may instead be tanh or
 //                           the sigmoid 1 / (1 + exp(-v)) (nl = 1, 2): the
 //                           TPU kernel has only the PReLU, and the JAX
@@ -67,6 +72,18 @@ constexpr int kWarpN = 64;
 constexpr int kMi = kWarpM / 16;  // m16 tiles per warp
 constexpr int kNi = kWarpN / 8;   // n8 tiles per warp
 constexpr int kStride = kBK + 16;  // bytes per shared-memory row: 16-byte aligned, conflict-free
+constexpr int kMaxGrids = 3;
+
+// The output grids: column n is requantized to (delta[g], mn[g]) of its group g = n / cols, found by two
+// comparisons (no division in the epilogue).
+struct OutGrids {
+  float delta[kMaxGrids];
+  float mn[kMaxGrids];
+  int64_t cols;
+  __device__ __forceinline__ int group(int64_t n) const { return (n >= cols) + (n >= 2 * cols); }
+  __device__ __forceinline__ float delta_of(int g) const { return g == 0 ? delta[0] : (g == 1 ? delta[1] : delta[2]); }
+  __device__ __forceinline__ float mn_of(int g) const { return g == 0 ? mn[0] : (g == 1 ? mn[1] : mn[2]); }
+};
 
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
   asm volatile(
@@ -123,7 +140,7 @@ __device__ __forceinline__ int8_t requant(int acc, float scale, float corr, floa
 template <bool kVec, int kNl>
 __global__ void __launch_bounds__(kThreads) int8_mm_requant_kernel(
     const int8_t* __restrict__ xs, const int8_t* __restrict__ w, const float* __restrict__ scale,
-    const float* __restrict__ corr, float alpha, float delta, float mn, int8_t* __restrict__ out, int64_t M,
+    const float* __restrict__ corr, float alpha, OutGrids grids, int8_t* __restrict__ out, int64_t M,
     int64_t N, int64_t K, unsigned int n_tiles) {
   __shared__ __align__(16) int8_t As[kBM * kStride];
   __shared__ __align__(16) int8_t Bs[kBN * kStride];
@@ -184,6 +201,8 @@ __global__ void __launch_bounds__(kThreads) int8_mm_requant_kernel(
     const bool pair = col + 1 < N;
     const float s0 = scale[col], c0 = corr[col];
     const float s1 = pair ? scale[col + 1] : 0.0f, c1 = pair ? corr[col + 1] : 0.0f;
+    const int g0 = grids.group(col), g1 = grids.group(col + 1);
+    const float d0 = grids.delta_of(g0), z0 = grids.mn_of(g0), d1 = grids.delta_of(g1), z1 = grids.mn_of(g1);
 #pragma unroll
     for (int mi = 0; mi < kMi; ++mi) {
 #pragma unroll
@@ -191,11 +210,11 @@ __global__ void __launch_bounds__(kThreads) int8_mm_requant_kernel(
         const int64_t row = m0 + wm + mi * 16 + g + 8 * h;
         if (row >= M) continue;
         int8_t* o = out + row * N + col;
-        const int8_t q0 = requant<kNl>(acc[mi][ni][2 * h], s0, c0, alpha, delta, mn);
+        const int8_t q0 = requant<kNl>(acc[mi][ni][2 * h], s0, c0, alpha, d0, z0);
         if (!pair) {
           o[0] = q0;
         } else {
-          const int8_t q1 = requant<kNl>(acc[mi][ni][2 * h + 1], s1, c1, alpha, delta, mn);
+          const int8_t q1 = requant<kNl>(acc[mi][ni][2 * h + 1], s1, c1, alpha, d1, z1);
           if (N % 2 == 0) {
             *reinterpret_cast<char2*>(o) = make_char2(q0, q1);  // col is even: 2-byte aligned
           } else {
@@ -209,18 +228,18 @@ __global__ void __launch_bounds__(kThreads) int8_mm_requant_kernel(
 }
 
 template <bool kVec>
-void launch(const int8_t* xs, const int8_t* w, const float* scale, const float* corr, int nl, float alpha, float delta,
-            float mn, int8_t* out, int64_t M, int64_t N, int64_t K, unsigned int blocks, unsigned int n_tiles,
-            cudaStream_t st) {
+void launch(const int8_t* xs, const int8_t* w, const float* scale, const float* corr, int nl, float alpha,
+            const OutGrids& grids, int8_t* out, int64_t M, int64_t N, int64_t K, unsigned int blocks,
+            unsigned int n_tiles, cudaStream_t st) {
   if (nl == kTanh) {
-    int8_mm_requant_kernel<kVec, kTanh><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, delta, mn, out, M, N,
-                                                                     K, n_tiles);
+    int8_mm_requant_kernel<kVec, kTanh><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, grids, out, M, N, K,
+                                                                     n_tiles);
   } else if (nl == kSigmoid) {
-    int8_mm_requant_kernel<kVec, kSigmoid><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, delta, mn, out, M,
-                                                                        N, K, n_tiles);
+    int8_mm_requant_kernel<kVec, kSigmoid><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, grids, out, M, N,
+                                                                        K, n_tiles);
   } else {
-    int8_mm_requant_kernel<kVec, kPrelu><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, delta, mn, out, M, N,
-                                                                      K, n_tiles);
+    int8_mm_requant_kernel<kVec, kPrelu><<<blocks, kThreads, 0, st>>>(xs, w, scale, corr, alpha, grids, out, M, N, K,
+                                                                      n_tiles);
   }
 }
 
@@ -228,18 +247,22 @@ void launch(const int8_t* xs, const int8_t* w, const float* scale, const float* 
 
 // xs: [M, K] int8, w: [N, K] int8, scale and corr: [N] float32, out: [M, N] int8;
 // all contiguous on the current device. nl: 0 PReLU with slope alpha, 1 tanh,
-// 2 sigmoid. Returns the launch's CUDA error code.
+// 2 sigmoid. Output grid g = 0, 1, 2 is (delta_g, mn_g) and takes columns
+// [g cols, (g + 1) cols); cols = N for one grid. Returns the launch's CUDA error code.
 extern "C" int fqss_int8_matmul_requant(const int8_t* xs, const int8_t* w, const float* scale, const float* corr,
-                                        int nl, float alpha, float delta, float mn, int8_t* out, int64_t M,
-                                        int64_t N, int64_t K, void* stream) {
+                                        int nl, float alpha, float delta0, float mn0, float delta1, float mn1,
+                                        float delta2, float mn2, int64_t cols, int8_t* out, int64_t M, int64_t N,
+                                        int64_t K, void* stream) {
+  if (cols < 1 || (N + cols - 1) / cols > kMaxGrids) return static_cast<int>(cudaErrorInvalidValue);
+  const OutGrids grids{{delta0, delta1, delta2}, {mn0, mn1, mn2}, cols};
   const unsigned int n_tiles = static_cast<unsigned int>((N + kBN - 1) / kBN);
   const unsigned int blocks = n_tiles * static_cast<unsigned int>((M + kBM - 1) / kBM);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool vec = K % 16 == 0 && reinterpret_cast<uintptr_t>(xs) % 16 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0;
   if (vec) {
-    launch<true>(xs, w, scale, corr, nl, alpha, delta, mn, out, M, N, K, blocks, n_tiles, st);
+    launch<true>(xs, w, scale, corr, nl, alpha, grids, out, M, N, K, blocks, n_tiles, st);
   } else {
-    launch<false>(xs, w, scale, corr, nl, alpha, delta, mn, out, M, N, K, blocks, n_tiles, st);
+    launch<false>(xs, w, scale, corr, nl, alpha, grids, out, M, N, K, blocks, n_tiles, st);
   }
   return static_cast<int>(cudaGetLastError());
 }

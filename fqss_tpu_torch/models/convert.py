@@ -1,6 +1,7 @@
 """Bridge from the JAX package's variables to a port state dict.
 
-:func:`convtasnet_from_jax` and :func:`dptnet_from_jax` take the flax
+:func:`convtasnet_from_jax`, :func:`dptnet_from_jax` and
+:func:`sepformer_from_jax` take the flax
 variables of a ``fqss_tpu.models`` model (or of one of its layers) as nested
 dicts of numpy arrays — collections ``params``, ``qparams`` and ``qstats`` —
 and return the ``state_dict`` of the matching ``fqss_tpu_torch`` module.
@@ -9,7 +10,10 @@ Scope names carry over unchanged; what changes is the layout:
 * conv kernels ``(k, Cin/g, Cout)`` -> ``[Cout, Cin/g, k]``, and their
   weight ranges ``(1, 1, C)`` -> ``[C, 1, 1]``;
 * transposed-conv kernels ``(k, Cin, Cout)`` -> ``[Cin, Cout, k]``, and
-  their ranges ``(1, 1, C)`` -> ``[1, C, 1]``;
+  their ranges ``(1, 1, C)`` -> ``[1, C, 1]``: a decoder's ``kernel``, and
+  the combiner's trained ``residual_decoder_kernel`` (renamed
+  ``residual_decoder_weight``) with its ``weight_fake_quantize_dec``, which
+  live in the scope of the residual block's encoder conv;
 * dense kernels ``(in, out)`` -> ``[out, in]``, and their ranges ``(1, C)``
   -> ``[C, 1]``: ``kernel``, and the attention's ``in_proj_kernel`` /
   ``out_proj_kernel`` and the Linear decoder's ``residual_encoder_kernel``,
@@ -30,6 +34,8 @@ import torch
 _CONV = (2, 1, 0)
 _CONV_TRANSPOSE = (1, 2, 0)
 _DENSE_KERNELS = ("in_proj_kernel", "out_proj_kernel", "residual_encoder_kernel")
+_TRANSPOSED_CONV = {"residual_decoder_kernel": "residual_decoder_weight"}  # named apart from `kernel`
+_TRANSPOSED_CONV_QUANTIZERS = ("weight_fake_quantize_dec",)
 
 
 def _leaves(tree: Mapping, path: tuple[str, ...] = ()) -> Iterator[tuple[tuple[str, ...], np.ndarray]]:
@@ -50,6 +56,8 @@ def _from_jax(variables: Mapping, transposed_conv_scopes: tuple[tuple[str, ...],
         if name == "kernel":
             v = v.transpose(conv_order(scope)) if v.ndim == 3 else v.T
             name = "weight"
+        elif name in _TRANSPOSED_CONV:
+            v, name = v.transpose(_CONV_TRANSPOSE), _TRANSPOSED_CONV[name]
         elif name in _DENSE_KERNELS:
             v = v.T
             name = name.replace("_kernel", "_weight")
@@ -60,7 +68,7 @@ def _from_jax(variables: Mapping, transposed_conv_scopes: tuple[tuple[str, ...],
         for path, v in _leaves(variables.get(collection, {})):
             *scope, quantizer, name = path
             if quantizer.startswith("weight_fake_quantize") and v.ndim == 3:
-                v = v.transpose(conv_order(scope))
+                v = v.transpose(_CONV_TRANSPOSE if quantizer in _TRANSPOSED_CONV_QUANTIZERS else conv_order(scope))
             elif quantizer.startswith("weight_fake_quantize") and v.ndim == 2:
                 v = v.T
             sd[".".join([*scope, quantizer, name])] = torch.from_numpy(np.array(v))
@@ -79,3 +87,11 @@ def convtasnet_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
 def dptnet_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     """State dict for the port's module from JAX DPTNet variables (or one of its layers')."""
     return _from_jax(variables, ())
+
+
+def sepformer_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """State dict for the port's module from JAX Sepformer variables (or one of its layers').
+
+    The ``decoder`` scope's ``kernel`` is the transposed conv; the combiner's
+    ``residual_decoder_kernel`` and its ranges are transposed convs by name."""
+    return _from_jax(variables, (("decoder",),))

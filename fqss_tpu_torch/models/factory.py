@@ -1,7 +1,7 @@
 """Model factory (``fqss_tpu/models/factory.py``): name -> quantized model with weights,
 and the student/teacher pair of KD training.
 
-The port holds ConvTasNet and DPTNet; the other model names of the JAX
+The port holds ConvTasNet, DPTNet and Sepformer; the other model names of the JAX
 factory raise ``NotImplementedError`` until their slices land (ROADMAP.md,
 queue 1).
 """
@@ -17,12 +17,14 @@ from torch import nn
 
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
 from fqss_tpu_torch.models.dptnet import DPTNet
+from fqss_tpu_torch.models.sepformer import Sepformer
 from fqss_tpu_torch.nn.io_layers import expand_encoder_kernel
 from fqss_tpu_torch.quant.spec import QuantSpec
 
-MODEL_NAMES = ("ConvTasNet", "DPTNet")
+MODEL_NAMES = ("ConvTasNet", "DPTNet", "Sepformer")
 _ARCH_KEYS = ("n_filters", "bn_chan", "hid_chan", "n_blocks", "n_repeats", "mask_act", "mask_kernel_size")
 _DPTNET_KEYS = ("enc_dim", "feature_dim", "hidden_dim", "layer", "segment_size")
+_SEPFORMER_KEYS = ("n_filters", "n_repeats", "n_heads", "chunk_size", "n_ffn", "n_layers")
 
 
 def create_model(model_cfg: Mapping[str, Any], q: QuantSpec | None = None,
@@ -37,6 +39,10 @@ def create_model(model_cfg: Mapping[str, Any], q: QuantSpec | None = None,
         extra = {k: model_cfg[k] for k in _DPTNET_KEYS if k in model_cfg}
         return DPTNet(n_srcs=model_cfg.get("n_src", 2), kernel_size=model_cfg.get("kernel_size", 2), q=q,
                       generator=generator, **extra)
+    if name == "Sepformer":
+        extra = {k: model_cfg[k] for k in _SEPFORMER_KEYS if k in model_cfg}
+        return Sepformer(n_srcs=model_cfg.get("n_src", 2), kernel_size=model_cfg.get("kernel_size", 16),
+                         stride=model_cfg.get("stride", 8), q=q, generator=generator, **extra)
     if name != "ConvTasNet":
         raise NotImplementedError(f"model {name!r} is not ported yet; the port has {MODEL_NAMES} "
                                   "(ROADMAP.md, queue 1)")

@@ -1,4 +1,4 @@
-"""Quantized multi-head attention (``fqss_tpu/nn/attention.py``), the JAX package's non-Pallas path.
+"""Quantized multi-head attention (``fqss_tpu/nn/attention.py``).
 
 MultiheadAttentionQ (reference: quantization/qat/qat_layers.py:865-990),
 with its quant points where the reference has them: each of Q/K/V goes
@@ -8,17 +8,30 @@ out-projection are quantized. The attention logits and the softmax have
 quantizer sites that are no-ops in the reference (``attn - ...`` for
 ``attn = ...``, qat_layers.py:934,936); ``fix_attn_quant=True`` applies them.
 
-The no-op sites still feed their observers in ``train()`` mode, as the JAX
-module evaluates them and discards the result. Where such a quantizer would
-write nothing (``eval()`` mode, or no observer) it is not called at all: its
-result is thrown away, and at DPTNet's width each call would be a pass over
-2 GB of logits.
+The core ``softmax(q k^T) v`` and the head quantizer go through
+:func:`fqss_tpu_torch.ops.attention.fused_attention` (K8; its plain version
+on the CPU) wherever that computes the module's function, as JAX's
+``QuantSpec.pallas_attn`` routes them through its Pallas kernel, but for
+every shape: K8 takes DPTNet's ``d = 16`` heads and short sequences, which
+JAX's TPU gate keeps off its kernel. The routes:
 
-JAX's gate sends DPTNet's heads (``d = 16``) to XLA, not to its fused Pallas
-attention (``pallas_attention.supported``: ``32 <= d``), so the products
-and the softmax here are plain PyTorch. Layout: batch-first ``[B, L, E]``;
-weights in torch's layout, ``in_proj_weight [3E, E]`` and
-``out_proj_weight [E, E]``, quantized per out-channel (axis 0).
+* no head quantizer (the float teacher): K8 with the grid off;
+* a head quantizer without an observer (serving): K8 with the head grid in
+  its epilogue, the range read on the device;
+* a head quantizer with an observer: K8 with the grid off, then the
+  quantizer module, which keeps its EMA window (JAX's default path; its
+  Pallas branch would apply the grid inside the window too);
+* ``fix_attn_quant=True``: the plain composition, since the logits and the
+  softmax are then quantized, which is not K8's function (as in JAX).
+
+The no-op sites still feed their observers in ``train()`` mode, as the JAX
+module evaluates them and discards the result: the logits and the softmax
+are then computed for them alone. Where such a quantizer would write
+nothing (``eval()`` mode, or no observer) it is not called at all.
+
+Layout: batch-first ``[B, L, E]``; weights in torch's layout,
+``in_proj_weight [3E, E]`` and ``out_proj_weight [E, E]``, quantized per
+out-channel (axis 0). The heads reach K8 as contiguous ``[B * h, L, d]``.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ import torch
 from torch import nn
 
 from fqss_tpu_torch.nn.layers import make_act_quantizer, make_weight_quantizer, uniform_
+from fqss_tpu_torch.ops.attention import fused_attention
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
 Tensor = torch.Tensor
@@ -55,15 +69,36 @@ class QMultiheadAttention(nn.Module):
             setattr(self, f"activation_fake_quantize_{site}", make_act_quantizer(q))
         self.activation_fake_quantize = make_act_quantizer(q)
 
-    def _site(self, quantizer, x: Tensor) -> Tensor:
-        """An attn/softmax site: applied with ``fix_attn_quant``, else only fed to its observer."""
-        if quantizer is None:
-            return x
-        if self.fix_attn_quant:
-            return quantizer(x)
-        if self.training and quantizer.observer:
-            quantizer(x)  # the reference's no-op: evaluated for its observer, result discarded
-        return x
+    def _feed_noop_sites(self, Qh: Tensor, Kh: Tensor) -> None:
+        """The reference's no-op attn/softmax sites: evaluated for their observers in ``train()`` mode, the
+        results discarded; skipped where they would write nothing."""
+        qa, qs = self.activation_fake_quantize_attn, self.activation_fake_quantize_softmax
+        if not (self.training and any(s is not None and s.observer for s in (qa, qs))):
+            return
+        with torch.no_grad():
+            attn = torch.matmul(Qh, Kh.transpose(-1, -2))
+            if qa is not None and qa.observer:
+                qa(attn)
+            if qs is not None and qs.observer:
+                qs(torch.softmax(attn, dim=-1))
+
+    def _core(self, Qh: Tensor, Kh: Tensor, Vh: Tensor) -> Tensor:
+        """The quantized heads ``[B * h, Lq, d]`` through K8 (module docstring)."""
+        hq = self.activation_fake_quantize_head
+        if hq is None:
+            return fused_attention(Qh, Kh, Vh, quantize=False)
+        if not hq.observer and not hq.scale_grad:
+            return fused_attention(Qh, Kh, Vh, hq.min_range, hq.max_range, hq.n_bits, quantize=True)
+        return hq(fused_attention(Qh, Kh, Vh, quantize=False))
+
+    def _plain_fixed(self, Qh: Tensor, Kh: Tensor, Vh: Tensor) -> Tensor:
+        """``fix_attn_quant``: the logits and the softmax quantized, then the heads."""
+        qa, qs, hq = (self.activation_fake_quantize_attn, self.activation_fake_quantize_softmax,
+                      self.activation_fake_quantize_head)
+        attn = torch.matmul(Qh, Kh.transpose(-1, -2))
+        attn = torch.softmax(qa(attn) if qa is not None else attn, dim=-1)
+        heads = torch.matmul(qs(attn) if qs is not None else attn, Vh)
+        return hq(heads) if hq is not None else heads
 
     def forward(self, query: Tensor, key: Tensor, value: Tensor) -> Tensor:
         E, h = self.embed_dim, self.num_heads
@@ -90,14 +125,14 @@ class QMultiheadAttention(nn.Module):
         Q = Xq[..., :E] / torch.full((1,), math.sqrt(d), device=Xq.device)
         if self.activation_fake_quantize_div is not None:
             Q = self.activation_fake_quantize_div(Q)
-        Qh = Q.reshape(B, Lq, h, d).transpose(1, 2)  # [B, h, Lq, d]
-        Kh = Xk[..., E : 2 * E].reshape(B, Lk, h, d).transpose(1, 2)
-        Vh = Xv[..., 2 * E :].reshape(B, Lk, h, d).transpose(1, 2)
-
-        attn = self._site(self.activation_fake_quantize_attn, torch.matmul(Qh, Kh.transpose(-1, -2)))
-        attn = self._site(self.activation_fake_quantize_softmax, torch.softmax(attn, dim=-1))
-        heads = torch.matmul(attn, Vh)  # [B, h, Lq, d]
-        if self.activation_fake_quantize_head is not None:
-            heads = self.activation_fake_quantize_head(heads)
-        y = torch.matmul(heads.transpose(1, 2).reshape(B, Lq, E), w_out.t()) + self.out_proj_bias
+        # [B, L, E] -> [B * h, L, d], contiguous for the kernel
+        Qh = Q.reshape(B, Lq, h, d).transpose(1, 2).reshape(B * h, Lq, d).contiguous()
+        Kh = Xk[..., E : 2 * E].reshape(B, Lk, h, d).transpose(1, 2).reshape(B * h, Lk, d).contiguous()
+        Vh = Xv[..., 2 * E :].reshape(B, Lk, h, d).transpose(1, 2).reshape(B * h, Lk, d).contiguous()
+        if self.fix_attn_quant:
+            heads = self._plain_fixed(Qh, Kh, Vh)
+        else:
+            self._feed_noop_sites(Qh, Kh)
+            heads = self._core(Qh, Kh, Vh)
+        y = torch.matmul(heads.reshape(B, h, Lq, d).transpose(1, 2).reshape(B, Lq, E), w_out.t()) + self.out_proj_bias
         return self.activation_fake_quantize(y) if self.activation_fake_quantize is not None else y

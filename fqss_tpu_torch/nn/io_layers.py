@@ -1,10 +1,11 @@
 """Model I/O layers: splitter encoder and combiner decoder (``fqss_tpu/nn/io_layers.py``).
 
 Encoder: [in-quant] -> Conv1d [-> NL] -> act-quant, on the splitter-widened
-input. Decoders (ConvTranspose1d for ConvTasNet, Linear for DPTNet) ->
-out-quant; with ``n_combiner >= 2`` a chain of residual-error blocks
-re-encodes the quantized output, quantizes the latent residual ``Y - Y_q``
-and decodes it (shared decoder weights) into more output planes, stacked
+input. Decoders (ConvTranspose1d for ConvTasNet and the Sepformer, Linear
+for DPTNet) -> out-quant; with ``n_combiner >= 2`` a chain of
+residual-error blocks re-encodes the quantized output, quantizes the latent
+residual ``Y - Y_q`` and decodes it (shared decoder weights, or the block's
+own with ``train_res_dec``) into more output planes, stacked
 ``[n_combiner, ...]`` for the combiner.
 """
 
@@ -78,23 +79,38 @@ class _ResidualErrorBlock1d(nn.Module):
 
     forward(Y, y_q, w_decoder): re-encode the quantized decoder output y_q
     with a Conv1d, quantize the latent residual Y - Y_q, and decode it with
-    the shared (already quantized) decoder weight.
+    the shared (already quantized) decoder weight, or with ``train_res_dec``
+    with a residual decoder of its own: ``residual_decoder_weight``
+    ``[Cin, Cout, k]`` (JAX's ``residual_decoder_kernel``), quantized per
+    out-channel (axis 1) by ``weight_fake_quantize_dec``
+    (``fqss_tpu/nn/io_layers.py:185-193``).
     """
+
+    WEIGHT_QUANTIZERS = {"weight_fake_quantize_dec": "residual_decoder_weight"}
 
     def __init__(self, latent_features: int, out_features: int, kernel_size: int, stride: int,
                  q: QuantSpec = FLOAT, generator: torch.Generator | None = None):
         super().__init__()
-        if q.train_res_dec:
-            raise NotImplementedError("train_res_dec is not ported yet (ROADMAP.md, queue 1)")
         self.stride = stride
         self.residual_encoder = QConv1d(out_features, latent_features, kernel_size, stride=stride,
                                         use_bias=False, q=q, act_quant=False, generator=generator)
         self.activation_fake_quantize = make_act_quantizer(q)
+        if q.train_res_dec:
+            wshape = (latent_features, out_features, kernel_size)
+            bound = 1.0 / math.sqrt(out_features * kernel_size)
+            self.residual_decoder_weight = nn.Parameter(uniform_(torch.empty(wshape), bound, generator))
+            self.weight_fake_quantize_dec = make_weight_quantizer(q, wshape, ch_axis=1)
+        else:
+            self.residual_decoder_weight = self.weight_fake_quantize_dec = None
 
     def forward(self, Y: Tensor, y_q: Tensor, w_decoder: Tensor) -> Tensor:
         Y1 = Y - self.residual_encoder(y_q)
         if self.activation_fake_quantize is not None:
             Y1 = self.activation_fake_quantize(Y1)
+        if self.residual_decoder_weight is not None:
+            w_decoder = self.residual_decoder_weight
+            if self.weight_fake_quantize_dec is not None:
+                w_decoder = self.weight_fake_quantize_dec(w_decoder)
         return F.conv_transpose1d(Y1, w_decoder, stride=self.stride)
 
 

@@ -102,19 +102,29 @@ class QConv1d(nn.Module):
 class QGroupNorm(nn.Module):
     """GroupNorm -> act-quant (GroupNormQ, qat_layers.py:438-452).
 
-    flax's GroupNorm (the JAX reference) takes the variance as E[x²]−E[x]²;
-    ``F.group_norm`` need not round the same way on every device, and a
-    difference in the last bit can move a value across a rounding tie of the
-    next quantizer: a reason the parity tests allow one-LSB flips.
+    Channels on axis 1 (NCT), or on the last axis with ``channels_last``
+    (the JAX layer's layout, which the Sepformer's segments ``[B, K, S, F]``
+    keep): the groups' statistics do not depend on the layout, the
+    per-channel affine does. flax's GroupNorm (the JAX reference) takes the
+    variance as E[x²]−E[x]²; ``F.group_norm`` need not round the same way on
+    every device, and a difference in the last bit can move a value across a
+    rounding tie of the next quantizer: a reason the parity tests allow
+    one-LSB flips.
     """
 
-    def __init__(self, num_groups: int, num_channels: int, epsilon: float = 1e-5, q: QuantSpec = FLOAT):
+    def __init__(self, num_groups: int, num_channels: int, epsilon: float = 1e-5, q: QuantSpec = FLOAT,
+                 channels_last: bool = False):
         super().__init__()
+        self.channels_last = channels_last
         self.norm = nn.GroupNorm(num_groups, num_channels, eps=epsilon)
         self.activation_fake_quantize = make_act_quantizer(q)
 
     def forward(self, x: Tensor) -> Tensor:
-        return _quantize(self.activation_fake_quantize, self.norm(x))
+        if self.channels_last:  # the quantizer kernel takes contiguous tensors
+            y = self.norm(x.movedim(-1, 1)).movedim(1, -1).contiguous()
+        else:
+            y = self.norm(x)
+        return _quantize(self.activation_fake_quantize, y)
 
 
 class QDense(nn.Module):
@@ -210,3 +220,15 @@ class QMul(nn.Module):
 
     def forward(self, x1: Tensor, x2: Tensor) -> Tensor:
         return _quantize(self.activation_fake_quantize, x1 * x2)
+
+
+class QConst(nn.Module):
+    """Identity -> act-quant: a constant's quant point (ConstQ, qat_layers.py:116-121; the Sepformer's
+    positional encoding)."""
+
+    def __init__(self, q: QuantSpec = FLOAT):
+        super().__init__()
+        self.activation_fake_quantize = make_act_quantizer(q)
+
+    def forward(self, x: Tensor) -> Tensor:
+        return _quantize(self.activation_fake_quantize, x)

@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = (_PKG / "csrc" / "fake_quant.cu", _PKG / "csrc" / "int8_matmul.cu", _PKG / "csrc" / "lstm.cu")
+SOURCES = tuple(_PKG / "csrc" / name for name in ("fake_quant.cu", "int8_matmul.cu", "lstm.cu", "attention.cu"))
+HEADERS = (_PKG / "csrc" / "fake_quant.cuh",)  # included by the sources; part of the library's hash
 BUILD_DIR = _PKG / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -49,7 +50,7 @@ def _nvcc() -> str:
 
 def _library_path() -> Path:
     h = hashlib.sha256()
-    for src in SOURCES:
+    for src in (*SOURCES, *HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"libfqss_kernels_{h.hexdigest()[:16]}.so"
@@ -102,11 +103,16 @@ def library() -> ctypes.CDLL:
         lib.fqss_act_fake_quant_bwd.restype = i32
         lib.fqss_weight_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, f32, p]
         lib.fqss_weight_fake_quant_bwd.restype = i32
-        lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, i32, f32, f32, f32, p, i64, i64, i64, p]
+        lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, i32, f32, f32, f32, f32, f32, f32, f32, i64, p, i64,
+                                                 i64, i64, p]
         lib.fqss_int8_matmul_requant.restype = i32
         lib.fqss_lstm_max_hidden.argtypes = []
         lib.fqss_lstm_max_hidden.restype = i32
         lib.fqss_lstm_recurrence.argtypes = [p, p, p, p, p, p, i32, i64, i64, i64, p]
         lib.fqss_lstm_recurrence.restype = i32
+        lib.fqss_attention_max_dim.argtypes = []
+        lib.fqss_attention_max_dim.restype = i32
+        lib.fqss_fused_attention.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, p]
+        lib.fqss_fused_attention.restype = i32
         _lib = lib
     return _lib

@@ -6,28 +6,35 @@
   products through the K4 kernel, int8 activations between stages;
 * :class:`DPTNetInt8Engine` — the DPTNet's on-grid products (attention
   projections, 1x1 convs, dense layers) through K4, its LSTMs through K7;
+* :class:`SepformerInt8Engine` — the Sepformer's on-grid products (attention
+  projections, feed-forward linears, the masker's 1x1 convs) through K4;
 * :func:`make_int8_engine` — model-type dispatch used by ``infer`` and ``val``.
 """
 
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
 from fqss_tpu_torch.models.dptnet import DPTNet
+from fqss_tpu_torch.models.sepformer import Sepformer
 from fqss_tpu_torch.serve.convtasnet_int8 import ConvTasNetInt8Engine
 from fqss_tpu_torch.serve.dptnet_int8 import DPTNetInt8Engine
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
+from fqss_tpu_torch.serve.sepformer_int8 import SepformerInt8Engine
 
 
 def make_int8_engine(model, compute_dtype: str = "bfloat16"):
     """Build the int8 serving engine matching ``model``'s family.
 
     Raises NotImplementedError for families without an int8 engine (the
-    port has the ConvTasNet's and the DPTNet's; the JAX package's other
+    port has the ConvTasNet's, the DPTNet's and the Sepformer's; the JAX package's other
     engines come with their models' slices).
     """
     if isinstance(model, ConvTasNet):
         return ConvTasNetInt8Engine(model, compute_dtype=compute_dtype)
     if isinstance(model, DPTNet):
         return DPTNetInt8Engine(model, compute_dtype=compute_dtype)
+    if isinstance(model, Sepformer):
+        return SepformerInt8Engine(model, compute_dtype=compute_dtype)
     raise NotImplementedError(f"no int8 engine for {type(model).__name__}; use fold_quantized_weights")
 
 
-__all__ = ["ConvTasNetInt8Engine", "DPTNetInt8Engine", "fold_quantized_weights", "make_int8_engine"]
+__all__ = ["ConvTasNetInt8Engine", "DPTNetInt8Engine", "SepformerInt8Engine", "fold_quantized_weights",
+           "make_int8_engine"]

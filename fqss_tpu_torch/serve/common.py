@@ -185,9 +185,12 @@ class Int8Site:
     (``fqss_tpu/serve/convtasnet_int8.py:204-206``). ``nl``: the epilogue's
     nonlinearity, ``"prelu"`` with slope ``alpha`` (1 = identity, 0 = ReLU),
     ``"tanh"`` or ``"sigmoid"``. Called with a channels-last :class:`QAct`
-    ``[..., K]`` on ``g_in``; returns ``[..., N]`` on ``g_out``."""
+    ``[..., K]`` on ``g_in``; returns ``[..., N]`` on ``g_out``. ``g_out`` may
+    be a list of up to three grids, each taking an equal share of the N
+    columns (the attention in-projection's Q, K and V thirds): the call then
+    returns one :class:`QAct` per grid, views of the one launch's output."""
 
-    def __init__(self, g_in: Grid, w: Int8Weight, g_out: Grid, alpha: float, device: torch.device,
+    def __init__(self, g_in: Grid, w: Int8Weight, g_out: Grid | list[Grid], alpha: float, device: torch.device,
                  nl: str = "prelu"):
         corr = (g_in.mn + 128.0 * g_in.delta) * w.scale * w.sum_w
         if w.bias is not None:
@@ -198,11 +201,16 @@ class Int8Site:
         self.alpha, self.nl = alpha, nl
         self.g_out = g_out
 
-    def __call__(self, qa: QAct) -> QAct:
+    def __call__(self, qa: QAct) -> QAct | list[QAct]:
         *lead, k = qa.Xs.shape
+        grids = self.g_out if isinstance(self.g_out, list) else [self.g_out]
         out = int8_matmul_requant(qa.Xs.reshape(-1, k).contiguous(), self.w, self.scale, self.corr, self.alpha,
-                                  float(self.g_out.delta), float(self.g_out.mn), self.nl)
-        return QAct(out.reshape(*lead, -1), self.g_out)
+                                  [float(g.delta) for g in grids], [float(g.mn) for g in grids], self.nl)
+        out = out.reshape(*lead, -1)
+        if not isinstance(self.g_out, list):
+            return QAct(out, self.g_out)
+        n = out.shape[-1] // len(grids)
+        return [QAct(out[..., i * n : (i + 1) * n], g) for i, g in enumerate(grids)]
 
 
 def prelu(x: Tensor, alpha: float) -> Tensor:

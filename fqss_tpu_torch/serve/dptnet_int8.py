@@ -4,8 +4,8 @@ Runs the fake-quantized DPTNet forward (``models/dptnet.py``) with the
 products whose inputs lie on a learned 8-bit grid as true int8 products
 through the K4 kernel (:class:`~fqss_tpu_torch.serve.common.Int8Site`:
 s8 x s8 -> s32, dequantization, nonlinearity and requantization in one
-launch): the MHA in-projection (its three thirds, each to its own grid) and
-out-projection of every dual-path layer, the separator's bottleneck 1x1, the
+launch): the MHA in-projection (one launch, its Q, K and V thirds each
+requantized to its own grid) and out-projection of every dual-path layer, the separator's bottleneck 1x1, the
 DPT's output dense layer, the gated output convs (tanh and sigmoid in the
 kernel's epilogue) and the mask 1x1 conv.
 
@@ -59,12 +59,6 @@ from fqss_tpu_torch.serve.fold import fold_quantized_weights
 Tensor = torch.Tensor
 
 LN_EPS = 1e-5  # the transformer layers' LayerNorms
-
-
-def _rows(w: Int8Weight, start: int, stop: int) -> Int8Weight:
-    """Output channels ``[start, stop)`` of an int8 weight: its per-channel constants are the full weight's."""
-    return Int8Weight(w.w_int[start:stop], w.scale[start:stop], w.sum_w[start:stop],
-                      None if w.bias is None else w.bias[start:stop])
 
 
 class DPTNetInt8Engine:
@@ -149,10 +143,8 @@ class DPTNetInt8Engine:
                     "n2": (vec(layer.norm2.norm.weight), vec(layer.norm2.norm.bias)),
                     "g_norm2": quantizer_grid(layer.norm2.activation_fake_quantize),
                 }
-                if entry["on_grid"]:
-                    # the full in-projection's thirds, each requantized to its own grid by its own launch
-                    entry["in_sites"] = [Int8Site(g_prev, _rows(w_in, j * E, (j + 1) * E), g, 1.0, dev)
-                                         for j, g in enumerate((g_q, g_k, g_v))]
+                if entry["on_grid"]:  # the full in-projection in one launch, its thirds on their own grids
+                    entry["in_site"] = Int8Site(g_prev, w_in, [g_q, g_k, g_v], 1.0, dev)
                 else:
                     entry["w_in"] = float_weight(mha.in_proj_weight, mha.weight_fake_quantize_in)
                     entry["b_in"] = vec(mha.in_proj_bias)
@@ -202,7 +194,7 @@ class DPTNetInt8Engine:
         d = E // h
         if L["on_grid"]:
             qa = requant(x, g_in)
-            Q, K, V = (s(qa).f32 for s in L["in_sites"])
+            Q, K, V = (third.f32 for third in L["in_site"](qa))
         else:
             y3 = self._matmul(x, L["w_in"].t()) + L["b_in"]
             Q = requant(y3[..., :E], L["g_q"]).f32

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the device time of the port's serving engines goes, on one NVIDIA GPU.
 
-Usage: python3 scripts/profile_torch_engines.py [--model convtasnet|dptnet]
+Usage: python3 scripts/profile_torch_engines.py [--model convtasnet|dptnet|sepformer]
 
 Builds the full-width FQSS-8bit model of ``chip_smoke.py`` (seeded weights):
 the ConvTasNet of phase 3 at 32 x 12 s, ranges from a 3-step observer pass,
-or the DPTNet of phase 18 at 8 x 4 s, ranges from the config's 50-step
-observer window (``chip_smoke.DPT_OBSERVE_STEPS``). Then for each engine (fake_quant,
+the DPTNet of phase 18 at 8 x 4 s, ranges from the config's 50-step
+observer window (``chip_smoke.DPT_OBSERVE_STEPS``), or the Sepformer of
+phase 25 at 8 x 4 s, ranges from its config's 50-step window
+(``chip_smoke.SEP_OBSERVE_STEPS``). Then for each engine (fake_quant,
 folded, int8 with float32 and with bfloat16 float products) it times
 forwards with CUDA events and traces one with ``torch.profiler``: the device
 time by the operator that launched it, the union of the kernel intervals
@@ -52,7 +54,7 @@ TOP = 15  # operators listed per engine
 
 def main() -> None:
     parser = argparse.ArgumentParser(prog="python3 scripts/profile_torch_engines.py")
-    parser.add_argument("--model", choices=("convtasnet", "dptnet"), default="convtasnet")
+    parser.add_argument("--model", choices=("convtasnet", "dptnet", "sepformer"), default="convtasnet")
     model = parser.parse_args().model
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_engines: no CUDA device")
@@ -62,10 +64,14 @@ def main() -> None:
         batch, seg = chip_smoke.BATCH, chip_smoke.SEG
         mix, _ = chip_smoke.synth_batch(np.random.default_rng(0), batch, 2, seg)
         served = chip_smoke.build_served_model(dev, mix[:4])
-    else:
+    elif model == "dptnet":
         batch, seg = chip_smoke.DPT_BATCH, chip_smoke.DPT_SEG
         mix, _ = chip_smoke.synth_batch(np.random.default_rng(18), batch, 2, seg)
         served = chip_smoke.build_served_dptnet(dev, mix[:2])
+    else:
+        batch, seg = chip_smoke.SEP_BATCH, chip_smoke.SEP_SEG
+        mix, _ = chip_smoke.synth_batch(np.random.default_rng(25), batch, 2, seg)
+        served = chip_smoke.build_served_sepformer(dev, mix[:2])
     x = torch.from_numpy(mix).to(dev)
     builders = {
         "fake_quant": lambda: served,

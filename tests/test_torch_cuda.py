@@ -9,6 +9,7 @@ so it also runs on a GPU machine without JAX:
 import pytest
 import torch
 
+from fqss_tpu_torch.ops import attention as k8
 from fqss_tpu_torch.ops import fake_quant as fq
 
 pytestmark = pytest.mark.cuda
@@ -324,18 +325,132 @@ def test_tiny_dptnet_serving_runs_k7_and_k4(dev, compute_dtype):
     n_weight = sum(isinstance(m, WeightQuantizer) for m in card.modules())
     fq.reset_launches()
     lstm.reset_launches()
+    k8.reset_launches()
     with torch.inference_mode():
         y = card(x.to(dev))
         want = cpu(x)
     assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 4}
-    assert fq.LAUNCHES["act"] == n_act - 8 and fq.LAUNCHES["weight"] == n_weight  # 4 MHAs x 2 no-op sites
+    # 4 MHAs x 2 no-op sites; the 4 head grids are applied in K8's epilogue
+    assert fq.LAUNCHES["act"] == n_act - 8 - 4 and fq.LAUNCHES["weight"] == n_weight
+    assert k8.LAUNCHES["attention"] == 4
     snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
     assert bool((snr >= 20).all()), snr
     with torch.inference_mode():
         assert torch.equal(fold_quantized_weights(card)(x.to(dev)), y)
     im.reset_launches()
     y8 = make_int8_engine(card, compute_dtype=compute_dtype)(x.to(dev)).cpu()
-    assert im.LAUNCHES["int8_mm"] == 5 + 4 + 3 * 3  # BN, out_conv, 2 gates, mask; 4 out- and 3 in-projections
+    assert im.LAUNCHES["int8_mm"] == 5 + 4 + 3  # BN, out_conv, 2 gates, mask; 4 out- and 3 in-projections
+    want8 = make_int8_engine(cpu, compute_dtype=compute_dtype)(x)
+    snr8 = 10 * torch.log10(want8.pow(2).sum(-1) / (want8 - y8).pow(2).sum(-1).clamp_min(1e-30))
+    assert bool((snr8 >= 20).all()), snr8
+
+
+# Fused attention (K8) against its plain version: the float heads within ATTN_REL_TOL of their largest
+# magnitude (sums in another order, an online softmax); on the head grid every value within one step of the
+# plain version's, at most ATTN_GRID_SHARE of them a step apart, and each equal to its own float head put
+# through the plain grid (chip_smoke.py's phase 24).
+ATTN_REL_TOL = 1e-5
+ATTN_GRID_SHARE = 1e-3
+
+
+def _attention_case(dev, bh, lq, lk, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qs = torch.randn(bh, lq, d, device=dev, generator=gen) * 0.3
+    k, v = (torch.randn(bh, lk, d, device=dev, generator=gen) for _ in range(2))
+    mn, mx = torch.tensor([-0.7], device=dev), torch.tensor([1.3], device=dev)
+    return qs, k, v, mn, mx
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(3, 37, 53, 24), (2176, 250, 250, 32), (40, 34, 34, 32), (7, 300, 40, 16),
+                                        (5, 70, 129, 64), (2, 33, 17, 128), (1, 1, 1, 5)])
+def test_attention_kernel_matches_plain(dev, bh, lq, lk, d):
+    qs, k, v, mn, mx = _attention_case(dev, bh, lq, lk, d, bh + lq + d)
+    before = k8.LAUNCHES["attention"]
+    heads = k8.fused_attention(qs, k, v, quantize=False)
+    got = k8.fused_attention(qs, k, v, mn, mx, 8)
+    assert k8.LAUNCHES["attention"] == before + 2
+    ref = k8.fused_attention_ref(qs, k, v, quantize=False)
+    assert (heads - ref).abs().max().item() <= ATTN_REL_TOL * ref.abs().max().item()
+    assert torch.equal(got, fq.act_fake_quant_ref(heads, mn, mx, 8))  # the epilogue is K1's grid, exactly
+    step = (mx - mn).item() / 255
+    diff = (got - k8.fused_attention_ref(qs, k, v, mn, mx, 8)).abs()
+    assert diff.max().item() <= step * (1 + 1e-4)
+    assert (diff > 0.5 * step).float().mean().item() <= ATTN_GRID_SHARE
+
+
+def test_attention_backward_equals_the_plain_gradient(dev):
+    qs, k, v, mn, mx = _attention_case(dev, 4, 50, 50, 32, 1)
+    g = torch.randn_like(qs)
+    grads = []
+    for fn in (k8.fused_attention, k8.fused_attention_ref):
+        t = [a.clone().requires_grad_(True) for a in (qs, k, v, mn, mx)]
+        (fn(*t, 8) * g).sum().backward()
+        grads.append([a.grad for a in t])
+    for got, want in zip(*grads):  # the same plain composition differentiated at the same saved inputs
+        assert torch.equal(got, want)
+
+
+def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    qs, k, v, mn, mx = _attention_case(dev, 2, 8, 8, 16, 2)
+    with pytest.raises(TypeError):
+        k8.fused_attention(qs.double(), k.double(), v.double(), quantize=False)
+    with pytest.raises(ValueError):
+        k8.fused_attention(qs.transpose(0, 1).contiguous().transpose(0, 1), k, v, quantize=False)
+    with pytest.raises(ValueError):
+        k8.fused_attention(qs, k.cpu(), v, quantize=False)
+    with pytest.raises(ValueError):
+        k8.fused_attention(*_attention_case(dev, 1, 4, 4, 129, 3)[:3], quantize=False)
+
+
+def test_int8_matmul_kernel_three_grids_bitwise_equal_plain(dev):
+    from fqss_tpu_torch.ops import int8_matmul as im
+
+    xs, w, scale, corr = _int8_case(dev, 1000, 256, 768, 5)
+    deltas, mns = [2.0**-6, 0.013, 2.0**-5], [-1.0, -2.5, -0.25]
+    got = im.int8_matmul_requant(xs, w, scale, corr, 1.0, deltas, mns)
+    assert torch.equal(got, im.int8_matmul_requant_ref(xs, w, scale, corr, 1.0, deltas, mns))
+    for i in range(3):  # each third on its own grid, as three launches would give
+        rows = slice(256 * i, 256 * (i + 1))
+        one = im.int8_matmul_requant(xs, w[rows].contiguous(), scale[rows].contiguous(), corr[rows].contiguous(),
+                                     1.0, deltas[i], mns[i])
+        assert torch.equal(got[:, rows], one)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_tiny_sepformer_serving_runs_k8_and_k4(dev, compute_dtype):
+    from fqss_tpu_torch.models.sepformer import Sepformer
+    from fqss_tpu_torch.ops import int8_matmul as im
+    from fqss_tpu_torch.quant.spec import QuantSpec
+    from fqss_tpu_torch.serve import make_int8_engine
+    from fqss_tpu_torch.serve.fold import fold_quantized_weights
+
+    arch = dict(n_srcs=2, kernel_size=8, stride=4, n_filters=32, n_repeats=1, n_heads=4, chunk_size=20, n_ffn=48,
+                n_layers=2)
+    spec = dict(qat=True, n_splitter=2, n_combiner=2, out_quant=True)
+    model = Sepformer(q=QuantSpec(max_observations=2, **spec), generator=torch.Generator().manual_seed(0), **arch)
+    x = torch.randn(2, 1600, generator=torch.Generator().manual_seed(1)) * 0.3
+    with torch.no_grad():
+        for _ in range(2):
+            model.train()(x)
+    cpu = Sepformer(q=QuantSpec(observer=False, **spec), **arch)
+    cpu.load_state_dict(model.state_dict())
+    cpu.eval()
+    card = Sepformer(q=QuantSpec(observer=False, **spec), **arch)
+    card.load_state_dict(model.state_dict())
+    card = card.to(dev).eval()
+    k8.reset_launches()
+    with torch.inference_mode():
+        y = card(x.to(dev))
+        want = cpu(x)
+    assert k8.LAUNCHES["attention"] == 4  # intra and inter, 2 layers each
+    snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
+    assert bool((snr >= 20).all()), snr
+    with torch.inference_mode():
+        assert torch.equal(fold_quantized_weights(card)(x.to(dev)), y)
+    im.reset_launches()
+    k8.reset_launches()
+    y8 = make_int8_engine(card, compute_dtype=compute_dtype)(x.to(dev)).cpu()
+    assert im.LAUNCHES["int8_mm"] == 4 * 4 + 3 and k8.LAUNCHES["attention"] == 0
     want8 = make_int8_engine(cpu, compute_dtype=compute_dtype)(x)
     snr8 = 10 * torch.log10(want8.pow(2).sum(-1) / (want8 - y8).pow(2).sum(-1).clamp_min(1e-30))
     assert bool((snr8 >= 20).all()), snr8

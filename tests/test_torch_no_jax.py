@@ -36,7 +36,8 @@ TRAINING_MODULES = ("fqss_tpu_torch.data.synthetic", "fqss_tpu_torch.utils.audio
 SERVING_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
     "serve.common", "serve.convtasnet_int8", "ops.int8_matmul", "separation.metrics", "separation.stoi",
     "separation.bss_eval", "train.validate", "val", "utils.config", "data.librimix", "data.augment",
-    "ops.lstm", "nn.lstm", "nn.attention", "models.dptnet", "serve.dptnet_int8"))
+    "ops.lstm", "nn.lstm", "nn.attention", "models.dptnet", "serve.dptnet_int8", "ops.attention", "models.sepformer",
+    "serve.sepformer_int8"))
 
 
 def jax_package_imports(path: str) -> list[str]:
@@ -133,6 +134,18 @@ def test_chip_smoke_dptnet_model_cfg_equals_the_config_file():
         sys.path.remove(REPO)
     with open(os.path.join(REPO, "configs", "dptnet_2spks_8k.yaml")) as f:
         assert chip_smoke.DPTNET_CFG == yaml.safe_load(f)["model_cfg"]
+
+
+def test_chip_smoke_sepformer_model_cfg_equals_the_config_file():
+    import yaml
+
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    with open(os.path.join(REPO, "configs", "sepformer_2spks_8k.yaml")) as f:
+        assert chip_smoke.SEPFORMER_CFG == yaml.safe_load(f)["model_cfg"]
 
 
 def test_chip_smoke_without_a_card_fails_and_prints_no_result():

@@ -11,8 +11,8 @@ DPTNet serving path (``configs/dptnet_2spks_8k.yaml``'s model: encoder 256,
 features 64, LSTM hidden 128, 6 dual-path layers, segments of 250), then the
 FQSS-8bit Sepformer serving path (``configs/sepformer_2spks_8k.yaml``'s
 model: 256 filters, 8 heads, 2 dual-path blocks of 8 + 8 transformer layers,
-feed-forward 1024, chunks of 250); all with n_splitter = n_combiner = 2 and
-8-bit weights and activations. It prints one line per phase and lets any
+feed-forward 1024, chunks of 250), then the KD training of both; all with
+n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one line per phase and lets any
 failure propagate:
 
 0. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -54,7 +54,8 @@ failure propagate:
     tree (74) and no fake-quant launch; output against phase 3's at the
     fake-quant forward's own noise floor (phase 4's card-vs-CPU distance;
     see INT8_FLOOR); card vs CPU for both engines at 1 x 1 s (see
-    INT8_CARD_VS_CPU).
+    INT8_CARD_VS_CPU); the same rule for a model with the combiner's trained
+    residual decoder (``train_res_dec``), on 4 x 12 s.
 14. three 20 s requests through ``fqss_tpu_torch.infer`` with the int8
     engine.
 15. throughput of the int8 engine (float32 and bfloat16) at 32 x 12 s.
@@ -73,8 +74,9 @@ failure propagate:
     config's 50-step observer window (on 2 x 4 s), one forward of 8 x 4 s:
     output [8, 2, 32000], finite; the launch counters rise by the quantizer
     modules that run (all but the attention's two no-op sites of each layer,
-    and its head quantizer, whose grid K8 applies), K7 by 12, K6 by 0 and
-    K8 (the fused attention) by 12.
+    its head quantizer, whose grid K8 applies, and the QDense layers', whose
+    grids K5 applies), K7 by 12, K6 by 0, K8 (the fused attention) by 12 and
+    K5 by 13.
 19. card vs CPU on the same weights (1 x 1 s): SNR >= 20 dB per output.
 20. the folded DPTNet: bitwise equal to the fake-quant forward, no
     weight-kernel launch.
@@ -103,7 +105,8 @@ failure propagate:
 25. the full-width Sepformer from ``create_pretrained_model``, ranges from the
     config's 50-step observer window on 2 x 4 s, one forward of 8 x 4 s:
     output [8, 2, 32000], finite; the launch counters rise by the quantizer
-    modules that run and K8 by 32.
+    modules that run (not the QDense layers': K5 applies their grids), K8 by
+    32 and K5 by 65.
 26. card vs CPU on the same weights (1 x 1 s): SNR >= SEP_CARD_VS_CPU_DB per
     output; the float model on the same weights >= SEP_FLOAT_CARD_VS_CPU_DB.
 27. the folded Sepformer: bitwise equal to the fake-quant forward, no
@@ -119,6 +122,32 @@ failure propagate:
 30. throughput of the Sepformer engines (fake_quant, folded, int8 f32 and
     bf16) at 8 x 4 s.
 
+31. the fused QAT dense kernel (K5) and its backward (K5-bwd) vs their plain
+    versions on the card, at the QDense shapes of DPTNet (256 -> 64, 64 -> 128)
+    and the Sepformer (256 -> 1024, 1024 -> 256, 256 -> 512) at the training
+    batch (recomputed from the models) and at odd sizes, with planted
+    half-step ties and clip extremes, for every combination of the two grids
+    and their observing flags: the float pre-activation within DENSE_RTOL, each
+    quantized output its own pre-activation on K1's grid, at most
+    DENSE_GRID_SHARE a step apart; dx, dw, db and the range gradients within
+    their bounds; CUDA-event times of both, the plain versions and the library
+    calls (addmm + K1; two mm + K1-bwd), with the bounds.
+32. the K7/K6 backward: the autograd wrapper's gradients against the plain
+    recurrence's at DPTNet's training shapes and an odd one (LSTM_GRAD_TOL).
+33. DPTNet and Sepformer KD training at full width: student and float teacher
+    from ``create_model_and_teacher`` with the configs' ``model_cfg``, 8 steps
+    at the configs' batch 1 (3 s and 4 s) through a 3-step observer window:
+    every step launches K5 per QDense forward (student and teacher), K5-bwd
+    per QDense, K7 and K8 per module, K1/K2 per remaining quantizer module and
+    their backward kernels per quantizer reaching the loss; finite losses.
+34. card vs CPU: one post-window step at 1 x 1 s, the quantized model and its
+    float version, loss and whole-gradient cosine within TRAIN_CARD_VS_CPU.
+35. train-step time and peak memory of both models at batch 1 and the
+    largest of 2, 4, 8 that fits.
+36. one recipe epoch of each config (``-env asteroid`` DPTNet,
+    ``-env speechbrain`` the Sepformer) through ``python -m
+    fqss_tpu_torch.train`` on a mini LibriMix.
+
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -132,6 +161,7 @@ import json
 import math
 import os
 import subprocess
+import sys
 import tempfile
 import time
 
@@ -146,13 +176,15 @@ from fqss_tpu_torch.models.dptnet import DPTNet, split_segments
 from fqss_tpu_torch.models.sepformer import Sepformer, TransformerLayer
 from fqss_tpu_torch.models.factory import create_model, create_model_and_teacher, create_pretrained_model
 from fqss_tpu_torch.nn.attention import QMultiheadAttention
-from fqss_tpu_torch.nn.layers import QConv1d
+from fqss_tpu_torch.data.librimix import make_mini_librimix
+from fqss_tpu_torch.nn.layers import QConv1d, QDense
 from fqss_tpu_torch.nn.lstm import QLSTM
 from fqss_tpu_torch.ops import _build
 from fqss_tpu_torch.ops import attention as k8
 from fqss_tpu_torch.ops import fake_quant as fq
 from fqss_tpu_torch.ops import int8_matmul as im
 from fqss_tpu_torch.ops import lstm as lk
+from fqss_tpu_torch.ops import qat_dense as qd
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
 from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.serve import make_int8_engine
@@ -281,6 +313,33 @@ ATTN_PLAIN_REPS = 7
 SEP_CARD_VS_CPU_DB = 20.0
 SEP_FLOAT_CARD_VS_CPU_DB = 100.0
 SEP_INT8_CARD_VS_CPU_DB = 20.0  # the engine's float attention and norms flip ties as the fake-quant forward's do
+# The training slice (phases 31-36): DPTNet and Sepformer KD training through the configs' model_cfg at their own
+# batch of 1 (DPTNet 3 s, the Sepformer 4 s, 8 kHz), the observer window cut to 3 steps as phase 9's.
+DPT_TRAIN_SEG, SEP_TRAIN_SEG = 3 * SR, 4 * SR
+TRAIN_MODELS_WINDOW = 3
+RECIPE_SECONDS = 1.0  # the mini LibriMix of phase 36: 2 training and 1 validation mixtures of this length
+# K5 against its plain version (phase 31). The kernel sums each product in k order with fmaf, cuBLAS in its own
+# order: the float pre-activations, dx, dw and db agree within DENSE_RTOL of the sum of their terms' magnitudes
+# (the rounding of a K-term float32 sum grows as sqrt(K) ulps of it, ~2e-6 at K = 1024), the act ranges'
+# gradients within SUM_RTOL of sum |term| (phase 8's rule). On the act grid each output is the kernel's own
+# pre-activation put through K1's plain grid exactly, at most a step from the plain version's, and at most
+# DENSE_GRID_SHARE of them a step apart (a pre-activation within a rounding error of a half step); the planted
+# ties are exact sums and round alike. The backward is compared at the kernel's own pre-activation (the same act
+# mask); the plain version's own flips at most DENSE_GRID_SHARE of the masks.
+DENSE_RTOL = 1e-5
+DENSE_GRID_SHARE = 1e-3
+DENSE_ODD = ((5, 3, 2), (1, 256, 512), (77, 64, 128), (1000, 1024, 256))  # M, K, N: ragged tiles on every axis
+# Which grids are on, and the observing flags (phase 31): every combination the layers produce.
+DENSE_FLAGS = (dict(w=True, a=True), dict(w=False, a=True), dict(w=True, a=False), dict(w=False, a=False),
+               dict(w=True, a=True, w_obs=True), dict(w=True, a=True, a_obs=True),
+               dict(w=True, a=True, w_obs=False, a_obs=False))
+# The K7/K6 wrapper's backward against the plain recurrence's gradient (phase 32): the same plain recurrence
+# differentiated at the same saved inputs, so equal up to cuBLAS picking another algorithm between the calls.
+LSTM_GRAD_TOL = 1e-6  # relative to the gradient's largest magnitude
+# Card vs CPU on one post-window KD step (phase 34), (|loss difference| in dB, minimum whole-gradient cosine):
+# phase 10's bounds for the float versions, whose differences are float32 sums alone, and for the quantized
+# models, whose tie flips phase 10's ConvTasNet met with 10x room.
+TRAIN_CARD_VS_CPU = {"float": (LOSS_DB_TOL, GRAD_COS_MIN), "quantized": (LOSS_DB_TOL, GRAD_COS_MIN)}
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8 and float32 rates.
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1.979e15, 67e12
 
@@ -478,9 +537,9 @@ def check_weight_bwd_kernel(dev) -> dict:
     return results
 
 
-def build_served_model(dev, mix: np.ndarray, **arch) -> ConvTasNet:
+def build_served_model(dev, mix: np.ndarray, spec: QuantSpec = SPEC, **arch) -> ConvTasNet:
     """Seeded full-width model whose ranges come from a 3-step observer pass in train mode."""
-    q_obs = dataclasses.replace(SPEC, observer=True, max_observations=3)
+    q_obs = dataclasses.replace(spec, observer=True, max_observations=3)
     model = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=q_obs,
                        generator=torch.Generator().manual_seed(0), **arch).to(dev)
     model.train()
@@ -488,7 +547,7 @@ def build_served_model(dev, mix: np.ndarray, **arch) -> ConvTasNet:
     with torch.no_grad():
         for _ in range(3):
             model(x)
-    served = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=SPEC, **arch)
+    served = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=spec, **arch)
     served.load_state_dict(model.state_dict())
     return served.to(dev).eval()
 
@@ -647,6 +706,40 @@ def int8_engine_at_full_width(dev, served: ConvTasNet, x: torch.Tensor, y: torch
             f"dB (>= {snr_min}), {(y_card != y_cpu).float().mean().item():.4f} of samples differ, {share:.4f} by "
             f"more than half a step (<= {share_max})")
     return engines, launches
+
+
+def int8_engine_with_trained_residual_decoder(dev, mix: np.ndarray) -> None:
+    """Phase 13, the combiner's trained residual decoder (``train_res_dec``): the full-width ConvTasNet built with
+    it, its int8 engine (float32) against its fake-quant forward on 4 x 12 s at the forward's own card-vs-CPU
+    floor, with phase 13's rule (INT8_FLOOR). An engine that decodes the residual plane with the shared decoder
+    weight instead reads far below that floor."""
+    spec = dataclasses.replace(SPEC, train_res_dec=True)
+    served = build_served_model(dev, mix[:4], spec)
+    if served.decoder.residual_error_block.residual_decoder_weight is None:
+        raise AssertionError("train_res_dec built no residual decoder")
+    cpu_model = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=spec)
+    cpu_model.load_state_dict(served.state_dict())
+    cpu_model.eval()
+    x1 = torch.from_numpy(mix[:1, :SR])
+    lsb = out_step(served)
+    with torch.inference_mode():
+        y_card, y_cpu = served(x1.to(dev)).cpu(), cpu_model(x1)
+    snr = snr_db(y_cpu, y_card)
+    floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / lsb)
+    x = torch.from_numpy(mix[:4]).to(dev)
+    with torch.inference_mode():
+        y = served(x)
+    y8 = make_int8_engine(served, compute_dtype="float32")(x)
+    snr_margin, mean_factor = INT8_FLOOR["float32"]
+    snr8, mean8 = snr_db(y, y8), (y8 - y).abs().mean().item() / lsb
+    snr_min, mean_max = floor[0] - snr_margin, floor[1] * mean_factor
+    log(f"[13] with the trained residual decoder (train_res_dec): fake-quant card vs CPU floor {floor[0]:.2f} dB, "
+        f"{floor[1]:.4f} output steps; int8 engine (float32) vs fake-quant on {tuple(x.shape)}: SNR "
+        f"{snr8.min().item():.2f}-{snr8.max().item():.2f} dB (>= {snr_min:.2f}), mean {mean8:.4f} output steps "
+        f"(<= {mean_max:.3f})")
+    if snr8.min().item() < snr_min or mean8 > mean_max:
+        raise AssertionError(f"int8 engine with train_res_dec vs fake-quant: SNR {snr8.min().item():.2f} dB (minimum "
+                             f"{snr_min:.2f}), mean {mean8:.3f} output steps (maximum {mean_max:.3f})")
 
 
 def evaluate_engines(dev, served: ConvTasNet) -> dict:
@@ -894,12 +987,19 @@ def build_served_dptnet(dev, mix: np.ndarray, steps: int = DPT_OBSERVE_STEPS) ->
 
 
 def all_launches() -> dict:
-    return {**fq.LAUNCHES, **lk.LAUNCHES, **im.LAUNCHES, **k8.LAUNCHES}
+    return {**fq.LAUNCHES, **lk.LAUNCHES, **im.LAUNCHES, **k8.LAUNCHES, **qd.LAUNCHES}
 
 
 def reset_all_launches() -> None:
-    for module in (fq, lk, im, k8):
+    for module in (fq, lk, im, k8, qd):
         module.reset_launches()
+
+
+def dense_quantizers(model) -> dict:
+    """The QDense layers and their quantizers, whose grids K5 applies (no K1 or K2 launch of their own)."""
+    layers = [m for m in model.modules() if isinstance(m, QDense)]
+    return {"dense": len(layers), "act": sum(m.activation_fake_quantize is not None for m in layers),
+            "weight": sum(m.weight_fake_quantize is not None for m in layers)}
 
 
 def no_launches(**counts) -> dict:
@@ -1005,8 +1105,9 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = all_launches()
-    want = no_launches(act=counts["act"] - noop - n_mha, weight=counts["weight"], bilstm=2 * dpt.layer,
-                       attention=n_mha)
+    dense = dense_quantizers(dpt)
+    want = no_launches(act=counts["act"] - noop - n_mha - dense["act"], weight=counts["weight"] - dense["weight"],
+                       bilstm=2 * dpt.layer, attention=n_mha, dense=dense["dense"])
     if tuple(y.shape) != (DPT_BATCH, 2, DPT_SEG) or not torch.isfinite(y).all():
         raise AssertionError(f"DPTNet forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
     if launches != want:
@@ -1014,8 +1115,9 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
     log(f"[18] full-width DPTNet {tuple(x.shape)} -> {tuple(y.shape)}, finite, {n_params} parameters, LSTMs "
         f"{', '.join(f'{s} T {T} x B {B}' for s, T, B, _ in shapes)}, first call {first_s:.2f} s; launches "
         f"act={launches['act']} (= {counts['act']} act quantizers - {noop} no-op attention sites - {n_mha} head "
-        f"grids in K8's epilogue) weight={launches['weight']} (= weight quantizers) bilstm={launches['bilstm']} "
-        f"lstm=0 attention={launches['attention']}")
+        f"grids in K8's epilogue - {dense['act']} in K5's) weight={launches['weight']} (= {counts['weight']} weight "
+        f"quantizers - {dense['weight']} in K5) bilstm={launches['bilstm']} lstm=0 attention={launches['attention']} "
+        f"dense={launches['dense']} (= QDense layers)")
 
     # 19. card vs CPU on the same weights
     cpu_dpt = create_pretrained_model(DPTNET_CFG, observer=False)
@@ -1037,12 +1139,13 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
     with torch.inference_mode():
         y_folded = folded(x)
     torch.cuda.synchronize()
-    if lk.LAUNCHES["bilstm"] != 2 * dpt.layer or fq.LAUNCHES["weight"] != 0:
+    if lk.LAUNCHES["bilstm"] != 2 * dpt.layer or fq.LAUNCHES["weight"] != 0 or qd.LAUNCHES["dense"] != dense["dense"]:
         raise AssertionError(f"the folded DPTNet launched {all_launches()}")
     if not torch.equal(y_folded, y):
         raise AssertionError(f"folded DPTNet != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
     log(f"[20] folded DPTNet: bitwise equal to fake-quant; act launches {fq.LAUNCHES['act']}, weight 0, "
-        f"bilstm {lk.LAUNCHES['bilstm']}, attention {k8.LAUNCHES['attention']}")
+        f"bilstm {lk.LAUNCHES['bilstm']}, attention {k8.LAUNCHES['attention']}, dense {qd.LAUNCHES['dense']} (K5 "
+        f"with the weight grid off: the weights are on it)")
     del y_folded
     torch.cuda.empty_cache()
 
@@ -1227,8 +1330,11 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, 
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = all_launches()
-    # every act quantizer but the attention's two no-op sites and its head grid (in K8's epilogue)
-    want = no_launches(act=counts["act"] - 3 * n_mha, weight=counts["weight"], attention=n_mha)
+    # every act quantizer but the attention's two no-op sites and its head grid (in K8's epilogue), and the
+    # QDense layers' (in K5)
+    dense = dense_quantizers(sep)
+    want = no_launches(act=counts["act"] - 3 * n_mha - dense["act"], weight=counts["weight"] - dense["weight"],
+                       attention=n_mha, dense=dense["dense"])
     if tuple(y.shape) != (SEP_BATCH, 2, SEP_SEG) or not torch.isfinite(y).all():
         raise AssertionError(f"Sepformer forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
     if launches != want:
@@ -1237,7 +1343,9 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, 
         f"{', '.join(f'{n} BH {bh} x L {lq}' for n, bh, lq, *_ in shapes)}, d {shapes[0][4]}; ranges from "
         f"{SEP_OBSERVE_STEPS} observer steps on 2 x {SEP_SEG // SR} s in {calib_s:.1f} s; first call {first_s:.2f} s; "
         f"launches act={launches['act']} (= {counts['act']} act quantizers - {3 * n_mha} no-op sites and head grids of "
-        f"{n_mha} attentions) weight={launches['weight']} (= weight quantizers) attention={launches['attention']}")
+        f"{n_mha} attentions - {dense['act']} in K5) weight={launches['weight']} (= {counts['weight']} weight "
+        f"quantizers - {dense['weight']} in K5) attention={launches['attention']} dense={launches['dense']} "
+        f"(= QDense layers)")
 
     # 26. card vs CPU on the same weights, quantized and float
     cpu_sep = create_pretrained_model(SEPFORMER_CFG, observer=False)
@@ -1273,12 +1381,13 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, 
     with torch.inference_mode():
         y_folded = folded(x)
     torch.cuda.synchronize()
-    if fq.LAUNCHES["weight"] != 0 or k8.LAUNCHES["attention"] != n_mha:
+    if fq.LAUNCHES["weight"] != 0 or k8.LAUNCHES["attention"] != n_mha or qd.LAUNCHES["dense"] != dense["dense"]:
         raise AssertionError(f"the folded Sepformer launched {all_launches()}")
     if not torch.equal(y_folded, y):
         raise AssertionError(f"folded Sepformer != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
     log(f"[27] folded Sepformer: bitwise equal to fake-quant; act launches {fq.LAUNCHES['act']}, weight 0 (the "
-        f"residual decoder folded too), attention {k8.LAUNCHES['attention']}")
+        f"residual decoder folded too), attention {k8.LAUNCHES['attention']}, dense {qd.LAUNCHES['dense']} (K5 with "
+        f"the weight grid off)")
     del y_folded
     torch.cuda.empty_cache()
 
@@ -1299,6 +1408,406 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, 
         log(f"[30] Sepformer throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
             f"{SEP_BATCH} x {SEP_SEG // SR} s) on {smi}")
     return attn, launches
+
+
+def dense_train_shapes(dpt_seg: int, sep_seg: int) -> list[tuple]:
+    """(name, M, K, N, launches per student forward) of the QDense layers of the full-width DPTNet and Sepformer
+    at the training batch (1 x dpt_seg and 1 x sep_seg samples), recomputed from the models."""
+    dpt, sep = create_model(DPTNET_CFG, QuantSpec()), create_model(SEPFORMER_CFG, QuantSpec())
+    segs, _ = split_segments(torch.empty(1, dpt_seg - dpt.kernel_size + 1, 1), dpt.separator.segment_size)
+    dpt_tokens = segs.shape[1] * segs.shape[2]
+    layer = dpt.separator.DPT.rows[0]
+    out_conv = dpt.separator.DPT.out_conv
+    frames = (sep_seg - sep.encoder.conv.weight.shape[-1]) // sep.encoder.conv.stride + 1
+    segs, _ = split_segments(torch.empty(1, frames, 1), sep.masker.chunk_size)
+    sep_tokens = segs.shape[1] * segs.shape[2]
+    ffn = sep.masker.blocks[0].intra_transformer_block.layers[0]
+    n_layers = sum(isinstance(m, TransformerLayer) for m in sep.modules())
+    shapes = [("DPTNet linear", dpt_tokens, *layer.linear.weight.shape[::-1], 2 * dpt.layer),
+              ("DPTNet out_conv", dpt_tokens, *out_conv.weight.shape[::-1], 1),
+              ("Sepformer ffn_in", sep_tokens, *ffn.ffn_in.weight.shape[::-1], n_layers),
+              ("Sepformer ffn_out", sep_tokens, *ffn.ffn_out.weight.shape[::-1], n_layers),
+              ("Sepformer conv2d", sep_tokens, *sep.masker.conv2d.weight.shape[::-1], 1)]
+    if sum(per for *_, per in shapes) != sum(isinstance(m, QDense) for model in (dpt, sep) for m in model.modules()):
+        raise AssertionError(f"the QDense shapes {shapes} do not cover the models' QDense layers")
+    return shapes
+
+
+def dense_case(dev, m: int, k: int, n: int, gen: torch.Generator) -> tuple:
+    """x [m, k], w [n, k] (unit-variance products), b, weight and act ranges; output channel 0 carries planted
+    ties: a weight grid of step TIE_STEP, w[0, 0] = 5 steps, b[0] half a step above the act grid's mn (step
+    TIE_STEP); rows 0-5 take x[r, 0] alone (r + 1, and 0 for row 5): pre = mn + (5 (r + 1) + 0.5) steps, exact
+    half-step ties, and row 5's on the grid's lower clip bound; row 6 is far past both clip bounds."""
+    x = torch.randn(m, k, device=dev, generator=gen)
+    w = torch.randn(n, k, device=dev, generator=gen) / math.sqrt(k)
+    b = torch.randn(n, device=dev, generator=gen) * 0.1
+    w_mn, w_mx = w.amin(1, keepdim=True), w.amax(1, keepdim=True)
+    a_mn, a_mx = torch.tensor([-1.0], device=dev), torch.tensor([-1.0 + 255 * TIE_STEP], device=dev)
+    w_mn[0], w_mx[0] = -255 / 256, 255 / 256
+    w[0, 0], b[0] = 5 * TIE_STEP, -1.0 + 0.5 * TIE_STEP
+    rows = min(m, 6)
+    x[:rows] = 0
+    x[:rows, 0] = torch.tensor([1.0, 2, 3, 4, 5, 0], device=dev)[:rows]
+    if m > 6:
+        x[6] = 50.0 * torch.sign(x[6])
+    return x, w, b, w_mn, w_mx, a_mn, a_mx
+
+
+def dense_args(case: tuple, flags: dict) -> tuple:
+    """qat_dense's arguments for a case with the grids and observing flags of ``flags``."""
+    x, w, b, w_mn, w_mx, a_mn, a_mx = case
+    flag = (lambda v: None if v is None else torch.tensor(v, device=x.device))
+    on_w, on_a = flags.get("w", True), flags.get("a", True)
+    return (x, w, b, w_mn if on_w else None, w_mx if on_w else None, a_mn if on_a else None, a_mx if on_a else None,
+            8, 8, flag(flags.get("w_obs")), flag(flags.get("a_obs")))
+
+
+def check_dense_forward(name: str, args: tuple) -> float:
+    """K5 against its plain version (module note of DENSE_RTOL); returns the largest |pre - plain| / bound."""
+    x, w, b, w_mn, w_mx, a_mn, a_mx, _, _, w_obs, a_obs = args
+    y = qd.qat_dense(*args)
+    pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)
+    wq = qd._weight_q(w, w_mn, w_mx, 8, w_obs)
+    bound = x.abs() @ wq.abs().t() + b.abs()
+    err = ((pre - qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)).abs() / bound).max().item()
+    if not err <= DENSE_RTOL:
+        raise AssertionError(f"K5 {name}: pre-activation {err:.3g} of sum |term| from the plain version's")
+    if a_mn is None or (a_obs is not None and bool(a_obs)):
+        if not torch.equal(y, pre):
+            raise AssertionError(f"K5 {name}: with the act grid off the output is not the pre-activation")
+        return err
+    if not torch.equal(y, fq.act_fake_quant_ref(pre, a_mn, a_mx, 8)):
+        raise AssertionError(f"K5 {name}: the epilogue is not K1's plain grid of the kernel's own pre-activation")
+    step = (a_mx - a_mn).item() / 255
+    diff = (y - qd.qat_dense_ref(*args)).abs()
+    share = (diff > 0.5 * step).float().mean().item()
+    if diff.max().item() > step * (1 + 1e-4) or share > DENSE_GRID_SHARE:
+        raise AssertionError(f"K5 {name}: {diff.max().item() / step:.3f} steps from the plain version, {share:.2e} "
+                             f"of the outputs a step apart (at most {DENSE_GRID_SHARE})")
+    return err
+
+
+def check_dense_backward(name: str, args: tuple, g: torch.Tensor) -> float:
+    """K5-bwd against the plain backward at the kernel's own pre-activation (so at the same act mask): dx, dw and
+    db within DENSE_RTOL of their terms' magnitudes, the act ranges' gradients within SUM_RTOL of sum |term|, the
+    weight ranges' within 2 DENSE_RTOL of the magnitudes through the grid; the plain version's own pre-activation
+    flips at most DENSE_GRID_SHARE of the masks. Returns the largest error relative to its bound."""
+    x, w, b, w_mn, w_mx, a_mn, a_mx, _, _, w_obs, a_obs = args
+    got = qd.qat_dense_bwd(x, w, b, g, *args[3:])
+    pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)
+    want = qd.qat_dense_bwd_ref(x, w, b, g, *args[3:], pre=pre)
+    wq = qd._weight_q(w, w_mn, w_mx, 8, w_obs)
+    absg = g.abs()
+    a_prod = absg.t() @ x.abs()
+    worst = 0.0
+    for what, a, b_, bound in (("dx", got[0], want[0], absg @ wq.abs()), ("dw", got[1], want[1], a_prod),
+                               ("db", got[2], want[2], absg.sum(0))):
+        err = ((a - b_).abs() / (DENSE_RTOL * bound).clamp_min(1e-30)).max().item()
+        if not err <= 1.0:
+            raise AssertionError(f"K5-bwd {name} {what}: {err:.3g} times its bound from the plain version")
+        worst = max(worst, err * DENSE_RTOL)
+    if a_mn is not None and not (a_obs is not None and bool(a_obs)):
+        _, p_mn, p_mx = fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)
+        for got_r, terms in ((got[5], p_mn), (got[6], p_mx)):
+            worst = max(worst, check_sum(f"K5-bwd {name} act range", got_r, terms.double().sum(),
+                                         terms.double().abs().sum()) / terms.double().abs().sum().item())
+        flips = (fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)[0] != fq.act_bwd_terms(
+            qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None), g, a_mn, a_mx, 8, 1.0)[0])
+        if flips.float().mean().item() > DENSE_GRID_SHARE:
+            raise AssertionError(f"K5-bwd {name}: {flips.float().mean().item():.2e} of the act masks flip")
+    if w_mn is not None:
+        _, terms = fq.weight_bwd_terms(w, a_prod, w_mn, w_mx, 8, 0)
+        bound = fq.route_range_grad(terms.double().abs().sum(1), w_mn.double(), w_mx.double(), 8, 1.0)
+        for got_r, want_r, b_r in zip(got[3:5], want[3:5], bound):
+            if bool(((got_r.double() - want_r.double()).abs() > 2 * DENSE_RTOL * b_r.abs() + 1e-30).any()):
+                raise AssertionError(f"K5-bwd {name}: a weight range gradient beyond its bound")
+    return worst
+
+
+def dense_bounds(m: int, k: int, n: int) -> tuple[tuple[int, int], tuple[int, int]]:
+    """(bytes, operations) of K5 (x, w, b, ranges in, y out; the product) and of K5-bwd (x, w, b, g, ranges in,
+    dx, dw, db out; the pre-activation, dx and dwq products), float32."""
+    fwd = 4 * (m * k + n * k + n + 2 * n + 2 + m * n), 2 * m * n * k
+    bwd = 4 * (2 * m * k + 2 * n * k + 2 * n + m * n + 2 * n + 2), 6 * m * n * k
+    return fwd, bwd
+
+
+def check_dense_kernels(dev, shapes: list[tuple]) -> tuple[dict, dict]:
+    """Phase 31: K5 and K5-bwd against their plain versions at the training path's shapes and odd ones; their
+    times per student forward (one DPTNet and one Sepformer train step's QDense launches)."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    fwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    bwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    totals = {"fwd": [0, 0], "bwd": [0, 0]}
+    for name, m, k, n, per_forward in [*shapes, *(("odd", *s, 0) for s in DENSE_ODD)]:
+        case = dense_case(dev, m, k, n, gen)
+        g = torch.randn(m, n, device=dev, generator=gen)
+        for flags in DENSE_FLAGS:
+            args = dense_args(case, flags)
+            fwd["max_abs_err"] = max(fwd["max_abs_err"], check_dense_forward(f"{name} {flags}", args))
+            bwd["max_abs_err"] = max(bwd["max_abs_err"], check_dense_backward(f"{name} {flags}", args, g))
+        line = (f"[31] K5 {name} [{m},{k}] x [{n},{k}]: every grid and observing-flag combination "
+                f"({len(DENSE_FLAGS)}) within its bounds, planted ties and clip extremes included")
+        if per_forward == 0:
+            log(line)
+            continue
+        x, w, b, w_mn, w_mx, a_mn, a_mx = case
+        wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0)
+        pre = torch.addmm(b, x, wq.t())
+        times = {
+            "fwd": cuda_ms(lambda: qd.qat_dense(x, w, b, w_mn, w_mx, a_mn, a_mx), 10),
+            "fwd_plain": cuda_ms(lambda: qd.qat_dense_ref(x, w, b, w_mn, w_mx, a_mn, a_mx), 10),
+            "fwd_library": cuda_ms(lambda: fq.act_fake_quant(torch.addmm(b, x, wq.t()), a_mn, a_mx, 8), 10),
+            "bwd": cuda_ms(lambda: qd.qat_dense_bwd(x, w, b, g, w_mn, w_mx, a_mn, a_mx), 10),
+            "bwd_plain": cuda_ms(lambda: qd.qat_dense_bwd_ref(x, w, b, g, w_mn, w_mx, a_mn, a_mx), 10),
+            "bwd_library": cuda_ms(lambda: (g @ wq, g.t() @ x, fq.act_fake_quant_bwd(pre, g, a_mn, a_mx, 8)), 10),
+        }
+        (fb, fo), (bb, bo) = dense_bounds(m, k, n)
+        bf, bbw = bound_of(fb, fo, F32_OPS_S), bound_of(bb, bo, F32_OPS_S)
+        log(f"{line}; K5 {times['fwd']:.4f} ms ({bf['bound_ms'] / times['fwd']:.1%} of its {bf['bound_ms']:.4f} ms "
+            f"bound by {bf['bound_by']}), plain {times['fwd_plain']:.4f}, addmm + K1 {times['fwd_library']:.4f}; "
+            f"K5-bwd {times['bwd']:.4f} ms ({bbw['bound_ms'] / times['bwd']:.1%} of {bbw['bound_ms']:.4f}), plain "
+            f"{times['bwd_plain']:.4f}, two mm + K1-bwd {times['bwd_library']:.4f}; {per_forward} a forward")
+        for key, res in (("fwd", fwd), ("bwd", bwd)):
+            res["ms"] += per_forward * times[key]
+            res["plain_ms"] += per_forward * times[f"{key}_plain"]
+            res["library_ms"] += per_forward * times[f"{key}_library"]
+        totals["fwd"] = [totals["fwd"][0] + per_forward * fb, totals["fwd"][1] + per_forward * fo]
+        totals["bwd"] = [totals["bwd"][0] + per_forward * bb, totals["bwd"][1] + per_forward * bo]
+        del case, g, x, w, wq, pre
+        torch.cuda.empty_cache()
+    fwd.update(bound_of(*totals["fwd"], F32_OPS_S))
+    bwd.update(bound_of(*totals["bwd"], F32_OPS_S))
+    # The Sepformer's serving shape, 8 x 4 s (68,000 tokens): what PERF.md's prediction for K5 was made at.
+    for m, k, n in ((SEP_BATCH * shapes[2][1], *shapes[2][2:4]), (SEP_BATCH * shapes[3][1], *shapes[3][2:4])):
+        x, w, b, w_mn, w_mx, a_mn, a_mx = dense_case(dev, m, k, n, gen)
+        wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0)
+        ms = cuda_ms(lambda: qd.qat_dense(x, w, b, w_mn, w_mx, a_mn, a_mx), 10)
+        lib = cuda_ms(lambda: fq.act_fake_quant(torch.addmm(b, x, wq.t()), a_mn, a_mx, 8), 10)
+        b_ = bound_of(*dense_bounds(m, k, n)[0], F32_OPS_S)
+        log(f"[31] K5 at the Sepformer's 8 x 4 s shape [{m},{k}] x [{n},{k}]: {ms:.4f} ms "
+            f"({2 * m * n * k / ms / 1e9:.1f} TFLOP/s, {b_['bound_ms'] / ms:.1%} of its {b_['bound_ms']:.4f} ms "
+            f"bound), addmm + K1 {lib:.4f} ms")
+        del x, w, wq
+    log(f"[31] one DPTNet and one Sepformer student forward's {sum(s[4] for s in shapes)} K5 launches at the "
+        f"training batch: {fwd['ms']:.3f} ms against a {fwd['bound_ms']:.3f} ms bound "
+        f"({fwd['bound_ms'] / fwd['ms']:.1%}), plain {fwd['plain_ms']:.3f}, addmm + K1 {fwd['library_ms']:.3f}; "
+        f"their K5-bwd {bwd['ms']:.3f} ms against {bwd['bound_ms']:.3f} ({bwd['bound_ms'] / bwd['ms']:.1%}), plain "
+        f"{bwd['plain_ms']:.3f}, two mm + K1-bwd {bwd['library_ms']:.3f}")
+    return fwd, bwd
+
+
+def check_lstm_backward(dev, shapes: list[tuple[str, int, int, int]]) -> None:
+    """Phase 32: the K7/K6 wrapper's gradient (the kernel forward, the plain recurrence recomputed in the
+    backward) against the plain recurrence's own, at DPTNet's training shapes and LSTM_ODD."""
+    gen = torch.Generator(device=dev).manual_seed(32)
+    for side, T, B, H in [*shapes, ("odd", *LSTM_ODD)]:
+        ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(3)]
+        w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / math.sqrt(H) for _ in range(3)]
+        g = [torch.randn(T, B, H, device=dev, generator=gen) for _ in range(3)]
+        grads = []
+        before = dict(lk.LAUNCHES)
+        for bi, uni in ((lk.bilstm_sequence, lk.lstm_sequence), (lk.bilstm_sequence_ref, lk.lstm_sequence_ref)):
+            t = [a.clone().requires_grad_(True) for a in (*ih, *w)]
+            hf, hb = bi(t[0], t[1], t[3], t[4])
+            ((hf * g[0]).sum() + (hb * g[1]).sum() + (uni(t[2], t[5]) * g[2]).sum()).backward()
+            grads.append([a.grad for a in t])
+        torch.cuda.synchronize()
+        if lk.LAUNCHES != {"lstm": before["lstm"] + 1, "bilstm": before["bilstm"] + 1}:
+            raise AssertionError(f"LSTM backward at {side}: launches {lk.LAUNCHES}, expected one K7 and one K6")
+        rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*grads))
+        if not rel <= LSTM_GRAD_TOL:
+            raise AssertionError(f"LSTM backward at {side} T {T} x B' {B} x H {H}: {rel:.3g} of the gradient's "
+                                 f"magnitude from the plain recurrence's (at most {LSTM_GRAD_TOL})")
+        log(f"[32] K7/K6 backward {side} T {T} x B' {B} x H {H}: ih and w_hh gradients through the autograd "
+            f"wrapper max {rel:.3g} of their magnitude from the plain recurrence's (<= {LSTM_GRAD_TOL}); the "
+            f"forward launched K7 and K6 once, the backward nothing")
+        del ih, w, g, grads
+        torch.cuda.empty_cache()
+
+
+def train_cfg(cfg: dict) -> dict:
+    return {**cfg, "quantization": {**cfg["quantization"], "max_observations": TRAIN_MODELS_WINDOW}}
+
+
+def train_launches(model, teacher) -> dict:
+    """The launches of one KD step: forward, every quantizer module (K5 for the QDense layers' grids, K1 for the
+    attention's no-op sites too, which observe in train mode), K7 and K8 for student and teacher; backward,
+    K5-bwd per QDense, K1-bwd per act quantizer whose output reaches the loss (not the no-op sites, run under
+    no_grad), K2-bwd per weight quantizer (the QDense layers' through K5-bwd)."""
+    q, dense = count_quantizers(model.modules()), dense_quantizers(model)
+    n_mha = sum(isinstance(m, QMultiheadAttention) for m in model.modules())
+    bilstm = sum(isinstance(m, QLSTM) for net in (model, teacher) for m in net.modules())
+    return no_launches(act=q["act"] - dense["act"], weight=q["weight"] - dense["weight"],
+                       act_bwd=q["act"] - dense["act"] - 2 * n_mha, weight_bwd=q["weight"], bilstm=bilstm,
+                       attention=sum(isinstance(m, QMultiheadAttention) for net in (model, teacher)
+                                     for m in net.modules()),
+                       dense=dense["dense"] + dense_quantizers(teacher)["dense"], dense_mask=dense["dense"],
+                       dense_dx=dense["dense"], dense_dwq=dense["dense"])
+
+
+def train_model_at_full_width(dev, name: str, cfg: dict, seg: int) -> tuple[TrainState, dict]:
+    """Phase 33: KD train steps of 1 x seg samples through an observer window of TRAIN_MODELS_WINDOW steps; every
+    step's launches as train_launches says. Returns the state and the run's launch counts."""
+    model, teacher = create_model_and_teacher(train_cfg(cfg), generator=torch.Generator().manual_seed(33))
+    state = new_train_state(model.to(dev), teacher.to(dev))
+    step = make_train_step(TrainConfig())
+    want = train_launches(model, teacher)
+    rng = np.random.default_rng(33)
+    batches = [synth_batch(rng, 1, 2, seg) for _ in range(TRAIN_STEPS)]
+    losses = []
+    reset_all_launches()
+    t0 = time.perf_counter()
+    for i, (mix, src) in enumerate(batches):
+        before = all_launches()
+        metrics = step(state, torch.from_numpy(mix).to(dev), torch.from_numpy(src).to(dev))
+        got = {k: v - before[k] for k, v in all_launches().items()}
+        if got != want:
+            raise AssertionError(f"{name} train step {i}: launches {got} != {want}")
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    if not np.isfinite(losses).all() or state.skipped:
+        raise AssertionError(f"{name} losses {losses}, skipped {state.skipped}")
+    log(f"[33] {name} KD train at full width, {TRAIN_STEPS} steps of 1 x {seg // SR} s, observer window "
+        f"{TRAIN_MODELS_WINDOW}, in {seconds:.1f} s: losses {[round(v, 3) for v in losses]} dB, finite, skipped 0; "
+        f"every step launched {', '.join(f'{k}={v}' for k, v in want.items() if v)} (student and teacher), all "
+        f"others 0")
+    return state, launches
+
+
+def float_version(cfg: dict, model) -> torch.nn.Module:
+    """The model without quantizers on the same weights (splitter and combiner planes kept)."""
+    q = model.q
+    net = create_model(cfg, QuantSpec(n_splitter=q.n_splitter, n_combiner=q.n_combiner, train_res_dec=q.train_res_dec))
+    net.load_state_dict({k: v for k, v in model.state_dict().items() if "quantiz" not in k and ".wq_" not in k})
+    return net
+
+
+def train_card_vs_cpu(dev, name: str, cfg: dict, state: TrainState) -> None:
+    """Phase 34: one post-window KD step from the same state on the card and on the CPU at 1 x 1 s, for the
+    quantized model and for its float version; loss and whole-gradient cosine within TRAIN_CARD_VS_CPU."""
+    mix, src = synth_batch(np.random.default_rng(34), 1, 2, SR)
+    results = {}
+    for version in ("float", "quantized"):
+        out = []
+        for device in (dev, torch.device("cpu")):
+            model = copy.deepcopy(state.model) if version == "quantized" else float_version(cfg, state.model)
+            st = new_train_state(model.to(device), copy.deepcopy(state.teacher).to(device))
+            metrics = make_train_step(TrainConfig())(st, torch.from_numpy(mix).to(device),
+                                                     torch.from_numpy(src).to(device))
+            grads = torch.cat([p.grad.flatten().double().cpu() for p in st.model.parameters() if p.grad is not None])
+            out.append((float(metrics["loss"]), grads))
+        (loss_card, g_card), (loss_cpu, g_cpu) = out
+        results[version] = (abs(loss_card - loss_cpu), float(g_card @ g_cpu / (g_card.norm() * g_cpu.norm())),
+                            loss_card, loss_cpu, g_card.numel())
+    for version, (diff, cos, loss_card, loss_cpu, n) in results.items():
+        tol, cos_min = TRAIN_CARD_VS_CPU[version]
+        log(f"[34] {name} ({version}) card vs CPU train step at 1 x {SR}: loss {loss_card:.5f} vs {loss_cpu:.5f} dB "
+            f"(|diff| {diff:.2e} <= {tol}), whole-gradient cosine {cos:.6f} (>= {cos_min}) over {n} values")
+    for version, (diff, cos, *_) in results.items():
+        tol, cos_min = TRAIN_CARD_VS_CPU[version]
+        if not (diff <= tol and cos >= cos_min):
+            raise AssertionError(f"{name} ({version}) card vs CPU train step: loss |diff| {diff} dB (at most {tol}), "
+                                 f"gradient cosine {cos} (at least {cos_min})")
+
+
+def train_step_times(dev, name: str, state: TrainState, seg: int, smi: str) -> None:
+    """Phase 35: ms per KD step and peak device memory at batch 1, then at the largest of 2, 4 and 8 that the
+    batch-1 peak says fits in 80% of the card's memory."""
+    step = make_train_step(TrainConfig())
+    total = torch.cuda.get_device_properties(dev).total_memory
+    per_element = None
+    for batch in (1, None):
+        if batch is None:
+            fits = [b for b in (2, 4, 8) if base + b * per_element <= 0.8 * total]
+            if not fits:
+                log(f"[35] {name}: no batch of 2, 4 or 8 fits ({per_element / 1e9:.2f} GB a batch element)")
+                return
+            batch = fits[-1]
+        mix, src = synth_batch(np.random.default_rng(35), batch, 2, seg)
+        x, s = torch.from_numpy(mix).to(dev), torch.from_numpy(src).to(dev)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms = cuda_ms(lambda: step(state, x, s), 3)
+        peak = torch.cuda.max_memory_allocated(dev)
+        per_element = per_element or (peak - base)
+        if state.skipped:
+            raise AssertionError(f"{name}: {state.skipped} train steps skipped")
+        log(f"[35] {name} train step {batch} x {seg // SR} s: {ms:.1f} ms per step, "
+            f"{batch * seg / SR / (ms / 1000):.2f} sec-audio trained/s; peak memory {peak / 1e9:.2f} GB "
+            f"({(peak - base) / 1e9 / batch:.2f} GB a batch element above the {base / 1e9:.2f} GB held) on {smi}")
+        del x, s
+        torch.cuda.empty_cache()
+
+
+def recipe_epoch(name: str, env: str, cfg: dict, seg: float) -> None:
+    """Phase 36: one epoch of the speech recipe through ``python -m fqss_tpu_torch.train`` (on the card, its
+    default) with the full-width model, on a mini LibriMix that ``make_mini_librimix`` writes; the config is
+    written as JSON, which the CLI reads without a YAML parser."""
+    with tempfile.TemporaryDirectory() as tmp:
+        train_dir, val_dir = make_mini_librimix(os.path.join(tmp, "data"), n_train=2, n_val=1, sample_rate=SR,
+                                                seconds=seg)
+        conf = {
+            "work_dir": os.path.join(tmp, "run"),
+            "model_cfg": train_cfg(cfg),
+            "dataset_cfg": {"name": "librimix", "task": "sep_clean", "train_dir": train_dir, "valid_dir": val_dir,
+                            "sample_rate": SR, "resample": 1.0, "n_src": 2, "segment": seg,
+                            "augmentation": {"enable": False}},
+            "training_cfg": {"epochs": 1, "batch_size": 1, "half_lr": True, "early_stop": True, "pretrained": None,
+                             "seed": 0, "kd_lambda": 0.1,
+                             "optim": {"optimizer": "adam", "lr": 0.001, "weight_decay": 0.0}},
+            "testing_cfg": {"test_dir": None, "segment_samples": 16000, "overlap": 0.25},
+        }
+        if env == "speechbrain":
+            conf["training_cfg"].update(threshold_byloss=True, threshold=-30.0, use_speedperturb=False)
+        path = os.path.join(tmp, f"{name.lower()}.json")
+        with open(path, "w") as fh:
+            json.dump(conf, fh)
+        env_vars = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "fqss_tpu_torch.train", "-env", env, "-y", path], cwd=tmp,
+                              env=env_vars, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or "Training done" not in proc.stdout:
+            raise AssertionError(f"{name} recipe epoch failed ({proc.returncode}):\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        for out in ("best_model.pt", "checkpoints/epoch_0.pt", "history.json"):
+            if not os.path.exists(os.path.join(tmp, "run", out)):
+                raise AssertionError(f"{name} recipe epoch wrote no {out}")
+        with open(os.path.join(tmp, "run", "history.json")) as fh:
+            history = json.load(fh)
+        if not np.isfinite(history[0]["loss"]):
+            raise AssertionError(f"{name} recipe epoch: loss {history[0]['loss']}")
+    log(f"[36] python -m fqss_tpu_torch.train -env {env} with {name}'s full-width model_cfg: one epoch of 2 "
+        f"mixtures of {seg:g} s and a validation in {seconds:.1f} s (the process included), train loss "
+        f"{history[0]['loss']:.3f}, val loss {history[0].get('val_loss', float('nan')):.3f}; "
+        f"{proc.stdout.strip().splitlines()[-1]}")
+
+
+def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
+    """Phases 31-36, the DPTNet and Sepformer training path (phase 34 last, on phase 33's states). Returns (K5
+    results, K5-bwd results, the launches of phase 33's runs)."""
+    shapes = dense_train_shapes(DPT_TRAIN_SEG, SEP_TRAIN_SEG)
+    dense_fwd, dense_bwd = check_dense_kernels(dev, shapes)  # 31.
+    dpt = create_model(DPTNET_CFG, QuantSpec())
+    check_lstm_backward(dev, dpt_lstm_shapes(1, DPT_TRAIN_SEG, dpt))  # 32.
+    torch.cuda.empty_cache()
+    launches, after_window = {}, {}
+    for name, cfg, seg, env in (("DPTNet", DPTNET_CFG, DPT_TRAIN_SEG, "asteroid"),
+                                ("Sepformer", SEPFORMER_CFG, SEP_TRAIN_SEG, "speechbrain")):
+        state, run = train_model_at_full_width(dev, name, cfg, seg)  # 33.
+        launches = {k: launches.get(k, 0) + v for k, v in run.items()}
+        after_window[name] = TrainState(copy.deepcopy(state.model).cpu(), None, copy.deepcopy(state.teacher).cpu())
+        train_step_times(dev, name, state, seg, smi)  # 35.
+        del state
+        torch.cuda.empty_cache()
+        recipe_epoch(name, env, cfg, RECIPE_SECONDS)  # 36.
+    for name, cfg in (("DPTNet", DPTNET_CFG), ("Sepformer", SEPFORMER_CFG)):
+        train_card_vs_cpu(dev, name, cfg, after_window[name])  # 34., from phase 33's state
+    return dense_fwd, dense_bwd, launches
 
 
 def main() -> None:
@@ -1412,6 +1921,9 @@ def main() -> None:
     # 13. the int8 engine at full width (launch counts set to 0 inside, read after each forward)
     engines, int8_launches = int8_engine_at_full_width(dev, served, x, y, fq_floor)
 
+    int8_engine_with_trained_residual_decoder(dev, mix)
+    torch.cuda.empty_cache()
+
     # 14. requests through the infer entry with the int8 engine
     for i, s in enumerate(serve_requests(dev, served, MODEL_CFG, "int8")):
         log(f"[14] request {i} (int8 engine): 20 s mixture -> 2 sources of 20 s, {s * 1000:.1f} ms")
@@ -1435,6 +1947,10 @@ def main() -> None:
 
     # 24-30. K8 and the Sepformer serving path (launch counts set to 0 inside before each run they check)
     attn, sep_launches = serve_sepformer(dev, smi, dpt_attn_shapes)
+    torch.cuda.empty_cache()
+
+    # 31-36. K5, K5-bwd, the LSTM backward and DPTNet and Sepformer training (launch counts set to 0 inside)
+    dense_fwd, dense_bwd, train_model_launches = train_models(dev, smi)
 
     source = "fqss_tpu_torch/csrc/fake_quant.cu"
     kernels = [
@@ -1464,6 +1980,16 @@ def main() -> None:
         # (phase 18's DPTNet forward launched it 12 times).
         dict(name="fused_attention", route="cuda", source="fqss_tpu_torch/csrc/attention.cu",
              replaces="fqss_tpu/ops/pallas_attention.py:83", launches=sep_launches["attention"], **attn),
+        # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer student forward's 78 QDense launches at
+        # the training batch (phase 31); library_ms: torch.addmm, then K1 for the act grid. launches: phase 33's
+        # 16 KD steps, student and teacher.
+        dict(name="qat_dense", route="cuda", source="fqss_tpu_torch/csrc/qat_dense.cu",
+             replaces="fqss_tpu/ops/pallas_qat.py:347", launches=train_model_launches["dense"], **dense_fwd),
+        # The backward of those 78 launches: the mask, dx and dwq kernels of each (and their fixed-order sums);
+        # library_ms: the two products by torch.mm and K1-bwd on the pre-activation. launches: phase 33's mask
+        # launches (each with one dx and one dwq launch).
+        dict(name="qat_dense_bwd", route="cuda", source="fqss_tpu_torch/csrc/qat_dense.cu",
+             replaces="fqss_tpu/ops/pallas_qat.py:364", launches=train_model_launches["dense_mask"], **dense_bwd),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -124,9 +124,8 @@ __global__ void weight_fake_quant_kernel(const float* __restrict__ w, const floa
   const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
   for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x; i < n; i += stride) {
     const int64_t c = (i / inner) % channels;
-    const float max_abs = fmaxf(fabsf(__ldg(mn + c)), fabsf(__ldg(mx + c)));
-    const float delta = __fdiv_rn(__fmul_rn(2.0f, max_abs), q);
-    y[i] = __fmul_rn(delta, clip(rintf(__fdiv_rn(w[i], delta)), qmin, qmax));
+    const float delta = fqss::weight_grid_step(__ldg(mn + c), __ldg(mx + c), q);
+    y[i] = fqss::weight_grid_value(w[i], delta, qmin, qmax);
   }
 }
 

@@ -1,9 +1,12 @@
-// The per-tensor uniform grid of K1 as device functions, shared by every
-// kernel that ends in an activation fake-quant (fake_quant.cu's
-// act_fake_quant_kernel, attention.cu's epilogue), so that a value that
-// reaches the grid lands on the same grid point bit for bit in all of them:
+// The per-tensor uniform grid of K1 and the per-channel symmetric grid of K2
+// as device functions, shared by every kernel that applies them
+// (fake_quant.cu's act_fake_quant_kernel and weight_fake_quant_kernel,
+// attention.cu's epilogue, qat_dense.cu's weight tiles and epilogue), so that
+// a value that reaches a grid lands on the same grid point bit for bit in all
+// of them:
 //
-//   delta = (mx - mn) / Q,  y = delta * clip(rint((x - mn) / delta), 0, Q) + mn,  Q = 2^b - 1.
+//   delta = (mx - mn) / Q,  y = delta * clip(rint((x - mn) / delta), 0, Q) + mn,  Q = 2^b - 1;
+//   delta_c = 2 max(|mn_c|, |mx_c|) / Q,  w_q = delta_c * clip(rint(w / delta_c), -2^(b-1), 2^(b-1) - 1).
 //
 // Explicit round-to-nearest intrinsics keep nvcc from contracting delta * C + mn
 // into an FMA (PyTorch rounds the product and the sum apart); rintf rounds half
@@ -23,6 +26,14 @@ __device__ __forceinline__ float act_grid_step(float mn, float mx, float q) { re
 __device__ __forceinline__ float act_grid_value(float x, float mn, float delta, float q) {
   const float C = clip(rintf(__fdiv_rn(__fsub_rn(x, mn), delta)), 0.0f, q);
   return __fadd_rn(__fmul_rn(delta, C), mn);
+}
+
+__device__ __forceinline__ float weight_grid_step(float mn, float mx, float q) {
+  return __fdiv_rn(__fmul_rn(2.0f, fmaxf(fabsf(mn), fabsf(mx))), q);
+}
+
+__device__ __forceinline__ float weight_grid_value(float w, float delta, float qmin, float qmax) {
+  return __fmul_rn(delta, clip(rintf(__fdiv_rn(w, delta)), qmin, qmax));
 }
 
 }  // namespace fqss

@@ -12,9 +12,9 @@ axis 0). A layer whose weight quantizers are other than one
 its parameter's in a class attribute ``WEIGHT_QUANTIZERS``, for
 :func:`fqss_tpu_torch.serve.fold.fold_quantized_weights`.
 
-The convolutions and matrix products themselves are PyTorch's
-(``F.conv1d``, ``torch.matmul``): the JAX package computes them outside any
-Pallas kernel too.
+The convolutions are PyTorch's (``F.conv1d``): the JAX package computes
+them outside any Pallas kernel too. ``QDense`` runs its product and both of
+its grids through the fused kernel K5 (``ops/qat_dense.py``).
 """
 
 from __future__ import annotations
@@ -26,6 +26,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from fqss_tpu_torch.nn.nonlin import Nl
+from fqss_tpu_torch.ops.qat_dense import qat_dense
+from fqss_tpu_torch.quant.fake_quant import weight_scale
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
@@ -131,12 +133,18 @@ class QDense(nn.Module):
     """Fake-quant Linear with bias -> act-quant (LinearQ, qat_layers.py:521-568).
 
     The JAX ``QDense`` at its defaults (bias, no NL, act-quant as the spec
-    says), the only form DPTNet builds.
+    says), the only form DPTNet and the Sepformer build.
 
     Over the last axis: ``[..., in] -> [..., out]``. Weight ``[out, in]``
     quantized per out-channel (axis 0; the JAX kernel is its transpose,
-    quantized on axis 1). The product and the bias add are two steps, as
-    ``jnp.dot(x, w) + b``.
+    quantized on axis 1). The weight grid, the product, the bias add and the
+    act grid are one call of :func:`fqss_tpu_torch.ops.qat_dense.qat_dense`:
+    the fused kernel K5 and its backward K5-bwd on the card, their plain
+    versions (the same composition, ``jnp.dot(x, w) + b`` between the
+    grids) on the CPU. The quantizer modules stay in the tree, by their JAX
+    names, and keep their observers: their window flags and ranges go to the
+    kernel, and their state writes are :meth:`ActQuantizer.observe` and
+    :meth:`WeightQuantizer.observe`.
     """
 
     def __init__(self, in_features: int, features: int, q: QuantSpec = FLOAT,
@@ -149,10 +157,22 @@ class QDense(nn.Module):
         self.activation_fake_quantize = make_act_quantizer(q)
 
     def forward(self, x: Tensor) -> Tensor:
-        w = self.weight
-        if self.weight_fake_quantize is not None:
-            w = self.weight_fake_quantize(w)
-        return _quantize(self.activation_fake_quantize, torch.matmul(x, w.t()) + self.bias)
+        wq, aq = self.weight_fake_quantize, self.activation_fake_quantize
+        w_args, a_args, w_observing, a_observing = {}, {}, None, None
+        if wq is not None:
+            w_observing = wq.observing()
+            wq.observe(self.weight, w_observing)  # the one-shot observer writes the ranges this call uses
+            w_args = dict(w_mn=wq.min_range, w_mx=wq.max_range, w_bits=wq.n_bits,
+                          w_s=weight_scale(self.weight.shape[0], wq.n_bits, wq.scale_grad))
+        if aq is not None:
+            a_observing = aq.observing()
+            a_args = dict(a_mn=aq.min_range, a_mx=aq.max_range, a_bits=aq.n_bits,
+                          a_s=1.0 / math.sqrt((2**aq.n_bits - 1) * self.weight.shape[0]) if aq.scale_grad else 1.0)
+        y = qat_dense(x.reshape(-1, x.shape[-1]).contiguous(), self.weight, self.bias, w_observing=w_observing,
+                      a_observing=a_observing, **w_args, **a_args)
+        if aq is not None:
+            aq.observe(y, a_observing)  # inside the window y is the pre-activation
+        return y.reshape(*x.shape[:-1], y.shape[-1])
 
 
 class LayerNorm(nn.Module):

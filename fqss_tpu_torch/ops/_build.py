@@ -20,7 +20,8 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG / "csrc" / name for name in ("fake_quant.cu", "int8_matmul.cu", "lstm.cu", "attention.cu"))
+SOURCES = tuple(_PKG / "csrc" / name for name in ("fake_quant.cu", "int8_matmul.cu", "lstm.cu", "attention.cu",
+                                                              "qat_dense.cu"))
 HEADERS = (_PKG / "csrc" / "fake_quant.cuh",)  # included by the sources; part of the library's hash
 BUILD_DIR = _PKG / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -114,5 +115,18 @@ def library() -> ctypes.CDLL:
         lib.fqss_attention_max_dim.restype = i32
         lib.fqss_fused_attention.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, p]
         lib.fqss_fused_attention.restype = i32
+        lib.fqss_qat_dense_tiles.argtypes = [i64, i64, p]
+        lib.fqss_qat_dense_tiles.restype = None
+        lib.fqss_qat_dense_dwq_splits.argtypes = [i64, i64, i64]
+        lib.fqss_qat_dense_dwq_splits.restype = i32
+        lib.fqss_qat_dense.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i64, i64, i64, i32, i32, p]
+        lib.fqss_qat_dense.restype = i32
+        lib.fqss_qat_dense_bwd_mask.argtypes = [p, p, p, p, p, p, p, p, p, p, f32, p, p, p, p, p, p, i64, i64, i64,
+                                                i32, i32, p]
+        lib.fqss_qat_dense_bwd_mask.restype = i32
+        lib.fqss_qat_dense_dx.argtypes = [p, p, p, i64, i64, i64, p]
+        lib.fqss_qat_dense_dx.restype = i32
+        lib.fqss_qat_dense_dwq.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
+        lib.fqss_qat_dense_dwq.restype = i32
         _lib = lib
     return _lib

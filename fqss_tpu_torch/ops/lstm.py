@@ -17,9 +17,15 @@ Hopper kernel takes any H up to its shared-memory limit and any B.
 A CUDA tensor launches the kernel, or the wrapper raises: there is no
 fallback. A CPU tensor takes the plain version (:func:`lstm_sequence_ref`,
 :func:`bilstm_sequence_ref`: a Python time loop of ``h @ w_hh`` and the
-gates, JAX's ``_lstm_scan``), which autograd differentiates. The kernel has
-no backward yet: on the card a call that needs a gradient raises.
-``LAUNCHES`` counts the kernel's launches, one per call that launches it.
+gates, JAX's ``_lstm_scan``), which autograd differentiates. On the card a
+call that needs a gradient runs through a ``torch.autograd.Function`` whose
+forward is the kernel and whose backward recomputes the recurrence through
+the plain version (under ``enable_grad``, from the saved inputs alone) and
+returns its gradient: JAX's ``custom_vjp`` around the Pallas kernel
+(``pallas_lstm.py:217-225``, ``:258-266``), which rematerialises through
+``lax.scan``. JAX has no Pallas backward for the LSTM, so neither has the
+port. ``LAUNCHES`` counts the kernel's launches, one per call that launches
+it; the backward launches none.
 """
 
 from __future__ import annotations
@@ -41,13 +47,16 @@ def reset_launches() -> None:
 
 def lstm_sequence_ref(ih: Tensor, w_hh: Tensor) -> Tensor:
     """Plain version: ``[T, B, 4H]``, ``[H, 4H]`` -> ``hs [T, B, H]`` (``pallas_lstm.py:_lstm_scan``)."""
-    T, B, G = ih.shape
+    B, G = ih.shape[1:]
     H = G // 4
     h = ih.new_zeros(B, H)
     c = ih.new_zeros(B, H)
     hs = []
-    for t in range(T):
-        i, f, g, o = (ih[t] + h @ w_hh).split(H, dim=-1)
+    # unbind, not ih[t]: autograd then stacks the steps' gradients once, where T selects would each add a zero
+    # tensor of the whole ih (a full-width DPTNet train step's backward, which recomputes through this loop, spent
+    # 0.73 s of its 1.27 s of device time on those adds and fills on an H100)
+    for ih_t in ih.unbind(0):
+        i, f, g, o = (ih_t + h @ w_hh).split(H, dim=-1)
         c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
         h = torch.sigmoid(o) * torch.tanh(c)
         hs.append(h)
@@ -78,9 +87,6 @@ def _launch(name: str, key: str, pairs: list[tuple[Tensor, Tensor]]) -> list[Ten
     ih = pairs[0][0]
     T, B, G = ih.shape
     H = G // 4
-    if _needs_grad(*(t for pair in pairs for t in pair)):
-        raise NotImplementedError(f"{name}: the CUDA kernel has no backward yet (DPTNet training, ROADMAP.md "
-                                  "queue 2); run under torch.no_grad() or on the CPU")
     outs = [torch.empty(T, B, H, device=ih.device) for _ in pairs]
     if not ih.numel():
         return outs
@@ -98,12 +104,38 @@ def _launch(name: str, key: str, pairs: list[tuple[Tensor, Tensor]]) -> list[Ten
     return outs
 
 
+class _Recurrence(torch.autograd.Function):
+    """The kernel forward; the backward differentiates the plain recurrence, recomputed from the saved inputs."""
+
+    @staticmethod
+    def forward(ctx, ih_f, w_f, ih_b, w_b):
+        ctx.save_for_backward(ih_f, w_f, ih_b, w_b)
+        if ih_b is None:
+            return _launch("lstm_sequence", "lstm", [(ih_f, w_f)])[0]
+        return tuple(_launch("bilstm_sequence", "bilstm", [(ih_f, w_f), (ih_b, w_b)]))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        saved = ctx.saved_tensors
+        with torch.enable_grad():
+            inputs = [t.detach().requires_grad_(need) if t is not None else None
+                      for t, need in zip(saved, ctx.needs_input_grad)]
+            outs = [lstm_sequence_ref(inputs[0], inputs[1])]
+            if inputs[2] is not None:
+                outs.append(lstm_sequence_ref(inputs[2], inputs[3]))
+            wanted = [t for t in inputs if t is not None and t.requires_grad]
+            got = iter(torch.autograd.grad(outs, wanted, grads[: len(outs)]))
+        return tuple(next(got) if t is not None and t.requires_grad else None for t in inputs)
+
+
 def lstm_sequence(ih: Tensor, w_hh: Tensor) -> Tensor:
     """LSTM recurrence over hoisted input projections: ``[T, B, 4H]``, ``[H, 4H]`` -> ``[T, B, H]``."""
     _check_device("lstm_sequence", ih)
     _check("lstm_sequence", ih, w_hh)
     if ih.device.type == "cpu":
         return lstm_sequence_ref(ih, w_hh)
+    if _needs_grad(ih, w_hh):
+        return _Recurrence.apply(ih, w_hh, None, None)
     (hs,) = _launch("lstm_sequence", "lstm", [(ih, w_hh)])
     return hs
 
@@ -118,5 +150,7 @@ def bilstm_sequence(ih_f: Tensor, ih_b: Tensor, w_f: Tensor, w_b: Tensor) -> tup
                          f"{tuple(ih_b.shape)} on {ih_b.device}")
     if ih_f.device.type == "cpu":
         return bilstm_sequence_ref(ih_f, ih_b, w_f, w_b)
+    if _needs_grad(ih_f, ih_b, w_f, w_b):
+        return _Recurrence.apply(ih_f, w_f, ih_b, w_b)
     hs_f, hs_b = _launch("bilstm_sequence", "bilstm", [(ih_f, w_f), (ih_b, w_b)])
     return hs_f, hs_b

@@ -1,0 +1,272 @@
+"""Fused QAT dense layer: wrappers, autograd Function, plain versions and launch counter.
+
+The CUDA kernels in ``csrc/qat_dense.cu`` replace the TPU kernels of
+``fqss_tpu/ops/pallas_qat.py:qat_dense``, forward (K5, ``_qd_fwd_kernel``)
+and backward (K5-bwd, ``_qd_bwd``)::
+
+    y = act_fq(x @ weight_fq(w)^T + b)
+
+``x [M, K]``, the weight ``w [N, K]`` in the port's ``[out, in]`` layout with
+its per-out-channel symmetric ranges ``[N]`` (or ``[N, 1]``, as
+``WeightQuantizer`` keeps them), ``b [N]``, and the one-element ranges of the
+output's uniform grid; all float32. JAX's kernel takes the transposed weight
+``[K, N]`` with ranges on axis 1: the same function. Either grid may be off
+(its ranges ``None``): the folded serving model has no weight grid (its
+weights are on the grid already), the float teacher neither.
+
+Each grid may also carry a one-element bool "observing" flag on the device:
+while it is set, the grid is skipped (the act quantizer inside its EMA
+window, the weight quantizer before its one-shot observation), which is
+``where(observing, v, fq(v))``; the backward then passes that grid's
+gradient straight through and gives its ranges 0. The kernels read the flags
+on the device, so no call waits for the card.
+
+The backward follows ``_qd_bwd``: a mask pass recomputes the pre-activation
+(nothing but the inputs is saved) and gives ``gm = g * mask``, the act
+ranges' gradients and ``db``; then ``dx = gm @ wq`` and ``dwq = gm^T @ x``;
+``dwq`` goes through the weight grid's straight-through backward, K2-bwd
+(:func:`fqss_tpu_torch.ops.fake_quant.weight_fake_quant_bwd`). The forward
+and the mask pass put the weights on their grid once, into an ``[N, K]``
+scratch that the wrapper allocates (the TPU kernel re-quantizes each weight
+tile as it loads it; ``csrc/qat_dense.cu`` says why the port does not).
+
+A CUDA tensor launches the kernels, or the wrapper raises: there is no
+fallback. A CPU tensor takes the plain versions, :func:`qat_dense_ref`
+(the weight grid, ``torch.matmul``, the bias, the act grid: the composition
+the layers ran before the kernel) and :func:`qat_dense_bwd_ref` (the same
+backward in PyTorch operations). ``LAUNCHES`` counts the kernels' launches:
+``dense`` the forward, ``dense_mask``, ``dense_dx`` and ``dense_dwq`` the
+backward's three kernels (K2-bwd counts under
+``fake_quant.LAUNCHES["weight_bwd"]``).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from fqss_tpu_torch.ops import _build
+from fqss_tpu_torch.ops.fake_quant import (
+    _check_device,
+    _launch,
+    _needs_grad,
+    act_bwd_terms,
+    act_fake_quant_ref,
+    weight_fake_quant_bwd,
+    weight_fake_quant_bwd_ref,
+    weight_fake_quant_ref,
+)
+
+Tensor = torch.Tensor
+
+LAUNCHES = {"dense": 0, "dense_mask": 0, "dense_dx": 0, "dense_dwq": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _weight_q(w: Tensor, w_mn: Tensor | None, w_mx: Tensor | None, w_bits: int,
+              w_observing: Tensor | None) -> Tensor:
+    """The weight on its grid (plain), or as it is where the grid is off or observing."""
+    if w_mn is None:
+        return w
+    wq = weight_fake_quant_ref(w, w_mn, w_mx, w_bits, 0)
+    return wq if w_observing is None else torch.where(w_observing, w, wq)
+
+
+def qat_dense_ref(x: Tensor, w: Tensor, b: Tensor, w_mn: Tensor | None = None, w_mx: Tensor | None = None,
+                  a_mn: Tensor | None = None, a_mx: Tensor | None = None, w_bits: int = 8, a_bits: int = 8,
+                  w_observing: Tensor | None = None, a_observing: Tensor | None = None) -> Tensor:
+    """Plain version: ``act_fq(x @ weight_fq(w)^T + b)``, each grid skipped where its flag is set."""
+    pre = torch.matmul(x, _weight_q(w, w_mn, w_mx, w_bits, w_observing).t()) + b
+    if a_mn is None:
+        return pre
+    y = act_fake_quant_ref(pre, a_mn, a_mx, a_bits)
+    return y if a_observing is None else torch.where(a_observing, pre, y)
+
+
+def _where(flag: Tensor | None, a: Tensor, b: Tensor) -> Tensor:
+    return b if flag is None else torch.where(flag, a, b)
+
+
+def qat_dense_bwd_ref(x: Tensor, w: Tensor, b: Tensor, g: Tensor, w_mn: Tensor | None = None,
+                      w_mx: Tensor | None = None, a_mn: Tensor | None = None, a_mx: Tensor | None = None,
+                      w_bits: int = 8, a_bits: int = 8, w_observing: Tensor | None = None,
+                      a_observing: Tensor | None = None, w_s: float = 1.0, a_s: float = 1.0,
+                      pre: Tensor | None = None) -> tuple:
+    """Plain backward of :func:`qat_dense` for the cotangent ``g [M, N]``:
+    ``(dx, dw, db, dw_mn, dw_mx, da_mn, da_mx)``, a range gradient ``None`` where its grid is off.
+
+    ``w_s``/``a_s``: the weight and act ranges' ``scale_grad`` factors. ``pre``: the pre-activation
+    ``x @ wq^T + b`` where the caller has it (the kernel's own, to compare its backward at the same act
+    mask), else recomputed."""
+    wq = _weight_q(w, w_mn, w_mx, w_bits, w_observing)
+    da_mn = da_mx = None
+    gm = g
+    if a_mn is not None:
+        if pre is None:
+            pre = torch.matmul(x, wq.t()) + b
+        gm, p_mn, p_mx = act_bwd_terms(pre, g, a_mn, a_mx, a_bits, a_s)
+        gm = _where(a_observing, g, gm)
+        zero = torch.zeros((), device=g.device)
+        da_mn = _where(a_observing, zero, p_mn.sum()).reshape(a_mn.shape)
+        da_mx = _where(a_observing, zero, p_mx.sum()).reshape(a_mx.shape)
+    dwq = torch.matmul(gm.t(), x)
+    dw, dw_mn, dw_mx = dwq, None, None
+    if w_mn is not None:
+        dw, dw_mn, dw_mx = weight_fake_quant_bwd_ref(w, dwq, w_mn, w_mx, w_bits, w_s, 0)
+        dw, dw_mn, dw_mx = _observed_weight_grads(w_observing, dwq, dw, dw_mn, dw_mx)
+    return torch.matmul(gm, wq), dw, gm.sum(0), dw_mn, dw_mx, da_mn, da_mx
+
+
+def _observed_weight_grads(w_observing: Tensor | None, dwq: Tensor, dw: Tensor, dw_mn: Tensor,
+                           dw_mx: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """The weight grid's gradients, passed straight through (ranges 0) where it was observing."""
+    if w_observing is None:
+        return dw, dw_mn, dw_mx
+    zero = torch.zeros((), device=dwq.device)
+    return torch.where(w_observing, dwq, dw), torch.where(w_observing, zero, dw_mn), torch.where(w_observing, zero,
+                                                                                                 dw_mx)
+
+
+def _check(x: Tensor, w: Tensor, b: Tensor, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing) -> None:
+    """Hold the operands to what the kernels take, on every device."""
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[1] or b.shape != (w.shape[0],):
+        raise ValueError(f"qat_dense: x [M, K], w [N, K] and b [N] expected, got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)} and {tuple(b.shape)}")
+    if (w_mn is None) != (w_mx is None) or (a_mn is None) != (a_mx is None):
+        raise ValueError("qat_dense: a grid needs both of its ranges")
+    ranges = []
+    if w_mn is not None:
+        ranges += [("w_mn", w_mn, w.shape[0]), ("w_mx", w_mx, w.shape[0])]
+    if a_mn is not None:
+        ranges += [("a_mn", a_mn, 1), ("a_mx", a_mx, 1)]
+    for name, r, n in ranges:
+        if r.numel() != n:
+            raise ValueError(f"qat_dense: {name} holds {r.numel()} values, {n} expected")
+    for name, t in (("x", x), ("w", w), ("b", b), *((n, r) for n, r, _ in ranges)):
+        if t.device != x.device:
+            raise ValueError(f"qat_dense: {name} is on {t.device}, x on {x.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"qat_dense: the kernel takes float32, {name} is {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"qat_dense: the kernel takes contiguous tensors ({name} is not)")
+    for name, flag, grid in (("w_observing", w_observing, w_mn), ("a_observing", a_observing, a_mn)):
+        if flag is not None and (grid is None or flag.dtype != torch.bool or flag.numel() != 1
+                                 or flag.device != x.device):
+            raise ValueError(f"qat_dense: {name} must be a one-element bool tensor on {x.device}, beside its grid")
+
+
+def _ptr(t: Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits) -> Tensor:
+    if x.device.type == "cpu":
+        with torch.no_grad():
+            return qat_dense_ref(x, w, b, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing)
+    (M, K), N = x.shape, w.shape[0]
+    y = torch.empty(M, N, device=x.device)
+    if y.numel():
+        wq = _weight_scratch(w, w_mn)
+        _launch("qat_dense", _build.library().fqss_qat_dense, x.device, x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                _ptr(w_mn), _ptr(w_mx), _ptr(w_observing), _ptr(a_mn), _ptr(a_mx), _ptr(a_observing), _ptr(wq),
+                y.data_ptr(), M, K, N, w_bits, a_bits)
+        LAUNCHES["dense"] += 1
+    return y
+
+
+def _weight_scratch(w: Tensor, w_mn: Tensor | None) -> Tensor | None:
+    """Where the kernels write the weights on their grid, once a call (None without a weight grid)."""
+    return None if w_mn is None else torch.empty_like(w)
+
+
+def qat_dense_bwd(x: Tensor, w: Tensor, b: Tensor, g: Tensor, w_mn: Tensor | None = None,
+                  w_mx: Tensor | None = None, a_mn: Tensor | None = None, a_mx: Tensor | None = None,
+                  w_bits: int = 8, a_bits: int = 8, w_observing: Tensor | None = None,
+                  a_observing: Tensor | None = None, w_s: float = 1.0, a_s: float = 1.0) -> tuple:
+    """Backward of :func:`qat_dense` (K5-bwd) for the cotangent ``g [M, N]``:
+    ``(dx, dw, db, dw_mn, dw_mx, da_mn, da_mx)`` as :func:`qat_dense_bwd_ref` gives them.
+
+    Three kernels (mask, dx, dwq), then K2-bwd for the weight grid; the plain version on the CPU."""
+    _check_device("qat_dense backward", x)
+    if x.device.type == "cpu":
+        return qat_dense_bwd_ref(x, w, b, g, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing,
+                                 w_s, a_s)
+    _check(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing)
+    if g.shape != (x.shape[0], w.shape[0]) or g.dtype != torch.float32 or not g.is_contiguous():
+        raise ValueError(f"qat_dense backward: a contiguous float32 g of {(x.shape[0], w.shape[0])} expected")
+    (M, K), N = x.shape, w.shape[0]
+    dev = x.device
+    lib = _build.library()
+    gm, dx, dwq = torch.empty(M, N, device=dev), torch.empty(M, K, device=dev), torch.empty(N, K, device=dev)
+    sums, db = torch.zeros(2, device=dev), torch.zeros(N, device=dev)
+    if M and N:
+        tiles = (ctypes.c_int64 * 2)()
+        lib.fqss_qat_dense_tiles(M, N, tiles)
+        act_partials = torch.empty(tiles[0] * tiles[1], 2, device=dev)
+        db_partials = torch.empty(tiles[0], N, device=dev)
+        wq = _weight_scratch(w, w_mn)
+        _launch("qat_dense backward (mask)", lib.fqss_qat_dense_bwd_mask, dev, x.data_ptr(), w.data_ptr(),
+                b.data_ptr(), g.data_ptr(), _ptr(w_mn), _ptr(w_mx), _ptr(w_observing), _ptr(a_mn), _ptr(a_mx),
+                _ptr(a_observing), a_s, _ptr(wq), gm.data_ptr(), act_partials.data_ptr(), db_partials.data_ptr(),
+                sums.data_ptr(), db.data_ptr(), M, K, N, w_bits, a_bits)
+        LAUNCHES["dense_mask"] += 1
+        if K:
+            _launch("qat_dense backward (dx)", lib.fqss_qat_dense_dx, dev, gm.data_ptr(),
+                    (w if wq is None else wq).data_ptr(), dx.data_ptr(), M, K, N)
+            LAUNCHES["dense_dx"] += 1
+            splits = lib.fqss_qat_dense_dwq_splits(M, K, N)
+            partials = torch.empty(splits if splits > 1 else 0, N, K, device=dev)
+            _launch("qat_dense backward (dwq)", lib.fqss_qat_dense_dwq, dev, gm.data_ptr(), x.data_ptr(),
+                    partials.data_ptr(), dwq.data_ptr(), M, K, N, splits)
+            LAUNCHES["dense_dwq"] += 1
+    else:
+        dx.zero_()
+        dwq.zero_()
+    dw, dw_mn, dw_mx = dwq, None, None
+    if w_mn is not None:
+        dw, dw_mn, dw_mx = weight_fake_quant_bwd(w, dwq, w_mn, w_mx, w_bits, w_s, 0)
+        dw, dw_mn, dw_mx = _observed_weight_grads(w_observing, dwq, dw, dw_mn, dw_mx)
+    da_mn = sums[0:1].reshape(a_mn.shape) if a_mn is not None else None
+    da_mx = sums[1:2].reshape(a_mx.shape) if a_mx is not None else None
+    return dx, dw, db, dw_mn, dw_mx, da_mn, da_mx
+
+
+class _QatDense(torch.autograd.Function):
+    """The forward kernel (K5) and the rematerialising backward (K5-bwd), as JAX's ``qat_dense`` custom VJP."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, w_s, a_s):
+        ctx.bits_and_scales = (w_bits, a_bits, w_s, a_s)
+        # Copies of the ranges: the act observer writes them in place after this call.
+        ranges = [r.detach().clone() if r is not None else None for r in (w_mn, w_mx, a_mn, a_mx)]
+        ctx.save_for_backward(x, w, b, *ranges, w_observing, a_observing)
+        return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing = ctx.saved_tensors
+        w_bits, a_bits, w_s, a_s = ctx.bits_and_scales
+        grads = qat_dense_bwd(x, w, b, g.contiguous(), w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing,
+                              a_observing, w_s, a_s)
+        return (*(gi if need else None for gi, need in zip(grads, ctx.needs_input_grad)), *([None] * 6))
+
+
+def qat_dense(x: Tensor, w: Tensor, b: Tensor, w_mn: Tensor | None = None, w_mx: Tensor | None = None,
+              a_mn: Tensor | None = None, a_mx: Tensor | None = None, w_bits: int = 8, a_bits: int = 8,
+              w_observing: Tensor | None = None, a_observing: Tensor | None = None, w_s: float = 1.0,
+              a_s: float = 1.0) -> Tensor:
+    """``act_fq(x [M, K] @ weight_fq(w [N, K])^T + b)`` -> ``[M, N]``, differentiable in x, w, b and the ranges.
+
+    ``w_mn``/``w_mx``: the weight grid's per-out-channel ranges, or None for no weight grid; ``a_mn``/``a_mx``:
+    the output grid's one-element ranges, or None. ``w_observing``/``a_observing``: one-element bool tensors
+    (or None): where set, that grid is skipped. ``w_s``/``a_s``: the ranges' ``scale_grad`` factors."""
+    _check_device("qat_dense", x)
+    _check(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing)
+    if _needs_grad(*(t for t in (x, w, b, w_mn, w_mx, a_mn, a_mx) if t is not None)):
+        return _QatDense.apply(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, w_s, a_s)
+    return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits)

@@ -19,7 +19,11 @@ device (``torch.where`` on the counter): no call waits for the card.
 
 The quantize op itself is :mod:`fqss_tpu_torch.ops.fake_quant`: CUDA
 kernels forward and backward on CUDA tensors, the plain versions on CPU
-tensors. Gradients reach the input and, with ``gradient_based``, the ranges,
+tensors. A layer that fuses its quantizers into its own kernel
+(``QDense``, :mod:`fqss_tpu_torch.ops.qat_dense`) takes the window test
+from :meth:`observing`, hands the flag and the ranges to the kernel, and
+calls :meth:`observe` for the writes: the same values and the same state
+writes, still without a wait for the card. Gradients reach the input and, with ``gradient_based``, the ranges,
 with the JAX package's rules; ``scale_grad`` (LSQ step-size scaling) is off
 by default, as on the JAX ConvTasNet path.
 """
@@ -55,21 +59,34 @@ class ActQuantizer(nn.Module):
         self.max_range = nn.Parameter(torch.full((1,), 0.5), requires_grad=gradient_based)
         self.register_buffer("n_iter", torch.zeros((), dtype=torch.int32))
 
+    def observing(self) -> Tensor | None:
+        """The device-resident window test (``n_iter < max_observations``), or None without an observer."""
+        return self.n_iter < self.max_observations if self.observer else None
+
+    def observe(self, x: Tensor, observing: Tensor | None) -> None:
+        """The observer's EMA write of ``x``'s min/max and the counter step, in ``train()`` mode only.
+
+        ``observing`` is :meth:`observing` taken before the quantize call. Only
+        the values of ``x`` where ``observing`` holds are kept, so a fused caller
+        may pass its output, which is ``x`` unquantized there."""
+        if observing is None or not self.training:
+            return
+        with torch.no_grad():
+            a = self.ALPHA
+            new_min = a * self.min_range + (1.0 - a) * x.min().reshape(1)
+            new_max = a * self.max_range + (1.0 - a) * x.max().reshape(1)
+            self.min_range.copy_(torch.where(observing, new_min, self.min_range))
+            self.max_range.copy_(torch.where(observing, new_max, self.max_range))
+            self.n_iter.add_(observing.to(torch.int32))
+
     def forward(self, x: Tensor) -> Tensor:
         # Quantize with the ranges as they are before the observer's write
         # below, as the JAX module does.
         y = act_fake_quant(x, self.min_range, self.max_range, self.n_bits, self.scale_grad)
-        if not self.observer:
+        observing = self.observing()
+        if observing is None:
             return y
-        observing = self.n_iter < self.max_observations
-        if self.training:
-            with torch.no_grad():
-                a = self.ALPHA
-                new_min = a * self.min_range + (1.0 - a) * x.min().reshape(1)
-                new_max = a * self.max_range + (1.0 - a) * x.max().reshape(1)
-                self.min_range.copy_(torch.where(observing, new_min, self.min_range))
-                self.max_range.copy_(torch.where(observing, new_max, self.max_range))
-                self.n_iter.add_(observing.to(torch.int32))
+        self.observe(x, observing)
         return torch.where(observing, x, y)
 
 
@@ -96,14 +113,22 @@ class WeightQuantizer(nn.Module):
         self.max_range = nn.Parameter(torch.full(shape, 0.5), requires_grad=gradient_based)
         self.register_buffer("observed", torch.zeros((), dtype=torch.bool))
 
+    def observing(self) -> Tensor | None:
+        """The device-resident flag ``~observed``, or None without an observer."""
+        return ~self.observed if self.observer else None
+
+    def observe(self, w: Tensor, observing: Tensor | None) -> None:
+        """The one-shot observer: in ``train()`` mode, where ``observing``, the ranges become ``w``'s per-channel
+        min/max, before the quantize call that uses them."""
+        if observing is None or not self.training:
+            return
+        with torch.no_grad():
+            self.min_range.copy_(torch.where(observing, w.amin(self.reduce_dims, keepdim=True), self.min_range))
+            self.max_range.copy_(torch.where(observing, w.amax(self.reduce_dims, keepdim=True), self.max_range))
+            self.observed.fill_(True)
+
     def forward(self, w: Tensor) -> Tensor:
-        if not self.observer:
-            return weight_fake_quant(w, self.min_range, self.max_range, self.n_bits, self.ch_axis, self.scale_grad)
-        observing = ~self.observed
-        if self.training:
-            with torch.no_grad():
-                self.min_range.copy_(torch.where(observing, w.amin(self.reduce_dims, keepdim=True), self.min_range))
-                self.max_range.copy_(torch.where(observing, w.amax(self.reduce_dims, keepdim=True), self.max_range))
-                self.observed.fill_(True)
+        observing = self.observing()
+        self.observe(w, observing)
         y = weight_fake_quant(w, self.min_range, self.max_range, self.n_bits, self.ch_axis, self.scale_grad)
-        return torch.where(observing, w, y)
+        return y if observing is None else torch.where(observing, w, y)

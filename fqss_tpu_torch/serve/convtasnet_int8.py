@@ -91,10 +91,12 @@ class ConvTasNetInt8Engine:
         self.bf16 = compute_dtype == "bfloat16"
         dev = next(model.parameters()).device
 
-        def conv_weight(layer) -> Tensor:
-            wq = layer.weight_fake_quantize
-            w = torch.from_numpy(dequant_weight(layer.weight, wq.min_range, wq.max_range, q.weight_n_bits)).to(dev)
+        def float_weight(weight, wq) -> Tensor:
+            w = torch.from_numpy(dequant_weight(weight, wq.min_range, wq.max_range, q.weight_n_bits)).to(dev)
             return bf16_round(w) if self.bf16 else w
+
+        def conv_weight(layer) -> Tensor:
+            return float_weight(layer.weight, layer.weight_fake_quantize)
 
         def vec(p) -> Tensor:
             return p.detach().to(dev, torch.float32).clone()
@@ -148,7 +150,7 @@ class ConvTasNetInt8Engine:
             self.mask_w.on(dev)
         self.g_mul = quantizer_grid(model.mul.activation_fake_quantize)
 
-        # decoder (+ combiner residual plane)
+        # decoder (+ combiner residual plane, with its own trained decoder under train_res_dec)
         dec = model.decoder
         self.dec_w = conv_weight(dec)
         self.g_dec = quantizer_grid(dec.activation_fake_quantize, q.out_act_n_bits) if q.out_quant else None
@@ -156,6 +158,8 @@ class ConvTasNetInt8Engine:
             reb = dec.residual_error_block
             self.re_w = conv_weight(reb.residual_encoder)
             self.g_re = quantizer_grid(reb.activation_fake_quantize)
+            self.res_dec_w = (float_weight(reb.residual_decoder_weight, reb.weight_fake_quantize_dec)
+                              if reb.residual_decoder_weight is not None else self.dec_w)
             self.g_dec_res = (quantizer_grid(dec.activation_fake_quantize_residual, q.out_act_n_bits)
                               if q.out_quant else None)
 
@@ -206,7 +210,7 @@ class ConvTasNetInt8Engine:
         planes = [y]
         if self.q.n_combiner == 2:
             Y1 = requant(masked - conv1d(y, self.re_w, stride=self.stride, bf16=bf16), self.g_re).f32
-            dec = conv_transpose1d(Y1, self.dec_w, self.stride, bf16=bf16)
+            dec = conv_transpose1d(Y1, self.res_dec_w, self.stride, bf16=bf16)
             planes.append(requant(dec, self.g_dec_res).f32 if self.g_dec_res is not None else dec)
         out = torch.stack(planes).reshape(self.q.n_combiner, B, self.n_srcs, 1, -1)
         return postprocess(out, n_combiner=self.q.n_combiner)

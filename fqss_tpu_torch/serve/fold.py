@@ -4,7 +4,9 @@ At inference the weight quantizers are pure functions of frozen (weight,
 range) pairs, so their quant-dequant can run once at load instead of on
 every forward. On CUDA the fold goes through the weight kernel, so the
 folded weights are bitwise the values the fake-quant forward computes on
-every call, and the two engines give bitwise equal outputs.
+every call (K5 applies the same device function to a ``QDense`` weight,
+and the folded ``QDense`` runs K5 with its weight grid off), and the two
+engines give bitwise equal outputs.
 """
 
 from __future__ import annotations

@@ -4,9 +4,13 @@ Usage: python -m fqss_tpu_torch.train -env {asteroid,speechbrain} -y cfg.yaml [-
 
 Runs :func:`fqss_tpu_torch.train.recipes.train_speech` on ``--device``
 (default ``cuda``, which must be present; ``--device cpu`` runs the plain
-PyTorch versions of the kernels on the CPU). TF32 is turned off: it would
-move values off the 8-bit grids. The music environments (``tasnet``,
-``htdemucs``) are not ported yet.
+PyTorch versions of the kernels on the CPU) for the config's model:
+ConvTasNet, DPTNet (``-env asteroid -y configs/dptnet_2spks_8k.yaml``) or
+the Sepformer (``-env speechbrain -y configs/sepformer_2spks_8k.yaml``).
+``-y`` takes a YAML config, or the same config as a ``.json`` file, which
+needs no YAML parser. TF32 is turned off: it would move values off the
+8-bit grids. The music environments (``tasnet``, ``htdemucs``) are not
+ported yet.
 """
 
 from __future__ import annotations

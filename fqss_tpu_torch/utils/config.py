@@ -3,7 +3,8 @@
 
 ``yaml`` is imported by the loading functions only, so that importing the
 port loads no YAML parser (the GPU machine has none; ``chip_smoke.py``
-writes its configs out as dicts).
+writes its configs out as dicts, or as JSON files for the CLIs, which
+:func:`load_config` reads without a YAML parser).
 
 The reference parses configs with three dialects (SURVEY.md §5): plain
 ``yaml.safe_load`` (asteroid/tasnet), HyperPyYAML (sepformer + val/infer,
@@ -20,6 +21,7 @@ experiment YAMLs with one parser:
 
 from __future__ import annotations
 
+import json
 import re
 from typing import Any
 
@@ -97,11 +99,15 @@ def _resolve(node: Any, root: Any) -> Any:
 
 
 def load_config(path: str, overrides: dict | None = None) -> dict:
-    """Load an experiment YAML (any of the reference's dialects' files)."""
-    import yaml
-
+    """Load an experiment YAML (any of the reference's dialects' files), or the same config written as JSON
+    (a ``.json`` path), which needs no YAML parser."""
     with open(path) as f:
-        raw = yaml.load(f, Loader=_make_loader())
+        if path.endswith(".json"):
+            raw = json.load(f)
+        else:
+            import yaml
+
+            raw = yaml.load(f, Loader=_make_loader())
     if overrides:
         raw.update(overrides)
     return _resolve(raw, raw)

@@ -11,6 +11,7 @@ import torch
 
 from fqss_tpu_torch.ops import attention as k8
 from fqss_tpu_torch.ops import fake_quant as fq
+from fqss_tpu_torch.ops import qat_dense as qd
 
 pytestmark = pytest.mark.cuda
 
@@ -281,8 +282,32 @@ def test_lstm_wrapper_rejects_what_the_kernel_does_not_take(dev):
         lstm.lstm_sequence(ih.transpose(0, 1).contiguous().transpose(0, 1), w)
     with pytest.raises(ValueError):
         lstm.bilstm_sequence(ih, ih.cpu(), w, w.cpu())
-    with pytest.raises(NotImplementedError, match="backward"):
-        lstm.lstm_sequence(ih, w.requires_grad_())
+    # a call that needs a gradient launches the kernel; its backward is the plain recurrence's gradient
+    before = dict(lstm.LAUNCHES)
+    w.requires_grad_()
+    lstm.lstm_sequence(ih, w).sum().backward()
+    assert lstm.LAUNCHES == {"lstm": before["lstm"] + 1, "bilstm": before["bilstm"]}
+    want = torch.autograd.grad(lstm.lstm_sequence_ref(ih, w).sum(), w)[0]
+    assert torch.equal(w.grad, want)
+
+
+@pytest.mark.parametrize("T,B,H", [(40, 300, 128), (7, 3, 96)])
+def test_lstm_backward_equals_the_plain_gradient(dev, T, B, H):
+    from fqss_tpu_torch.ops import lstm
+
+    gen = torch.Generator(device=dev).manual_seed(T + B + H)
+    ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(3)]
+    w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / H**0.5 for _ in range(3)]
+    g = [torch.randn(T, B, H, device=dev, generator=gen) for _ in range(3)]
+    grads = []
+    for bi, uni in ((lstm.bilstm_sequence, lstm.lstm_sequence), (lstm.bilstm_sequence_ref, lstm.lstm_sequence_ref)):
+        # each input feeds one recurrence, so that its gradient sums its steps in the same order on both sides
+        t = [a.clone().requires_grad_(True) for a in (*ih, *w)]
+        hf, hb = bi(t[0], t[1], t[3], t[4])
+        ((hf * g[0]).sum() + (hb * g[1]).sum() + (uni(t[2], t[5]) * g[2]).sum()).backward()
+        grads.append([a.grad for a in t])
+    for got, want in zip(*grads):  # the same plain recurrence differentiated at the same saved inputs
+        assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 64, 64), (1023, 64, 64), (4096, 256, 64), (300, 7, 3)])
@@ -326,12 +351,14 @@ def test_tiny_dptnet_serving_runs_k7_and_k4(dev, compute_dtype):
     fq.reset_launches()
     lstm.reset_launches()
     k8.reset_launches()
+    qd.reset_launches()
     with torch.inference_mode():
         y = card(x.to(dev))
         want = cpu(x)
     assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 4}
-    # 4 MHAs x 2 no-op sites; the 4 head grids are applied in K8's epilogue
-    assert fq.LAUNCHES["act"] == n_act - 8 - 4 and fq.LAUNCHES["weight"] == n_weight
+    # 4 MHAs x 2 no-op sites; the 4 head grids are applied in K8's epilogue; the 5 QDense layers' two grids in K5
+    assert fq.LAUNCHES["act"] == n_act - 8 - 4 - 5 and fq.LAUNCHES["weight"] == n_weight - 5
+    assert qd.LAUNCHES["dense"] == 5
     assert k8.LAUNCHES["attention"] == 4
     snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
     assert bool((snr >= 20).all()), snr
@@ -454,3 +481,207 @@ def test_tiny_sepformer_serving_runs_k8_and_k4(dev, compute_dtype):
     want8 = make_int8_engine(cpu, compute_dtype=compute_dtype)(x)
     snr8 = 10 * torch.log10(want8.pow(2).sum(-1) / (want8 - y8).pow(2).sum(-1).clamp_min(1e-30))
     assert bool((snr8 >= 20).all()), snr8
+
+
+# The fused QAT dense layer (K5) and its backward (K5-bwd) against their plain versions. The kernel sums each
+# product in k order with fmaf, cuBLAS in its own order: the float pre-activations agree within DENSE_RTOL of the
+# sum of the terms' magnitudes (the rounding of a K-term float32 sum grows as sqrt(K) ulps of it, about 2e-6 at
+# K = 1024), dx, dw and db likewise, the range gradients within SUM_RTOL of sum |term|. On the act grid each
+# output is the kernel's own pre-activation put through K1's plain grid exactly, at most one step from the plain
+# version's and at most DENSE_GRID_SHARE of them a step apart (a pre-activation within a rounding error of a
+# half step); the planted ties are exact sums, so they round alike (chip_smoke.py's phase 31).
+DENSE_RTOL = 1e-5
+DENSE_GRID_SHARE = 1e-3
+
+
+def _dense_case(dev, m, k, n, seed):
+    """x [m, k], w [n, k] (~unit-variance products), b, ranges; output channel 0 carries planted ties."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(m, k, device=dev, generator=gen)
+    w = torch.randn(n, k, device=dev, generator=gen) / k**0.5
+    b = torch.randn(n, device=dev, generator=gen) * 0.1
+    w_mn, w_mx = w.amin(1, keepdim=True), w.amax(1, keepdim=True)
+    a_mn, a_mx = torch.tensor([-1.0], device=dev), torch.tensor([-1.0 + 255 * STEP], device=dev)
+    # channel 0: a weight grid of step STEP, w[0, 0] = 5 steps, b[0] half a step above a_mn; rows 0-5 take x[r, 0]
+    # alone, r + 1 for r < 5 and 0 for row 5, so pre = a_mn + (5 (r + 1) + 0.5) STEP, a half-step tie, and row 5
+    # lands on the tie at the grid's lower bound; row 6 is far past both clip bounds
+    w_mn[0], w_mx[0] = -255 / 256, 255 / 256
+    w[0, 0], b[0] = 5 * STEP, -1.0 + 0.5 * STEP
+    rows = min(m, 6)
+    x[:rows] = 0
+    x[:rows, 0] = torch.tensor([1.0, 2, 3, 4, 5, 0], device=dev)[:rows]
+    if m > 6:
+        x[6] = 50.0 * torch.sign(x[6])
+    return x, w, b, w_mn, w_mx, a_mn, a_mx
+
+
+DENSE_SHAPES = [(300, 256, 1024), (257, 1024, 256), (1000, 256, 64), (77, 64, 128), (5, 3, 2), (1, 256, 512)]
+DENSE_FLAGS = [dict(w=True, a=True), dict(w=False, a=True), dict(w=True, a=False), dict(w=False, a=False),
+               dict(w=True, a=True, w_obs=True), dict(w=True, a=True, a_obs=True),
+               dict(w=True, a=True, w_obs=False, a_obs=False)]
+
+
+def _dense_args(case, dev, w=True, a=True, w_obs=None, a_obs=None):
+    x, wt, b, w_mn, w_mx, a_mn, a_mx = case
+    flag = (lambda v: None if v is None else torch.tensor(v, device=dev))
+    return (x, wt, b, w_mn if w else None, w_mx if w else None, a_mn if a else None, a_mx if a else None, 8, 8,
+            flag(w_obs), flag(a_obs))
+
+
+@pytest.mark.parametrize("m,k,n", DENSE_SHAPES)
+def test_qat_dense_kernel_matches_plain(dev, m, k, n):
+    case = _dense_case(dev, m, k, n, m + k + n)
+    for flags in DENSE_FLAGS:
+        args = _dense_args(case, dev, **flags)
+        before = qd.LAUNCHES["dense"]
+        y = qd.qat_dense(*args)
+        pre = qd.qat_dense(*args[:5], None, None, 8, 8, args[9], None)
+        assert qd.LAUNCHES["dense"] == before + 2
+        x, w, b = args[:3]
+        wq = qd._weight_q(w, args[3], args[4], 8, args[9])
+        terms = x.abs() @ wq.abs().t() + b.abs()
+        assert bool(((pre - qd.qat_dense_ref(*args[:5], None, None, 8, 8, args[9], None)).abs()
+                     <= DENSE_RTOL * terms).all()), flags
+        if args[5] is None or flags.get("a_obs"):
+            assert torch.equal(y, pre), flags
+            continue
+        assert torch.equal(y, fq.act_fake_quant_ref(pre, args[5], args[6], 8)), flags
+        step = (args[6] - args[5]).item() / 255
+        diff = (y - qd.qat_dense_ref(*args)).abs()
+        assert diff.max().item() <= step * (1 + 1e-4), flags
+        assert (diff > 0.5 * step).float().mean().item() <= DENSE_GRID_SHARE, flags
+
+
+def _assert_dense_grads(got, case_args, g):
+    """K5-bwd's gradients against the plain backward at the kernel's own pre-activation (so at the same act
+    mask): dx, dw, db within DENSE_RTOL of the sums of their terms' magnitudes, the act ranges' gradients within
+    SUM_RTOL of sum |term|, the weight ranges' within twice DENSE_RTOL of the magnitudes through the grid."""
+    x, w, b, w_mn, w_mx, a_mn, a_mx, _, _, w_obs, a_obs = case_args
+    pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)  # the mask kernel recomputes it so
+    want = qd.qat_dense_bwd_ref(x, w, b, g, w_mn, w_mx, a_mn, a_mx, 8, 8, w_obs, a_obs, pre=pre)
+    for a, b_ in zip(got, want):
+        assert (a is None) == (b_ is None) and (a is None or a.shape == b_.shape)
+    dx, dw, db, dw_mn, dw_mx, da_mn, da_mx = got
+    wq = qd._weight_q(w, w_mn, w_mx, 8, w_obs)
+    absg = g.abs()  # bounds |gm|
+    assert bool(((dx - want[0]).abs() <= DENSE_RTOL * (absg @ wq.abs())).all())
+    a_prod = absg.t() @ x.abs()
+    assert bool(((dw - want[1]).abs() <= DENSE_RTOL * a_prod).all())
+    assert bool(((db - want[2]).abs() <= DENSE_RTOL * absg.sum(0)).all())
+    if a_mn is not None and not (a_obs is not None and bool(a_obs)):
+        _, p_mn, p_mx = fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)
+        _assert_sum(da_mn, p_mn)
+        _assert_sum(da_mx, p_mx)
+    if w_mn is not None:
+        _, terms = fq.weight_bwd_terms(w, a_prod, w_mn, w_mx, 8, 0)  # |dwq|'s bound through the grid's terms
+        bound = fq.route_range_grad(terms.double().abs().sum(1), w_mn.double(), w_mx.double(), 8, 1.0)
+        for got_r, want_r, b_r in zip((dw_mn, dw_mx), want[3:5], bound):
+            assert bool(((got_r.double() - want_r.double()).abs() <= 2 * DENSE_RTOL * b_r.abs() + 1e-30).all())
+    if a_mn is not None:  # the plain version's own pre-activation gives the same mask but at rounding flips
+        flips = (fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)[0]
+                 != fq.act_bwd_terms(qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None), g, a_mn,
+                                     a_mx, 8, 1.0)[0])
+        assert flips.float().mean().item() <= DENSE_GRID_SHARE
+
+
+@pytest.mark.parametrize("m,k,n", DENSE_SHAPES)
+def test_qat_dense_backward_matches_plain(dev, m, k, n):
+    case = _dense_case(dev, m, k, n, m * k + n)
+    g = torch.randn(m, n, device=dev, generator=torch.Generator(device=dev).manual_seed(n))
+    for flags in DENSE_FLAGS:
+        args = _dense_args(case, dev, **flags)
+        before = dict(qd.LAUNCHES), fq.LAUNCHES["weight_bwd"]
+        got = qd.qat_dense_bwd(*args[:3], g, *args[3:])
+        assert {k_: qd.LAUNCHES[k_] - before[0][k_] for k_ in qd.LAUNCHES} == {
+            "dense": 0, "dense_mask": 1, "dense_dx": 1, "dense_dwq": 1}
+        assert fq.LAUNCHES["weight_bwd"] == before[1] + (args[3] is not None)
+        _assert_dense_grads(got, args, g)
+        if flags.get("a_obs"):
+            assert got[5].item() == got[6].item() == 0.0
+        if flags.get("w_obs"):
+            assert not got[3].any() and not got[4].any()
+
+
+def test_qat_dense_autograd_runs_the_kernels(dev):
+    case = _dense_case(dev, 600, 256, 128, 5)
+    args = _dense_args(case, dev, w_obs=False, a_obs=False)
+    g = torch.randn(600, 128, device=dev, generator=torch.Generator(device=dev).manual_seed(6))
+    leaves = [t.clone().requires_grad_(True) for t in args[:7]]
+    qd.reset_launches()
+    (qd.qat_dense(*leaves, *args[7:]) * g).sum().backward()
+    assert qd.LAUNCHES == {"dense": 1, "dense_mask": 1, "dense_dx": 1, "dense_dwq": 1}
+    _assert_dense_grads([t.grad for t in leaves], args, g)
+
+
+def test_qat_dense_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, w, b, w_mn, w_mx, a_mn, a_mx = _dense_case(dev, 8, 16, 4, 1)
+    with pytest.raises(TypeError):
+        qd.qat_dense(x.double(), w.double(), b.double())
+    with pytest.raises(ValueError):
+        qd.qat_dense(x.t().contiguous().t(), w, b)
+    with pytest.raises(ValueError):
+        qd.qat_dense(x, w.cpu(), b)
+    with pytest.raises(ValueError):
+        qd.qat_dense(x, w, b, a_mn=a_mn, a_mx=a_mx, a_observing=torch.tensor([1, 2], device=dev) > 0)
+
+
+def _tiny_models(name):
+    from fqss_tpu_torch.models.dptnet import DPTNet
+    from fqss_tpu_torch.models.sepformer import Sepformer
+    from fqss_tpu_torch.quant.spec import QuantSpec
+
+    spec = dict(qat=True, n_splitter=2, n_combiner=2, out_quant=True, max_observations=1)
+    if name == "DPTNet":
+        cls, arch = DPTNet, dict(n_srcs=2, kernel_size=2, enc_dim=32, feature_dim=16, hidden_dim=32, layer=2,
+                                 segment_size=40)
+    else:
+        cls, arch = Sepformer, dict(n_srcs=2, kernel_size=8, stride=4, n_filters=32, n_repeats=1, n_heads=4,
+                                    chunk_size=20, n_ffn=48, n_layers=2)
+    model = cls(q=QuantSpec(**spec), generator=torch.Generator().manual_seed(0), **arch)
+    teacher = cls(generator=torch.Generator().manual_seed(1), **arch).requires_grad_(False).eval()
+    return model, teacher
+
+
+# A tiny model's KD step, card against CPU (test_tiny_train_step_card_vs_cpu): (|loss difference| in dB, minimum
+# whole-gradient cosine). The observing step runs no grid, so the two differ by float32 sums in another order
+# alone. The quantizing step adds the grids' tie flips, which on a tiny random-weight model with a one-step
+# observer move the loss most: the Sepformer read 0.154 dB on an H100 (the ConvTasNet of phase 10, full width,
+# 0.003-0.008 dB).
+TINY_TRAIN_CARD_VS_CPU = {"observing": (1e-3, 0.9999), "quantizing": (0.5, 0.99)}
+
+
+@pytest.mark.parametrize("name", ["DPTNet", "Sepformer"])
+def test_tiny_train_step_card_vs_cpu(dev, name):
+    """Two KD steps (the observing one, then a quantizing one) on the card and on the CPU from the same state:
+    the kernels launch once per module, the loss and the clipped gradients agree within TINY_TRAIN_CARD_VS_CPU."""
+    import copy
+
+    from fqss_tpu_torch.nn.layers import QDense
+    from fqss_tpu_torch.ops import lstm
+    from fqss_tpu_torch.train.state import TrainState
+    from fqss_tpu_torch.train.trainer import TrainConfig, make_optimizer, make_train_step
+
+    model, teacher = _tiny_models(name)
+    src = torch.randn(2, 2, 1600, generator=torch.Generator().manual_seed(2)) * 0.3
+    n_dense = sum(isinstance(m, QDense) for m in model.modules())
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        m, t = copy.deepcopy(model).to(device), copy.deepcopy(teacher).to(device)
+        state = TrainState(m, make_optimizer(TrainConfig(), [p for p in m.parameters() if p.requires_grad]), t)
+        step = make_train_step(TrainConfig())
+        out = []
+        for _ in range(2):
+            for mod in (qd, lstm):
+                mod.reset_launches()
+            metrics = step(state, src.sum(1).to(device), src.to(device))
+            grads = torch.cat([p.grad.flatten().double().cpu() for p in m.parameters() if p.grad is not None])
+            out.append((float(metrics["loss"]), grads, dict(qd.LAUNCHES), dict(lstm.LAUNCHES)))
+        runs.append(out)
+    for step, (loss_card, g_card, dense, rec), (loss_cpu, g_cpu, cpu_dense, _) in zip(TINY_TRAIN_CARD_VS_CPU, *runs):
+        assert dense == {"dense": 2 * n_dense, "dense_mask": n_dense, "dense_dx": n_dense, "dense_dwq": n_dense}
+        assert set(cpu_dense.values()) == {0}
+        if name == "DPTNet":
+            assert rec == {"lstm": 0, "bilstm": 2 * 4}  # student and teacher, 2 layers x row and col each
+        cos = float(g_card @ g_cpu / (g_card.norm() * g_cpu.norm()))
+        loss_tol, cos_min = TINY_TRAIN_CARD_VS_CPU[step]
+        assert abs(loss_card - loss_cpu) <= loss_tol and cos >= cos_min, (step, loss_card, loss_cpu, cos)

@@ -238,6 +238,31 @@ def test_engine_agrees_with_the_fake_quant_forward(calibrated):
     assert diff.mean() <= 2 * lsb, diff.mean() / lsb
 
 
+def test_engine_decodes_the_residual_plane_with_the_trained_residual_decoder():
+    """With ``train_res_dec`` the combiner's residual plane is decoded by its own trained weight, as JAX's engine
+    does (``res_dec_kernel``); the shared decoder weight there would read far below JAX_BOUND."""
+    from fqss_tpu_torch.serve.fold import fold_quantized_weights
+
+    spec = dict(FQSS, train_res_dec=True)
+    arch = dict(ARCH, n_blocks=2, n_repeats=1)
+    mix, _ = synth_batch(np.random.default_rng(4), 1, 2, 2400)
+    obs = JaxConvTasNet(q=JaxQuantSpec(observer=True, **spec), **arch)
+    variables = jax.jit(obs.init)(jax.random.PRNGKey(4), jnp.asarray(mix))
+    variables = jax.device_get(run_observer(obs, variables, jnp.asarray(mix), steps=4))
+    assert "residual_decoder_kernel" in variables["params"]["decoder"]["residual_error_block"]
+    jm = JaxConvTasNet(q=JaxQuantSpec(observer=False, **spec), **arch)
+    port = ConvTasNet(q=QuantSpec(observer=False, **spec), **arch)
+    port.load_state_dict(convtasnet_from_jax(variables), strict=True)
+    port.eval()
+    want = _jax_engine_forward(jm, variables, mix, "float32")
+    got = ConvTasNetInt8Engine(port, compute_dtype="float32")(torch.from_numpy(mix)).numpy()
+    assert got.shape == want.shape == (1, 2, 2400)
+    _assert_matches_jax(want, got, _out_lsb(port), "float32")
+    x = torch.from_numpy(mix)
+    with torch.no_grad():
+        assert torch.equal(fold_quantized_weights(port)(x), port(x))
+
+
 @pytest.mark.parametrize("spec,mask_act,compute_dtype", [
     (dict(FQSS, n_combiner=1), "relu", "float32"),
     (dict(FQSS, n_combiner=1), "relu", "bfloat16"),

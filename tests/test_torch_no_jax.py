@@ -37,7 +37,7 @@ SERVING_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
     "serve.common", "serve.convtasnet_int8", "ops.int8_matmul", "separation.metrics", "separation.stoi",
     "separation.bss_eval", "train.validate", "val", "utils.config", "data.librimix", "data.augment",
     "ops.lstm", "nn.lstm", "nn.attention", "models.dptnet", "serve.dptnet_int8", "ops.attention", "models.sepformer",
-    "serve.sepformer_int8"))
+    "serve.sepformer_int8", "ops.qat_dense"))
 
 
 def jax_package_imports(path: str) -> list[str]:

@@ -11,7 +11,9 @@ DPTNet serving path (``configs/dptnet_2spks_8k.yaml``'s model: encoder 256,
 features 64, LSTM hidden 128, 6 dual-path layers, segments of 250), then the
 FQSS-8bit Sepformer serving path (``configs/sepformer_2spks_8k.yaml``'s
 model: 256 filters, 8 heads, 2 dual-path blocks of 8 + 8 transformer layers,
-feed-forward 1024, chunks of 250), then the KD training of both; all with
+feed-forward 1024, chunks of 250), then the KD training of both, then the
+fused fake-quant matmul (K3) of their bias-free 1x1 convs, streaming serving
+and ``--engine auto`` for all three models; all with
 n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one line per phase and lets any
 failure propagate:
 
@@ -74,12 +76,12 @@ failure propagate:
     config's 50-step observer window (on 2 x 4 s), one forward of 8 x 4 s:
     output [8, 2, 32000], finite; the launch counters rise by the quantizer
     modules that run (all but the attention's two no-op sites of each layer,
-    its head quantizer, whose grid K8 applies, and the QDense layers', whose
-    grids K5 applies), K7 by 12, K6 by 0, K8 (the fused attention) by 12 and
-    K5 by 13.
+    its head quantizer, whose grid K8 applies, the QDense layers', whose
+    grids K5 applies, and BN's, whose grids K3 applies), K7 by 12, K6 by 0,
+    K8 (the fused attention) by 12, K5 by 13 and K3 by 1 (BN).
 19. card vs CPU on the same weights (1 x 1 s): SNR >= 20 dB per output.
 20. the folded DPTNet: bitwise equal to the fake-quant forward, no
-    weight-kernel launch.
+    weight-kernel launch, K5 and K3 with their weight grids off.
 21. three 20 s requests through ``fqss_tpu_torch.infer`` (folded, OLA) with
     ``configs/dptnet_2spks_8k.yaml``'s ``model_cfg``.
 22. K4 bitwise against its plain version at the DPTNet engine's shapes and
@@ -105,8 +107,8 @@ failure propagate:
 25. the full-width Sepformer from ``create_pretrained_model``, ranges from the
     config's 50-step observer window on 2 x 4 s, one forward of 8 x 4 s:
     output [8, 2, 32000], finite; the launch counters rise by the quantizer
-    modules that run (not the QDense layers': K5 applies their grids), K8 by
-    32 and K5 by 65.
+    modules that run (not the QDense layers': K5 applies their grids; not the
+    masker conv1d's: K3 does), K8 by 32, K5 by 65 and K3 by 1.
 26. card vs CPU on the same weights (1 x 1 s): SNR >= SEP_CARD_VS_CPU_DB per
     output; the float model on the same weights >= SEP_FLOAT_CARD_VS_CPU_DB.
 27. the folded Sepformer: bitwise equal to the fake-quant forward, no
@@ -138,8 +140,10 @@ failure propagate:
     from ``create_model_and_teacher`` with the configs' ``model_cfg``, 8 steps
     at the configs' batch 1 (3 s and 4 s) through a 3-step observer window:
     every step launches K5 per QDense forward (student and teacher), K5-bwd
-    per QDense, K7 and K8 per module, K1/K2 per remaining quantizer module and
-    their backward kernels per quantizer reaching the loss; finite losses.
+    per QDense, K7 and K8 per module, K3 per bias-free 1x1 conv of the
+    teacher (it runs without gradient; the student's take F.conv1d and the
+    quantizer kernels), K1/K2 per remaining quantizer module and their
+    backward kernels per quantizer reaching the loss; finite losses.
 34. card vs CPU: one post-window step at 1 x 1 s, the quantized model and its
     float version, loss and whole-gradient cosine within TRAIN_CARD_VS_CPU.
 35. train-step time and peak memory of both models at batch 1 and the
@@ -147,6 +151,24 @@ failure propagate:
 36. one recipe epoch of each config (``-env asteroid`` DPTNet,
     ``-env speechbrain`` the Sepformer) through ``python -m
     fqss_tpu_torch.train`` on a mini LibriMix.
+
+37. the fused fake-quant matmul (K3) vs its plain version on the card, at the
+    shapes phases 18 and 25 gave it (DPTNet's BN [8, 256, 31999] -> 64, the
+    Sepformer masker's conv1d [8, 256, 3999] -> 256) and at odd sizes, with
+    planted half-step ties and clip extremes, for every combination of the two
+    grids and their observing flags: the float outputs within DENSE_RTOL of
+    the sum of the terms' magnitudes, each quantized output its own float
+    output on K1's grid, at most DENSE_GRID_SHARE a step apart, the planted
+    values exact; CUDA-event times of K3, its plain version and
+    ``torch.matmul`` + K1 (the library call), with the bound.
+38. streaming: a 20 s mixture in pushes of 1600 samples (200 ms) through
+    ``infer.stream_file`` with 16000-sample windows, for each model's folded
+    engine and ``auto``: the drained stream within STREAM_TOL of
+    ``ola_infer(chunk_batch=1)`` on the card; each window's forward timed by
+    CUDA events (p50, p90 over 14 windows).
+39. ``--engine auto`` through the infer entry for each model: the table's
+    path (``serve/autopath.py``), bitwise equal to the folded engine, weight-
+    grid launches only where that path is fake_quant; three 20 s requests.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -185,9 +207,11 @@ from fqss_tpu_torch.ops import fake_quant as fq
 from fqss_tpu_torch.ops import int8_matmul as im
 from fqss_tpu_torch.ops import lstm as lk
 from fqss_tpu_torch.ops import qat_dense as qd
+from fqss_tpu_torch.ops import qmatmul as qm
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
 from fqss_tpu_torch.quant.spec import QuantSpec
-from fqss_tpu_torch.serve import make_int8_engine
+from fqss_tpu_torch.separation.ola import ola_infer
+from fqss_tpu_torch.serve import BEST_PATHS, make_int8_engine
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
 from fqss_tpu_torch.train.state import TrainState
 from fqss_tpu_torch.train.trainer import TrainConfig, make_optimizer, make_train_step
@@ -340,6 +364,14 @@ LSTM_GRAD_TOL = 1e-6  # relative to the gradient's largest magnitude
 # phase 10's bounds for the float versions, whose differences are float32 sums alone, and for the quantized
 # models, whose tie flips phase 10's ConvTasNet met with 10x room.
 TRAIN_CARD_VS_CPU = {"float": (LOSS_DB_TOL, GRAD_COS_MIN), "quantized": (LOSS_DB_TOL, GRAD_COS_MIN)}
+# The K3 slice (phases 37-39). K3 against its plain version (phase 37) with K5's rules (DENSE_RTOL,
+# DENSE_GRID_SHARE: the same kernel, summing each product in k order with fmaf), at the shapes that phases 18 and
+# 25 gave it and at odd ones (B, K, T, N): ragged tiles on every axis, a width that takes 64-row tiles, one column.
+QMM_ODD = ((3, 37, 301, 65), (1, 5, 7, 3), (2, 256, 1, 64), (2, 64, 1000, 64))
+# Streaming (phase 38): a 20 s mixture in pushes of 200 ms at 8 kHz through windows of the configs' 16000-sample
+# segments; the drained stream against ola_infer(chunk_batch=1) on the card: the same forward on the same windows,
+# the overlap-add sums in another order (tests/test_streaming.py's bound).
+STREAM_SECONDS, STREAM_SEGMENT, STREAM_PUSH, STREAM_TOL = 20, 16000, 1600, 1e-5
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8 and float32 rates.
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1.979e15, 67e12
 
@@ -556,13 +588,13 @@ def snr_db(ref: torch.Tensor, est: torch.Tensor) -> torch.Tensor:
     return 10 * torch.log10(ref.pow(2).sum(-1) / (ref - est).pow(2).sum(-1))
 
 
-def serve_requests(dev, served: torch.nn.Module, model_cfg: dict, engine: str = "folded",
-                   seconds: int = 20) -> list[float]:
-    """Serve three synthetic mixtures through the infer entry; returns each request's seconds."""
+def serve_requests(dev, state: dict, model_cfg: dict, engine: str = "folded", seconds: int = 20) -> list[float]:
+    """Serve three synthetic mixtures through the infer entry, the model's weights and ranges from ``state``;
+    returns each request's seconds."""
     latencies = []
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "model_fqss8bit.pt")
-        torch.save(served.state_dict(), ckpt)
+        torch.save(state, ckpt)
         conf = {"model_cfg": {**model_cfg, "model_path": ckpt},
                 "testing_cfg": {"segment_samples": 16000, "overlap": 0.25}}
         apply_fn = infer.load_engine(conf["model_cfg"], engine, dev)
@@ -987,11 +1019,11 @@ def build_served_dptnet(dev, mix: np.ndarray, steps: int = DPT_OBSERVE_STEPS) ->
 
 
 def all_launches() -> dict:
-    return {**fq.LAUNCHES, **lk.LAUNCHES, **im.LAUNCHES, **k8.LAUNCHES, **qd.LAUNCHES}
+    return {**fq.LAUNCHES, **lk.LAUNCHES, **im.LAUNCHES, **k8.LAUNCHES, **qd.LAUNCHES, **qm.LAUNCHES}
 
 
 def reset_all_launches() -> None:
-    for module in (fq, lk, im, k8, qd):
+    for module in (fq, lk, im, k8, qd, qm):
         module.reset_launches()
 
 
@@ -1000,6 +1032,23 @@ def dense_quantizers(model) -> dict:
     layers = [m for m in model.modules() if isinstance(m, QDense)]
     return {"dense": len(layers), "act": sum(m.activation_fake_quantize is not None for m in layers),
             "weight": sum(m.weight_fake_quantize is not None for m in layers)}
+
+
+def fused_convs(model) -> dict:
+    """The QConv1d layers that run on K3 where no gradient is needed, and their quantizers, whose grids K3
+    applies (no K1 or K2 launch of their own)."""
+    layers = [m for m in model.modules() if isinstance(m, QConv1d) and m.fused]
+    return {"qmatmul": len(layers), "act": sum(m.activation_fake_quantize is not None for m in layers),
+            "weight": sum(m.weight_fake_quantize is not None for m in layers)}
+
+
+def record_k3_inputs(model, name: str) -> tuple[list, list]:
+    """Hooks on ``model``'s K3 layers that record (name, B, K, T, N) of every input they take; returns the list
+    and the hooks' handles."""
+    seen = []
+    handles = [m.register_forward_pre_hook(lambda mod, args: seen.append((name, *args[0].shape, mod.weight.shape[0])))
+               for m in model.modules() if isinstance(m, QConv1d) and m.fused]
+    return seen, handles
 
 
 def no_launches(**counts) -> dict:
@@ -1083,9 +1132,13 @@ def int8_engines_vs_fake_quant(phase: int, name: str, model, cpu_model, x: torch
     return engines
 
 
-def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
+def state_on_cpu(model: torch.nn.Module) -> dict:
+    return {k: v.detach().cpu() for k, v in model.state_dict().items()}
+
+
+def serve_dptnet(dev, smi: str) -> tuple:
     """Phases 17-23, the DPTNet serving path. Returns (K6 results, K7 results, the launches of phase 18's
-    forward, its attention shapes for phase 24)."""
+    forward, its attention shapes for phase 24, its K3 shapes for phase 37, the served weights and ranges)."""
     dmix, _ = synth_batch(np.random.default_rng(18), DPT_BATCH, 2, DPT_SEG)
     dpt = build_served_dptnet(dev, dmix[:2])
     shapes = dpt_lstm_shapes(DPT_BATCH, DPT_SEG, dpt)
@@ -1098,6 +1151,7 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
     noop = 2 * n_mha  # attn and softmax sites, skipped
     n_params = sum(p.numel() for n, p in dpt.named_parameters() if "fake_quantize" not in n and ".wq_" not in n)
     x = torch.from_numpy(dmix).to(dev)
+    k3_shapes, hooks = record_k3_inputs(dpt, "DPTNet BN")
     reset_all_launches()
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1105,9 +1159,12 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = all_launches()
-    dense = dense_quantizers(dpt)
-    want = no_launches(act=counts["act"] - noop - n_mha - dense["act"], weight=counts["weight"] - dense["weight"],
-                       bilstm=2 * dpt.layer, attention=n_mha, dense=dense["dense"])
+    for h in hooks:
+        h.remove()
+    dense, fused = dense_quantizers(dpt), fused_convs(dpt)
+    want = no_launches(act=counts["act"] - noop - n_mha - dense["act"] - fused["act"],
+                       weight=counts["weight"] - dense["weight"] - fused["weight"], bilstm=2 * dpt.layer,
+                       attention=n_mha, dense=dense["dense"], qmatmul=fused["qmatmul"])
     if tuple(y.shape) != (DPT_BATCH, 2, DPT_SEG) or not torch.isfinite(y).all():
         raise AssertionError(f"DPTNet forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
     if launches != want:
@@ -1115,9 +1172,10 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
     log(f"[18] full-width DPTNet {tuple(x.shape)} -> {tuple(y.shape)}, finite, {n_params} parameters, LSTMs "
         f"{', '.join(f'{s} T {T} x B {B}' for s, T, B, _ in shapes)}, first call {first_s:.2f} s; launches "
         f"act={launches['act']} (= {counts['act']} act quantizers - {noop} no-op attention sites - {n_mha} head "
-        f"grids in K8's epilogue - {dense['act']} in K5's) weight={launches['weight']} (= {counts['weight']} weight "
-        f"quantizers - {dense['weight']} in K5) bilstm={launches['bilstm']} lstm=0 attention={launches['attention']} "
-        f"dense={launches['dense']} (= QDense layers)")
+        f"grids in K8's epilogue - {dense['act']} in K5's - {fused['act']} in K3's) weight={launches['weight']} (= "
+        f"{counts['weight']} weight quantizers - {dense['weight']} in K5 - {fused['weight']} in K3) "
+        f"bilstm={launches['bilstm']} lstm=0 attention={launches['attention']} dense={launches['dense']} (= QDense "
+        f"layers) qmatmul={launches['qmatmul']} (= BN, K3: {k3_shapes})")
 
     # 19. card vs CPU on the same weights
     cpu_dpt = create_pretrained_model(DPTNET_CFG, observer=False)
@@ -1139,18 +1197,19 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
     with torch.inference_mode():
         y_folded = folded(x)
     torch.cuda.synchronize()
-    if lk.LAUNCHES["bilstm"] != 2 * dpt.layer or fq.LAUNCHES["weight"] != 0 or qd.LAUNCHES["dense"] != dense["dense"]:
+    if (lk.LAUNCHES["bilstm"] != 2 * dpt.layer or fq.LAUNCHES["weight"] != 0 or qd.LAUNCHES["dense"] != dense["dense"]
+            or qm.LAUNCHES["qmatmul"] != fused["qmatmul"]):
         raise AssertionError(f"the folded DPTNet launched {all_launches()}")
     if not torch.equal(y_folded, y):
         raise AssertionError(f"folded DPTNet != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
     log(f"[20] folded DPTNet: bitwise equal to fake-quant; act launches {fq.LAUNCHES['act']}, weight 0, "
-        f"bilstm {lk.LAUNCHES['bilstm']}, attention {k8.LAUNCHES['attention']}, dense {qd.LAUNCHES['dense']} (K5 "
-        f"with the weight grid off: the weights are on it)")
+        f"bilstm {lk.LAUNCHES['bilstm']}, attention {k8.LAUNCHES['attention']}, dense {qd.LAUNCHES['dense']} and "
+        f"qmatmul {qm.LAUNCHES['qmatmul']} (K5 and K3 with the weight grid off: the weights are on it)")
     del y_folded
     torch.cuda.empty_cache()
 
     # 21. requests through the infer entry
-    for i, s in enumerate(serve_requests(dev, dpt, DPTNET_CFG)):
+    for i, s in enumerate(serve_requests(dev, dpt.state_dict(), DPTNET_CFG)):
         log(f"[21] DPTNet request {i} (folded): 20 s mixture -> 2 sources of 20 s, {s * 1000:.1f} ms")
 
     # 22. K4 at the int8 engine's shapes, then the engine (launch counts set to 0 inside, read after each forward)
@@ -1170,7 +1229,7 @@ def serve_dptnet(dev, smi: str) -> tuple[dict, dict, dict, list]:
             f"{DPT_BATCH} x {DPT_SEG // SR} s) on {smi}")
     heads, d = 4, dpt.feature_dim // 4  # the DPT's layers have 4 heads
     attn_shapes = [(f"DPTNet {side}", B * heads, T, T, d, dpt.layer, False) for side, T, B, _ in shapes]
-    return k6, k7, launches, attn_shapes
+    return k6, k7, launches, attn_shapes, k3_shapes, state_on_cpu(dpt)
 
 
 def sepformer_attention_shapes(sep: Sepformer) -> list[tuple]:
@@ -1307,9 +1366,9 @@ def check_int8_at_sepformer_shapes(dev, sep: Sepformer) -> None:
         del xs, w
 
 
-def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, dict]:
+def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple:
     """Phases 24-30: K8 at every attention shape, then the Sepformer serving path. Returns (K8 results, the
-    launches of phase 25's forward)."""
+    launches of phase 25's forward, its K3 shapes for phase 37, the served weights and ranges)."""
     smix, _ = synth_batch(np.random.default_rng(25), SEP_BATCH, 2, SEP_SEG)
     t0 = time.perf_counter()
     sep = build_served_sepformer(dev, smix[:2])
@@ -1323,6 +1382,7 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, 
     n_mha = sum(isinstance(m, QMultiheadAttention) for m in sep.modules())
     n_params = sum(p.numel() for n, p in sep.named_parameters() if "fake_quantize" not in n)
     x = torch.from_numpy(smix).to(dev)
+    k3_shapes, hooks = record_k3_inputs(sep, "Sepformer masker conv1d")
     reset_all_launches()
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1330,11 +1390,14 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, 
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     launches = all_launches()
-    # every act quantizer but the attention's two no-op sites and its head grid (in K8's epilogue), and the
-    # QDense layers' (in K5)
-    dense = dense_quantizers(sep)
-    want = no_launches(act=counts["act"] - 3 * n_mha - dense["act"], weight=counts["weight"] - dense["weight"],
-                       attention=n_mha, dense=dense["dense"])
+    for h in hooks:
+        h.remove()
+    # every act quantizer but the attention's two no-op sites and its head grid (in K8's epilogue), the QDense
+    # layers' (in K5) and the masker conv1d's (in K3)
+    dense, fused = dense_quantizers(sep), fused_convs(sep)
+    want = no_launches(act=counts["act"] - 3 * n_mha - dense["act"] - fused["act"],
+                       weight=counts["weight"] - dense["weight"] - fused["weight"], attention=n_mha,
+                       dense=dense["dense"], qmatmul=fused["qmatmul"])
     if tuple(y.shape) != (SEP_BATCH, 2, SEP_SEG) or not torch.isfinite(y).all():
         raise AssertionError(f"Sepformer forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
     if launches != want:
@@ -1343,9 +1406,10 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, 
         f"{', '.join(f'{n} BH {bh} x L {lq}' for n, bh, lq, *_ in shapes)}, d {shapes[0][4]}; ranges from "
         f"{SEP_OBSERVE_STEPS} observer steps on 2 x {SEP_SEG // SR} s in {calib_s:.1f} s; first call {first_s:.2f} s; "
         f"launches act={launches['act']} (= {counts['act']} act quantizers - {3 * n_mha} no-op sites and head grids of "
-        f"{n_mha} attentions - {dense['act']} in K5) weight={launches['weight']} (= {counts['weight']} weight "
-        f"quantizers - {dense['weight']} in K5) attention={launches['attention']} dense={launches['dense']} "
-        f"(= QDense layers)")
+        f"{n_mha} attentions - {dense['act']} in K5 - {fused['act']} in K3) weight={launches['weight']} (= "
+        f"{counts['weight']} weight quantizers - {dense['weight']} in K5 - {fused['weight']} in K3) "
+        f"attention={launches['attention']} dense={launches['dense']} (= QDense layers) "
+        f"qmatmul={launches['qmatmul']} (= the masker's conv1d, K3: {k3_shapes})")
 
     # 26. card vs CPU on the same weights, quantized and float
     cpu_sep = create_pretrained_model(SEPFORMER_CFG, observer=False)
@@ -1381,18 +1445,19 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, 
     with torch.inference_mode():
         y_folded = folded(x)
     torch.cuda.synchronize()
-    if fq.LAUNCHES["weight"] != 0 or k8.LAUNCHES["attention"] != n_mha or qd.LAUNCHES["dense"] != dense["dense"]:
+    if (fq.LAUNCHES["weight"] != 0 or k8.LAUNCHES["attention"] != n_mha or qd.LAUNCHES["dense"] != dense["dense"]
+            or qm.LAUNCHES["qmatmul"] != fused["qmatmul"]):
         raise AssertionError(f"the folded Sepformer launched {all_launches()}")
     if not torch.equal(y_folded, y):
         raise AssertionError(f"folded Sepformer != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
     log(f"[27] folded Sepformer: bitwise equal to fake-quant; act launches {fq.LAUNCHES['act']}, weight 0 (the "
-        f"residual decoder folded too), attention {k8.LAUNCHES['attention']}, dense {qd.LAUNCHES['dense']} (K5 with "
-        f"the weight grid off)")
+        f"residual decoder folded too), attention {k8.LAUNCHES['attention']}, dense {qd.LAUNCHES['dense']} and "
+        f"qmatmul {qm.LAUNCHES['qmatmul']} (K5 and K3 with the weight grid off)")
     del y_folded
     torch.cuda.empty_cache()
 
     # 28. requests through the infer entry
-    for i, sec in enumerate(serve_requests(dev, sep, SEPFORMER_CFG)):
+    for i, sec in enumerate(serve_requests(dev, sep.state_dict(), SEPFORMER_CFG)):
         log(f"[28] Sepformer request {i} (folded): 20 s mixture -> 2 sources of 20 s, {sec * 1000:.1f} ms")
 
     # 29. K4 at the int8 engine's shapes, then the engine (launch counts set to 0 inside, read after each forward)
@@ -1407,7 +1472,7 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple[dict, 
             ms = cuda_ms(lambda: fn(x), 3)
         log(f"[30] Sepformer throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
             f"{SEP_BATCH} x {SEP_SEG // SR} s) on {smi}")
-    return attn, launches
+    return attn, launches, k3_shapes, state_on_cpu(sep)
 
 
 def dense_train_shapes(dpt_seg: int, sep_seg: int) -> list[tuple]:
@@ -1634,7 +1699,8 @@ def train_launches(model, teacher) -> dict:
     """The launches of one KD step: forward, every quantizer module (K5 for the QDense layers' grids, K1 for the
     attention's no-op sites too, which observe in train mode), K7 and K8 for student and teacher; backward,
     K5-bwd per QDense, K1-bwd per act quantizer whose output reaches the loss (not the no-op sites, run under
-    no_grad), K2-bwd per weight quantizer (the QDense layers' through K5-bwd)."""
+    no_grad), K2-bwd per weight quantizer (the QDense layers' through K5-bwd); K3 for the teacher's bias-free 1x1
+    convs, which run without gradient (the student's take the differentiable composition)."""
     q, dense = count_quantizers(model.modules()), dense_quantizers(model)
     n_mha = sum(isinstance(m, QMultiheadAttention) for m in model.modules())
     bilstm = sum(isinstance(m, QLSTM) for net in (model, teacher) for m in net.modules())
@@ -1643,7 +1709,7 @@ def train_launches(model, teacher) -> dict:
                        attention=sum(isinstance(m, QMultiheadAttention) for net in (model, teacher)
                                      for m in net.modules()),
                        dense=dense["dense"] + dense_quantizers(teacher)["dense"], dense_mask=dense["dense"],
-                       dense_dx=dense["dense"], dense_dwq=dense["dense"])
+                       dense_dx=dense["dense"], dense_dwq=dense["dense"], qmatmul=fused_convs(teacher)["qmatmul"])
 
 
 def train_model_at_full_width(dev, name: str, cfg: dict, seg: int) -> tuple[TrainState, dict]:
@@ -1810,6 +1876,183 @@ def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
     return dense_fwd, dense_bwd, launches
 
 
+def qmatmul_case(dev, b: int, k: int, t: int, n: int, gen: torch.Generator) -> tuple:
+    """x [B, K, T], w [N, K] (unit-variance products), weight and act ranges; output channel 0 carries planted
+    ties: a weight grid of step TIE_STEP, w[0] = (5 steps, 0, ...), and an act grid of step TIE_STEP whose mn is
+    half a step off zero; time steps 0-5 of batch row 0 take x = 1, 2, 3, 4, 5, 0 there, so y = mn + (5 (t + 1)
+    + 128.5) steps and mn + 128.5 steps: exact half-step ties; time step 6 is far past both clip bounds."""
+    x = torch.randn(b, k, t, device=dev, generator=gen)
+    w = torch.randn(n, k, device=dev, generator=gen) / math.sqrt(k)
+    w_mn, w_mx = w.amin(1), w.amax(1)
+    a_mn = torch.tensor([-128.5 * TIE_STEP], device=dev)
+    a_mx = a_mn + 255 * TIE_STEP
+    w_mn[0], w_mx[0] = -255 / 256, 255 / 256
+    w[0] = 0.0
+    w[0, 0] = 5 * TIE_STEP
+    steps = min(t, 6)
+    x[0, 0, :steps] = torch.tensor([1.0, 2, 3, 4, 5, 0], device=dev)[:steps]
+    if t > 6:
+        x[0, :, 6] = 100.0 * torch.sign(w[min(1, n - 1)])
+    return x, w, w_mn, w_mx, a_mn, a_mx
+
+
+def check_qmatmul(name: str, case: tuple, flags: dict) -> float:
+    """K3 against its plain version with the grids and observing flags of ``flags`` (K5's rules, QMM_ODD's
+    note); returns the largest |pre - plain| / sum |term|."""
+    x, w, w_mn, w_mx, a_mn, a_mx = case
+    flag = (lambda v: None if v is None else torch.tensor(v, device=x.device))
+    wr = (w_mn, w_mx) if flags.get("w", True) else (None, None)
+    ar = (a_mn, a_mx) if flags.get("a", True) else (None, None)
+    w_obs, a_obs = flag(flags.get("w_obs")), flag(flags.get("a_obs"))
+    y = qm.qmatmul(x, w, *wr, *ar, 8, 8, w_obs, a_obs)
+    pre = qm.qmatmul(x, w, *wr, None, None, 8, 8, w_obs, None)
+    bound = qd._weight_q(w, *wr, 8, w_obs).abs() @ x.abs()
+    err = ((pre - qm.qmatmul_ref(x, w, *wr, None, None, 8, 8, w_obs, None)).abs() / bound.clamp_min(1e-30))
+    err = err.max().item()
+    del bound
+    if not err <= DENSE_RTOL:
+        raise AssertionError(f"K3 {name} {flags}: float output {err:.3g} of sum |term| from the plain version's")
+    if ar[0] is None or (a_obs is not None and bool(a_obs)):
+        if not torch.equal(y, pre):
+            raise AssertionError(f"K3 {name} {flags}: with the act grid off the output is not the float output")
+        return err
+    if not torch.equal(y, fq.act_fake_quant_ref(pre, a_mn, a_mx, 8)):
+        raise AssertionError(f"K3 {name} {flags}: the epilogue is not K1's plain grid of the kernel's own output")
+    ref = qm.qmatmul_ref(x, w, *wr, *ar, 8, 8, w_obs, a_obs)
+    diff = (y - ref).abs()
+    share = (diff > 0.5 * TIE_STEP).float().mean().item()
+    if diff.max().item() > TIE_STEP * (1 + 1e-4) or share > DENSE_GRID_SHARE:
+        raise AssertionError(f"K3 {name} {flags}: {diff.max().item() / TIE_STEP:.3f} steps from the plain version, "
+                             f"{share:.2e} of the outputs a step apart (at most {DENSE_GRID_SHARE})")
+    planted = min(x.shape[-1], 7)
+    if not torch.equal(y[0, 0, :planted], ref[0, 0, :planted]):
+        raise AssertionError(f"K3 {name} {flags}: planted ties or clip extremes differ: {y[0, 0, :planted]} vs "
+                             f"{ref[0, 0, :planted]}")
+    return err
+
+
+def qmatmul_bound(b: int, k: int, t: int, n: int) -> tuple[int, int]:
+    """(bytes, operations) of K3: x, w and the ranges in, y out; the product, float32."""
+    return 4 * (b * k * t + n * k + 2 * n + 2 + b * n * t), 2 * b * n * k * t
+
+
+def check_qmatmul_kernel(dev, shapes: list[tuple]) -> dict:
+    """Phase 37: K3 against its plain version at the shapes the serving forwards gave it (one launch each) and at
+    odd ones, every grid and observing-flag combination; times of K3, the plain version and torch.matmul + K1
+    per DPTNet and Sepformer forward, with the bound."""
+    gen = torch.Generator(device=dev).manual_seed(37)
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    total = [0, 0]
+    for name, b, k, t, n in [*shapes, *(("odd", *s) for s in QMM_ODD)]:
+        case = qmatmul_case(dev, b, k, t, n, gen)
+        for flags in DENSE_FLAGS:
+            res["max_abs_err"] = max(res["max_abs_err"], check_qmatmul(f"{name} [{b},{k},{t}] -> {n}", case, flags))
+        line = (f"[37] K3 {name} [{b},{k},{t}] x [{n},{k}]: every grid and observing-flag combination "
+                f"({len(DENSE_FLAGS)}) within its bounds, planted ties and clip extremes exact")
+        if name == "odd":
+            log(line)
+            continue
+        x, w, w_mn, w_mx, a_mn, a_mx = case
+        wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0)
+        times = {"ms": cuda_ms(lambda: qm.qmatmul(x, w, w_mn, w_mx, a_mn, a_mx), 10),
+                 "plain_ms": cuda_ms(lambda: qm.qmatmul_ref(x, w, w_mn, w_mx, a_mn, a_mx), 10),
+                 "library_ms": cuda_ms(lambda: fq.act_fake_quant(torch.matmul(wq, x), a_mn, a_mx, 8), 10)}
+        nbytes, ops = qmatmul_bound(b, k, t, n)
+        bnd = bound_of(nbytes, ops, F32_OPS_S)
+        log(f"{line}; K3 {times['ms']:.4f} ms ({ops / times['ms'] / 1e9:.1f} TFLOP/s, "
+            f"{bnd['bound_ms'] / times['ms']:.1%} of its {bnd['bound_ms']:.4f} ms bound by {bnd['bound_by']}), "
+            f"plain {times['plain_ms']:.4f}, torch.matmul + K1 {times['library_ms']:.4f}")
+        for key in ("ms", "plain_ms", "library_ms"):
+            res[key] += times[key]
+        total = [total[0] + nbytes, total[1] + ops]
+        del case, x, w, wq
+        torch.cuda.empty_cache()
+    res.update(bound_of(*total, F32_OPS_S))
+    log(f"[37] one DPTNet and one Sepformer serving forward's {len(shapes)} K3 launches: {res['ms']:.4f} ms against "
+        f"a {res['bound_ms']:.4f} ms bound ({res['bound_ms'] / res['ms']:.1%}), plain {res['plain_ms']:.4f}, "
+        f"torch.matmul + K1 {res['library_ms']:.4f}")
+    return res
+
+
+def stream_request(dev, name: str, state: dict, model_cfg: dict, engine: str, smi: str) -> None:
+    """Phase 38: a STREAM_SECONDS mixture through ``infer.stream_file`` in pushes of STREAM_PUSH samples; the
+    drained stream against ola_infer(chunk_batch=1) on the card; each window's forward timed by CUDA events."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "model_fqss8bit.pt")
+        torch.save(state, ckpt)
+        conf = {"model_cfg": {**model_cfg, "model_path": ckpt},
+                "testing_cfg": {"segment_samples": STREAM_SEGMENT, "overlap": 0.25}}
+        apply_fn = infer.load_engine(conf["model_cfg"], engine, dev)
+        mix, _ = synth_batch(np.random.default_rng(38), 1, 2, STREAM_SECONDS * SR)
+        path = os.path.join(tmp, "mixture.wav")
+        save_audio(path, mix[0], SR)
+        windows = []
+
+        def timed(x):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            y = apply_fn(x)
+            end.record()
+            windows.append((start, end))
+            return y
+
+        t0 = time.perf_counter()
+        _, out = infer.stream_file(timed, conf, path, STREAM_PUSH, os.path.join(tmp, "out"), device=dev)
+        stream_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        latency = np.array([s.elapsed_time(e) for s, e in windows])
+        wav, _ = read_audio(path)
+        ref = ola_infer(apply_fn, wav, n_srcs=2, segment=STREAM_SEGMENT, overlap=0.25, chunk_batch=1, device=dev)
+    err = float(np.abs(out - ref).max())
+    if out.shape != ref.shape or not np.isfinite(out).all() or err > STREAM_TOL or len(latency) < 10:
+        raise AssertionError(f"{name} stream ({engine}): shape {out.shape} vs {ref.shape}, max |diff| {err} "
+                             f"(at most {STREAM_TOL}), {len(latency)} windows")
+    log(f"[38] {name} stream ({engine}): {STREAM_SECONDS} s in {wav.shape[-1] // STREAM_PUSH} pushes of "
+        f"{STREAM_PUSH} samples -> 2 sources of {out.shape[-1]} samples in {stream_s * 1000:.1f} ms, max |diff| "
+        f"{err:.2e} from ola_infer(chunk_batch=1) (<= {STREAM_TOL}); per-window forward over {len(latency)} windows "
+        f"of {STREAM_SEGMENT}: p50 {np.percentile(latency, 50):.2f} ms, p90 {np.percentile(latency, 90):.2f}, max "
+        f"{latency.max():.2f} on {smi}")
+
+
+def auto_requests(dev, name: str, state: dict, model_cfg: dict) -> None:
+    """Phase 39: ``--engine auto`` through the infer entry: the table's path, bitwise equal to the folded engine at
+    2 x 4 s and launching the weight-grid kernel only where that path is fake_quant, then three 20 s requests."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "model_fqss8bit.pt")
+        torch.save(state, ckpt)
+        cfg = {**model_cfg, "model_path": ckpt}
+        auto, folded = infer.load_engine(cfg, "auto", dev), infer.load_engine(cfg, "folded", dev)
+    x = torch.from_numpy(synth_batch(np.random.default_rng(39), 2, 2, 4 * SR)[0]).to(dev)
+    reset_all_launches()
+    with torch.inference_mode():
+        y = auto(x)
+        torch.cuda.synchronize()
+        launched = all_launches()
+        if (launched["weight"] > 0) != (BEST_PATHS[name] == "fake_quant") or not torch.equal(y, folded(x)):
+            raise AssertionError(f"{name} auto ({BEST_PATHS[name]}): launches {launched}, equal to folded: "
+                                 f"{torch.equal(y, folded(x))}")
+    del auto, folded, y
+    for i, sec in enumerate(serve_requests(dev, state, model_cfg, "auto")):
+        log(f"[39] {name} request {i} (auto: the table's {BEST_PATHS[name]} path): 20 s mixture -> 2 sources of "
+            f"20 s, {sec * 1000:.1f} ms; at 2 x 4 s bitwise equal to folded, {launched['weight']} weight-grid "
+            f"launches")
+
+
+def k3_slice(dev, smi: str, k3_shapes: list[tuple], states: dict) -> dict:
+    """Phases 37-39: K3 against its plain version, streaming and --engine auto; returns K3's results."""
+    qmm = check_qmatmul_kernel(dev, k3_shapes)  # 37.
+    torch.cuda.empty_cache()
+    configs = {"ConvTasNet": MODEL_CFG, "DPTNet": DPTNET_CFG, "Sepformer": SEPFORMER_CFG}
+    for name, cfg in configs.items():
+        for engine in ("folded", "auto"):
+            stream_request(dev, name, states[name], cfg, engine, smi)  # 38.
+        torch.cuda.empty_cache()
+    for name, cfg in configs.items():
+        auto_requests(dev, name, states[name], cfg)  # 39.
+        torch.cuda.empty_cache()
+    return qmm
+
+
 def main() -> None:
     # 0. device
     if not torch.cuda.is_available():
@@ -1885,7 +2128,7 @@ def main() -> None:
         "weight launches +0")
 
     # 6. a few requests through the infer entry
-    latencies = serve_requests(dev, served, MODEL_CFG)
+    latencies = serve_requests(dev, served.state_dict(), MODEL_CFG)
     for i, s in enumerate(latencies):
         log(f"[6] request {i}: 20 s mixture -> 2 sources of 20 s, {s * 1000:.1f} ms")
 
@@ -1925,7 +2168,7 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 14. requests through the infer entry with the int8 engine
-    for i, s in enumerate(serve_requests(dev, served, MODEL_CFG, "int8")):
+    for i, s in enumerate(serve_requests(dev, served.state_dict(), MODEL_CFG, "int8")):
         log(f"[14] request {i} (int8 engine): 20 s mixture -> 2 sources of 20 s, {s * 1000:.1f} ms")
 
     # 15. throughput of the int8 engine
@@ -1938,19 +2181,24 @@ def main() -> None:
 
     # 16. evaluation of two engines on a LibriMix-layout folder
     evaluate_engines(dev, served)
+    states = {"ConvTasNet": state_on_cpu(served)}
     del served, x, y
     torch.cuda.empty_cache()
 
     # 17-23. the DPTNet serving path (launch counts set to 0 inside before each run they check)
-    k6, k7, dpt_launches, dpt_attn_shapes = serve_dptnet(dev, smi)
+    k6, k7, dpt_launches, dpt_attn_shapes, dpt_k3_shapes, states["DPTNet"] = serve_dptnet(dev, smi)
     torch.cuda.empty_cache()
 
     # 24-30. K8 and the Sepformer serving path (launch counts set to 0 inside before each run they check)
-    attn, sep_launches = serve_sepformer(dev, smi, dpt_attn_shapes)
+    attn, sep_launches, sep_k3_shapes, states["Sepformer"] = serve_sepformer(dev, smi, dpt_attn_shapes)
     torch.cuda.empty_cache()
 
     # 31-36. K5, K5-bwd, the LSTM backward and DPTNet and Sepformer training (launch counts set to 0 inside)
     dense_fwd, dense_bwd, train_model_launches = train_models(dev, smi)
+    torch.cuda.empty_cache()
+
+    # 37-39. K3 at the shapes of phases 18 and 25, streaming and --engine auto (launch counts set to 0 inside)
+    qmm = k3_slice(dev, smi, [*dpt_k3_shapes, *sep_k3_shapes], states)
 
     source = "fqss_tpu_torch/csrc/fake_quant.cu"
     kernels = [
@@ -1990,6 +2238,12 @@ def main() -> None:
         # launches (each with one dx and one dwq launch).
         dict(name="qat_dense_bwd", route="cuda", source="fqss_tpu_torch/csrc/qat_dense.cu",
              replaces="fqss_tpu/ops/pallas_qat.py:364", launches=train_model_launches["dense_mask"], **dense_bwd),
+        # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer serving forward's launches at 8 x 4 s
+        # (DPTNet's BN, the Sepformer masker's conv1d; phase 37); library_ms: torch.matmul, then K1 for the act grid.
+        # launches: phase 18's and phase 25's forwards.
+        dict(name="qmatmul", route="cuda", source="fqss_tpu_torch/csrc/qat_dense.cu",
+             replaces="fqss_tpu/ops/pallas_quant.py:90", launches=dpt_launches["qmatmul"] + sep_launches["qmatmul"],
+             **qmm),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,4 +1,4 @@
-// Fused QAT dense layer for NVIDIA Hopper (sm_90a): K5 forward and K5-bwd.
+// Fused QAT dense layer for NVIDIA Hopper (sm_90a): K5 forward and K5-bwd, and K3.
 //
 //   weight_grid_kernel             the weight grid of K5 and K5-bwd, once a call:
 //                                  wq = weight_fq(w), the same grid point as K2's
@@ -20,6 +20,12 @@
 //                                  products a fixed-order column sum adds.
 // dwq then goes through the weight grid's straight-through backward, K2-bwd
 // (fake_quant.cu:weight_bwd_kernel), as _qd_bwd does with _w_bwd_impl.
+//   qat_dense_kernel<kEpiForward>  also replaces fqss_tpu/ops/pallas_quant.py:_qmm_kernel
+//   without a bias (K3)            (qmatmul_pallas, forward only): y[b] = act_fq(weight_fq(w) @ x[b]),
+//                                  w [N, K], x [B, K, T], y [B, N, T]: the port's NCT layout of a
+//                                  bias-free 1x1 convolution, so the weight is the row operand (A, [I][R]),
+//                                  x[b] the column operand stored [R][J], and blockIdx.z the batch row.
+//                                  JAX's kernel takes x [M, K] @ w [K, N]: the same products, transposed.
 //
 // Either grid can be switched off per call (no weight quantizer: the folded
 // serving model, whose weights are already on the grid; no act quantizer: the
@@ -34,7 +40,9 @@
 // layers do 2 M N K operations on 4 (M K + N K + M N) bytes with K, N of 256
 // and 1024, i.e. 100+ operations per byte: far above the card's float32
 // ratio (67 TFLOP/s over 3.35 TB/s = 20), so the float32 CUDA-core rate is
-// the limit. Tensor cores are not used: TF32 would move values off the 8-bit
+// the limit. So are K3's 1x1 convolutions: 2 N K T operations on 4 (K + N) T
+// bytes a batch row, 25.6 per byte for DPTNet's 256 -> 64 and 64 for the
+// Sepformer's 256 -> 256. Tensor cores are not used: TF32 would move values off the 8-bit
 // grids, and these are float32 sums in the JAX package too.
 //
 // What the design does about it: a register-tiled GEMM on the CUDA cores.
@@ -72,6 +80,7 @@ constexpr int kBR = 8;  // reduction steps staged per shared-memory tile
 constexpr int kGridThreads = 256;
 constexpr int kTM = 8, kTN = 8;  // outputs per thread in each direction
 constexpr int kBI = 128;  // output rows per block
+constexpr int kBINarrow = 64;  // K3's row tile where the layer has at most 64 output channels
 
 enum Epilogue { kEpiForward, kEpiMask, kEpiStore, kEpiSplit };
 
@@ -81,7 +90,9 @@ struct DenseArgs {
   const float* b;  // B stored [J][R] (B_RC) or [R][J]
   int64_t I, J, R;
   int64_t r_chunk;  // kEpiSplit: the rows of R each blockIdx.z sums
-  // kEpiForward / kEpiMask: the bias and the act grid, when a_mn is set and *a_obs is 0
+  int64_t b_batch, out_batch;  // kEpiForward: B's and out's stride between the batch rows of blockIdx.z (K3)
+  // kEpiForward / kEpiMask: the bias (kEpiForward: none when null) and the act grid, when a_mn is set and
+  // *a_obs is 0
   const float* bias;
   const float* a_mn;
   const float* a_mx;
@@ -108,12 +119,12 @@ __device__ __forceinline__ float element(const float* p, int64_t O, int64_t R, i
   return R_CONTIG ? p[o * R + r] : p[r * O + o];
 }
 
-template <int BJ>
+template <int BI, int BJ>
 struct Shape {
   static constexpr int kThreadsJ = BJ / kTN;
-  static constexpr int kThreadsI = kBI / kTM;
+  static constexpr int kThreadsI = BI / kTM;
   static constexpr int kThreads = kThreadsI * kThreadsJ;
-  static constexpr int kLoadA = kBI * kBR / kThreads;
+  static constexpr int kLoadA = BI * kBR / kThreads;
   static constexpr int kLoadB = BJ * kBR / kThreads;
 };
 
@@ -130,15 +141,15 @@ __device__ __forceinline__ void tile_index(int e, int& o, int& r) {
   }
 }
 
-template <int BJ, bool A_RC, bool B_RC>
-__device__ __forceinline__ void load_tiles(const DenseArgs& p, int64_t i0, int64_t j0, int64_t r0, int64_t r_end,
-                                           float* ra, float* rb) {
-  using S = Shape<BJ>;
+template <int BI, int BJ, bool A_RC, bool B_RC>
+__device__ __forceinline__ void load_tiles(const DenseArgs& p, const float* b, int64_t i0, int64_t j0, int64_t r0,
+                                           int64_t r_end, float* ra, float* rb) {
+  using S = Shape<BI, BJ>;
   const int tid = threadIdx.x;
 #pragma unroll
   for (int k = 0; k < S::kLoadA; ++k) {
     int o, r;
-    tile_index<A_RC, kBI>(tid + k * S::kThreads, o, r);
+    tile_index<A_RC, BI>(tid + k * S::kThreads, o, r);
     const int64_t gi = i0 + o, gr = r0 + r;
     ra[k] = (gi < p.I && gr < r_end) ? element<A_RC>(p.a, p.I, p.R, gi, gr) : 0.0f;
   }
@@ -147,19 +158,19 @@ __device__ __forceinline__ void load_tiles(const DenseArgs& p, int64_t i0, int64
     int o, r;
     tile_index<B_RC, BJ>(tid + k * S::kThreads, o, r);
     const int64_t gj = j0 + o, gr = r0 + r;
-    rb[k] = (gj < p.J && gr < r_end) ? element<B_RC>(p.b, p.J, p.R, gj, gr) : 0.0f;
+    rb[k] = (gj < p.J && gr < r_end) ? element<B_RC>(b, p.J, p.R, gj, gr) : 0.0f;
   }
 }
 
-template <int BJ, bool A_RC, bool B_RC>
-__device__ __forceinline__ void store_tiles(float (*As)[kBI + 4], float (*Bs)[BJ + 4], const float* ra,
+template <int BI, int BJ, bool A_RC, bool B_RC>
+__device__ __forceinline__ void store_tiles(float (*As)[BI + 4], float (*Bs)[BJ + 4], const float* ra,
                                             const float* rb) {
-  using S = Shape<BJ>;
+  using S = Shape<BI, BJ>;
   const int tid = threadIdx.x;
 #pragma unroll
   for (int k = 0; k < S::kLoadA; ++k) {
     int o, r;
-    tile_index<A_RC, kBI>(tid + k * S::kThreads, o, r);
+    tile_index<A_RC, BI>(tid + k * S::kThreads, o, r);
     As[r][o] = ra[k];
   }
 #pragma unroll
@@ -199,17 +210,22 @@ __device__ __forceinline__ void block_sum2(float& a, float& b) {
 }
 
 // At most 128 registers a thread, so that two blocks of 256 threads (four of 128) share an SM: 16-23% faster
-// at the Sepformer's and DPTNet's shapes than leaving the compiler 155-195, with no spill.
-template <int BJ, bool A_RC, bool B_RC, int EPI>
-__global__ void __launch_bounds__(Shape<BJ>::kThreads, BJ == 64 ? 4 : 2) qat_dense_kernel(DenseArgs p) {
-  using S = Shape<BJ>;
-  __shared__ __align__(16) float As[kBR][kBI + 4];
+// at the Sepformer's and DPTNet's shapes than leaving the compiler 155-195, though ptxas then spills 32-456
+// bytes a thread (the most in the 64-column and 64-row tiles).
+template <int BI, int BJ, bool A_RC, bool B_RC, int EPI>
+__global__ void __launch_bounds__(Shape<BI, BJ>::kThreads, 512 / Shape<BI, BJ>::kThreads)
+    qat_dense_kernel(DenseArgs p) {
+  using S = Shape<BI, BJ>;
+  __shared__ __align__(16) float As[kBR][BI + 4];
   __shared__ __align__(16) float Bs[kBR][BJ + 4];
 
   const int tid = threadIdx.x;
   const int tj = tid % S::kThreadsJ, ti = tid / S::kThreadsJ;
-  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * kBI;
+  const int64_t i0 = static_cast<int64_t>(blockIdx.x) * BI;
   const int64_t j0 = static_cast<int64_t>(blockIdx.y) * BJ;
+  // kEpiForward: blockIdx.z is a batch row of B and out (K3; K5 has one)
+  const int64_t z = EPI == kEpiForward ? static_cast<int64_t>(blockIdx.z) : 0;
+  const float* bz = p.b + z * p.b_batch;
   int64_t r_begin = 0, r_end = p.R;
   if (EPI == kEpiSplit) {
     r_begin = static_cast<int64_t>(blockIdx.z) * p.r_chunk;
@@ -226,16 +242,16 @@ __global__ void __launch_bounds__(Shape<BJ>::kThreads, BJ == 64 ? 4 : 2) qat_den
   // The mask kernel needs the product only where the act grid applies.
   if (EPI != kEpiMask || a_on) {
     float ra[S::kLoadA], rb[S::kLoadB];
-    load_tiles<BJ, A_RC, B_RC>(p, i0, j0, r_begin, r_end, ra, rb);
+    load_tiles<BI, BJ, A_RC, B_RC>(p, bz, i0, j0, r_begin, r_end, ra, rb);
     for (int64_t r0 = r_begin; r0 < r_end; r0 += kBR) {
-      store_tiles<BJ, A_RC, B_RC>(As, Bs, ra, rb);
+      store_tiles<BI, BJ, A_RC, B_RC>(As, Bs, ra, rb);
       __syncthreads();
-      if (r0 + kBR < r_end) load_tiles<BJ, A_RC, B_RC>(p, i0, j0, r0 + kBR, r_end, ra, rb);
+      if (r0 + kBR < r_end) load_tiles<BI, BJ, A_RC, B_RC>(p, bz, i0, j0, r0 + kBR, r_end, ra, rb);
 #pragma unroll
       for (int rr = 0; rr < kBR; ++rr) {
         float a[kTM], b[kTN];
         *reinterpret_cast<float4*>(&a[0]) = *reinterpret_cast<const float4*>(&As[rr][ti * 4]);
-        *reinterpret_cast<float4*>(&a[4]) = *reinterpret_cast<const float4*>(&As[rr][kBI / 2 + ti * 4]);
+        *reinterpret_cast<float4*>(&a[4]) = *reinterpret_cast<const float4*>(&As[rr][BI / 2 + ti * 4]);
         *reinterpret_cast<float4*>(&b[0]) = *reinterpret_cast<const float4*>(&Bs[rr][tj * 4]);
         *reinterpret_cast<float4*>(&b[4]) = *reinterpret_cast<const float4*>(&Bs[rr][BJ / 2 + tj * 4]);
 #pragma unroll
@@ -251,7 +267,7 @@ __global__ void __launch_bounds__(Shape<BJ>::kThreads, BJ == 64 ? 4 : 2) qat_den
     float* out = p.out + (EPI == kEpiSplit ? static_cast<int64_t>(blockIdx.z) * p.I * p.J : 0);
 #pragma unroll
     for (int ii = 0; ii < kTM; ++ii) {
-      const int64_t i = i0 + sub<kBI>(ti, ii);
+      const int64_t i = i0 + sub<BI>(ti, ii);
 #pragma unroll
       for (int jj = 0; jj < kTN; ++jj) {
         const int64_t j = j0 + sub<BJ>(tj, jj);
@@ -269,16 +285,17 @@ __global__ void __launch_bounds__(Shape<BJ>::kThreads, BJ == 64 ? 4 : 2) qat_den
   }
 
   if (EPI == kEpiForward) {
+    float* out = p.out + z * p.out_batch;
 #pragma unroll
     for (int ii = 0; ii < kTM; ++ii) {
-      const int64_t i = i0 + sub<kBI>(ti, ii);
+      const int64_t i = i0 + sub<BI>(ti, ii);
 #pragma unroll
       for (int jj = 0; jj < kTN; ++jj) {
         const int64_t j = j0 + sub<BJ>(tj, jj);
         if (i < p.I && j < p.J) {
-          float v = __fadd_rn(acc[ii][jj], __ldg(p.bias + j));
+          float v = p.bias != nullptr ? __fadd_rn(acc[ii][jj], __ldg(p.bias + j)) : acc[ii][jj];
           if (a_on) v = fqss::act_grid_value(v, a_mn, a_delta, aq);
-          p.out[i * p.J + j] = v;
+          out[i * p.J + j] = v;
         }
       }
     }
@@ -292,7 +309,7 @@ __global__ void __launch_bounds__(Shape<BJ>::kThreads, BJ == 64 ? 4 : 2) qat_den
   for (int jj = 0; jj < kTN; ++jj) col[jj] = 0.0f;
 #pragma unroll
   for (int ii = 0; ii < kTM; ++ii) {
-    const int64_t i = i0 + sub<kBI>(ti, ii);
+    const int64_t i = i0 + sub<BI>(ti, ii);
 #pragma unroll
     for (int jj = 0; jj < kTN; ++jj) {
       const int64_t j = j0 + sub<BJ>(tj, jj);
@@ -353,16 +370,25 @@ int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
 int col_tile(int64_t J) { return J <= 64 ? 64 : 128; }
 
-template <bool A_RC, bool B_RC, int EPI>
-cudaError_t launch(const DenseArgs& p, int splits, cudaStream_t stream) {
-  if (col_tile(p.J) == 64) {
-    const dim3 grid(static_cast<unsigned int>(cdiv(p.I, kBI)), static_cast<unsigned int>(cdiv(p.J, 64)), splits);
-    qat_dense_kernel<64, A_RC, B_RC, EPI><<<grid, Shape<64>::kThreads, 0, stream>>>(p);
+// One launch over I x J output tiles of BI rows and col_tile(J) columns, and z along blockIdx.z (K5's dwq: the
+// row ranges of R; K3: the batch rows).
+template <int BI, bool A_RC, bool B_RC, int EPI>
+cudaError_t launch_rows(const DenseArgs& p, int64_t z, cudaStream_t stream) {
+  const int64_t bj = col_tile(p.J), tiles_j = cdiv(p.J, bj);
+  if (tiles_j > 65535 || z > 65535) return cudaErrorInvalidConfiguration;  // the grid's y and z limits
+  const dim3 grid(static_cast<unsigned int>(cdiv(p.I, BI)), static_cast<unsigned int>(tiles_j),
+                  static_cast<unsigned int>(z));
+  if (bj == 64) {
+    qat_dense_kernel<BI, 64, A_RC, B_RC, EPI><<<grid, Shape<BI, 64>::kThreads, 0, stream>>>(p);
   } else {
-    const dim3 grid(static_cast<unsigned int>(cdiv(p.I, kBI)), static_cast<unsigned int>(cdiv(p.J, 128)), splits);
-    qat_dense_kernel<128, A_RC, B_RC, EPI><<<grid, Shape<128>::kThreads, 0, stream>>>(p);
+    qat_dense_kernel<BI, 128, A_RC, B_RC, EPI><<<grid, Shape<BI, 128>::kThreads, 0, stream>>>(p);
   }
   return cudaGetLastError();
+}
+
+template <bool A_RC, bool B_RC, int EPI>
+cudaError_t launch(const DenseArgs& p, int splits, cudaStream_t stream) {
+  return launch_rows<kBI, A_RC, B_RC, EPI>(p, splits, stream);
 }
 
 // wq [N, K] = the weight grid of w [N, K] (one symmetric grid per row n, K2's arithmetic), or w itself where the
@@ -482,4 +508,23 @@ extern "C" int fqss_qat_dense_dwq(const float* gm, const float* x, float* partia
   const cudaError_t err = launch<false, false, kEpiSplit>(p, splits, st);
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(colsum(partials, splits, N * K, dwq, st));
+}
+
+// K3 (qmatmul): y [B, N, T] = act_fq(weight_fq(w [N, K]) @ x[b]) for every x[b] [K, T] of x [B, K, T], the port's
+// NCT layout of a bias-free 1x1 convolution; wq: [N, K] scratch for the weight grid (unused without one). A layer
+// of at most 64 output channels takes 64-row tiles, so that no thread computes rows that do not exist.
+extern "C" int fqss_qmatmul(const float* x, const float* w, const float* w_mn, const float* w_mx,
+                            const unsigned char* w_obs, const float* a_mn, const float* a_mx,
+                            const unsigned char* a_obs, float* wq, float* y, int64_t B, int64_t K, int64_t T,
+                            int64_t N, int w_bits, int a_bits, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  DenseArgs p{};
+  p.a = grid_weights(w, w_mn, w_mx, w_obs, wq, N, K, w_bits, st, &err), p.b = x, p.I = N, p.J = T, p.R = K;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.b_batch = K * T, p.out_batch = N * T;
+  p.a_mn = a_mn, p.a_mx = a_mx, p.a_obs = a_obs, p.a_bits = a_bits;
+  p.out = y;
+  return static_cast<int>(N <= kBINarrow ? launch_rows<kBINarrow, true, false, kEpiForward>(p, B, st)
+                                         : launch_rows<kBI, true, false, kEpiForward>(p, B, st));
 }

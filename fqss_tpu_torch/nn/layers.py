@@ -13,8 +13,11 @@ its parameter's in a class attribute ``WEIGHT_QUANTIZERS``, for
 :func:`fqss_tpu_torch.serve.fold.fold_quantized_weights`.
 
 The convolutions are PyTorch's (``F.conv1d``): the JAX package computes
-them outside any Pallas kernel too. ``QDense`` runs its product and both of
-its grids through the fused kernel K5 (``ops/qat_dense.py``).
+them outside any Pallas kernel too, except that a bias-free 1x1 ``QConv1d``
+without a nonlinearity runs its forward through the fused kernel K3
+(``ops/qmatmul.py``) where no gradient is needed. ``QDense`` runs its
+product and both of its grids through the fused kernel K5
+(``ops/qat_dense.py``).
 """
 
 from __future__ import annotations
@@ -26,7 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from fqss_tpu_torch.nn.nonlin import Nl
+from fqss_tpu_torch.ops.fake_quant import _needs_grad
 from fqss_tpu_torch.ops.qat_dense import qat_dense
+from fqss_tpu_torch.ops.qmatmul import qmatmul
 from fqss_tpu_torch.quant.fake_quant import weight_scale
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
@@ -75,6 +80,20 @@ class QConv1d(nn.Module):
     variant comes with the slices that use it.
     Input/output: [B, C, T]; weight [Cout, Cin/groups, k], quantized per
     out-channel (axis 0).
+
+    Two routes compute the same function. A layer that computes exactly
+    K3's, ``act_fq(weight_fq(w) @ x)`` (k = 1, one group, stride 1, no
+    padding, no bias, no nonlinearity: DPTNet's ``BN``, the Sepformer
+    masker's ``conv1d``), runs its forward as one call of
+    :func:`fqss_tpu_torch.ops.qmatmul.qmatmul` (the fused kernel on the card,
+    its plain version on the CPU) whenever no gradient is needed: gradients
+    are off, or neither the input nor a parameter requires one. The
+    quantizers' window flags and ranges go to the kernel, their state writes
+    are :meth:`ActQuantizer.observe` and :meth:`WeightQuantizer.observe`, as
+    in ``QDense``. With a gradient, and for every other layer, the forward
+    is the composition of the weight quantizer, ``F.conv1d``, the
+    nonlinearity and the act quantizer, whose kernels have backward kernels:
+    JAX's K3 has no VJP, so training takes this route.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
@@ -90,8 +109,12 @@ class QConv1d(nn.Module):
         self.weight_fake_quantize = make_weight_quantizer(q, wshape, ch_axis=0)
         self.nl = Nl(nl) if nl else None
         self.activation_fake_quantize = make_act_quantizer(q, enabled=act_quant)
+        self.fused = (kernel_size == 1 and groups == 1 and stride == 1 and padding == 0 and not use_bias
+                      and nl is None)
 
     def forward(self, x: Tensor) -> Tensor:
+        if self.fused and not _needs_grad(x, *self.parameters()):
+            return self._qmatmul(x)
         w = self.weight
         if self.weight_fake_quantize is not None:
             w = self.weight_fake_quantize(w)
@@ -99,6 +122,23 @@ class QConv1d(nn.Module):
         if self.nl is not None:
             y = self.nl(y)
         return _quantize(self.activation_fake_quantize, y)
+
+    def _qmatmul(self, x: Tensor) -> Tensor:
+        """The forward through K3: both grids, their window flags and the observers' writes, as ``QDense``."""
+        wq, aq = self.weight_fake_quantize, self.activation_fake_quantize
+        w = self.weight.reshape(self.weight.shape[0], -1)
+        w_args, a_args, w_observing, a_observing = {}, {}, None, None
+        if wq is not None:
+            w_observing = wq.observing()
+            wq.observe(self.weight, w_observing)
+            w_args = dict(w_mn=wq.min_range, w_mx=wq.max_range, w_bits=wq.n_bits)
+        if aq is not None:
+            a_observing = aq.observing()
+            a_args = dict(a_mn=aq.min_range, a_mx=aq.max_range, a_bits=aq.n_bits)
+        y = qmatmul(x.contiguous(), w, w_observing=w_observing, a_observing=a_observing, **w_args, **a_args)
+        if aq is not None:
+            aq.observe(y, a_observing)
+        return y
 
 
 class QGroupNorm(nn.Module):

@@ -128,5 +128,7 @@ def library() -> ctypes.CDLL:
         lib.fqss_qat_dense_dx.restype = i32
         lib.fqss_qat_dense_dwq.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
         lib.fqss_qat_dense_dwq.restype = i32
+        lib.fqss_qmatmul.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i32, i32, p]
+        lib.fqss_qmatmul.restype = i32
         _lib = lib
     return _lib

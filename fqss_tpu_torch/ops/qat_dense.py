@@ -77,15 +77,21 @@ def _weight_q(w: Tensor, w_mn: Tensor | None, w_mx: Tensor | None, w_bits: int,
     return wq if w_observing is None else torch.where(w_observing, w, wq)
 
 
+def act_q(pre: Tensor, a_mn: Tensor | None, a_mx: Tensor | None, a_bits: int,
+          a_observing: Tensor | None) -> Tensor:
+    """The pre-activation on the act grid (plain), or as it is where the grid is off or observing."""
+    if a_mn is None:
+        return pre
+    y = act_fake_quant_ref(pre, a_mn, a_mx, a_bits)
+    return y if a_observing is None else torch.where(a_observing, pre, y)
+
+
 def qat_dense_ref(x: Tensor, w: Tensor, b: Tensor, w_mn: Tensor | None = None, w_mx: Tensor | None = None,
                   a_mn: Tensor | None = None, a_mx: Tensor | None = None, w_bits: int = 8, a_bits: int = 8,
                   w_observing: Tensor | None = None, a_observing: Tensor | None = None) -> Tensor:
     """Plain version: ``act_fq(x @ weight_fq(w)^T + b)``, each grid skipped where its flag is set."""
     pre = torch.matmul(x, _weight_q(w, w_mn, w_mx, w_bits, w_observing).t()) + b
-    if a_mn is None:
-        return pre
-    y = act_fake_quant_ref(pre, a_mn, a_mx, a_bits)
-    return y if a_observing is None else torch.where(a_observing, pre, y)
+    return act_q(pre, a_mn, a_mx, a_bits, a_observing)
 
 
 def _where(flag: Tensor | None, a: Tensor, b: Tensor) -> Tensor:
@@ -137,27 +143,35 @@ def _check(x: Tensor, w: Tensor, b: Tensor, w_mn, w_mx, a_mn, a_mx, w_observing,
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[1] or b.shape != (w.shape[0],):
         raise ValueError(f"qat_dense: x [M, K], w [N, K] and b [N] expected, got {tuple(x.shape)}, "
                          f"{tuple(w.shape)} and {tuple(b.shape)}")
+    check_grids("qat_dense", (("x", x), ("w", w), ("b", b)), w.shape[0], w_mn, w_mx, a_mn, a_mx, w_observing,
+                a_observing)
+
+
+def check_grids(kernel: str, operands: tuple, n: int, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing) -> None:
+    """Hold the named operands (the first one's device is the call's), the ranges of the weight grid (``n``
+    channels) and of the act grid, and their observing flags to what the kernels take."""
+    x = operands[0][1]
     if (w_mn is None) != (w_mx is None) or (a_mn is None) != (a_mx is None):
-        raise ValueError("qat_dense: a grid needs both of its ranges")
+        raise ValueError(f"{kernel}: a grid needs both of its ranges")
     ranges = []
     if w_mn is not None:
-        ranges += [("w_mn", w_mn, w.shape[0]), ("w_mx", w_mx, w.shape[0])]
+        ranges += [("w_mn", w_mn, n), ("w_mx", w_mx, n)]
     if a_mn is not None:
         ranges += [("a_mn", a_mn, 1), ("a_mx", a_mx, 1)]
-    for name, r, n in ranges:
-        if r.numel() != n:
-            raise ValueError(f"qat_dense: {name} holds {r.numel()} values, {n} expected")
-    for name, t in (("x", x), ("w", w), ("b", b), *((n, r) for n, r, _ in ranges)):
+    for name, r, count in ranges:
+        if r.numel() != count:
+            raise ValueError(f"{kernel}: {name} holds {r.numel()} values, {count} expected")
+    for name, t in (*operands, *((name, r) for name, r, _ in ranges)):
         if t.device != x.device:
-            raise ValueError(f"qat_dense: {name} is on {t.device}, x on {x.device}")
+            raise ValueError(f"{kernel}: {name} is on {t.device}, {operands[0][0]} on {x.device}")
         if t.dtype != torch.float32:
-            raise TypeError(f"qat_dense: the kernel takes float32, {name} is {t.dtype}")
+            raise TypeError(f"{kernel}: the kernel takes float32, {name} is {t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"qat_dense: the kernel takes contiguous tensors ({name} is not)")
+            raise ValueError(f"{kernel}: the kernel takes contiguous tensors ({name} is not)")
     for name, flag, grid in (("w_observing", w_observing, w_mn), ("a_observing", a_observing, a_mn)):
         if flag is not None and (grid is None or flag.dtype != torch.bool or flag.numel() != 1
                                  or flag.device != x.device):
-            raise ValueError(f"qat_dense: {name} must be a one-element bool tensor on {x.device}, beside its grid")
+            raise ValueError(f"{kernel}: {name} must be a one-element bool tensor on {x.device}, beside its grid")
 
 
 def _ptr(t: Tensor | None):

@@ -1,4 +1,4 @@
-"""Serving: weight folding and the int8 engine.
+"""Serving: weight folding, the int8 engines, the automatic path and streaming.
 
 * :func:`fold_quantized_weights` — pre-apply the weight fake-quant once at
   load (bitwise-equal forward);
@@ -8,16 +8,22 @@
   projections, 1x1 convs, dense layers) through K4, its LSTMs through K7;
 * :class:`SepformerInt8Engine` — the Sepformer's on-grid products (attention
   projections, feed-forward linears, the masker's 1x1 convs) through K4;
-* :func:`make_int8_engine` — model-type dispatch used by ``infer`` and ``val``.
+* :func:`make_int8_engine` — model-type dispatch used by ``infer`` and ``val``;
+* :func:`auto_serving_model` — each family on its fastest engine on the H100
+  (``--engine auto``, the table :data:`BEST_PATHS`);
+* :class:`StreamingSeparator` — chunked separation of a live stream, equal to
+  offline OLA once drained (``infer --stream``).
 """
 
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
 from fqss_tpu_torch.models.dptnet import DPTNet
 from fqss_tpu_torch.models.sepformer import Sepformer
+from fqss_tpu_torch.serve.autopath import BEST_PATHS, auto_serving_model, best_path
 from fqss_tpu_torch.serve.convtasnet_int8 import ConvTasNetInt8Engine
 from fqss_tpu_torch.serve.dptnet_int8 import DPTNetInt8Engine
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
 from fqss_tpu_torch.serve.sepformer_int8 import SepformerInt8Engine
+from fqss_tpu_torch.serve.streaming import StreamingSeparator
 
 
 def make_int8_engine(model, compute_dtype: str = "bfloat16"):
@@ -36,5 +42,5 @@ def make_int8_engine(model, compute_dtype: str = "bfloat16"):
     raise NotImplementedError(f"no int8 engine for {type(model).__name__}; use fold_quantized_weights")
 
 
-__all__ = ["ConvTasNetInt8Engine", "DPTNetInt8Engine", "SepformerInt8Engine", "fold_quantized_weights",
-           "make_int8_engine"]
+__all__ = ["BEST_PATHS", "ConvTasNetInt8Engine", "DPTNetInt8Engine", "SepformerInt8Engine", "StreamingSeparator",
+           "auto_serving_model", "best_path", "fold_quantized_weights", "make_int8_engine"]

@@ -1,7 +1,7 @@
 """Evaluation CLI on PyTorch (the port of ``val.py``; reference: val.py:184-226).
 
 Usage: python -m fqss_tpu_torch.val -y cfg.yaml [--limit N] [--no-stoi]
-           [--engine fake_quant|folded|int8] [--device cuda]
+           [--engine fake_quant|folded|int8|auto] [--device cuda]
 
 Separates every mixture of ``testing_cfg.test_dir`` (the LibriMix test
 layout: ``mix_clean/``, ``s1/``, ``s2/``) by overlap-add with the chosen
@@ -47,9 +47,9 @@ def argument_handler(argv=None):
     parser.add_argument("--yml_path", "-y", type=str, required=True, help="YML configuration file")
     parser.add_argument("--limit", type=int, default=None, help="Evaluate at most N items")
     parser.add_argument("--no-stoi", action="store_true", help="Skip STOI (slow on host)")
-    parser.add_argument("--engine", choices=[*ENGINES, "auto"], default="fake_quant",
-                        help="Serving path: per-forward fake-quant, weight-folded (bitwise identical), or the "
-                        "int8 engine. auto is not ported yet.")
+    parser.add_argument("--engine", choices=ENGINES, default="fake_quant",
+                        help="Serving path: per-forward fake-quant, weight-folded (bitwise identical), the "
+                        "int8 engine, or auto: the model family's fastest of these on the H100.")
     parser.add_argument("--device", type=str, default="cuda", help="cuda (default) or cpu")
     return parser.parse_args(argv)
 

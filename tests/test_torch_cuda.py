@@ -12,6 +12,7 @@ import torch
 from fqss_tpu_torch.ops import attention as k8
 from fqss_tpu_torch.ops import fake_quant as fq
 from fqss_tpu_torch.ops import qat_dense as qd
+from fqss_tpu_torch.ops import qmatmul as qm
 
 pytestmark = pytest.mark.cuda
 
@@ -352,13 +353,15 @@ def test_tiny_dptnet_serving_runs_k7_and_k4(dev, compute_dtype):
     lstm.reset_launches()
     k8.reset_launches()
     qd.reset_launches()
+    qm.reset_launches()
     with torch.inference_mode():
         y = card(x.to(dev))
         want = cpu(x)
     assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 4}
-    # 4 MHAs x 2 no-op sites; the 4 head grids are applied in K8's epilogue; the 5 QDense layers' two grids in K5
-    assert fq.LAUNCHES["act"] == n_act - 8 - 4 - 5 and fq.LAUNCHES["weight"] == n_weight - 5
-    assert qd.LAUNCHES["dense"] == 5
+    # 4 MHAs x 2 no-op sites; the 4 head grids are applied in K8's epilogue; the 5 QDense layers' two grids in K5,
+    # BN's in K3
+    assert fq.LAUNCHES["act"] == n_act - 8 - 4 - 5 - 1 and fq.LAUNCHES["weight"] == n_weight - 5 - 1
+    assert qd.LAUNCHES["dense"] == 5 and qm.LAUNCHES["qmatmul"] == 1
     assert k8.LAUNCHES["attention"] == 4
     snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
     assert bool((snr >= 20).all()), snr
@@ -466,10 +469,12 @@ def test_tiny_sepformer_serving_runs_k8_and_k4(dev, compute_dtype):
     card.load_state_dict(model.state_dict())
     card = card.to(dev).eval()
     k8.reset_launches()
+    qm.reset_launches()
     with torch.inference_mode():
         y = card(x.to(dev))
         want = cpu(x)
     assert k8.LAUNCHES["attention"] == 4  # intra and inter, 2 layers each
+    assert qm.LAUNCHES["qmatmul"] == 1  # the masker's conv1d
     snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
     assert bool((snr >= 20).all()), snr
     with torch.inference_mode():
@@ -685,3 +690,72 @@ def test_tiny_train_step_card_vs_cpu(dev, name):
         cos = float(g_card @ g_cpu / (g_card.norm() * g_cpu.norm()))
         loss_tol, cos_min = TINY_TRAIN_CARD_VS_CPU[step]
         assert abs(loss_card - loss_cpu) <= loss_tol and cos >= cos_min, (step, loss_card, loss_cpu, cos)
+
+
+# The fused fake-quant matmul (K3) against its plain version (chip_smoke.py's phase 37): the float products within
+# DENSE_RTOL of the sum of the terms' magnitudes, each quantized output its own float output on K1's plain grid, at
+# most one step from the plain version's and at most DENSE_GRID_SHARE of them a step apart; the planted ties and
+# clip extremes exactly. Shapes (B, K, T, N): DPTNet's BN (256 -> 64, 64-row tiles) and the Sepformer masker's
+# conv1d (256 -> 256) at short T, ragged tiles on every axis, a single column.
+QMM_SHAPES = [(2, 256, 3000, 64), (2, 256, 1000, 256), (3, 37, 301, 65), (1, 5, 7, 3), (2, 256, 1, 64)]
+
+
+def _qmatmul_case(dev, b, k, t, n, seed):
+    """x [B, K, T], w [N, K], ranges; output channel 0 carries planted ties (time steps 0-5) and clips (step 6)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, k, t, device=dev, generator=gen)
+    w = torch.randn(n, k, device=dev, generator=gen) / k**0.5
+    w_mn, w_mx = w.amin(1), w.amax(1)
+    a_mn = torch.tensor([-128.5 * STEP], device=dev)
+    a_mx = a_mn + 255 * STEP
+    # channel 0: weight step STEP, w[0, 0] = 5 steps, so y[0, 0, t] = 5 (t + 1) steps, a half-step tie of the act
+    # grid (whose mn is half a step off zero); step 5 takes 0, step 6 clips every channel
+    w_mn[0], w_mx[0] = -255 / 256, 255 / 256
+    w[0] = 0.0
+    w[0, 0] = 5 * STEP
+    steps = min(t, 6)
+    x[0, 0, :steps] = torch.tensor([1.0, 2, 3, 4, 5, 0], device=dev)[:steps]
+    if t > 6:
+        x[0, :, 6] = 100.0 * torch.sign(w[min(1, n - 1)])
+    return x, w, w_mn, w_mx, a_mn, a_mx
+
+
+@pytest.mark.parametrize("b,k,t,n", QMM_SHAPES)
+def test_qmatmul_kernel_matches_plain(dev, b, k, t, n):
+    x, w, w_mn, w_mx, a_mn, a_mx = _qmatmul_case(dev, b, k, t, n, b + k + t + n)
+    for flags in DENSE_FLAGS:
+        flag = (lambda v: None if v is None else torch.tensor(v, device=dev))
+        wr = (w_mn, w_mx) if flags["w"] else (None, None)
+        ar = (a_mn, a_mx) if flags["a"] else (None, None)
+        w_obs, a_obs = flag(flags.get("w_obs")), flag(flags.get("a_obs"))
+        before = qm.LAUNCHES["qmatmul"]
+        y = qm.qmatmul(x, w, *wr, *ar, 8, 8, w_obs, a_obs)
+        pre = qm.qmatmul(x, w, *wr, None, None, 8, 8, w_obs, None)
+        assert qm.LAUNCHES["qmatmul"] == before + 2
+        terms = qd._weight_q(w, *wr, 8, w_obs).abs() @ x.abs()
+        assert bool(((pre - qm.qmatmul_ref(x, w, *wr, None, None, 8, 8, w_obs, None)).abs()
+                     <= DENSE_RTOL * terms).all()), flags
+        if ar[0] is None or flags.get("a_obs"):
+            assert torch.equal(y, pre), flags
+            continue
+        assert torch.equal(y, fq.act_fake_quant_ref(pre, a_mn, a_mx, 8)), flags
+        diff = (y - qm.qmatmul_ref(x, w, *wr, *ar, 8, 8, w_obs, a_obs)).abs()
+        assert diff.max().item() <= STEP * (1 + 1e-4), flags
+        assert (diff > 0.5 * STEP).float().mean().item() <= DENSE_GRID_SHARE, flags
+        ref = qm.qmatmul_ref(x, w, *wr, *ar, 8, 8, w_obs, a_obs)
+        assert torch.equal(y[0, 0, : min(t, 7)], ref[0, 0, : min(t, 7)]), flags  # ties and clips exactly
+
+
+def test_qmatmul_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    x, w, w_mn, w_mx, a_mn, a_mx = _qmatmul_case(dev, 2, 16, 9, 4, 1)
+    with pytest.raises(TypeError):
+        qm.qmatmul(x.double(), w.double())
+    with pytest.raises(ValueError):
+        qm.qmatmul(x.transpose(1, 2).contiguous().transpose(1, 2), w)
+    with pytest.raises(ValueError):
+        qm.qmatmul(x, w.cpu())
+    with pytest.raises(ValueError):
+        qm.qmatmul(x, w, w_mn, w_mx, a_mn, a_mx, a_observing=torch.tensor([1, 2], device=dev) > 0)
+    with pytest.raises(ValueError, match="forward only"):
+        qm.qmatmul(x.clone().requires_grad_(), w)
+

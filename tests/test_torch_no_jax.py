@@ -204,8 +204,8 @@ def test_infer_cli_on_cpu(tmp_path, tiny_request):
 
 @pytest.mark.parametrize("args,message", [
     (["--device", "cuda"], "CUDA is not available"),
-    (["--device", "cpu", "--engine", "auto"], "not ported yet"),
-    (["--device", "cpu", "--stream", "400"], "not ported yet"),
+    (["--device", "cpu", "--engine", "int4"], "invalid choice"),
+    (["--device", "cpu", "--stream", "0"], "positive push size"),
 ])
 def test_infer_cli_refuses_what_it_cannot_do(tiny_request, args, message):
     if args[1] == "cuda" and torch.cuda.is_available():

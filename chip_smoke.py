@@ -18,7 +18,9 @@ n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one lin
 failure propagate:
 
 0. device: the card's name and power limit (nvidia-smi); TF32 off.
-1. build: compile ``fqss_tpu_torch/csrc/*.cu`` with nvcc, one process per source.
+1. build: compile ``fqss_tpu_torch/csrc/*.cu`` with nvcc, one process per source;
+   ptxas's registers and spills, and for each qat_dense_kernel
+   instantiation its tile, layouts and epilogue (a spill fails the phase).
 2. kernels vs their plain PyTorch versions on the card, bitwise
    (``torch.equal``), at the main path's shapes, with planted edge and
    half-step tie values; CUDA-event times of both.
@@ -132,8 +134,12 @@ failure propagate:
     and their observing flags: the float pre-activation within DENSE_RTOL, each
     quantized output its own pre-activation on K1's grid, at most
     DENSE_GRID_SHARE a step apart; dx, dw, db and the range gradients within
-    their bounds; CUDA-event times of both, the plain versions and the library
-    calls (addmm + K1; two mm + K1-bwd), with the bounds.
+    their bounds; two runs of each bitwise equal; the mask pass's gm exactly g
+    times the mask of the forward's own pre-activation; CUDA-event times of
+    both, the plain versions and the library calls (addmm + K1; two mm +
+    K1-bwd), with the achieved TFLOP/s and the shares of the float32 bound and
+    of the 3xTF32 route's bound (3 TF32 products a float32 one at 495 TFLOP/s,
+    or the bytes).
 32. the K7/K6 backward: the autograd wrapper's gradients against the plain
     recurrence's at DPTNet's training shapes and an odd one (LSTM_GRAD_TOL).
 33. DPTNet and Sepformer KD training at full width: student and float teacher
@@ -159,8 +165,9 @@ failure propagate:
     grids and their observing flags: the float outputs within DENSE_RTOL of
     the sum of the terms' magnitudes, each quantized output its own float
     output on K1's grid, at most DENSE_GRID_SHARE a step apart, the planted
-    values exact; CUDA-event times of K3, its plain version and
-    ``torch.matmul`` + K1 (the library call), with the bound.
+    values exact, two runs bitwise equal; CUDA-event times of K3, its plain
+    version and ``torch.matmul`` + K1 (the library call), with the achieved
+    TFLOP/s and both bounds (phase 31's).
 38. streaming: a 20 s mixture in pushes of 1600 samples (200 ms) through
     ``infer.stream_file`` with 16000-sample windows, for each model's folded
     engine and ``auto``: the drained stream within STREAM_TOL of
@@ -182,6 +189,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -342,17 +350,20 @@ SEP_INT8_CARD_VS_CPU_DB = 20.0  # the engine's float attention and norms flip ti
 DPT_TRAIN_SEG, SEP_TRAIN_SEG = 3 * SR, 4 * SR
 TRAIN_MODELS_WINDOW = 3
 RECIPE_SECONDS = 1.0  # the mini LibriMix of phase 36: 2 training and 1 validation mixtures of this length
-# K5 against its plain version (phase 31). The kernel sums each product in k order with fmaf, cuBLAS in its own
-# order: the float pre-activations, dx, dw and db agree within DENSE_RTOL of the sum of their terms' magnitudes
-# (the rounding of a K-term float32 sum grows as sqrt(K) ulps of it, ~2e-6 at K = 1024), the act ranges'
-# gradients within SUM_RTOL of sum |term| (phase 8's rule). On the act grid each output is the kernel's own
+# K5 against its plain version (phase 31). The kernel takes each product as 3xTF32 on the tensor cores, summing
+# each 32-step stage from zero and the stages with IEEE adds, cuBLAS in float32 in its own order: the float
+# pre-activations, dx, dw and db agree within DENSE_RTOL of the sum of their terms' magnitudes (the rounding of a
+# K-term float32 sum grows as sqrt(K) ulps of it, ~2e-6 at K = 1024; the kernel read 5.8e-7 on positive terms at
+# K = 1024 on an H100, one TF32 product alone ~1e-3), the act ranges' gradients within SUM_RTOL of sum |term|
+# (phase 8's rule). On the act grid each output is the kernel's own
 # pre-activation put through K1's plain grid exactly, at most a step from the plain version's, and at most
 # DENSE_GRID_SHARE of them a step apart (a pre-activation within a rounding error of a half step); the planted
 # ties are exact sums and round alike. The backward is compared at the kernel's own pre-activation (the same act
 # mask); the plain version's own flips at most DENSE_GRID_SHARE of the masks.
 DENSE_RTOL = 1e-5
 DENSE_GRID_SHARE = 1e-3
-DENSE_ODD = ((5, 3, 2), (1, 256, 512), (77, 64, 128), (1000, 1024, 256))  # M, K, N: ragged tiles on every axis
+# M, K, N: ragged tiles on every axis; rows of 3, 37 and 1030 floats (not 16-byte aligned); K > 1024
+DENSE_ODD = ((5, 3, 2), (1, 256, 512), (77, 64, 128), (1000, 1024, 256), (300, 37, 65), (1000, 1030, 200))
 # Which grids are on, and the observing flags (phase 31): every combination the layers produce.
 DENSE_FLAGS = (dict(w=True, a=True), dict(w=False, a=True), dict(w=True, a=False), dict(w=False, a=False),
                dict(w=True, a=True, w_obs=True), dict(w=True, a=True, a_obs=True),
@@ -365,15 +376,18 @@ LSTM_GRAD_TOL = 1e-6  # relative to the gradient's largest magnitude
 # models, whose tie flips phase 10's ConvTasNet met with 10x room.
 TRAIN_CARD_VS_CPU = {"float": (LOSS_DB_TOL, GRAD_COS_MIN), "quantized": (LOSS_DB_TOL, GRAD_COS_MIN)}
 # The K3 slice (phases 37-39). K3 against its plain version (phase 37) with K5's rules (DENSE_RTOL,
-# DENSE_GRID_SHARE: the same kernel, summing each product in k order with fmaf), at the shapes that phases 18 and
-# 25 gave it and at odd ones (B, K, T, N): ragged tiles on every axis, a width that takes 64-row tiles, one column.
-QMM_ODD = ((3, 37, 301, 65), (1, 5, 7, 3), (2, 256, 1, 64), (2, 64, 1000, 64))
+# DENSE_GRID_SHARE: the same kernel, 3xTF32 on the tensor cores), at the shapes that phases 18 and 25 gave it and
+# at odd ones (B, K, T, N): ragged tiles on every axis, rows of 37, 301, 1030 and 203 floats (not 16-byte
+# aligned), a width that takes 64-row tiles, one column, K > 1024.
+QMM_ODD = ((3, 37, 301, 65), (1, 5, 7, 3), (2, 256, 1, 64), (2, 64, 1000, 64), (2, 1030, 203, 96))
 # Streaming (phase 38): a 20 s mixture in pushes of 200 ms at 8 kHz through windows of the configs' 16000-sample
 # segments; the drained stream against ola_infer(chunk_batch=1) on the card: the same forward on the same windows,
 # the overlap-add sums in another order (tests/test_streaming.py's bound).
 STREAM_SECONDS, STREAM_SEGMENT, STREAM_PUSH, STREAM_TOL = 20, 16000, 1600, 1e-5
-# The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8 and float32 rates.
-HBM_BYTES_S, INT8_OPS_S, F32_OPS_S = 3.35e12, 1.979e15, 67e12
+# The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8, float32 and TF32 rates.
+HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, TF32_OPS_S = 3.35e12, 1.979e15, 67e12, 495e12
+# The route K5, K5-bwd and K3 take: three TF32 tensor-core products for each float32 one.
+DENSE_ROUTE = "tensor cores: 3xTF32 mma.sync m16n8k8, 3-stage cp.async ring"
 
 
 def log(msg: str) -> None:
@@ -411,6 +425,35 @@ def bound_of(bytes_moved: float, ops: float, ops_per_s: float) -> dict:
     """The least time the card could take: bytes over the memory rate or operations over the peak, the larger."""
     t_bytes, t_ops = bytes_moved / HBM_BYTES_S * 1e3, ops / ops_per_s * 1e3
     return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def route_bound(bytes_moved: float, ops: float) -> dict:
+    """The least time of K5, K5-bwd and K3's route: 3 TF32 products for each float32 one at the TF32 peak, or the
+    bytes over the memory rate, the larger."""
+    b = bound_of(bytes_moved, 3 * ops, TF32_OPS_S)
+    return {"route_bound_ms": b["bound_ms"], "route_bound_by": b["bound_by"]}
+
+
+def dense_kernel_report(build_log: str) -> None:
+    """Phase 1: ptxas's registers and spill stores of each qat_dense_kernel instantiation (tile rows, columns,
+    operand layouts, epilogue); raises if one spills."""
+    epilogues = ("forward", "mask", "dx", "dwq")
+    lines = build_log.splitlines()
+    spilled = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*qat_dense_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELi(\d)E", line)
+        if m is None:
+            continue
+        spill = int(re.search(r"(\d+) bytes spill stores", lines[i + 2]).group(1))
+        regs = int(re.search(r"Used (\d+) registers", lines[i + 3]).group(1))
+        bi, bj, a_rc, b_rc, epi = (int(v) for v in m.groups())
+        log_line = (f"[1] qat_dense_kernel {bi} x {bj}, A {'K' if a_rc else 'MN'}-major, B {'K' if b_rc else 'MN'}-"
+                    f"major, {epilogues[epi]}: {regs} registers, {spill} bytes spill stores")
+        log(log_line)
+        if spill:
+            spilled.append(log_line)
+    if spilled:
+        raise AssertionError(f"qat_dense_kernel instantiations spill: {spilled}")
 
 
 def compare(name: str, kernel_out: torch.Tensor, plain_out: torch.Tensor) -> float:
@@ -1528,9 +1571,12 @@ def dense_args(case: tuple, flags: dict) -> tuple:
 
 
 def check_dense_forward(name: str, args: tuple) -> float:
-    """K5 against its plain version (module note of DENSE_RTOL); returns the largest |pre - plain| / bound."""
+    """K5 against its plain version (module note of DENSE_RTOL), two runs bitwise equal; returns the largest
+    |pre - plain| / bound."""
     x, w, b, w_mn, w_mx, a_mn, a_mx, _, _, w_obs, a_obs = args
     y = qd.qat_dense(*args)
+    if not torch.equal(qd.qat_dense(*args), y):
+        raise AssertionError(f"K5 {name}: two runs differ")
     pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)
     wq = qd._weight_q(w, w_mn, w_mx, 8, w_obs)
     bound = x.abs() @ wq.abs().t() + b.abs()
@@ -1556,10 +1602,19 @@ def check_dense_backward(name: str, args: tuple, g: torch.Tensor) -> float:
     """K5-bwd against the plain backward at the kernel's own pre-activation (so at the same act mask): dx, dw and
     db within DENSE_RTOL of their terms' magnitudes, the act ranges' gradients within SUM_RTOL of sum |term|, the
     weight ranges' within 2 DENSE_RTOL of the magnitudes through the grid; the plain version's own pre-activation
-    flips at most DENSE_GRID_SHARE of the masks. Returns the largest error relative to its bound."""
+    flips at most DENSE_GRID_SHARE of the masks. Two runs are bitwise equal, and the mask pass's gm is g times
+    the mask of the forward kernel's own pre-activation, exactly. Returns the largest error relative to its
+    bound."""
     x, w, b, w_mn, w_mx, a_mn, a_mx, _, _, w_obs, a_obs = args
     got = qd.qat_dense_bwd(x, w, b, g, *args[3:])
+    for a, b_ in zip(got, qd.qat_dense_bwd(x, w, b, g, *args[3:])):
+        if a is not None and not torch.equal(a, b_):
+            raise AssertionError(f"K5-bwd {name}: two runs differ")
     pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)
+    if a_mn is not None and not (a_obs is not None and bool(a_obs)):
+        gm = qd.mask_pass(x, w, b, g, w_mn, w_mx, a_mn, a_mx, 8, 8, w_obs, a_obs, 1.0)[0]
+        if not torch.equal(gm, fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)[0]):
+            raise AssertionError(f"K5-bwd {name}: the mask pass's pre-activation is not the forward's")
     want = qd.qat_dense_bwd_ref(x, w, b, g, *args[3:], pre=pre)
     wq = qd._weight_q(w, w_mn, w_mx, 8, w_obs)
     absg = g.abs()
@@ -1587,6 +1642,15 @@ def check_dense_backward(name: str, args: tuple, g: torch.Tensor) -> float:
             if bool(((got_r.double() - want_r.double()).abs() > 2 * DENSE_RTOL * b_r.abs() + 1e-30).any()):
                 raise AssertionError(f"K5-bwd {name}: a weight range gradient beyond its bound")
     return worst
+
+
+def rate_and_shares(nbytes: float, ops: float, ms: float) -> str:
+    """A qat_dense kernel's achieved rate and its time's share against the float32 CUDA-core bound and against
+    its route's (3xTF32) bound."""
+    f32, route = bound_of(nbytes, ops, F32_OPS_S), route_bound(nbytes, ops)
+    return (f"{ops / ms / 1e9:.1f} TFLOP/s; {f32['bound_ms'] / ms:.1%} of its {f32['bound_ms']:.4f} ms float32 "
+            f"bound by {f32['bound_by']}, {route['route_bound_ms'] / ms:.1%} of its {route['route_bound_ms']:.4f} ms "
+            f"3xTF32 bound by {route['route_bound_by']}")
 
 
 def dense_bounds(m: int, k: int, n: int) -> tuple[tuple[int, int], tuple[int, int]]:
@@ -1628,11 +1692,10 @@ def check_dense_kernels(dev, shapes: list[tuple]) -> tuple[dict, dict]:
             "bwd_library": cuda_ms(lambda: (g @ wq, g.t() @ x, fq.act_fake_quant_bwd(pre, g, a_mn, a_mx, 8)), 10),
         }
         (fb, fo), (bb, bo) = dense_bounds(m, k, n)
-        bf, bbw = bound_of(fb, fo, F32_OPS_S), bound_of(bb, bo, F32_OPS_S)
-        log(f"{line}; K5 {times['fwd']:.4f} ms ({bf['bound_ms'] / times['fwd']:.1%} of its {bf['bound_ms']:.4f} ms "
-            f"bound by {bf['bound_by']}), plain {times['fwd_plain']:.4f}, addmm + K1 {times['fwd_library']:.4f}; "
-            f"K5-bwd {times['bwd']:.4f} ms ({bbw['bound_ms'] / times['bwd']:.1%} of {bbw['bound_ms']:.4f}), plain "
-            f"{times['bwd_plain']:.4f}, two mm + K1-bwd {times['bwd_library']:.4f}; {per_forward} a forward")
+        log(f"{line}; K5 {times['fwd']:.4f} ms ({rate_and_shares(fb, fo, times['fwd'])}), plain "
+            f"{times['fwd_plain']:.4f}, addmm + K1 {times['fwd_library']:.4f}; K5-bwd {times['bwd']:.4f} ms "
+            f"({rate_and_shares(bb, bo, times['bwd'])}), plain {times['bwd_plain']:.4f}, two mm + K1-bwd "
+            f"{times['bwd_library']:.4f}; {per_forward} a forward")
         for key, res in (("fwd", fwd), ("bwd", bwd)):
             res["ms"] += per_forward * times[key]
             res["plain_ms"] += per_forward * times[f"{key}_plain"]
@@ -1641,24 +1704,22 @@ def check_dense_kernels(dev, shapes: list[tuple]) -> tuple[dict, dict]:
         totals["bwd"] = [totals["bwd"][0] + per_forward * bb, totals["bwd"][1] + per_forward * bo]
         del case, g, x, w, wq, pre
         torch.cuda.empty_cache()
-    fwd.update(bound_of(*totals["fwd"], F32_OPS_S))
-    bwd.update(bound_of(*totals["bwd"], F32_OPS_S))
+    fwd.update(bound_of(*totals["fwd"], F32_OPS_S), **route_bound(*totals["fwd"]))
+    bwd.update(bound_of(*totals["bwd"], F32_OPS_S), **route_bound(*totals["bwd"]))
     # The Sepformer's serving shape, 8 x 4 s (68,000 tokens): what PERF.md's prediction for K5 was made at.
     for m, k, n in ((SEP_BATCH * shapes[2][1], *shapes[2][2:4]), (SEP_BATCH * shapes[3][1], *shapes[3][2:4])):
         x, w, b, w_mn, w_mx, a_mn, a_mx = dense_case(dev, m, k, n, gen)
         wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0)
         ms = cuda_ms(lambda: qd.qat_dense(x, w, b, w_mn, w_mx, a_mn, a_mx), 10)
         lib = cuda_ms(lambda: fq.act_fake_quant(torch.addmm(b, x, wq.t()), a_mn, a_mx, 8), 10)
-        b_ = bound_of(*dense_bounds(m, k, n)[0], F32_OPS_S)
         log(f"[31] K5 at the Sepformer's 8 x 4 s shape [{m},{k}] x [{n},{k}]: {ms:.4f} ms "
-            f"({2 * m * n * k / ms / 1e9:.1f} TFLOP/s, {b_['bound_ms'] / ms:.1%} of its {b_['bound_ms']:.4f} ms "
-            f"bound), addmm + K1 {lib:.4f} ms")
+            f"({rate_and_shares(*dense_bounds(m, k, n)[0], ms)}), addmm + K1 {lib:.4f} ms")
         del x, w, wq
     log(f"[31] one DPTNet and one Sepformer student forward's {sum(s[4] for s in shapes)} K5 launches at the "
-        f"training batch: {fwd['ms']:.3f} ms against a {fwd['bound_ms']:.3f} ms bound "
-        f"({fwd['bound_ms'] / fwd['ms']:.1%}), plain {fwd['plain_ms']:.3f}, addmm + K1 {fwd['library_ms']:.3f}; "
-        f"their K5-bwd {bwd['ms']:.3f} ms against {bwd['bound_ms']:.3f} ({bwd['bound_ms'] / bwd['ms']:.1%}), plain "
-        f"{bwd['plain_ms']:.3f}, two mm + K1-bwd {bwd['library_ms']:.3f}")
+        f"training batch: {fwd['ms']:.3f} ms ({rate_and_shares(*totals['fwd'], fwd['ms'])}), plain "
+        f"{fwd['plain_ms']:.3f}, addmm + K1 {fwd['library_ms']:.3f}; their K5-bwd {bwd['ms']:.3f} ms "
+        f"({rate_and_shares(*totals['bwd'], bwd['ms'])}), plain {bwd['plain_ms']:.3f}, two mm + K1-bwd "
+        f"{bwd['library_ms']:.3f}")
     return fwd, bwd
 
 
@@ -1898,13 +1959,15 @@ def qmatmul_case(dev, b: int, k: int, t: int, n: int, gen: torch.Generator) -> t
 
 def check_qmatmul(name: str, case: tuple, flags: dict) -> float:
     """K3 against its plain version with the grids and observing flags of ``flags`` (K5's rules, QMM_ODD's
-    note); returns the largest |pre - plain| / sum |term|."""
+    note), two runs bitwise equal; returns the largest |pre - plain| / sum |term|."""
     x, w, w_mn, w_mx, a_mn, a_mx = case
     flag = (lambda v: None if v is None else torch.tensor(v, device=x.device))
     wr = (w_mn, w_mx) if flags.get("w", True) else (None, None)
     ar = (a_mn, a_mx) if flags.get("a", True) else (None, None)
     w_obs, a_obs = flag(flags.get("w_obs")), flag(flags.get("a_obs"))
     y = qm.qmatmul(x, w, *wr, *ar, 8, 8, w_obs, a_obs)
+    if not torch.equal(qm.qmatmul(x, w, *wr, *ar, 8, 8, w_obs, a_obs), y):
+        raise AssertionError(f"K3 {name} {flags}: two runs differ")
     pre = qm.qmatmul(x, w, *wr, None, None, 8, 8, w_obs, None)
     bound = qd._weight_q(w, *wr, 8, w_obs).abs() @ x.abs()
     err = ((pre - qm.qmatmul_ref(x, w, *wr, None, None, 8, 8, w_obs, None)).abs() / bound.clamp_min(1e-30))
@@ -1958,19 +2021,17 @@ def check_qmatmul_kernel(dev, shapes: list[tuple]) -> dict:
                  "plain_ms": cuda_ms(lambda: qm.qmatmul_ref(x, w, w_mn, w_mx, a_mn, a_mx), 10),
                  "library_ms": cuda_ms(lambda: fq.act_fake_quant(torch.matmul(wq, x), a_mn, a_mx, 8), 10)}
         nbytes, ops = qmatmul_bound(b, k, t, n)
-        bnd = bound_of(nbytes, ops, F32_OPS_S)
-        log(f"{line}; K3 {times['ms']:.4f} ms ({ops / times['ms'] / 1e9:.1f} TFLOP/s, "
-            f"{bnd['bound_ms'] / times['ms']:.1%} of its {bnd['bound_ms']:.4f} ms bound by {bnd['bound_by']}), "
-            f"plain {times['plain_ms']:.4f}, torch.matmul + K1 {times['library_ms']:.4f}")
+        log(f"{line}; K3 {times['ms']:.4f} ms ({rate_and_shares(nbytes, ops, times['ms'])}), plain "
+            f"{times['plain_ms']:.4f}, torch.matmul + K1 {times['library_ms']:.4f}")
         for key in ("ms", "plain_ms", "library_ms"):
             res[key] += times[key]
         total = [total[0] + nbytes, total[1] + ops]
         del case, x, w, wq
         torch.cuda.empty_cache()
-    res.update(bound_of(*total, F32_OPS_S))
-    log(f"[37] one DPTNet and one Sepformer serving forward's {len(shapes)} K3 launches: {res['ms']:.4f} ms against "
-        f"a {res['bound_ms']:.4f} ms bound ({res['bound_ms'] / res['ms']:.1%}), plain {res['plain_ms']:.4f}, "
-        f"torch.matmul + K1 {res['library_ms']:.4f}")
+    res.update(bound_of(*total, F32_OPS_S), **route_bound(*total))
+    log(f"[37] one DPTNet and one Sepformer serving forward's {len(shapes)} K3 launches: {res['ms']:.4f} ms "
+        f"({rate_and_shares(*total, res['ms'])}), plain {res['plain_ms']:.4f}, torch.matmul + K1 "
+        f"{res['library_ms']:.4f}")
     return res
 
 
@@ -2071,6 +2132,7 @@ def main() -> None:
     for line in built.log.splitlines():
         if "registers" in line or "spill" in line:
             log(f"[1]   {line.strip()}")
+    dense_kernel_report(built.log)
 
     # 2. kernels vs plain versions on the card
     act = check_act_kernel(dev)
@@ -2201,47 +2263,58 @@ def main() -> None:
     qmm = k3_slice(dev, smi, [*dpt_k3_shapes, *sep_k3_shapes], states)
 
     source = "fqss_tpu_torch/csrc/fake_quant.cu"
+    elementwise = "CUDA cores, elementwise"
     kernels = [
-        dict(name="act_fake_quant", route="cuda", source=source, replaces="fqss_tpu/ops/pallas_qat.py:87",
+        dict(name="act_fake_quant", route="cuda", route_detail=elementwise, source=source,
+             replaces="fqss_tpu/ops/pallas_qat.py:87",
              launches=launches["act"], library_ms=None, **act),
-        dict(name="weight_fake_quant", route="cuda", source=source, replaces="fqss_tpu/ops/pallas_qat.py:204",
+        dict(name="weight_fake_quant", route="cuda", route_detail=elementwise, source=source,
+             replaces="fqss_tpu/ops/pallas_qat.py:204",
              launches=launches["weight"], library_ms=None, **weight),
-        dict(name="act_fake_quant_bwd", route="cuda", source=source, replaces="fqss_tpu/ops/pallas_qat.py:95",
+        dict(name="act_fake_quant_bwd", route="cuda", route_detail=elementwise, source=source,
+             replaces="fqss_tpu/ops/pallas_qat.py:95",
              launches=train_launches["act_bwd"], library_ms=None, **act_bwd),
-        dict(name="weight_fake_quant_bwd", route="cuda", source=source, replaces="fqss_tpu/ops/pallas_qat.py:214",
+        dict(name="weight_fake_quant_bwd", route="cuda", route_detail=elementwise, source=source,
+             replaces="fqss_tpu/ops/pallas_qat.py:214",
              launches=train_launches["weight_bwd"], library_ms=None, **weight_bwd),
         # ms, plain_ms, bound_ms: one forward's 74 launches; int_mm_ms: torch._int_mm, the product alone
         # (int32 out, no epilogue), so no library call computes this function: library_ms is null.
-        dict(name="int8_matmul_requant", route="cuda", source="fqss_tpu_torch/csrc/int8_matmul.cu",
+        dict(name="int8_matmul_requant", route="cuda", route_detail="tensor cores: s8 mma.sync m16n8k32",
+             source="fqss_tpu_torch/csrc/int8_matmul.cu",
              replaces="fqss_tpu/ops/pallas_quant.py:168", launches=int8_launches, library_ms=None, **int8),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet forward's 12 launches (6 at the row shape, 6 at the
         # column shape); library_ms: cuDNN's bidirectional nn.LSTM on the same weights and input, its own input
         # projection included. launches: phase 18's forward.
-        dict(name="bilstm_sequence", route="cuda", source="fqss_tpu_torch/csrc/lstm.cu",
+        dict(name="bilstm_sequence", route="cuda", route_detail="CUDA cores, float32 FMA",
+             source="fqss_tpu_torch/csrc/lstm.cu",
              replaces="fqss_tpu/ops/pallas_lstm.py:114", launches=dpt_launches["bilstm"], **k7),
         # One direction at the row shape, per launch. DPTNet's LSTMs are bidirectional, so K6 is not launched
         # on its path (launches 0 in phase 18's forward; phase 17 checks and times it).
-        dict(name="lstm_sequence", route="cuda", source="fqss_tpu_torch/csrc/lstm.cu",
+        dict(name="lstm_sequence", route="cuda", route_detail="CUDA cores, float32 FMA",
+             source="fqss_tpu_torch/csrc/lstm.cu",
              replaces="fqss_tpu/ops/pallas_lstm.py:54", launches=dpt_launches["lstm"], **k6),
         # ms, plain_ms, bound_ms, library_ms: one Sepformer forward's 32 launches (16 intra-chunk, 16 inter-chunk);
         # library_ms: F.scaled_dot_product_attention, then K1 for the head grid. launches: phase 25's forward
         # (phase 18's DPTNet forward launched it 12 times).
-        dict(name="fused_attention", route="cuda", source="fqss_tpu_torch/csrc/attention.cu",
+        dict(name="fused_attention", route="cuda", route_detail="CUDA cores, float32 FMA",
+             source="fqss_tpu_torch/csrc/attention.cu",
              replaces="fqss_tpu/ops/pallas_attention.py:83", launches=sep_launches["attention"], **attn),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer student forward's 78 QDense launches at
         # the training batch (phase 31); library_ms: torch.addmm, then K1 for the act grid. launches: phase 33's
-        # 16 KD steps, student and teacher.
-        dict(name="qat_dense", route="cuda", source="fqss_tpu_torch/csrc/qat_dense.cu",
+        # 16 KD steps, student and teacher. bound_ms: the float32 CUDA-core bound (comparable with earlier runs);
+        # route_bound_ms: the bound of the route the kernel takes (3 TF32 products a float32 one), K5-bwd and K3
+        # likewise.
+        dict(name="qat_dense", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
              replaces="fqss_tpu/ops/pallas_qat.py:347", launches=train_model_launches["dense"], **dense_fwd),
         # The backward of those 78 launches: the mask, dx and dwq kernels of each (and their fixed-order sums);
         # library_ms: the two products by torch.mm and K1-bwd on the pre-activation. launches: phase 33's mask
         # launches (each with one dx and one dwq launch).
-        dict(name="qat_dense_bwd", route="cuda", source="fqss_tpu_torch/csrc/qat_dense.cu",
+        dict(name="qat_dense_bwd", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
              replaces="fqss_tpu/ops/pallas_qat.py:364", launches=train_model_launches["dense_mask"], **dense_bwd),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer serving forward's launches at 8 x 4 s
         # (DPTNet's BN, the Sepformer masker's conv1d; phase 37); library_ms: torch.matmul, then K1 for the act grid.
         # launches: phase 18's and phase 25's forwards.
-        dict(name="qmatmul", route="cuda", source="fqss_tpu_torch/csrc/qat_dense.cu",
+        dict(name="qmatmul", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
              replaces="fqss_tpu/ops/pallas_quant.py:90", launches=dpt_launches["qmatmul"] + sep_launches["qmatmul"],
              **qmm),
     ]

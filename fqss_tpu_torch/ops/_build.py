@@ -49,12 +49,12 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path() -> Path:
+def _library_path(sources: tuple[Path, ...], stem: str) -> Path:
     h = hashlib.sha256()
-    for src in (*SOURCES, *HEADERS):
+    for src in (*sources, *HEADERS):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libfqss_kernels_{h.hexdigest()[:16]}.so"
+    return BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
 
 
 def _run(cmds: list[list[str]]) -> str:
@@ -67,18 +67,22 @@ def _run(cmds: list[list[str]]) -> str:
     return "".join(logs)
 
 
-def build() -> BuildResult:
-    """Compile the sources unless a library for them exists."""
-    path = _library_path()
+def build(sources: tuple[Path, ...] = SOURCES, stem: str = "libfqss_kernels") -> BuildResult:
+    """Compile the sources unless a library for them exists. ``sources`` may replace one of ``SOURCES`` with
+    another version of it (``scripts/bench_qat_dense.py`` builds an earlier kernel beside the current one); the
+    headers are always ``csrc``'s."""
+    path = _library_path(sources, stem)
     if path.exists():
         return BuildResult(path, compiled=False)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{path.stem}.{os.getpid()}"
-    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in SOURCES]
+    objects = [BUILD_DIR / f"{src.stem}.{tag}.o" for src in sources]
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
+    include = ("-I", str(_PKG / "csrc"))
     t0 = time.perf_counter()
     try:
-        log = _run([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)] for src, obj in zip(SOURCES, objects)])
+        log = _run([[nvcc, *NVCC_FLAGS, *include, "-c", "-o", str(obj), str(src)]
+                    for src, obj in zip(sources, objects)])
         log += _run([[nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp), *map(str, objects)]])
     finally:
         for obj in objects:
@@ -92,43 +96,50 @@ def library() -> ctypes.CDLL:
     """The loaded kernel library, built on the first call."""
     global _lib
     if _lib is None:
-        lib = ctypes.CDLL(str(build().path))
-        p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
-        lib.fqss_act_fake_quant.argtypes = [p, p, p, p, i64, i32, p]
-        lib.fqss_act_fake_quant.restype = i32
-        lib.fqss_weight_fake_quant.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
-        lib.fqss_weight_fake_quant.restype = i32
-        lib.fqss_act_bwd_blocks.argtypes = [i64]
-        lib.fqss_act_bwd_blocks.restype = i32
-        lib.fqss_act_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i32, f32, p]
-        lib.fqss_act_fake_quant_bwd.restype = i32
-        lib.fqss_weight_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, f32, p]
-        lib.fqss_weight_fake_quant_bwd.restype = i32
-        lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, i32, f32, f32, f32, f32, f32, f32, f32, i64, p, i64,
-                                                 i64, i64, p]
-        lib.fqss_int8_matmul_requant.restype = i32
-        lib.fqss_lstm_max_hidden.argtypes = []
-        lib.fqss_lstm_max_hidden.restype = i32
-        lib.fqss_lstm_recurrence.argtypes = [p, p, p, p, p, p, i32, i64, i64, i64, p]
-        lib.fqss_lstm_recurrence.restype = i32
-        lib.fqss_attention_max_dim.argtypes = []
-        lib.fqss_attention_max_dim.restype = i32
-        lib.fqss_fused_attention.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, p]
-        lib.fqss_fused_attention.restype = i32
-        lib.fqss_qat_dense_tiles.argtypes = [i64, i64, p]
-        lib.fqss_qat_dense_tiles.restype = None
-        lib.fqss_qat_dense_dwq_splits.argtypes = [i64, i64, i64]
-        lib.fqss_qat_dense_dwq_splits.restype = i32
-        lib.fqss_qat_dense.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i64, i64, i64, i32, i32, p]
-        lib.fqss_qat_dense.restype = i32
-        lib.fqss_qat_dense_bwd_mask.argtypes = [p, p, p, p, p, p, p, p, p, p, f32, p, p, p, p, p, p, i64, i64, i64,
-                                                i32, i32, p]
-        lib.fqss_qat_dense_bwd_mask.restype = i32
-        lib.fqss_qat_dense_dx.argtypes = [p, p, p, i64, i64, i64, p]
-        lib.fqss_qat_dense_dx.restype = i32
-        lib.fqss_qat_dense_dwq.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
-        lib.fqss_qat_dense_dwq.restype = i32
-        lib.fqss_qmatmul.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i32, i32, p]
-        lib.fqss_qmatmul.restype = i32
-        _lib = lib
+        _lib = load(build().path)
     return _lib
+
+
+def load(path: Path) -> ctypes.CDLL:
+    """Load a built library and declare its C interface."""
+    lib = ctypes.CDLL(str(path))
+    p, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+    lib.fqss_act_fake_quant.argtypes = [p, p, p, p, i64, i32, p]
+    lib.fqss_act_fake_quant.restype = i32
+    lib.fqss_weight_fake_quant.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
+    lib.fqss_weight_fake_quant.restype = i32
+    lib.fqss_act_bwd_blocks.argtypes = [i64]
+    lib.fqss_act_bwd_blocks.restype = i32
+    lib.fqss_act_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i32, f32, p]
+    lib.fqss_act_fake_quant_bwd.restype = i32
+    lib.fqss_weight_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, f32, p]
+    lib.fqss_weight_fake_quant_bwd.restype = i32
+    lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, i32, f32, f32, f32, f32, f32, f32, f32, i64, p, i64,
+                                             i64, i64, p]
+    lib.fqss_int8_matmul_requant.restype = i32
+    lib.fqss_lstm_max_hidden.argtypes = []
+    lib.fqss_lstm_max_hidden.restype = i32
+    lib.fqss_lstm_recurrence.argtypes = [p, p, p, p, p, p, i32, i64, i64, i64, p]
+    lib.fqss_lstm_recurrence.restype = i32
+    lib.fqss_attention_max_dim.argtypes = []
+    lib.fqss_attention_max_dim.restype = i32
+    lib.fqss_fused_attention.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, p]
+    lib.fqss_fused_attention.restype = i32
+    lib.fqss_qat_dense_tiles.argtypes = [i64, i64, p]
+    lib.fqss_qat_dense_tiles.restype = None
+    lib.fqss_qat_dense_dwq_splits.argtypes = [i64, i64, i64]
+    lib.fqss_qat_dense_dwq_splits.restype = i32
+    lib.fqss_qat_dense.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i64, i64, i64, i32, i32, p]
+    lib.fqss_qat_dense.restype = i32
+    lib.fqss_qat_dense_bwd_mask.argtypes = [p, p, p, p, p, p, p, p, p, p, f32, p, p, p, p, p, p, i64, i64, i64,
+                                            i32, i32, p]
+    lib.fqss_qat_dense_bwd_mask.restype = i32
+    lib.fqss_qat_dense_dx_splits.argtypes = [i64, i64, i64]
+    lib.fqss_qat_dense_dx_splits.restype = i32
+    lib.fqss_qat_dense_dx.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
+    lib.fqss_qat_dense_dx.restype = i32
+    lib.fqss_qat_dense_dwq.argtypes = [p, p, p, p, i64, i64, i64, i32, p]
+    lib.fqss_qat_dense_dwq.restype = i32
+    lib.fqss_qmatmul.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i32, i32, p]
+    lib.fqss_qmatmul.restype = i32
+    return lib

@@ -198,6 +198,32 @@ def _weight_scratch(w: Tensor, w_mn: Tensor | None) -> Tensor | None:
     return None if w_mn is None else torch.empty_like(w)
 
 
+def mask_pass(x: Tensor, w: Tensor, b: Tensor, g: Tensor, w_mn: Tensor | None, w_mx: Tensor | None,
+              a_mn: Tensor | None, a_mx: Tensor | None, w_bits: int, a_bits: int, w_observing: Tensor | None,
+              a_observing: Tensor | None, a_s: float) -> tuple:
+    """K5-bwd's first kernel on CUDA tensors (checked by the caller): ``(gm, sums, db, wq)``, ``gm = g * mask`` at
+    the recomputed pre-activation, ``sums`` the act ranges' gradients (dmn, dmx), ``wq`` the weights on their grid
+    (None without one)."""
+    (M, K), N = x.shape, w.shape[0]
+    dev = x.device
+    lib = _build.library()
+    gm = torch.empty(M, N, device=dev)
+    if not (M and N):  # no launch: the sums are 0
+        return gm, torch.zeros(2, device=dev), torch.zeros(N, device=dev), _weight_scratch(w, w_mn)
+    sums, db = torch.empty(2, device=dev), torch.empty(N, device=dev)  # the column sums write every element
+    wq = _weight_scratch(w, w_mn)
+    tiles = (ctypes.c_int64 * 2)()
+    lib.fqss_qat_dense_tiles(M, N, tiles)
+    act_partials = torch.empty(tiles[0] * tiles[1], 2, device=dev)
+    db_partials = torch.empty(tiles[0], N, device=dev)
+    _launch("qat_dense backward (mask)", lib.fqss_qat_dense_bwd_mask, dev, x.data_ptr(), w.data_ptr(),
+            b.data_ptr(), g.data_ptr(), _ptr(w_mn), _ptr(w_mx), _ptr(w_observing), _ptr(a_mn), _ptr(a_mx),
+            _ptr(a_observing), a_s, _ptr(wq), gm.data_ptr(), act_partials.data_ptr(), db_partials.data_ptr(),
+            sums.data_ptr(), db.data_ptr(), M, K, N, w_bits, a_bits)
+    LAUNCHES["dense_mask"] += 1
+    return gm, sums, db, wq
+
+
 def qat_dense_bwd(x: Tensor, w: Tensor, b: Tensor, g: Tensor, w_mn: Tensor | None = None,
                   w_mx: Tensor | None = None, a_mn: Tensor | None = None, a_mx: Tensor | None = None,
                   w_bits: int = 8, a_bits: int = 8, w_observing: Tensor | None = None,
@@ -216,28 +242,19 @@ def qat_dense_bwd(x: Tensor, w: Tensor, b: Tensor, g: Tensor, w_mn: Tensor | Non
     (M, K), N = x.shape, w.shape[0]
     dev = x.device
     lib = _build.library()
-    gm, dx, dwq = torch.empty(M, N, device=dev), torch.empty(M, K, device=dev), torch.empty(N, K, device=dev)
-    sums, db = torch.zeros(2, device=dev), torch.zeros(N, device=dev)
-    if M and N:
-        tiles = (ctypes.c_int64 * 2)()
-        lib.fqss_qat_dense_tiles(M, N, tiles)
-        act_partials = torch.empty(tiles[0] * tiles[1], 2, device=dev)
-        db_partials = torch.empty(tiles[0], N, device=dev)
-        wq = _weight_scratch(w, w_mn)
-        _launch("qat_dense backward (mask)", lib.fqss_qat_dense_bwd_mask, dev, x.data_ptr(), w.data_ptr(),
-                b.data_ptr(), g.data_ptr(), _ptr(w_mn), _ptr(w_mx), _ptr(w_observing), _ptr(a_mn), _ptr(a_mx),
-                _ptr(a_observing), a_s, _ptr(wq), gm.data_ptr(), act_partials.data_ptr(), db_partials.data_ptr(),
-                sums.data_ptr(), db.data_ptr(), M, K, N, w_bits, a_bits)
-        LAUNCHES["dense_mask"] += 1
-        if K:
-            _launch("qat_dense backward (dx)", lib.fqss_qat_dense_dx, dev, gm.data_ptr(),
-                    (w if wq is None else wq).data_ptr(), dx.data_ptr(), M, K, N)
-            LAUNCHES["dense_dx"] += 1
-            splits = lib.fqss_qat_dense_dwq_splits(M, K, N)
-            partials = torch.empty(splits if splits > 1 else 0, N, K, device=dev)
-            _launch("qat_dense backward (dwq)", lib.fqss_qat_dense_dwq, dev, gm.data_ptr(), x.data_ptr(),
-                    partials.data_ptr(), dwq.data_ptr(), M, K, N, splits)
-            LAUNCHES["dense_dwq"] += 1
+    gm, sums, db, wq = mask_pass(x, w, b, g, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing, a_s)
+    dx, dwq = torch.empty(M, K, device=dev), torch.empty(N, K, device=dev)
+    if M and N and K:
+        splits = lib.fqss_qat_dense_dx_splits(M, K, N)
+        partials = torch.empty(splits if splits > 1 else 0, M, K, device=dev)
+        _launch("qat_dense backward (dx)", lib.fqss_qat_dense_dx, dev, gm.data_ptr(),
+                (w if wq is None else wq).data_ptr(), partials.data_ptr(), dx.data_ptr(), M, K, N, splits)
+        LAUNCHES["dense_dx"] += 1
+        splits = lib.fqss_qat_dense_dwq_splits(M, K, N)
+        partials = torch.empty(splits if splits > 1 else 0, N, K, device=dev)
+        _launch("qat_dense backward (dwq)", lib.fqss_qat_dense_dwq, dev, gm.data_ptr(), x.data_ptr(),
+                partials.data_ptr(), dwq.data_ptr(), M, K, N, splits)
+        LAUNCHES["dense_dwq"] += 1
     else:
         dx.zero_()
         dwq.zero_()

@@ -488,13 +488,14 @@ def test_tiny_sepformer_serving_runs_k8_and_k4(dev, compute_dtype):
     assert bool((snr8 >= 20).all()), snr8
 
 
-# The fused QAT dense layer (K5) and its backward (K5-bwd) against their plain versions. The kernel sums each
-# product in k order with fmaf, cuBLAS in its own order: the float pre-activations agree within DENSE_RTOL of the
-# sum of the terms' magnitudes (the rounding of a K-term float32 sum grows as sqrt(K) ulps of it, about 2e-6 at
-# K = 1024), dx, dw and db likewise, the range gradients within SUM_RTOL of sum |term|. On the act grid each
-# output is the kernel's own pre-activation put through K1's plain grid exactly, at most one step from the plain
-# version's and at most DENSE_GRID_SHARE of them a step apart (a pre-activation within a rounding error of a
-# half step); the planted ties are exact sums, so they round alike (chip_smoke.py's phase 31).
+# The fused QAT dense layer (K5) and its backward (K5-bwd) against their plain versions. The kernel takes each
+# product as 3xTF32 on the tensor cores (tests/test_torch_tf32_split.py emulates it), cuBLAS in float32 in its own
+# order: the float pre-activations agree within DENSE_RTOL of the sum of the terms' magnitudes (the rounding of a
+# K-term float32 sum grows as sqrt(K) ulps of it, about 2e-6 at K = 1024), dx, dw and db likewise, the range
+# gradients within SUM_RTOL of sum |term|. On the act grid each output is the kernel's own pre-activation put
+# through K1's plain grid exactly, at most one step from the plain version's and at most DENSE_GRID_SHARE of them
+# a step apart (a pre-activation within a rounding error of a half step); the planted ties are exact sums, so
+# they round alike (chip_smoke.py's phase 31).
 DENSE_RTOL = 1e-5
 DENSE_GRID_SHARE = 1e-3
 
@@ -520,7 +521,8 @@ def _dense_case(dev, m, k, n, seed):
     return x, w, b, w_mn, w_mx, a_mn, a_mx
 
 
-DENSE_SHAPES = [(300, 256, 1024), (257, 1024, 256), (1000, 256, 64), (77, 64, 128), (5, 3, 2), (1, 256, 512)]
+DENSE_SHAPES = [(300, 256, 1024), (257, 1024, 256), (1000, 256, 64), (77, 64, 128), (5, 3, 2), (1, 256, 512),
+                (300, 37, 65), (130, 1030, 200)]  # rows of 37 and 1030 floats: not 16-byte aligned
 DENSE_FLAGS = [dict(w=True, a=True), dict(w=False, a=True), dict(w=True, a=False), dict(w=False, a=False),
                dict(w=True, a=True, w_obs=True), dict(w=True, a=True, a_obs=True),
                dict(w=True, a=True, w_obs=False, a_obs=False)]
@@ -618,6 +620,51 @@ def test_qat_dense_autograd_runs_the_kernels(dev):
     _assert_dense_grads([t.grad for t in leaves], args, g)
 
 
+def _misaligned(t):
+    """A contiguous copy of t whose first element lies 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 4, device=t.device)
+    shift = (4 - flat.data_ptr() // 4 % 4 + 1) % 4
+    out = flat[shift:shift + t.numel()].view(t.shape)
+    out.copy_(t)
+    assert out.data_ptr() % 16 == 4 and out.is_contiguous()
+    return out
+
+
+@pytest.mark.parametrize("m,k,n", [(300, 256, 1024), (1000, 256, 64), (300, 37, 65), (130, 1030, 200)])
+def test_qat_dense_kernels_repeat_bitwise(dev, m, k, n):
+    """Two runs of the forward and of the backward are bitwise equal (fixed-order sums, no atomics), and so are
+    runs on operands that are not 16-byte aligned (the 4-byte copy path) and on aligned ones (16-byte copies)."""
+    case = _dense_case(dev, m, k, n, m + n)
+    args = _dense_args(case, dev, w_obs=False, a_obs=False)
+    g = torch.randn(m, n, device=dev, generator=torch.Generator(device=dev).manual_seed(k))
+    runs = [(qd.qat_dense(*args), qd.qat_dense_bwd(*args[:3], g, *args[3:])) for _ in range(2)]
+    odd = (_misaligned(args[0]), _misaligned(args[1]), *args[2:])
+    runs.append((qd.qat_dense(*odd), qd.qat_dense_bwd(*odd[:3], _misaligned(g), *odd[3:])))
+    for y, grads in runs[1:]:
+        assert torch.equal(y, runs[0][0])
+        for got, want in zip(grads, runs[0][1]):
+            assert (got is None and want is None) or torch.equal(got, want)
+
+
+def test_qat_dense_mask_pass_recomputes_the_forward_pre_activation(dev):
+    """The mask kernel's gm is g times the act mask of the forward kernel's own pre-activation, exactly: the two
+    run the same tiles in the same order."""
+    m, k, n = 1000, 1030, 200
+    x, w, b, w_mn, w_mx, a_mn, a_mx = _dense_case(dev, m, k, n, 3)
+    g = torch.randn(m, n, device=dev, generator=torch.Generator(device=dev).manual_seed(4))
+    pre = qd.qat_dense(x, w, b, w_mn, w_mx)
+    gm = qd.mask_pass(x, w, b, g, w_mn, w_mx, a_mn, a_mx, 8, 8, None, None, 1.0)[0]
+    assert torch.equal(gm, fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)[0])
+
+
+@pytest.mark.parametrize("b,k,t,n", [(2, 256, 1000, 256), (2, 256, 3000, 64), (3, 37, 301, 65)])
+def test_qmatmul_kernel_repeats_bitwise(dev, b, k, t, n):
+    x, w, w_mn, w_mx, a_mn, a_mx = _qmatmul_case(dev, b, k, t, n, t)
+    y = qm.qmatmul(x, w, w_mn, w_mx, a_mn, a_mx)
+    assert torch.equal(qm.qmatmul(x, w, w_mn, w_mx, a_mn, a_mx), y)
+    assert torch.equal(qm.qmatmul(_misaligned(x), _misaligned(w), w_mn, w_mx, a_mn, a_mx), y)
+
+
 def test_qat_dense_wrapper_rejects_what_the_kernel_does_not_take(dev):
     x, w, b, w_mn, w_mx, a_mn, a_mx = _dense_case(dev, 8, 16, 4, 1)
     with pytest.raises(TypeError):
@@ -697,7 +744,8 @@ def test_tiny_train_step_card_vs_cpu(dev, name):
 # most one step from the plain version's and at most DENSE_GRID_SHARE of them a step apart; the planted ties and
 # clip extremes exactly. Shapes (B, K, T, N): DPTNet's BN (256 -> 64, 64-row tiles) and the Sepformer masker's
 # conv1d (256 -> 256) at short T, ragged tiles on every axis, a single column.
-QMM_SHAPES = [(2, 256, 3000, 64), (2, 256, 1000, 256), (3, 37, 301, 65), (1, 5, 7, 3), (2, 256, 1, 64)]
+QMM_SHAPES = [(2, 256, 3000, 64), (2, 256, 1000, 256), (3, 37, 301, 65), (1, 5, 7, 3), (2, 256, 1, 64),
+              (2, 1030, 203, 96)]
 
 
 def _qmatmul_case(dev, b, k, t, n, seed):

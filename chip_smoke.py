@@ -20,7 +20,8 @@ failure propagate:
 0. device: the card's name and power limit (nvidia-smi); TF32 off.
 1. build: compile ``fqss_tpu_torch/csrc/*.cu`` with nvcc, one process per source;
    ptxas's registers and spills, and for each qat_dense_kernel
-   instantiation its tile, layouts and epilogue (a spill fails the phase).
+   instantiation its tile, layouts and epilogue, for each LSTM and int8
+   kernel instantiation its tile and shared memory (a spill fails the phase).
 2. kernels vs their plain PyTorch versions on the card, bitwise
    (``torch.equal``), at the main path's shapes, with planted edge and
    half-step tie values; CUDA-event times of both.
@@ -68,7 +69,10 @@ failure propagate:
     finite metrics, mean SI-SDR within EVAL_SISDR_DB of each other.
 17. the LSTM kernel (K7 both directions, K6 one) vs its plain version on the
     card, max |difference| <= LSTM_TOL, at DPTNet's row and column shapes
-    (T 250 x B' 2064 and T 258 x B' 2000, H 128) and at T 7 x B' 3 x H 96;
+    (T 250 x B' 2064 and T 258 x B' 2000, H 128), at the LSTMs of a streamed
+    16000-sample window at batch 1 (T 250 x B' 130 and T 130 x B' 250) and at
+    T 7 x B' 3 x H 96, with the launch plan of each (cluster size, row tile,
+    CTAs);
     how far a recurrence with the i and f gates swapped, or with the reverse
     direction left unflipped, reads (what the bound must catch); CUDA-event
     times of the kernels, the plain versions and cuDNN's ``nn.LSTM`` (same
@@ -87,7 +91,8 @@ failure propagate:
 21. three 20 s requests through ``fqss_tpu_torch.infer`` (folded, OLA) with
     ``configs/dptnet_2spks_8k.yaml``'s ``model_cfg``.
 22. K4 bitwise against its plain version at the DPTNet engine's shapes and
-    epilogues (identity, ReLU, tanh, sigmoid); the DPTNet int8 engine,
+    epilogues (identity, ReLU, tanh, sigmoid), its GB/s and share of the
+    bytes bound at each, summed over a forward's 28 launches; the DPTNet int8 engine,
     float32 and bfloat16 operands, 8 x 4 s: K4 launches = its int8 products
     (``dptnet_int8_sites``), K7 12, the LSTMs' 12 output quantizers and no
     other fake-quant launch; output against phase 18's at the fake-quant
@@ -119,7 +124,8 @@ failure propagate:
     ``configs/sepformer_2spks_8k.yaml``'s ``model_cfg``.
 29. K4 bitwise against its plain version at the Sepformer engine's seven
     shapes and epilogues (the in-projection with its three output grids, the
-    end conv with ReLU); the Sepformer int8 engine, float32 and bfloat16
+    end conv with ReLU), its GB/s and share of the bytes bound at each,
+    summed over a forward's 131 launches; the Sepformer int8 engine, float32 and bfloat16
     operands, 8 x 4 s: K4 launches = 4 per transformer layer + 3 (131), no
     other launch; output against phase 25's at the fake-quant forward's floor
     (phase 26) with phase 13's rule; card vs CPU at 1 x 1 s >= 20 dB.
@@ -388,6 +394,11 @@ STREAM_SECONDS, STREAM_SEGMENT, STREAM_PUSH, STREAM_TOL = 20, 16000, 1600, 1e-5
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, TF32_OPS_S = 3.35e12, 1.979e15, 67e12, 495e12
 # The route K5, K5-bwd and K3 take: three TF32 tensor-core products for each float32 one.
 DENSE_ROUTE = "tensor cores: 3xTF32 mma.sync m16n8k8, 3-stage cp.async ring"
+# The routes of K7/K6 and K4.
+LSTM_ROUTE = ("CUDA cores, float32 FMA: thread-block clusters, each CTA's W_hh slice resident in shared memory, h "
+              "exchanged through distributed shared memory (blocks reading W_hh from L2 for H above 322)")
+INT8_ROUTE = ("tensor cores: s8 mma.sync m16n8k32, persistent blocks with the weight tile resident in shared memory, "
+              "3-stage cp.async ring, output tiles staged and stored as 16-byte rows")
 
 
 def log(msg: str) -> None:
@@ -454,6 +465,37 @@ def dense_kernel_report(build_log: str) -> None:
             spilled.append(log_line)
     if spilled:
         raise AssertionError(f"qat_dense_kernel instantiations spill: {spilled}")
+
+
+def lstm_int8_kernel_report(build_log: str) -> None:
+    """Phase 1: ptxas's registers and spill stores of each LSTM (K7/K6) and int8 (K4) kernel instantiation, with
+    the shared memory of the main path's launches; raises if one spills."""
+    lines = build_log.splitlines()
+    spilled = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*?(lstm_cluster_kernel|lstm_blocks_kernel|int8_mm_requant_kernel)I"
+                      r"([^']*?)EEEv", line)
+        if m is None:
+            continue
+        spill = int(re.search(r"(\d+) bytes spill stores", lines[i + 2]).group(1))
+        regs = int(re.search(r"Used (\d+) registers", lines[i + 3]).group(1))
+        args = [int(v) for v in re.findall(r"L[bi](\d+)E?", m.group(2))]
+        if m.group(1) == "lstm_cluster_kernel":
+            what = (f"lstm_cluster_kernel {8 * args[0]}-row tile, {'float4' if args[1] else 'scalar'} h; shared memory "
+                    f"at H 128, cluster 2: {lk.cluster_smem(128, 2, 8 * args[0])} B")
+        elif m.group(1) == "lstm_blocks_kernel":
+            what = f"lstm_blocks_kernel {'float4' if args[0] else 'scalar'} h (H > 322)"
+        else:
+            bn = 16 * args[2]
+            what = (f"int8_mm_requant_kernel {'cp.async' if args[0] else 'byte'} loads, {im.NLS[args[1]]}, N tile {bn}, "
+                    f"{args[3]} block(s) an SM; shared memory at K 128 / 512: {im.smem_bytes(bn, 128)} / "
+                    f"{im.smem_bytes(bn, 512)} B")
+        log_line = f"[1] {what}: {regs} registers, {spill} bytes spill stores"
+        log(log_line)
+        if spill:
+            spilled.append(log_line)
+    if spilled:
+        raise AssertionError(f"LSTM or int8 kernel instantiations spill: {spilled}")
 
 
 def compare(name: str, kernel_out: torch.Tensor, plain_out: torch.Tensor) -> float:
@@ -693,8 +735,8 @@ def check_int8_kernel(dev) -> dict:
         ms = cuda_ms(lambda: im.int8_matmul_requant(xs, w, scale, corr, 0.25, *args), 20)
         plain_ms = cuda_ms(lambda: im.int8_matmul_requant_ref(xs, w, scale, corr, 0.25, *args), 3)
         int_mm_ms = cuda_ms(lambda: torch._int_mm(xs, w.t()), 20)
-        moved = INT8_ROWS * (k + n) + n * k + 8 * n  # activations in, int8 out, weight, scale and corr
-        b = bound_of(moved, 2 * INT8_ROWS * k * n, INT8_OPS_S)
+        moved, launch_ops = int8_bound(INT8_ROWS, k, n)
+        b = bound_of(moved, launch_ops, INT8_OPS_S)
         log(f"[12] int8_matmul_requant [{INT8_ROWS},{k}] x [{n},{k}]: bitwise equal for alpha 1, 0.25, 0 with "
             f"planted extremes and ties; kernel {ms:.4f} ms ({moved / ms / 1e6:.0f} GB/s of {moved / 1e9:.3f} GB, "
             f"{b['bound_ms'] / ms:.1%} of its {b['bound_ms']:.4f} ms bound by {b['bound_by']}), "
@@ -704,7 +746,7 @@ def check_int8_kernel(dev) -> dict:
         results["plain_ms"] += per_forward * plain_ms
         results["int_mm_ms"] += per_forward * int_mm_ms
         bytes_moved += per_forward * moved
-        ops += per_forward * 2 * INT8_ROWS * k * n
+        ops += per_forward * launch_ops
         del xs, w, got
         torch.cuda.empty_cache()
     results.update(bound_of(bytes_moved, ops, INT8_OPS_S))
@@ -980,14 +1022,25 @@ def torch_lstm_like(q_lstm: QLSTM) -> torch.nn.LSTM:
     return cell.to(q_lstm.fw.w_ih.device)
 
 
-def check_lstm_kernels(dev, shapes: list[tuple[str, int, int, int]], per_forward: int) -> tuple[dict, dict]:
+def plan_text(dev, B: int, H: int, dirs: int) -> str:
+    """The launch plan K7 (dirs 2) or K6 (dirs 1) takes at B' x H on this card."""
+    p = lk.launch_plan(dev, B, H, dirs)
+    if p.route == "blocks":
+        return f"blocks route, {p.rows}-row blocks, {p.units} blocks"
+    return (f"clusters of {p.cluster}, {p.rows}-row tiles, {p.units} clusters = {p.ctas} CTAs (co-resident "
+            f"{lk.coresident(dev, H)})")
+
+
+def check_lstm_kernels(dev, shapes: list[tuple[str, int, int, int]], per_forward: int,
+                       stream_shapes: list[tuple[str, int, int, int]]) -> tuple[dict, dict]:
     """Phase 17: K7 and K6 against their plain versions; K7's times per forward (``per_forward`` launches at
-    each shape), K6's per launch at the row shape. Returns (K6 results, K7 results)."""
+    each shape of ``shapes``), K6's per launch at the row shape; both at the streamed window's ``stream_shapes``.
+    Returns (K6 results, K7 results)."""
     gen = torch.Generator(device=dev).manual_seed(17)
     k6 = {"max_abs_err": 0.0}
     k7 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     moved = ops = 0
-    for side, T, B, H in [*shapes, ("odd", *LSTM_ODD)]:
+    for side, T, B, H in [*shapes, *stream_shapes, ("odd", *LSTM_ODD)]:
         ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(2)]
         w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / math.sqrt(H) for _ in range(2)]
         with torch.no_grad():
@@ -1003,11 +1056,20 @@ def check_lstm_kernels(dev, shapes: list[tuple[str, int, int, int]], per_forward
         k6["max_abs_err"], k7["max_abs_err"] = max(k6["max_abs_err"], err6), max(k7["max_abs_err"], err7)
         swapped = (lk.lstm_sequence_ref(swap_if(ih[0], H), swap_if(w[0], H)) - rf).abs().max().item()
         unflipped = (lk.lstm_sequence_ref(ih[1].flip(0), w[1]).flip(0) - rb).abs().max().item()
-        line = (f"[17] LSTM kernel {side} T {T} x B' {B} x H {H}: max |kernel - plain| K7 {err7:.3g}, K6 {err6:.3g} "
+        line = (f"[17] LSTM kernel {side} T {T} x B' {B} x H {H}: K7 {plan_text(dev, B, H, 2)}, K6 "
+                f"{plan_text(dev, B, H, 1)}; max |kernel - plain| K7 {err7:.3g}, K6 {err6:.3g} "
                 f"(<= {LSTM_TOL}); i/f swapped would read {swapped:.3g}, the reverse direction unflipped "
                 f"{unflipped:.3g}")
         if side == "odd":
             log(line)
+            continue
+        b7, b6 = bound_of(*lstm_bound(2, T, B, H), F32_OPS_S), bound_of(*lstm_bound(1, T, B, H), F32_OPS_S)
+        if side.startswith("stream"):
+            ms7 = cuda_ms(lambda: lk.bilstm_sequence(ih[0], ih[1], w[0], w[1]), 10)
+            ms6 = cuda_ms(lambda: lk.lstm_sequence(ih[0], w[0]), 10)
+            log(f"{line}; K7 {ms7:.4f} ms ({b7['bound_ms'] / ms7:.1%} of its {b7['bound_ms']:.4f} ms bound by "
+                f"{b7['bound_by']}), K6 {ms6:.4f} ms ({b6['bound_ms'] / ms6:.1%} of {b6['bound_ms']:.4f})")
+            del ih, w, hf, hb, rf, rb, h1
             continue
         ms7 = cuda_ms(lambda: lk.bilstm_sequence(ih[0], ih[1], w[0], w[1]), 10)
         ms6 = cuda_ms(lambda: lk.lstm_sequence(ih[0], w[0]), 10)
@@ -1025,7 +1087,6 @@ def check_lstm_kernels(dev, shapes: list[tuple[str, int, int, int]], per_forward
             lib7 = cuda_ms(lambda: cudnn_bi(x), 5)
             lib6 = cuda_ms(lambda: cudnn_uni(x), 5)
             qlstm_ms = cuda_ms(lambda: q_bi(x), 5)
-        b7, b6 = bound_of(*lstm_bound(2, T, B, H), F32_OPS_S), bound_of(*lstm_bound(1, T, B, H), F32_OPS_S)
         log(f"{line}; K7 {ms7:.3f} ms ({b7['bound_ms'] / ms7:.1%} of its {b7['bound_ms']:.3f} ms bound by "
             f"{b7['bound_by']}), K6 {ms6:.3f} ms ({b6['bound_ms'] / ms6:.1%} of {b6['bound_ms']:.3f}), plain "
             f"{plain7:.1f} / {plain6:.1f} ms (medians of {LSTM_PLAIN_REPS}, {lo7:.1f}-{hi7:.1f} / {lo6:.1f}-{hi6:.1f}); "
@@ -1106,32 +1167,59 @@ def dptnet_int8_sites(model: DPTNet) -> int:
     return 5 + layers + (layers - 1)
 
 
-def check_int8_at_dptnet_shapes(dev, dpt: DPTNet, shapes) -> None:
-    """Phase 22: K4 against its plain version, bitwise, at the DPTNet engine's shapes, with the epilogues it
-    uses there: identity, ReLU (the mask), tanh and sigmoid (the gated output)."""
-    gen = torch.Generator(device=dev).manual_seed(22)
+def dptnet_int8_cases(dpt: DPTNet, shapes) -> list[tuple]:
+    """(M, K, N, nl, alpha, grids, what, launches per forward) of the DPTNet int8 engine's K4 launches at DPT_BATCH
+    x DPT_SEG: BN, each side's in-projection (every dual-path layer's but row_0's) and out-projection, out_conv, the
+    gated output's two products and the mask, with the epilogues the engine uses there."""
     frames = DPT_SEG - dpt.kernel_size + 1
     n, e, spk = dpt.feature_dim, dpt.enc_dim, dpt.n_srcs
     one = (INT8_TIE_DELTA, INT8_TIE_MN)
-    cases = [(DPT_BATCH * frames, e, n, "prelu", 1.0, one, "BN")]
+    cases = [(DPT_BATCH * frames, e, n, "prelu", 1.0, one, "BN", 1)]
     for side, T, B, _ in shapes:
-        cases += [(T * B, n, 3 * n, "prelu", 1.0, QKV_GRIDS, f"{side} in-projection (three output grids)"),
-                  (T * B, n, n, "prelu", 1.0, one, f"{side} out-projection")]
-    cases += [(shapes[0][1] * shapes[0][2], n, spk * n, "prelu", 1.0, one, "out_conv"),
-              (DPT_BATCH * spk * frames, n, n, "tanh", 1.0, one, "output"),
-              (DPT_BATCH * spk * frames, n, n, "sigmoid", 1.0, one, "output_gate"),
-              (DPT_BATCH * spk * frames, n, e, "prelu", 0.0, one, "mask")]
-    for m, k, n_out, nl, alpha, args, what in cases:
+        cases += [(T * B, n, 3 * n, "prelu", 1.0, QKV_GRIDS, f"{side} in-projection (three output grids)",
+                   dpt.layer - (side == "row")),
+                  (T * B, n, n, "prelu", 1.0, one, f"{side} out-projection", dpt.layer)]
+    cases += [(shapes[0][1] * shapes[0][2], n, spk * n, "prelu", 1.0, one, "out_conv", 1),
+              (DPT_BATCH * spk * frames, n, n, "tanh", 1.0, one, "output", 1),
+              (DPT_BATCH * spk * frames, n, n, "sigmoid", 1.0, one, "output_gate", 1),
+              (DPT_BATCH * spk * frames, n, e, "prelu", 0.0, one, "mask", 1)]
+    return cases
+
+
+def int8_bound(m: int, k: int, n: int) -> tuple[int, int]:
+    """Bytes (activations in, int8 out, weight, scale and corr) and operations of one K4 launch."""
+    return m * (k + n) + n * k + 8 * n, 2 * m * k * n
+
+
+def check_int8_cases(dev, phase: int, engine: str, cases: list[tuple], seed: int) -> dict:
+    """Phases 22 and 29: K4 against its plain version, bitwise, at an int8 engine's ``cases``; its time, rate and
+    share of the bytes bound at each; summed per forward (the cases' launches)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    total = {"ms": 0.0, "bytes": 0, "ops": 0, "launches": 0}
+    for m, k, n_out, nl, alpha, grids, what, per_forward in cases:
         xs, w, scale, corr = int8_case(dev, m, k, n_out, gen)
         if nl != "prelu":  # products spread over the nonlinearity's working range, not only its saturated ends
             scale = scale * 0.05
-        compare(f"int8_matmul_requant {what} [{m},{k}]x[{n_out},{k}] {nl}",
-                im.int8_matmul_requant(xs, w, scale, corr, alpha, *args, nl=nl),
-                im.int8_matmul_requant_ref(xs, w, scale, corr, alpha, *args, nl=nl))
-        ms = cuda_ms(lambda: im.int8_matmul_requant(xs, w, scale, corr, alpha, *args, nl=nl), 10)
-        log(f"[22] int8_matmul_requant at the DPTNet engine's {what} [{m},{k}] x [{n_out},{k}], {nl}"
-            f"{f' alpha {alpha}' if nl == 'prelu' else ''}: bitwise equal to its plain version; {ms:.4f} ms")
-        del xs, w
+        args = (xs, w, scale, corr, alpha, *grids)
+        compare(f"int8_matmul_requant {what} [{m},{k}]x[{n_out},{k}] {nl}", im.int8_matmul_requant(*args, nl=nl),
+                im.int8_matmul_requant_ref(*args, nl=nl))
+        ms = cuda_ms(lambda: im.int8_matmul_requant(*args, nl=nl), 10)
+        moved, ops = int8_bound(m, k, n_out)
+        b = bound_of(moved, ops, INT8_OPS_S)
+        log(f"[{phase}] int8_matmul_requant at the {engine} engine's {what} [{m},{k}] x [{n_out},{k}], {nl}"
+            f"{f' alpha {alpha}' if nl == 'prelu' else ''}: bitwise equal to its plain version; {ms:.4f} ms "
+            f"({moved / ms / 1e6:.0f} GB/s, {b['bound_ms'] / ms:.1%} of its {b['bound_ms']:.4f} ms bound by "
+            f"{b['bound_by']}); {per_forward} launches per forward")
+        total["ms"] += per_forward * ms
+        total["bytes"] += per_forward * moved
+        total["ops"] += per_forward * ops
+        total["launches"] += per_forward
+        del xs, w, scale, corr, args
+    total.update(bound_of(total["bytes"], total["ops"], INT8_OPS_S))
+    log(f"[{phase}] one {engine} int8 forward's {total['launches']} K4 launches: {total['ms']:.3f} ms against a "
+        f"{total['bound_ms']:.3f} ms bound by {total['bound_by']} ({total['bound_ms'] / total['ms']:.1%}), "
+        f"{total['bytes'] / 1e9:.3f} GB")
+    return total
 
 
 def int8_engines_vs_fake_quant(phase: int, name: str, model, cpu_model, x: torch.Tensor, y: torch.Tensor,
@@ -1181,11 +1269,14 @@ def state_on_cpu(model: torch.nn.Module) -> dict:
 
 def serve_dptnet(dev, smi: str) -> tuple:
     """Phases 17-23, the DPTNet serving path. Returns (K6 results, K7 results, the launches of phase 18's
-    forward, its attention shapes for phase 24, its K3 shapes for phase 37, the served weights and ranges)."""
+    forward, its attention shapes for phase 24, its K3 shapes for phase 37, the served weights and ranges, K4's
+    time and bound per DPTNet int8 forward)."""
     dmix, _ = synth_batch(np.random.default_rng(18), DPT_BATCH, 2, DPT_SEG)
     dpt = build_served_dptnet(dev, dmix[:2])
     shapes = dpt_lstm_shapes(DPT_BATCH, DPT_SEG, dpt)
-    k6, k7 = check_lstm_kernels(dev, shapes, dpt.layer)  # 17.
+    # the LSTMs of a streamed window (phase 38: batch 1, STREAM_SEGMENT samples)
+    stream_shapes = [(f"stream {side}", T, B, H) for side, T, B, H in dpt_lstm_shapes(1, STREAM_SEGMENT, dpt)]
+    k6, k7 = check_lstm_kernels(dev, shapes, dpt.layer, stream_shapes)  # 17.
     torch.cuda.empty_cache()
 
     # 18. the full-width forward
@@ -1256,7 +1347,11 @@ def serve_dptnet(dev, smi: str) -> tuple:
         log(f"[21] DPTNet request {i} (folded): 20 s mixture -> 2 sources of 20 s, {s * 1000:.1f} ms")
 
     # 22. K4 at the int8 engine's shapes, then the engine (launch counts set to 0 inside, read after each forward)
-    check_int8_at_dptnet_shapes(dev, dpt, shapes)
+    int8_cases = dptnet_int8_cases(dpt, shapes)
+    if sum(c[-1] for c in int8_cases) != dptnet_int8_sites(dpt):
+        raise AssertionError(f"phase 22's K4 cases count {sum(c[-1] for c in int8_cases)} launches a forward, the "
+                             f"engine {dptnet_int8_sites(dpt)}")
+    k4 = check_int8_cases(dev, 22, "DPTNet", int8_cases, 22)
     # K4 = its int8 products; K7 and K1 = the LSTMs and their output quantizers, run as the model runs them
     layers = 2 * dpt.layer
     engines = int8_engines_vs_fake_quant(22, "DPTNet", dpt, cpu_dpt, x, y, floor,
@@ -1272,7 +1367,7 @@ def serve_dptnet(dev, smi: str) -> tuple:
             f"{DPT_BATCH} x {DPT_SEG // SR} s) on {smi}")
     heads, d = 4, dpt.feature_dim // 4  # the DPT's layers have 4 heads
     attn_shapes = [(f"DPTNet {side}", B * heads, T, T, d, dpt.layer, False) for side, T, B, _ in shapes]
-    return k6, k7, launches, attn_shapes, k3_shapes, state_on_cpu(dpt)
+    return k6, k7, launches, attn_shapes, k3_shapes, state_on_cpu(dpt), k4
 
 
 def sepformer_attention_shapes(sep: Sepformer) -> list[tuple]:
@@ -1385,33 +1480,29 @@ def sepformer_int8_sites(model: Sepformer) -> int:
     return 4 * sum(isinstance(m, TransformerLayer) for m in model.modules()) + 3
 
 
-def check_int8_at_sepformer_shapes(dev, sep: Sepformer) -> None:
-    """Phase 29: K4 against its plain version, bitwise, at the Sepformer engine's seven shapes and epilogues."""
-    gen = torch.Generator(device=dev).manual_seed(29)
+def sepformer_int8_cases(sep: Sepformer) -> list[tuple]:
+    """(M, K, N, nl, alpha, grids, what, launches per forward) of the Sepformer int8 engine's K4 launches at
+    SEP_BATCH x SEP_SEG: every transformer layer's in-projection (three output grids), out-projection and two
+    feed-forward linears, the masker's bottleneck, Conv2d and end conv (ReLU)."""
     frames = (SEP_SEG - sep.encoder.conv.weight.shape[-1]) // sep.encoder.conv.stride + 1
     (_, _, k, *_), (_, _, s, *_) = sepformer_attention_shapes(sep)
     tokens, f = SEP_BATCH * k * s, sep.n_filters
     n_ffn = sep.masker.blocks[0].intra_transformer_block.layers[0].ffn_in.weight.shape[0]
-    cases = [(tokens, f, 3 * f, 1.0, QKV_GRIDS, "in-projection (three output grids)"),
-             (tokens, f, f, 1.0, None, "out-projection"), (tokens, f, n_ffn, 1.0, None, "ffn_in"),
-             (tokens, n_ffn, f, 1.0, None, "ffn_out"), (SEP_BATCH * frames, f, f, 1.0, None, "bottleneck"),
-             (tokens, f, sep.n_srcs * f, 1.0, None, "conv2d"),
-             (SEP_BATCH * sep.n_srcs * frames, f, f, 0.0, None, "end_conv (ReLU)")]
-    for m, k_in, n_out, alpha, grids, what in cases:
-        xs, w, scale, corr = int8_case(dev, m, k_in, n_out, gen)
-        args = (alpha, *(grids or (INT8_TIE_DELTA, INT8_TIE_MN)))
-        compare(f"int8_matmul_requant {what} [{m},{k_in}]x[{n_out},{k_in}]",
-                im.int8_matmul_requant(xs, w, scale, corr, *args),
-                im.int8_matmul_requant_ref(xs, w, scale, corr, *args))
-        ms = cuda_ms(lambda: im.int8_matmul_requant(xs, w, scale, corr, *args), 10)
-        log(f"[29] int8_matmul_requant at the Sepformer engine's {what} [{m},{k_in}] x [{n_out},{k_in}], alpha "
-            f"{alpha}: bitwise equal to its plain version; {ms:.4f} ms")
-        del xs, w
+    layers = sum(isinstance(m, TransformerLayer) for m in sep.modules())
+    one = (INT8_TIE_DELTA, INT8_TIE_MN)
+    return [(tokens, f, 3 * f, "prelu", 1.0, QKV_GRIDS, "in-projection (three output grids)", layers),
+            (tokens, f, f, "prelu", 1.0, one, "out-projection", layers),
+            (tokens, f, n_ffn, "prelu", 1.0, one, "ffn_in", layers),
+            (tokens, n_ffn, f, "prelu", 1.0, one, "ffn_out", layers),
+            (SEP_BATCH * frames, f, f, "prelu", 1.0, one, "bottleneck", 1),
+            (tokens, f, sep.n_srcs * f, "prelu", 1.0, one, "conv2d", 1),
+            (SEP_BATCH * sep.n_srcs * frames, f, f, "prelu", 0.0, one, "end_conv (ReLU)", 1)]
 
 
 def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple:
     """Phases 24-30: K8 at every attention shape, then the Sepformer serving path. Returns (K8 results, the
-    launches of phase 25's forward, its K3 shapes for phase 37, the served weights and ranges)."""
+    launches of phase 25's forward, its K3 shapes for phase 37, the served weights and ranges, K4's time and bound
+    per Sepformer int8 forward)."""
     smix, _ = synth_batch(np.random.default_rng(25), SEP_BATCH, 2, SEP_SEG)
     t0 = time.perf_counter()
     sep = build_served_sepformer(dev, smix[:2])
@@ -1504,7 +1595,11 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple:
         log(f"[28] Sepformer request {i} (folded): 20 s mixture -> 2 sources of 20 s, {sec * 1000:.1f} ms")
 
     # 29. K4 at the int8 engine's shapes, then the engine (launch counts set to 0 inside, read after each forward)
-    check_int8_at_sepformer_shapes(dev, sep)
+    int8_cases = sepformer_int8_cases(sep)
+    if sum(c[-1] for c in int8_cases) != sepformer_int8_sites(sep):
+        raise AssertionError(f"phase 29's K4 cases count {sum(c[-1] for c in int8_cases)} launches a forward, the "
+                             f"engine {sepformer_int8_sites(sep)}")
+    k4 = check_int8_cases(dev, 29, "Sepformer", int8_cases, 29)
     engines = int8_engines_vs_fake_quant(29, "Sepformer", sep, cpu_sep, x, y, floor,
                                          no_launches(int8_mm=sepformer_int8_sites(sep)), SEP_INT8_CARD_VS_CPU_DB)
 
@@ -1515,7 +1610,7 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple:
             ms = cuda_ms(lambda: fn(x), 3)
         log(f"[30] Sepformer throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
             f"{SEP_BATCH} x {SEP_SEG // SR} s) on {smi}")
-    return attn, launches, k3_shapes, state_on_cpu(sep)
+    return attn, launches, k3_shapes, state_on_cpu(sep), k4
 
 
 def dense_train_shapes(dpt_seg: int, sep_seg: int) -> list[tuple]:
@@ -2133,6 +2228,7 @@ def main() -> None:
         if "registers" in line or "spill" in line:
             log(f"[1]   {line.strip()}")
     dense_kernel_report(built.log)
+    lstm_int8_kernel_report(built.log)
 
     # 2. kernels vs plain versions on the card
     act = check_act_kernel(dev)
@@ -2248,11 +2344,11 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # 17-23. the DPTNet serving path (launch counts set to 0 inside before each run they check)
-    k6, k7, dpt_launches, dpt_attn_shapes, dpt_k3_shapes, states["DPTNet"] = serve_dptnet(dev, smi)
+    k6, k7, dpt_launches, dpt_attn_shapes, dpt_k3_shapes, states["DPTNet"], dpt_k4 = serve_dptnet(dev, smi)
     torch.cuda.empty_cache()
 
     # 24-30. K8 and the Sepformer serving path (launch counts set to 0 inside before each run they check)
-    attn, sep_launches, sep_k3_shapes, states["Sepformer"] = serve_sepformer(dev, smi, dpt_attn_shapes)
+    attn, sep_launches, sep_k3_shapes, states["Sepformer"], sep_k4 = serve_sepformer(dev, smi, dpt_attn_shapes)
     torch.cuda.empty_cache()
 
     # 31-36. K5, K5-bwd, the LSTM backward and DPTNet and Sepformer training (launch counts set to 0 inside)
@@ -2277,20 +2373,23 @@ def main() -> None:
         dict(name="weight_fake_quant_bwd", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:214",
              launches=train_launches["weight_bwd"], library_ms=None, **weight_bwd),
-        # ms, plain_ms, bound_ms: one forward's 74 launches; int_mm_ms: torch._int_mm, the product alone
-        # (int32 out, no epilogue), so no library call computes this function: library_ms is null.
-        dict(name="int8_matmul_requant", route="cuda", route_detail="tensor cores: s8 mma.sync m16n8k32",
+        # ms, plain_ms, bound_ms: one ConvTasNet forward's 74 launches; int_mm_ms: torch._int_mm, the product alone
+        # (int32 out, no epilogue), so no library call computes this function: library_ms is null. dptnet_*,
+        # sepformer_*: one DPTNet and one Sepformer int8 forward's launches (phases 22 and 29).
+        dict(name="int8_matmul_requant", route="cuda", route_detail=INT8_ROUTE,
              source="fqss_tpu_torch/csrc/int8_matmul.cu",
-             replaces="fqss_tpu/ops/pallas_quant.py:168", launches=int8_launches, library_ms=None, **int8),
+             replaces="fqss_tpu/ops/pallas_quant.py:168", launches=int8_launches, library_ms=None, **int8,
+             dptnet_ms=dpt_k4["ms"], dptnet_bound_ms=dpt_k4["bound_ms"], dptnet_launches=dpt_k4["launches"],
+             sepformer_ms=sep_k4["ms"], sepformer_bound_ms=sep_k4["bound_ms"], sepformer_launches=sep_k4["launches"]),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet forward's 12 launches (6 at the row shape, 6 at the
         # column shape); library_ms: cuDNN's bidirectional nn.LSTM on the same weights and input, its own input
         # projection included. launches: phase 18's forward.
-        dict(name="bilstm_sequence", route="cuda", route_detail="CUDA cores, float32 FMA",
+        dict(name="bilstm_sequence", route="cuda", route_detail=LSTM_ROUTE,
              source="fqss_tpu_torch/csrc/lstm.cu",
              replaces="fqss_tpu/ops/pallas_lstm.py:114", launches=dpt_launches["bilstm"], **k7),
         # One direction at the row shape, per launch. DPTNet's LSTMs are bidirectional, so K6 is not launched
         # on its path (launches 0 in phase 18's forward; phase 17 checks and times it).
-        dict(name="lstm_sequence", route="cuda", route_detail="CUDA cores, float32 FMA",
+        dict(name="lstm_sequence", route="cuda", route_detail=LSTM_ROUTE,
              source="fqss_tpu_torch/csrc/lstm.cu",
              replaces="fqss_tpu/ops/pallas_lstm.py:54", launches=dpt_launches["lstm"], **k6),
         # ms, plain_ms, bound_ms, library_ms: one Sepformer forward's 32 launches (16 intra-chunk, 16 inter-chunk);

@@ -115,12 +115,18 @@ def load(path: Path) -> ctypes.CDLL:
     lib.fqss_weight_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, f32, p]
     lib.fqss_weight_fake_quant_bwd.restype = i32
     lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, i32, f32, f32, f32, f32, f32, f32, f32, i64, p, i64,
-                                             i64, i64, p]
+                                             i64, i64, i32, p]
     lib.fqss_int8_matmul_requant.restype = i32
+    lib.fqss_int8_matmul_blocks_per_sm.argtypes = [i64, i64, ctypes.POINTER(i32)]
+    lib.fqss_int8_matmul_blocks_per_sm.restype = i32
     lib.fqss_lstm_max_hidden.argtypes = []
     lib.fqss_lstm_max_hidden.restype = i32
     lib.fqss_lstm_recurrence.argtypes = [p, p, p, p, p, p, i32, i64, i64, i64, p]
     lib.fqss_lstm_recurrence.restype = i32
+    lib.fqss_lstm_cluster.argtypes = [p, p, p, p, p, p, i32, i64, i64, i64, i32, i32, p]
+    lib.fqss_lstm_cluster.restype = i32
+    lib.fqss_lstm_cluster_max_active.argtypes = [i64, i32, i32, ctypes.POINTER(i32)]
+    lib.fqss_lstm_cluster_max_active.restype = i32
     lib.fqss_attention_max_dim.argtypes = []
     lib.fqss_attention_max_dim.restype = i32
     lib.fqss_fused_attention.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, p]

@@ -20,6 +20,11 @@ and ``mn`` may also be sequences of up to three grids, each taking an equal
 share of the N columns in order: the Sepformer engine requantizes its
 attention in-projection's Q, K and V thirds to their own grids in one launch.
 
+On the card the kernel's blocks are persistent: :func:`grid` gives the
+launch as many blocks as fit co-resident (asked of the card once a device,
+N tile and K), each keeping one N tile of the weight in shared memory and
+walking the M tiles. K is at most 2560.
+
 A CUDA tensor launches the kernel, or the wrapper raises: there is no
 fallback. A CPU tensor takes the plain version :func:`int8_matmul_requant_ref`,
 which the kernel equals bit for bit; the wrapper holds both devices to the
@@ -29,6 +34,7 @@ kernel's launches.
 
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
@@ -44,6 +50,47 @@ MAX_GRIDS = 3  # output grids one launch takes (csrc/int8_matmul.cu:kMaxGrids)
 
 def reset_launches() -> None:
     LAUNCHES["int8_mm"] = 0
+
+
+# The kernel's tiles and shared memory (csrc/int8_matmul.cu): 128-row M tiles, N tiles of 128 columns (64 where
+# N <= 64 or the 128-column weight tile is too deep to fit), a 3-stage ring of 128 x 128-byte stages.
+SMEM_BYTES = 232448  # the most shared memory a block may have on sm_90
+TILE_M = 128
+
+
+def smem_bytes(tile_n: int, k: int) -> int:
+    """Shared memory of one block: the weight tile (rows padded to 16 mod 128 bytes), the ring, the output tile
+    and six floats a column."""
+    return tile_n * (-(-k // 128) * 128 + 16) + 3 * TILE_M * 144 + TILE_M * (tile_n + 16) + 24 * tile_n
+
+
+def tile_n(n: int, k: int) -> int:
+    """The kernel's N tile at (N, K); 0 where no weight tile of depth K fits."""
+    if n > 64 and smem_bytes(128, k) <= SMEM_BYTES:
+        return 128
+    return 64 if smem_bytes(64, k) <= SMEM_BYTES else 0
+
+
+def grid(m: int, n: int, k: int, sms: int, blocks_per_sm: int) -> int:
+    """The persistent launch's blocks: as many as fit co-resident, a multiple of the N tiles, and no more than
+    there are tiles. Block b takes N tile b % n_tiles and the M tiles b // n_tiles + i * (blocks // n_tiles)."""
+    n_tiles, m_tiles = -(-n // tile_n(n, k)), -(-m // TILE_M)
+    return n_tiles * max(1, min(m_tiles, sms * blocks_per_sm // n_tiles))
+
+
+_CORESIDENT: dict[tuple[int, int, int], tuple[int, int]] = {}
+
+
+def _blocks(device: torch.device, m: int, n: int, k: int) -> int:
+    """The launch's blocks on ``device``; (SMs, blocks an SM) are asked of the card once a device, N tile and K."""
+    key = (device.index, tile_n(n, k), k)
+    if key not in _CORESIDENT:
+        got = ctypes.c_int(0)
+        rc = _build.library().fqss_int8_matmul_blocks_per_sm(n, k, ctypes.byref(got))
+        if rc != 0 or got.value < 1:
+            raise RuntimeError(f"int8_matmul_requant: occupancy query failed with error {rc} ({got.value} blocks)")
+        _CORESIDENT[key] = (torch.cuda.get_device_properties(device).multi_processor_count, got.value)
+    return grid(m, n, k, *_CORESIDENT[key])
 
 
 def int8_product(xs: Tensor, w: Tensor) -> Tensor:
@@ -114,7 +161,9 @@ def int8_matmul_requant(xs: Tensor, w: Tensor, scale: Tensor, corr: Tensor, alph
     deltas, mns = _grids(delta, mn, w.shape[0])
     if xs.device.type == "cpu":
         return int8_matmul_requant_ref(xs, w, scale, corr, alpha, delta, mn, nl)
-    m, n = xs.shape[0], w.shape[0]
+    m, n, k = xs.shape[0], w.shape[0], xs.shape[1]
+    if tile_n(n, k) == 0:
+        raise ValueError(f"int8_matmul_requant: K = {k} exceeds the kernel's shared memory (at most 2560)")
     out = torch.empty(m, n, dtype=torch.int8, device=xs.device)
     if out.numel() == 0:
         return out
@@ -123,7 +172,8 @@ def int8_matmul_requant(xs: Tensor, w: Tensor, scale: Tensor, corr: Tensor, alph
     with torch.cuda.device(xs.device):
         rc = _build.library().fqss_int8_matmul_requant(
             xs.data_ptr(), w.data_ptr(), scale.data_ptr(), corr.data_ptr(), NLS.index(nl), alpha, *grids,
-            n // len(deltas), out.data_ptr(), m, n, xs.shape[1], torch.cuda.current_stream(xs.device).cuda_stream)
+            n // len(deltas), out.data_ptr(), m, n, k, _blocks(xs.device, m, n, k),
+            torch.cuda.current_stream(xs.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"int8_matmul_requant: CUDA launch failed with error {rc}")
     LAUNCHES["int8_mm"] += 1

@@ -12,7 +12,21 @@ time-major, ``[T, B, 4H]`` in torch's gate order (i, f, g, o), each
 direction's in its own scan order (the caller flips the reverse direction),
 and ``w_hh`` as ``[H, 4H]``; they return ``hs [T, B, H]`` in the same order,
 from zero initial state. Unlike the TPU kernel (``H % 128 == 0``), the
-Hopper kernel takes any H up to its shared-memory limit and any B.
+Hopper kernels take any H up to a shared-memory limit (1210) and any B.
+
+Two routes, chosen by shape (:func:`plan`), count under the same key:
+
+* the cluster route (H up to 322, DPTNet's 128 among them): a
+  thread-block cluster of ``cluster`` CTAs owns ``rows`` batch rows of one
+  direction, each CTA a slice of the hidden units with its slice of ``w_hh``
+  kept in shared memory for the whole launch, h exchanged through
+  distributed shared memory at every step. The cluster size is the least
+  that holds the slice; the row tile is the least whose clusters all fit
+  co-resident on the card (``cudaOccupancyMaxActiveClusters``, asked once a
+  device and H), so that small batches spread over many SMs and none waits
+  for a second wave;
+* the blocks route, for H that no cluster of 8 holds: a block owns 16 rows
+  of one direction and reads ``w_hh`` from L2 at every step.
 
 A CUDA tensor launches the kernel, or the wrapper raises: there is no
 fallback. A CPU tensor takes the plain version (:func:`lstm_sequence_ref`,
@@ -30,6 +44,9 @@ it; the backward launches none.
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
+
 import torch
 
 from fqss_tpu_torch.ops import _build
@@ -43,6 +60,86 @@ LAUNCHES = {"lstm": 0, "bilstm": 0}
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+# The cluster route's layout and limits (csrc/lstm.cu): a CTA owns at most 64 units, in 8 row groups, and its shared
+# memory holds its w_hh slice [H][ceil(H / cluster)][4] and h of the tile in two buffers [2][rows][H], float32,
+# and an mbarrier for each buffer and row group.
+SMEM_BYTES = 232448  # the most shared memory a block may have on sm_90
+CTA_UNITS = 64  # the most hidden units a CTA owns (2 a thread of a warp)
+MAX_CLUSTER = 8  # the portable cluster size
+TILE_ROWS = (8, 16, 32, 64)  # the row tiles the kernel is built for (1 to 8 rows a thread)
+BLOCKS_ROWS = 16  # the blocks route's rows a block
+
+
+@dataclasses.dataclass(frozen=True)
+class Plan:
+    """How one launch covers ``dirs`` x B rows: ``units`` clusters (blocks on the blocks route) of ``cluster`` CTAs,
+    each owning ``rows`` rows of one direction."""
+
+    route: str  # "cluster" or "blocks"
+    cluster: int
+    rows: int
+    units: int
+
+    @property
+    def ctas(self) -> int:
+        return self.units * self.cluster
+
+
+def cluster_smem(H: int, cluster: int, rows: int) -> int:
+    """Shared-memory bytes of one CTA of the cluster route (with its 16 mbarriers)."""
+    units = -(-H // cluster)
+    return 4 * (4 * H * units + 2 * rows * H) + 8 * 16
+
+
+def cluster_size(H: int) -> int | None:
+    """The least cluster whose CTAs each hold their slice of ``w_hh`` with the smallest row tile; None where no
+    cluster of MAX_CLUSTER does (the blocks route)."""
+    for c in range(1, MAX_CLUSTER + 1):
+        if -(-H // c) <= CTA_UNITS and cluster_smem(H, c, TILE_ROWS[0]) <= SMEM_BYTES:
+            return c
+    return None
+
+
+def cluster_tiles(H: int) -> tuple[int, ...]:
+    """The row tiles whose CTAs fit in shared memory at H (with :func:`cluster_size`'s cluster)."""
+    c = cluster_size(H)
+    return () if c is None else tuple(r for r in TILE_ROWS if cluster_smem(H, c, r) <= SMEM_BYTES)
+
+
+def plan(B: int, H: int, dirs: int, coresident: int) -> Plan:
+    """The launch of ``dirs`` directions of B rows at H, given how many clusters of the largest fitting tile fit
+    co-resident on the card: the least row tile whose clusters all fit, else the largest tile."""
+    c = cluster_size(H)
+    if c is None:
+        return Plan("blocks", 1, BLOCKS_ROWS, dirs * -(-B // BLOCKS_ROWS))
+    tiles = cluster_tiles(H)
+    rows = next((r for r in tiles if dirs * -(-B // r) <= coresident), tiles[-1])
+    return Plan("cluster", c, rows, dirs * -(-B // rows))
+
+
+_CORESIDENT: dict[tuple[int, int], int] = {}
+
+
+def coresident(device: torch.device, H: int) -> int:
+    """Clusters of the cluster route at H and its largest fitting tile that fit co-resident on ``device``, asked of
+    the card once a device and H."""
+    key = (device.index, H)
+    if key not in _CORESIDENT:
+        n = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = _build.library().fqss_lstm_cluster_max_active(H, cluster_size(H), cluster_tiles(H)[-1],
+                                                               ctypes.byref(n))
+        if rc != 0 or n.value < 1:
+            raise RuntimeError(f"lstm: cudaOccupancyMaxActiveClusters failed with error {rc} ({n.value} clusters)")
+        _CORESIDENT[key] = n.value
+    return _CORESIDENT[key]
+
+
+def launch_plan(device: torch.device, B: int, H: int, dirs: int) -> Plan:
+    """The plan a launch on ``device`` takes."""
+    return plan(B, H, dirs, coresident(device, H) if cluster_size(H) is not None else 0)
 
 
 def lstm_sequence_ref(ih: Tensor, w_hh: Tensor) -> Tensor:
@@ -93,11 +190,15 @@ def _launch(name: str, key: str, pairs: list[tuple[Tensor, Tensor]]) -> list[Ten
     lib = _build.library()
     if H > lib.fqss_lstm_max_hidden():
         raise ValueError(f"{name}: H = {H} exceeds the kernel's shared memory (at most {lib.fqss_lstm_max_hidden()})")
+    p = launch_plan(ih.device, B, H, len(pairs))
     (ih0, w0), (ih1, w1) = pairs[0], pairs[-1]
+    ptrs = (ih0.data_ptr(), w0.data_ptr(), outs[0].data_ptr(), ih1.data_ptr(), w1.data_ptr(), outs[-1].data_ptr())
     with torch.cuda.device(ih.device):
-        rc = lib.fqss_lstm_recurrence(ih0.data_ptr(), w0.data_ptr(), outs[0].data_ptr(), ih1.data_ptr(),
-                                      w1.data_ptr(), outs[-1].data_ptr(), len(pairs), T, B, H,
-                                      torch.cuda.current_stream(ih.device).cuda_stream)
+        stream = torch.cuda.current_stream(ih.device).cuda_stream
+        if p.route == "cluster":
+            rc = lib.fqss_lstm_cluster(*ptrs, len(pairs), T, B, H, p.cluster, p.rows, stream)
+        else:
+            rc = lib.fqss_lstm_recurrence(*ptrs, len(pairs), T, B, H, stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
     LAUNCHES[key] += 1

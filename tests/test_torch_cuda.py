@@ -324,6 +324,50 @@ def test_int8_matmul_kernel_epilogues_bitwise_equal_plain(dev, m, k, n, nl):
     assert torch.equal(got, im.int8_matmul_requant_ref(*args, nl=nl))
 
 
+# The cluster route's plans (ops/lstm.py:plan) at odd shapes: a last tile of 3 of 8 rows (B 67), one row and one
+# step, H 96 and 130 (48 units a CTA of 2, 44/44/42 of 3), H 322 (the largest a cluster of 8 holds), and H 400 on
+# the blocks route.
+@pytest.mark.parametrize("T,B,H", [(20, 67, 128), (1, 1, 128), (9, 1, 128), (11, 37, 96), (6, 70, 130), (4, 9, 322),
+                                   (5, 11, 400)])
+def test_lstm_routes_match_plain_and_repeat(dev, T, B, H):
+    from fqss_tpu_torch.ops import lstm
+
+    gen = torch.Generator(device=dev).manual_seed(T * B + H)
+    ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(2)]
+    w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / H**0.5 for _ in range(2)]
+    plan = lstm.launch_plan(dev, B, H, 2)
+    assert plan.route == ("blocks" if H == 400 else "cluster")
+    before = dict(lstm.LAUNCHES)
+    with torch.no_grad():
+        hf, hb = lstm.bilstm_sequence(ih[0], ih[1], w[0], w[1])
+        h1 = lstm.lstm_sequence(ih[1], w[1])
+        again = lstm.bilstm_sequence(ih[0], ih[1], w[0], w[1])
+        rf, rb = lstm.bilstm_sequence_ref(ih[0], ih[1], w[0], w[1])
+    torch.cuda.synchronize()
+    assert lstm.LAUNCHES == {"lstm": before["lstm"] + 1, "bilstm": before["bilstm"] + 2}
+    for got, want in ((hf, rf), (hb, rb), (h1, rb)):
+        assert (got - want).abs().max().item() <= LSTM_TOL
+    assert torch.equal(hf, again[0]) and torch.equal(hb, again[1]) and torch.equal(h1, hb)
+
+
+# K4's persistent grid and its N tiles at the engines' odd shapes: DPTNet's N = 64 (64-column tiles), the
+# Sepformer's ffn_out K = 1024, M not a multiple of 128, K = 7 and 130 (the byte path), a ragged N, the three
+# output grids of an in-projection.
+@pytest.mark.parametrize("m,k,n,grids", [(4097, 256, 64, 1), (1000, 1024, 256, 1), (2049, 128, 200, 1), (333, 7, 48, 1),
+                                         (513, 130, 96, 1), (777, 64, 192, 3), (300, 256, 768, 3), (129, 2176, 20, 1)])
+def test_int8_matmul_kernel_shapes_bitwise_equal_plain_and_repeat(dev, m, k, n, grids):
+    from fqss_tpu_torch.ops import int8_matmul as im
+
+    xs, w, scale, corr = _int8_case(dev, m, k, n, m + k + n)
+    delta, mn = ([2.0**-6, 0.013, 2.0**-5], [-1.0, -2.5, -0.25]) if grids == 3 else (2.0**-6, -1.0)
+    before = im.LAUNCHES["int8_mm"]
+    got = im.int8_matmul_requant(xs, w, scale, corr, 0.25, delta, mn)
+    again = im.int8_matmul_requant(xs, w, scale, corr, 0.25, delta, mn)
+    assert im.LAUNCHES["int8_mm"] == before + 2
+    assert torch.equal(got, im.int8_matmul_requant_ref(xs, w, scale, corr, 0.25, delta, mn))
+    assert torch.equal(got, again)
+
+
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
 def test_tiny_dptnet_serving_runs_k7_and_k4(dev, compute_dtype):
     from fqss_tpu_torch.models.dptnet import DPTNet

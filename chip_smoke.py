@@ -21,7 +21,9 @@ failure propagate:
 1. build: compile ``fqss_tpu_torch/csrc/*.cu`` with nvcc, one process per source;
    ptxas's registers and spills, and for each qat_dense_kernel
    instantiation its tile, layouts and epilogue, for each LSTM and int8
-   kernel instantiation its tile and shared memory (a spill fails the phase).
+   kernel instantiation its tile and shared memory, for each attention
+   kernel instantiation its head width (a spill fails the phase; for the
+   attention kernel, at the main path's widths d 16 and 32).
 2. kernels vs their plain PyTorch versions on the card, bitwise
    (``torch.equal``), at the main path's shapes, with planted edge and
    half-step tie values; CUDA-event times of both.
@@ -103,14 +105,20 @@ failure propagate:
 24. the fused attention kernel (K8) vs its plain version on the card, at the
     Sepformer's intra- and inter-chunk shapes, DPTNet's row and column shapes
     (all recomputed from the models) and at BH 3 x Lq 37 x Lk 53 x d 24, the
-    first query of every head planted 100x (logits far past expf's range):
-    float heads within ATTN_REL_TOL of their magnitude; on the head grid
-    within one step, at most ATTN_GRID_SHARE a step apart, and each equal to
-    its own float head put through the plain grid; how far a core with K and
-    V swapped, or one without the max subtraction, reads; the backward
-    through the autograd.Function equal to the plain composition's gradient;
-    CUDA-event times of the kernel, the plain version (median of 7) and
-    ``F.scaled_dot_product_attention`` + K1 (the library call), with the bound.
+    first query of every head planted 100x (logits far past expf's range),
+    through both entries (``[BH, L, d]``, and the packed one on the views of
+    an in-projection ``[B, L, 3E]`` that QMultiheadAttention hands it, bitwise
+    equal): float heads within ATTN_REL_TOL of their magnitude, the planted
+    rows too (their distance from the float64 attention printed beside the
+    plain version's); on the head grid within one step, at most
+    ATTN_GRID_SHARE a step apart, and each equal to its own float head put
+    through the plain grid; how far a core with K and V swapped, or one
+    without the max subtraction, reads; the backward of both
+    autograd.Functions equal to the plain composition's gradient; the launch
+    plan of each shape; CUDA-event times of both entries, the plain version
+    (median of 7) and ``F.scaled_dot_product_attention`` + K1 (the library
+    call), with the float32 bound, the 3xTF32 one and the kernel route's
+    (``attention_route_bound``), summed per Sepformer and per DPTNet forward.
 25. the full-width Sepformer from ``create_pretrained_model``, ranges from the
     config's 50-step observer window on 2 x 4 s, one forward of 8 x 4 s:
     output [8, 2, 32000], finite; the launch counters rise by the quantizer
@@ -336,11 +344,16 @@ SEPFORMER_CFG = {
 }
 SEP_OBSERVE_STEPS = 50
 SEP_BATCH, SEP_SEG = 8, 32000
-# K8 against its plain version (phase 24). The kernel sums the products in another order than cuBLAS and takes
-# the softmax online (the accumulator rescaled as the running max grows), so its float heads differ from the plain
-# version's by float32 rounding, about 1e-6 of their largest magnitude (phase 24 prints it); a core with K and V
-# swapped reads ~1, one without the max subtraction NaN. A head that close can still cross a rounding tie of the
-# head grid, which moves it one step: ATTN_GRID_SHARE bounds how many do.
+# K8 against its plain version (phase 24). The kernel rounds the logits as cuBLAS does (an FMA chain in d order),
+# takes P V as 3xTF32 on the tensor cores and the softmax online (the accumulator rescaled as the running max grows),
+# so its float heads differ from the plain version's by float32 rounding, about 1e-6 of their largest magnitude
+# (phase 24 prints it); a core with K and V swapped reads ~1, one without the max subtraction NaN. The planted rows'
+# logits reach +-400, where float32's spacing (3e-5) moves a softmax weight by up to that share of itself: there
+# the plain version is itself up to 2.5e-5 of max |heads| from the float64 attention on an H100 (phase 24 prints
+# it), so only a kernel that rounds the logits as the plain version does stays within ATTN_REL_TOL of it. A head
+# that close can still cross a rounding tie of the head grid, which moves it one step: ATTN_GRID_SHARE bounds how
+# many do. Both entries (the [BH, L, d] one and the packed one on an in-projection's views) compute the same heads
+# bit for bit.
 ATTN_REL_TOL = 1e-5
 ATTN_GRID_SHARE = 1e-3
 ATTN_ODD = (3, 37, 53, 24)  # BH, Lq, Lk, d: ragged tiles on every axis, a d the TPU kernel's gate refuses
@@ -397,6 +410,9 @@ DENSE_ROUTE = "tensor cores: 3xTF32 mma.sync m16n8k8, 3-stage cp.async ring"
 # The routes of K7/K6 and K4.
 LSTM_ROUTE = ("CUDA cores, float32 FMA: thread-block clusters, each CTA's W_hh slice resident in shared memory, h "
               "exchanged through distributed shared memory (blocks reading W_hh from L2 for H above 322)")
+ATTN_ROUTE = ("Q K^T on the CUDA cores (float32 FMA in d order, cuBLAS's rounding), P V on the tensor cores (3xTF32 "
+              "mma.sync m16n8k8) under an online softmax, 3-stage cp.async K/V ring, heads read from and written to "
+              "the in-projection's layout")
 INT8_ROUTE = ("tensor cores: s8 mma.sync m16n8k32, persistent blocks with the weight tile resident in shared memory, "
               "3-stage cp.async ring, output tiles staged and stored as 16-byte rows")
 
@@ -465,6 +481,27 @@ def dense_kernel_report(build_log: str) -> None:
             spilled.append(log_line)
     if spilled:
         raise AssertionError(f"qat_dense_kernel instantiations spill: {spilled}")
+
+
+def attention_kernel_report(build_log: str) -> None:
+    """Phase 1: ptxas's registers and spill stores of each K8 instantiation (the head width it pads d to, the rows
+    of a warp); raises if one of the main path's (d 16 and 32) spills."""
+    lines = build_log.splitlines()
+    spilled = []
+    for i, line in enumerate(lines):
+        m = re.search(r"Compiling entry function '.*attention_kernelILi(\d+)ELi(\d+)EE", line)
+        if m is None:
+            continue
+        spill = int(re.search(r"(\d+) bytes spill stores", lines[i + 2]).group(1))
+        regs = int(re.search(r"Used (\d+) registers", lines[i + 3]).group(1))
+        dim, mt = int(m.group(1)), int(m.group(2))
+        log_line = (f"[1] attention_kernel d <= {dim}, {16 * mt} rows a warp ({k8.max_warps(dim, mt)} warps a block "
+                    f"at most): {regs} registers, {spill} bytes spill stores")
+        log(log_line)
+        if spill and dim <= 32:
+            spilled.append(log_line)
+    if spilled:
+        raise AssertionError(f"attention_kernel instantiations of the main path spill: {spilled}")
 
 
 def lstm_int8_kernel_report(build_log: str) -> None:
@@ -1365,21 +1402,27 @@ def serve_dptnet(dev, smi: str) -> tuple:
             ms = cuda_ms(lambda: fn(x), 3)
         log(f"[23] DPTNet throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
             f"{DPT_BATCH} x {DPT_SEG // SR} s) on {smi}")
-    heads, d = 4, dpt.feature_dim // 4  # the DPT's layers have 4 heads
-    attn_shapes = [(f"DPTNet {side}", B * heads, T, T, d, dpt.layer, False) for side, T, B, _ in shapes]
-    return k6, k7, launches, attn_shapes, k3_shapes, state_on_cpu(dpt), k4
+    return k6, k7, launches, dptnet_attention_shapes(dpt), k3_shapes, state_on_cpu(dpt), k4
+
+
+def dptnet_attention_shapes(dpt: DPTNet) -> list[tuple]:
+    """(name, BH, Lq, Lk, d, launches per forward, model, heads) of DPTNet's row and column attention at DPT_BATCH
+    x DPT_SEG (the layers have 4 heads; their sequences are the LSTMs')."""
+    heads, d = 4, dpt.feature_dim // 4
+    return [(f"DPTNet {side}", B * heads, T, T, d, dpt.layer, "DPTNet", heads)
+            for side, T, B, _ in dpt_lstm_shapes(DPT_BATCH, DPT_SEG, dpt)]
 
 
 def sepformer_attention_shapes(sep: Sepformer) -> list[tuple]:
-    """(name, BH, Lq, Lk, d, launches per forward, on the Sepformer's path) of its intra- and inter-chunk
+    """(name, BH, Lq, Lk, d, launches per forward, model, heads) of the Sepformer's intra- and inter-chunk
     attention at SEP_BATCH x SEP_SEG."""
     frames = (SEP_SEG - sep.encoder.conv.weight.shape[-1]) // sep.encoder.conv.stride + 1
     segs, _ = split_segments(torch.empty(1, frames, 1), sep.masker.chunk_size)
     k, s = segs.shape[1], segs.shape[2]
     h, d = sep.n_heads, sep.n_filters // sep.n_heads
     per_forward = len(sep.masker.blocks) * len(sep.masker.blocks[0].intra_transformer_block.layers)
-    return [("Sepformer intra", SEP_BATCH * s * h, k, k, d, per_forward, True),
-            ("Sepformer inter", SEP_BATCH * k * h, s, s, d, per_forward, True)]
+    return [("Sepformer intra", SEP_BATCH * s * h, k, k, d, per_forward, "Sepformer", h),
+            ("Sepformer inter", SEP_BATCH * k * h, s, s, d, per_forward, "Sepformer", h)]
 
 
 def attention_bound(bh: int, lq: int, lk: int, d: int) -> tuple[int, int]:
@@ -1387,30 +1430,75 @@ def attention_bound(bh: int, lq: int, lk: int, d: int) -> tuple[int, int]:
     return 4 * (2 * bh * lq * d + 2 * bh * lk * d), 4 * bh * lq * lk * d
 
 
+def attention_route_bound(bytes_moved: float, ops: float) -> dict:
+    """The least time of K8's route: Q K^T on the CUDA cores (half the operations at the float32 peak) beside P V
+    as 3 TF32 products a float32 one (the other half at the TF32 peak), the two pipes side by side, or the bytes
+    over the memory rate: the largest."""
+    b = max(bound_of(bytes_moved, ops / 2, F32_OPS_S), bound_of(bytes_moved, 3 * ops / 2, TF32_OPS_S),
+            key=lambda x: x["bound_ms"])
+    return {"route_bound_ms": b["bound_ms"], "route_bound_by": b["bound_by"]}
+
+
+def packed_views(qs: torch.Tensor, k: torch.Tensor, v: torch.Tensor, h: int) -> tuple:
+    """The heads ``[B h, L, d]`` laid out as QMultiheadAttention hands them to the packed entry: q a ``[B, Lq,
+    E]`` viewed ``[B, Lq, h, d]``, k and v the E:2E and 2E: thirds of an in-projection ``[B, Lk, 3E]``."""
+    bh, lq, d = qs.shape
+    B, lk, E = bh // h, k.shape[1], h * d
+    X = torch.empty(B, lk, 3 * E, device=qs.device)
+    X[..., :E] = 0
+    X[..., E:2 * E] = k.reshape(B, h, lk, d).transpose(1, 2).reshape(B, lk, E)
+    X[..., 2 * E:] = v.reshape(B, h, lk, d).transpose(1, 2).reshape(B, lk, E)
+    Q = qs.reshape(B, h, lq, d).transpose(1, 2).reshape(B, lq, E).contiguous()
+    return Q.unflatten(-1, (h, d)), X[..., E:2 * E].unflatten(-1, (h, d)), X[..., 2 * E:].unflatten(-1, (h, d))
+
+
+def heads_of(packed: torch.Tensor, h: int) -> torch.Tensor:
+    """The packed entry's ``[B, Lq, E]`` as ``[B h, Lq, d]``."""
+    B, lq, E = packed.shape
+    return packed.reshape(B, lq, h, E // h).transpose(1, 2).reshape(B * h, lq, E // h)
+
+
 def check_attention_kernel(dev, shapes: list[tuple]) -> dict:
-    """Phase 24: K8 against its plain version at ``shapes`` and ATTN_ODD; its times per Sepformer forward."""
+    """Phase 24: K8 through both entries against its plain version at ``shapes`` and ATTN_ODD; its times per
+    Sepformer and per DPTNet forward."""
     gen = torch.Generator(device=dev).manual_seed(24)
-    results = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
-    moved = ops = 0
-    for name, bh, lq, lk, d, per_forward, on_path in [*shapes, ("odd", *ATTN_ODD, 0, False)]:
+    keys = ("ms", "plain_ms", "library_ms", "moved", "ops")
+    sums = {model: dict.fromkeys(keys, 0.0) for model in ("Sepformer", "DPTNet")}
+    launches = {model: 0 for model in sums}
+    results = {"max_abs_err": 0.0}
+    for name, bh, lq, lk, d, per_forward, model, h in [*shapes, ("odd", *ATTN_ODD, 0, None, 1)]:
         qs = torch.randn(bh, lq, d, device=dev, generator=gen) * 0.3
         qs[:, 0] *= ATTN_PLANT
         k, v = (torch.randn(bh, lk, d, device=dev, generator=gen) for _ in range(2))
+        views = packed_views(qs, k, v, h)
         with torch.no_grad():
             ref = k8.fused_attention_ref(qs, k, v, quantize=False)
             mn, mx = ref.min().reshape(1), ref.max().reshape(1)
             heads = k8.fused_attention(qs, k, v, quantize=False)
             got = k8.fused_attention(qs, k, v, mn, mx, 8)
+            packed = heads_of(k8.fused_attention_packed(*views, quantize=False), h)
+            packed_got = heads_of(k8.fused_attention_packed(*views, mn, mx, 8), h)
             plain = k8.fused_attention_ref(qs, k, v, mn, mx, 8)
+            # the planted rows' float64 attention, and the same from their exact logits rounded once to float32
+            logits = torch.matmul(qs[:, :1].double(), k.double().transpose(-1, -2))
+            truth = torch.matmul(torch.softmax(logits, -1), v.double())
+            rounded = torch.matmul(torch.softmax(logits.float().double(), -1), v.double())
+            del logits
             swapped = (k8.fused_attention_ref(qs, v, k, quantize=False) - ref).abs().max().item()
             p = torch.exp(torch.matmul(qs, k.transpose(-1, -2)))  # no max subtracted
             no_max = (torch.matmul(p, v) / p.sum(-1, keepdim=True) - ref).abs().max().item()
             del p
         torch.cuda.synchronize()
         scale, err = ref.abs().max().item(), (heads - ref).abs().max().item()
+        planted = (heads[:, :1].double() - truth).abs().max().item()
+        planted_plain = (ref[:, :1].double() - truth).abs().max().item()
+        planted_vs_plain = (heads[:, :1] - ref[:, :1]).abs().max().item()
+        planted_floor = (rounded - truth).abs().max().item()
         step = (mx - mn).item() / 255
         diff = (got - plain).abs()
         share = (diff > 0.5 * step).float().mean().item()
+        if not torch.equal(packed, heads) or not torch.equal(packed_got, got):
+            raise AssertionError(f"K8 {name}: the packed entry's heads differ from the [BH, L, d] entry's")
         if not err <= ATTN_REL_TOL * scale:
             raise AssertionError(f"K8 {name} [{bh},{lq},{lk},{d}]: float heads {err:.3g} from the plain version's, "
                                  f"more than {ATTN_REL_TOL} x {scale:.3g}")
@@ -1420,44 +1508,64 @@ def check_attention_kernel(dev, shapes: list[tuple]) -> dict:
             raise AssertionError(f"K8 {name}: quantized heads {diff.max().item() / step:.3f} steps from the plain "
                                  f"version's, {share:.2e} of them a step apart (at most {ATTN_GRID_SHARE})")
         results["max_abs_err"] = max(results["max_abs_err"], err)
-        line = (f"[24] K8 {name} BH {bh} x Lq {lq} x Lk {lk} x d {d}: float heads max |kernel - plain| {err:.3g} "
-                f"({err / scale:.2e} of max |heads| {scale:.3g}, <= {ATTN_REL_TOL}); on the grid max "
-                f"{diff.max().item() / step:.0f} step, {share:.2e} of values a step apart (<= {ATTN_GRID_SHARE}), "
-                f"each its own float head on the plain grid; K and V swapped would read {swapped:.3g}, no max "
-                f"subtracted {no_max:.3g}")
+        line = (f"[24] K8 {name} BH {bh} x Lq {lq} x Lk {lk} x d {d} ({k8.plan(bh, lq, lk, d)}): float heads max "
+                f"|kernel - plain| {err:.3g} ({err / scale:.2e} of max |heads| {scale:.3g}, <= {ATTN_REL_TOL}), the "
+                f"planted rows {planted_vs_plain / scale:.2e}; the planted rows from the float64 attention: kernel "
+                f"{planted / scale:.2e}, plain {planted_plain / scale:.2e}, the exact logits rounded once to float32 "
+                f"{planted_floor / scale:.2e}"
+                f"; on the grid max {diff.max().item() / step:.0f} step, {share:.2e} of values a step apart (<= "
+                f"{ATTN_GRID_SHARE}), each its own float head on the plain grid; the packed entry ({h} heads on an "
+                f"in-projection's views) bitwise equal; K and V swapped would read {swapped:.3g}, no max subtracted "
+                f"{no_max:.3g}")
         if name in ("odd", "Sepformer inter"):  # the backward: the plain composition's gradient at the saved inputs
             g = torch.randn_like(qs)
-            grads = []
-            for fn in (k8.fused_attention, k8.fused_attention_ref):
-                t = [a.clone().requires_grad_(True) for a in (qs, k, v, mn, mx)]
-                (fn(*t, 8) * g).sum().backward()
-                grads.append([a.grad for a in t])
-            if not all(torch.equal(a, b) for a, b in zip(*grads)):
-                raise AssertionError(f"K8 {name}: the autograd.Function's gradients differ from the plain version's")
-            line += "; backward equal to the plain composition's gradient"
+            for fn, ref_fn, args, gout in ((k8.fused_attention, k8.fused_attention_ref, (qs, k, v), g),
+                                           (k8.fused_attention_packed, k8.fused_attention_packed_ref, views,
+                                            g.reshape(bh // h, h, lq, d).transpose(1, 2).reshape(bh // h, lq, h * d))):
+                grads = []
+                for f in (fn, ref_fn):
+                    t = [a.clone().requires_grad_(True) for a in (*args, mn, mx)]
+                    (f(*t, 8) * gout).sum().backward()
+                    grads.append([a.grad for a in t])
+                if not all(torch.equal(a, b) for a, b in zip(*grads)):
+                    raise AssertionError(f"K8 {name}: {fn.__name__}'s gradients differ from the plain version's")
+            line += "; backward of both entries equal to the plain composition's gradient"
         if name == "odd":
             log(line)
             continue
         ms = cuda_ms(lambda: k8.fused_attention(qs, k, v, mn, mx, 8), 10)
+        packed_ms = cuda_ms(lambda: k8.fused_attention_packed(*views, mn, mx, 8), 10)
         plain_ms, lo, hi = median_ms(lambda: k8.fused_attention_ref(qs, k, v, mn, mx, 8), ATTN_PLAIN_REPS)
         lib_ms = cuda_ms(lambda: fq.act_fake_quant(F.scaled_dot_product_attention(qs, k, v, scale=1.0), mn, mx, 8),
                          10)
-        b = bound_of(*attention_bound(bh, lq, lk, d), F32_OPS_S)
-        log(f"{line}; kernel {ms:.4f} ms ({b['bound_ms'] / ms:.1%} of its {b['bound_ms']:.4f} ms bound by "
-            f"{b['bound_by']}), plain {plain_ms:.4f} ms (median of {ATTN_PLAIN_REPS}, {lo:.4f}-{hi:.4f}), "
-            f"scaled_dot_product_attention + K1 {lib_ms:.4f} ms; {per_forward} launches a forward")
-        if on_path:
-            results["ms"] += per_forward * ms
-            results["plain_ms"] += per_forward * plain_ms
-            results["library_ms"] += per_forward * lib_ms
-            b_moved, b_ops = attention_bound(bh, lq, lk, d)
-            moved, ops = moved + per_forward * b_moved, ops + per_forward * b_ops
-        del qs, k, v, ref, heads, got, plain, diff
+        moved, ops = attention_bound(bh, lq, lk, d)
+        b, tb, rb = bound_of(moved, ops, F32_OPS_S), route_bound(moved, ops), attention_route_bound(moved, ops)
+        log(f"{line}; kernel {ms:.4f} ms, packed entry {packed_ms:.4f} ms ({b['bound_ms'] / packed_ms:.1%} of its "
+            f"{b['bound_ms']:.4f} ms float32 bound by {b['bound_by']}, {tb['route_bound_ms'] / packed_ms:.1%} of the "
+            f"3xTF32 bound {tb['route_bound_ms']:.4f} ms by {tb['route_bound_by']}, {rb['route_bound_ms'] / packed_ms:.1%}"
+            f" of its route's {rb['route_bound_ms']:.4f} ms by {rb['route_bound_by']}), plain {plain_ms:.4f} ms "
+            f"(median of {ATTN_PLAIN_REPS}, {lo:.4f}-{hi:.4f}), scaled_dot_product_attention + K1 {lib_ms:.4f} ms; "
+            f"{per_forward} launches a {model} forward")
+        # the module calls the packed entry: its time is the forward's
+        for key, val in zip(keys, (packed_ms, plain_ms, lib_ms, moved, ops)):
+            sums[model][key] += per_forward * val
+        launches[model] += per_forward
+        del qs, k, v, views, ref, heads, got, packed, packed_got, plain, truth, rounded, diff
         torch.cuda.empty_cache()
-    results.update(bound_of(moved, ops, F32_OPS_S))
-    log(f"[24] one Sepformer forward's K8 launches: {results['ms']:.3f} ms against a {results['bound_ms']:.3f} ms "
-        f"bound by {results['bound_by']} ({results['bound_ms'] / results['ms']:.1%}), plain {results['plain_ms']:.2f} "
-        f"ms, scaled_dot_product_attention + K1 {results['library_ms']:.3f} ms")
+    for model, t in sums.items():
+        b, tb = bound_of(t["moved"], t["ops"], F32_OPS_S), route_bound(t["moved"], t["ops"])
+        rb = attention_route_bound(t["moved"], t["ops"])
+        log(f"[24] one {model} forward's {launches[model]} K8 launches: {t['ms']:.3f} ms against a "
+            f"{b['bound_ms']:.3f} ms float32 bound by {b['bound_by']} ({b['bound_ms'] / t['ms']:.1%}), the 3xTF32 "
+            f"bound {tb['route_bound_ms']:.3f} ms ({tb['route_bound_ms'] / t['ms']:.1%}) and its route's "
+            f"{rb['route_bound_ms']:.3f} ms ({rb['route_bound_ms'] / t['ms']:.1%}), plain "
+            f"{t['plain_ms']:.2f} ms, scaled_dot_product_attention + K1 {t['library_ms']:.3f} ms")
+        if model == "Sepformer":
+            results.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"], **b, **rb)
+        else:
+            results.update(dptnet_ms=t["ms"], dptnet_plain_ms=t["plain_ms"], dptnet_library_ms=t["library_ms"],
+                           dptnet_bound_ms=b["bound_ms"], dptnet_route_bound_ms=rb["route_bound_ms"],
+                           dptnet_launches=launches[model])
     return results
 
 
@@ -2229,6 +2337,7 @@ def main() -> None:
             log(f"[1]   {line.strip()}")
     dense_kernel_report(built.log)
     lstm_int8_kernel_report(built.log)
+    attention_kernel_report(built.log)
 
     # 2. kernels vs plain versions on the card
     act = check_act_kernel(dev)
@@ -2392,11 +2501,12 @@ def main() -> None:
         dict(name="lstm_sequence", route="cuda", route_detail=LSTM_ROUTE,
              source="fqss_tpu_torch/csrc/lstm.cu",
              replaces="fqss_tpu/ops/pallas_lstm.py:54", launches=dpt_launches["lstm"], **k6),
-        # ms, plain_ms, bound_ms, library_ms: one Sepformer forward's 32 launches (16 intra-chunk, 16 inter-chunk);
-        # library_ms: F.scaled_dot_product_attention, then K1 for the head grid. launches: phase 25's forward
-        # (phase 18's DPTNet forward launched it 12 times).
-        dict(name="fused_attention", route="cuda", route_detail="CUDA cores, float32 FMA",
-             source="fqss_tpu_torch/csrc/attention.cu",
+        # ms, plain_ms, bound_ms, library_ms: one Sepformer forward's 32 launches (16 intra-chunk, 16 inter-chunk)
+        # through the packed entry, as the module calls it; library_ms: F.scaled_dot_product_attention, then K1 for
+        # the head grid; route_bound_ms: Q K^T at the float32 peak beside P V as 3 TF32 products a float32 one at
+        # the TF32 peak (attention_route_bound). launches: phase 25's
+        # forward. dptnet_*: one DPTNet forward's 12 launches (6 row, 6 column; phase 18 counts them).
+        dict(name="fused_attention", route="cuda", route_detail=ATTN_ROUTE, source="fqss_tpu_torch/csrc/attention.cu",
              replaces="fqss_tpu/ops/pallas_attention.py:83", launches=sep_launches["attention"], **attn),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer student forward's 78 QDense launches at
         # the training batch (phase 31); library_ms: torch.addmm, then K1 for the act grid. launches: phase 33's

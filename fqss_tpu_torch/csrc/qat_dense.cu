@@ -96,8 +96,16 @@
 #include <atomic>
 
 #include "fake_quant.cuh"
+#include "tf32_mma.cuh"
 
 namespace {
+
+using fqss::cp_async16;
+using fqss::cp_async4;
+using fqss::cp_async_commit;
+using fqss::cp_async_wait;
+using fqss::mma_tf32;
+using fqss::split_tf32;
 
 constexpr int kBK = 32;  // reduction steps a stage of the ring holds
 constexpr int kStages = 3;  // stages of the ring: two are loading while one is multiplied
@@ -166,23 +174,6 @@ constexpr int ring_bytes() {
   return kStages * (Tile<BI, A_RC>::kFloats + Tile<BJ, B_RC>::kFloats) * 4;
 }
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool ok) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(ok ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // A thread's share of copying one operand's tiles (o in [o0, o0 + BO), stage s: r in [r_begin + s kBK, ...)
 // of an operand stored [O][R] (R_CONTIG) or [R][O]) into the ring: its chunks of 4 neighbours along the
 // contiguous axis, all at the same contiguous offset v and kStep apart along the strided one. Everything that
@@ -243,22 +234,6 @@ struct TileLoader {
     }
   }
 };
-
-// v = hi + lo + (a remainder of at most ~2^-21 |v|): hi is v rounded to TF32 (10 mantissa bits, to nearest, ties
-// away from zero: cvt.rna.tf32.f32's rounding, done on the integer view, which runs at four times the rate of a
-// conversion on this card), lo = v - hi exactly; the tensor cores read lo's top 10 mantissa bits.
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(__fsub_rn(v, __uint_as_float(hi)));
-}
-
-// d += a b over one k8 step of an m16n8 tile.
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
-      "{%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 template <int THREADS>
 __device__ __forceinline__ void block_sum2(float& a, float& b) {

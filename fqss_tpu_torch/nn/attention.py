@@ -9,8 +9,8 @@ quantizer sites that are no-ops in the reference (``attn - ...`` for
 ``attn = ...``, qat_layers.py:934,936); ``fix_attn_quant=True`` applies them.
 
 The core ``softmax(q k^T) v`` and the head quantizer go through
-:func:`fqss_tpu_torch.ops.attention.fused_attention` (K8; its plain version
-on the CPU) wherever that computes the module's function, as JAX's
+:func:`fqss_tpu_torch.ops.attention.fused_attention_packed` (K8; its plain
+version on the CPU) wherever that computes the module's function, as JAX's
 ``QuantSpec.pallas_attn`` routes them through its Pallas kernel, but for
 every shape: K8 takes DPTNet's ``d = 16`` heads and short sequences, which
 JAX's TPU gate keeps off its kernel. The routes:
@@ -31,7 +31,12 @@ nothing (``eval()`` mode, or no observer) it is not called at all.
 
 Layout: batch-first ``[B, L, E]``; weights in torch's layout,
 ``in_proj_weight [3E, E]`` and ``out_proj_weight [E, E]``, quantized per
-out-channel (axis 0). The heads reach K8 as contiguous ``[B * h, L, d]``.
+out-channel (axis 0). The heads reach K8 as ``[B, L, h, d]`` views of the
+in-projection's output (:func:`~fqss_tpu_torch.ops.attention.fused_attention_packed`),
+and K8 writes them back as ``[B, Lq, E]`` for the out-projection: no copy of
+the head layout is made on that route. The plain composition of
+``fix_attn_quant`` and the no-op sites' logits take the contiguous
+``[B * h, L, d]`` copies, as JAX's head layout.
 """
 
 from __future__ import annotations
@@ -42,7 +47,7 @@ import torch
 from torch import nn
 
 from fqss_tpu_torch.nn.layers import make_act_quantizer, make_weight_quantizer, uniform_
-from fqss_tpu_torch.ops.attention import fused_attention
+from fqss_tpu_torch.ops.attention import fused_attention_packed, head_layout
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
 Tensor = torch.Tensor
@@ -69,32 +74,33 @@ class QMultiheadAttention(nn.Module):
             setattr(self, f"activation_fake_quantize_{site}", make_act_quantizer(q))
         self.activation_fake_quantize = make_act_quantizer(q)
 
-    def _feed_noop_sites(self, Qh: Tensor, Kh: Tensor) -> None:
+    def _feed_noop_sites(self, q: Tensor, k: Tensor) -> None:
         """The reference's no-op attn/softmax sites: evaluated for their observers in ``train()`` mode, the
         results discarded; skipped where they would write nothing."""
         qa, qs = self.activation_fake_quantize_attn, self.activation_fake_quantize_softmax
         if not (self.training and any(s is not None and s.observer for s in (qa, qs))):
             return
         with torch.no_grad():
-            attn = torch.matmul(Qh, Kh.transpose(-1, -2))
+            attn = torch.matmul(head_layout(q), head_layout(k).transpose(-1, -2))
             if qa is not None and qa.observer:
                 qa(attn)
             if qs is not None and qs.observer:
                 qs(torch.softmax(attn, dim=-1))
 
-    def _core(self, Qh: Tensor, Kh: Tensor, Vh: Tensor) -> Tensor:
-        """The quantized heads ``[B * h, Lq, d]`` through K8 (module docstring)."""
+    def _core(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+        """The quantized heads ``[B, Lq, E]`` of the ``[B, L, h, d]`` views through K8 (module docstring)."""
         hq = self.activation_fake_quantize_head
         if hq is None:
-            return fused_attention(Qh, Kh, Vh, quantize=False)
+            return fused_attention_packed(q, k, v, quantize=False)
         if not hq.observer and not hq.scale_grad:
-            return fused_attention(Qh, Kh, Vh, hq.min_range, hq.max_range, hq.n_bits, quantize=True)
-        return hq(fused_attention(Qh, Kh, Vh, quantize=False))
+            return fused_attention_packed(q, k, v, hq.min_range, hq.max_range, hq.n_bits, quantize=True)
+        return hq(fused_attention_packed(q, k, v, quantize=False))  # per tensor: the layout does not matter
 
-    def _plain_fixed(self, Qh: Tensor, Kh: Tensor, Vh: Tensor) -> Tensor:
-        """``fix_attn_quant``: the logits and the softmax quantized, then the heads."""
+    def _plain_fixed(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
+        """``fix_attn_quant``: the logits and the softmax quantized, then the heads ``[B * h, Lq, d]``."""
         qa, qs, hq = (self.activation_fake_quantize_attn, self.activation_fake_quantize_softmax,
                       self.activation_fake_quantize_head)
+        Qh, Kh, Vh = head_layout(q), head_layout(k), head_layout(v)
         attn = torch.matmul(Qh, Kh.transpose(-1, -2))
         attn = torch.softmax(qa(attn) if qa is not None else attn, dim=-1)
         heads = torch.matmul(qs(attn) if qs is not None else attn, Vh)
@@ -104,7 +110,6 @@ class QMultiheadAttention(nn.Module):
         E, h = self.embed_dim, self.num_heads
         d = E // h
         B, Lq, _ = query.shape
-        Lk = key.shape[1]
         w_in, w_out = self.in_proj_weight, self.out_proj_weight
         if self.weight_fake_quantize_in is not None:
             w_in, w_out = self.weight_fake_quantize_in(w_in), self.weight_fake_quantize_out(w_out)
@@ -125,14 +130,14 @@ class QMultiheadAttention(nn.Module):
         Q = Xq[..., :E] / torch.full((1,), math.sqrt(d), device=Xq.device)
         if self.activation_fake_quantize_div is not None:
             Q = self.activation_fake_quantize_div(Q)
-        # [B, L, E] -> [B * h, L, d], contiguous for the kernel
-        Qh = Q.reshape(B, Lq, h, d).transpose(1, 2).reshape(B * h, Lq, d).contiguous()
-        Kh = Xk[..., E : 2 * E].reshape(B, Lk, h, d).transpose(1, 2).reshape(B * h, Lk, d).contiguous()
-        Vh = Xv[..., 2 * E :].reshape(B, Lk, h, d).transpose(1, 2).reshape(B * h, Lk, d).contiguous()
+        # [B, L, E] -> [B, L, h, d] views: Q's, and the K and V thirds of the in-projections
+        q = Q.unflatten(-1, (h, d))
+        k = Xk[..., E : 2 * E].unflatten(-1, (h, d))
+        v = Xv[..., 2 * E :].unflatten(-1, (h, d))
         if self.fix_attn_quant:
-            heads = self._plain_fixed(Qh, Kh, Vh)
+            heads = self._plain_fixed(q, k, v).reshape(B, h, Lq, d).transpose(1, 2).reshape(B, Lq, E)
         else:
-            self._feed_noop_sites(Qh, Kh)
-            heads = self._core(Qh, Kh, Vh)
-        y = torch.matmul(heads.reshape(B, h, Lq, d).transpose(1, 2).reshape(B, Lq, E), w_out.t()) + self.out_proj_bias
+            self._feed_noop_sites(q, k)
+            heads = self._core(q, k, v)
+        y = torch.matmul(heads, w_out.t()) + self.out_proj_bias
         return self.activation_fake_quantize(y) if self.activation_fake_quantize is not None else y

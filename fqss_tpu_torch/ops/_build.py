@@ -22,7 +22,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 SOURCES = tuple(_PKG / "csrc" / name for name in ("fake_quant.cu", "int8_matmul.cu", "lstm.cu", "attention.cu",
                                                               "qat_dense.cu"))
-HEADERS = (_PKG / "csrc" / "fake_quant.cuh",)  # included by the sources; part of the library's hash
+# included by the sources; part of the library's hash
+HEADERS = tuple(_PKG / "csrc" / name for name in ("fake_quant.cuh", "tf32_mma.cuh"))
 BUILD_DIR = _PKG / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -129,8 +130,8 @@ def load(path: Path) -> ctypes.CDLL:
     lib.fqss_lstm_cluster_max_active.restype = i32
     lib.fqss_attention_max_dim.argtypes = []
     lib.fqss_attention_max_dim.restype = i32
-    lib.fqss_fused_attention.argtypes = [p, p, p, p, p, p, i64, i64, i64, i32, i32, i32, p]
-    lib.fqss_fused_attention.restype = i32
+    lib.fqss_attention.argtypes = [p, p, p, p, p, p, ctypes.POINTER(i64), i32, i32, p]
+    lib.fqss_attention.restype = i32
     lib.fqss_qat_dense_tiles.argtypes = [i64, i64, p]
     lib.fqss_qat_dense_tiles.restype = None
     lib.fqss_qat_dense_dwq_splits.argtypes = [i64, i64, i64]

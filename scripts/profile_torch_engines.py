@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of the port's serving engines goes, on one NVIDIA GPU.
 
-Usage: python3 scripts/profile_torch_engines.py [--model convtasnet|dptnet|sepformer]
+Usage: python3 scripts/profile_torch_engines.py [--model convtasnet|dptnet|sepformer] [--show OP ...]
 
 Builds the full-width FQSS-8bit model of ``chip_smoke.py`` (seeded weights):
 the ConvTasNet of phase 3 at 32 x 12 s, ranges from a 3-step observer pass,
@@ -13,7 +13,9 @@ folded, int8 with float32 and with bfloat16 float products) it times
 forwards with CUDA events and traces one with ``torch.profiler``: the device
 time by the operator that launched it, the union of the kernel intervals
 (busy time) against the profiled forward's wall time, and the forward's
-kernel launches. Needs a CUDA device; prints one block per engine.
+kernel launches. ``--show`` names operators (e.g. ``aten::copy_``) printed
+even when they fall below the top 15. Needs a CUDA device; prints one block
+per engine.
 """
 
 from __future__ import annotations
@@ -55,7 +57,9 @@ TOP = 15  # operators listed per engine
 def main() -> None:
     parser = argparse.ArgumentParser(prog="python3 scripts/profile_torch_engines.py")
     parser.add_argument("--model", choices=("convtasnet", "dptnet", "sepformer"), default="convtasnet")
-    model = parser.parse_args().model
+    parser.add_argument("--show", nargs="*", default=[], help="operators to print wherever they rank")
+    args = parser.parse_args()
+    model = args.model
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_engines: no CUDA device")
     dev = torch.device("cuda", 0)
@@ -103,8 +107,10 @@ def main() -> None:
               f"device time {device_ms:.1f} ms, busy (union) {busy:.1f} ms, idle {1 - busy / wall:.1%} of the wall")
         # device time by the operator that launched it (its own kernels, not its children's)
         rows = [(getattr(r, "self_device_time_total", 0) / 1e3, r.count, r.key) for r in prof.key_averages()]
-        for total, count, key in sorted(rows, reverse=True)[:TOP]:
-            if total > 0:
+        ranked = sorted(rows, reverse=True)
+        shown = ranked[:TOP] + [r for r in ranked[TOP:] if r[2] in args.show]
+        for total, count, key in shown:
+            if total > 0 or key in args.show:
                 print(f"   {total:9.2f} ms {total / device_ms:6.1%} {count:5d} x  {key[:100]}")
         del engine
         torch.cuda.empty_cache()

@@ -9,7 +9,7 @@ another order, so a head can land on the other side of a rounding tie). The
 backward) gives JAX's gradients. ``QMultiheadAttention`` equals JAX's
 module with ``pallas_attn=True`` on a shape its TPU gate sends to the
 kernel, and takes one of its four routes through
-``ops.attention.fused_attention`` in each case.
+``ops.attention.fused_attention_packed`` in each case.
 """
 
 import dataclasses
@@ -129,14 +129,15 @@ def test_qmultiheadattention_matches_jax_with_pallas_attn():
 
 
 def _routes(monkeypatch):
-    """Record each call of the module's ``fused_attention`` as its ``quantize`` flag."""
+    """Record each call of the module's ``fused_attention_packed`` (K8 on its in-projection's views) as its
+    ``quantize`` flag."""
     calls = []
 
     def counted(*args, **kwargs):
         calls.append(kwargs.get("quantize", True))
-        return k8.fused_attention(*args, **kwargs)
+        return k8.fused_attention_packed(*args, **kwargs)
 
-    monkeypatch.setattr(port_attention, "fused_attention", counted)
+    monkeypatch.setattr(port_attention, "fused_attention_packed", counted)
     return calls
 
 

@@ -476,6 +476,118 @@ def test_attention_wrapper_rejects_what_the_kernel_does_not_take(dev):
         k8.fused_attention(*_attention_case(dev, 1, 4, 4, 129, 3)[:3], quantize=False)
 
 
+# The packed entry (K8 on the views QMultiheadAttention hands it: q a [B, L, E] viewed [B, L, h, d], k and v the
+# E:2E and 2E: thirds of an in-projection [B, L, 3E]) against its plain version, under the same bounds. Where E is
+# not a multiple of 4 the rows are off 16 bytes and the kernel copies them 4 bytes at a time.
+def _packed_case(dev, B, L, h, d, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    E = h * d
+    Q = torch.randn(B, L, E, device=dev, generator=gen) * 0.3
+    X = torch.randn(B, L, 3 * E, device=dev, generator=gen)
+    mn, mx = torch.tensor([-0.7], device=dev), torch.tensor([1.3], device=dev)
+    return (Q.unflatten(-1, (h, d)), X[..., E:2 * E].unflatten(-1, (h, d)), X[..., 2 * E:].unflatten(-1, (h, d)), mn,
+            mx)
+
+
+@pytest.mark.parametrize("B,L,h,d", [(272, 250, 8, 32), (2000, 34, 8, 32), (2064, 250, 4, 16), (2000, 258, 4, 16),
+                                     (1, 250, 8, 32), (1, 258, 4, 16), (3, 53, 2, 5), (2, 53, 4, 24), (5, 1, 8, 32),
+                                     (4, 34, 4, 16), (2, 37, 3, 128), (3, 20, 2, 64), (2, 17, 2, 3), (3, 9, 3, 7)])
+def test_packed_attention_kernel_matches_plain(dev, B, L, h, d):
+    q, k, v, mn, mx = _packed_case(dev, B, L, h, d, B + L + d)
+    before = k8.LAUNCHES["attention"]
+    heads = k8.fused_attention_packed(q, k, v, quantize=False)
+    got = k8.fused_attention_packed(q, k, v, mn, mx, 8)
+    assert k8.LAUNCHES["attention"] == before + 2 and heads.shape == (B, L, h * d)
+    ref = k8.fused_attention_packed_ref(q, k, v, quantize=False)
+    assert (heads - ref).abs().max().item() <= ATTN_REL_TOL * ref.abs().max().item()
+    assert torch.equal(got, fq.act_fake_quant_ref(heads, mn, mx, 8))  # the epilogue is K1's grid, exactly
+    step = (mx - mn).item() / 255
+    diff = (got - k8.fused_attention_packed_ref(q, k, v, mn, mx, 8)).abs()
+    assert diff.max().item() <= step * (1 + 1e-4)
+    assert (diff > 0.5 * step).float().mean().item() <= ATTN_GRID_SHARE
+    # the same heads as the [BH, L, d] entry on the head-layout copies, bit for bit
+    want = k8.fused_attention(*(k8.head_layout(x) for x in (q, k, v)), quantize=False)
+    assert torch.equal(heads.reshape(B, L, h, d).transpose(1, 2).reshape(B * h, L, d), want)
+
+
+def test_packed_attention_takes_rows_off_16_bytes(dev):
+    """q, k and v each starting one float past 16 bytes: the kernel's 4-byte copies, the same heads bit for bit."""
+    q, k, v, mn, mx = _packed_case(dev, 2, 8, 2, 16, 4)
+    shifted = []
+    for x in (q, k, v):
+        buf = torch.empty(x.numel() + 1, device=dev)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        shifted.append(y)
+    assert all(y.data_ptr() % 16 for y in shifted)
+    for quantize in (False, True):
+        want = k8.fused_attention_packed(q, k, v, mn, mx, 8, quantize)
+        assert torch.equal(k8.fused_attention_packed(*shifted, mn, mx, 8, quantize), want)
+
+
+def test_packed_attention_refuses_what_the_kernel_does_not_take(dev):
+    q, k, v, mn, mx = _packed_case(dev, 2, 8, 2, 16, 4)
+    with pytest.raises(ValueError, match="unit inner stride"):
+        k8.fused_attention_packed(q, torch.randn(2, 8, 2, 32, device=dev)[..., ::2], v, quantize=False)
+    with pytest.raises(ValueError):
+        k8.fused_attention_packed(q, k.cpu(), v, quantize=False)
+    with pytest.raises(TypeError):
+        k8.fused_attention_packed(q.double(), k.double(), v.double(), quantize=False)
+    with pytest.raises(ValueError, match="head width"):
+        k8.fused_attention_packed(*_packed_case(dev, 1, 4, 1, 132, 5)[:3], quantize=False)
+
+
+def test_attention_widths_are_the_kernel_widths(dev):
+    from fqss_tpu_torch.ops import _build
+
+    assert _build.library().fqss_attention_max_dim() == k8.DIMS[-1]
+
+
+@pytest.mark.parametrize("E,h", [(64, 4), (6, 2), (10, 5)])
+def test_attention_module_on_the_card_matches_its_plain_core(dev, monkeypatch, E, h):
+    """QMultiheadAttention's serving forward on the card through the packed entry, E a multiple of 4 or not (rows
+    off 16 bytes: 4-byte copies), against the same forward with the plain version of the packed entry."""
+    from fqss_tpu_torch.nn import attention as port_attention
+    from fqss_tpu_torch.nn.attention import QMultiheadAttention
+    from fqss_tpu_torch.quant.spec import QuantSpec
+
+    mha = QMultiheadAttention(E, h, q=QuantSpec(qat=True, observer=False, n_splitter=2, n_combiner=2,
+                                                out_quant=True), generator=torch.Generator().manual_seed(E))
+    mha = mha.to(dev).eval()
+    x = torch.randn(3, 21, E, device=dev, generator=torch.Generator(device=dev).manual_seed(h))
+    with torch.inference_mode():
+        before = k8.LAUNCHES["attention"]
+        got = mha(x, x, x)
+        assert k8.LAUNCHES["attention"] == before + 1
+        monkeypatch.setattr(port_attention, "fused_attention_packed", k8.fused_attention_packed_ref)
+        want = mha(x, x, x)
+    assert got.shape == want.shape == (3, 21, E) and torch.isfinite(got).all()
+    # the heads agree within ATTN_REL_TOL, so their grid, and the output's after the out-projection, at most a step
+    step = (mha.activation_fake_quantize.max_range - mha.activation_fake_quantize.min_range).item() / 255
+    assert (got - want).abs().max().item() <= step * (1 + 1e-4)
+    assert ((got - want).abs() > 0.5 * step).float().mean().item() <= 0.05
+
+
+def test_attention_module_makes_no_copy_of_the_head_layout(dev):
+    """QMultiheadAttention's serving forward on the card: K8 reads the in-projection's views and writes [B, L, E],
+    so no copy runs (the head layout's copies and transpose were aten::copy_ calls)."""
+    from fqss_tpu_torch.nn.attention import QMultiheadAttention
+    from fqss_tpu_torch.quant.spec import QuantSpec
+
+    mha = QMultiheadAttention(64, 4, q=QuantSpec(qat=True, observer=False, n_splitter=2, n_combiner=2,
+                                                 out_quant=True), generator=torch.Generator().manual_seed(0))
+    mha = mha.to(dev).eval()
+    x = torch.randn(3, 40, 64, device=dev, generator=torch.Generator(device=dev).manual_seed(1))
+    with torch.inference_mode():
+        mha(x, x, x)
+        before = k8.LAUNCHES["attention"]
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            mha(x, x, x)
+    assert k8.LAUNCHES["attention"] == before + 1
+    names = [e.name for e in prof.events()]
+    assert not [n for n in names if n in ("aten::copy_", "aten::contiguous", "aten::clone")], sorted(set(names))
+
+
 def test_int8_matmul_kernel_three_grids_bitwise_equal_plain(dev):
     from fqss_tpu_torch.ops import int8_matmul as im
 

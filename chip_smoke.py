@@ -26,10 +26,15 @@ failure propagate:
    attention kernel, at the main path's widths d 16 and 32).
 2. kernels vs their plain PyTorch versions on the card, bitwise
    (``torch.equal``), at the main path's shapes, with planted edge and
-   half-step tie values; CUDA-event times of both.
+   half-step tie values; CUDA-event times of both. The grouped weight
+   kernel at each model's full weight set (ConvTasNet, DPTNet, Sepformer):
+   the observing call in train mode (outputs, the observers' written ranges
+   and flags) and the serving call with planted ties, bitwise; the kernel's
+   time alone, the wrapper's and the model's weight pass (host clock).
 3. the full-width model: an observer pass sets the ranges, then one forward
-   of 32 x 12 s at 8 kHz; the launch counters must rise by exactly the
-   number of quantizer modules.
+   of 32 x 12 s at 8 kHz; the act launch counter must rise by exactly the
+   number of act quantizer modules, the weight counter by one (the grouped
+   launch of the model's weight pass).
 4. card vs CPU on the same weights (1 x 1 s): SNR >= 20 dB per output.
 5. the folded engine: bitwise equal to the fake-quant forward, with no
    weight-kernel launch.
@@ -40,12 +45,16 @@ failure propagate:
 8. the backward kernels vs their plain versions on the card: the input
    gradients bitwise, the range gradients (sums) within SUM_RTOL of the sum
    of the terms' magnitudes, at the train step's largest activation, odd
-   sizes and the 7 weight shapes on channel axes 0 and 1; CUDA-event times.
+   sizes and the 7 weight shapes on channel axes 0 and 1; the grouped
+   backward at phase 2's three weight sets, with absent and transposed
+   gradients, and in the observing state (dw = g, range gradients 0);
+   CUDA-event times.
 9. KD training at full width: student and float teacher from
    ``create_model_and_teacher``, 8 steps of 2 x 3 s through
    ``make_train_step`` with a 3-step observer window; every step must launch
-   each forward kernel once per quantizer module and each backward kernel
-   once per quantizer whose output reaches the loss.
+   the act kernel once per act quantizer module and its backward once per
+   act quantizer whose output reaches the loss, and the grouped weight
+   kernels once each way.
 10. card vs CPU: one post-window step from the same state at 1 x 1 s; loss
     and whole-gradient cosine within LOSS_DB_TOL and GRAD_COS_MIN.
 11. train-step time at 16 x 3 s: ms per step, seconds of audio trained per
@@ -82,11 +91,13 @@ failure propagate:
     (projection + K7).
 18. the full-width DPTNet from ``create_pretrained_model``, ranges from the
     config's 50-step observer window (on 2 x 4 s), one forward of 8 x 4 s:
-    output [8, 2, 32000], finite; the launch counters rise by the quantizer
-    modules that run (all but the attention's two no-op sites of each layer,
-    its head quantizer, whose grid K8 applies, the QDense layers', whose
-    grids K5 applies, and BN's, whose grids K3 applies), K7 by 12, K6 by 0,
-    K8 (the fused attention) by 12, K5 by 13 and K3 by 1 (BN).
+    output [8, 2, 32000], finite; the act launch counter rises by the act
+    quantizer modules that run (all but the attention's two no-op sites of
+    each layer, its head quantizer, whose grid K8 applies, the QDense
+    layers', whose grids K5 applies, and BN's, whose grid K3 applies), the
+    weight counter by one (every weight grid in the grouped launch, K5's
+    and K3's off), K7 by 12, K6 by 0, K8 (the fused attention) by 12, K5 by
+    13 and K3 by 1 (BN).
 19. card vs CPU on the same weights (1 x 1 s): SNR >= 20 dB per output.
 20. the folded DPTNet: bitwise equal to the fake-quant forward, no
     weight-kernel launch, K5 and K3 with their weight grids off.
@@ -121,9 +132,10 @@ failure propagate:
     (``attention_route_bound``), summed per Sepformer and per DPTNet forward.
 25. the full-width Sepformer from ``create_pretrained_model``, ranges from the
     config's 50-step observer window on 2 x 4 s, one forward of 8 x 4 s:
-    output [8, 2, 32000], finite; the launch counters rise by the quantizer
-    modules that run (not the QDense layers': K5 applies their grids; not the
-    masker conv1d's: K3 does), K8 by 32, K5 by 65 and K3 by 1.
+    output [8, 2, 32000], finite; the act launch counter rises by the act
+    quantizer modules that run (not the QDense layers': K5 applies their
+    grids; not the masker conv1d's: K3 does), the weight counter by one (the
+    grouped launch), K8 by 32, K5 by 65 and K3 by 1.
 26. card vs CPU on the same weights (1 x 1 s): SNR >= SEP_CARD_VS_CPU_DB per
     output; the float model on the same weights >= SEP_FLOAT_CARD_VS_CPU_DB.
 27. the folded Sepformer: bitwise equal to the fake-quant forward, no
@@ -162,8 +174,9 @@ failure propagate:
     every step launches K5 per QDense forward (student and teacher), K5-bwd
     per QDense, K7 and K8 per module, K3 per bias-free 1x1 conv of the
     teacher (it runs without gradient; the student's take F.conv1d and the
-    quantizer kernels), K1/K2 per remaining quantizer module and their
-    backward kernels per quantizer reaching the loss; finite losses.
+    quantizer kernels), K1 per remaining act quantizer module and K1-bwd per
+    act quantizer reaching the loss, the grouped weight kernels once each
+    way; finite losses.
 34. card vs CPU: one post-window step at 1 x 1 s, the quantized model and its
     float version, loss and whole-gradient cosine within TRAIN_CARD_VS_CPU.
 35. train-step time and peak memory of both models at batch 1 and the
@@ -230,7 +243,7 @@ from fqss_tpu_torch.ops import int8_matmul as im
 from fqss_tpu_torch.ops import lstm as lk
 from fqss_tpu_torch.ops import qat_dense as qd
 from fqss_tpu_torch.ops import qmatmul as qm
-from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
+from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer, weight_pass, weight_quantizer_sites
 from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.separation.ola import ola_infer
 from fqss_tpu_torch.serve import BEST_PATHS, make_int8_engine
@@ -413,6 +426,8 @@ LSTM_ROUTE = ("CUDA cores, float32 FMA: thread-block clusters, each CTA's W_hh s
 ATTN_ROUTE = ("Q K^T on the CUDA cores (float32 FMA in d order, cuBLAS's rounding), P V on the tensor cores (3xTF32 "
               "mma.sync m16n8k8) under an online softmax, 3-stage cp.async K/V ring, heads read from and written to "
               "the in-projection's layout")
+GROUP_ROUTE = ("CUDA cores: all of a model's weight quantizers in one launch from a device-resident table, a warp, "
+               "a thread or a block a channel; the one-shot observer and where(observing, w, y) inside")
 INT8_ROUTE = ("tensor cores: s8 mma.sync m16n8k32, persistent blocks with the weight tile resident in shared memory, "
               "3-stage cp.async ring, output tiles staged and stored as 16-byte rows")
 
@@ -691,6 +706,149 @@ def check_weight_bwd_kernel(dev) -> dict:
     return results
 
 
+def weight_group_models(dev) -> dict:
+    """The three models' full-width module trees on the card (phase 3's ConvTasNet, DPTNET_CFG's and
+    SEPFORMER_CFG's), in train() mode, with seeded random weights: their weight quantizers are the groups of phases
+    2 and 8."""
+    conv = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=dataclasses.replace(SPEC, observer=True),
+                      generator=torch.Generator().manual_seed(2))
+    return {"ConvTasNet": conv.to(dev),
+            "DPTNet": create_model(DPTNET_CFG, generator=torch.Generator().manual_seed(2)).to(dev),
+            "Sepformer": create_model(SEPFORMER_CFG, generator=torch.Generator().manual_seed(2)).to(dev)}
+
+
+def group_of(model) -> fq.WeightGroup:
+    """``model``'s weight quantizers as one group, as its forward's weight pass builds it."""
+    return fq.WeightGroup([getattr(layer, q).entry(getattr(layer, w)) for layer, q, w in weight_quantizer_sites(model)])
+
+
+def weight_group_bound(group: fq.WeightGroup, backward: bool) -> dict:
+    """The grouped call's bound: weights in and outputs out (backward: the gradients in too), two ranges in and two
+    out per channel, a flag an entry; per element a division, a rounding, two clips and a product (backward: ten
+    operations for the mask, dw and the term)."""
+    per_element = 12 if backward else 8
+    return bound_of(per_element * group.total + 16 * group.channels + 4 * len(group),
+                    (10 if backward else 5) * group.total, F32_OPS_S)
+
+
+def check_weight_groups(dev) -> tuple[dict, dict]:
+    """Phase 2: the grouped forward kernel against its plain version on the card, at each model's full weight set.
+
+    The observing call in train() mode (outputs = the weights, the observers' written ranges and flags), then,
+    with channel 0 of every weight planted with half-step ties of a 2^-7 step, the serving call in eval() mode:
+    all bitwise (``torch.equal``). Returns each model's times and bound, and the groups and buffers of the second
+    call for phase 8."""
+    results, pairs = {}, {}
+    for name, model in weight_group_models(dev).items():
+        other = copy.deepcopy(model)
+        gk, gp = group_of(model), group_of(other)
+        buf = fq._group_forward(gk)
+        ref = torch.empty_like(buf)
+        fq.weight_group_forward_ref(gp, ref)
+        err = compare(f"{name} grouped observing call", buf, ref)
+        for i, (ek, ep) in enumerate(zip(gk.entries, gp.entries)):
+            err = max(err, compare(f"{name} entry {i} observed min", ek.min_range, ep.min_range),
+                      compare(f"{name} entry {i} observed max", ek.max_range, ep.max_range))
+            if not (bool(ek.observed) and bool(ep.observed)):
+                raise AssertionError(f"{name} entry {i}: the observer's flag is not set")
+        if not torch.equal(buf[:gk.total], torch.cat([e.w.reshape(-1) for e in gk.entries])):
+            raise AssertionError(f"{name}: the observing call did not return the weights")
+        with torch.no_grad():
+            for e in (*gk.entries, *gp.entries):
+                e.min_range.view(-1)[0], e.max_range.view(-1)[0] = -255 / 256, 255 / 256
+                first = e.w.select(e.ch_axis, 0)
+                first.copy_(tie_values(first.numel(), dev).reshape(first.shape))
+        gk, gp = group_of(model.eval()), group_of(other.eval())
+        buf = fq._group_forward(gk)
+        ref = torch.empty_like(buf)
+        fq.weight_group_forward_ref(gp, ref)
+        err = max(err, compare(f"{name} grouped call", buf, ref))
+        ms = cuda_ms(fq.group_kernel_call(gk), 200)  # the kernel alone: its arguments built beforehand
+        call_ms = cuda_ms(lambda: fq._group_forward(gk), 200)  # the wrapper: a buffer, the arguments, the launch
+        plain_ms = cuda_ms(lambda: fq.weight_group_forward_ref(gp, ref), 5)
+        pass_ms = weight_pass_ms(model)
+        results[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "call_ms": call_ms, "pass_ms": pass_ms,
+                         **weight_group_bound(gk, False)}
+        log(f"[2] grouped weight_fake_quant, {name}: {len(gk)} quantizers, {gk.channels} channels, {gk.total} "
+            f"elements, {gk.blocks} blocks; the observing call (train) and the serving call (eval, planted ties) "
+            f"bitwise equal to the plain version, written ranges and flags too; kernel {ms:.4f} ms (one launch), "
+            f"bound {results[name]['bound_ms'] * 1e3:.2f} us ({results[name]['bound_ms'] / ms:.1%}); the wrapper "
+            f"{call_ms:.4f} ms a call, the model's weight pass {pass_ms:.4f} ms (eval, no gradient, host clock); "
+            f"plain {plain_ms:.3f} ms")
+        pairs[name] = (gk, gp, buf, ref)
+    return results, pairs
+
+
+def weight_pass_ms(model, n: int = 100) -> float:
+    """Milliseconds of host clock a ``weight_pass`` of ``model`` takes in eval() mode without gradients (the
+    serving forward's): the table's check, the grouped launch and the views, ending in a synchronize."""
+    with torch.no_grad():
+        with weight_pass(model):
+            pass
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            with weight_pass(model):
+                pass
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def check_weight_group_bwd(dev, pairs: dict) -> dict:
+    """Phase 8: the grouped backward kernel against its plain version at each model's full weight set (phase 2's
+    groups after their serving call): ``dw`` bitwise, range gradients within SUM_RTOL of sum |term|, with every
+    seventh entry's gradient absent and the 2-D entries' gradients transposed in turn (as ``x @ w.t()`` hands them
+    back); then the observing state: ``dw = g``, range gradients 0."""
+    results = {}
+    for name, (gk, gp, buf, ref) in pairs.items():
+        gen = torch.Generator(device=dev).manual_seed(8)
+        grads, transposed = [], 0
+        for i, e in enumerate(gk.entries):
+            if i % 7 == 6:
+                grads.append(None)
+            elif e.w.ndim == 2 and i % 2 == 0:
+                grads.append(torch.randn(e.w.shape[::-1], device=dev, generator=gen).t())
+                transposed += 1
+            else:
+                grads.append(torch.randn(e.w.shape, device=dev, generator=gen))
+        dk = fq.weight_fake_quant_group_bwd(gk, buf, grads)
+        dp = fq.weight_group_backward_ref(gp, ref, grads)
+        used_mn, used_mx = (gk.split_ranges(r) for r in gk.scratch(buf)[:2])
+        err = 0.0
+        for i, (e, g) in enumerate(zip(gk.entries, grads)):
+            if g is None:
+                if any(d[i] is not None for d in dk):
+                    raise AssertionError(f"{name} entry {i}: gradients without a cotangent")
+                continue
+            err = max(err, compare(f"{name} grouped bwd entry {i} dw", dk[0][i], dp[0][i]))
+            mn, mx = used_mn[i], used_mx[i]
+            dims = tuple(d for d in range(e.w.ndim) if d != e.ch_axis % e.w.ndim)
+            _, terms = fq.weight_bwd_terms(e.w, g, mn, mx, e.n_bits, e.ch_axis)
+            exact = fq.route_range_grad(terms.double().sum(dims), mn.double(), mx.double(), e.n_bits, e.s)
+            bound = fq.route_range_grad(terms.double().abs().sum(dims), mn.double(), mx.double(), e.n_bits, e.s)
+            for got, want, b in zip((dk[1][i], dk[2][i]), exact, bound):
+                err = max(err, check_sum(f"{name} grouped bwd entry {i}", got, want, b.abs()))
+        observing = buf.clone()
+        gk.scratch(observing)[2].fill_(1.0)
+        do = fq.weight_fake_quant_group_bwd(gk, observing, grads)
+        for i, g in enumerate(grads):
+            if g is not None and not (torch.equal(do[0][i], g) and not do[1][i].any() and not do[2][i].any()):
+                raise AssertionError(f"{name} entry {i}: the observing backward is not (g, 0, 0)")
+        full = [torch.randn(e.w.shape, device=dev, generator=gen) for e in gk.entries]
+        ms = cuda_ms(fq.group_kernel_call(gk, full), 200)
+        call_ms = cuda_ms(lambda: fq.weight_fake_quant_group_bwd(gk, buf, full), 200)
+        plain_ms = cuda_ms(lambda: fq.weight_group_backward_ref(gp, ref, full), 3)
+        results[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "call_ms": call_ms,
+                         **weight_group_bound(gk, True)}
+        log(f"[8] grouped weight_fake_quant backward, {name}: {len(gk)} quantizers ({transposed} transposed "
+            f"gradients, {sum(g is None for g in grads)} absent): dw bitwise equal, range gradients within "
+            f"{SUM_RTOL} of sum |term|; the observing state (g, 0, 0); kernel {ms:.4f} ms (one launch), bound "
+            f"{results[name]['bound_ms'] * 1e3:.2f} us ({results[name]['bound_ms'] / ms:.1%}); the wrapper "
+            f"{call_ms:.4f} ms a call; plain {plain_ms:.3f} ms")
+        del dk, dp, do, full
+    return results
+
+
 def build_served_model(dev, mix: np.ndarray, spec: QuantSpec = SPEC, **arch) -> ConvTasNet:
     """Seeded full-width model whose ranges come from a 3-step observer pass in train mode."""
     q_obs = dataclasses.replace(spec, observer=True, max_observations=3)
@@ -952,7 +1110,7 @@ def train_at_full_width(dev) -> tuple[TrainState, dict]:
     state = new_train_state(model.to(dev), teacher.to(dev))
     step = make_train_step(TrainConfig())
     fwd, bwd = count_quantizers(model.modules()), backward_quantizers(model)
-    want = {**fwd, "act_bwd": bwd["act"], "weight_bwd": bwd["weight"]}
+    want = {"act": fwd["act"], "weight": 1, "act_bwd": bwd["act"], "weight_bwd": 1}  # the weight pass: one each way
     window = TRAIN_CFG["quantization"]["max_observations"]
     rng = np.random.default_rng(9)
     batches = [synth_batch(rng, 2, 2, TRAIN_SEG) for _ in range(TRAIN_STEPS)]
@@ -979,9 +1137,10 @@ def train_at_full_width(dev) -> tuple[TrainState, dict]:
                              f"{bwd['act'] + bwd['weight']}")
     log(f"[9] KD train at full width, {TRAIN_STEPS} steps of 2 x {TRAIN_SEG // SR} s, observer window {window}: "
         f"losses {[round(v, 3) for v in losses]} dB, finite, skipped 0; the ranges of {moved} quantizers moved "
-        f"after the window; every step launched act={want['act']} weight={want['weight']} forward (= quantizer modules) "
-        f"and act_bwd={want['act_bwd']} weight_bwd={want['weight_bwd']} backward (= quantizers reaching the "
-        f"loss; the last block's residual branch feeds nothing)")
+        f"after the window; every step launched act={want['act']} forward (= act quantizer modules) and "
+        f"act_bwd={want['act_bwd']} backward (= act quantizers reaching the loss; the last block's residual branch "
+        f"feeds nothing), and the {fwd['weight']} weight quantizers ({bwd['weight']} reaching the loss) in "
+        f"weight={want['weight']} and weight_bwd={want['weight_bwd']} grouped launches")
     return state, launches
 
 
@@ -1333,8 +1492,7 @@ def serve_dptnet(dev, smi: str) -> tuple:
     for h in hooks:
         h.remove()
     dense, fused = dense_quantizers(dpt), fused_convs(dpt)
-    want = no_launches(act=counts["act"] - noop - n_mha - dense["act"] - fused["act"],
-                       weight=counts["weight"] - dense["weight"] - fused["weight"], bilstm=2 * dpt.layer,
+    want = no_launches(act=counts["act"] - noop - n_mha - dense["act"] - fused["act"], weight=1, bilstm=2 * dpt.layer,
                        attention=n_mha, dense=dense["dense"], qmatmul=fused["qmatmul"])
     if tuple(y.shape) != (DPT_BATCH, 2, DPT_SEG) or not torch.isfinite(y).all():
         raise AssertionError(f"DPTNet forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
@@ -1343,10 +1501,10 @@ def serve_dptnet(dev, smi: str) -> tuple:
     log(f"[18] full-width DPTNet {tuple(x.shape)} -> {tuple(y.shape)}, finite, {n_params} parameters, LSTMs "
         f"{', '.join(f'{s} T {T} x B {B}' for s, T, B, _ in shapes)}, first call {first_s:.2f} s; launches "
         f"act={launches['act']} (= {counts['act']} act quantizers - {noop} no-op attention sites - {n_mha} head "
-        f"grids in K8's epilogue - {dense['act']} in K5's - {fused['act']} in K3's) weight={launches['weight']} (= "
-        f"{counts['weight']} weight quantizers - {dense['weight']} in K5 - {fused['weight']} in K3) "
-        f"bilstm={launches['bilstm']} lstm=0 attention={launches['attention']} dense={launches['dense']} (= QDense "
-        f"layers) qmatmul={launches['qmatmul']} (= BN, K3: {k3_shapes})")
+        f"grids in K8's epilogue - {dense['act']} in K5's - {fused['act']} in K3's) weight={launches['weight']} (the "
+        f"{counts['weight']} weight quantizers grouped; K5's {dense['weight']} and K3's {fused['weight']} weight "
+        f"grids off) bilstm={launches['bilstm']} lstm=0 attention={launches['attention']} "
+        f"dense={launches['dense']} (= QDense layers) qmatmul={launches['qmatmul']} (= BN, K3: {k3_shapes})")
 
     # 19. card vs CPU on the same weights
     cpu_dpt = create_pretrained_model(DPTNET_CFG, observer=False)
@@ -1637,8 +1795,7 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple:
     # every act quantizer but the attention's two no-op sites and its head grid (in K8's epilogue), the QDense
     # layers' (in K5) and the masker conv1d's (in K3)
     dense, fused = dense_quantizers(sep), fused_convs(sep)
-    want = no_launches(act=counts["act"] - 3 * n_mha - dense["act"] - fused["act"],
-                       weight=counts["weight"] - dense["weight"] - fused["weight"], attention=n_mha,
+    want = no_launches(act=counts["act"] - 3 * n_mha - dense["act"] - fused["act"], weight=1, attention=n_mha,
                        dense=dense["dense"], qmatmul=fused["qmatmul"])
     if tuple(y.shape) != (SEP_BATCH, 2, SEP_SEG) or not torch.isfinite(y).all():
         raise AssertionError(f"Sepformer forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
@@ -1648,9 +1805,9 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple:
         f"{', '.join(f'{n} BH {bh} x L {lq}' for n, bh, lq, *_ in shapes)}, d {shapes[0][4]}; ranges from "
         f"{SEP_OBSERVE_STEPS} observer steps on 2 x {SEP_SEG // SR} s in {calib_s:.1f} s; first call {first_s:.2f} s; "
         f"launches act={launches['act']} (= {counts['act']} act quantizers - {3 * n_mha} no-op sites and head grids of "
-        f"{n_mha} attentions - {dense['act']} in K5 - {fused['act']} in K3) weight={launches['weight']} (= "
-        f"{counts['weight']} weight quantizers - {dense['weight']} in K5 - {fused['weight']} in K3) "
-        f"attention={launches['attention']} dense={launches['dense']} (= QDense layers) "
+        f"{n_mha} attentions - {dense['act']} in K5 - {fused['act']} in K3) weight={launches['weight']} (the "
+        f"{counts['weight']} weight quantizers grouped; K5's {dense['weight']} and K3's {fused['weight']} weight "
+        f"grids off) attention={launches['attention']} dense={launches['dense']} (= QDense layers) "
         f"qmatmul={launches['qmatmul']} (= the masker's conv1d, K3: {k3_shapes})")
 
     # 26. card vs CPU on the same weights, quantized and float
@@ -1961,15 +2118,16 @@ def train_cfg(cfg: dict) -> dict:
 
 def train_launches(model, teacher) -> dict:
     """The launches of one KD step: forward, every quantizer module (K5 for the QDense layers' grids, K1 for the
-    attention's no-op sites too, which observe in train mode), K7 and K8 for student and teacher; backward,
-    K5-bwd per QDense, K1-bwd per act quantizer whose output reaches the loss (not the no-op sites, run under
-    no_grad), K2-bwd per weight quantizer (the QDense layers' through K5-bwd); K3 for the teacher's bias-free 1x1
-    convs, which run without gradient (the student's take the differentiable composition)."""
+    attention's no-op sites too, which observe in train mode), one grouped launch for every weight quantizer (the
+    student's: the teacher is float), K7 and K8 for student and teacher; backward, K5-bwd per QDense, K1-bwd per act
+    quantizer whose output reaches the loss (not the no-op sites, run under no_grad), one grouped launch for the
+    weight quantizers; K3 for the teacher's bias-free 1x1 convs, which run without gradient (the student's take the
+    differentiable composition)."""
     q, dense = count_quantizers(model.modules()), dense_quantizers(model)
     n_mha = sum(isinstance(m, QMultiheadAttention) for m in model.modules())
     bilstm = sum(isinstance(m, QLSTM) for net in (model, teacher) for m in net.modules())
-    return no_launches(act=q["act"] - dense["act"], weight=q["weight"] - dense["weight"],
-                       act_bwd=q["act"] - dense["act"] - 2 * n_mha, weight_bwd=q["weight"], bilstm=bilstm,
+    return no_launches(act=q["act"] - dense["act"], weight=1, act_bwd=q["act"] - dense["act"] - 2 * n_mha,
+                       weight_bwd=1, bilstm=bilstm,
                        attention=sum(isinstance(m, QMultiheadAttention) for net in (model, teacher)
                                      for m in net.modules()),
                        dense=dense["dense"] + dense_quantizers(teacher)["dense"], dense_mask=dense["dense"],
@@ -2341,7 +2499,8 @@ def main() -> None:
 
     # 2. kernels vs plain versions on the card
     act = check_act_kernel(dev)
-    weight = check_weight_kernel(dev)
+    weight_per_tensor = check_weight_kernel(dev)
+    groups, group_pairs = check_weight_groups(dev)
     torch.cuda.empty_cache()
 
     # 3. the full-width model on the card
@@ -2360,11 +2519,11 @@ def main() -> None:
     launches = dict(fq.LAUNCHES)
     if tuple(y.shape) != (BATCH, 2, SEG) or not torch.isfinite(y).all():
         raise AssertionError(f"forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
-    if launches != {"act": n_act, "weight": n_weight, "act_bwd": 0, "weight_bwd": 0}:
-        raise AssertionError(f"launches {launches} != quantizer modules act={n_act} weight={n_weight}")
+    if launches != {"act": n_act, "weight": 1, "act_bwd": 0, "weight_bwd": 0}:
+        raise AssertionError(f"launches {launches} != act quantizer modules ({n_act}) and one grouped weight launch")
     log(f"[3] full-width forward {tuple(x.shape)} -> {tuple(y.shape)}, finite, {n_params} parameters, "
-        f"first call {first_s:.2f} s; launches act={launches['act']} weight={launches['weight']} "
-        f"= quantizer modules ({n_act}, {n_weight})")
+        f"first call {first_s:.2f} s; launches act={launches['act']} (= act quantizer modules) "
+        f"weight={launches['weight']} (the {n_weight} weight quantizers in one grouped launch)")
 
     # 4. card vs CPU on the same weights
     cpu_model = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=SPEC)
@@ -2411,7 +2570,9 @@ def main() -> None:
 
     # 8. backward kernels vs plain versions on the card
     act_bwd = check_act_bwd_kernel(dev)
-    weight_bwd = check_weight_bwd_kernel(dev)
+    weight_bwd_per_tensor = check_weight_bwd_kernel(dev)
+    group_bwd = check_weight_group_bwd(dev, group_pairs)
+    del group_pairs
     torch.cuda.empty_cache()
 
     # 9. KD training at full width (launch counts set to 0 inside, read after the last step)
@@ -2473,15 +2634,23 @@ def main() -> None:
         dict(name="act_fake_quant", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:87",
              launches=launches["act"], library_ms=None, **act),
-        dict(name="weight_fake_quant", route="cuda", route_detail=elementwise, source=source,
-             replaces="fqss_tpu/ops/pallas_qat.py:204",
-             launches=launches["weight"], library_ms=None, **weight),
+        # ms, plain_ms, bound_ms: the grouped launch of the ConvTasNet's 101 weight quantizers (phase 2, eval);
+        # dptnet_*, sepformer_*: the other two models' full weight sets; per_tensor_ms: the per-tensor kernel that
+        # the fold and a layer outside a model's pass take, at [1024, 128, 1]. launches: phase 3's forward.
+        dict(name="weight_fake_quant", route="cuda", route_detail=GROUP_ROUTE, source=source,
+             replaces="fqss_tpu/ops/pallas_qat.py:204", launches=launches["weight"], library_ms=None,
+             **groups["ConvTasNet"], **{f"{m.lower()}_{k}": groups[m][k] for m in ("DPTNet", "Sepformer")
+                                        for k in ("ms", "bound_ms")},
+             per_tensor_ms=weight_per_tensor["ms"]),
         dict(name="act_fake_quant_bwd", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:95",
              launches=train_launches["act_bwd"], library_ms=None, **act_bwd),
-        dict(name="weight_fake_quant_bwd", route="cuda", route_detail=elementwise, source=source,
-             replaces="fqss_tpu/ops/pallas_qat.py:214",
-             launches=train_launches["weight_bwd"], library_ms=None, **weight_bwd),
+        # The grouped backward of the same sets (phase 8); launches: phase 9's 8 train steps.
+        dict(name="weight_fake_quant_bwd", route="cuda", route_detail=GROUP_ROUTE, source=source,
+             replaces="fqss_tpu/ops/pallas_qat.py:214", launches=train_launches["weight_bwd"], library_ms=None,
+             **group_bwd["ConvTasNet"], **{f"{m.lower()}_{k}": group_bwd[m][k] for m in ("DPTNet", "Sepformer")
+                                           for k in ("ms", "bound_ms")},
+             per_tensor_ms=weight_bwd_per_tensor["ms"]),
         # ms, plain_ms, bound_ms: one ConvTasNet forward's 74 launches; int_mm_ms: torch._int_mm, the product alone
         # (int32 out, no epilogue), so no library call computes this function: library_ms is null. dptnet_*,
         # sepformer_*: one DPTNet and one Sepformer int8 forward's launches (phases 22 and 29).

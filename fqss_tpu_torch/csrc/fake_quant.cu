@@ -25,6 +25,11 @@
 //                             dw = g m; per channel dd = sum g (C - m u),
 //                             dmax = s 2/Q dd, given to mn or mx by |mn| vs |mx|
 //                             (0.5 each at a tie), times the range's sign.
+//   weight_group_kernel       the same two TPU kernels for all of a model's weight
+//   + weight_group_bwd_kernel quantizers in one launch each, with the module's
+//                             one-shot observer and its where(observing, w, y)
+//                             (fqss_tpu/quant/quantizers.py:219-256) inside: see
+//                             "Grouped weight quantizers" below.
 //
 // What bounds them on the H100: all are elementwise passes with a handful of
 // floating-point operations per element, far below the card's ratio of
@@ -205,6 +210,294 @@ __global__ void weight_bwd_kernel(const float* __restrict__ w, const float* __re
   }
 }
 
+// ---------------------------------------------------------------------------
+// Grouped weight quantizers
+// ---------------------------------------------------------------------------
+//
+// weight_fake_quant_kernel and weight_bwd_kernel take one weight a launch, and a
+// model holds 71-137 of them, most of 64-1024 elements a channel: each launch
+// is over in a microsecond or two, and the host's work around it (the wrapper,
+// the observer's min/max and where, the range copies) is what the card waits
+// for. The grouped kernels take every weight quantizer of a model in one
+// launch forward and one backward. A device-resident table (GroupEntry, built
+// by ops/fake_quant.py:WeightGroup and rebuilt when a weight's storage, the
+// device or the train()/eval() mode changes) holds each quantizer's weight and
+// range pointers, its observer flag, its [outer, C, inner] view from ch_axis
+// (so the conv, transposed-conv and LSTM layouts need no transpose) and its
+// first block. A block finds its entry in a block -> entry map and takes 8
+// channels (one a warp), 32 channels (one a lane, its 8 warps taking every
+// eighth row, where the channel axis is the last: the LSTM's [C, 4H], whose
+// rows are 512 floats apart, so a warp's loads stay coalesced) or one channel
+// (one a block, for channels of 2048 elements or more: the decoders' single
+// channel of 4096-16384), so the 29,506-75,778 channels of a model spread over
+// the card.
+//
+// Each channel does the module's work (fqss_tpu/quant/quantizers.py:219-256):
+// observing (its flag unset) in train() mode it takes the channel's min/max,
+// writes them to the ranges and outputs w; observing in eval() mode it outputs
+// w; otherwise it outputs K2's grid value (fqss::weight_grid_value, the device
+// function K5 and the fold apply), bit for bit the per-tensor kernel's. It
+// also writes the ranges it used and, for channel 0, the entry's flag into a
+// scratch that the backward reads: the host copies nothing. Every channel
+// reads the flag, so in train() mode a second one-block kernel sets it after
+// the first has read it: no result depends on the order of the blocks.
+//
+// The backward takes the entries' incoming gradients as kernel parameters (a
+// pointer and the [outer, C, inner] strides each: the attention's
+// in-projection hands back a transposed one; a null pointer skips the entry),
+// so a call copies nothing to the device either. Per channel it gives
+// dw = g m and dd = sum g (C - m u) in a fixed order (a thread's elements in
+// order, then a shuffle tree over the warp, then the block's warps in order:
+// no atomics), routed to mn and mx as weight_bwd_kernel does; where the entry
+// was observing, dw = g and the range gradients are 0. Bound: bytes, 8 a
+// weight element forward and 12 backward, over 3.35 TB/s.
+
+constexpr int kGroupThreads = 256;
+constexpr int kGroupWarps = kGroupThreads / 32;
+constexpr int kMaxGradEntries = 256;  // entries a backward launch takes; more take further launches
+
+enum : int32_t { kWarpChannel = 0, kLaneChannel = 1, kBlockChannel = 2 };
+
+// One weight quantizer (96 bytes; ops/fake_quant.py:WeightGroup packs it as 12 int64 words).
+struct GroupEntry {
+  const float* w;
+  float* mn;  // per-channel ranges: C contiguous floats each
+  float* mx;
+  bool* observed;  // the one-shot observer's flag; nullptr without an observer
+  int64_t out;     // offset of the entry's output (and dw) in the flat buffer
+  int64_t ch0;     // offset of its channels in the flat per-channel scratch
+  int64_t outer, channels, inner;
+  int64_t block0;  // its first block
+  int32_t kind, n_bits;
+  int32_t writes;    // train(): the observer writes the ranges and the flag
+  float dmax_scale;  // s * 2 / Q
+};
+static_assert(sizeof(GroupEntry) == 96, "GroupEntry must match ops/fake_quant.py:WeightGroup");
+
+// The incoming gradients of the entries of one backward launch: a pointer (nullptr: no gradient) and the
+// [outer, C, inner] strides in elements.
+struct GradTable {
+  const float* g[kMaxGradEntries];
+  int64_t stride[kMaxGradEntries][3];
+};
+
+struct MinOp {
+  __device__ float operator()(float a, float b) const { return (a != a || a < b) ? a : b; }  // keeps a NaN
+};
+struct MaxOp {
+  __device__ float operator()(float a, float b) const { return (a != a || a > b) ? a : b; }
+};
+struct SumOp {
+  __device__ float operator()(float a, float b) const { return __fadd_rn(a, b); }
+};
+
+// Element e (of outer * inner) of channel c in the [outer, C, inner] view of a contiguous weight.
+__device__ __forceinline__ int64_t elem_index(const GroupEntry& E, int64_t c, int64_t e) {
+  if (E.outer == 1) return c * E.inner + e;
+  if (E.inner == 1) return e * E.channels + c;
+  const int64_t o = e / E.inner;
+  return (o * E.channels + c) * E.inner + (e - o * E.inner);
+}
+
+// The same element in a gradient with strides st.
+__device__ __forceinline__ int64_t grad_index(const GroupEntry& E, const int64_t* st, int64_t c, int64_t e) {
+  const int64_t o = E.inner == 1 ? e : e / E.inner;
+  return o * st[0] + c * st[1] + (e - o * E.inner) * st[2];
+}
+
+// The channel this thread works on and how it walks the channel's elements.
+struct ChannelWork {
+  int64_t c;  // >= channels: nothing to do
+  int start, step;
+  bool leader;  // holds the reduced values and writes the channel's results
+};
+
+template <int Kind>
+__device__ __forceinline__ ChannelWork channel_work(int64_t local_block) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (Kind == kWarpChannel) return {local_block * kGroupWarps + warp, lane, 32, lane == 0};
+  if (Kind == kLaneChannel) return {local_block * 32 + lane, warp, kGroupWarps, warp == 0};
+  return {local_block, static_cast<int>(threadIdx.x), kGroupThreads, threadIdx.x == 0};
+}
+
+// Reduce v over the threads that share a channel (a warp; the block; a lane of each warp) in a fixed order; the
+// leader holds the result. Every thread of the warp (warp kind) or of the block (the others) must call it.
+template <int Kind, typename Op>
+__device__ __forceinline__ float channel_reduce(float v, Op op) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (Kind == kLaneChannel) {  // the 8 warps' partials of each lane's channel, summed in warp order
+    __shared__ float column[kGroupWarps][32];
+    __syncthreads();  // column may still be read by a previous call's leaders
+    column[warp][lane] = v;
+    __syncthreads();
+    if (warp == 0) {
+      for (int i = 1; i < kGroupWarps; ++i) v = op(v, column[i][lane]);
+    }
+    return v;
+  }
+  for (int off = 16; off > 0; off >>= 1) v = op(v, __shfl_down_sync(0xffffffffu, v, off));
+  if (Kind == kBlockChannel) {
+    __shared__ float partial[kGroupWarps];
+    __syncthreads();  // partial may still be read by a previous call's leader
+    if (lane == 0) partial[warp] = v;
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = 1; i < kGroupWarps; ++i) v = op(v, partial[i]);
+    }
+  }
+  return v;
+}
+
+template <int Kind>
+__device__ void group_forward(const GroupEntry& E, int64_t entry, int64_t local_block, float* __restrict__ out,
+                              float* __restrict__ used_mn, float* __restrict__ used_mx, float* __restrict__ flags) {
+  const ChannelWork cw = channel_work<Kind>(local_block);
+  const bool active = cw.c < E.channels;
+  if (Kind == kWarpChannel && !active) return;  // the whole warp, and the warp kind has no block-wide step
+  // an idle lane (lane kind) walks no element but takes part in the reductions
+  const int64_t c = active ? cw.c : 0, n = active ? E.outer * E.inner : 0;
+  const bool leader = cw.leader && active;
+  const float* __restrict__ w = E.w;
+  float* __restrict__ y = out + E.out;
+  const bool observing = E.observed != nullptr && !*E.observed;
+  float mn_c, mx_c;
+  if (observing) {
+    float lo = __int_as_float(0x7f800000), hi = __int_as_float(0xff800000);  // +inf, -inf
+#pragma unroll 4
+    for (int64_t e = cw.start; e < n; e += cw.step) {
+      const int64_t i = elem_index(E, c, e);
+      const float v = w[i];
+      y[i] = v;
+      lo = MinOp()(lo, v);
+      hi = MaxOp()(hi, v);
+    }
+    if (E.writes) {  // the same for every thread of the entry
+      mn_c = channel_reduce<Kind>(lo, MinOp());
+      mx_c = channel_reduce<Kind>(hi, MaxOp());
+      if (leader) {
+        E.mn[c] = mn_c;
+        E.mx[c] = mx_c;
+      }
+    } else {
+      mn_c = E.mn[c];
+      mx_c = E.mx[c];
+    }
+  } else {
+    mn_c = E.mn[c];
+    mx_c = E.mx[c];
+    const float q = static_cast<float>((1 << E.n_bits) - 1);
+    const float qmin = -static_cast<float>(1 << (E.n_bits - 1));
+    const float qmax = static_cast<float>((1 << (E.n_bits - 1)) - 1);
+    const float delta = fqss::weight_grid_step(mn_c, mx_c, q);
+#pragma unroll 4
+    for (int64_t e = cw.start; e < n; e += cw.step) {
+      const int64_t i = elem_index(E, c, e);
+      y[i] = fqss::weight_grid_value(w[i], delta, qmin, qmax);
+    }
+  }
+  if (leader) {
+    used_mn[E.ch0 + c] = mn_c;
+    used_mx[E.ch0 + c] = mx_c;
+    if (c == 0) flags[entry] = observing ? 1.0f : 0.0f;
+  }
+}
+
+__global__ void __launch_bounds__(kGroupThreads)
+    weight_group_kernel(const GroupEntry* __restrict__ table, const int32_t* __restrict__ block_entry,
+                        float* __restrict__ out, float* __restrict__ used_mn, float* __restrict__ used_mx,
+                        float* __restrict__ flags) {
+  const int64_t entry = block_entry[blockIdx.x];
+  const GroupEntry E = table[entry];
+  const int64_t local = blockIdx.x - E.block0;
+  if (E.kind == kWarpChannel) {
+    group_forward<kWarpChannel>(E, entry, local, out, used_mn, used_mx, flags);
+  } else if (E.kind == kLaneChannel) {
+    group_forward<kLaneChannel>(E, entry, local, out, used_mn, used_mx, flags);
+  } else {
+    group_forward<kBlockChannel>(E, entry, local, out, used_mn, used_mx, flags);
+  }
+}
+
+// train(): every observer's flag is set, after weight_group_kernel has read them all.
+__global__ void weight_group_flags_kernel(const GroupEntry* __restrict__ table, int64_t entries) {
+  for (int64_t e = threadIdx.x; e < entries; e += blockDim.x) {
+    if (table[e].writes && table[e].observed != nullptr) *table[e].observed = true;
+  }
+}
+
+template <int Kind>
+__device__ void group_backward(const GroupEntry& E, const float* __restrict__ g, const int64_t* st, int64_t entry,
+                               int64_t local_block, const float* __restrict__ used_mn,
+                               const float* __restrict__ used_mx, const float* __restrict__ flags,
+                               float* __restrict__ dw_out, float* __restrict__ dmn, float* __restrict__ dmx) {
+  const ChannelWork cw = channel_work<Kind>(local_block);
+  const bool active = cw.c < E.channels;
+  if (Kind == kWarpChannel && !active) return;
+  const int64_t c = active ? cw.c : 0, n = active ? E.outer * E.inner : 0;
+  const bool leader = cw.leader && active;
+  float* __restrict__ dw = dw_out + E.out;
+  if (flags[entry] != 0.0f) {  // observing (the whole entry): where(observing, w, y) gives g to w, 0 to the ranges
+#pragma unroll 4
+    for (int64_t e = cw.start; e < n; e += cw.step) dw[elem_index(E, c, e)] = g[grad_index(E, st, c, e)];
+    if (leader) {
+      dmn[E.ch0 + c] = 0.0f;
+      dmx[E.ch0 + c] = 0.0f;
+    }
+    return;
+  }
+  const float* __restrict__ w = E.w;
+  const float q = static_cast<float>((1 << E.n_bits) - 1);
+  const float qmin = -static_cast<float>(1 << (E.n_bits - 1));
+  const float qmax = static_cast<float>((1 << (E.n_bits - 1)) - 1);
+  const float mn_c = used_mn[E.ch0 + c], mx_c = used_mx[E.ch0 + c];
+  const float amn = fabsf(mn_c), amx = fabsf(mx_c);
+  const float delta = __fdiv_rn(__fmul_rn(2.0f, fmaxf(amn, amx)), q);
+  float dd = 0.0f;
+#pragma unroll 4
+  for (int64_t e = cw.start; e < n; e += cw.step) {
+    const int64_t i = elem_index(E, c, e);
+    const float u = __fdiv_rn(w[i], delta);
+    const float X = rintf(u);
+    const float m = tie_mask(X, qmin, qmax);
+    const float gi = g[grad_index(E, st, c, e)];
+    dw[i] = __fmul_rn(gi, m);
+    dd = __fadd_rn(dd, __fmul_rn(gi, __fsub_rn(clip(X, qmin, qmax), __fmul_rn(m, u))));
+  }
+  dd = channel_reduce<Kind>(dd, SumOp());
+  if (leader) {
+    const float dmax = __fmul_rn(E.dmax_scale, dd);
+    const float wmn = amn > amx ? 1.0f : (amn == amx ? 0.5f : 0.0f);
+    const float wmx = amx > amn ? 1.0f : (amn == amx ? 0.5f : 0.0f);
+    const float sign_mn = mn_c > 0.0f ? 1.0f : (mn_c < 0.0f ? -1.0f : 0.0f);
+    const float sign_mx = mx_c > 0.0f ? 1.0f : (mx_c < 0.0f ? -1.0f : 0.0f);
+    dmn[E.ch0 + c] = __fmul_rn(dmax, __fmul_rn(wmn, sign_mn));
+    dmx[E.ch0 + c] = __fmul_rn(dmax, __fmul_rn(wmx, sign_mx));
+  }
+}
+
+// Blocks [block_base, block_base + gridDim.x) of the entries [entry_base, entry_base + kMaxGradEntries).
+__global__ void __launch_bounds__(kGroupThreads)
+    weight_group_bwd_kernel(const GroupEntry* __restrict__ table, const int32_t* __restrict__ block_entry,
+                            int64_t block_base, int64_t entry_base, const __grid_constant__ GradTable grads,
+                            const float* __restrict__ used_mn, const float* __restrict__ used_mx,
+                            const float* __restrict__ flags, float* __restrict__ dw, float* __restrict__ dmn,
+                            float* __restrict__ dmx) {
+  const int64_t block = block_base + blockIdx.x;
+  const int64_t entry = block_entry[block];
+  const float* g = grads.g[entry - entry_base];
+  if (g == nullptr) return;  // no gradient reached this entry: the wrapper returns None for it
+  const int64_t* st = grads.stride[entry - entry_base];
+  const GroupEntry E = table[entry];
+  const int64_t local = block - E.block0;
+  if (E.kind == kWarpChannel) {
+    group_backward<kWarpChannel>(E, g, st, entry, local, used_mn, used_mx, flags, dw, dmn, dmx);
+  } else if (E.kind == kLaneChannel) {
+    group_backward<kLaneChannel>(E, g, st, entry, local, used_mn, used_mx, flags, dw, dmn, dmx);
+  } else {
+    group_backward<kBlockChannel>(E, g, st, entry, local, used_mn, used_mx, flags, dw, dmn, dmx);
+  }
+}
+
 unsigned int blocks_for(int64_t n) {
   const int64_t blocks = (n + kThreads - 1) / kThreads;
   return static_cast<unsigned int>(blocks < kMaxBlocks ? blocks : kMaxBlocks);
@@ -254,4 +547,47 @@ extern "C" int fqss_weight_fake_quant_bwd(const float* w, const float* g, const 
   weight_bwd_kernel<<<static_cast<unsigned int>(channels), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       w, g, mn, mx, dw, dmn, dmx, channels, outer, inner, n_bits, dmax_scale);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The grouped weight fake-quant (weight_group_kernel) of the entries of a device-resident table: out holds every
+// entry's output at its offset; used_mn, used_mx (one float per channel of all entries) and flags (one per entry)
+// are the scratch the backward reads. flag_pass (train()): then set every observer's flag.
+extern "C" int fqss_weight_group_fake_quant(const void* table, const int32_t* block_entry, int64_t entries,
+                                            int64_t blocks, float* out, float* used_mn, float* used_mx, float* flags,
+                                            int flag_pass, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const GroupEntry* t = static_cast<const GroupEntry*>(table);
+  weight_group_kernel<<<static_cast<unsigned int>(blocks), kGroupThreads, 0, st>>>(t, block_entry, out, used_mn,
+                                                                                   used_mx, flags);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || !flag_pass) return static_cast<int>(err);
+  weight_group_flags_kernel<<<1, kGroupThreads, 0, st>>>(t, entries);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Its backward. block0: host array of entries + 1 block offsets (the last = all blocks); grads: host array of
+// entries x 4 int64 (the gradient's address or 0, and its [outer, C, inner] strides in elements). dw, dmn, dmx:
+// the flat buffers laid out as out, used_mn and used_mx; an entry without a gradient is left unwritten.
+extern "C" int fqss_weight_group_fake_quant_bwd(const void* table, const int32_t* block_entry, int64_t entries,
+                                                const int64_t* block0, const int64_t* grads, const float* used_mn,
+                                                const float* used_mx, const float* flags, float* dw, float* dmn,
+                                                float* dmx, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const GroupEntry* t = static_cast<const GroupEntry*>(table);
+  for (int64_t e0 = 0; e0 < entries; e0 += kMaxGradEntries) {
+    const int64_t e1 = e0 + kMaxGradEntries < entries ? e0 + kMaxGradEntries : entries;
+    GradTable table_g;
+    bool any = false;
+    for (int64_t e = e0; e < e1; ++e) {
+      table_g.g[e - e0] = reinterpret_cast<const float*>(grads[4 * e]);
+      any = any || grads[4 * e] != 0;
+      for (int k = 0; k < 3; ++k) table_g.stride[e - e0][k] = grads[4 * e + 1 + k];
+    }
+    if (!any) continue;
+    weight_group_bwd_kernel<<<static_cast<unsigned int>(block0[e1] - block0[e0]), kGroupThreads, 0, st>>>(
+        t, block_entry, block0[e0], e0, table_g, used_mn, used_mx, flags, dw, dmn, dmx);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  return 0;
 }

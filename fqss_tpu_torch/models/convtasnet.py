@@ -19,6 +19,7 @@ from torch import nn
 
 from fqss_tpu_torch.nn.io_layers import QConv1dEncoder, QConvTr1dDecoder
 from fqss_tpu_torch.nn.layers import QAdd, QConv1d, QGroupNorm, QMul, QNl
+from fqss_tpu_torch.quant.quantizers import weight_pass
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 from fqss_tpu_torch.separation.splitter import postprocess, preprocess
 
@@ -110,13 +111,14 @@ class ConvTasNet(nn.Module):
         self.decoder = QConvTr1dDecoder(n_filters, 1, kernel_size, stride=stride, q=q, generator=generator)
 
     def forward(self, x: Tensor) -> Tensor:
-        x = preprocess(x, n_splitter=self.q.n_splitter)  # [B, n_splitter*C, T]
-        batch_size = x.shape[0]
-        feats = self.encoder(x)  # [B, F, M]
-        mask = self.masker(feats)  # [B, S, F, M]
-        masked = self.mul(mask, feats[:, None])
-        masked = masked.reshape(batch_size * self.n_srcs, self.n_filters, -1)
-        out_decoder = self.decoder(masked)  # [(n_comb,) B*S, 1, L]
-        length = out_decoder.shape[-1]
-        planes = out_decoder.reshape(self.q.n_combiner, batch_size, self.n_srcs, 1, length)
-        return postprocess(planes, n_combiner=self.q.n_combiner)
+        with weight_pass(self):  # every weight quantizer in one grouped call, forward and backward
+            x = preprocess(x, n_splitter=self.q.n_splitter)  # [B, n_splitter*C, T]
+            batch_size = x.shape[0]
+            feats = self.encoder(x)  # [B, F, M]
+            mask = self.masker(feats)  # [B, S, F, M]
+            masked = self.mul(mask, feats[:, None])
+            masked = masked.reshape(batch_size * self.n_srcs, self.n_filters, -1)
+            out_decoder = self.decoder(masked)  # [(n_comb,) B*S, 1, L]
+            length = out_decoder.shape[-1]
+            planes = out_decoder.reshape(self.q.n_combiner, batch_size, self.n_srcs, 1, length)
+            return postprocess(planes, n_combiner=self.q.n_combiner)

@@ -28,6 +28,7 @@ from fqss_tpu_torch.nn.attention import QMultiheadAttention
 from fqss_tpu_torch.nn.io_layers import QConv1dEncoder, QLinearDecoder
 from fqss_tpu_torch.nn.layers import QAdd, QConv1d, QDense, QGroupNorm, QLayerNorm, QMul, QNl
 from fqss_tpu_torch.nn.lstm import QLSTM
+from fqss_tpu_torch.quant.quantizers import weight_pass
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 from fqss_tpu_torch.separation.splitter import postprocess, preprocess
 
@@ -173,14 +174,15 @@ class DPTNet(nn.Module):
         self.decoder = QLinearDecoder(enc_dim, kernel_size, use_bias=False, q=q, generator=g)
 
     def forward(self, x: Tensor) -> Tensor:
-        x = preprocess(x, n_splitter=self.q.n_splitter)  # [B, C', T]
-        b = x.shape[0]
-        mixture_w = self.encoder(x)  # [B, E, L]
-        score = self.separator(self.enc_LN(mixture_w))  # [B, nspk, N, L]
-        length = score.shape[-1]
-        mask = self.mask_conv1x1(score.reshape(b * self.n_srcs, self.feature_dim, length))
-        source_w = self.mul(mixture_w[:, None], mask.reshape(b, self.n_srcs, self.enc_dim, length))
-        est = self.decoder(source_w.transpose(-1, -2).contiguous())  # [(n_comb,) B, nspk, L, W]
-        est = overlap_and_add(est.reshape(self.q.n_combiner, b, self.n_srcs, length, self.kernel_size),
-                              self.kernel_size // 2)
-        return postprocess(est.reshape(self.q.n_combiner, b, self.n_srcs, 1, -1), n_combiner=self.q.n_combiner)
+        with weight_pass(self):  # every weight quantizer in one grouped call, forward and backward
+            x = preprocess(x, n_splitter=self.q.n_splitter)  # [B, C', T]
+            b = x.shape[0]
+            mixture_w = self.encoder(x)  # [B, E, L]
+            score = self.separator(self.enc_LN(mixture_w))  # [B, nspk, N, L]
+            length = score.shape[-1]
+            mask = self.mask_conv1x1(score.reshape(b * self.n_srcs, self.feature_dim, length))
+            source_w = self.mul(mixture_w[:, None], mask.reshape(b, self.n_srcs, self.enc_dim, length))
+            est = self.decoder(source_w.transpose(-1, -2).contiguous())  # [(n_comb,) B, nspk, L, W]
+            est = overlap_and_add(est.reshape(self.q.n_combiner, b, self.n_srcs, length, self.kernel_size),
+                                  self.kernel_size // 2)
+            return postprocess(est.reshape(self.q.n_combiner, b, self.n_srcs, 1, -1), n_combiner=self.q.n_combiner)

@@ -34,6 +34,7 @@ from fqss_tpu_torch.models.dptnet import merge_segments, split_segments
 from fqss_tpu_torch.nn.attention import QMultiheadAttention
 from fqss_tpu_torch.nn.io_layers import QConv1dEncoder, QConvTr1dDecoder
 from fqss_tpu_torch.nn.layers import QAdd, QConst, QConv1d, QDense, QGroupNorm, QLayerNorm, QMul, QNl
+from fqss_tpu_torch.quant.quantizers import weight_pass
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 from fqss_tpu_torch.separation.splitter import postprocess, preprocess
 
@@ -184,9 +185,10 @@ class Sepformer(nn.Module):
         self.decoder = QConvTr1dDecoder(n_filters, 1, kernel_size, stride=stride, q=q, generator=g)
 
     def forward(self, x: Tensor) -> Tensor:
-        x = preprocess(x, n_splitter=self.q.n_splitter)  # [B, C', T]
-        b = x.shape[0]
-        feats = self.encoder(x)  # [B, F, M]
-        masked = self.mul(self.masker(feats), feats[:, None])  # [B, S, F, M]
-        out = self.decoder(masked.reshape(b * self.n_srcs, self.n_filters, -1))  # [(n_comb,) B * S, 1, L]
-        return postprocess(out.reshape(self.q.n_combiner, b, self.n_srcs, 1, -1), n_combiner=self.q.n_combiner)
+        with weight_pass(self):  # every weight quantizer in one grouped call, forward and backward
+            x = preprocess(x, n_splitter=self.q.n_splitter)  # [B, C', T]
+            b = x.shape[0]
+            feats = self.encoder(x)  # [B, F, M]
+            masked = self.mul(self.masker(feats), feats[:, None])  # [B, S, F, M]
+            out = self.decoder(masked.reshape(b * self.n_srcs, self.n_filters, -1))  # [(n_comb,) B * S, 1, L]
+            return postprocess(out.reshape(self.q.n_combiner, b, self.n_srcs, 1, -1), n_combiner=self.q.n_combiner)

@@ -90,7 +90,9 @@ class QConv1d(nn.Module):
     are off, or neither the input nor a parameter requires one. The
     quantizers' window flags and ranges go to the kernel, their state writes
     are :meth:`ActQuantizer.observe` and :meth:`WeightQuantizer.observe`, as
-    in ``QDense``. With a gradient, and for every other layer, the forward
+    in ``QDense``; inside a model's weight pass the weight comes on its grid
+    from the pass and K3's weight grid stays off. With a gradient, and for
+    every other layer, the forward
     is the composition of the weight quantizer, ``F.conv1d``, the
     nonlinearity and the act quantizer, whose kernels have backward kernels:
     JAX's K3 has no VJP, so training takes this route.
@@ -126,12 +128,16 @@ class QConv1d(nn.Module):
     def _qmatmul(self, x: Tensor) -> Tensor:
         """The forward through K3: both grids, their window flags and the observers' writes, as ``QDense``."""
         wq, aq = self.weight_fake_quantize, self.activation_fake_quantize
-        w = self.weight.reshape(self.weight.shape[0], -1)
+        w = self.weight
         w_args, a_args, w_observing, a_observing = {}, {}, None, None
-        if wq is not None:
+        grouped = wq.grouped(w) if wq is not None else None
+        if grouped is not None:  # the model's weight pass put the weight on its grid: K3's weight grid stays off
+            w = grouped
+        elif wq is not None:
             w_observing = wq.observing()
             wq.observe(self.weight, w_observing)
             w_args = dict(w_mn=wq.min_range, w_mx=wq.max_range, w_bits=wq.n_bits)
+        w = w.reshape(w.shape[0], -1)
         if aq is not None:
             a_observing = aq.observing()
             a_args = dict(a_mn=aq.min_range, a_mx=aq.max_range, a_bits=aq.n_bits)
@@ -184,7 +190,11 @@ class QDense(nn.Module):
     grids) on the CPU. The quantizer modules stay in the tree, by their JAX
     names, and keep their observers: their window flags and ranges go to the
     kernel, and their state writes are :meth:`ActQuantizer.observe` and
-    :meth:`WeightQuantizer.observe`.
+    :meth:`WeightQuantizer.observe`. Inside a model's weight pass
+    (:func:`fqss_tpu_torch.quant.quantizers.weight_pass`) the weight comes on
+    its grid from the pass's grouped call, and K5 runs with its weight grid
+    off, as for the folded model; its weight gradient goes back through the
+    pass's grouped backward.
     """
 
     def __init__(self, in_features: int, features: int, q: QuantSpec = FLOAT,
@@ -198,8 +208,11 @@ class QDense(nn.Module):
 
     def forward(self, x: Tensor) -> Tensor:
         wq, aq = self.weight_fake_quantize, self.activation_fake_quantize
-        w_args, a_args, w_observing, a_observing = {}, {}, None, None
-        if wq is not None:
+        w, w_args, a_args, w_observing, a_observing = self.weight, {}, {}, None, None
+        grouped = wq.grouped(w) if wq is not None else None
+        if grouped is not None:  # the model's weight pass put the weight on its grid: K5's weight grid stays off
+            w = grouped
+        elif wq is not None:
             w_observing = wq.observing()
             wq.observe(self.weight, w_observing)  # the one-shot observer writes the ranges this call uses
             w_args = dict(w_mn=wq.min_range, w_mx=wq.max_range, w_bits=wq.n_bits,
@@ -208,7 +221,7 @@ class QDense(nn.Module):
             a_observing = aq.observing()
             a_args = dict(a_mn=aq.min_range, a_mx=aq.max_range, a_bits=aq.n_bits,
                           a_s=1.0 / math.sqrt((2**aq.n_bits - 1) * self.weight.shape[0]) if aq.scale_grad else 1.0)
-        y = qat_dense(x.reshape(-1, x.shape[-1]).contiguous(), self.weight, self.bias, w_observing=w_observing,
+        y = qat_dense(x.reshape(-1, x.shape[-1]).contiguous(), w, self.bias, w_observing=w_observing,
                       a_observing=a_observing, **w_args, **a_args)
         if aq is not None:
             aq.observe(y, a_observing)  # inside the window y is the pre-activation

@@ -115,6 +115,10 @@ def load(path: Path) -> ctypes.CDLL:
     lib.fqss_act_fake_quant_bwd.restype = i32
     lib.fqss_weight_fake_quant_bwd.argtypes = [p, p, p, p, p, p, p, i64, i64, i64, i32, f32, p]
     lib.fqss_weight_fake_quant_bwd.restype = i32
+    lib.fqss_weight_group_fake_quant.argtypes = [p, p, i64, i64, p, p, p, p, i32, p]
+    lib.fqss_weight_group_fake_quant.restype = i32
+    lib.fqss_weight_group_fake_quant_bwd.argtypes = [p, p, i64, p, p, p, p, p, p, p, p, p]
+    lib.fqss_weight_group_fake_quant_bwd.restype = i32
     lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, i32, f32, f32, f32, f32, f32, f32, f32, i64, p, i64,
                                              i64, i64, i32, p]
     lib.fqss_int8_matmul_requant.restype = i32

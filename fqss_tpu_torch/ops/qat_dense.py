@@ -12,7 +12,9 @@ its per-out-channel symmetric ranges ``[N]`` (or ``[N, 1]``, as
 output's uniform grid; all float32. JAX's kernel takes the transposed weight
 ``[K, N]`` with ranges on axis 1: the same function. Either grid may be off
 (its ranges ``None``): the folded serving model has no weight grid (its
-weights are on the grid already), the float teacher neither.
+weights are on the grid already), the float teacher neither, and inside a
+model's weight pass (``quant/quantizers.py:weight_pass``) the pass's grouped
+call has put the weight on its grid and takes its gradient.
 
 Each grid may also carry a one-element bool "observing" flag on the device:
 while it is set, the grid is skipped (the act quantizer inside its EMA

@@ -19,7 +19,18 @@ device (``torch.where`` on the counter): no call waits for the card.
 
 The quantize op itself is :mod:`fqss_tpu_torch.ops.fake_quant`: CUDA
 kernels forward and backward on CUDA tensors, the plain versions on CPU
-tensors. A layer that fuses its quantizers into its own kernel
+tensors.
+
+A model's forward opens a :func:`weight_pass`: all of its weight
+quantizers (:func:`weight_quantizer_sites`) run as one grouped call,
+:func:`fqss_tpu_torch.ops.fake_quant.weight_fake_quant_group`, one launch
+forward and one backward, with the one-shot observers inside. Within the
+pass each ``WeightQuantizer`` returns its entry of that call, and a layer
+that fuses its weight grid into its own kernel (``QDense``, the K3
+``QConv1d``) takes the entry with the kernel's weight grid off. A quantizer
+reached again in ``train()`` mode takes its own call, as the JAX module's
+second call in one apply sees the flag the first one set; one called
+outside a pass (a layer alone, the fold) takes its own call too. A layer that fuses its quantizers into its own kernel
 (``QDense``, :mod:`fqss_tpu_torch.ops.qat_dense`) takes the window test
 from :meth:`observing`, hands the flag and the ranges to the kernel, and
 calls :meth:`observe` for the writes: the same values and the same state
@@ -30,12 +41,21 @@ by default, as on the JAX ConvTasNet path.
 
 from __future__ import annotations
 
-from typing import Sequence
+import contextlib
+import weakref
+from typing import Iterator, Sequence
 
 import torch
 from torch import nn
 
-from fqss_tpu_torch.ops.fake_quant import act_fake_quant, weight_fake_quant
+from fqss_tpu_torch.ops.fake_quant import (
+    WeightEntry,
+    WeightGroup,
+    act_fake_quant,
+    weight_fake_quant,
+    weight_fake_quant_group,
+)
+from fqss_tpu_torch.quant.fake_quant import weight_scale
 
 Tensor = torch.Tensor
 
@@ -112,6 +132,7 @@ class WeightQuantizer(nn.Module):
         self.min_range = nn.Parameter(torch.full(shape, -0.5), requires_grad=gradient_based)
         self.max_range = nn.Parameter(torch.full(shape, 0.5), requires_grad=gradient_based)
         self.register_buffer("observed", torch.zeros((), dtype=torch.bool))
+        self._pass: list | None = None  # inside a weight_pass: [weight, its entry's tensor, reached]
 
     def observing(self) -> Tensor | None:
         """The device-resident flag ``~observed``, or None without an observer."""
@@ -127,8 +148,107 @@ class WeightQuantizer(nn.Module):
             self.max_range.copy_(torch.where(observing, w.amax(self.reduce_dims, keepdim=True), self.max_range))
             self.observed.fill_(True)
 
+    def entry(self, w: Tensor) -> WeightEntry:
+        """This quantizer on ``w`` as an entry of a grouped call."""
+        return WeightEntry(w, self.min_range, self.max_range, self.observed if self.observer else None,
+                           self.training, self.n_bits, self.ch_axis,
+                           weight_scale(w.shape[self.ch_axis], self.n_bits, self.scale_grad))
+
+    def grouped(self, w: Tensor) -> Tensor | None:
+        """Inside a :func:`weight_pass`, the pass's tensor for ``w`` (the weight the pass took), or None where
+        this call must take its own: outside a pass, and when the quantizer is reached again in ``train()`` mode
+        with an observer (JAX's second call then quantizes with the ranges the first one observed)."""
+        state = self.__dict__.get("_pass")
+        if state is None or w is not state[0]:
+            return None
+        if state[2] and self.training and self.observer:
+            return None
+        state[2] = True
+        return state[1]
+
     def forward(self, w: Tensor) -> Tensor:
+        y = self.grouped(w)
+        if y is not None:
+            return y
         observing = self.observing()
         self.observe(w, observing)
         y = weight_fake_quant(w, self.min_range, self.max_range, self.n_bits, self.ch_axis, self.scale_grad)
         return y if observing is None else torch.where(observing, w, y)
+
+
+# A layer's weight quantizers and the parameter each quantizes, where the layer does not name them itself in a
+# class attribute ``WEIGHT_QUANTIZERS`` (fqss_tpu_torch/nn/layers.py).
+DEFAULT_WEIGHT_QUANTIZERS = {"weight_fake_quantize": "weight"}
+
+
+def weight_quantizer_sites(model: nn.Module) -> list[tuple[nn.Module, str, str]]:
+    """``(layer, quantizer name, weight name)`` of every ``WeightQuantizer`` in ``model``'s tree, in module order:
+    a layer's ``weight`` and its ``weight_fake_quantize``, or the pairs its ``WEIGHT_QUANTIZERS`` lists (the LSTM's
+    ``w_ih``/``w_hh`` per direction, the attention's in- and out-projections, the combiner's residual coders)."""
+    return [(layer, qname, wname) for layer in model.modules()
+            for qname, wname in getattr(layer, "WEIGHT_QUANTIZERS", DEFAULT_WEIGHT_QUANTIZERS).items()
+            if isinstance(getattr(layer, qname, None), WeightQuantizer)]
+
+
+class _PassCache:
+    """A model's weight quantizer sites, and the grouped call's table with the key it was built for. The pass runs
+    on every forward, so it reads the tree through the modules' own dictionaries (``Module.__getattr__`` costs a
+    microsecond a lookup)."""
+
+    def __init__(self, model: nn.Module):
+        sites = weight_quantizer_sites(model)
+        self.modules = [(layer._modules, qname) for layer, qname, _ in sites]
+        self.weights = [(layer, wname) for layer, _, wname in sites]
+        self.quantizers = [getattr(layer, qname) for layer, qname, _ in sites]
+        self.key: tuple | None = None
+        self.group: WeightGroup | None = None
+
+    def stale(self) -> bool:
+        return any(modules.get(qname) is not wq for (modules, qname), wq in zip(self.modules, self.quantizers))
+
+    def current(self) -> tuple[list[Tensor], tuple]:
+        """The weights as the layers hold them now, and what the group's table depends on: every weight's,
+        range's and flag's tensor and storage, each quantizer's mode and settings."""
+        weights = [layer._parameters.get(wname) for layer, wname in self.weights]
+        weights = [w if w is not None else getattr(layer, wname) for w, (layer, wname) in zip(weights, self.weights)]
+        tensors = list(weights)
+        for wq in self.quantizers:
+            params = wq._parameters
+            tensors += (params["min_range"], params["max_range"], wq._buffers["observed"])
+        settings = tuple((wq.training, wq.observer, wq.n_bits, wq.ch_axis, wq.scale_grad) for wq in self.quantizers)
+        return weights, (weights[0].device, tuple(map(id, tensors)), tuple(map(Tensor.data_ptr, tensors)), settings)
+
+
+# Each model's cache, outside the model: a copy or a pickle of the model never carries device pointers, and the
+# cache goes with the model. It holds nothing of the computation: a stale table is rebuilt, not used.
+_PASSES: "weakref.WeakKeyDictionary[nn.Module, _PassCache]" = weakref.WeakKeyDictionary()
+
+
+@contextlib.contextmanager
+def weight_pass(model: nn.Module) -> Iterator[None]:
+    """Run all of ``model``'s weight quantizers as one grouped call, and let each return its entry inside.
+
+    The call is :func:`fqss_tpu_torch.ops.fake_quant.weight_fake_quant_group`: one kernel launch (and, in
+    ``train()`` mode, one that sets the observers' flags), one backward launch. Its table is kept per model and
+    rebuilt when a weight, range or flag changes storage, or a quantizer's mode or settings change. A model without
+    weight quantizers (folded, float) launches nothing. Every quantizer observes at the pass's start, as each would
+    at its own call; a quantizer that the forward does not reach has observed all the same."""
+    cache = _PASSES.get(model)
+    if cache is None or cache.stale():
+        cache = _PASSES[model] = _PassCache(model)
+    if not cache.quantizers:
+        yield
+        return
+    weights, key = cache.current()
+    quantizers = cache.quantizers
+    if key != cache.key:
+        cache.group = WeightGroup([wq.entry(w) for w, wq in zip(weights, quantizers)])
+        cache.key = key
+    outs = weight_fake_quant_group(cache.group)
+    for w, wq, y in zip(weights, quantizers, outs):
+        wq.__dict__["_pass"] = [w, y, False]
+    try:
+        yield
+    finally:
+        for wq in quantizers:
+            wq.__dict__["_pass"] = None

@@ -18,11 +18,7 @@ import torch
 from torch import nn
 
 from fqss_tpu_torch.ops.fake_quant import weight_fake_quant
-from fqss_tpu_torch.quant.quantizers import WeightQuantizer
-
-# A layer's weight quantizers and the parameter each quantizes, where the layer does not name them itself
-# (``WEIGHT_QUANTIZERS``, fqss_tpu_torch/nn/layers.py).
-DEFAULT_WEIGHT_QUANTIZERS = {"weight_fake_quantize": "weight"}
+from fqss_tpu_torch.quant.quantizers import WeightQuantizer, weight_quantizer_sites
 
 
 def fold_quantized_weights(model: nn.Module) -> nn.Module:
@@ -42,13 +38,12 @@ def fold_quantized_weights(model: nn.Module) -> nn.Module:
         return model
     serving = copy.deepcopy(model)
     with torch.no_grad():
-        for layer in serving.modules():
-            for quantizer_name, weight_name in getattr(layer, "WEIGHT_QUANTIZERS", DEFAULT_WEIGHT_QUANTIZERS).items():
-                wq = getattr(layer, quantizer_name, None)
-                if isinstance(wq, WeightQuantizer):
-                    w = getattr(layer, weight_name)
-                    w.copy_(weight_fake_quant(w, wq.min_range, wq.max_range, wq.n_bits, wq.ch_axis))
-                    setattr(layer, quantizer_name, None)
+        for layer, quantizer_name, weight_name in weight_quantizer_sites(serving):
+            wq, w = getattr(layer, quantizer_name), getattr(layer, weight_name)
+            # the per-tensor kernel: the same device function as the grouped one, so the folded weights are
+            # bitwise the fake-quant forward's
+            w.copy_(weight_fake_quant(w, wq.min_range, wq.max_range, wq.n_bits, wq.ch_axis))
+            setattr(layer, quantizer_name, None)
     left = [name for name, m in serving.named_modules() if isinstance(m, WeightQuantizer)]
     if left:
         raise ValueError(f"fold_quantized_weights: no weight is known for the quantizers {left}")

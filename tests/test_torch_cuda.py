@@ -129,6 +129,134 @@ def test_weight_bwd_kernel_matches_plain(dev, shape, ch_axis):
             assert bool(((got.double() - want).abs() <= SUM_RTOL * b.abs()).all())
 
 
+# The grouped weight quantizers: every work split of the kernels (a block a channel: 4099 and 8192 elements; a lane a
+# channel: the channel axis last, 300 and 257 channels; a warp a channel: the rest), odd channel counts, 2-D to 4-D
+# weights, each observer state, gradients that are absent or transposed.
+GROUP_SPECS = (((512, 1, 16), 1), ((7, 33, 3), 0), ((64, 300), 1), ((300, 5), 0), ((3, 5, 7, 2), 2), ((1, 4099), 0),
+               ((2, 257), 1), ((37, 1, 3), 0), ((20, 31), 0))
+
+
+def _group_entries(dev, specs, writes, seed):
+    """Two copies (kernel, plain) of the same entries: observer flags unset (observing), set, and absent in turn,
+    ranges with |mn| == |mx| on every third channel and channel 0 at a step of 2^-7 with tie values."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    copies = ([], [])
+    for i, (shape, ax) in enumerate(specs):
+        w = torch.randn(shape, device=dev, generator=gen) * 0.3
+        first = w.select(ax, 0)
+        first.copy_(_ties(first.numel(), dev).reshape(first.shape))
+        dims = tuple(d for d in range(w.ndim) if d != ax)
+        mn, mx = w.amin(dims, keepdim=True) * 0.9, w.amax(dims, keepdim=True) * 0.9
+        mx.view(-1)[1::3] = -mn.view(-1)[1::3]
+        mn.view(-1)[0], mx.view(-1)[0] = -255 / 256, 255 / 256
+        observed = (torch.zeros((), dtype=torch.bool, device=dev), torch.ones((), dtype=torch.bool, device=dev),
+                    None)[i % 3]
+        for c in copies:
+            c.append(fq.WeightEntry(w.clone(), mn.clone(), mx.clone(), None if observed is None else observed.clone(),
+                                    writes, 8, ax, fq.weight_scale(shape[ax], 8, i % 2 == 1)))
+    return copies
+
+
+def _group_grads(dev, specs, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    grads = []
+    for i, (shape, _) in enumerate(specs):
+        if i % 4 == 3:
+            grads.append(None)
+        elif len(shape) == 2 and i % 2 == 0:  # transposed, as x @ w.t() hands it back
+            grads.append(torch.randn(shape[::-1], device=dev, generator=gen).t())
+        else:
+            grads.append(torch.randn(shape, device=dev, generator=gen))
+    return grads
+
+
+@pytest.mark.parametrize("writes", [True, False], ids=["train", "eval"])
+def test_weight_group_kernels_match_plain(dev, writes):
+    kernel, plain = _group_entries(dev, GROUP_SPECS, writes, 21)
+    gk, gp = fq.WeightGroup(kernel), fq.WeightGroup(plain)
+    assert set(gk.kinds) == {0, 1, 2}
+    before = dict(fq.LAUNCHES)
+    buf = fq._group_forward(gk)
+    ref = torch.empty_like(buf)
+    fq.weight_group_forward_ref(gp, ref)
+    assert fq.LAUNCHES["weight"] == before["weight"] + 1
+    assert torch.equal(buf, ref)  # outputs, the ranges used and the flags
+    for ek, ep in zip(kernel, plain):  # the observers' writes
+        assert torch.equal(ek.min_range, ep.min_range) and torch.equal(ek.max_range, ep.max_range)
+        assert ek.observed is None or bool(ek.observed) == bool(ep.observed) == (writes or bool(ek.observed))
+    grads = _group_grads(dev, GROUP_SPECS, 22)
+    dk = fq.weight_fake_quant_group_bwd(gk, buf, grads)
+    dp = fq.weight_group_backward_ref(gp, ref, grads)
+    assert fq.LAUNCHES["weight_bwd"] == before["weight_bwd"] + 1
+    used_mn, used_mx, flags = gk.scratch(buf)
+    used_mn, used_mx = gk.split_ranges(used_mn), gk.split_ranges(used_mx)
+    for i, (e, g) in enumerate(zip(plain, grads)):
+        if g is None:
+            assert dk[0][i] is dk[1][i] is dk[2][i] is None
+            continue
+        assert torch.equal(dk[0][i], dp[0][i])
+        if flags[i]:
+            assert torch.equal(dk[0][i], g) and not dk[1][i].any() and not dk[2][i].any()
+            continue
+        mn, mx = used_mn[i], used_mx[i]
+        dims = tuple(d for d in range(g.ndim) if d != e.ch_axis)
+        _, terms = fq.weight_bwd_terms(e.w, g, mn, mx, 8, e.ch_axis)
+        exact = fq.route_range_grad(terms.double().sum(dims), mn.double(), mx.double(), 8, e.s)
+        bound = fq.route_range_grad(terms.double().abs().sum(dims), mn.double(), mx.double(), 8, e.s)
+        for got, want, b in zip((dk[1][i], dk[2][i]), exact, bound):
+            assert bool(((got.double() - want).abs() <= SUM_RTOL * b.abs()).all())
+
+
+def test_weight_group_backward_over_many_entries(dev):
+    """More entries than one backward launch takes (256): one call, two launches, every entry's gradients."""
+    specs = [((3 + i % 5, 4 + i % 3), i % 2) for i in range(300)]
+    kernel, plain = _group_entries(dev, specs, False, 23)
+    gk, gp = fq.WeightGroup(kernel), fq.WeightGroup(plain)
+    buf = fq._group_forward(gk)
+    grads = [torch.randn(shape, device=dev) if i % 5 else None for i, (shape, _) in enumerate(specs)]
+    before = fq.LAUNCHES["weight_bwd"]
+    dk = fq.weight_fake_quant_group_bwd(gk, buf, grads)
+    assert fq.LAUNCHES["weight_bwd"] == before + 1
+    dp = fq.weight_group_backward_ref(gp, buf, grads)
+    for i, g in enumerate(grads):
+        assert (dk[0][i] is None) == (g is None)
+        if g is not None:
+            assert torch.equal(dk[0][i], dp[0][i])
+            for got, want in zip(dk[1:], dp[1:]):
+                assert torch.allclose(got[i], want[i], rtol=1e-5, atol=1e-6)
+
+
+def test_model_weight_pass_is_one_launch_each_way(dev):
+    """A tiny DPTNet's forward and backward: one grouped launch each way, no K2 per tensor (K5 and K3 with their
+    weight grids off); the forward equals the per-tensor route's, and every weight and range gets a gradient."""
+    import contextlib
+
+    from fqss_tpu_torch.models import dptnet
+    from fqss_tpu_torch.quant.quantizers import weight_quantizer_sites
+    from fqss_tpu_torch.quant.spec import QuantSpec
+
+    arch = dict(n_srcs=2, kernel_size=2, enc_dim=32, feature_dim=16, hidden_dim=32, layer=2, segment_size=40)
+    q = QuantSpec(qat=True, n_splitter=2, n_combiner=2, out_quant=True, max_observations=1)
+    model = dptnet.DPTNet(q=q, generator=torch.Generator().manual_seed(0), **arch).to(dev)
+    other = dptnet.DPTNet(q=q, **arch).to(dev)
+    other.load_state_dict(model.state_dict())
+    x = torch.randn(2, 2000, generator=torch.Generator().manual_seed(1)).to(dev) * 0.3
+    for step in range(2):  # the observing call, then a quantizing one
+        fq.reset_launches()
+        y = model(x)
+        y.square().sum().backward()
+        assert (fq.LAUNCHES["weight"], fq.LAUNCHES["weight_bwd"]) == (1, 1), step
+        for layer, qname, wname in weight_quantizer_sites(model):
+            wq = getattr(layer, qname)
+            assert all(p.grad is not None for p in (getattr(layer, wname), wq.min_range, wq.max_range)), (step, qname)
+        model.zero_grad(set_to_none=True)
+        original, dptnet.weight_pass = dptnet.weight_pass, lambda m: contextlib.nullcontext()
+        try:  # with gradients on, as above: without them the bias-free 1x1 convs take K3
+            assert torch.equal(other(x).detach(), y.detach()), step
+        finally:
+            dptnet.weight_pass = original
+
+
 def test_tiny_train_step_runs_the_backward_kernels(dev):
     from fqss_tpu_torch.models.convtasnet import ConvTasNet
     from fqss_tpu_torch.quant.spec import QuantSpec
@@ -148,8 +276,9 @@ def test_tiny_train_step_runs_the_backward_kernels(dev):
         fq.reset_launches()
         metrics = step(state, src.sum(1), src)
         assert torch.isfinite(metrics["loss"]) and not metrics["skipped"]
-        # 24 act and 13 weight quantizers; the last block's res_conv and add (2 act, 1 weight) feed nothing
-        assert fq.LAUNCHES == {"act": 24, "weight": 13, "act_bwd": 22, "weight_bwd": 12}
+        # 24 act quantizers, the last block's res_conv and add (2 act) feeding nothing; the 13 weight quantizers
+        # as one grouped launch each way
+        assert fq.LAUNCHES == {"act": 24, "weight": 1, "act_bwd": 22, "weight_bwd": 1}
 
 
 def _int8_case(dev, m, k, n, seed):
@@ -402,9 +531,9 @@ def test_tiny_dptnet_serving_runs_k7_and_k4(dev, compute_dtype):
         y = card(x.to(dev))
         want = cpu(x)
     assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 4}
-    # 4 MHAs x 2 no-op sites; the 4 head grids are applied in K8's epilogue; the 5 QDense layers' two grids in K5,
-    # BN's in K3
-    assert fq.LAUNCHES["act"] == n_act - 8 - 4 - 5 - 1 and fq.LAUNCHES["weight"] == n_weight - 5 - 1
+    # 4 MHAs x 2 no-op sites; the 4 head grids are applied in K8's epilogue; the 5 QDense layers' act grids in K5,
+    # BN's in K3; every weight grid in the one grouped launch
+    assert fq.LAUNCHES["act"] == n_act - 8 - 4 - 5 - 1 and fq.LAUNCHES["weight"] == 1 < n_weight
     assert qd.LAUNCHES["dense"] == 5 and qm.LAUNCHES["qmatmul"] == 1
     assert k8.LAUNCHES["attention"] == 4
     snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))

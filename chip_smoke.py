@@ -13,7 +13,9 @@ FQSS-8bit Sepformer serving path (``configs/sepformer_2spks_8k.yaml``'s
 model: 256 filters, 8 heads, 2 dual-path blocks of 8 + 8 transformer layers,
 feed-forward 1024, chunks of 250), then the KD training of both, then the
 fused fake-quant matmul (K3) of their bias-free 1x1 convs, streaming serving
-and ``--engine auto`` for all three models; all with
+and ``--engine auto`` for all three models, then bf16 compute
+(``compute_dtype: bfloat16``) on the three models' serving path with the bf16
+routes of K5, K3 and K8; all with
 n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one line per phase and lets any
 failure propagate:
 
@@ -23,7 +25,8 @@ failure propagate:
    instantiation its tile, layouts and epilogue, for each LSTM and int8
    kernel instantiation its tile and shared memory, for each attention
    kernel instantiation its head width (a spill fails the phase; for the
-   attention kernel, at the main path's widths d 16 and 32).
+   attention kernel, at the main path's widths d 16 and 32); the bf16 routes'
+   instantiations are marked so.
 2. kernels vs their plain PyTorch versions on the card, bitwise
    (``torch.equal``), at the main path's shapes, with planted edge and
    half-step tie values; CUDA-event times of both. The grouped weight
@@ -204,6 +207,28 @@ failure propagate:
     path (``serve/autopath.py``), bitwise equal to the folded engine, weight-
     grid launches only where that path is fake_quant; three 20 s requests.
 
+40. bf16 compute, the flagship: bench.py's configuration (ConvTasNet
+    FQSS-8bit with ``compute_dtype="bfloat16"``) on phase 3's weights and
+    ranges, 32 x 12 s: the launches of the module tree (K1 per act quantizer,
+    one grouped weight launch, the bf16 routes only), the distance from the
+    float32 forward, the folded engine bitwise equal with no weight launch,
+    card vs CPU at 1 x 1 s >= BF16_CARD_VS_CPU_DB, the forwards' times in
+    turns with the float32 forward; one 20 s request through
+    ``python -m fqss_tpu_torch.infer`` with a bf16 config (its own process).
+41. DPTNet in bf16 at 8 x 4 s on phase 18's weights and ranges: as phase 40,
+    the launches those of phase 18 with K5, K3 and K8 on their bf16 routes
+    (``dense_bf16``, ``qmatmul_bf16``, ``attention_bf16``) and none on their
+    float32 routes.
+42. the Sepformer in bf16 at 8 x 4 s on phase 25's weights and ranges, as 41.
+43. the bf16 routes of K5 and K3 against their plain versions at the shapes
+    phases 40-42 gave them and at odd ones, every grid and observing-flag
+    combination, with phases 31 and 37's rules on the rounded operands; K8's
+    bf16 route through both entries at the bf16 forwards' attention shapes
+    and ATTN_ODD, planted rows included, by ATTN_BF16_TIE_ULPS's rule; CUDA-
+    event times of each bf16 route, its float32 route at the same shapes, the
+    bf16 plain version and, where torch has one, the library call, with the
+    bf16 bound (989 TFLOP/s or the bytes).
+
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -243,6 +268,7 @@ from fqss_tpu_torch.ops import int8_matmul as im
 from fqss_tpu_torch.ops import lstm as lk
 from fqss_tpu_torch.ops import qat_dense as qd
 from fqss_tpu_torch.ops import qmatmul as qm
+from fqss_tpu_torch.quant.fake_quant import bf16_round
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer, weight_pass, weight_quantizer_sites
 from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.separation.ola import ola_infer
@@ -416,8 +442,22 @@ QMM_ODD = ((3, 37, 301, 65), (1, 5, 7, 3), (2, 256, 1, 64), (2, 64, 1000, 64), (
 # segments; the drained stream against ola_infer(chunk_batch=1) on the card: the same forward on the same windows,
 # the overlap-add sums in another order (tests/test_streaming.py's bound).
 STREAM_SECONDS, STREAM_SEGMENT, STREAM_PUSH, STREAM_TOL = 20, 16000, 1600, 1e-5
-# The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8, float32 and TF32 rates.
-HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, TF32_OPS_S = 3.35e12, 1.979e15, 67e12, 495e12
+# The bf16 slice (phases 40-43): QuantSpec.compute_dtype "bfloat16" on the three models' serving path, with the
+# phases' models' weights and ranges. Card vs CPU is held to every other model phase's bound. K5's and K3's bf16
+# routes are held to their plain versions by phases 31 and 37's rules, the sums of the terms' magnitudes taken over
+# the operands rounded to bf16 (the planted ties stay exact: their operands are bf16 values).
+BF16_SPEC = dataclasses.replace(SPEC, compute_dtype="bfloat16")
+BF16_CARD_VS_CPU_DB = 20.0
+# K8's bf16 route against its plain version (phase 43). Both round the softmax weight p = exp(s - max) / sum to bf16
+# after it is normalised, each with the sum taken in float64 and rounded once; where the two float64 sums round
+# apart, or exp differs by an ulp, a weight within that of a bf16 tie goes to the other neighbour (about 2^-14 of
+# such weights), and its head moves by up to one bf16 step (2^-7 p) of p |v|. Every row is held within ATTN_REL_TOL
+# of max |heads|, except rows where the plain version shows a weight within ATTN_BF16_TIE_ULPS float32 ulps of a bf16
+# tie (ops/attention.py:bf16_tie_mask): those are held within ATTN_REL_TOL of max |heads| plus 2^-7 p |v| summed over
+# such weights. The f32 rule (phase 24) is unchanged. The phase prints those rows' count and share.
+ATTN_BF16_TIE_ULPS = 2
+# The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8, float32, TF32 and bf16 rates.
+HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, TF32_OPS_S, BF16_OPS_S = 3.35e12, 1.979e15, 67e12, 495e12, 989e12
 # The route K5, K5-bwd and K3 take: three TF32 tensor-core products for each float32 one.
 DENSE_ROUTE = "tensor cores: 3xTF32 mma.sync m16n8k8, 3-stage cp.async ring"
 # The routes of K7/K6 and K4.
@@ -428,6 +468,12 @@ ATTN_ROUTE = ("Q K^T on the CUDA cores (float32 FMA in d order, cuBLAS's roundin
               "the in-projection's layout")
 GROUP_ROUTE = ("CUDA cores: all of a model's weight quantizers in one launch from a device-resident table, a warp, "
                "a thread or a block a channel; the one-shot observer and where(observing, w, y) inside")
+BF16_DENSE_ROUTE = ("tensor cores: one TF32 mma.sync m16n8k8 a product of the operands rounded to bf16 as they leave "
+                    "shared memory (exact in TF32), each 32-step stage summed from zero, 3-stage cp.async ring")
+BF16_ATTN_ROUTE = ("three passes over the key tiles through the 3-stage cp.async ring, each tile rounded to bf16 in "
+                   "shared memory: the rows' max, their sums of exp(s - max) in float64, then P = exp(s - max) / sum "
+                   "rounded to bf16; Q K^T a float32 FMA chain of exact products on the CUDA cores, P V one TF32 "
+                   "mma.sync a product")
 INT8_ROUTE = ("tensor cores: s8 mma.sync m16n8k32, persistent blocks with the weight tile resident in shared memory, "
               "3-stage cp.async ring, output tiles staged and stored as 16-byte rows")
 
@@ -483,14 +529,16 @@ def dense_kernel_report(build_log: str) -> None:
     lines = build_log.splitlines()
     spilled = []
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '.*qat_dense_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELi(\d)E", line)
+        m = re.search(r"Compiling entry function '.*qat_dense_kernelILi(\d+)ELi(\d+)ELb(\d)ELb(\d)ELi(\d)ELb(\d)E",
+                      line)
         if m is None:
             continue
         spill = int(re.search(r"(\d+) bytes spill stores", lines[i + 2]).group(1))
         regs = int(re.search(r"Used (\d+) registers", lines[i + 3]).group(1))
-        bi, bj, a_rc, b_rc, epi = (int(v) for v in m.groups())
+        bi, bj, a_rc, b_rc, epi, bf16 = (int(v) for v in m.groups())
         log_line = (f"[1] qat_dense_kernel {bi} x {bj}, A {'K' if a_rc else 'MN'}-major, B {'K' if b_rc else 'MN'}-"
-                    f"major, {epilogues[epi]}: {regs} registers, {spill} bytes spill stores")
+                    f"major, {epilogues[epi]}{' (bf16 route)' if bf16 else ''}: {regs} registers, {spill} bytes spill "
+                    f"stores")
         log(log_line)
         if spill:
             spilled.append(log_line)
@@ -504,14 +552,14 @@ def attention_kernel_report(build_log: str) -> None:
     lines = build_log.splitlines()
     spilled = []
     for i, line in enumerate(lines):
-        m = re.search(r"Compiling entry function '.*attention_kernelILi(\d+)ELi(\d+)EE", line)
+        m = re.search(r"Compiling entry function '.*attention_kernelILi(\d+)ELi(\d+)ELb(\d)EE", line)
         if m is None:
             continue
         spill = int(re.search(r"(\d+) bytes spill stores", lines[i + 2]).group(1))
         regs = int(re.search(r"Used (\d+) registers", lines[i + 3]).group(1))
-        dim, mt = int(m.group(1)), int(m.group(2))
-        log_line = (f"[1] attention_kernel d <= {dim}, {16 * mt} rows a warp ({k8.max_warps(dim, mt)} warps a block "
-                    f"at most): {regs} registers, {spill} bytes spill stores")
+        dim, mt, bf16 = int(m.group(1)), int(m.group(2)), int(m.group(3))
+        log_line = (f"[1] attention_kernel{' (bf16 route)' if bf16 else ''} d <= {dim}, {16 * mt} rows a warp "
+                    f"({k8.max_warps(dim, mt)} warps a block at most): {regs} registers, {spill} bytes spill stores")
         log(log_line)
         if spill and dim <= 32:
             spilled.append(log_line)
@@ -1930,17 +1978,18 @@ def dense_args(case: tuple, flags: dict) -> tuple:
             8, 8, flag(flags.get("w_obs")), flag(flags.get("a_obs")))
 
 
-def check_dense_forward(name: str, args: tuple) -> float:
-    """K5 against its plain version (module note of DENSE_RTOL), two runs bitwise equal; returns the largest
-    |pre - plain| / bound."""
+def check_dense_forward(name: str, args: tuple, bf16: bool = False) -> float:
+    """K5 (``bf16``: its bf16 route) against its plain version (module note of DENSE_RTOL), two runs bitwise equal;
+    returns the largest |pre - plain| / bound."""
     x, w, b, w_mn, w_mx, a_mn, a_mx, _, _, w_obs, a_obs = args
-    y = qd.qat_dense(*args)
-    if not torch.equal(qd.qat_dense(*args), y):
+    y = qd.qat_dense(*args, bf16=bf16)
+    if not torch.equal(qd.qat_dense(*args, bf16=bf16), y):
         raise AssertionError(f"K5 {name}: two runs differ")
-    pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)
-    wq = qd._weight_q(w, w_mn, w_mx, 8, w_obs)
-    bound = x.abs() @ wq.abs().t() + b.abs()
-    err = ((pre - qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)).abs() / bound).max().item()
+    pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None, bf16=bf16)
+    xr, wq = qd.operands(x, qd._weight_q(w, w_mn, w_mx, 8, w_obs), bf16)
+    bound = xr.abs() @ wq.abs().t() + b.abs()
+    plain = qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None, bf16=bf16)
+    err = ((pre - plain).abs() / bound).max().item()
     if not err <= DENSE_RTOL:
         raise AssertionError(f"K5 {name}: pre-activation {err:.3g} of sum |term| from the plain version's")
     if a_mn is None or (a_obs is not None and bool(a_obs)):
@@ -1950,7 +1999,7 @@ def check_dense_forward(name: str, args: tuple) -> float:
     if not torch.equal(y, fq.act_fake_quant_ref(pre, a_mn, a_mx, 8)):
         raise AssertionError(f"K5 {name}: the epilogue is not K1's plain grid of the kernel's own pre-activation")
     step = (a_mx - a_mn).item() / 255
-    diff = (y - qd.qat_dense_ref(*args)).abs()
+    diff = (y - qd.qat_dense_ref(*args, bf16=bf16)).abs()
     share = (diff > 0.5 * step).float().mean().item()
     if diff.max().item() > step * (1 + 1e-4) or share > DENSE_GRID_SHARE:
         raise AssertionError(f"K5 {name}: {diff.max().item() / step:.3f} steps from the plain version, {share:.2e} "
@@ -2318,20 +2367,22 @@ def qmatmul_case(dev, b: int, k: int, t: int, n: int, gen: torch.Generator) -> t
     return x, w, w_mn, w_mx, a_mn, a_mx
 
 
-def check_qmatmul(name: str, case: tuple, flags: dict) -> float:
-    """K3 against its plain version with the grids and observing flags of ``flags`` (K5's rules, QMM_ODD's
-    note), two runs bitwise equal; returns the largest |pre - plain| / sum |term|."""
+def check_qmatmul(name: str, case: tuple, flags: dict, bf16: bool = False) -> float:
+    """K3 (``bf16``: its bf16 route) against its plain version with the grids and observing flags of ``flags`` (K5's
+    rules, QMM_ODD's note), two runs bitwise equal; returns the largest |pre - plain| / sum |term|."""
     x, w, w_mn, w_mx, a_mn, a_mx = case
     flag = (lambda v: None if v is None else torch.tensor(v, device=x.device))
     wr = (w_mn, w_mx) if flags.get("w", True) else (None, None)
     ar = (a_mn, a_mx) if flags.get("a", True) else (None, None)
     w_obs, a_obs = flag(flags.get("w_obs")), flag(flags.get("a_obs"))
-    y = qm.qmatmul(x, w, *wr, *ar, 8, 8, w_obs, a_obs)
-    if not torch.equal(qm.qmatmul(x, w, *wr, *ar, 8, 8, w_obs, a_obs), y):
+    y = qm.qmatmul(x, w, *wr, *ar, 8, 8, w_obs, a_obs, bf16=bf16)
+    if not torch.equal(qm.qmatmul(x, w, *wr, *ar, 8, 8, w_obs, a_obs, bf16=bf16), y):
         raise AssertionError(f"K3 {name} {flags}: two runs differ")
-    pre = qm.qmatmul(x, w, *wr, None, None, 8, 8, w_obs, None)
-    bound = qd._weight_q(w, *wr, 8, w_obs).abs() @ x.abs()
-    err = ((pre - qm.qmatmul_ref(x, w, *wr, None, None, 8, 8, w_obs, None)).abs() / bound.clamp_min(1e-30))
+    pre = qm.qmatmul(x, w, *wr, None, None, 8, 8, w_obs, None, bf16=bf16)
+    xr, wq = qd.operands(x, qd._weight_q(w, *wr, 8, w_obs), bf16)
+    bound = wq.abs() @ xr.abs()
+    del xr
+    err = ((pre - qm.qmatmul_ref(x, w, *wr, None, None, 8, 8, w_obs, None, bf16=bf16)).abs() / bound.clamp_min(1e-30))
     err = err.max().item()
     del bound
     if not err <= DENSE_RTOL:
@@ -2342,7 +2393,7 @@ def check_qmatmul(name: str, case: tuple, flags: dict) -> float:
         return err
     if not torch.equal(y, fq.act_fake_quant_ref(pre, a_mn, a_mx, 8)):
         raise AssertionError(f"K3 {name} {flags}: the epilogue is not K1's plain grid of the kernel's own output")
-    ref = qm.qmatmul_ref(x, w, *wr, *ar, 8, 8, w_obs, a_obs)
+    ref = qm.qmatmul_ref(x, w, *wr, *ar, 8, 8, w_obs, a_obs, bf16=bf16)
     diff = (y - ref).abs()
     share = (diff > 0.5 * TIE_STEP).float().mean().item()
     if diff.max().item() > TIE_STEP * (1 + 1e-4) or share > DENSE_GRID_SHARE:
@@ -2473,6 +2524,351 @@ def k3_slice(dev, smi: str, k3_shapes: list[tuple], states: dict) -> dict:
         auto_requests(dev, name, states[name], cfg)  # 39.
         torch.cuda.empty_cache()
     return qmm
+
+
+def bf16_cfg(cfg: dict) -> dict:
+    """A model_cfg with bf16 compute: ``quantization.compute_dtype: bfloat16``, as a user's YAML sets it."""
+    return {**cfg, "quantization": {**cfg["quantization"], "compute_dtype": "bfloat16"}}
+
+
+def record_dense_inputs(model, name: str) -> tuple[list, list]:
+    """Hooks on ``model``'s QDense layers that record (name, M, K, N) of every input they take; returns the list
+    and the hooks' handles."""
+    seen = []
+    handles = [m.register_forward_pre_hook(
+        lambda mod, args: seen.append((name, args[0].numel() // args[0].shape[-1], *mod.weight.shape[::-1])))
+        for m in model.modules() if isinstance(m, QDense)]
+    return seen, handles
+
+
+def per_forward(records: list[tuple]) -> list[tuple]:
+    """The distinct records of one forward, each with its count."""
+    counts = {}
+    for r in records:
+        counts[r] = counts.get(r, 0) + 1
+    return [(*r, n) for r, n in counts.items()]
+
+
+def infer_cli_request(name: str, state: dict, model_cfg: dict, engine: str, seconds: int = 20) -> float:
+    """One ``seconds`` mixture through ``python -m fqss_tpu_torch.infer`` (its own process, on the card), the
+    config written as JSON with the weights and ranges of ``state``; returns the process's seconds."""
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "model_fqss8bit.pt")
+        torch.save(state, ckpt)
+        conf = {"model_cfg": {**model_cfg, "model_path": ckpt},
+                "testing_cfg": {"segment_samples": 16000, "overlap": 0.25}}
+        cfg_path, wav_path, out_dir = (os.path.join(tmp, f) for f in ("conf.json", "mixture.wav", "out"))
+        with open(cfg_path, "w") as fh:
+            json.dump(conf, fh)
+        mix, _ = synth_batch(np.random.default_rng(40), 1, 2, seconds * SR)
+        save_audio(wav_path, mix[0], SR)
+        env_vars = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "fqss_tpu_torch.infer", "-y", cfg_path, "-a", wav_path, "-o",
+                               out_dir, "--engine", engine], cwd=tmp, env=env_vars, capture_output=True, text=True,
+                              timeout=600)
+        sec = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{name}: python -m fqss_tpu_torch.infer failed ({proc.returncode}):\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-4000:]}")
+        for s in range(2):
+            wav, fs = read_audio(os.path.join(out_dir, f"source_{s + 1}.wav"))
+            if wav.shape[-1] != seconds * SR or fs != SR or not np.isfinite(wav).all():
+                raise AssertionError(f"{name} infer source {s + 1}: {wav.shape[-1]} samples at {fs} Hz")
+    return sec
+
+
+def in_turns(models: dict, x: torch.Tensor) -> dict:
+    """ms per forward of each model (CUDA events, 3 forwards after a warm-up), in turns: the models in order, then
+    in reverse order; the mean of the two readings each."""
+    times = {name: [] for name in models}
+    for name in [*models, *reversed(list(models))]:
+        with torch.inference_mode():
+            times[name].append(cuda_ms(lambda: models[name](x), 3))
+    return {name: sum(t) / len(t) for name, t in times.items()}
+
+
+def serve_bf16_model(dev, smi: str, phase: int, name: str, f32: torch.nn.Module, model: torch.nn.Module,
+                     cpu_model: torch.nn.Module, mix: np.ndarray, want: dict, records: list) -> dict:
+    """Phases 40-42 for one model: the bf16 forward at ``mix`` with its launches (``want``: the module tree's),
+    folded bitwise equal with no weight launch, card vs CPU at 1 x 1 s, the distance from the float32 forward, and
+    the forwards' times in turns with float32's; returns the launches."""
+    x = torch.from_numpy(mix).to(dev)
+    k3_seen, k3_hooks = record_k3_inputs(model, name)
+    k5_seen, k5_hooks = record_dense_inputs(model, name)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = model(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    for h in (*k3_hooks, *k5_hooks):
+        h.remove()
+    records.append((k5_seen, k3_seen))
+    if tuple(y.shape) != (x.shape[0], 2, x.shape[-1]) or not torch.isfinite(y).all():
+        raise AssertionError(f"{name} bf16 forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
+    if launches != want:
+        raise AssertionError(f"{name} bf16 launches {launches} != {want}")
+    with torch.inference_mode():
+        y32 = f32(x)
+    snr32 = snr_db(y32, y)
+    log(f"[{phase}] {name} bf16 forward {tuple(x.shape)} -> {tuple(y.shape)}, finite, first call {first_s:.2f} s; "
+        f"launches {({k: v for k, v in launches.items() if v})} (= the module tree: the bf16 routes "
+        f"dense_bf16 / qmatmul_bf16 / attention_bf16 for every QDense, K3 conv and attention core, no float32 route); "
+        f"from the float32 forward on the same weights: SNR min {snr32.min().item():.2f} dB, mean "
+        f"{snr32.mean().item():.2f} dB")
+    del y32
+
+    folded = fold_quantized_weights(model)
+    reset_all_launches()
+    with torch.inference_mode():
+        y_folded = folded(x)
+    torch.cuda.synchronize()
+    folded_launches = all_launches()
+    if folded_launches != {**want, "weight": 0}:
+        raise AssertionError(f"the folded bf16 {name} launched {folded_launches}, want {({**want, 'weight': 0})}")
+    if not torch.equal(y_folded, y):
+        raise AssertionError(f"folded bf16 {name} != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
+    del y_folded, y
+
+    x1 = torch.from_numpy(mix[:1, :SR])
+    with torch.inference_mode():
+        y_card = model(x1.to(dev)).cpu()
+        y_cpu = cpu_model(x1)
+    snr = snr_db(y_cpu, y_card)
+    if not bool((snr >= BF16_CARD_VS_CPU_DB).all()):
+        raise AssertionError(f"{name} bf16 card vs CPU SNR {snr.tolist()} dB < {BF16_CARD_VS_CPU_DB} dB")
+    log(f"[{phase}] {name} bf16: folded bitwise equal to fake_quant, weight launches 0, the same bf16 route launches; "
+        f"card vs CPU (the CPU's plain versions in bf16) at 1 x {SR}: SNR "
+        f"{[round(v, 2) for v in snr.flatten().tolist()]} dB (>= {BF16_CARD_VS_CPU_DB}), "
+        f"{(y_card != y_cpu).float().mean().item():.4f} of samples differ")
+
+    ms = in_turns({"float32 fake_quant": f32, "bf16 fake_quant": model, "bf16 folded": folded}, x)
+    audio_s = x.shape[0] * x.shape[-1] / SR
+    log(f"[{phase}] {name} throughput at {x.shape[0]} x {x.shape[-1] // SR} s, in turns: " + ", ".join(
+        f"{k} {audio_s / (v / 1000):.1f} sec-audio/s ({v:.2f} ms a forward)" for k, v in ms.items()) + f" on {smi}")
+    del folded
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_bf16(dev, smi: str, states: dict) -> tuple[list, list, list]:
+    """Phases 40-42: the flagship (ConvTasNet FQSS-8bit, bench.py's bf16 configuration) at 32 x 12 s with one
+    request through python -m fqss_tpu_torch.infer, then DPTNet and the Sepformer at 8 x 4 s, each in bf16 compute
+    with the weights and ranges of its float32 phases. Returns the K5 and K3 shapes the forwards gave their bf16
+    routes (name, shape..., launches a forward), the K8 shapes, and each forward's launches."""
+    records, attn_shapes, launches = [], [], []
+    # 40. the flagship
+    mix, _ = synth_batch(np.random.default_rng(0), BATCH, 2, SEG)
+    models = []
+    for spec, device in ((SPEC, dev), (BF16_SPEC, dev), (BF16_SPEC, torch.device("cpu"))):
+        m = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=spec)
+        m.load_state_dict(states["ConvTasNet"])
+        models.append(m.to(device).eval())
+    fused = fused_convs(models[1])
+    n_act = sum(isinstance(m, ActQuantizer) for m in models[1].modules())
+    want = no_launches(act=n_act - fused["act"], weight=1, qmatmul_bf16=fused["qmatmul"])
+    launches.append(serve_bf16_model(dev, smi, 40, "ConvTasNet", *models, mix, want, records))
+    del models
+    torch.cuda.empty_cache()
+    sec = infer_cli_request("ConvTasNet", states["ConvTasNet"], bf16_cfg(MODEL_CFG), "folded")
+    log(f"[40] python -m fqss_tpu_torch.infer --engine folded with compute_dtype bfloat16: 20 s mixture -> 2 sources "
+        f"of 20 s in {sec:.1f} s (the process, the model's build and the kernels' load included)")
+
+    # 41-42. DPTNet and the Sepformer
+    for phase, name, cfg, batch, seg, shapes_of in ((41, "DPTNet", DPTNET_CFG, DPT_BATCH, DPT_SEG,
+                                                     dptnet_attention_shapes),
+                                                    (42, "Sepformer", SEPFORMER_CFG, SEP_BATCH, SEP_SEG,
+                                                     sepformer_attention_shapes)):
+        mix, _ = synth_batch(np.random.default_rng(phase), batch, 2, seg)
+        models = []
+        for c, device in ((cfg, dev), (bf16_cfg(cfg), dev), (bf16_cfg(cfg), torch.device("cpu"))):
+            m = create_pretrained_model(c, observer=False, device=device)
+            m.load_state_dict(states[name])
+            models.append(m.eval())
+        model = models[1]
+        counts = count_quantizers(model.modules())
+        n_mha = sum(isinstance(m, QMultiheadAttention) for m in model.modules())
+        dense, fused = dense_quantizers(model), fused_convs(model)
+        # every act quantizer but the attention's two no-op sites and its head grid (in K8's epilogue), the QDense
+        # layers' (in K5) and the K3 convs' (in K3)
+        want = no_launches(act=counts["act"] - 3 * n_mha - dense["act"] - fused["act"], weight=1,
+                           bilstm=2 * model.layer if name == "DPTNet" else 0, attention_bf16=n_mha,
+                           dense_bf16=dense["dense"], qmatmul_bf16=fused["qmatmul"])
+        launches.append(serve_bf16_model(dev, smi, phase, name, *models, mix, want, records))
+        attn_shapes += shapes_of(model)
+        del models, model
+        torch.cuda.empty_cache()
+    k5 = per_forward([r for k5_seen, _ in records for r in k5_seen])
+    k3 = per_forward([r for _, k3_seen in records for r in k3_seen])
+    return k5, k3, attn_shapes, launches
+
+
+def bf16_library(batched: bool) -> str | None:
+    """None where torch offers a product of bf16 operands with a float32 output (``torch.mm``, or ``torch.bmm``
+    where ``batched``, with ``out_dtype=torch.float32``) on this card, else why it does not: the bf16 routes'
+    library call."""
+    a = torch.ones(1, 16, 16, device="cuda", dtype=torch.bfloat16)
+    try:
+        out = torch.bmm(a, a, out_dtype=torch.float32) if batched else torch.mm(a[0], a[0], out_dtype=torch.float32)
+    except (TypeError, RuntimeError) as e:
+        return f"torch {torch.__version__} has no {'bmm' if batched else 'mm'} of bf16 operands to float32: {e}"
+    return None if out.dtype == torch.float32 else f"out_dtype gave {out.dtype}"
+
+
+def check_bf16_dense(dev, k5_shapes: list[tuple], k3_shapes: list[tuple]) -> tuple[dict, dict]:
+    """Phase 43 (K5, K3): the bf16 routes against their plain versions at the shapes phases 41-42's bf16 forwards
+    gave them and at odd ones, every grid and observing-flag combination (phases 31 and 37's rules); times of the bf16
+    route, the float32 route at the same shapes, the bf16 plain version and the library call (bf16 operands, float32
+    output, then K1), summed over phases 40-42's forwards (DPTNet's and the Sepformer's), with the bf16 bound."""
+    gen = torch.Generator(device=dev).manual_seed(43)
+    out = {}
+    for kernel, shapes, odd in (("K5", k5_shapes, DENSE_ODD), ("K3", k3_shapes, QMM_ODD)):
+        why_not = bf16_library(batched=kernel == "K3")
+        res = {"max_abs_err": 0.0, "ms": 0.0, "f32_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "launches": 0}
+        total = [0, 0]
+        for name, *shape, count in [*shapes, *(("odd", *s, 0) for s in odd)]:
+            case = dense_case(dev, *shape, gen) if kernel == "K5" else qmatmul_case(dev, *shape, gen)
+            for flags in DENSE_FLAGS:
+                err = (check_dense_forward(f"bf16 {name} {flags}", dense_args(case, flags), bf16=True)
+                       if kernel == "K5" else check_qmatmul(f"bf16 {name} {shape}", case, flags, bf16=True))
+                res["max_abs_err"] = max(res["max_abs_err"], err)
+            line = (f"[43] {kernel} bf16 route {name} {shape}: every grid and observing-flag combination "
+                    f"({len(DENSE_FLAGS)}) within its bounds (DENSE_RTOL of sum |term| of the rounded operands), "
+                    f"planted ties and clip extremes exact")
+            if count == 0:
+                log(line)
+                continue
+            if kernel == "K5":
+                x, w, b, w_mn, w_mx, a_mn, a_mx = case
+                wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0)
+                run = lambda bf16: qd.qat_dense(x, w, b, w_mn, w_mx, a_mn, a_mx, bf16=bf16)
+                plain = lambda: qd.qat_dense_ref(x, w, b, w_mn, w_mx, a_mn, a_mx, bf16=True)
+                library = lambda: fq.act_fake_quant(torch.mm(x.bfloat16(), wq.bfloat16().t(),
+                                                             out_dtype=torch.float32).add_(b), a_mn, a_mx, 8)
+                nbytes, ops = dense_bounds(*shape)[0]
+            else:
+                x, w, w_mn, w_mx, a_mn, a_mx = case
+                wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0)
+                run = lambda bf16: qm.qmatmul(x, w, w_mn, w_mx, a_mn, a_mx, bf16=bf16)
+                plain = lambda: qm.qmatmul_ref(x, w, w_mn, w_mx, a_mn, a_mx, bf16=True)
+                library = lambda: fq.act_fake_quant(torch.bmm(wq.bfloat16().expand(x.shape[0], *wq.shape),
+                                                              x.bfloat16(), out_dtype=torch.float32), a_mn, a_mx, 8)
+                nbytes, ops = qmatmul_bound(*shape)
+            times = {"ms": cuda_ms(lambda: run(True), 10), "f32_ms": cuda_ms(lambda: run(False), 10),
+                     "plain_ms": cuda_ms(plain, 10), "library_ms": cuda_ms(library, 10) if why_not is None else None}
+            b16 = bound_of(nbytes, ops, BF16_OPS_S)
+            log(f"{line}; bf16 route {times['ms']:.4f} ms ({ops / times['ms'] / 1e9:.1f} TFLOP/s, "
+                f"{b16['bound_ms'] / times['ms']:.1%} of its {b16['bound_ms']:.4f} ms bf16 bound by "
+                f"{b16['bound_by']}), "
+                f"float32 route {times['f32_ms']:.4f} ms, bf16 plain {times['plain_ms']:.4f} ms, library "
+                + (f"{times['library_ms']:.4f} ms" if why_not is None else f"none ({why_not})")
+                + f"; {count} a forward")
+            for key, val in times.items():
+                res[key] = None if val is None else res[key] + count * val
+            res["launches"] += count
+            total = [total[0] + count * nbytes, total[1] + count * ops]
+            del case, x, w, wq
+            torch.cuda.empty_cache()
+        b16 = bound_of(*total, BF16_OPS_S)
+        res.update(bound_ms=b16["bound_ms"], bound_by=b16["bound_by"], library_note=why_not)
+        log(f"[43] phases 40-42's bf16 forwards' {res['launches']} {kernel} launches: bf16 route "
+            f"{res['ms']:.4f} ms against a {b16['bound_ms']:.4f} ms bf16 bound by {b16['bound_by']} "
+            f"({b16['bound_ms'] / res['ms']:.1%}), float32 route {res['f32_ms']:.4f} ms, bf16 plain "
+            f"{res['plain_ms']:.4f} ms, library " + (f"{res['library_ms']:.4f} ms" if why_not is None else "none"))
+        out[kernel] = res
+    return out["K5"], out["K3"]
+
+
+def check_bf16_attention(dev, shapes: list[tuple]) -> dict:
+    """Phase 43 (K8): the bf16 route through both entries against its plain version at the bf16 forwards' attention
+    shapes and ATTN_ODD, the first query of every head planted (ATTN_BF16_TIE_ULPS's rule; the quantized heads by
+    phase 24's); times of the packed entry on the bf16 route and on the float32 route, the bf16 plain version
+    (median of ATTN_PLAIN_REPS), per Sepformer and per DPTNet forward, with the bf16 bound."""
+    gen = torch.Generator(device=dev).manual_seed(143)
+    keys = ("ms", "f32_ms", "plain_ms", "moved", "ops")
+    sums = {model: dict.fromkeys(keys, 0.0) for model in ("Sepformer", "DPTNet")}
+    launches = {model: 0 for model in sums}
+    results = {"max_abs_err": 0.0}
+    tie_rows = [0, 0]
+    for name, bh, lq, lk, d, count, model, h in [*shapes, ("odd", *ATTN_ODD, 0, None, 1)]:
+        qs = torch.randn(bh, lq, d, device=dev, generator=gen) * 0.3
+        qs[:, 0] *= ATTN_PLANT
+        k, v = (torch.randn(bh, lk, d, device=dev, generator=gen) for _ in range(2))
+        views = packed_views(qs, k, v, h)
+        with torch.no_grad():
+            ref = k8.fused_attention_ref(qs, k, v, quantize=False, bf16=True)
+            mn, mx = ref.min().reshape(1), ref.max().reshape(1)
+            heads = k8.fused_attention(qs, k, v, quantize=False, bf16=True)
+            got = k8.fused_attention(qs, k, v, mn, mx, 8, bf16=True)
+            packed = heads_of(k8.fused_attention_packed(*views, quantize=False, bf16=True), h)
+            packed_got = heads_of(k8.fused_attention_packed(*views, mn, mx, 8, bf16=True), h)
+            plain = k8.fused_attention_ref(qs, k, v, mn, mx, 8, bf16=True)
+            # the plain version's softmax weights: those near a bf16 tie, and one bf16 step of p |v| over them
+            p = k8.softmax_ref(torch.matmul(bf16_round(qs), bf16_round(k).transpose(-1, -2)))
+            near = k8.bf16_tie_mask(p, ATTN_BF16_TIE_ULPS)
+            slack = 2.0**-7 * torch.matmul(bf16_round(p) * near, bf16_round(v).abs())
+            rows = near.any(-1)
+            del p, near
+        torch.cuda.synchronize()
+        scale = ref.abs().max().item()
+        diff_f = (heads - ref).abs()
+        err = diff_f.max().item()
+        clean = diff_f[~rows].max().item() if bool((~rows).any()) else 0.0
+        beyond = (diff_f > ATTN_REL_TOL * scale + slack).any(-1)
+        n_rows, n_tie = rows.numel(), int(rows.sum().item())
+        tie_rows = [tie_rows[0] + n_tie, tie_rows[1] + n_rows]
+        step = (mx - mn).item() / 255
+        diff = (got - plain).abs()
+        share = (diff > 0.5 * step).float().mean().item()
+        if not torch.equal(packed, heads) or not torch.equal(packed_got, got):
+            raise AssertionError(f"K8 bf16 {name}: the packed entry's heads differ from the [BH, L, d] entry's")
+        if bool(beyond.any()):
+            raise AssertionError(f"K8 bf16 {name} [{bh},{lq},{lk},{d}]: {int(beyond.sum())} rows beyond ATTN_REL_TOL x "
+                                 f"{scale:.3g} (plus one bf16 step of p |v| over the weights within "
+                                 f"{ATTN_BF16_TIE_ULPS} ulps of a bf16 tie), {int((beyond & ~rows).sum())} of them "
+                                 f"without such a weight; max |kernel - plain| {err:.3g}")
+        if not torch.equal(got, fq.act_fake_quant_ref(heads, mn, mx, 8)):
+            raise AssertionError(f"K8 bf16 {name}: the epilogue is not the plain grid of the kernel's own float heads")
+        if diff.max().item() > step * (1 + 1e-4) or share > ATTN_GRID_SHARE:
+            raise AssertionError(f"K8 bf16 {name}: quantized heads {diff.max().item() / step:.3f} steps from the plain "
+                                 f"version's, {share:.2e} of them a step apart (at most {ATTN_GRID_SHARE})")
+        results["max_abs_err"] = max(results["max_abs_err"], err)
+        line = (f"[43] K8 bf16 route {name} BH {bh} x Lq {lq} x Lk {lk} x d {d} ({k8.plan(bh, lq, lk, d, True)}): "
+                f"float heads max |kernel - plain| {err:.3g} ({err / scale:.2e} of max |heads| {scale:.3g}); rows "
+                f"with no softmax weight within {ATTN_BF16_TIE_ULPS} ulps of a bf16 tie {clean / scale:.2e} (<= "
+                f"{ATTN_REL_TOL}); {n_tie} rows of {n_rows} ({n_tie / n_rows:.2e}) with such a weight, each within "
+                f"one bf16 step of p |v| over them; on the grid max {diff.max().item() / step:.0f} step, {share:.2e} "
+                f"of values a step apart (<= {ATTN_GRID_SHARE}), each its own float head on the plain grid; the "
+                f"packed entry bitwise equal")
+        if name == "odd":
+            log(line)
+            continue
+        ms = cuda_ms(lambda: k8.fused_attention_packed(*views, mn, mx, 8, bf16=True), 10)
+        f32_ms = cuda_ms(lambda: k8.fused_attention_packed(*views, mn, mx, 8), 10)
+        plain_ms, lo, hi = median_ms(lambda: k8.fused_attention_ref(qs, k, v, mn, mx, 8, bf16=True), ATTN_PLAIN_REPS)
+        moved, ops = attention_bound(bh, lq, lk, d)
+        b = bound_of(moved, ops, BF16_OPS_S)
+        log(f"{line}; bf16 route {ms:.4f} ms ({b['bound_ms'] / ms:.1%} of its {b['bound_ms']:.4f} ms bf16 bound by "
+            f"{b['bound_by']}), float32 route {f32_ms:.4f} ms, bf16 plain {plain_ms:.4f} ms (median of "
+            f"{ATTN_PLAIN_REPS}, {lo:.4f}-{hi:.4f}); {count} launches a {model} forward")
+        for key, val in zip(keys, (ms, f32_ms, plain_ms, moved, ops)):
+            sums[model][key] += count * val
+        launches[model] += count
+        del qs, k, v, views, ref, heads, got, packed, packed_got, plain, slack, diff, diff_f
+        torch.cuda.empty_cache()
+    for model, t in sums.items():
+        b = bound_of(t["moved"], t["ops"], BF16_OPS_S)
+        log(f"[43] one {model} bf16 forward's {launches[model]} K8 launches: bf16 route {t['ms']:.3f} ms against a "
+            f"{b['bound_ms']:.3f} ms bf16 bound by {b['bound_by']} ({b['bound_ms'] / t['ms']:.1%}), float32 route "
+            f"{t['f32_ms']:.3f} ms, bf16 plain {t['plain_ms']:.2f} ms")
+        prefix = "" if model == "Sepformer" else "dptnet_"
+        results.update({f"{prefix}ms": t["ms"], f"{prefix}f32_ms": t["f32_ms"], f"{prefix}plain_ms": t["plain_ms"],
+                        f"{prefix}bound_ms": b["bound_ms"], f"{prefix}launches": launches[model]})
+    results["tie_rows"], results["rows"] = tie_rows
+    log(f"[43] K8 bf16: {tie_rows[0]} rows of {tie_rows[1]} ({tie_rows[0] / tie_rows[1]:.2e}) held by the tie rule")
+    return results
 
 
 def main() -> None:
@@ -2627,6 +3023,22 @@ def main() -> None:
 
     # 37-39. K3 at the shapes of phases 18 and 25, streaming and --engine auto (launch counts set to 0 inside)
     qmm = k3_slice(dev, smi, [*dpt_k3_shapes, *sep_k3_shapes], states)
+    torch.cuda.empty_cache()
+
+    # 40-42. bf16 compute on the three models' serving path (launch counts set to 0 inside before each forward)
+    k5_shapes, k3_shapes, attn_shapes, bf16_launches = serve_bf16(dev, smi, states)
+    bf16_count = {k: sum(run[k] for run in bf16_launches) for k in ("dense_bf16", "qmatmul_bf16", "attention_bf16")}
+    torch.cuda.empty_cache()
+    # 43. the bf16 routes of K5, K3 and K8 against their plain versions at those forwards' shapes
+    dense16, qmm16 = check_bf16_dense(dev, k5_shapes, k3_shapes)
+    attn16 = check_bf16_attention(dev, attn_shapes)
+
+    def bf16_keys(res: dict, launches: int, route: str) -> dict:
+        """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
+        phase 43 sums), its launches in phases 40-42's forwards."""
+        return dict(bf16_route_detail=route, bf16_launches=launches, bf16_ms=res["ms"], bf16_bound_ms=res["bound_ms"],
+                    bf16_plain_ms=res["plain_ms"], bf16_f32_route_ms=res["f32_ms"],
+                    bf16_library_ms=res.get("library_ms"), bf16_max_abs_err=res["max_abs_err"])
 
     source = "fqss_tpu_torch/csrc/fake_quant.cu"
     elementwise = "CUDA cores, elementwise"
@@ -2675,15 +3087,27 @@ def main() -> None:
         # the head grid; route_bound_ms: Q K^T at the float32 peak beside P V as 3 TF32 products a float32 one at
         # the TF32 peak (attention_route_bound). launches: phase 25's
         # forward. dptnet_*: one DPTNet forward's 12 launches (6 row, 6 column; phase 18 counts them).
+        # bf16_*: the bf16 route (phase 43) per Sepformer bf16 forward (32 launches; bf16_dptnet_*: per DPTNet bf16
+        # forward), bf16_launches: phases 41-42's forwards; no library call computes it (SDPA in bf16 neither
+        # rounds the normalised softmax nor returns float32 heads): bf16_library_ms null.
         dict(name="fused_attention", route="cuda", route_detail=ATTN_ROUTE, source="fqss_tpu_torch/csrc/attention.cu",
-             replaces="fqss_tpu/ops/pallas_attention.py:83", launches=sep_launches["attention"], **attn),
+             replaces="fqss_tpu/ops/pallas_attention.py:83", launches=sep_launches["attention"], **attn,
+             **bf16_keys(attn16, bf16_count["attention_bf16"], BF16_ATTN_ROUTE),
+             **{f"bf16_dptnet_{k}": attn16[f"dptnet_{k}"] for k in ("ms", "f32_ms", "plain_ms", "bound_ms",
+                                                                    "launches")}),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer student forward's 78 QDense launches at
         # the training batch (phase 31); library_ms: torch.addmm, then K1 for the act grid. launches: phase 33's
         # 16 KD steps, student and teacher. bound_ms: the float32 CUDA-core bound (comparable with earlier runs);
         # route_bound_ms: the bound of the route the kernel takes (3 TF32 products a float32 one), K5-bwd and K3
         # likewise.
+        # bf16_*: the bf16 route (phase 43) per DPTNet + Sepformer bf16 serving forward at 8 x 4 s (phases 41-42;
+        # ConvTasNet has no QDense); bf16_library_ms:
+        # torch.mm of the operands cast to bf16 with a float32 output, the bias, then K1 (null, with
+        # bf16_library_note, where torch has no such call).
         dict(name="qat_dense", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
-             replaces="fqss_tpu/ops/pallas_qat.py:347", launches=train_model_launches["dense"], **dense_fwd),
+             replaces="fqss_tpu/ops/pallas_qat.py:347", launches=train_model_launches["dense"], **dense_fwd,
+             **bf16_keys(dense16, bf16_count["dense_bf16"], BF16_DENSE_ROUTE),
+             bf16_library_note=dense16["library_note"]),
         # The backward of those 78 launches: the mask, dx and dwq kernels of each (and their fixed-order sums);
         # library_ms: the two products by torch.mm and K1-bwd on the pre-activation. launches: phase 33's mask
         # launches (each with one dx and one dwq launch).
@@ -2692,9 +3116,12 @@ def main() -> None:
         # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer serving forward's launches at 8 x 4 s
         # (DPTNet's BN, the Sepformer masker's conv1d; phase 37); library_ms: torch.matmul, then K1 for the act grid.
         # launches: phase 18's and phase 25's forwards.
+        # bf16_*: as qat_dense's, per DPTNet + Sepformer bf16 forward; bf16_library_ms: torch.bmm of bf16 operands with
+        # a float32 output, then K1.
         dict(name="qmatmul", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
              replaces="fqss_tpu/ops/pallas_quant.py:90", launches=dpt_launches["qmatmul"] + sep_launches["qmatmul"],
-             **qmm),
+             **qmm, **bf16_keys(qmm16, bf16_count["qmatmul_bf16"], BF16_DENSE_ROUTE),
+             bf16_library_note=qmm16["library_note"]),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -66,6 +66,27 @@
 //   short a block takes several heads, one or more warps a head (the
 //   Sepformer's inter-chunk L 34: 3 warps, one head a block).
 //
+// The bf16 route (attention_kernel<D, MT, true>; QuantSpec.compute_dtype
+// "bfloat16") computes JAX's default composition under bf16
+// (fqss_tpu/nn/attention.py:117-130): the logits from q and k rounded to
+// bfloat16, softmax(s) = exp(s - max) / sum normalised in float32 and then
+// rounded to bfloat16, times v rounded to bfloat16, the sums float32. The
+// online softmax rescales an unnormalised P, whose rounding would differ, so
+// the route takes three passes over the key tiles through the same ring,
+// computing the logits in each, bit for bit: the rows' max; the rows' sums of
+// exp(s - max); P = exp(s - max) / sum, rounded, into P V. A weight that lies
+// within an ulp of a bf16 tie rounds to either neighbour with an ulp of its
+// sum, and a float32 sum over 250 keys taken in another order than the plain
+// version's is several ulps off (a two-pass design, with the sum taken online,
+// moved such weights on 55-102 rows of a serving shape): so each sum is taken
+// in float64 and rounded once, as the plain version's is, and the two agree
+// bit for bit but where the float64 sums round differently. Each tile is
+// rounded in shared memory once it has landed (one more __syncthreads a tile),
+// Q's rows once. With exact products the logits' FMA chain is the float32 sum
+// of exact terms; P V takes one TF32 mma a product (bf16 values are exact in
+// TF32, their products in float32), each 8-key group summed from zero. The
+// head grid is unchanged. The route reads K three times.
+//
 // Numerics: the logits are cuBLAS's; the softmax is taken online and P V's
 // three products per term drop about 2^-21 of |term|, so the float heads
 // agree with the plain version to a tolerance, not bit for bit. Both
@@ -85,6 +106,8 @@
 namespace {
 
 using fqss::mma_3xtf32;
+using fqss::mma_tf32;
+using fqss::round_bf16;
 using fqss::split_tf32;
 
 constexpr int kMaxDim = 128;
@@ -143,7 +166,13 @@ __device__ __forceinline__ float fma4(const float4 a, const float4 b, const floa
   return __fmaf_rn(a.w, b.w, __fmaf_rn(a.z, b.z, __fmaf_rn(a.y, b.y, __fmaf_rn(a.x, b.x, acc))));
 }
 
-template <int D, int MT>
+// The passes over the key tiles: the bf16 route's first computes the rows' max, its second their sums, its third
+// P V.
+template <bool BF16>
+constexpr int kPasses = BF16 ? 3 : 1;
+
+// BF16: the bf16 route (the header's note).
+template <int D, int MT, bool BF16>
 __global__ void __launch_bounds__(Cfg<D, MT>::kWarps * 32, Cfg<D, MT>::kMinBlocks) attention_kernel(const Args a) {
   using C = Cfg<D, MT>;
   extern __shared__ __align__(16) float smem[];
@@ -163,8 +192,10 @@ __global__ void __launch_bounds__(Cfg<D, MT>::kWarps * 32, Cfg<D, MT>::kMinBlock
   }
 
   // Shared memory: the ring's stages of [hpb][bk][kKVStride] K tiles, then [hpb][bk][kKVStride] V tiles; after
-  // them each warp's rows of Q, [kRows][kQStride].
-  const int stages = a.ntiles < kRing ? a.ntiles : kRing;
+  // them each warp's rows of Q, [kRows][kQStride]. The ring runs over `steps` tiles: the key tiles once for each
+  // pass.
+  const int steps = kPasses<BF16> * a.ntiles;
+  const int stages = steps < kRing ? steps : kRing;
   const int stage_floats = 2 * a.hpb * a.bk * C::kKVStride;
   const int v_offset = a.hpb * a.bk * C::kKVStride;
   float* qs = smem + stages * stage_floats + warp * C::kRows * C::kQStride;
@@ -189,9 +220,11 @@ __global__ void __launch_bounds__(Cfg<D, MT>::kWarps * 32, Cfg<D, MT>::kMinBlock
   __syncthreads();  // head_k, head_v
 
   const int per_head = a.bk * C::kChunks;
-  auto load_tile = [&](int tile, int stage) {
+  // Step `step` of the ring: key tile step % ntiles; V only in the last pass.
+  auto load_tile = [&](int step, int stage) {
+    const bool with_v = step >= (kPasses<BF16> - 1) * a.ntiles;
     float* ks = smem + stage * stage_floats;
-    const int64_t j0 = static_cast<int64_t>(tile) * a.bk;
+    const int64_t j0 = static_cast<int64_t>(BF16 ? step % a.ntiles : step) * a.bk;
     for (int hh = 0; hh < nheads; ++hh) {
       const float* kh = head_k[hh];
       const float* vh = head_v[hh];
@@ -204,36 +237,58 @@ __global__ void __launch_bounds__(Cfg<D, MT>::kWarps * 32, Cfg<D, MT>::kMinBlock
         const int left = a.d - c;
         const int n = row_ok && left > 0 ? (left < 4 ? left : 4) : 0;
         copy_chunk(kd + r * C::kKVStride + c, kh + (row_ok ? j : 0) * a.k_sl + c, n, a.vec, a.k);
-        copy_chunk(vd + r * C::kKVStride + c, vh + (row_ok ? j : 0) * a.v_sl + c, n, a.vec, a.v);
+        if (with_v) copy_chunk(vd + r * C::kKVStride + c, vh + (row_ok ? j : 0) * a.v_sl + c, n, a.vec, a.v);
       }
     }
   };
 
   // Of m16 tile i (rows 16 i + [0, 16)): the output fragment, and of its rows 16 i + g and 16 i + g + 8 the running
-  // max and this thread's share of the running sums.
+  // max and this thread's share of the running sums (the bf16 route's in float64, ld, to round them once).
   float o[MT][C::kSteps][4], m[MT][2], l[MT][2];
+  [[maybe_unused]] double ld[MT][2];
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
 #pragma unroll
     for (int dn = 0; dn < C::kSteps; ++dn) o[i][dn][0] = o[i][dn][1] = o[i][dn][2] = o[i][dn][3] = 0.0f;
     m[i][0] = m[i][1] = -INFINITY;
     l[i][0] = l[i][1] = 0.0f;
+    ld[i][0] = ld[i][1] = 0.0;
   }
   const int chunks = (a.d + 3) >> 2;     // the chunks of Q K^T that hold a dim (the rest are zeros)
 
   int load_stage = 0, stage = 0;
 #pragma unroll
   for (int i = 0; i < kRing - 1; ++i) {  // Q's rows went into the first group
-    if (i < a.ntiles) load_tile(i, load_stage);
+    if (i < steps) load_tile(i, load_stage);
     fqss::cp_async_commit();
     load_stage = load_stage + 1 == kRing ? 0 : load_stage + 1;
   }
-  for (int tile = 0; tile < a.ntiles; ++tile) {
+  for (int step = 0; step < steps; ++step) {
     fqss::cp_async_wait<kRing - 2>();
     __syncthreads();  // this tile has landed, and every warp is done with the stage the next load overwrites
-    if (tile + kRing - 1 < a.ntiles) load_tile(tile + kRing - 1, load_stage);
+    if (step + kRing - 1 < steps) load_tile(step + kRing - 1, load_stage);
     fqss::cp_async_commit();
     load_stage = load_stage + 1 == kRing ? 0 : load_stage + 1;
+    const int pass = BF16 ? step / a.ntiles : 0;
+    const int tile = step - pass * a.ntiles;
+
+    if constexpr (BF16) {  // round what this step reads to bfloat16 in place: K (and V in the last pass), Q once
+      if (step == 0 && active) {  // this warp's own rows, which the wait above has brought in
+        for (int e = lane; e < C::kRows * D; e += 32) {
+          float* at = qs + e / D * C::kQStride + e % D;
+          *at = round_bf16(*at);
+        }
+        __syncwarp();
+      }
+      float* ks = smem + stage * stage_floats;
+      const int n = nheads * a.bk * D;
+      for (int e = tid; e < n; e += nthreads) {
+        const int at = e / D * C::kKVStride + e % D;  // row e / D of the stage's nheads * bk rows
+        ks[at] = round_bf16(ks[at]);
+        if (pass == kPasses<BF16> - 1) ks[v_offset + at] = round_bf16(ks[v_offset + at]);
+      }
+      __syncthreads();
+    }
 
     if (active) {
       const float* ks = smem + stage * stage_floats + hl * a.bk * C::kKVStride;
@@ -287,77 +342,145 @@ __global__ void __launch_bounds__(Cfg<D, MT>::kWarps * 32, Cfg<D, MT>::kMinBlock
             }
       }
 
-      // The online softmax: the tile's row max over the quad, the rescale alpha of what came before; P = exp(S -
-      // max) in place.
-      float alpha[MT][2];
+      if constexpr (BF16) {
+        if (pass == 0) {  // the rows' max over the quad
 #pragma unroll
-      for (int i = 0; i < MT; ++i) {
-        float t0 = -INFINITY, t1 = -INFINITY;
+          for (int i = 0; i < MT; ++i) {
+            float t0 = -INFINITY, t1 = -INFINITY;
 #pragma unroll
-        for (int n = 0; n < C::kMaxN; ++n) {
-          if (n < n8) {
-            t0 = fmaxf(t0, fmaxf(s[i][n][0], s[i][n][2]));
-            t1 = fmaxf(t1, fmaxf(s[i][n][1], s[i][n][3]));
+            for (int n = 0; n < C::kMaxN; ++n) {
+              if (n < n8) {
+                t0 = fmaxf(t0, fmaxf(s[i][n][0], s[i][n][2]));
+                t1 = fmaxf(t1, fmaxf(s[i][n][1], s[i][n][3]));
+              }
+            }
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {
+              t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
+              t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
+            }
+            m[i][0] = fmaxf(m[i][0], t0);
+            m[i][1] = fmaxf(m[i][1], t1);
           }
-        }
-#pragma unroll
-        for (int off = 1; off < 4; off <<= 1) {
-          t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
-          t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
-        }
-        const float new0 = fmaxf(m[i][0], t0), new1 = fmaxf(m[i][1], t1);  // finite: a tile holds a key
-        alpha[i][0] = expf(__fsub_rn(m[i][0], new0));  // 0 on the first tile
-        alpha[i][1] = expf(__fsub_rn(m[i][1], new1));
-        m[i][0] = new0;
-        m[i][1] = new1;
-        float p0 = 0.0f, p1 = 0.0f;
-#pragma unroll
-        for (int n = 0; n < C::kMaxN; ++n) {
-          if (n < n8) {
-            s[i][n][0] = expf(__fsub_rn(s[i][n][0], new0));  // 0 for a key past Lk
-            p0 = __fadd_rn(p0, s[i][n][0]);
-            s[i][n][2] = expf(__fsub_rn(s[i][n][2], new0));
-            p0 = __fadd_rn(p0, s[i][n][2]);
-            s[i][n][1] = expf(__fsub_rn(s[i][n][1], new1));
-            p1 = __fadd_rn(p1, s[i][n][1]);
-            s[i][n][3] = expf(__fsub_rn(s[i][n][3], new1));
-            p1 = __fadd_rn(p1, s[i][n][3]);
-          }
-        }
-        l[i][0] = __fadd_rn(__fmul_rn(l[i][0], alpha[i][0]), p0);
-        l[i][1] = __fadd_rn(__fmul_rn(l[i][1], alpha[i][1]), p1);
-#pragma unroll
-        for (int dn = 0; dn < C::kSteps; ++dn) {
-          o[i][dn][0] = __fmul_rn(o[i][dn][0], alpha[i][0]);
-          o[i][dn][1] = __fmul_rn(o[i][dn][1], alpha[i][0]);
-          o[i][dn][2] = __fmul_rn(o[i][dn][2], alpha[i][1]);
-          o[i][dn][3] = __fmul_rn(o[i][dn][3], alpha[i][1]);
-        }
-      }
-
-      // O = O alpha + P V, P V summed from zero over each 8-key group and added to O with __fadd_rn; V's B
-      // fragment of group n (rows 8n + t and 8n + t + 4, column g of each n8 tile of the output) serves every m16
-      // tile.
-#pragma unroll
-      for (int n = 0; n < C::kMaxN; ++n) {
-        if (n < n8) {
-          uint32_t p_hi[MT][4], p_lo[MT][4];
+        } else if (pass == 1) {  // this thread's share of the rows' sums of exp(s - max), in float64
 #pragma unroll
           for (int i = 0; i < MT; ++i)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) split_tf32(s[i][n][c], p_hi[i][c], p_lo[i][c]);
-          const float* vr = vs + (n * 8 + t) * C::kKVStride + g;
+            for (int n = 0; n < C::kMaxN; ++n)
+#pragma unroll
+              for (int c = 0; c < 4; ++c)
+                if (n < n8) ld[i][c & 1] = __dadd_rn(ld[i][c & 1], expf(__fsub_rn(s[i][n][c], m[i][c & 1])));
+        } else {
+          if (tile == 0) {  // the rows' sums over the quad, rounded once to float32
+#pragma unroll
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int r = 0; r < 2; ++r) {
+#pragma unroll
+                for (int off = 1; off < 4; off <<= 1)
+                  ld[i][r] = __dadd_rn(ld[i][r], __shfl_xor_sync(0xffffffffu, ld[i][r], off));
+                l[i][r] = __double2float_rn(ld[i][r]);
+              }
+          }
+          // O += round(exp(S - max) / sum) V, summed from zero over each 8-key group; V was rounded in place.
+#pragma unroll
+          for (int n = 0; n < C::kMaxN; ++n) {
+            if (n < n8) {
+              uint32_t p[MT][4];
+#pragma unroll
+              for (int i = 0; i < MT; ++i)
+#pragma unroll
+                for (int c = 0; c < 4; ++c)
+                  p[i][c] = __float_as_uint(
+                      round_bf16(__fdiv_rn(expf(__fsub_rn(s[i][n][c], m[i][c & 1])), l[i][c & 1])));
+              const float* vr = vs + (n * 8 + t) * C::kKVStride + g;
+#pragma unroll
+              for (int dn = 0; dn < C::kSteps; ++dn) {
+                const uint32_t b[2] = {__float_as_uint(vr[8 * dn]), __float_as_uint(vr[4 * C::kKVStride + 8 * dn])};
+#pragma unroll
+                for (int i = 0; i < MT; ++i) {
+                  float pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                  mma_tf32(pv, p[i], b);
+#pragma unroll
+                  for (int c = 0; c < 4; ++c) o[i][dn][c] = __fadd_rn(o[i][dn][c], pv[c]);
+                }
+              }
+            }
+          }
+        }
+      } else {
+        // The online softmax: the tile's row max over the quad, the rescale alpha of what came before; P = exp(S -
+        // max) in place.
+        float alpha[MT][2];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          float t0 = -INFINITY, t1 = -INFINITY;
+#pragma unroll
+          for (int n = 0; n < C::kMaxN; ++n) {
+            if (n < n8) {
+              t0 = fmaxf(t0, fmaxf(s[i][n][0], s[i][n][2]));
+              t1 = fmaxf(t1, fmaxf(s[i][n][1], s[i][n][3]));
+            }
+          }
+#pragma unroll
+          for (int off = 1; off < 4; off <<= 1) {
+            t0 = fmaxf(t0, __shfl_xor_sync(0xffffffffu, t0, off));
+            t1 = fmaxf(t1, __shfl_xor_sync(0xffffffffu, t1, off));
+          }
+          const float new0 = fmaxf(m[i][0], t0), new1 = fmaxf(m[i][1], t1);  // finite: a tile holds a key
+          alpha[i][0] = expf(__fsub_rn(m[i][0], new0));  // 0 on the first tile
+          alpha[i][1] = expf(__fsub_rn(m[i][1], new1));
+          m[i][0] = new0;
+          m[i][1] = new1;
+          float p0 = 0.0f, p1 = 0.0f;
+#pragma unroll
+          for (int n = 0; n < C::kMaxN; ++n) {
+            if (n < n8) {
+              s[i][n][0] = expf(__fsub_rn(s[i][n][0], new0));  // 0 for a key past Lk
+              p0 = __fadd_rn(p0, s[i][n][0]);
+              s[i][n][2] = expf(__fsub_rn(s[i][n][2], new0));
+              p0 = __fadd_rn(p0, s[i][n][2]);
+              s[i][n][1] = expf(__fsub_rn(s[i][n][1], new1));
+              p1 = __fadd_rn(p1, s[i][n][1]);
+              s[i][n][3] = expf(__fsub_rn(s[i][n][3], new1));
+              p1 = __fadd_rn(p1, s[i][n][3]);
+            }
+          }
+          l[i][0] = __fadd_rn(__fmul_rn(l[i][0], alpha[i][0]), p0);
+          l[i][1] = __fadd_rn(__fmul_rn(l[i][1], alpha[i][1]), p1);
 #pragma unroll
           for (int dn = 0; dn < C::kSteps; ++dn) {
-            uint32_t b_hi[2], b_lo[2];
-            split_tf32(vr[8 * dn], b_hi[0], b_lo[0]);
-            split_tf32(vr[4 * C::kKVStride + 8 * dn], b_hi[1], b_lo[1]);
+            o[i][dn][0] = __fmul_rn(o[i][dn][0], alpha[i][0]);
+            o[i][dn][1] = __fmul_rn(o[i][dn][1], alpha[i][0]);
+            o[i][dn][2] = __fmul_rn(o[i][dn][2], alpha[i][1]);
+            o[i][dn][3] = __fmul_rn(o[i][dn][3], alpha[i][1]);
+          }
+        }
+
+        // O = O alpha + P V, P V summed from zero over each 8-key group and added to O with __fadd_rn; V's B
+        // fragment of group n (rows 8n + t and 8n + t + 4, column g of each n8 tile of the output) serves every m16
+        // tile.
 #pragma unroll
-            for (int i = 0; i < MT; ++i) {
-              float pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-              mma_3xtf32(pv, p_hi[i], p_lo[i], b_hi, b_lo);
+        for (int n = 0; n < C::kMaxN; ++n) {
+          if (n < n8) {
+            uint32_t p_hi[MT][4], p_lo[MT][4];
 #pragma unroll
-              for (int c = 0; c < 4; ++c) o[i][dn][c] = __fadd_rn(o[i][dn][c], pv[c]);
+            for (int i = 0; i < MT; ++i)
+#pragma unroll
+              for (int c = 0; c < 4; ++c) split_tf32(s[i][n][c], p_hi[i][c], p_lo[i][c]);
+            const float* vr = vs + (n * 8 + t) * C::kKVStride + g;
+#pragma unroll
+            for (int dn = 0; dn < C::kSteps; ++dn) {
+              uint32_t b_hi[2], b_lo[2];
+              split_tf32(vr[8 * dn], b_hi[0], b_lo[0]);
+              split_tf32(vr[4 * C::kKVStride + 8 * dn], b_hi[1], b_lo[1]);
+#pragma unroll
+              for (int i = 0; i < MT; ++i) {
+                float pv[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+                mma_3xtf32(pv, p_hi[i], p_lo[i], b_hi, b_lo);
+#pragma unroll
+                for (int c = 0; c < 4; ++c) o[i][dn][c] = __fadd_rn(o[i][dn][c], pv[c]);
+              }
             }
           }
         }
@@ -368,7 +491,7 @@ __global__ void __launch_bounds__(Cfg<D, MT>::kWarps * 32, Cfg<D, MT>::kMinBlock
   fqss::cp_async_wait<0>();
   if (!active) return;
 
-  // The rows' sums over the quad, then O / l and the head grid.
+  // The rows' sums over the quad, then O / l (the bf16 route's O is normalised already) and the head grid.
   float mn = 0.0f, delta = 1.0f;
   const float qmax = static_cast<float>((1 << a.n_bits) - 1);
   if (a.quantize) {
@@ -377,10 +500,12 @@ __global__ void __launch_bounds__(Cfg<D, MT>::kWarps * 32, Cfg<D, MT>::kMinBlock
   }
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
+    if constexpr (!BF16) {
 #pragma unroll
-    for (int off = 1; off < 4; off <<= 1) {
-      l[i][0] = __fadd_rn(l[i][0], __shfl_xor_sync(0xffffffffu, l[i][0], off));
-      l[i][1] = __fadd_rn(l[i][1], __shfl_xor_sync(0xffffffffu, l[i][1], off));
+      for (int off = 1; off < 4; off <<= 1) {
+        l[i][0] = __fadd_rn(l[i][0], __shfl_xor_sync(0xffffffffu, l[i][0], off));
+        l[i][1] = __fadd_rn(l[i][1], __shfl_xor_sync(0xffffffffu, l[i][1], off));
+      }
     }
 #pragma unroll
     for (int dn = 0; dn < C::kSteps; ++dn)
@@ -389,14 +514,14 @@ __global__ void __launch_bounds__(Cfg<D, MT>::kWarps * 32, Cfg<D, MT>::kMinBlock
         const int64_t row = r0 + 16 * i + g + 8 * (c >> 1);
         const int col = 8 * dn + 2 * t + (c & 1);
         if (row < a.Lq && col < a.d) {
-          const float y = __fdiv_rn(o[i][dn][c], l[i][c >> 1]);
+          const float y = BF16 ? o[i][dn][c] : __fdiv_rn(o[i][dn][c], l[i][c >> 1]);
           oh[row * a.o_sl + col] = a.quantize ? fqss::act_grid_value(y, mn, delta, qmax) : y;
         }
       }
   }
 }
 
-template <int D, int MT>
+template <int D, int MT, bool BF16>
 int launch(const Args& a, cudaStream_t st) {
   using C = Cfg<D, MT>;
   const int threads = 32 * a.wph * a.hpb;
@@ -404,7 +529,8 @@ int launch(const Args& a, cudaStream_t st) {
       static_cast<int64_t>(a.ntiles) * a.bk < a.Lk || a.wph < 1 || a.hpb < 1 || threads > 32 * C::kWarps ||
       a.qblocks < 1 || a.qblocks * a.wph * C::kRows < a.Lq)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int stages = a.ntiles < kRing ? a.ntiles : kRing;
+  const int steps = kPasses<BF16> * a.ntiles;
+  const int stages = steps < kRing ? steps : kRing;
   const int smem = (stages * 2 * a.hpb * a.bk * C::kKVStride + a.wph * a.hpb * C::kRows * C::kQStride) *
                    static_cast<int>(sizeof(float));
   // Dynamic and static shared memory above 48 KB need the kernel's limit raised: it is raised on the first launch
@@ -419,26 +545,26 @@ int launch(const Args& a, cudaStream_t st) {
     int optin = 0;
     cudaFuncAttributes fa;
     err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
-    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, attention_kernel<D, MT>);
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, attention_kernel<D, MT, BF16>);
     if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(attention_kernel<D, MT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      err = cudaFuncSetAttribute(attention_kernel<D, MT, BF16>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                  optin - static_cast<int>(fa.sharedSizeBytes));
     if (err != cudaSuccess) return static_cast<int>(err);
     raised.fetch_or(bit);
   }
   const int64_t blocks = (a.BH + a.hpb - 1) / a.hpb * a.qblocks;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidConfiguration);
-  attention_kernel<D, MT><<<static_cast<unsigned int>(blocks), threads, smem, st>>>(a);
+  attention_kernel<D, MT, BF16><<<static_cast<unsigned int>(blocks), threads, smem, st>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MT>
+template <int MT, bool BF16>
 int launch_width(const Args& a, cudaStream_t st) {
-  if (a.d <= 16) return launch<16, MT>(a, st);
-  if (a.d <= 32) return launch<32, MT>(a, st);
-  if (a.d <= 64) return launch<64, MT>(a, st);
+  if (a.d <= 16) return launch<16, MT, BF16>(a, st);
+  if (a.d <= 32) return launch<32, MT, BF16>(a, st);
+  if (a.d <= 64) return launch<64, MT, BF16>(a, st);
   if constexpr (MT == 1) {  // two m16 tiles a warp at D 128 would need more than 255 registers
-    if (a.d <= kMaxDim) return launch<128, MT>(a, st);
+    if (a.d <= kMaxDim) return launch<128, MT, BF16>(a, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -453,8 +579,11 @@ extern "C" int fqss_attention_max_dim() { return kMaxDim; }
 // query blocks a head, m16 tiles a warp) and vec: q's, k's and v's rows are 16-byte aligned (16-byte copies; else
 // 4-byte ones). Lk >= 1, d <= fqss_attention_max_dim(). mn, mx: one float each on the device, read only when
 // quantize is set. Returns the launch's CUDA error code.
-extern "C" int fqss_attention(const float* q, const float* k, const float* v, const float* mn, const float* mx,
-                              float* out, const int64_t* dims, int quantize, int n_bits, void* stream) {
+namespace {
+
+template <bool BF16>
+int attention(const float* q, const float* k, const float* v, const float* mn, const float* mx, float* out,
+              const int64_t* dims, int quantize, int n_bits, void* stream) {
   Args a;
   a.q = q;
   a.k = k;
@@ -482,7 +611,22 @@ extern "C" int fqss_attention(const float* q, const float* k, const float* v, co
   a.n_bits = n_bits;
   if (a.H < 1 || a.BH < 1 || a.Lq < 1 || a.Lk < 1 || a.d < 1) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (a.mt == 1) return launch_width<1>(a, st);
-  if (a.mt == 2) return launch_width<2>(a, st);
+  if (a.mt == 1) return launch_width<1, BF16>(a, st);
+  if (a.mt == 2) return launch_width<2, BF16>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+extern "C" int fqss_attention(const float* q, const float* k, const float* v, const float* mn, const float* mx,
+                              float* out, const int64_t* dims, int quantize, int n_bits, void* stream) {
+  return attention<false>(q, k, v, mn, mx, out, dims, quantize, n_bits, stream);
+}
+
+// fqss_attention's bf16 route (the header's note); the same arguments and plan (ops/attention.py:plan with
+// bf16=True sizes its ring for two passes).
+extern "C" int fqss_attention_bf16(const float* q, const float* k, const float* v, const float* mn,
+                                   const float* mx, float* out, const int64_t* dims, int quantize, int n_bits,
+                                   void* stream) {
+  return attention<true>(q, k, v, mn, mx, out, dims, quantize, n_bits, stream);
 }

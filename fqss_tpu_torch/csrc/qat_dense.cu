@@ -28,6 +28,11 @@
 //                                  bias-free 1x1 convolution, so the weight is the row operand (A, [I][R]),
 //                                  x[b] the column operand stored [R][J], and blockIdx.z the batch row.
 //                                  JAX's kernel takes x [M, K] @ w [K, N]: the same products, transposed.
+//   qat_dense_kernel<kEpiForward,  the bf16 routes of K5 and K3 (QuantSpec.compute_dtype "bfloat16"): both
+//   BF16 = true>                   operands rounded to bfloat16 as they leave shared memory (x as loaded,
+//                                  the weight after its grid, computed in float32 first, as JAX rounds
+//                                  wq(w)), the sums float32, the epilogue unchanged: JAX's jnp.dot of bf16
+//                                  operands with preferred_element_type=float32 between the grids.
 //
 // Either grid can be switched off per call (no weight quantizer: the folded
 // serving model, whose weights are already on the grid; no act quantizer: the
@@ -85,6 +90,16 @@
 // the backward's mask pass, which runs the same tiles in the same order as the
 // forward, recomputes its pre-activation bit for bit. No float atomics.
 //
+// The bf16 route takes one TF32 mma.sync a product on the rounded values, not
+// a bf16 m16n8k16 one: a value rounded to bf16 is exact in TF32, and the product
+// of two (8 x 8 significant bits) is exact in float32, so one TF32 product is
+// the exact product that JAX's bf16 dot sums, and the route keeps the float32
+// route's ring, tile layouts and fragment reads (both operand layouts, which
+// bf16 mma fragments, packed in pairs along k, would each need anew). It takes
+// a third of the float32 route's products. Its sums are the float32 route's:
+// each 32-step stage from zero (the tensor cores truncate), the stages added
+// with __fadd_rn. The rounding is cvt.rn.bf16.f32 (ties to even).
+//
 // Numerics: explicit _rn intrinsics keep nvcc from contracting or reordering;
 // rintf rounds half to even. Do not build with --use_fast_math. A NaN input
 // gives NaN outputs; an infinite one also gives NaN (its lo part is inf - inf),
@@ -100,6 +115,7 @@
 
 namespace {
 
+using fqss::bf16_tf32;
 using fqss::cp_async16;
 using fqss::cp_async4;
 using fqss::cp_async_commit;
@@ -263,9 +279,11 @@ __device__ __forceinline__ int acc_col(int wj, int nt, int t, int c) { return wj
 
 // The accumulators and a stage's partial sums take 64 registers a thread: a block of 16 warps (128 x 128) fits
 // in 128 registers a thread without spilling, the smaller blocks are given up to 255.
-template <int BI, int BJ, bool A_RC, bool B_RC, int EPI>
+// BF16 (kEpiForward only): the products of the operands rounded to bfloat16, one TF32 mma each.
+template <int BI, int BJ, bool A_RC, bool B_RC, int EPI, bool BF16>
 __global__ void __launch_bounds__(Shape<BI, BJ>::kThreads, Shape<BI, BJ>::kMinBlocks)
     qat_dense_kernel(DenseArgs p) {
+  static_assert(!BF16 || EPI == kEpiForward, "the bf16 route is the forward's");
   using S = Shape<BI, BJ>;
   using TA = Tile<BI, A_RC>;
   using TB = Tile<BJ, B_RC>;
@@ -333,23 +351,39 @@ __global__ void __launch_bounds__(Shape<BI, BJ>::kThreads, Shape<BI, BJ>::kMinBl
 #pragma unroll
         for (int nt = 0; nt < kNT; ++nt) {
           const float2 v = TB::pair(b, wj * kWarpJ + nt * 8 + g, k);
-          split_tf32(v.x, bh[nt][0], bl[nt][0]);
-          split_tf32(v.y, bh[nt][1], bl[nt][1]);
+          if constexpr (BF16) {
+            bh[nt][0] = bf16_tf32(v.x);
+            bh[nt][1] = bf16_tf32(v.y);
+          } else {
+            split_tf32(v.x, bh[nt][0], bl[nt][0]);
+            split_tf32(v.y, bh[nt][1], bl[nt][1]);
+          }
         }
 #pragma unroll
         for (int mt = 0; mt < kMT; ++mt) {
           const int row = wi * kWarpI + mt * 16 + g;
           const float2 v0 = TA::pair(a, row, k), v1 = TA::pair(a, row + 8, k);
           uint32_t ah[4], al[4];
-          split_tf32(v0.x, ah[0], al[0]);
-          split_tf32(v1.x, ah[1], al[1]);
-          split_tf32(v0.y, ah[2], al[2]);
-          split_tf32(v1.y, ah[3], al[3]);
+          if constexpr (BF16) {
+            ah[0] = bf16_tf32(v0.x);
+            ah[1] = bf16_tf32(v1.x);
+            ah[2] = bf16_tf32(v0.y);
+            ah[3] = bf16_tf32(v1.y);
+          } else {
+            split_tf32(v0.x, ah[0], al[0]);
+            split_tf32(v1.x, ah[1], al[1]);
+            split_tf32(v0.y, ah[2], al[2]);
+            split_tf32(v1.y, ah[3], al[3]);
+          }
 #pragma unroll
           for (int nt = 0; nt < kNT; ++nt) {
-            mma_tf32(part[mt][nt], al, bh[nt]);
-            mma_tf32(part[mt][nt], ah, bl[nt]);
-            mma_tf32(part[mt][nt], ah, bh[nt]);
+            if constexpr (BF16) {
+              mma_tf32(part[mt][nt], ah, bh[nt]);
+            } else {
+              mma_tf32(part[mt][nt], al, bh[nt]);
+              mma_tf32(part[mt][nt], ah, bl[nt]);
+              mma_tf32(part[mt][nt], ah, bh[nt]);
+            }
           }
         }
       }
@@ -539,7 +573,7 @@ bool rows_aligned(const void* ptr, int64_t row, int64_t batch) {
   return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 && row % 4 == 0 && batch % 4 == 0;
 }
 
-template <int BI, int BJ, bool A_RC, bool B_RC, int EPI>
+template <int BI, int BJ, bool A_RC, bool B_RC, int EPI, bool BF16>
 cudaError_t launch_tiles(const DenseArgs& p, int64_t z, cudaStream_t stream) {
   const int64_t tiles_j = cdiv(p.J, BJ);
   if (tiles_j > 65535 || z > 65535) return cudaErrorInvalidConfiguration;  // the grid's y and z limits
@@ -552,29 +586,29 @@ cudaError_t launch_tiles(const DenseArgs& p, int64_t z, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const uint64_t bit = uint64_t{1} << (device & 63);
   if ((raised.load() & bit) == 0) {
-    err = cudaFuncSetAttribute(qat_dense_kernel<BI, BJ, A_RC, B_RC, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(qat_dense_kernel<BI, BJ, A_RC, B_RC, EPI, BF16>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     raised.fetch_or(bit);
   }
   const dim3 grid(static_cast<unsigned int>(cdiv(p.I, BI)), static_cast<unsigned int>(tiles_j),
                   static_cast<unsigned int>(z));
-  qat_dense_kernel<BI, BJ, A_RC, B_RC, EPI><<<grid, Shape<BI, BJ>::kThreads, smem, stream>>>(p);
+  qat_dense_kernel<BI, BJ, A_RC, B_RC, EPI, BF16><<<grid, Shape<BI, BJ>::kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
 // One launch over the I x J output tiles (tile_side of each) and z along blockIdx.z (K5's dwq: the row ranges
 // of R; K3: the batch rows). The tiles depend on the shapes only, so the forward and the mask pass (I = M,
-// J = N both) take the same ones.
-template <bool A_RC, bool B_RC, int EPI>
+// J = N both) take the same ones. BF16: the forward's bf16 route.
+template <bool A_RC, bool B_RC, int EPI, bool BF16 = false>
 cudaError_t launch(DenseArgs p, int64_t z, cudaStream_t stream) {
   p.a_vec = rows_aligned(p.a, A_RC ? p.R : p.I, 0);
   p.b_vec = rows_aligned(p.b, B_RC ? p.R : p.J, p.b_batch);
   const bool narrow_i = tile_side(p.I) == 64, narrow_j = tile_side(p.J) == 64;
-  if (narrow_i && narrow_j) return launch_tiles<64, 64, A_RC, B_RC, EPI>(p, z, stream);
-  if (narrow_i) return launch_tiles<64, 128, A_RC, B_RC, EPI>(p, z, stream);
-  if (narrow_j) return launch_tiles<128, 64, A_RC, B_RC, EPI>(p, z, stream);
-  return launch_tiles<128, 128, A_RC, B_RC, EPI>(p, z, stream);
+  if (narrow_i && narrow_j) return launch_tiles<64, 64, A_RC, B_RC, EPI, BF16>(p, z, stream);
+  if (narrow_i) return launch_tiles<64, 128, A_RC, B_RC, EPI, BF16>(p, z, stream);
+  if (narrow_j) return launch_tiles<128, 64, A_RC, B_RC, EPI, BF16>(p, z, stream);
+  return launch_tiles<128, 128, A_RC, B_RC, EPI, BF16>(p, z, stream);
 }
 
 // wq [N, K] = the weight grid of w [N, K] (one symmetric grid per row n, K2's arithmetic), or w itself where the
@@ -641,12 +675,12 @@ extern "C" int fqss_qat_dense_dwq_splits(int64_t M, int64_t K, int64_t N) {
   return static_cast<int>(split_count(cdiv(N, tile_side(N)) * cdiv(K, tile_side(K)), M));
 }
 
-// y [M, N] = act_fq(x [M, K] @ weight_fq(w [N, K])^T + b [N]); wq: [N, K] scratch for the weight grid (unused
-// without one).
-extern "C" int fqss_qat_dense(const float* x, const float* w, const float* b, const float* w_mn, const float* w_mx,
-                              const unsigned char* w_obs, const float* a_mn, const float* a_mx,
-                              const unsigned char* a_obs, float* wq, float* y, int64_t M, int64_t K, int64_t N,
-                              int w_bits, int a_bits, void* stream) {
+namespace {
+
+template <bool BF16>
+int dense_forward(const float* x, const float* w, const float* b, const float* w_mn, const float* w_mx,
+                  const unsigned char* w_obs, const float* a_mn, const float* a_mx, const unsigned char* a_obs,
+                  float* wq, float* y, int64_t M, int64_t K, int64_t N, int w_bits, int a_bits, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   DenseArgs p{};
@@ -654,7 +688,41 @@ extern "C" int fqss_qat_dense(const float* x, const float* w, const float* b, co
   if (err != cudaSuccess) return static_cast<int>(err);
   p.bias = b, p.a_mn = a_mn, p.a_mx = a_mx, p.a_obs = a_obs, p.a_bits = a_bits;
   p.out = y;
-  return static_cast<int>(launch<true, true, kEpiForward>(p, 1, st));
+  return static_cast<int>(launch<true, true, kEpiForward, BF16>(p, 1, st));
+}
+
+template <bool BF16>
+int qmatmul_forward(const float* x, const float* w, const float* w_mn, const float* w_mx, const unsigned char* w_obs,
+                    const float* a_mn, const float* a_mx, const unsigned char* a_obs, float* wq, float* y, int64_t B,
+                    int64_t K, int64_t T, int64_t N, int w_bits, int a_bits, void* stream) {
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  DenseArgs p{};
+  p.a = grid_weights(w, w_mn, w_mx, w_obs, wq, N, K, w_bits, st, &err), p.b = x, p.I = N, p.J = T, p.R = K;
+  if (err != cudaSuccess) return static_cast<int>(err);
+  p.b_batch = K * T, p.out_batch = N * T;
+  p.a_mn = a_mn, p.a_mx = a_mx, p.a_obs = a_obs, p.a_bits = a_bits;
+  p.out = y;
+  return static_cast<int>(launch<true, false, kEpiForward, BF16>(p, B, st));
+}
+
+}  // namespace
+
+// y [M, N] = act_fq(x [M, K] @ weight_fq(w [N, K])^T + b [N]); wq: [N, K] scratch for the weight grid (unused
+// without one).
+extern "C" int fqss_qat_dense(const float* x, const float* w, const float* b, const float* w_mn, const float* w_mx,
+                              const unsigned char* w_obs, const float* a_mn, const float* a_mx,
+                              const unsigned char* a_obs, float* wq, float* y, int64_t M, int64_t K, int64_t N,
+                              int w_bits, int a_bits, void* stream) {
+  return dense_forward<false>(x, w, b, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, M, K, N, w_bits, a_bits, stream);
+}
+
+// fqss_qat_dense's bf16 route: x and the weight (after its grid) rounded to bfloat16, the sums float32.
+extern "C" int fqss_qat_dense_bf16(const float* x, const float* w, const float* b, const float* w_mn,
+                                   const float* w_mx, const unsigned char* w_obs, const float* a_mn, const float* a_mx,
+                                   const unsigned char* a_obs, float* wq, float* y, int64_t M, int64_t K, int64_t N,
+                                   int w_bits, int a_bits, void* stream) {
+  return dense_forward<true>(x, w, b, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, M, K, N, w_bits, a_bits, stream);
 }
 
 // The mask pass of the backward: gm [M, N]; sums[0..1] = (dmn, dmx) of the act ranges; db [N]; wq [N, K], the
@@ -716,13 +784,13 @@ extern "C" int fqss_qmatmul(const float* x, const float* w, const float* w_mn, c
                             const unsigned char* w_obs, const float* a_mn, const float* a_mx,
                             const unsigned char* a_obs, float* wq, float* y, int64_t B, int64_t K, int64_t T,
                             int64_t N, int w_bits, int a_bits, void* stream) {
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  DenseArgs p{};
-  p.a = grid_weights(w, w_mn, w_mx, w_obs, wq, N, K, w_bits, st, &err), p.b = x, p.I = N, p.J = T, p.R = K;
-  if (err != cudaSuccess) return static_cast<int>(err);
-  p.b_batch = K * T, p.out_batch = N * T;
-  p.a_mn = a_mn, p.a_mx = a_mx, p.a_obs = a_obs, p.a_bits = a_bits;
-  p.out = y;
-  return static_cast<int>(launch<true, false, kEpiForward>(p, B, st));
+  return qmatmul_forward<false>(x, w, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, B, K, T, N, w_bits, a_bits, stream);
+}
+
+// fqss_qmatmul's bf16 route: x and the weight (after its grid) rounded to bfloat16, the sums float32.
+extern "C" int fqss_qmatmul_bf16(const float* x, const float* w, const float* w_mn, const float* w_mx,
+                                 const unsigned char* w_obs, const float* a_mn, const float* a_mx,
+                                 const unsigned char* a_obs, float* wq, float* y, int64_t B, int64_t K, int64_t T,
+                                 int64_t N, int w_bits, int a_bits, void* stream) {
+  return qmatmul_forward<true>(x, w, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, B, K, T, N, w_bits, a_bits, stream);
 }

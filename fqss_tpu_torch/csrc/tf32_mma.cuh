@@ -1,5 +1,6 @@
 // 3xTF32 products on Hopper's tensor cores and the cp.async copies that feed
-// them, shared by qat_dense.cu (K5, K5-bwd, K3) and attention.cu (K8).
+// them, shared by qat_dense.cu (K5, K5-bwd, K3) and attention.cu (K8); and
+// the bf16 routes' rounding (K5, K3 and K8 under bf16 compute).
 //
 // A float32 value v splits into hi = v rounded to TF32 (10 mantissa bits, to
 // nearest, ties away from zero: cvt.rna.tf32.f32's rounding, done on the
@@ -9,9 +10,15 @@
 // what is dropped is about 2^-21 of |a b|. The tensor cores' own accumulation
 // truncates (it is not an IEEE sum), so a caller sums a bounded stage of
 // products from zero and adds the stages with __fadd_rn.
+//
+// A bf16 route rounds each operand to bfloat16 and keeps it in float32 (its
+// low 16 bits are zero): such a value is exact in TF32 (bf16 is a subset), and
+// the product of two of them (8 x 8 significant bits) is exact in float32, so
+// one TF32 product computes it, not three.
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -22,6 +29,12 @@ __device__ __forceinline__ void split_tf32(float v, uint32_t& hi, uint32_t& lo) 
   hi = (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
   lo = __float_as_uint(__fsub_rn(v, __uint_as_float(hi)));
 }
+
+// v rounded to bfloat16 (to nearest, ties to even, NaN kept: cvt.rn.bf16.f32), held in float32.
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+// The TF32 operand bits of v rounded to bfloat16 (exact in TF32).
+__device__ __forceinline__ uint32_t bf16_tf32(float v) { return __float_as_uint(round_bf16(v)); }
 
 // d += a b over one k8 step of an m16n8 tile. Fragments (g = lane / 4, t = lane % 4): a0 (row g, slot t), a1 (row
 // g + 8, slot t), a2 (row g, slot t + 4), a3 (row g + 8, slot t + 4); b0 (slot t, column g), b1 (slot t + 4,

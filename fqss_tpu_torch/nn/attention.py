@@ -37,6 +37,13 @@ and K8 writes them back as ``[B, Lq, E]`` for the out-projection: no copy of
 the head layout is made on that route. The plain composition of
 ``fix_attn_quant`` and the no-op sites' logits take the contiguous
 ``[B * h, L, d]`` copies, as JAX's head layout.
+
+Under bf16 compute the module rounds where JAX's default path rounds
+(``fqss_tpu/nn/attention.py:68-70, 117, 128, 134``): the in- and
+out-projections' operands (:func:`~fqss_tpu_torch.nn.layers.mxu_operands`),
+the core through K8's bf16 route (Q and K rounded, the softmax normalised
+and then rounded, V rounded), and the same roundings in the plain
+composition of ``fix_attn_quant`` and in the no-op sites' logits.
 """
 
 from __future__ import annotations
@@ -46,8 +53,8 @@ import math
 import torch
 from torch import nn
 
-from fqss_tpu_torch.nn.layers import make_act_quantizer, make_weight_quantizer, uniform_
-from fqss_tpu_torch.ops.attention import fused_attention_packed, head_layout
+from fqss_tpu_torch.nn.layers import make_act_quantizer, make_weight_quantizer, mxu_operands, uniform_
+from fqss_tpu_torch.ops.attention import fused_attention_packed, head_layout, softmax_ref
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
 Tensor = torch.Tensor
@@ -62,7 +69,7 @@ class QMultiheadAttention(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         E = embed_dim
-        self.embed_dim, self.num_heads, self.fix_attn_quant = E, num_heads, fix_attn_quant
+        self.q, self.embed_dim, self.num_heads, self.fix_attn_quant = q, E, num_heads, fix_attn_quant
         bound = 1.0 / math.sqrt(E)
         self.in_proj_weight = nn.Parameter(uniform_(torch.empty(3 * E, E), bound, generator))
         self.in_proj_bias = nn.Parameter(torch.zeros(3 * E))
@@ -81,29 +88,36 @@ class QMultiheadAttention(nn.Module):
         if not (self.training and any(s is not None and s.observer for s in (qa, qs))):
             return
         with torch.no_grad():
-            attn = torch.matmul(head_layout(q), head_layout(k).transpose(-1, -2))
+            Qc, Kc = mxu_operands(self.q, head_layout(q), head_layout(k))
+            attn = torch.matmul(Qc, Kc.transpose(-1, -2))
             if qa is not None and qa.observer:
                 qa(attn)
             if qs is not None and qs.observer:
-                qs(torch.softmax(attn, dim=-1))
+                qs(self._softmax(attn))
+
+    def _softmax(self, attn: Tensor) -> Tensor:
+        """The softmax over the keys; under bf16 with ``jax.nn.softmax``'s arithmetic, whose result is rounded
+        next."""
+        return softmax_ref(attn) if self.q.bf16 else torch.softmax(attn, dim=-1)
 
     def _core(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
         """The quantized heads ``[B, Lq, E]`` of the ``[B, L, h, d]`` views through K8 (module docstring)."""
-        hq = self.activation_fake_quantize_head
+        hq, bf16 = self.activation_fake_quantize_head, self.q.bf16
         if hq is None:
-            return fused_attention_packed(q, k, v, quantize=False)
+            return fused_attention_packed(q, k, v, quantize=False, bf16=bf16)
         if not hq.observer and not hq.scale_grad:
-            return fused_attention_packed(q, k, v, hq.min_range, hq.max_range, hq.n_bits, quantize=True)
-        return hq(fused_attention_packed(q, k, v, quantize=False))  # per tensor: the layout does not matter
+            return fused_attention_packed(q, k, v, hq.min_range, hq.max_range, hq.n_bits, quantize=True, bf16=bf16)
+        return hq(fused_attention_packed(q, k, v, quantize=False, bf16=bf16))  # per tensor: the layout does not matter
 
     def _plain_fixed(self, q: Tensor, k: Tensor, v: Tensor) -> Tensor:
         """``fix_attn_quant``: the logits and the softmax quantized, then the heads ``[B * h, Lq, d]``."""
         qa, qs, hq = (self.activation_fake_quantize_attn, self.activation_fake_quantize_softmax,
                       self.activation_fake_quantize_head)
-        Qh, Kh, Vh = head_layout(q), head_layout(k), head_layout(v)
+        Qh, Kh = mxu_operands(self.q, head_layout(q), head_layout(k))
         attn = torch.matmul(Qh, Kh.transpose(-1, -2))
-        attn = torch.softmax(qa(attn) if qa is not None else attn, dim=-1)
-        heads = torch.matmul(qs(attn) if qs is not None else attn, Vh)
+        attn = self._softmax(qa(attn) if qa is not None else attn)
+        Ac, Vh = mxu_operands(self.q, qs(attn) if qs is not None else attn, head_layout(v))
+        heads = torch.matmul(Ac, Vh)
         return hq(heads) if hq is not None else heads
 
     def forward(self, query: Tensor, key: Tensor, value: Tensor) -> Tensor:
@@ -115,7 +129,8 @@ class QMultiheadAttention(nn.Module):
             w_in, w_out = self.weight_fake_quantize_in(w_in), self.weight_fake_quantize_out(w_out)
 
         def in_proj(x: Tensor) -> Tensor:
-            return torch.matmul(x, w_in.t()) + self.in_proj_bias
+            xc, wc = mxu_operands(self.q, x, w_in)
+            return torch.matmul(xc, wc.t()) + self.in_proj_bias
 
         # The full in-projection of each input (self-attention computes the one product once).
         Xq = in_proj(query)
@@ -139,5 +154,6 @@ class QMultiheadAttention(nn.Module):
         else:
             self._feed_noop_sites(q, k)
             heads = self._core(q, k, v)
-        y = torch.matmul(heads, w_out.t()) + self.out_proj_bias
+        yc, wc = mxu_operands(self.q, heads, w_out)
+        y = torch.matmul(yc, wc.t()) + self.out_proj_bias
         return self.activation_fake_quantize(y) if self.activation_fake_quantize is not None else y

@@ -7,6 +7,11 @@ residual-error blocks re-encodes the quantized output, quantizes the latent
 residual ``Y - Y_q`` and decodes it (shared decoder weights, or the block's
 own with ``train_res_dec``) into more output planes, stacked
 ``[n_combiner, ...]`` for the combiner.
+
+Under bf16 compute each product's operands are rounded where JAX rounds
+them (``fqss_tpu/nn/io_layers.py``: the transposed convolutions and the
+dense products, through :func:`~fqss_tpu_torch.nn.layers.mxu_operands`);
+the encoders' convolutions are ``QConv1d``'s.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fqss_tpu_torch.nn.layers import QConv1d, make_act_quantizer, make_weight_quantizer, uniform_
+from fqss_tpu_torch.nn.layers import QConv1d, make_act_quantizer, make_weight_quantizer, mxu_operands, uniform_
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
 Tensor = torch.Tensor
@@ -91,7 +96,7 @@ class _ResidualErrorBlock1d(nn.Module):
     def __init__(self, latent_features: int, out_features: int, kernel_size: int, stride: int,
                  q: QuantSpec = FLOAT, generator: torch.Generator | None = None):
         super().__init__()
-        self.stride = stride
+        self.q, self.stride = q, stride
         self.residual_encoder = QConv1d(out_features, latent_features, kernel_size, stride=stride,
                                         use_bias=False, q=q, act_quant=False, generator=generator)
         self.activation_fake_quantize = make_act_quantizer(q)
@@ -111,7 +116,7 @@ class _ResidualErrorBlock1d(nn.Module):
             w_decoder = self.residual_decoder_weight
             if self.weight_fake_quantize_dec is not None:
                 w_decoder = self.weight_fake_quantize_dec(w_decoder)
-        return F.conv_transpose1d(Y1, w_decoder, stride=self.stride)
+        return F.conv_transpose1d(*mxu_operands(self.q, Y1, w_decoder), stride=self.stride)
 
 
 class QConvTr1dDecoder(nn.Module):
@@ -126,7 +131,7 @@ class QConvTr1dDecoder(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
                  q: QuantSpec = FLOAT, generator: torch.Generator | None = None):
         super().__init__()
-        self.stride = stride
+        self.q, self.stride = q, stride
         self.n_combiner = q.n_combiner
         wshape = (in_channels, out_channels, kernel_size)
         bound = 1.0 / math.sqrt(out_channels * kernel_size)
@@ -144,7 +149,7 @@ class QConvTr1dDecoder(nn.Module):
         w_decoder = self.weight
         if self.weight_fake_quantize is not None:
             w_decoder = self.weight_fake_quantize(w_decoder)
-        x0 = F.conv_transpose1d(x, w_decoder, stride=self.stride)
+        x0 = F.conv_transpose1d(*mxu_operands(self.q, x, w_decoder), stride=self.stride)
         out_q = self.activation_fake_quantize
         y = out_q(x0) if out_q is not None else x0
         if self.n_combiner == 1:
@@ -174,6 +179,7 @@ class _ResidualErrorBlockDense(nn.Module):
         super().__init__()
         if q.train_res_dec:
             raise NotImplementedError("train_res_dec is not ported yet (ROADMAP.md, queue 1)")
+        self.q = q
         bound = 1.0 / math.sqrt(out_features)
         wshape = (latent_features, out_features)
         self.residual_encoder_weight = nn.Parameter(uniform_(torch.empty(wshape), bound, generator))
@@ -186,13 +192,15 @@ class _ResidualErrorBlockDense(nn.Module):
         w_enc = self.residual_encoder_weight
         if self.weight_fake_quantize is not None:
             w_enc = self.weight_fake_quantize(w_enc)
-        Y_q = torch.matmul(y_q, w_enc.t())
+        yc, wc = mxu_operands(self.q, y_q, w_enc)
+        Y_q = torch.matmul(yc, wc.t())
         if self.residual_encoder_bias is not None:
             Y_q = Y_q + self.residual_encoder_bias
         Y1 = Y - Y_q
         if self.activation_fake_quantize is not None:
             Y1 = self.activation_fake_quantize(Y1)
-        return torch.matmul(Y1, w_decoder.t())
+        Y1c, wdc = mxu_operands(self.q, Y1, w_decoder)
+        return torch.matmul(Y1c, wdc.t())
 
 
 class QLinearDecoder(nn.Module):
@@ -206,7 +214,7 @@ class QLinearDecoder(nn.Module):
     def __init__(self, in_features: int, features: int, use_bias: bool = False, q: QuantSpec = FLOAT,
                  generator: torch.Generator | None = None):
         super().__init__()
-        self.n_combiner = q.n_combiner
+        self.q, self.n_combiner = q, q.n_combiner
         bound = 1.0 / math.sqrt(in_features)
         self.weight = nn.Parameter(uniform_(torch.empty(features, in_features), bound, generator))
         self.bias = nn.Parameter(uniform_(torch.empty(features), bound, generator)) if use_bias else None
@@ -223,7 +231,8 @@ class QLinearDecoder(nn.Module):
         w_decoder = self.weight
         if self.weight_fake_quantize is not None:
             w_decoder = self.weight_fake_quantize(w_decoder)
-        x0 = torch.matmul(x, w_decoder.t())
+        xc, wc = mxu_operands(self.q, x, w_decoder)
+        x0 = torch.matmul(xc, wc.t())
         if self.bias is not None:
             x0 = x0 + self.bias
         out_q = self.activation_fake_quantize

@@ -18,6 +18,13 @@ without a nonlinearity runs its forward through the fused kernel K3
 (``ops/qmatmul.py``) where no gradient is needed. ``QDense`` runs its
 product and both of its grids through the fused kernel K5
 (``ops/qat_dense.py``).
+
+Under ``QuantSpec.compute_dtype="bfloat16"`` every product's operands are
+rounded to bfloat16 and its sums stay float32 (:func:`mxu_operands`, JAX's
+``mxu_operands`` with ``preferred_element_type=float32``): ``F.conv1d`` on
+the rounded operands, and K3 and K5 on their bf16 routes, which round as
+they load. Only serving is ported: a bf16 forward that needs a gradient
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,10 +36,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from fqss_tpu_torch.nn.nonlin import Nl
-from fqss_tpu_torch.ops.fake_quant import _needs_grad
+from fqss_tpu_torch.ops.fake_quant import _needs_grad, refuse_bf16_grad
 from fqss_tpu_torch.ops.qat_dense import qat_dense
 from fqss_tpu_torch.ops.qmatmul import qmatmul
-from fqss_tpu_torch.quant.fake_quant import weight_scale
+from fqss_tpu_torch.quant.fake_quant import bf16_round, weight_scale
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
@@ -43,6 +50,17 @@ def uniform_(t: Tensor, bound: float, generator: torch.Generator | None) -> Tens
     """U(-bound, bound) in place: torch's kaiming_uniform(a=sqrt(5)) layer init."""
     with torch.no_grad():
         return t.uniform_(-bound, bound, generator=generator)
+
+
+def mxu_operands(q: QuantSpec, x: Tensor, w: Tensor) -> tuple[Tensor, Tensor]:
+    """A product's operands in the spec's compute type (``fqss_tpu/nn/layers.py:mxu_operands``): under bf16 both
+    rounded to bfloat16 and held in float32, so that the float32 product of the two sums exact products, as JAX's
+    bf16 product with ``preferred_element_type=float32`` does; under float32 untouched. Grid math stays float32,
+    before this. Raises ``NotImplementedError`` where a bf16 product would need a gradient."""
+    if not q.bf16:
+        return x, w
+    refuse_bf16_grad(x, w)
+    return bf16_round(x), bf16_round(w)
 
 
 def make_act_quantizer(q: QuantSpec, *, enabled: bool | None = None, n_bits: int | None = None,
@@ -103,6 +121,7 @@ class QConv1d(nn.Module):
                  nl: str | None = None, q: QuantSpec = FLOAT, act_quant: bool | None = None,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.q = q
         self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
         wshape = (out_channels, in_channels // groups, kernel_size)
         bound = 1.0 / math.sqrt((in_channels // groups) * kernel_size)
@@ -120,7 +139,8 @@ class QConv1d(nn.Module):
         w = self.weight
         if self.weight_fake_quantize is not None:
             w = self.weight_fake_quantize(w)
-        y = F.conv1d(x, w, self.bias, self.stride, self.padding, self.dilation, self.groups)
+        xc, wc = mxu_operands(self.q, x, w)
+        y = F.conv1d(xc, wc, self.bias, self.stride, self.padding, self.dilation, self.groups)
         if self.nl is not None:
             y = self.nl(y)
         return _quantize(self.activation_fake_quantize, y)
@@ -141,7 +161,8 @@ class QConv1d(nn.Module):
         if aq is not None:
             a_observing = aq.observing()
             a_args = dict(a_mn=aq.min_range, a_mx=aq.max_range, a_bits=aq.n_bits)
-        y = qmatmul(x.contiguous(), w, w_observing=w_observing, a_observing=a_observing, **w_args, **a_args)
+        y = qmatmul(x.contiguous(), w, w_observing=w_observing, a_observing=a_observing, bf16=self.q.bf16, **w_args,
+                    **a_args)
         if aq is not None:
             aq.observe(y, a_observing)
         return y
@@ -200,6 +221,7 @@ class QDense(nn.Module):
     def __init__(self, in_features: int, features: int, q: QuantSpec = FLOAT,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.q = q
         bound = 1.0 / math.sqrt(in_features)
         self.weight = nn.Parameter(uniform_(torch.empty(features, in_features), bound, generator))
         self.bias = nn.Parameter(uniform_(torch.empty(features), bound, generator))
@@ -222,7 +244,7 @@ class QDense(nn.Module):
             a_args = dict(a_mn=aq.min_range, a_mx=aq.max_range, a_bits=aq.n_bits,
                           a_s=1.0 / math.sqrt((2**aq.n_bits - 1) * self.weight.shape[0]) if aq.scale_grad else 1.0)
         y = qat_dense(x.reshape(-1, x.shape[-1]).contiguous(), w, self.bias, w_observing=w_observing,
-                      a_observing=a_observing, **w_args, **a_args)
+                      a_observing=a_observing, bf16=self.q.bf16, **w_args, **a_args)
         if aq is not None:
             aq.observe(y, a_observing)  # inside the window y is the pre-activation
         return y.reshape(*x.shape[:-1], y.shape[-1])

@@ -19,6 +19,10 @@ per gate column (axis 1), which is the layout the kernel reads.
 The ``static`` and ``dynamic`` modes (12 quantizer sites per direction
 inside the cell) are not ported yet and raise ``NotImplementedError``;
 ``fuse_bidir`` is not ported (the kernel covers that case).
+
+Under bf16 compute the input projection's operands are rounded
+(``fqss_tpu/nn/lstm.py:102``); the bias adds and the recurrence stay
+float32, as JAX's LSTM kernel casts ``ih`` and ``w_hh`` to float32.
 """
 
 from __future__ import annotations
@@ -28,7 +32,7 @@ import math
 import torch
 from torch import nn
 
-from fqss_tpu_torch.nn.layers import make_act_quantizer, make_weight_quantizer, uniform_
+from fqss_tpu_torch.nn.layers import make_act_quantizer, make_weight_quantizer, mxu_operands, uniform_
 from fqss_tpu_torch.ops.lstm import bilstm_sequence, lstm_sequence
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
@@ -43,6 +47,7 @@ class _LSTMDirection(nn.Module):
     def __init__(self, input_size: int, hidden_size: int, q: QuantSpec = FLOAT,
                  generator: torch.Generator | None = None):
         super().__init__()
+        self.q = q
         G = 4 * hidden_size
         bound = 1.0 / math.sqrt(hidden_size)
         self.w_ih = nn.Parameter(uniform_(torch.empty(input_size, G), bound, generator))
@@ -60,7 +65,7 @@ class _LSTMDirection(nn.Module):
         xs = x.transpose(0, 1)  # time-major
         if reverse:
             xs = xs.flip(0)
-        ih = torch.matmul(xs, w_ih)
+        ih = torch.matmul(*mxu_operands(self.q, xs, w_ih))
         # in place: the two bias adds of ih_all = x @ W_ih + b_ih + b_hh, in JAX's order, without two more
         # copies of the largest tensor of the layer
         return ih.add_(self.b_ih).add_(self.b_hh), w_hh.contiguous()

@@ -136,12 +136,16 @@ def load(path: Path) -> ctypes.CDLL:
     lib.fqss_attention_max_dim.restype = i32
     lib.fqss_attention.argtypes = [p, p, p, p, p, p, ctypes.POINTER(i64), i32, i32, p]
     lib.fqss_attention.restype = i32
+    lib.fqss_attention_bf16.argtypes = lib.fqss_attention.argtypes
+    lib.fqss_attention_bf16.restype = i32
     lib.fqss_qat_dense_tiles.argtypes = [i64, i64, p]
     lib.fqss_qat_dense_tiles.restype = None
     lib.fqss_qat_dense_dwq_splits.argtypes = [i64, i64, i64]
     lib.fqss_qat_dense_dwq_splits.restype = i32
     lib.fqss_qat_dense.argtypes = [p, p, p, p, p, p, p, p, p, p, p, i64, i64, i64, i32, i32, p]
     lib.fqss_qat_dense.restype = i32
+    lib.fqss_qat_dense_bf16.argtypes = lib.fqss_qat_dense.argtypes
+    lib.fqss_qat_dense_bf16.restype = i32
     lib.fqss_qat_dense_bwd_mask.argtypes = [p, p, p, p, p, p, p, p, p, p, f32, p, p, p, p, p, p, i64, i64, i64,
                                             i32, i32, p]
     lib.fqss_qat_dense_bwd_mask.restype = i32
@@ -153,4 +157,6 @@ def load(path: Path) -> ctypes.CDLL:
     lib.fqss_qat_dense_dwq.restype = i32
     lib.fqss_qmatmul.argtypes = [p, p, p, p, p, p, p, p, p, p, i64, i64, i64, i64, i32, i32, p]
     lib.fqss_qmatmul.restype = i32
+    lib.fqss_qmatmul_bf16.argtypes = lib.fqss_qmatmul.argtypes
+    lib.fqss_qmatmul_bf16.restype = i32
     return lib

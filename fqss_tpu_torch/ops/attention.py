@@ -34,6 +34,17 @@ differentiates the plain version on the saved inputs, as JAX's ``custom_vjp``
 rematerialises ``_attention_xla``. :func:`plan` sizes the launch: key tiles,
 warps a head, heads a block. ``LAUNCHES["attention"]`` counts the kernel's
 launches.
+
+``bf16=True`` is the bf16 route (``QuantSpec.compute_dtype="bfloat16"``):
+JAX's default composition under bf16 (``fqss_tpu/nn/attention.py:117-130``),
+``softmax(bf16(qs) @ bf16(k)^T)`` normalised in float32 and rounded to
+bfloat16 before its product with ``bf16(v)``, the sums float32
+(:func:`fused_attention_ref` with ``bf16=True``; the softmax's sum taken in
+float64 and rounded once, so that its last bit does not depend on the order
+of the sum). The kernel takes three passes over the keys for it
+(``csrc/attention.cu``). It has no backward: with a
+gradient needed it raises ``NotImplementedError``. ``LAUNCHES["attention_bf16"]``
+counts its launches.
 """
 
 from __future__ import annotations
@@ -45,11 +56,12 @@ from typing import NamedTuple
 import torch
 
 from fqss_tpu_torch.ops import _build
-from fqss_tpu_torch.ops.fake_quant import _check_device, _needs_grad, act_fake_quant_ref
+from fqss_tpu_torch.ops.fake_quant import _check_device, _needs_grad, act_fake_quant_ref, refuse_bf16_grad
+from fqss_tpu_torch.quant.fake_quant import bf16_round
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"attention": 0}
+LAUNCHES = {"attention": 0, "attention_bf16": 0}
 
 # csrc/attention.cu's limits: the head widths it pads d to, its K/V ring's stages, and the shared memory a block may
 # take for two blocks to fit an SM (228 KB, 1 KB of it reserved a block).
@@ -61,13 +73,15 @@ PACK_WARPS = 4  # a block takes whole heads up to this many 16-row warps
 
 
 def reset_launches() -> None:
-    LAUNCHES["attention"] = 0
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
 
 
 class Plan(NamedTuple):
     """A launch of ``attention_kernel``: the padded head width, the key tile (``tile`` keys, ``tiles`` of them),
     the warps a head (``wph``, ``16 mt`` query rows each), the heads a block (``hpb``), the blocks along a head's
-    queries (``qblocks``) and the m16 tiles of a warp (``mt``)."""
+    queries (``qblocks``), the m16 tiles of a warp (``mt``) and the passes over the key tiles (3 on the bf16
+    route)."""
 
     dim: int
     tile: int
@@ -76,12 +90,13 @@ class Plan(NamedTuple):
     hpb: int
     qblocks: int
     mt: int = 1
+    passes: int = 1
 
     @property
     def smem(self) -> int:
-        """A block's shared memory in bytes: the ring's stages (no more than the tiles) of K and V rows of dim + 8
-        floats for each head of the block, and each warp's 16 mt rows of Q of dim + 4."""
-        return (min(RING, self.tiles) * self.hpb * self.tile * 2 * (self.dim + 8)
+        """A block's shared memory in bytes: the ring's stages (no more than the tiles of all passes) of K and V rows
+        of dim + 8 floats for each head of the block, and each warp's 16 mt rows of Q of dim + 4."""
+        return (min(RING, self.tiles * self.passes) * self.hpb * self.tile * 2 * (self.dim + 8)
                 + self.wph * self.hpb * ROWS * self.mt * (self.dim + 4)) * 4
 
     def blocks(self, bh: int) -> int:
@@ -103,8 +118,9 @@ def max_tile(dim: int, mt: int = 1) -> int:
 
 
 @functools.lru_cache(maxsize=1024)
-def plan(bh: int, lq: int, lk: int, d: int) -> Plan:
-    """The launch for ``bh`` heads of ``lq`` queries and ``lk`` keys of width ``d``.
+def plan(bh: int, lq: int, lk: int, d: int, bf16: bool = False) -> Plan:
+    """The launch for ``bh`` heads of ``lq`` queries and ``lk`` keys of width ``d`` (``bf16``: the bf16 route's,
+    whose ring runs over the key tiles three times).
 
     Queries: where a head needs at most PACK_WARPS warps of 16 rows, a block takes as many whole heads as fit in
     PACK_WARPS warps (Lq 16: 4 heads; Lq 34: 3 warps, one head), fewer where their tiles would pass SMEM_BUDGET;
@@ -120,19 +136,44 @@ def plan(bh: int, lq: int, lk: int, d: int) -> Plan:
     tiles = _cdiv(lk, max_tile(dim, mt))
     tile = 8 * _cdiv(_cdiv(lk, tiles), 8)
     row_warps = _cdiv(lq, ROWS * mt)
+    passes = 3 if bf16 else 1
     if mt == 1:
         hpb = max(1, min(PACK_WARPS // row_warps, bh))
-        while hpb > 1 and Plan(dim, tile, tiles, row_warps, hpb, 1).smem > SMEM_BUDGET:
+        while hpb > 1 and Plan(dim, tile, tiles, row_warps, hpb, 1, 1, passes).smem > SMEM_BUDGET:
             hpb -= 1
-        return Plan(dim, tile, tiles, row_warps, hpb, 1, 1)
+        return Plan(dim, tile, tiles, row_warps, hpb, 1, 1, passes)
     qblocks = _cdiv(row_warps, max_warps(dim, mt))
-    return Plan(dim, tile, tiles, _cdiv(row_warps, qblocks), 1, qblocks, mt)
+    return Plan(dim, tile, tiles, _cdiv(row_warps, qblocks), 1, qblocks, mt, passes)
+
+
+def softmax_ref(s: Tensor) -> Tensor:
+    """``jax.nn.softmax`` over the last axis: ``exp(s - max) / sum``, a true division, the sum taken in float64 and
+    rounded once (the bf16 route rounds the result, so its last bit matters; a float32 sum's last bits depend on
+    its order, which XLA's and the kernel's do not share)."""
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    return e / e.double().sum(-1, keepdim=True).float()
+
+
+def bf16_tie_mask(p: Tensor, ulps: int = 2) -> Tensor:
+    """Where a float32 value lies within ``ulps`` float32 ulps of a bfloat16 rounding tie (its low 16 bits within
+    ``ulps`` of 0x8000). A softmax weight there can round to the other bf16 neighbour when its exp or its row's sum
+    moves by an ulp, which sums taken in another order do: K8's bf16 route is held to its plain version with one
+    bf16 step of slack on such weights (``chip_smoke.py``, ``tests/test_torch_bf16.py``)."""
+    low = p.float().contiguous().view(torch.int32) & 0xFFFF
+    return (low - 0x8000).abs() <= ulps
 
 
 def fused_attention_ref(qs: Tensor, k: Tensor, v: Tensor, min_range: Tensor | None = None,
-                        max_range: Tensor | None = None, n_bits: int = 8, quantize: bool = True) -> Tensor:
-    """Plain version: ``softmax(qs @ k^T) @ v``, then the head grid when ``quantize``."""
-    heads = torch.matmul(torch.softmax(torch.matmul(qs, k.transpose(-1, -2)), dim=-1), v)
+                        max_range: Tensor | None = None, n_bits: int = 8, quantize: bool = True,
+                        bf16: bool = False) -> Tensor:
+    """Plain version: ``softmax(qs @ k^T) @ v``, then the head grid when ``quantize``. ``bf16``: JAX's composition
+    under bf16, every product's operands rounded to bfloat16 (the softmax's after it is normalised), the sums
+    float32 (TF32 off)."""
+    if bf16:
+        logits = torch.matmul(bf16_round(qs), bf16_round(k).transpose(-1, -2))
+        heads = torch.matmul(bf16_round(softmax_ref(logits)), bf16_round(v))
+    else:
+        heads = torch.matmul(torch.softmax(torch.matmul(qs, k.transpose(-1, -2)), dim=-1), v)
     return act_fake_quant_ref(heads, min_range, max_range, n_bits) if quantize else heads
 
 
@@ -143,12 +184,13 @@ def head_layout(x: Tensor) -> Tensor:
 
 
 def fused_attention_packed_ref(q: Tensor, k: Tensor, v: Tensor, min_range: Tensor | None = None,
-                               max_range: Tensor | None = None, n_bits: int = 8, quantize: bool = True) -> Tensor:
+                               max_range: Tensor | None = None, n_bits: int = 8, quantize: bool = True,
+                               bf16: bool = False) -> Tensor:
     """Plain version of :func:`fused_attention_packed`: :func:`fused_attention_ref` on the head-layout copies,
     the heads transposed back to ``[B, Lq, h d]``."""
     B, Lq, h, d = q.shape
     heads = fused_attention_ref(head_layout(q), head_layout(k), head_layout(v), min_range, max_range, n_bits,
-                                quantize)
+                                quantize, bf16)
     return heads.reshape(B, h, Lq, d).transpose(1, 2).reshape(B, Lq, h * d)
 
 
@@ -214,49 +256,50 @@ def _check_packed(q: Tensor, k: Tensor, v: Tensor, min_range: Tensor | None, max
 
 
 def _launch(q: Tensor, k: Tensor, v: Tensor, min_range: Tensor | None, max_range: Tensor | None, out: Tensor,
-            n_bits: int, quantize: bool) -> None:
-    """Launch the kernel on ``[B, L, h, d]`` views (out ``[B, Lq, h, d]``); the C entry's int64 argument array
-    (``csrc/attention.cu``'s ``enum Arg``) holds the shape, the views' outer strides, the plan, whether q's, k's and
-    v's rows lie on 16 bytes (the kernel's 16-byte copies, else 4-byte ones) and the plan's m16 tiles a warp."""
+            n_bits: int, quantize: bool, bf16: bool = False) -> None:
+    """Launch the kernel (``bf16``: its bf16 route) on ``[B, L, h, d]`` views (out ``[B, Lq, h, d]``); the C entry's
+    int64 argument array (``csrc/attention.cu``'s ``enum Arg``) holds the shape, the views' outer strides, the plan,
+    whether q's, k's and v's rows lie on 16 bytes (the kernel's 16-byte copies, else 4-byte ones) and the plan's m16
+    tiles a warp."""
     B, Lq, H, d = q.shape
     if d > DIMS[-1]:
         raise ValueError(f"fused_attention: head width {d} exceeds the kernel's {DIMS[-1]}")
     lib = _build.library()
-    p = plan(B * H, Lq, k.shape[1], d)
+    p = plan(B * H, Lq, k.shape[1], d, bf16)
     dims = (ctypes.c_int64 * 24)(B, H, Lq, k.shape[1], d, *_outer_strides(q), *_outer_strides(k),
                                  *_outer_strides(v), *_outer_strides(out), p.tile, p.tiles, p.wph, p.hpb,
                                  p.qblocks, int(_aligned(q, k, v)), p.mt)
+    entry = lib.fqss_attention_bf16 if bf16 else lib.fqss_attention
     with torch.cuda.device(q.device):
-        rc = lib.fqss_attention(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                min_range.data_ptr() if quantize else None,
-                                max_range.data_ptr() if quantize else None, out.data_ptr(), dims, int(quantize),
-                                n_bits, torch.cuda.current_stream(q.device).cuda_stream)
+        rc = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(), min_range.data_ptr() if quantize else None,
+                   max_range.data_ptr() if quantize else None, out.data_ptr(), dims, int(quantize), n_bits,
+                   torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"fused_attention: CUDA launch failed with error {rc}")
-    LAUNCHES["attention"] += 1
+    LAUNCHES["attention_bf16" if bf16 else "attention"] += 1
 
 
 def _forward(qs: Tensor, k: Tensor, v: Tensor, min_range: Tensor | None, max_range: Tensor | None, n_bits: int,
-             quantize: bool) -> Tensor:
+             quantize: bool, bf16: bool = False) -> Tensor:
     if qs.device.type == "cpu":
         with torch.no_grad():
-            return fused_attention_ref(qs, k, v, min_range, max_range, n_bits, quantize)
+            return fused_attention_ref(qs, k, v, min_range, max_range, n_bits, quantize, bf16)
     out = torch.empty_like(qs)
     if out.numel():
         _launch(qs.unsqueeze(2), k.unsqueeze(2), v.unsqueeze(2), min_range, max_range, out.unsqueeze(2), n_bits,
-                quantize)
+                quantize, bf16)
     return out
 
 
 def _forward_packed(q: Tensor, k: Tensor, v: Tensor, min_range: Tensor | None, max_range: Tensor | None,
-                    n_bits: int, quantize: bool) -> Tensor:
+                    n_bits: int, quantize: bool, bf16: bool = False) -> Tensor:
     if q.device.type == "cpu":
         with torch.no_grad():
-            return fused_attention_packed_ref(q, k, v, min_range, max_range, n_bits, quantize)
+            return fused_attention_packed_ref(q, k, v, min_range, max_range, n_bits, quantize, bf16)
     B, Lq, h, d = q.shape
     out = q.new_empty(B, Lq, h * d)
     if out.numel():
-        _launch(q, k, v, min_range, max_range, out.view(B, Lq, h, d), n_bits, quantize)
+        _launch(q, k, v, min_range, max_range, out.view(B, Lq, h, d), n_bits, quantize, bf16)
     return out
 
 
@@ -308,24 +351,34 @@ class _FusedAttentionPacked(torch.autograd.Function):
 
 
 def fused_attention(qs: Tensor, k: Tensor, v: Tensor, min_range: Tensor | None = None,
-                    max_range: Tensor | None = None, n_bits: int = 8, quantize: bool = True) -> Tensor:
+                    max_range: Tensor | None = None, n_bits: int = 8, quantize: bool = True,
+                    bf16: bool = False) -> Tensor:
     """``softmax(qs @ k^T) @ v`` over contiguous ``[BH, L, d]``, with the head grid ``(min_range, max_range)``
-    applied in the kernel's epilogue when ``quantize`` (the ranges are then required); differentiable."""
+    applied in the kernel's epilogue when ``quantize`` (the ranges are then required); differentiable. ``bf16``:
+    the bf16 route (forward only: raises ``NotImplementedError`` where a gradient is needed)."""
     _check_device("fused_attention", qs)
     _check(qs, k, v, min_range, max_range, quantize)
     tensors = (qs, k, v, *((min_range, max_range) if quantize else ()))
+    if bf16:
+        refuse_bf16_grad(*tensors)
+        return _forward(qs, k, v, min_range, max_range, n_bits, quantize, bf16=True)
     if _needs_grad(*tensors):
         return _FusedAttention.apply(qs, k, v, min_range, max_range, n_bits, quantize)
     return _forward(qs, k, v, min_range, max_range, n_bits, quantize)
 
 
 def fused_attention_packed(q: Tensor, k: Tensor, v: Tensor, min_range: Tensor | None = None,
-                           max_range: Tensor | None = None, n_bits: int = 8, quantize: bool = True) -> Tensor:
+                           max_range: Tensor | None = None, n_bits: int = 8, quantize: bool = True,
+                           bf16: bool = False) -> Tensor:
     """:func:`fused_attention` on ``q [B, Lq, h, d]`` and ``k, v [B, Lk, h, d]`` views (any outer strides, a unit
-    inner stride), the heads returned as a new ``[B, Lq, h d]``; differentiable."""
+    inner stride), the heads returned as a new ``[B, Lq, h d]``; differentiable. ``bf16``: the bf16 route (forward
+    only)."""
     _check_device("fused_attention_packed", q)
     _check_packed(q, k, v, min_range, max_range, quantize)
     tensors = (q, k, v, *((min_range, max_range) if quantize else ()))
+    if bf16:
+        refuse_bf16_grad(*tensors)
+        return _forward_packed(q, k, v, min_range, max_range, n_bits, quantize, bf16=True)
     if _needs_grad(*tensors):
         return _FusedAttentionPacked.apply(q, k, v, min_range, max_range, n_bits, quantize)
     return _forward_packed(q, k, v, min_range, max_range, n_bits, quantize)

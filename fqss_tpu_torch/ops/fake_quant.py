@@ -299,6 +299,17 @@ def _needs_grad(*tensors: Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
+BF16_TRAINING = ("bf16 compute is ported for serving only: a bf16 forward that needs a gradient is queued as "
+                 "'bf16 training' (ROADMAP.md, queue 1); run it under torch.no_grad()/inference_mode(), or in float32")
+
+
+def refuse_bf16_grad(*tensors: Tensor) -> None:
+    """Raise where a bf16 product would need a gradient: its backward routes are not ported (a refusal, not a
+    fallback to float32)."""
+    if _needs_grad(*(t for t in tensors if t is not None)):
+        raise NotImplementedError(BF16_TRAINING)
+
+
 def act_fake_quant(x: Tensor, min_range: Tensor, max_range: Tensor, n_bits: int = 8,
                    scale_grad: bool = False) -> Tensor:
     """Per-tensor uniform fake-quant ``d·clip(round((x−mn)/d), 0, Q) + mn``, differentiable.

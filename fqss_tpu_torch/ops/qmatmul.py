@@ -23,10 +23,13 @@ switched off where its ranges are ``None`` (the folded serving model has no
 weight grid) or skipped on the device while its one-element bool
 "observing" flag is set (``where(observing, v, fq(v))``), as in K5.
 
+``bf16=True`` is the bf16 route, K5's: ``x`` and the weight (after its
+grid) rounded to bfloat16 as the kernel loads them, the sums float32.
+
 A CUDA tensor launches the kernel, or the wrapper raises: there is no
 fallback. A CPU tensor takes the plain version, :func:`qmatmul_ref` (the
 weight grid, ``torch.matmul``, the act grid). ``LAUNCHES["qmatmul"]``
-counts the kernel's launches.
+counts the kernel's launches, ``LAUNCHES["qmatmul_bf16"]`` its bf16 route's.
 """
 
 from __future__ import annotations
@@ -35,11 +38,11 @@ import torch
 
 from fqss_tpu_torch.ops import _build
 from fqss_tpu_torch.ops.fake_quant import _check_device, _launch, _needs_grad
-from fqss_tpu_torch.ops.qat_dense import _ptr, _weight_q, _weight_scratch, act_q, check_grids
+from fqss_tpu_torch.ops.qat_dense import _ptr, _weight_q, _weight_scratch, act_q, check_grids, operands
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"qmatmul": 0}
+LAUNCHES = {"qmatmul": 0, "qmatmul_bf16": 0}
 
 
 def reset_launches() -> None:
@@ -49,20 +52,23 @@ def reset_launches() -> None:
 
 def qmatmul_ref(x: Tensor, w: Tensor, w_mn: Tensor | None = None, w_mx: Tensor | None = None,
                 a_mn: Tensor | None = None, a_mx: Tensor | None = None, w_bits: int = 8, a_bits: int = 8,
-                w_observing: Tensor | None = None, a_observing: Tensor | None = None) -> Tensor:
-    """Plain version: ``act_fq(weight_fq(w) @ x[b])`` for every ``b``, each grid skipped where its flag is set."""
-    pre = torch.matmul(_weight_q(w, w_mn, w_mx, w_bits, w_observing), x)
+                w_observing: Tensor | None = None, a_observing: Tensor | None = None, bf16: bool = False) -> Tensor:
+    """Plain version: ``act_fq(weight_fq(w) @ x[b])`` for every ``b``, each grid skipped where its flag is set; under
+    ``bf16`` the product's operands rounded to bfloat16 (the sums float32: TF32 off)."""
+    xc, wc = operands(x, _weight_q(w, w_mn, w_mx, w_bits, w_observing), bf16)
+    pre = torch.matmul(wc, xc)
     return act_q(pre, a_mn, a_mx, a_bits, a_observing)
 
 
 def qmatmul(x: Tensor, w: Tensor, w_mn: Tensor | None = None, w_mx: Tensor | None = None,
             a_mn: Tensor | None = None, a_mx: Tensor | None = None, w_bits: int = 8, a_bits: int = 8,
-            w_observing: Tensor | None = None, a_observing: Tensor | None = None) -> Tensor:
+            w_observing: Tensor | None = None, a_observing: Tensor | None = None, bf16: bool = False) -> Tensor:
     """``act_fq(weight_fq(w [N, K]) @ x[b])`` for every ``x[b] [K, T]`` of ``x [B, K, T]`` -> ``[B, N, T]``.
 
     ``w_mn``/``w_mx``: the weight grid's per-out-channel ranges, or None for no weight grid; ``a_mn``/``a_mx``:
     the output grid's one-element ranges, or None. ``w_observing``/``a_observing``: one-element bool tensors
-    (or None): where set, that grid is skipped. Forward only: raises where a gradient would be needed."""
+    (or None): where set, that grid is skipped. ``bf16``: the product's operands rounded to bfloat16. Forward
+    only: raises where a gradient would be needed."""
     _check_device("qmatmul", x)
     if x.ndim != 3 or w.ndim != 2 or x.shape[1] != w.shape[1]:
         raise ValueError(f"qmatmul: x [B, K, T] and w [N, K] expected, got {tuple(x.shape)} and {tuple(w.shape)}")
@@ -71,13 +77,14 @@ def qmatmul(x: Tensor, w: Tensor, w_mn: Tensor | None = None, w_mx: Tensor | Non
         raise ValueError("qmatmul is forward only, as qmatmul_pallas: compute a gradient through the "
                          "differentiable quantizers")
     if x.device.type == "cpu":
-        return qmatmul_ref(x, w, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing)
+        return qmatmul_ref(x, w, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing, bf16)
     (B, K, T), N = x.shape, w.shape[0]
     y = torch.empty(B, N, T, device=x.device)
     if y.numel():
         wq = _weight_scratch(w, w_mn)
-        _launch("qmatmul", _build.library().fqss_qmatmul, x.device, x.data_ptr(), w.data_ptr(), _ptr(w_mn),
-                _ptr(w_mx), _ptr(w_observing), _ptr(a_mn), _ptr(a_mx), _ptr(a_observing), _ptr(wq), y.data_ptr(),
-                B, K, T, N, w_bits, a_bits)
-        LAUNCHES["qmatmul"] += 1
+        lib = _build.library()
+        _launch("qmatmul", lib.fqss_qmatmul_bf16 if bf16 else lib.fqss_qmatmul, x.device, x.data_ptr(),
+                w.data_ptr(), _ptr(w_mn), _ptr(w_mx), _ptr(w_observing), _ptr(a_mn), _ptr(a_mx), _ptr(a_observing),
+                _ptr(wq), y.data_ptr(), B, K, T, N, w_bits, a_bits)
+        LAUNCHES["qmatmul_bf16" if bf16 else "qmatmul"] += 1
     return y

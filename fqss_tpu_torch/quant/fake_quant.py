@@ -43,6 +43,12 @@ def qrange(n_bits: int, sign: bool) -> tuple[int, int]:
     return 0, 2**n_bits - 1
 
 
+def bf16_round(x: Tensor) -> Tensor:
+    """A float32 tensor's values rounded to bfloat16 (to nearest, ties to even, as ``astype(bfloat16)``), kept in
+    float32: a bf16 operand of a float32 sum. The product of two such values is exact in float32."""
+    return x.to(torch.bfloat16).float()
+
+
 def true_div(a: Tensor, q: float) -> Tensor:
     """``a / q`` as IEEE division on every device (see the module note)."""
     return a / torch.full_like(a, float(q))

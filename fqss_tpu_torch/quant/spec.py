@@ -10,6 +10,8 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Mapping
 
+import torch
+
 
 @dataclasses.dataclass(frozen=True)
 class QuantSpec:
@@ -20,8 +22,12 @@ class QuantSpec:
     effect here: on a CUDA tensor the quantizers always run the hand-written
     kernels of :mod:`fqss_tpu_torch.ops.fake_quant`.
 
-    ``compute_dtype="bfloat16"`` is not ported yet (ROADMAP.md, queue 2) and
-    raises ``NotImplementedError``.
+    ``compute_dtype="bfloat16"`` rounds the operands of every convolution and
+    matrix product to bfloat16 (:func:`fqss_tpu_torch.nn.layers.mxu_operands`)
+    and keeps the sums and the grid math in float32, as JAX's
+    ``preferred_element_type=float32`` does; any other value computes in
+    float32. It is ported for serving: a bf16 forward that needs a gradient
+    raises ``NotImplementedError`` (ROADMAP.md, queue 1: bf16 training).
     """
 
     qat: bool = False
@@ -47,12 +53,15 @@ class QuantSpec:
     pallas_attn: bool = False
     compute_dtype: str = "float32"
 
-    def __post_init__(self):
-        if self.compute_dtype != "float32":
-            raise NotImplementedError(
-                f"compute_dtype={self.compute_dtype!r} is not ported yet; only float32 "
-                "(see ROADMAP.md, queue 2)"
-            )
+    @property
+    def bf16(self) -> bool:
+        """Whether products take bfloat16 operands (``fqss_tpu/quant/spec.py:mxu_dtype`` is bfloat16)."""
+        return self.compute_dtype == "bfloat16"
+
+    @property
+    def mxu_dtype(self) -> torch.dtype:
+        """The operands' type: bfloat16 exactly when ``compute_dtype`` is ``"bfloat16"``, else float32."""
+        return torch.bfloat16 if self.bf16 else torch.float32
 
     @classmethod
     def from_config(cls, cfg: Mapping[str, Any] | None) -> "QuantSpec":

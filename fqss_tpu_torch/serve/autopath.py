@@ -5,6 +5,9 @@ fastest on the card, so that ``infer``/``val --engine auto`` serve each
 family on it. The JAX package's table (``BEST_PATHS`` there) holds TPU
 readings and QuantSpec overrides (bf16 compute, Pallas flags); this one
 holds the port's engines as measured on an H100, and nothing of the TPU's.
+It overrides no field of the spec: no family's bf16 engine is the faster
+here, so a config in float32 is served in float32, and one that asks for
+``compute_dtype: bfloat16`` gets it.
 """
 
 from __future__ import annotations
@@ -14,17 +17,20 @@ from torch import nn
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
 
 # The fastest engine per family: chip_smoke.py's throughput phases 7 and 15 (ConvTasNet, 32 x 12 s), 23 (DPTNet,
-# 8 x 4 s) and 30 (Sepformer, 8 x 4 s), ms per forward (CUDA events, 3 forwards after a warm-up) on an NVIDIA
-# H100 80GB HBM3 at a 700 W power limit:
-#                fake_quant  folded  int8 f32  int8 bf16
-#   ConvTasNet        578.9   578.4     973.6     1001.4
-#   DPTNet            281.4   284.4     389.6      436.4
-#   Sepformer         228.4   228.0     260.3      282.3
+# 8 x 4 s) and 30 (Sepformer, 8 x 4 s), and phases 40-42 for the two engines in bf16 compute (compute_dtype
+# "bfloat16", in turns with the float32 fake_quant forward, which read 581.3 / 243.4 / 180.0 ms there), ms per
+# forward (CUDA events, 3 forwards after a warm-up) on an NVIDIA H100 80GB HBM3 at a 700 W power limit:
+#                fake_quant  folded  int8 f32  int8 bf16  fake_quant bf16  folded bf16
+#   ConvTasNet        579.4   579.3     960.7      987.8            664.2        664.1
+#   DPTNet            243.8   246.9     368.7      415.7            286.5        286.5
+#   Sepformer         180.1   179.9     245.2      267.3            202.1        201.9
 # fake_quant and folded are one function (bitwise equal outputs). Folded launches no weight-grid kernel and is the
-# faster by 0.5 ms or less for ConvTasNet and the Sepformer; DPTNet's folded forward is 3.0 ms slower, as in every
-# reading so far (283.5 against 286.5 ms before): its LSTM projections run as other cuBLAS products (mm, not bmm)
-# on the folded weights. Every int8 engine is slower on this card: its requantization chains run as eager
-# elementwise kernels (PERF.md section 5).
+# faster by 0.2 ms or less for ConvTasNet and the Sepformer; DPTNet's folded forward is 3.1 ms slower, as in every
+# reading so far: its LSTM projections run as other cuBLAS products (mm, not bmm) on the folded weights. Every int8
+# engine is slower on this card: its requantization chains run as eager elementwise kernels (PERF.md section 5).
+# bf16 compute is slower for every family, so the table keeps float32 (JAX's table takes bf16 where its TPU ran it
+# faster): ConvTasNet's convs stay cuDNN float32 on rounded operands, and K8's bf16 route takes three passes over
+# the keys (PERF.md section 5).
 BEST_PATHS: dict[str, str] = {"ConvTasNet": "folded", "DPTNet": "fake_quant", "Sepformer": "folded"}
 DEFAULT_PATH = "folded"  # a family the table does not name: the weight-folded fake-quant model
 

@@ -37,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from fqss_tpu_torch.ops.int8_matmul import int8_matmul_requant, int8_product
+from fqss_tpu_torch.quant.fake_quant import bf16_round
 
 Tensor = torch.Tensor
 
@@ -231,11 +232,6 @@ def layer_norm(x: Tensor, scale: Tensor, bias: Tensor, eps: float) -> Tensor:
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     return (x - mu) * torch.rsqrt(var + eps) * scale + bias
-
-
-def bf16_round(x: Tensor) -> Tensor:
-    """A float32 tensor's values rounded to bfloat16, kept in float32: a bf16 operand of a float32 sum."""
-    return x.to(torch.bfloat16).float()
 
 
 def conv1d(x: Tensor, w: Tensor, stride: int = 1, padding: int = 0, dilation: int = 1, groups: int = 1,

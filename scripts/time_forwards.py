@@ -11,9 +11,11 @@ after warm-up, with ``chip_smoke.py``'s models and seeded weights:
   8 x 4 s (5 forwards each), and a streamed window's forward (phase 38's: a
   16000-sample window at batch 1 through the fake_quant model, which
   ``--engine auto`` serves; median of 14);
-* ``sepformer``: the Sepformer, fake_quant and float32 int8, 8 x 4 s;
+* ``sepformer``: the Sepformer, fake_quant and float32 int8, 8 x 4 s, and a
+  streamed window's forward (folded, which ``auto`` serves; median of 14);
 * ``convtasnet``: the ConvTasNet fake_quant forward and the float32 int8
-  engine, 32 x 12 s (3 forwards each);
+  engine, 32 x 12 s (3 forwards each), and a streamed window's forward
+  (folded; median of 14);
 * ``steps``: KD train steps (student and float teacher from
   ``create_model_and_teacher``, the observer window closed first): the
   Sepformer at 1 x 4 s and 8 x 4 s (median of 5 steps), the ConvTasNet at
@@ -47,7 +49,7 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402  (the models, sizes and timing of the checkout at ROOT)
 from fqss_tpu_torch.infer import disable_tf32  # noqa: E402
 from fqss_tpu_torch.models.factory import create_model_and_teacher  # noqa: E402
-from fqss_tpu_torch.serve import make_int8_engine  # noqa: E402
+from fqss_tpu_torch.serve import fold_quantized_weights, make_int8_engine  # noqa: E402
 from fqss_tpu_torch.train.trainer import TrainConfig, make_train_step  # noqa: E402
 
 WINDOW = 16000  # phase 38's window (the configs' segment)
@@ -58,6 +60,16 @@ def forward_ms(engine, x: torch.Tensor, n: int) -> float:
         with torch.inference_mode():
             return engine(x)
     return cs.cuda_ms(forward, n)
+
+
+def window_p50(engine, x: torch.Tensor) -> float:
+    """The median of 14 forwards of a streamed window (x's first WINDOW samples at batch 1)."""
+    window = x[:1, :WINDOW].contiguous()
+
+    def forward():
+        with torch.inference_mode():
+            return engine(window)
+    return cs.median_ms(forward, 14)[0]
 
 
 def step_ms(dev, cfg: dict, batch: int, seg: int, seed: int, n: int, median: bool) -> float:
@@ -86,13 +98,7 @@ def main() -> None:
         model, x = cs.build_served_dptnet(dev, mix[:2]), torch.from_numpy(mix).to(dev)
         out["dptnet_fake_quant"] = forward_ms(model, x, 5)
         out["dptnet_int8_float32"] = forward_ms(make_int8_engine(model, compute_dtype="float32"), x, 5)
-        window = x[:1, :WINDOW].contiguous()
-
-        def window_forward():
-            with torch.inference_mode():
-                return model(window)
-
-        out["dptnet_window_p50"] = cs.median_ms(window_forward, 14)[0]
+        out["dptnet_window_p50"] = window_p50(model, x)
         del model
         torch.cuda.empty_cache()
     if "sepformer" in ARGS.parts:
@@ -100,6 +106,7 @@ def main() -> None:
         model, x = cs.build_served_sepformer(dev, mix[:2]), torch.from_numpy(mix).to(dev)
         out["sepformer_fake_quant"] = forward_ms(model, x, 5)
         out["sepformer_int8_float32"] = forward_ms(make_int8_engine(model, compute_dtype="float32"), x, 5)
+        out["sepformer_window_p50"] = window_p50(fold_quantized_weights(model), x)
         del model
         torch.cuda.empty_cache()
     if "convtasnet" in ARGS.parts:
@@ -107,6 +114,7 @@ def main() -> None:
         model, x = cs.build_served_model(dev, mix[:4]), torch.from_numpy(mix).to(dev)
         out["convtasnet_fake_quant"] = forward_ms(model, x, 3)
         out["convtasnet_int8_float32"] = forward_ms(make_int8_engine(model, compute_dtype="float32"), x, 3)
+        out["convtasnet_window_p50"] = window_p50(fold_quantized_weights(model), x)
         del model
         torch.cuda.empty_cache()
     if "steps" in ARGS.parts:

@@ -79,7 +79,7 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_no_launch():
     for quantize in (False, True):
         got = k8.fused_attention(qs, k, v, mn, mx, 8, quantize=quantize)
         assert torch.equal(got, k8.fused_attention_ref(qs, k, v, mn, mx, 8, quantize=quantize))
-    assert k8.LAUNCHES == {"attention": 0}
+    assert k8.LAUNCHES == {"attention": 0, "attention_bf16": 0}
     with pytest.raises(ValueError, match="one-element"):
         k8.fused_attention(qs, k, v, quantize=True)
     with pytest.raises(ValueError, match="contiguous"):

@@ -335,7 +335,7 @@ def test_packed_plain_version_is_the_head_layout_plain_version(B, L, h, d, quant
     assert got.shape == (B, L, h * d) and torch.equal(got, want)
     k8.reset_launches()
     assert torch.equal(k8.fused_attention_packed(q, k, v, mn, mx, 8, quantize), want)
-    assert k8.LAUNCHES == {"attention": 0}
+    assert k8.LAUNCHES == {"attention": 0, "attention_bf16": 0}
 
 
 def test_packed_autograd_function_gives_the_plain_gradient():

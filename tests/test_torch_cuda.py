@@ -885,7 +885,7 @@ def test_qat_dense_backward_matches_plain(dev, m, k, n):
         before = dict(qd.LAUNCHES), fq.LAUNCHES["weight_bwd"]
         got = qd.qat_dense_bwd(*args[:3], g, *args[3:])
         assert {k_: qd.LAUNCHES[k_] - before[0][k_] for k_ in qd.LAUNCHES} == {
-            "dense": 0, "dense_mask": 1, "dense_dx": 1, "dense_dwq": 1}
+            "dense": 0, "dense_bf16": 0, "dense_mask": 1, "dense_dx": 1, "dense_dwq": 1}
         assert fq.LAUNCHES["weight_bwd"] == before[1] + (args[3] is not None)
         _assert_dense_grads(got, args, g)
         if flags.get("a_obs"):
@@ -901,7 +901,7 @@ def test_qat_dense_autograd_runs_the_kernels(dev):
     leaves = [t.clone().requires_grad_(True) for t in args[:7]]
     qd.reset_launches()
     (qd.qat_dense(*leaves, *args[7:]) * g).sum().backward()
-    assert qd.LAUNCHES == {"dense": 1, "dense_mask": 1, "dense_dx": 1, "dense_dwq": 1}
+    assert qd.LAUNCHES == {"dense": 1, "dense_bf16": 0, "dense_mask": 1, "dense_dx": 1, "dense_dwq": 1}
     _assert_dense_grads([t.grad for t in leaves], args, g)
 
 
@@ -1015,7 +1015,8 @@ def test_tiny_train_step_card_vs_cpu(dev, name):
             out.append((float(metrics["loss"]), grads, dict(qd.LAUNCHES), dict(lstm.LAUNCHES)))
         runs.append(out)
     for step, (loss_card, g_card, dense, rec), (loss_cpu, g_cpu, cpu_dense, _) in zip(TINY_TRAIN_CARD_VS_CPU, *runs):
-        assert dense == {"dense": 2 * n_dense, "dense_mask": n_dense, "dense_dx": n_dense, "dense_dwq": n_dense}
+        assert dense == {"dense": 2 * n_dense, "dense_bf16": 0, "dense_mask": n_dense, "dense_dx": n_dense,
+                         "dense_dwq": n_dense}
         assert set(cpu_dense.values()) == {0}
         if name == "DPTNet":
             assert rec == {"lstm": 0, "bilstm": 2 * 4}  # student and teacher, 2 layers x row and col each
@@ -1092,3 +1093,150 @@ def test_qmatmul_wrapper_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError, match="forward only"):
         qm.qmatmul(x.clone().requires_grad_(), w)
 
+
+
+# The bf16 routes (QuantSpec.compute_dtype "bfloat16") of K5, K3 and K8 against their plain versions: K5's and K3's
+# by the float32 routes' rules, the sums of the terms' magnitudes taken over the operands rounded to bf16 (the planted
+# ties are bf16 values, so they stay exact); K8's by chip_smoke.py's phase 43 rule: every row within ATTN_REL_TOL of
+# max |heads|, a row with a softmax weight within ATTN_BF16_TIE_ULPS float32 ulps of a bf16 tie also within one
+# bf16 step (2^-7 p) of p |v| over such weights.
+ATTN_BF16_TIE_ULPS = 2
+
+
+@pytest.mark.parametrize("m,k,n", DENSE_SHAPES)
+def test_qat_dense_bf16_route_matches_plain(dev, m, k, n):
+    case = _dense_case(dev, m, k, n, m + k + n)
+    for flags in DENSE_FLAGS:
+        args = _dense_args(case, dev, **flags)
+        before = dict(qd.LAUNCHES)
+        y = qd.qat_dense(*args, bf16=True)
+        pre = qd.qat_dense(*args[:5], None, None, 8, 8, args[9], None, bf16=True)
+        assert qd.LAUNCHES == {**before, "dense_bf16": before["dense_bf16"] + 2}
+        xr, wq = qd.operands(args[0], qd._weight_q(args[1], args[3], args[4], 8, args[9]), True)
+        terms = xr.abs() @ wq.abs().t() + args[2].abs()
+        plain = qd.qat_dense_ref(*args[:5], None, None, 8, 8, args[9], None, bf16=True)
+        assert bool(((pre - plain).abs() <= DENSE_RTOL * terms).all()), flags
+        if args[5] is None or flags.get("a_obs"):
+            assert torch.equal(y, pre), flags
+            continue
+        assert torch.equal(y, fq.act_fake_quant_ref(pre, args[5], args[6], 8)), flags
+        step = (args[6] - args[5]).item() / 255
+        diff = (y - qd.qat_dense_ref(*args, bf16=True)).abs()
+        assert diff.max().item() <= step * (1 + 1e-4), flags
+        assert (diff > 0.5 * step).float().mean().item() <= DENSE_GRID_SHARE, flags
+        assert torch.equal(y[: min(m, 7), 0], qd.qat_dense_ref(*args, bf16=True)[: min(m, 7), 0]), flags
+
+
+@pytest.mark.parametrize("b,k,t,n", QMM_SHAPES)
+def test_qmatmul_bf16_route_matches_plain(dev, b, k, t, n):
+    x, w, w_mn, w_mx, a_mn, a_mx = _qmatmul_case(dev, b, k, t, n, b + k + t + n)
+    for flags in DENSE_FLAGS:
+        flag = (lambda v: None if v is None else torch.tensor(v, device=dev))
+        wr = (w_mn, w_mx) if flags["w"] else (None, None)
+        ar = (a_mn, a_mx) if flags["a"] else (None, None)
+        w_obs, a_obs = flag(flags.get("w_obs")), flag(flags.get("a_obs"))
+        before = dict(qm.LAUNCHES)
+        y = qm.qmatmul(x, w, *wr, *ar, 8, 8, w_obs, a_obs, bf16=True)
+        pre = qm.qmatmul(x, w, *wr, None, None, 8, 8, w_obs, None, bf16=True)
+        assert qm.LAUNCHES == {**before, "qmatmul_bf16": before["qmatmul_bf16"] + 2}
+        xr, wq = qd.operands(x, qd._weight_q(w, *wr, 8, w_obs), True)
+        terms = wq.abs() @ xr.abs()
+        assert bool(((pre - qm.qmatmul_ref(x, w, *wr, None, None, 8, 8, w_obs, None, bf16=True)).abs()
+                     <= DENSE_RTOL * terms).all()), flags
+        if ar[0] is None or flags.get("a_obs"):
+            assert torch.equal(y, pre), flags
+            continue
+        assert torch.equal(y, fq.act_fake_quant_ref(pre, a_mn, a_mx, 8)), flags
+        ref = qm.qmatmul_ref(x, w, *wr, *ar, 8, 8, w_obs, a_obs, bf16=True)
+        diff = (y - ref).abs()
+        assert diff.max().item() <= STEP * (1 + 1e-4), flags
+        assert (diff > 0.5 * STEP).float().mean().item() <= DENSE_GRID_SHARE, flags
+        assert torch.equal(y[0, 0, : min(t, 7)], ref[0, 0, : min(t, 7)]), flags
+
+
+def _assert_bf16_heads(heads, qs, k, v):
+    """K8's bf16 float heads against the plain version's by the tie rule above."""
+    ref = k8.fused_attention_ref(qs, k, v, quantize=False, bf16=True)
+    p = k8.softmax_ref(torch.matmul(qd.bf16_round(qs), qd.bf16_round(k).transpose(-1, -2)))
+    near = k8.bf16_tie_mask(p, ATTN_BF16_TIE_ULPS)
+    slack = 2.0**-7 * torch.matmul(qd.bf16_round(p) * near, qd.bf16_round(v).abs())
+    assert bool(((heads - ref).abs() <= ATTN_REL_TOL * ref.abs().max() + slack).all())
+    return ref
+
+
+@pytest.mark.parametrize("bh,lq,lk,d", [(3, 37, 53, 24), (2176, 250, 250, 32), (40, 34, 34, 32), (7, 300, 40, 16),
+                                        (5, 70, 129, 64), (2, 33, 17, 128), (1, 1, 1, 5)])
+def test_attention_bf16_route_matches_plain(dev, bh, lq, lk, d):
+    qs, k, v, mn, mx = _attention_case(dev, bh, lq, lk, d, bh + lq + d)
+    qs[:, 0] *= 100.0  # logits far past expf's range
+    before = dict(k8.LAUNCHES)
+    heads = k8.fused_attention(qs, k, v, quantize=False, bf16=True)
+    got = k8.fused_attention(qs, k, v, mn, mx, 8, bf16=True)
+    assert k8.LAUNCHES == {**before, "attention_bf16": before["attention_bf16"] + 2}
+    _assert_bf16_heads(heads, qs, k, v)
+    assert torch.equal(got, fq.act_fake_quant_ref(heads, mn, mx, 8))
+    step = (mx - mn).item() / 255
+    diff = (got - k8.fused_attention_ref(qs, k, v, mn, mx, 8, bf16=True)).abs()
+    assert diff.max().item() <= step * (1 + 1e-4)
+    assert (diff > 0.5 * step).float().mean().item() <= ATTN_GRID_SHARE
+
+
+@pytest.mark.parametrize("B,L,h,d", [(272, 250, 8, 32), (2000, 34, 8, 32), (2064, 250, 4, 16), (3, 9, 2, 5)])
+def test_packed_attention_bf16_route_equals_the_contiguous_entry(dev, B, L, h, d):
+    qs, k, v, mn, mx = _attention_case(dev, B * h, L, L, d, B + L)
+    E = h * d
+    X = torch.randn(B, L, 3 * E, device=dev)  # an in-projection: K and V its thirds, Q its own [B, L, E]
+    X[..., E:2 * E] = k.reshape(B, h, L, d).transpose(1, 2).reshape(B, L, E)
+    X[..., 2 * E:] = v.reshape(B, h, L, d).transpose(1, 2).reshape(B, L, E)
+    Q = qs.reshape(B, h, L, d).transpose(1, 2).reshape(B, L, E).contiguous()
+    packed = k8.fused_attention_packed(Q.unflatten(-1, (h, d)), X[..., E:2 * E].unflatten(-1, (h, d)),
+                                       X[..., 2 * E:].unflatten(-1, (h, d)), mn, mx, 8, bf16=True)
+    want = k8.fused_attention(qs, k, v, mn, mx, 8, bf16=True)
+    assert torch.equal(packed.reshape(B, L, h, d).transpose(1, 2).reshape(B * h, L, d), want)
+
+
+def test_bf16_routes_refuse_a_gradient_on_the_card(dev):
+    x = torch.randn(4, 16, device=dev, requires_grad=True)
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        qd.qat_dense(x, torch.ones(3, 16, device=dev), torch.zeros(3, device=dev), bf16=True)
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        k8.fused_attention(x[None], x[None].detach(), x[None].detach(), quantize=False, bf16=True)
+
+
+@pytest.mark.parametrize("name", ["DPTNet", "Sepformer"])
+def test_tiny_bf16_model_runs_the_bf16_routes(dev, name):
+    """A tiny bf16 model on the card: K5, K3 and K8 on their bf16 routes only, card vs CPU >= 20 dB, folded bitwise
+    equal to fake_quant."""
+    import dataclasses
+
+    from fqss_tpu_torch.models.factory import create_model
+    from fqss_tpu_torch.serve.fold import fold_quantized_weights
+    from fqss_tpu_torch.quant.spec import QuantSpec
+
+    cfg = {"name": name, "n_src": 2, "kernel_size": 2 if name == "DPTNet" else 8, "stride": 4}
+    cfg.update(dict(enc_dim=16, feature_dim=8, hidden_dim=16, layer=1, segment_size=20) if name == "DPTNet" else
+               dict(n_filters=32, n_repeats=1, n_heads=4, chunk_size=20, n_ffn=48, n_layers=1))
+    spec = QuantSpec(qat=True, n_splitter=2, n_combiner=2, out_quant=True, max_observations=2)
+    model = create_model(cfg, spec, generator=torch.Generator().manual_seed(0))
+    x = torch.randn(2, 1600, generator=torch.Generator().manual_seed(1)) * 0.3
+    with torch.no_grad():
+        for _ in range(2):
+            model.train()(x)
+    bf16 = dataclasses.replace(spec, observer=False, compute_dtype="bfloat16")
+    cpu, card = create_model(cfg, bf16), create_model(cfg, bf16)
+    for m in (cpu, card):
+        m.load_state_dict(model.state_dict())
+        m.eval()
+    card = card.to(dev)
+    with torch.inference_mode():
+        want = cpu(x)
+    for module in (qd, qm, k8):
+        module.reset_launches()
+    with torch.inference_mode():
+        y = card(x.to(dev))
+    assert qd.LAUNCHES["dense"] == qm.LAUNCHES["qmatmul"] == k8.LAUNCHES["attention"] == 0
+    assert qd.LAUNCHES["dense_bf16"] > 0 and qm.LAUNCHES["qmatmul_bf16"] == 1 and k8.LAUNCHES["attention_bf16"] > 0
+    snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
+    assert bool((snr >= 20).all()), snr
+    with torch.inference_mode():
+        assert torch.equal(fold_quantized_weights(card)(x.to(dev)), y)

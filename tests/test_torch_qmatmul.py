@@ -145,7 +145,7 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_and_counts_no_launch():
     args = _port_args(*_inputs(2, 24, 37, 33, 1), True)
     qm.reset_launches()
     assert torch.equal(qm.qmatmul(*args), qm.qmatmul_ref(*args))
-    assert qm.LAUNCHES == {"qmatmul": 0}
+    assert qm.LAUNCHES == {"qmatmul": 0, "qmatmul_bf16": 0}
 
 
 def test_wrapper_holds_cpu_callers_to_what_the_kernel_takes():

@@ -36,8 +36,23 @@ def test_quant_spec_fields_and_defaults_equal_jax():
 
 
 def test_bfloat16_compute_is_not_ported():
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        QuantSpec(compute_dtype="bfloat16")
+    """bf16 compute is ported for serving only: the spec builds and names its operand type as JAX's does, and a
+    bf16 product that needs a gradient is refused (ROADMAP.md, queue 1: bf16 training)."""
+    from fqss_tpu.nn.layers import mxu_operands as jax_mxu_operands
+    from fqss_tpu.quant.spec import QuantSpec as JaxQuantSpec
+    from fqss_tpu_torch.nn.layers import mxu_operands
+
+    for dtype in ("float32", "bfloat16", "float16"):
+        want = jnp.dtype(JaxQuantSpec(compute_dtype=dtype).mxu_dtype).name
+        assert QuantSpec(compute_dtype=dtype).mxu_dtype == getattr(torch, want)
+    q = QuantSpec(qat=True, compute_dtype="bfloat16")
+    x = np.float32([[1.0, 1.00390625, 1.01171875, -3.3]])  # a tie to even (down), a tie to even (up), inexact
+    xc, _ = jax_mxu_operands(JaxQuantSpec(compute_dtype="bfloat16"), jnp.asarray(x), jnp.asarray(x))
+    with torch.no_grad():
+        got, _ = mxu_operands(q, torch.from_numpy(x), torch.from_numpy(x).requires_grad_())
+    np.testing.assert_array_equal(got.numpy(), np.asarray(xc.astype(jnp.float32)))
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        mxu_operands(q, torch.from_numpy(x), torch.from_numpy(x).requires_grad_())
 
 
 @pytest.mark.parametrize("sym", [False, True])

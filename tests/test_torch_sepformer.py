@@ -180,7 +180,7 @@ def test_forward_matches_jax(calibrated):
     for module in (fq, k8, im):
         module.reset_launches()
     got = _forward(port, mix)
-    assert fq.LAUNCHES["act"] == 0 and k8.LAUNCHES == {"attention": 0}  # CPU tensors: the plain versions
+    assert fq.LAUNCHES["act"] == 0 and k8.LAUNCHES == {"attention": 0, "attention_bf16": 0}  # CPU tensors: the plain versions
     assert got.shape == want.shape == (2, 2, 800)
     snr = _snr_db(want, got)
     assert (snr >= 20).all(), f"port vs JAX SNR {snr} dB < 20 dB"

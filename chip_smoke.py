@@ -15,7 +15,8 @@ feed-forward 1024, chunks of 250), then the KD training of both, then the
 fused fake-quant matmul (K3) of their bias-free 1x1 convs, streaming serving
 and ``--engine auto`` for all three models, then bf16 compute
 (``compute_dtype: bfloat16``) on the three models' serving path with the bf16
-routes of K5, K3 and K8; all with
+routes of K5, K3 and K8, then ConvTasNet-music (``configs/convtasnet_music.yaml``)
+serving through every engine, its evaluation, KD training and recipe; all with
 n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one line per phase and lets any
 failure propagate:
 
@@ -229,6 +230,48 @@ failure propagate:
     bf16 plain version and, where torch has one, the library call, with the
     bf16 bound (989 TFLOP/s or the bytes).
 
+44. ConvTasNet-music at full width (``configs/convtasnet_music.yaml``'s model:
+    256 filters, bottleneck 256, hidden 512, 4 repeats x 10 blocks, 4 stems,
+    stereo) from ``create_model``, ranges from the config's 50-step observer
+    window over 2 x 2 s of ``synth_music_batch`` stems, one forward of one
+    OLA batch of a track, 8 x 441,000 samples (10 s at 44.1 kHz): output
+    [8, 4, 2, 441000], finite; K1 per act quantizer module but the 41 K3
+    convs', one grouped weight launch, K3 41 (the bottleneck and every
+    block's pointwise).
+45. card vs CPU on one chunk (1 x 441,000): at full depth within the model's
+    own floor, the card's forward against its own forward of the chunk times
+    (1 + 2^-22), by phase 13's rule (MUSIC_FLOOR_RULE; random weights through
+    40 blocks put that floor near 18 dB); at one repeat (10 blocks) SNR >= 20
+    dB per output.
+46. the folded model: bitwise equal to the fake-quant forward, no weight
+    launch.
+47. the int8 engine, float32 and bfloat16 float products, 8 x 441,000: K4 83
+    (the bottleneck, 40 conv1x1, 40 pointwise, the mask conv, the decoder)
+    and no other launch; against the fake-quant forward at phase 45's floor
+    with phase 13's rule; card vs CPU at 1 x 2 s within the engine's own floor
+    (phase 45's rule; the note above MUSIC_FLOOR_RULE's use in phase 47).
+48. throughput at 8 x 441,000 of fake_quant, folded, int8 f32 and bf16 and
+    the fake_quant model in bf16 compute.
+49. K3 against its plain version at the music forward's shapes ([8, 256,
+    44099] -> 256 once, [8, 512, 44099] -> 256 40 times; phase 37's rules),
+    K4 at the music engine's (phase 22's rule; the decoder's N = 40 over
+    1,411,168 rows), with times per forward; the grouped K2 and K2-bwd at the
+    music model's weight set run in phases 2 and 8.
+50. ``val.evaluate`` (MUSDB NSDR) of fake_quant and int8 on a MUSDB-layout
+    test split of two 12 s synthetic tracks: finite, NSDRs within
+    EVAL_NSDR_DB.
+51. the tasnet KD step (``make_music_train_step``: the config's
+    augmentation, the float teacher, the pow10 L1 loss, clip 5.0) at full
+    width on 6 s windows: batch 1's peak memory, then 8 steps at the largest
+    of 4, 2, 1 that fits, each launching K1 and K1-bwd per act quantizer,
+    the grouped K2 and K2-bwd once each and K3 for the teacher's 41 1x1
+    convs; step time and peak memory.
+52. card vs CPU on one post-window step at 1 x 1 s: the L1 losses within
+    LOSS_DB_TOL dB; the whole-gradient cosine within the card's own floor
+    (its step on the stems times (1 + 2^-22), by MUSIC_FLOOR_RULE).
+53. one epoch of ``python -m fqss_tpu_torch.train -env tasnet`` with the
+    full-width model on a mini MUSDB at 44.1 kHz (JSON config).
+
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
 and prints no result.
@@ -252,8 +295,10 @@ import torch
 import torch.nn.functional as F
 
 from fqss_tpu_torch import infer, val
-from fqss_tpu_torch.data.synthetic import synth_batch
+from fqss_tpu_torch.data.musdb import make_mini_musdb
+from fqss_tpu_torch.data.synthetic import synth_batch, synth_music_batch
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
+from fqss_tpu_torch.models.convtasnet_music import ConvTasNetMusic
 from fqss_tpu_torch.models.dptnet import DPTNet, split_segments
 from fqss_tpu_torch.models.sepformer import Sepformer, TransformerLayer
 from fqss_tpu_torch.models.factory import create_model, create_model_and_teacher, create_pretrained_model
@@ -274,6 +319,7 @@ from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.separation.ola import ola_infer
 from fqss_tpu_torch.serve import BEST_PATHS, make_int8_engine
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
+from fqss_tpu_torch.train.recipes_music import make_music_train_step
 from fqss_tpu_torch.train.state import TrainState
 from fqss_tpu_torch.train.trainer import TrainConfig, make_optimizer, make_train_step
 from fqss_tpu_torch.utils.audio import read_audio, save_audio
@@ -456,6 +502,54 @@ BF16_CARD_VS_CPU_DB = 20.0
 # tie (ops/attention.py:bf16_tie_mask): those are held within ATTN_REL_TOL of max |heads| plus 2^-7 p |v| summed over
 # such weights. The f32 rule (phase 24) is unchanged. The phase prints those rows' count and share.
 ATTN_BF16_TIE_ULPS = 2
+# The music slice (phases 44-53): configs/convtasnet_music.yaml's model_cfg, written out as MODEL_CFG is: the
+# full-width ConvTasNet-music (256 filters, bottleneck 256, hidden 512, 4 repeats x 10 blocks, 4 stems, stereo).
+MUSIC_CFG = {
+    "name": "ConvTasNetMusic",
+    "model_path": None,
+    "sources": ["drums", "bass", "other", "vocals"],
+    "audio_channels": 2,
+    "kernel_size": 20,
+    "stride": 10,
+    "quantization": {
+        "qat": True, "gradient_based": True, "weight_quant": True, "weight_n_bits": 8,
+        "act_quant": True, "act_n_bits": 8, "in_quant": False, "out_quant": True, "out_act_n_bits": 8,
+        "n_splitter": 2, "n_combiner": 2, "observer": True,
+    },
+}
+MUSIC_SR = 44100
+# The serving forward: one OLA batch of a track as the config's testing_cfg gives it, 8 chunks of 441,000 samples.
+MUSIC_BATCH, MUSIC_SEG = 8, 441000
+MUSIC_OBSERVE = (2, 2 * MUSIC_SR, 50)  # ranges: the config's 50-step observer window over 2 x 2 s of stems
+MUSIC_CPU_SEG = 2 * MUSIC_SR  # the int8 engines' card-vs-CPU input, 1 x 2 s (the CPU's float64 int8 products)
+# Card vs CPU (phase 45). At full depth with random weights the 40 blocks amplify a difference in the last bit of any
+# activation until most outputs sit a grid step or more apart: on an H100 the card's forward of one chunk against
+# its own forward of that chunk times (1 + 2^-22) read 17.90-18.34 dB, card vs CPU 18.08-18.55 dB, every layer's
+# card-vs-CPU distance no larger than the card's own (85 against 64 dB at the encoder, growing apart by about 4 dB a
+# block over the first blocks; scripts/music_noise_floor.py, PERF.md section 6). No float32 implementation meets 20 dB
+# there, so the full-depth forward is held to that own floor, measured in the same run, by phase 13's rule (SNR at
+# most 3 dB below the floor's, mean |difference| at most 1.5x the floor's); the 20 dB bound of every other model's
+# phase holds where the floor allows it, at the same width with one repeat (10 blocks; about 26 dB there).
+MUSIC_PERTURB = 2.0**-22
+MUSIC_FLOOR_RULE = INT8_FLOOR["float32"]
+MUSIC_SHALLOW = {"n_repeats": 1}
+# The int8 engines card vs CPU (phase 47) at 1 x 2 s. Phase 13's bounds (INT8_CARD_VS_CPU: the int8 products are exact
+# on both devices) hold for the tiny music model of tests/test_torch_cuda.py, not at this width: on an H100 the
+# float32 engine read 55.3 dB at one block, 47.1 at 3, 37.9 at 6, 27.7 at 10, 22.4 at 20 and 18.7 at 40 (the float
+# encoder, norms and depthwise convs flip requantization ties, and the blocks amplify the flips as they do the
+# fake-quant forward's; scripts/music_noise_floor.py), and its own forward of the input times (1 + 2^-22) read 17.9 dB
+# from it at 40 (phase 47). So the engine is held to its own floor by MUSIC_FLOOR_RULE at full depth.
+# Card vs CPU on one post-window KD step (phase 52), the same rule: the L1 losses within LOSS_DB_TOL dB, and 1 - the
+# whole-gradient cosine at most MUSIC_FLOOR_RULE[1] times the card's own (its step on the stems times (1 + 2^-22)).
+# On an H100 card vs CPU read 0.998740 and the card's own 0.998815 at full depth; GRAD_COS_MIN (phase 10's bound)
+# does not hold at this width: a model of one repeat four steps after its window read 0.9910 card vs CPU.
+EVAL_NSDR_DB = 0.5  # int8 vs fake_quant mean NSDR on the same weights (phase 50)
+# KD training (phases 51-52): the config's 6 s windows, shifted by its 8192-sample augmentation, at the largest of
+# the config's batch of 4, then 2 and 1, whose batch-1 peak says it fits in MUSIC_TRAIN_MEMORY of the card; the
+# observer window cut to 3 steps (phase 9's) so that the later steps train the ranges.
+MUSIC_TRAIN_SEG, MUSIC_TRAIN_WINDOW, MUSIC_TRAIN_MEMORY = 6 * MUSIC_SR, 3, 0.9
+MUSIC_AUGMENT = {"enable": True, "shift": 8192, "flip": True, "scale": True, "remix_group_size": 0}
+MUSIC_RECIPE_SECONDS = 2.0  # the mini MUSDB of phase 53: 2 training tracks and 1 test track of this length
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8, float32, TF32 and bf16 rates.
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, TF32_OPS_S, BF16_OPS_S = 3.35e12, 1.979e15, 67e12, 495e12, 989e12
 # The route K5, K5-bwd and K3 take: three TF32 tensor-core products for each float32 one.
@@ -755,14 +849,15 @@ def check_weight_bwd_kernel(dev) -> dict:
 
 
 def weight_group_models(dev) -> dict:
-    """The three models' full-width module trees on the card (phase 3's ConvTasNet, DPTNET_CFG's and
-    SEPFORMER_CFG's), in train() mode, with seeded random weights: their weight quantizers are the groups of phases
+    """The four models' full-width module trees on the card (phase 3's ConvTasNet, DPTNET_CFG's, SEPFORMER_CFG's
+    and MUSIC_CFG's), in train() mode, with seeded random weights: their weight quantizers are the groups of phases
     2 and 8."""
     conv = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=dataclasses.replace(SPEC, observer=True),
                       generator=torch.Generator().manual_seed(2))
     return {"ConvTasNet": conv.to(dev),
             "DPTNet": create_model(DPTNET_CFG, generator=torch.Generator().manual_seed(2)).to(dev),
-            "Sepformer": create_model(SEPFORMER_CFG, generator=torch.Generator().manual_seed(2)).to(dev)}
+            "Sepformer": create_model(SEPFORMER_CFG, generator=torch.Generator().manual_seed(2)).to(dev),
+            "ConvTasNetMusic": create_model(MUSIC_CFG, generator=torch.Generator().manual_seed(2)).to(dev)}
 
 
 def group_of(model) -> fq.WeightGroup:
@@ -2411,22 +2506,25 @@ def qmatmul_bound(b: int, k: int, t: int, n: int) -> tuple[int, int]:
     return 4 * (b * k * t + n * k + 2 * n + 2 + b * n * t), 2 * b * n * k * t
 
 
-def check_qmatmul_kernel(dev, shapes: list[tuple]) -> dict:
-    """Phase 37: K3 against its plain version at the shapes the serving forwards gave it (one launch each) and at
-    odd ones, every grid and observing-flag combination; times of K3, the plain version and torch.matmul + K1
-    per DPTNet and Sepformer forward, with the bound."""
-    gen = torch.Generator(device=dev).manual_seed(37)
-    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+def check_qmatmul_kernel(dev, shapes: list[tuple], phase: int = 37,
+                         forward: str = "one DPTNet and one Sepformer serving forward's") -> dict:
+    """Phase 37 (and 49 at the music shapes): K3 against its plain version at the shapes the serving forwards gave
+    it and at odd ones, every grid and observing-flag combination; times of K3, the plain version and
+    torch.matmul + K1 per forward, with the bound. A shape is (name, B, K, T, N), launched once a forward, or
+    (name, B, K, T, N, launches a forward)."""
+    gen = torch.Generator(device=dev).manual_seed(phase)
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "forward_launches": 0}
     total = [0, 0]
-    for name, b, k, t, n in [*shapes, *(("odd", *s) for s in QMM_ODD)]:
+    for name, b, k, t, n, *per in [*shapes, *(("odd", *s) for s in QMM_ODD)]:
         case = qmatmul_case(dev, b, k, t, n, gen)
         for flags in DENSE_FLAGS:
             res["max_abs_err"] = max(res["max_abs_err"], check_qmatmul(f"{name} [{b},{k},{t}] -> {n}", case, flags))
-        line = (f"[37] K3 {name} [{b},{k},{t}] x [{n},{k}]: every grid and observing-flag combination "
+        line = (f"[{phase}] K3 {name} [{b},{k},{t}] x [{n},{k}]: every grid and observing-flag combination "
                 f"({len(DENSE_FLAGS)}) within its bounds, planted ties and clip extremes exact")
         if name == "odd":
             log(line)
             continue
+        launches = per[0] if per else 1
         x, w, w_mn, w_mx, a_mn, a_mx = case
         wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0)
         times = {"ms": cuda_ms(lambda: qm.qmatmul(x, w, w_mn, w_mx, a_mn, a_mx), 10),
@@ -2434,14 +2532,15 @@ def check_qmatmul_kernel(dev, shapes: list[tuple]) -> dict:
                  "library_ms": cuda_ms(lambda: fq.act_fake_quant(torch.matmul(wq, x), a_mn, a_mx, 8), 10)}
         nbytes, ops = qmatmul_bound(b, k, t, n)
         log(f"{line}; K3 {times['ms']:.4f} ms ({rate_and_shares(nbytes, ops, times['ms'])}), plain "
-            f"{times['plain_ms']:.4f}, torch.matmul + K1 {times['library_ms']:.4f}")
+            f"{times['plain_ms']:.4f}, torch.matmul + K1 {times['library_ms']:.4f}; {launches} launches a forward")
         for key in ("ms", "plain_ms", "library_ms"):
-            res[key] += times[key]
-        total = [total[0] + nbytes, total[1] + ops]
+            res[key] += launches * times[key]
+        res["forward_launches"] += launches
+        total = [total[0] + launches * nbytes, total[1] + launches * ops]
         del case, x, w, wq
         torch.cuda.empty_cache()
     res.update(bound_of(*total, F32_OPS_S), **route_bound(*total))
-    log(f"[37] one DPTNet and one Sepformer serving forward's {len(shapes)} K3 launches: {res['ms']:.4f} ms "
+    log(f"[{phase}] {forward} {res['forward_launches']} K3 launches: {res['ms']:.4f} ms "
         f"({rate_and_shares(*total, res['ms'])}), plain {res['plain_ms']:.4f}, torch.matmul + K1 "
         f"{res['library_ms']:.4f}")
     return res
@@ -2871,6 +2970,380 @@ def check_bf16_attention(dev, shapes: list[tuple]) -> dict:
     return results
 
 
+def music_mix(seed: int, batch: int, length: int) -> np.ndarray:
+    """Stereo mixtures [B, 2, T]: the sums of seeded synthetic stems (``synth_music_batch``) at MUSIC_SR."""
+    return synth_music_batch(np.random.default_rng(seed), batch, length, sample_rate=MUSIC_SR).sum(axis=1)
+
+
+def build_served_music(dev, **arch) -> ConvTasNetMusic:
+    """The full-width ConvTasNet-music of MUSIC_CFG (``arch``: keys of the model_cfg that change its depth) from a
+    seeded generator, its ranges from the config's observer window over MUSIC_OBSERVE's stems, returned in eval()
+    mode with the observer off."""
+    batch, length, steps = MUSIC_OBSERVE
+    cfg = {**MUSIC_CFG, **arch}
+    model = create_model(cfg, generator=torch.Generator().manual_seed(44)).to(dev).train()
+    if model.q.max_observations != steps:
+        raise AssertionError(f"the config's observer window is {model.q.max_observations} steps, not {steps}")
+    x = torch.from_numpy(music_mix(44, batch, length)).to(dev)
+    with torch.no_grad():
+        for _ in range(steps):
+            model(x)
+    served = create_model(cfg, dataclasses.replace(model.q, observer=False))
+    served.load_state_dict(model.state_dict())
+    return served.to(dev).eval()
+
+
+def music_on_cpu(served: ConvTasNetMusic) -> ConvTasNetMusic:
+    """The served model on the CPU: the same weights and ranges, in eval() mode."""
+    cpu_model = create_model({**MUSIC_CFG, "n_blocks": served.n_blocks, "n_repeats": served.n_repeats}, served.q)
+    cpu_model.load_state_dict(state_on_cpu(served))
+    return cpu_model.eval()
+
+
+def music_serving_launches(model: ConvTasNetMusic) -> dict:
+    """A serving forward's launches: K1 per act quantizer module but the K3 convs' (K3 applies their grids), one
+    grouped weight launch, K3 per bias-free 1x1 conv (the bottleneck and every block's pointwise)."""
+    fused = fused_convs(model)
+    return no_launches(act=count_quantizers(model.modules())["act"] - fused["act"], weight=1,
+                       qmatmul=fused["qmatmul"])
+
+
+def music_int8_cases(model: ConvTasNetMusic) -> list[tuple]:
+    """(M, K, N, nl, alpha, grids, what, launches a forward) of the music int8 engine's K4 launches at MUSIC_BATCH x
+    MUSIC_SEG: the bottleneck, each block's conv1x1 (PReLU) and pointwise, the mask conv (ReLU), the decoder (one row
+    a stem, frame and batch element)."""
+    frames = (MUSIC_SEG - model.kernel_size) // model.stride + 1
+    m, n_f = MUSIC_BATCH * frames, model.n_filters
+    bn, hid = model.separator.bottleneck.weight.shape[0], model.separator.blocks[0].conv1x1.weight.shape[0]
+    blocks, one = len(model.separator.blocks), (INT8_TIE_DELTA, INT8_TIE_MN)
+    return [(m, n_f, bn, "prelu", 1.0, one, "bottleneck", 1),
+            (m, bn, hid, "prelu", 0.25, one, "conv1x1", blocks),
+            (m, hid, bn, "prelu", 1.0, one, "pointwise", blocks),
+            (m, bn, model.n_srcs * n_f, "prelu", 0.0, one, "mask_conv", 1),
+            (m * model.n_srcs, n_f, model.audio_channels * model.kernel_size, "prelu", 1.0, one, "decoder", 1)]
+
+
+def music_forwards(dev, smi: str) -> tuple:
+    """Phases 44-48, the ConvTasNet-music serving path at full width. Returns (the phase-44 launches, the K3 shapes
+    of its forward with their launches, the int8 engine's K4 launches, the throughputs, the model's state)."""
+    served = build_served_music(dev)
+    x = torch.from_numpy(music_mix(45, MUSIC_BATCH, MUSIC_SEG)).to(dev)
+    n_params = sum(p.numel() for n, p in served.named_parameters() if "fake_quantize" not in n)
+    want = music_serving_launches(served)
+    k3_shapes, handles = record_k3_inputs(served, "music")
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = served(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    for h in handles:
+        h.remove()
+    shape = (MUSIC_BATCH, served.n_srcs, served.audio_channels, MUSIC_SEG)
+    if tuple(y.shape) != shape or not torch.isfinite(y).all():
+        raise AssertionError(f"music forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
+    if launches != want:
+        raise AssertionError(f"music forward launches {launches} != {want}")
+    log(f"[44] ConvTasNet-music at full width ({n_params} parameters; ranges from the config's "
+        f"{MUSIC_OBSERVE[2]}-step observer window over {MUSIC_OBSERVE[0]} x {MUSIC_OBSERVE[1]} stereo samples): "
+        f"{tuple(x.shape)} -> {tuple(y.shape)}, finite, first call {first_s:.2f} s; launches "
+        f"{', '.join(f'{k}={v}' for k, v in launches.items() if v)} (K1 = act quantizers but the {want['qmatmul']} "
+        f"K3 convs', one grouped weight launch, K3 = the bottleneck and the 40 pointwise convs), all others 0")
+
+    # 45. card vs CPU on one chunk: at the model's own floor at full depth, >= 20 dB at one repeat
+    x1, cpu_model = x[:1], music_on_cpu(served)
+    with torch.inference_mode():
+        y_card, y_cpu, y_own = served(x1).cpu(), cpu_model(x1.cpu()), served(x1 * (1 + MUSIC_PERTURB)).cpu()
+    snr, own, lsb = snr_db(y_cpu, y_card), snr_db(y_card, y_own), out_step(served)
+    floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / lsb)
+    own_mean = (y_own - y_card).abs().mean().item() / lsb
+    snr_min, mean_max = own.min().item() - MUSIC_FLOOR_RULE[0], own_mean * MUSIC_FLOOR_RULE[1]
+    if floor[0] < snr_min or floor[1] > mean_max:
+        raise AssertionError(f"music card vs CPU: SNR {snr.tolist()} dB (minimum {snr_min:.2f}), mean {floor[1]:.3f} "
+                             f"output steps (maximum {mean_max:.3f})")
+    log(f"[45] music card vs CPU on one chunk {tuple(x1.shape)}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} "
+        f"dB, mean {floor[1]:.4f} output steps; the card against itself on the input times (1 + 2^-22): "
+        f"{own.min().item():.2f}-{own.max().item():.2f} dB, mean {own_mean:.4f} steps: card vs CPU within that floor "
+        f"(SNR >= {snr_min:.2f}, mean <= {mean_max:.3f})")
+    shallow = build_served_music(dev, **MUSIC_SHALLOW)
+    with torch.inference_mode():
+        y_card, y_cpu = shallow(x1).cpu(), music_on_cpu(shallow)(x1.cpu())
+    snr = snr_db(y_cpu, y_card)
+    if not bool((snr >= 20).all()):
+        raise AssertionError(f"music card vs CPU at {MUSIC_SHALLOW}: SNR {snr.tolist()} dB < 20 dB")
+    log(f"[45] the same width at {MUSIC_SHALLOW} ({len(shallow.separator.blocks)} blocks): card vs CPU SNR "
+        f"{[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20)")
+    del shallow, y_own
+
+    # 46. folded
+    folded = fold_quantized_weights(served)
+    reset_all_launches()
+    with torch.inference_mode():
+        y_folded = folded(x)
+    torch.cuda.synchronize()
+    if all_launches()["weight"] or not torch.equal(y_folded, y):
+        raise AssertionError(f"music folded: launches {all_launches()}, max |diff| {(y_folded - y).abs().max()}")
+    log(f"[46] music folded engine: bitwise equal to fake-quant, {all_launches()['qmatmul']} K3 launches with their "
+        f"weight grids off, no weight-kernel launch")
+    del y_folded
+
+    # 47. the int8 engines: K4 launches = the module tree's 1x1 convs + the decoder, floor rule, card vs CPU
+    sites = 2 + 2 * len(served.separator.blocks) + 1  # bottleneck, mask conv, conv1x1 and pointwise, decoder
+    engines = {}
+    for dtype, (snr_margin, mean_factor) in INT8_FLOOR.items():
+        engine = engines[dtype] = make_int8_engine(served, compute_dtype=dtype)
+        reset_all_launches()
+        y8 = engine(x)
+        torch.cuda.synchronize()
+        got = all_launches()
+        if got != no_launches(int8_mm=sites):
+            raise AssertionError(f"music int8 engine ({dtype}) launches {got}, expected {sites} int8_mm only")
+        if y8.shape != y.shape or not torch.isfinite(y8).all():
+            raise AssertionError(f"music int8 engine ({dtype}) gave shape {tuple(y8.shape)}")
+        diff = (y8 - y).abs()
+        snr8, mean_lsb = snr_db(y, y8), diff.mean().item() / lsb
+        snr_min, mean_max = floor[0] - snr_margin, floor[1] * mean_factor
+        if snr8.min().item() < snr_min or mean_lsb > mean_max:
+            raise AssertionError(f"music int8 engine ({dtype}) vs fake-quant: SNR {snr8.min().item():.2f} dB (minimum "
+                                 f"{snr_min:.2f}), mean {mean_lsb:.3f} output steps (maximum {mean_max:.3f})")
+        log(f"[47] music int8 engine ({dtype} float products) {tuple(x.shape)}: finite; launches int8_mm={sites} "
+            f"(the bottleneck, 40 conv1x1, 40 pointwise, the mask conv, the decoder), all others 0; vs fake-quant "
+            f"SNR {snr8.min().item():.2f}-{snr8.max().item():.2f} dB (>= {snr_min:.2f}), mean {mean_lsb:.4f} output "
+            f"steps (<= {mean_max:.3f}), max {diff.max().item() / lsb:.2f}")
+        del y8, diff
+    xc = x[:1, :, :MUSIC_CPU_SEG]
+    for dtype in INT8_CARD_VS_CPU:
+        y_card, y_cpu = engines[dtype](xc).cpu(), make_int8_engine(cpu_model, compute_dtype=dtype)(xc.cpu())
+        y_own = engines[dtype](xc * (1 + MUSIC_PERTURB)).cpu()
+        snr8, own = snr_db(y_cpu, y_card), snr_db(y_card, y_own)
+        mean8, own_mean = (y_card - y_cpu).abs().mean().item() / lsb, (y_own - y_card).abs().mean().item() / lsb
+        snr_min, mean_max = own.min().item() - MUSIC_FLOOR_RULE[0], own_mean * MUSIC_FLOOR_RULE[1]
+        if snr8.min().item() < snr_min or mean8 > mean_max:
+            raise AssertionError(f"music int8 engine ({dtype}) card vs CPU: SNR {snr8.tolist()} dB (minimum "
+                                 f"{snr_min:.2f}), mean {mean8:.3f} output steps (maximum {mean_max:.3f})")
+        log(f"[47] music int8 engine ({dtype}) card vs CPU at {tuple(xc.shape)}: SNR "
+            f"{snr8.min().item():.2f}-{snr8.max().item():.2f} dB, mean {mean8:.4f} output steps; the card against "
+            f"itself on the input times (1 + 2^-22): {own.min().item():.2f}-{own.max().item():.2f} dB, mean "
+            f"{own_mean:.4f}: within that floor (SNR >= {snr_min:.2f}, mean <= {mean_max:.3f})")
+    del cpu_model
+
+    # 48. throughput of every engine, bf16 compute included
+    bf16 = create_model(MUSIC_CFG, dataclasses.replace(served.q, compute_dtype="bfloat16"))
+    bf16.load_state_dict(served.state_dict())
+    bf16 = bf16.to(dev).eval()
+    audio_s = MUSIC_BATCH * MUSIC_SEG / MUSIC_SR
+    throughput = {}
+    for name, engine in (("fake_quant", served), ("folded", folded), ("int8 float32", engines["float32"]),
+                         ("int8 bfloat16", engines["bfloat16"]), ("fake_quant bf16", bf16)):
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: engine(x), 3)
+        throughput[name] = ms
+        log(f"[48] music throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
+            f"{MUSIC_BATCH} x {MUSIC_SEG / MUSIC_SR:g} s stereo) on {smi}")
+    k3 = [(*entry, k3_shapes.count(entry)) for entry in dict.fromkeys(k3_shapes)]  # each shape with its launches
+    return launches, k3, sites, throughput, state_on_cpu(served)
+
+
+def music_kernels(dev, k3_shapes: list[tuple]) -> tuple[dict, dict]:
+    """Phase 49: K3 and K4 against their plain versions at the shapes of the music forward and int8 engine."""
+    qmm = check_qmatmul_kernel(dev, k3_shapes, 49, "one music serving forward's")
+    torch.cuda.empty_cache()
+    model = create_model(MUSIC_CFG, QuantSpec())
+    k4 = check_int8_cases(dev, 49, "music", music_int8_cases(model), 49)
+    torch.cuda.empty_cache()
+    return qmm, k4
+
+
+def music_evaluation(dev, state: dict) -> dict:
+    """Phase 50: ``val.evaluate`` (MUSDB NSDR) of the fake_quant and int8 engines on a MUSDB-layout test split of two
+    12 s tracks of synthetic stereo stems at MUSIC_SR."""
+    stems = synth_music_batch(np.random.default_rng(50), 2, 12 * MUSIC_SR, sample_rate=MUSIC_SR)
+    sources = MUSIC_CFG["sources"]
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, track in enumerate(stems):
+            d = os.path.join(tmp, "test", f"track_{i}")
+            save_audio(os.path.join(d, "mixture.wav"), np.clip(track.sum(0), -0.99, 0.99), MUSIC_SR)
+            for s, name in enumerate(sources):
+                save_audio(os.path.join(d, f"{name}.wav"), track[s], MUSIC_SR)
+        ckpt = os.path.join(tmp, "convtasnet_music_fqss8bit.pt")
+        torch.save(state, ckpt)
+        conf = {"model_cfg": {**MUSIC_CFG, "model_path": ckpt}, "dataset_cfg": {"name": "musdbhq"},
+                "testing_cfg": {"test_dir": tmp, "NSDR": True, "segment_samples": MUSIC_SEG, "overlap": 0.25}}
+        results = {}
+        for engine in ("fake_quant", "int8"):
+            t0 = time.perf_counter()
+            results[engine] = val.evaluate(conf, engine, dev)
+            log(f"[50] val.evaluate --engine {engine}, MUSDB NSDR over 2 tracks of 12 s: "
+                + ", ".join(f"{k} {v:.4f}" for k, v in results[engine].items())
+                + f" in {time.perf_counter() - t0:.1f} s")
+    for engine, m in results.items():
+        if not np.isfinite(list(m.values())).all():
+            raise AssertionError(f"music evaluation of {engine}: non-finite metrics {m}")
+    gap = abs(results["int8"]["nsdr"] - results["fake_quant"]["nsdr"])
+    if gap > EVAL_NSDR_DB:
+        raise AssertionError(f"int8 mean NSDR {gap:.3f} dB from fake_quant's (bound {EVAL_NSDR_DB})")
+    log(f"[50] int8 vs fake_quant mean NSDR: {gap:.4f} dB apart (<= {EVAL_NSDR_DB})")
+    return results
+
+
+def music_train_state(dev) -> TrainState:
+    cfg = {**MUSIC_CFG, "quantization": {**MUSIC_CFG["quantization"], "max_observations": MUSIC_TRAIN_WINDOW}}
+    model, teacher = create_model_and_teacher(cfg, generator=torch.Generator().manual_seed(51))
+    return new_train_state(model.to(dev), teacher.to(dev))
+
+
+def music_step_card_vs_cpu(dev, step, state: TrainState, src: np.ndarray) -> tuple[float, float, float]:
+    """One KD step from ``state`` on the card, on the CPU and on the card again with the stems times
+    (1 + MUSIC_PERTURB), each with the same augmentation draws: (the card's and the CPU's L1 losses apart in dB,
+    their whole-gradient cosine, the card's cosine against its own perturbed step)."""
+    out = []
+    for device, scale in ((dev, 1.0), (torch.device("cpu"), 1.0), (dev, 1 + MUSIC_PERTURB)):
+        st = new_train_state(copy.deepcopy(state.model).to(device), copy.deepcopy(state.teacher).to(device))
+        metrics = step(st, torch.from_numpy(src * np.float32(scale)).to(device), torch.Generator().manual_seed(52))
+        grads = torch.cat([p.grad.flatten().double().cpu() for p in st.model.parameters() if p.grad is not None])
+        out.append((float(metrics["loss"]), grads))
+        del st
+    (loss_card, g_card), (loss_cpu, g_cpu), (_, g_own) = out
+
+    def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+        return float(a @ b / (a.norm() * b.norm()))
+
+    return abs(10 * math.log10(loss_card / loss_cpu)), cosine(g_card, g_cpu), cosine(g_card, g_own)
+
+
+def music_stems(seed: int, batch: int, length: int) -> np.ndarray:
+    return synth_music_batch(np.random.default_rng(seed), batch, length, sample_rate=MUSIC_SR)
+
+
+def music_training(dev, smi: str) -> dict:
+    """Phases 51-52: the tasnet KD step at full width (MUSIC_TRAIN_SEG windows, the config's augmentation): the
+    peak memory of one step at batch 1, then 8 steps at the largest of 4, 2, 1 that it says fit, each launching the
+    module tree's kernels; their time and peak memory; card vs CPU on one step. Returns the run's launches."""
+    step = make_music_train_step(TrainConfig(lr=3e-4), MUSIC_AUGMENT)
+    gen = torch.Generator().manual_seed(51)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    state = music_train_state(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(state, torch.from_numpy(music_stems(51, 1, MUSIC_TRAIN_SEG)).to(dev), gen)
+    per_element = torch.cuda.max_memory_allocated(dev) - base
+    fits = [b for b in (4, 2, 1) if base + b * per_element <= MUSIC_TRAIN_MEMORY * total]
+    batch = fits[0] if fits else 1
+    log(f"[51] music KD step 1 x {MUSIC_TRAIN_SEG / MUSIC_SR:g} s: peak {per_element / 1e9:.2f} GB above the "
+        f"{base / 1e9:.2f} GB held; batch {batch} fits {MUSIC_TRAIN_MEMORY:.0%} of {total / 1e9:.1f} GB "
+        f"(batch 4 would need {(base + 4 * per_element) / 1e9:.1f} GB)")
+    del state
+    torch.cuda.empty_cache()
+    state = music_train_state(dev)
+    model, teacher = state.model, state.teacher
+    q = count_quantizers(model.modules())
+    want = no_launches(act=q["act"], weight=1, act_bwd=q["act"], weight_bwd=1,
+                       qmatmul=fused_convs(teacher)["qmatmul"])
+    rng_seeds = range(510, 510 + TRAIN_STEPS)
+    losses = []
+    reset_all_launches()
+    t0 = time.perf_counter()
+    for i, seed in enumerate(rng_seeds):
+        before = all_launches()
+        metrics = step(state, torch.from_numpy(music_stems(seed, batch, MUSIC_TRAIN_SEG)).to(dev), gen)
+        got = {k: v - before[k] for k, v in all_launches().items()}
+        if got != want:
+            raise AssertionError(f"music train step {i}: launches {got} != {want}")
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    if not np.isfinite(losses).all() or state.skipped:
+        raise AssertionError(f"music losses {losses}, skipped {state.skipped}")
+    log(f"[51] music KD train at full width, {TRAIN_STEPS} steps of {batch} x {MUSIC_TRAIN_SEG / MUSIC_SR:g} s "
+        f"(augmented: shift {MUSIC_AUGMENT['shift']}, signs, channels, gains, remix), observer window "
+        f"{MUSIC_TRAIN_WINDOW}, in {seconds:.1f} s: losses {[round(v, 4) for v in losses]}, finite, skipped 0; every "
+        f"step launched {', '.join(f'{k}={v}' for k, v in want.items() if v)} (act_bwd = every act quantizer: all "
+        f"reach the loss; K3 = the float teacher's {want['qmatmul']} bias-free 1x1 convs, which run without "
+        f"gradient)")
+    stems = torch.from_numpy(music_stems(52, batch, MUSIC_TRAIN_SEG)).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(lambda: step(state, stems, gen), 3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    audio_s = batch * MUSIC_TRAIN_SEG / MUSIC_SR
+    log(f"[51] music train step {batch} x {MUSIC_TRAIN_SEG / MUSIC_SR:g} s: {ms:.1f} ms per step, "
+        f"{audio_s / (ms / 1000):.2f} sec-audio trained/s; peak memory {peak / 1e9:.2f} GB on {smi}")
+    del stems
+    after = TrainState(copy.deepcopy(model).cpu(), None, copy.deepcopy(teacher).cpu())
+    del state, model, teacher
+    torch.cuda.empty_cache()
+
+    # 52. card vs CPU on one post-window step at 1 x 1 s (the same augmentation draws), within the card's own floor
+    src = music_stems(52, 1, MUSIC_SR)
+    loss_db, cos, own = music_step_card_vs_cpu(dev, step, after, src)
+    cos_min = 1 - MUSIC_FLOOR_RULE[1] * (1 - own)
+    if not (loss_db <= LOSS_DB_TOL and cos >= cos_min):
+        raise AssertionError(f"music card vs CPU train step: loss {loss_db} dB apart (at most {LOSS_DB_TOL}), gradient "
+                             f"cosine {cos} (at least {cos_min}: the card's own {own})")
+    log(f"[52] music card vs CPU train step at 1 x 1 s: L1 losses {loss_db:.2e} dB apart (<= {LOSS_DB_TOL}), "
+        f"whole-gradient cosine {cos:.6f}; the card's own step on the stems times (1 + 2^-22): cosine {own:.6f}; "
+        f"card vs CPU within that floor (>= {cos_min:.6f})")
+    return {"launches": launches, "batch": batch, "ms": ms, "peak_gb": peak / 1e9}
+
+
+def music_recipe_epoch() -> None:
+    """Phase 53: one epoch of ``python -m fqss_tpu_torch.train -env tasnet`` (on the card, its default) with the
+    full-width MUSIC_CFG on a mini MUSDB that ``make_mini_musdb`` writes at MUSIC_SR; the config as JSON."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = make_mini_musdb(os.path.join(tmp, "musdb"), n_train=2, n_test=1, sample_rate=MUSIC_SR,
+                               seconds=MUSIC_RECIPE_SECONDS)
+        conf = {
+            "work_dir": os.path.join(tmp, "run"),
+            "model_cfg": MUSIC_CFG,
+            "dataset_cfg": {"name": "musdbhq", "musdb_root": root, "metadata_file": os.path.join(tmp, "musdb.json"),
+                            "sample_rate": MUSIC_SR, "segment": 1, "data_stride": 1, "augmentation": MUSIC_AUGMENT},
+            "training_cfg": {"epochs": 1, "batch_size": 1, "kd_lambda": 0.1, "seed": 42,
+                             "optim": {"optimizer": "adam", "lr": 0.0003, "weight_decay": 0.0}},
+            "testing_cfg": {"test_dir": root, "NSDR": True, "segment_samples": MUSIC_SEG, "overlap": 0.25},
+        }
+        path = os.path.join(tmp, "convtasnet_music.json")
+        with open(path, "w") as fh:
+            json.dump(conf, fh)
+        env_vars = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "fqss_tpu_torch.train", "-env", "tasnet", "-y", path], cwd=tmp,
+                              env=env_vars, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0 or "Training done" not in proc.stdout:
+            raise AssertionError(f"music recipe epoch failed ({proc.returncode}):\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        for out in ("best_model.pt", "latest_model.pt", "checkpoints/epoch_0.pt", "history.json"):
+            if not os.path.exists(os.path.join(tmp, "run", out)):
+                raise AssertionError(f"music recipe epoch wrote no {out}")
+        with open(os.path.join(tmp, "run", "history.json")) as fh:
+            history = json.load(fh)
+        with open(os.path.join(tmp, "run", "results.txt")) as fh:
+            test_line = [line for line in fh.read().splitlines() if line.startswith("test epoch")]
+        if not np.isfinite([history[0]["loss"], history[0]["valid_nsdr"]]).all() or not test_line:
+            raise AssertionError(f"music recipe epoch: history {history}, test lines {test_line}")
+    log(f"[53] python -m fqss_tpu_torch.train -env tasnet with MUSIC_CFG at full width: one epoch of 1 s windows of "
+        f"a {MUSIC_RECIPE_SECONDS:g} s track, a validation track and the test track's NSDR in {seconds:.1f} s (the "
+        f"process included): train loss {history[0]['loss']:.4f}, valid NSDR {history[0]['valid_nsdr']:.3f} dB; "
+        f"{test_line[-1]}")
+
+
+def serve_music(dev, smi: str) -> dict:
+    """Phases 44-53, the ConvTasNet-music slice; returns what the kernels line needs."""
+    launches, k3_shapes, k4_sites, throughput, state = music_forwards(dev, smi)  # 44-48.
+    torch.cuda.empty_cache()
+    qmm, k4 = music_kernels(dev, k3_shapes)  # 49.
+    music_evaluation(dev, state)  # 50.
+    torch.cuda.empty_cache()
+    train = music_training(dev, smi)  # 51-52.
+    music_recipe_epoch()  # 53.
+    return {"launches": launches, "k4_launches": k4_sites, "qmm": qmm, "k4": k4, "train": train,
+            "throughput": throughput}
+
+
 def main() -> None:
     # 0. device
     if not torch.cuda.is_available():
@@ -3032,6 +3505,11 @@ def main() -> None:
     # 43. the bf16 routes of K5, K3 and K8 against their plain versions at those forwards' shapes
     dense16, qmm16 = check_bf16_dense(dev, k5_shapes, k3_shapes)
     attn16 = check_bf16_attention(dev, attn_shapes)
+    torch.cuda.empty_cache()
+
+    # 44-53. the ConvTasNet-music slice (launch counts set to 0 inside before each run they check)
+    music = serve_music(dev, smi)
+    music_k3, music_k4, music_train = music["qmm"], music["k4"], music["train"]
 
     def bf16_keys(res: dict, launches: int, route: str) -> dict:
         """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
@@ -3045,24 +3523,27 @@ def main() -> None:
     kernels = [
         dict(name="act_fake_quant", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:87",
-             launches=launches["act"], library_ms=None, **act),
+             launches=launches["act"], library_ms=None, **act, music_launches=music["launches"]["act"]),
         # ms, plain_ms, bound_ms: the grouped launch of the ConvTasNet's 101 weight quantizers (phase 2, eval);
         # dptnet_*, sepformer_*: the other two models' full weight sets; per_tensor_ms: the per-tensor kernel that
         # the fold and a layer outside a model's pass take, at [1024, 128, 1]. launches: phase 3's forward.
         dict(name="weight_fake_quant", route="cuda", route_detail=GROUP_ROUTE, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:204", launches=launches["weight"], library_ms=None,
-             **groups["ConvTasNet"], **{f"{m.lower()}_{k}": groups[m][k] for m in ("DPTNet", "Sepformer")
-                                        for k in ("ms", "bound_ms")},
-             per_tensor_ms=weight_per_tensor["ms"]),
+             **groups["ConvTasNet"], **{f"{m.lower()}_{k}": groups[m][k]
+                                        for m in ("DPTNet", "Sepformer", "ConvTasNetMusic") for k in ("ms", "bound_ms")},
+             per_tensor_ms=weight_per_tensor["ms"],
+             music_launches=music["launches"]["weight"]),
         dict(name="act_fake_quant_bwd", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:95",
-             launches=train_launches["act_bwd"], library_ms=None, **act_bwd),
+             launches=train_launches["act_bwd"], library_ms=None, **act_bwd,
+             music_launches=music_train["launches"]["act_bwd"]),
         # The grouped backward of the same sets (phase 8); launches: phase 9's 8 train steps.
         dict(name="weight_fake_quant_bwd", route="cuda", route_detail=GROUP_ROUTE, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:214", launches=train_launches["weight_bwd"], library_ms=None,
-             **group_bwd["ConvTasNet"], **{f"{m.lower()}_{k}": group_bwd[m][k] for m in ("DPTNet", "Sepformer")
+             **group_bwd["ConvTasNet"], **{f"{m.lower()}_{k}": group_bwd[m][k]
+                                           for m in ("DPTNet", "Sepformer", "ConvTasNetMusic")
                                            for k in ("ms", "bound_ms")},
-             per_tensor_ms=weight_bwd_per_tensor["ms"]),
+             per_tensor_ms=weight_bwd_per_tensor["ms"], music_launches=music_train["launches"]["weight_bwd"]),
         # ms, plain_ms, bound_ms: one ConvTasNet forward's 74 launches; int_mm_ms: torch._int_mm, the product alone
         # (int32 out, no epilogue), so no library call computes this function: library_ms is null. dptnet_*,
         # sepformer_*: one DPTNet and one Sepformer int8 forward's launches (phases 22 and 29).
@@ -3070,7 +3551,8 @@ def main() -> None:
              source="fqss_tpu_torch/csrc/int8_matmul.cu",
              replaces="fqss_tpu/ops/pallas_quant.py:168", launches=int8_launches, library_ms=None, **int8,
              dptnet_ms=dpt_k4["ms"], dptnet_bound_ms=dpt_k4["bound_ms"], dptnet_launches=dpt_k4["launches"],
-             sepformer_ms=sep_k4["ms"], sepformer_bound_ms=sep_k4["bound_ms"], sepformer_launches=sep_k4["launches"]),
+             sepformer_ms=sep_k4["ms"], sepformer_bound_ms=sep_k4["bound_ms"], sepformer_launches=sep_k4["launches"],
+             music_ms=music_k4["ms"], music_bound_ms=music_k4["bound_ms"], music_launches=music["k4_launches"]),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet forward's 12 launches (6 at the row shape, 6 at the
         # column shape); library_ms: cuDNN's bidirectional nn.LSTM on the same weights and input, its own input
         # projection included. launches: phase 18's forward.
@@ -3121,7 +3603,8 @@ def main() -> None:
         dict(name="qmatmul", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
              replaces="fqss_tpu/ops/pallas_quant.py:90", launches=dpt_launches["qmatmul"] + sep_launches["qmatmul"],
              **qmm, **bf16_keys(qmm16, bf16_count["qmatmul_bf16"], BF16_DENSE_ROUTE),
-             bf16_library_note=qmm16["library_note"]),
+             bf16_library_note=qmm16["library_note"], music_launches=music["launches"]["qmatmul"],
+             **{f"music_{k}": music_k3[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

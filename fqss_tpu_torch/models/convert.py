@@ -1,7 +1,7 @@
 """Bridge from the JAX package's variables to a port state dict.
 
-:func:`convtasnet_from_jax`, :func:`dptnet_from_jax` and
-:func:`sepformer_from_jax` take the flax
+:func:`convtasnet_from_jax`, :func:`dptnet_from_jax`,
+:func:`sepformer_from_jax` and :func:`convtasnet_music_from_jax` take the flax
 variables of a ``fqss_tpu.models`` model (or of one of its layers) as nested
 dicts of numpy arrays — collections ``params``, ``qparams`` and ``qstats`` —
 and return the ``state_dict`` of the matching ``fqss_tpu_torch`` module.
@@ -95,3 +95,11 @@ def sepformer_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
     The ``decoder`` scope's ``kernel`` is the transposed conv; the combiner's
     ``residual_decoder_kernel`` and its ranges are transposed convs by name."""
     return _from_jax(variables, (("decoder",),))
+
+
+def convtasnet_music_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """State dict for the port's module from JAX ConvTasNetMusic variables (or one of its layers').
+
+    It has no transposed conv: its decoder is a Linear, whose ``kernel`` and
+    combiner ``residual_encoder_kernel`` are dense kernels."""
+    return _from_jax(variables, ())

@@ -1,9 +1,9 @@
 """Model factory (``fqss_tpu/models/factory.py``): name -> quantized model with weights,
 and the student/teacher pair of KD training.
 
-The port holds ConvTasNet, DPTNet and Sepformer; the other model names of the JAX
-factory raise ``NotImplementedError`` until their slices land (ROADMAP.md,
-queue 1).
+The port holds ConvTasNet, DPTNet, the Sepformer and ConvTasNet-music; the
+other model names of the JAX factory raise ``NotImplementedError`` until
+their slices land (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -16,15 +16,18 @@ import torch
 from torch import nn
 
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
+from fqss_tpu_torch.models.convtasnet_music import SOURCES, ConvTasNetMusic
 from fqss_tpu_torch.models.dptnet import DPTNet
 from fqss_tpu_torch.models.sepformer import Sepformer
 from fqss_tpu_torch.nn.io_layers import expand_encoder_kernel
 from fqss_tpu_torch.quant.spec import QuantSpec
 
-MODEL_NAMES = ("ConvTasNet", "DPTNet", "Sepformer")
+MODEL_NAMES = ("ConvTasNet", "DPTNet", "Sepformer", "ConvTasNetMusic")
 _ARCH_KEYS = ("n_filters", "bn_chan", "hid_chan", "n_blocks", "n_repeats", "mask_act", "mask_kernel_size")
 _DPTNET_KEYS = ("enc_dim", "feature_dim", "hidden_dim", "layer", "segment_size")
 _SEPFORMER_KEYS = ("n_filters", "n_repeats", "n_heads", "chunk_size", "n_ffn", "n_layers")
+_MUSIC_KEYS = ("audio_channels", "n_filters", "bn_chan", "hid_chan", "conv_kernel", "n_blocks", "n_repeats",
+               "mask_act")
 
 
 def create_model(model_cfg: Mapping[str, Any], q: QuantSpec | None = None,
@@ -43,6 +46,11 @@ def create_model(model_cfg: Mapping[str, Any], q: QuantSpec | None = None,
         extra = {k: model_cfg[k] for k in _SEPFORMER_KEYS if k in model_cfg}
         return Sepformer(n_srcs=model_cfg.get("n_src", 2), kernel_size=model_cfg.get("kernel_size", 16),
                          stride=model_cfg.get("stride", 8), q=q, generator=generator, **extra)
+    if name == "ConvTasNetMusic":
+        extra = {k: model_cfg[k] for k in _MUSIC_KEYS if k in model_cfg}
+        return ConvTasNetMusic(sources=tuple(model_cfg.get("sources", SOURCES)),
+                               kernel_size=model_cfg.get("kernel_size", 20), stride=model_cfg.get("stride", 10), q=q,
+                               generator=generator, **extra)
     if name != "ConvTasNet":
         raise NotImplementedError(f"model {name!r} is not ported yet; the port has {MODEL_NAMES} "
                                   "(ROADMAP.md, queue 1)")

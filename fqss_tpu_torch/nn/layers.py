@@ -251,32 +251,38 @@ class QDense(nn.Module):
 
 
 class LayerNorm(nn.Module):
-    """flax's ``nn.LayerNorm`` over the last axis, with its arithmetic.
+    """flax's ``nn.LayerNorm`` over one axis (the last, or ``dim``), with its arithmetic.
 
     flax takes the variance as E[x²] − E[x]² (clipped at 0) and scales the
     centred input by ``rsqrt(var + eps) * scale``; ``F.layer_norm`` takes a
     Welford variance instead, whose last bits differ and move values across
-    the next quantizer's rounding ties.
+    the next quantizer's rounding ties. ``dim=1`` normalises the channels of
+    an NCT tensor, which are the last axis of the JAX layer's NTC input.
     """
 
-    def __init__(self, features: int, epsilon: float = 1e-5):
+    def __init__(self, features: int, epsilon: float = 1e-5, dim: int = -1):
         super().__init__()
-        self.epsilon = epsilon
+        self.epsilon, self.dim = epsilon, dim
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: Tensor) -> Tensor:
-        mu = x.mean(-1, keepdim=True)
-        var = torch.clamp_min((x * x).mean(-1, keepdim=True) - mu * mu, 0.0)
-        return (x - mu) * (torch.rsqrt(var + self.epsilon) * self.weight) + self.bias
+        d = self.dim
+        mu = x.mean(d, keepdim=True)
+        var = torch.clamp_min((x * x).mean(d, keepdim=True) - mu * mu, 0.0)
+        weight, bias = self.weight, self.bias
+        if d % x.ndim != x.ndim - 1:  # the affine's features on axis d
+            shape = [-1 if i == d % x.ndim else 1 for i in range(x.ndim)]
+            weight, bias = weight.view(shape), bias.view(shape)
+        return (x - mu) * (torch.rsqrt(var + self.epsilon) * weight) + bias
 
 
 class QLayerNorm(nn.Module):
-    """LayerNorm over the last axis -> act-quant (LayerNormQ, qat_layers.py:455-469)."""
+    """LayerNorm over the last axis (or ``dim``) -> act-quant (LayerNormQ, qat_layers.py:455-469)."""
 
-    def __init__(self, features: int, epsilon: float = 1e-5, q: QuantSpec = FLOAT):
+    def __init__(self, features: int, epsilon: float = 1e-5, q: QuantSpec = FLOAT, dim: int = -1):
         super().__init__()
-        self.norm = LayerNorm(features, epsilon)
+        self.norm = LayerNorm(features, epsilon, dim)
         self.activation_fake_quantize = make_act_quantizer(q)
 
     def forward(self, x: Tensor) -> Tensor:

@@ -20,7 +20,8 @@ on the zero-padded support [0, W+L-1):
 
 The Gram and cross-correlation systems are assembled with FFTs and solved
 as one batched linear system. Framewise protocol (museval defaults): window
-= hop = 1 s, NaN for windows whose reference is silent.
+= hop = 1 s, NaN for windows whose reference is silent; :func:`aggregate_frames`
+takes museval's median over the frames.
 """
 
 from __future__ import annotations
@@ -128,3 +129,8 @@ def bss_eval_images_framewise(
         for k, v in zip(("SDR", "ISR", "SIR", "SAR"), vals):
             out[k][:, f] = np.where(silent, np.nan, v.numpy())
     return out
+
+
+def aggregate_frames(scores: dict[str, np.ndarray]) -> dict[str, np.ndarray]:
+    """Median over frames per source, silent (NaN) frames left out (museval EvalStore frame aggregation)."""
+    return {k: np.nanmedian(v, axis=1) for k, v in scores.items()}

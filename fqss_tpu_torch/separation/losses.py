@@ -7,8 +7,10 @@
   ``w = 10**((sdr_f - sdr_q)/10)``, computed without gradient, and the
   final ``-10*log10((1-lambda)*task + lambda*kd + eps)`` mix
   (train_env/asteroid_librimix/mysystem.py:124-146).
+* The music losses: the MDX NSDR (:func:`nsdr_db`) and the weighted L1 KD
+  loss of the tasnet and htdemucs recipes (:func:`music_kd_l1_loss`).
 
-Tensors are ``[B, S, T]``. The best permutation is taken with ``amin``,
+Speech tensors are ``[B, S, T]``, music tensors ``[B, S, C, T]``. The best permutation is taken with ``amin``,
 whose gradient splits evenly between tied minima as JAX's ``min`` does.
 """
 
@@ -92,3 +94,60 @@ def fqss_kd_loss(est: Tensor, fest: Tensor, targets: Tensor, kd_lambda: float, e
         return loss, -10.0 * torch.log10(kd_sdr + eps)
     loss = pit_neg_sisdr_db(est, targets, eps, per_sample=per_sample)
     return loss, torch.zeros_like(loss)
+
+
+def nsdr_db(ref: Tensor, sig: Tensor, eps: float = 1e-7) -> Tensor:
+    """New-SDR per the MDX challenge definition (process.py:70-75), in dB, one value per leading index:
+    the sums run over every trailing axis."""
+    axes = tuple(range(1, ref.ndim))
+    num = (ref**2).sum(axes) + eps
+    den = ((ref - sig) ** 2).sum(axes) + eps
+    return 10.0 * torch.log10(num / den)
+
+
+def music_kd_l1_loss(wavs: Tensor, fwavs: Tensor, sources: Tensor, kd_lambda: float, weight_kind: str = "pow10",
+                     source_weights: Tensor | None = None) -> Tensor:
+    """Weighted L1 KD loss of the music recipes, with the reference's aggregation.
+
+    * ``pow10`` (the tasnet trainer, musdbhq_train.py:87-107): one weight per
+      batch sample, ``w_b = 10**((nsdr_f - nsdr_q)/10)``, each NSDR taken over
+      all stems of the sample with the estimate in ``calc_nsdr``'s ``ref``
+      place, as the trainer calls it; loss = (1-λ)·mean |wavs - sources| +
+      λ·mean_b(w_b · mean |wavs_b - fwavs_b|). No source weights.
+    * ``exp`` (the htdemucs solver, solver.py:334-372): per (sample, source)
+      weights ``exp((sdr - sdr_q)/10)``; per-source losses
+      (1-λ)·task + λ·mean_b(w·kd), averaged with ``source_weights``
+      (uniform when None).
+
+    wavs/fwavs/sources: ``[B, S, C, T]``. The weights and ``fwavs`` carry no
+    gradient.
+    """
+    if kd_lambda <= 0:
+        loss_per_src = (wavs - sources).abs().mean(dim=(0, 2, 3))
+        if source_weights is not None and weight_kind == "exp":
+            sw = torch.as_tensor(source_weights, dtype=wavs.dtype, device=wavs.device)
+            return (loss_per_src * sw).sum() / sw.sum()
+        return loss_per_src.mean()
+    fwavs = fwavs.detach()
+    sig_q = wavs.detach()
+    b, s = sources.shape[0], sources.shape[1]
+    if weight_kind == "pow10":
+        tgt = sources.reshape(b, -1)
+        nsdr_f = nsdr_db(fwavs.reshape(b, -1), tgt)
+        nsdr_q = nsdr_db(sig_q.reshape(b, -1), tgt)
+        w = 10.0 ** ((nsdr_f - nsdr_q) / 10.0)  # [B]
+        task = (wavs - sources).abs().mean()
+        kd = (w * (wavs - fwavs).abs().mean(dim=(1, 2, 3))).mean()
+        return (1.0 - kd_lambda) * task + kd_lambda * kd
+    if weight_kind == "exp":
+        ref = sources.reshape(b * s, -1)
+        nsdr_f = nsdr_db(ref, fwavs.reshape(b * s, -1)).reshape(b, s)
+        nsdr_q = nsdr_db(ref, sig_q.reshape(b * s, -1)).reshape(b, s)
+        w = torch.exp((nsdr_f - nsdr_q) / 10.0)  # [B, S]
+        task = (wavs - sources).abs().mean(dim=(0, 2, 3))  # [S]
+        kd = (w * (wavs - fwavs).abs().mean(dim=(2, 3))).mean(dim=0)  # [S]
+        loss_per_src = (1.0 - kd_lambda) * task + kd_lambda * kd
+        sw = (torch.ones(s, dtype=wavs.dtype, device=wavs.device) if source_weights is None
+              else torch.as_tensor(source_weights, dtype=wavs.dtype, device=wavs.device))
+        return (loss_per_src * sw).sum() / sw.sum()
+    raise ValueError(weight_kind)

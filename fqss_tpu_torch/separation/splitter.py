@@ -17,20 +17,26 @@ from fqss_tpu_torch.quant.fake_quant import splitter_quantize
 Tensor = torch.Tensor
 
 
-def preprocess(x: Tensor, n_splitter: int = 1, n_bits: int = 8, sign: bool = True) -> Tensor:
+def preprocess(x: Tensor, n_splitter: int = 1, n_bits: int = 8, sign: bool = True, normalize: bool = True) -> Tensor:
     """Split the input into MSB + residual streams (reference process.py:16-37).
 
-    x: [B, T] or [B, C, T] -> [B, C * n_splitter, T]. The input is
-    normalised by its max-abs over the whole tensor (batch included),
-    faithful to the reference; the JAX function's ``normalize=False`` is not
-    ported (no caller uses it).
+    x: [B, T] or [B, C, T] -> [B, C * n_splitter, T]. The max-abs is taken
+    over the whole tensor (batch included), faithful to the reference. With
+    ``normalize`` the input is divided by it and the grid spans [-1, 1);
+    without (the music model, convtasnetq_music.py:220-221) the input keeps
+    its scale and the grid spans [-max_abs, max_abs), a threshold on the
+    device.
     """
     if x.ndim == 2:
         x = x[:, None, :]
     if n_splitter <= 1:
         return x
-    x = x / torch.maximum(x.min().abs(), x.max().abs())
-    threshold = 1.0
+    max_abs = torch.maximum(x.min().abs(), x.max().abs())
+    if normalize:
+        x = x / max_abs
+        threshold = 1.0
+    else:
+        threshold = max_abs
     delta = threshold / (2 ** (n_bits - int(sign)))
     streams = []
     for _ in range(n_splitter):

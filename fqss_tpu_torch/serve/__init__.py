@@ -8,6 +8,8 @@
   projections, 1x1 convs, dense layers) through K4, its LSTMs through K7;
 * :class:`SepformerInt8Engine` — the Sepformer's on-grid products (attention
   projections, feed-forward linears, the masker's 1x1 convs) through K4;
+* :class:`ConvTasNetMusicInt8Engine` — ConvTasNet-music's 1x1 convs and
+  Linear decoder through K4;
 * :func:`make_int8_engine` — model-type dispatch used by ``infer`` and ``val``;
 * :func:`auto_serving_model` — each family on its fastest engine on the H100
   (``--engine auto``, the table :data:`BEST_PATHS`);
@@ -16,10 +18,12 @@
 """
 
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
+from fqss_tpu_torch.models.convtasnet_music import ConvTasNetMusic
 from fqss_tpu_torch.models.dptnet import DPTNet
 from fqss_tpu_torch.models.sepformer import Sepformer
 from fqss_tpu_torch.serve.autopath import BEST_PATHS, auto_serving_model, best_path
 from fqss_tpu_torch.serve.convtasnet_int8 import ConvTasNetInt8Engine
+from fqss_tpu_torch.serve.convtasnet_music_int8 import ConvTasNetMusicInt8Engine
 from fqss_tpu_torch.serve.dptnet_int8 import DPTNetInt8Engine
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
 from fqss_tpu_torch.serve.sepformer_int8 import SepformerInt8Engine
@@ -30,8 +34,9 @@ def make_int8_engine(model, compute_dtype: str = "bfloat16"):
     """Build the int8 serving engine matching ``model``'s family.
 
     Raises NotImplementedError for families without an int8 engine (the
-    port has the ConvTasNet's, the DPTNet's and the Sepformer's; the JAX package's other
-    engines come with their models' slices).
+    port has the ConvTasNet's, the DPTNet's, the Sepformer's and
+    ConvTasNet-music's; the JAX package's other engines come with their
+    models' slices).
     """
     if isinstance(model, ConvTasNet):
         return ConvTasNetInt8Engine(model, compute_dtype=compute_dtype)
@@ -39,8 +44,10 @@ def make_int8_engine(model, compute_dtype: str = "bfloat16"):
         return DPTNetInt8Engine(model, compute_dtype=compute_dtype)
     if isinstance(model, Sepformer):
         return SepformerInt8Engine(model, compute_dtype=compute_dtype)
+    if isinstance(model, ConvTasNetMusic):
+        return ConvTasNetMusicInt8Engine(model, compute_dtype=compute_dtype)
     raise NotImplementedError(f"no int8 engine for {type(model).__name__}; use fold_quantized_weights")
 
 
-__all__ = ["BEST_PATHS", "ConvTasNetInt8Engine", "DPTNetInt8Engine", "SepformerInt8Engine", "StreamingSeparator",
-           "auto_serving_model", "best_path", "fold_quantized_weights", "make_int8_engine"]
+__all__ = ["BEST_PATHS", "ConvTasNetInt8Engine", "ConvTasNetMusicInt8Engine", "DPTNetInt8Engine", "SepformerInt8Engine",
+           "StreamingSeparator", "auto_serving_model", "best_path", "fold_quantized_weights", "make_int8_engine"]

@@ -4,8 +4,9 @@
   teacher, optimizer, counters) once per epoch under
   ``work_dir/checkpoints/epoch_<e>.pt``, each written to a temporary file
   and renamed, and keeps the ``keep`` best by ``val_loss`` (a save without
-  one counts as worst) plus always the latest. ``history.json`` holds every
-  epoch's metrics.
+  one counts as worst) plus always the latest, with whatever ``extra`` the
+  recipe hands it (the music recipe's best model state). ``history.json``
+  holds every epoch's metrics.
 * :func:`export_model` writes the student's state dict, the file that
   ``models/factory.py:create_pretrained_model`` loads through
   ``model_path`` (the reference's ``best_model.pth``).
@@ -58,9 +59,14 @@ class CheckpointManager:
         v = vals[-1] if vals else math.inf
         return math.inf if math.isnan(v) else v
 
-    def save(self, epoch: int, state: TrainState, metrics: Mapping[str, float]) -> None:
+    def save(self, epoch: int, state: TrainState, metrics: Mapping[str, float],
+             extra: Mapping[str, Any] | None = None) -> None:
+        """Checkpoint ``state`` (and ``extra``, e.g. a recipe's best model state) as epoch ``epoch``."""
         metrics = {k: float(v) for k, v in metrics.items()}
-        _atomic_save({"epoch": epoch, "metrics": metrics, "state": state.state_dict()}, self._path(epoch))
+        ckpt = {"epoch": epoch, "metrics": metrics, "state": state.state_dict()}
+        if extra is not None:
+            ckpt["extra"] = dict(extra)
+        _atomic_save(ckpt, self._path(epoch))
         self.history.append({"epoch": epoch, **metrics})
         tmp = f"{self.history_path}.tmp"
         with open(tmp, "w") as f:
@@ -80,9 +86,12 @@ class CheckpointManager:
         epochs = self.epochs()
         return min(epochs, key=self._val_loss) if epochs else None
 
+    def load(self, epoch: int) -> dict[str, Any]:
+        """Epoch ``epoch``'s checkpoint as saved: ``epoch``, ``metrics``, ``state`` and, where given, ``extra``."""
+        return torch.load(self._path(epoch), map_location="cpu", weights_only=True)
+
     def restore(self, state: TrainState, epoch: int) -> None:
-        ckpt = torch.load(self._path(epoch), map_location="cpu", weights_only=True)
-        state.load_state_dict(ckpt["state"])
+        state.load_state_dict(self.load(epoch)["state"])
 
     def restore_latest(self, state: TrainState) -> int | None:
         """Load the latest checkpoint into ``state``; returns its epoch, or None if there is none."""

@@ -112,23 +112,31 @@ def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Tensor, Tensor], 
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
         loss, kd_loss = compute_loss(state, mix, targets)
-        loss.backward()
-        grads = [p.grad for group in state.optimizer.param_groups for p in group["params"] if p.grad is not None]
-        if cfg.grad_clip and cfg.grad_clip > 0:
-            grad_norm = clip_by_global_norm_(grads, cfg.grad_clip)
-        else:
-            grad_norm = global_norm(grads)
-        ok = bool(torch.isfinite(loss) & (loss < cfg.loss_upper_lim))  # the step's one wait for the device
-        if ok:
-            for group in state.optimizer.param_groups:
-                group["lr"] = cfg.lr * state.lr_scale  # exact lr scaling for Adam, AdamW and SGD
-            state.optimizer.step()
-        else:
-            state.skipped += 1
-        state.step += 1
+        grad_norm, ok = backward_and_update(state, cfg, loss)
         return {"loss": loss.detach(), "kd_loss": kd_loss.detach(), "grad_norm": grad_norm, "skipped": not ok}
 
     return train_step
+
+
+def backward_and_update(state: TrainState, cfg: TrainConfig, loss: Tensor) -> tuple[Tensor, bool]:
+    """The step after the loss: the backward, the clip, the non-finite skip and the optimizer step.
+
+    Returns the gradients' global norm before the clip (on the device) and whether the update was applied."""
+    loss.backward()
+    grads = [p.grad for group in state.optimizer.param_groups for p in group["params"] if p.grad is not None]
+    if cfg.grad_clip and cfg.grad_clip > 0:
+        grad_norm = clip_by_global_norm_(grads, cfg.grad_clip)
+    else:
+        grad_norm = global_norm(grads)
+    ok = bool(torch.isfinite(loss) & (loss < cfg.loss_upper_lim))  # the step's one wait for the device
+    if ok:
+        for group in state.optimizer.param_groups:
+            group["lr"] = cfg.lr * state.lr_scale  # exact lr scaling for Adam, AdamW and SGD
+        state.optimizer.step()
+    else:
+        state.skipped += 1
+    state.step += 1
+    return grad_norm, ok
 
 
 def make_eval_step() -> Callable[[TrainState, Tensor, Tensor], dict]:

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the device time of the port's serving engines goes, on one NVIDIA GPU.
 
-Usage: python3 scripts/profile_torch_engines.py [--model convtasnet|dptnet|sepformer] [--show OP ...]
+Usage: python3 scripts/profile_torch_engines.py [--model convtasnet|dptnet|sepformer|music] [--show OP ...]
 
 Builds the full-width FQSS-8bit model of ``chip_smoke.py`` (seeded weights):
 the ConvTasNet of phase 3 at 32 x 12 s, ranges from a 3-step observer pass,
 the DPTNet of phase 18 at 8 x 4 s, ranges from the config's 50-step
 observer window (``chip_smoke.DPT_OBSERVE_STEPS``), or the Sepformer of
 phase 25 at 8 x 4 s, ranges from its config's 50-step window
-(``chip_smoke.SEP_OBSERVE_STEPS``). Then for each engine (fake_quant,
+(``chip_smoke.SEP_OBSERVE_STEPS``), or ConvTasNet-music of phase 44 at one
+OLA batch of 8 x 441,000 stereo samples, ranges from its config's 50-step
+window (``chip_smoke.MUSIC_OBSERVE``). Then for each engine (fake_quant,
 folded, int8 with float32 and with bfloat16 float products) it times
 forwards with CUDA events and traces one with ``torch.profiler``: the device
 time by the operator that launched it, the union of the kernel intervals
@@ -56,7 +58,7 @@ TOP = 15  # operators listed per engine
 
 def main() -> None:
     parser = argparse.ArgumentParser(prog="python3 scripts/profile_torch_engines.py")
-    parser.add_argument("--model", choices=("convtasnet", "dptnet", "sepformer"), default="convtasnet")
+    parser.add_argument("--model", choices=("convtasnet", "dptnet", "sepformer", "music"), default="convtasnet")
     parser.add_argument("--show", nargs="*", default=[], help="operators to print wherever they rank")
     args = parser.parse_args()
     model = args.model
@@ -72,10 +74,15 @@ def main() -> None:
         batch, seg = chip_smoke.DPT_BATCH, chip_smoke.DPT_SEG
         mix, _ = chip_smoke.synth_batch(np.random.default_rng(18), batch, 2, seg)
         served = chip_smoke.build_served_dptnet(dev, mix[:2])
-    else:
+    elif model == "sepformer":
         batch, seg = chip_smoke.SEP_BATCH, chip_smoke.SEP_SEG
         mix, _ = chip_smoke.synth_batch(np.random.default_rng(25), batch, 2, seg)
         served = chip_smoke.build_served_sepformer(dev, mix[:2])
+    else:
+        batch, seg = chip_smoke.MUSIC_BATCH, chip_smoke.MUSIC_SEG
+        mix = chip_smoke.music_mix(45, batch, seg)
+        served = chip_smoke.build_served_music(dev)
+    sr = chip_smoke.MUSIC_SR if model == "music" else chip_smoke.SR
     x = torch.from_numpy(mix).to(dev)
     builders = {
         "fake_quant": lambda: served,
@@ -102,7 +109,7 @@ def main() -> None:
         kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
         device_ms = sum(e.time_range.end - e.time_range.start for e in kernels) / 1e3
         busy = busy_ms(events)
-        print(f"== {model} {name}: {ms:.1f} ms per forward of {batch} x {seg // chip_smoke.SR} s "
+        print(f"== {model} {name}: {ms:.1f} ms per forward of {batch} x {seg / sr:g} s "
               f"(CUDA events, 3 after 1 warm-up); profiled forward: wall {wall:.1f} ms, {len(kernels)} kernels, "
               f"device time {device_ms:.1f} ms, busy (union) {busy:.1f} ms, idle {1 - busy / wall:.1%} of the wall")
         # device time by the operator that launched it (its own kernels, not its children's)

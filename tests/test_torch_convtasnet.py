@@ -138,4 +138,4 @@ def test_factory_loads_port_checkpoints_and_names_what_is_missing(calibrated, tm
     assert loaded.q.observer is False and not loaded.training
     np.testing.assert_array_equal(_port_forward(loaded, mix), _port_forward(port, mix))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model({"name": "ConvTasNetMusic"})
+        create_model({"name": "HTDemucs"})

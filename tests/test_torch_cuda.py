@@ -1240,3 +1240,117 @@ def test_tiny_bf16_model_runs_the_bf16_routes(dev, name):
     assert bool((snr >= 20).all()), snr
     with torch.inference_mode():
         assert torch.equal(fold_quantized_weights(card)(x.to(dev)), y)
+
+
+# A tiny ConvTasNet-music (n_filters 16, bn 8, hid 16, 2 blocks x 1 repeat, stereo, 4 stems), calibrated by a
+# 2-step observer window on the CPU, then served and trained on the card against the same model on the CPU.
+MUSIC_CFG = {"name": "ConvTasNetMusic", "sources": ["drums", "bass", "other", "vocals"], "audio_channels": 2,
+             "kernel_size": 20, "stride": 10, "n_filters": 16, "bn_chan": 8, "hid_chan": 16, "n_blocks": 2,
+             "n_repeats": 1}
+MUSIC_SPEC = dict(qat=True, n_splitter=2, n_combiner=2, out_quant=True, max_observations=2)
+
+
+def _tiny_music(observer=False):
+    import numpy as np
+
+    from fqss_tpu_torch.data.synthetic import synth_music_batch
+    from fqss_tpu_torch.models.factory import create_model
+    from fqss_tpu_torch.quant.spec import QuantSpec
+
+    model = create_model(MUSIC_CFG, QuantSpec(**MUSIC_SPEC), generator=torch.Generator().manual_seed(0))
+    stems = synth_music_batch(np.random.default_rng(0), 2, 4000)
+    x = torch.from_numpy(stems.sum(axis=1))
+    with torch.no_grad():
+        for _ in range(2):
+            model.train()(x)
+    served = create_model(MUSIC_CFG, QuantSpec(observer=observer, **MUSIC_SPEC))
+    served.load_state_dict(model.state_dict())
+    return served.eval(), x, torch.from_numpy(stems)
+
+
+def test_tiny_music_serving_launches_and_agrees_with_the_cpu(dev):
+    """Fake-quant: K1 per act quantizer but the 3 K3 convs' (bottleneck, 2 pointwise), one grouped weight launch,
+    K3 3; card vs CPU >= 20 dB; folded bitwise equal with no weight launch."""
+    import copy
+
+    from fqss_tpu_torch.quant.quantizers import ActQuantizer
+    from fqss_tpu_torch.serve.fold import fold_quantized_weights
+
+    cpu, x, _ = _tiny_music()
+    card = copy.deepcopy(cpu).to(dev)
+    n_act = sum(isinstance(m, ActQuantizer) for m in cpu.modules())
+    for module in (fq, qm):
+        module.reset_launches()
+    with torch.inference_mode():
+        y = card(x.to(dev))
+        want = cpu(x)
+    assert fq.LAUNCHES == {"act": n_act - 3, "weight": 1, "act_bwd": 0, "weight_bwd": 0}
+    assert qm.LAUNCHES == {"qmatmul": 3, "qmatmul_bf16": 0}
+    snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
+    assert y.shape == (2, 4, 2, 4000) and bool((snr >= 20).all()), snr
+    folded = fold_quantized_weights(card)  # the fold quantizes each weight once, with the per-tensor kernel
+    fq.reset_launches()
+    with torch.inference_mode():
+        assert torch.equal(folded(x.to(dev)), y)
+    assert fq.LAUNCHES["weight"] == 0
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_tiny_music_int8_engine_runs_k4_and_agrees_with_the_cpu(dev, compute_dtype):
+    import copy
+
+    from fqss_tpu_torch.ops import int8_matmul as im
+    from fqss_tpu_torch.serve import make_int8_engine
+
+    cpu, x, _ = _tiny_music()
+    want = make_int8_engine(cpu, compute_dtype=compute_dtype)(x)
+    engine = make_int8_engine(copy.deepcopy(cpu).to(dev), compute_dtype=compute_dtype)
+    im.reset_launches()
+    fq.reset_launches()
+    got = engine(x.to(dev)).cpu()
+    assert im.LAUNCHES["int8_mm"] == 1 + 2 * 2 + 1 + 1  # bottleneck, 2 x (conv1x1, pointwise), mask conv, decoder
+    assert set(fq.LAUNCHES.values()) == {0}
+    snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - got).pow(2).sum(-1).clamp_min(1e-30))
+    assert bool((snr >= INT8_CARD_VS_CPU_DB[compute_dtype]).all()), snr
+
+
+def test_tiny_music_kd_step_card_vs_cpu(dev):
+    """Two tasnet KD steps (augmented, the same draws on both devices: the observing one, then a quantizing one):
+    every act quantizer's K1 and K1-bwd, one grouped K2 and K2-bwd, K3 for the teacher's 3 1x1 convs; loss and
+    clipped gradients within TINY_TRAIN_CARD_VS_CPU."""
+    import copy
+    import math
+
+    from fqss_tpu_torch.models.factory import create_model
+    from fqss_tpu_torch.quant.quantizers import ActQuantizer
+    from fqss_tpu_torch.quant.spec import QuantSpec
+    from fqss_tpu_torch.train.recipes_music import make_music_train_step
+    from fqss_tpu_torch.train.state import TrainState
+    from fqss_tpu_torch.train.trainer import TrainConfig, make_optimizer
+
+    _, _, stems = _tiny_music()
+    model = create_model(MUSIC_CFG, QuantSpec(observer=True, **{**MUSIC_SPEC, "max_observations": 1}),
+                         generator=torch.Generator().manual_seed(3))
+    teacher = create_model(MUSIC_CFG, QuantSpec(), generator=torch.Generator().manual_seed(4)).requires_grad_(False)
+    n_act = sum(isinstance(m, ActQuantizer) for m in model.modules())
+    step = make_music_train_step(TrainConfig(lr=3e-4), {"enable": True, "shift": 95, "remix_group_size": 0})
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        m, t = copy.deepcopy(model).to(device), copy.deepcopy(teacher).to(device).eval()
+        state = TrainState(m, make_optimizer(TrainConfig(lr=3e-4), list(m.parameters())), t)
+        gen = torch.Generator().manual_seed(5)
+        out = []
+        for _ in range(2):
+            fq.reset_launches()
+            qm.reset_launches()
+            metrics = step(state, stems.to(device), gen)
+            grads = torch.cat([p.grad.flatten().double().cpu() for p in m.parameters() if p.grad is not None])
+            out.append((float(metrics["loss"]), grads, dict(fq.LAUNCHES), dict(qm.LAUNCHES)))
+        runs.append(out)
+    for phase, (loss_card, g_card, launches, k3), (loss_cpu, g_cpu, *_) in zip(TINY_TRAIN_CARD_VS_CPU, *runs):
+        assert launches == {"act": n_act, "weight": 1, "act_bwd": n_act, "weight_bwd": 1}
+        assert k3 == {"qmatmul": 3, "qmatmul_bf16": 0}
+        cos = float(g_card @ g_cpu / (g_card.norm() * g_cpu.norm()))
+        loss_tol, cos_min = TINY_TRAIN_CARD_VS_CPU[phase]
+        db = abs(10 * math.log10(loss_card / loss_cpu))  # the L1 losses' ratio in dB, as the speech losses
+        assert db <= loss_tol and cos >= cos_min, (phase, loss_card, loss_cpu, cos)

@@ -38,6 +38,10 @@ SERVING_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
     "separation.bss_eval", "train.validate", "val", "utils.config", "data.librimix", "data.augment",
     "ops.lstm", "nn.lstm", "nn.attention", "models.dptnet", "serve.dptnet_int8", "ops.attention", "models.sepformer",
     "serve.sepformer_int8", "ops.qat_dense"))
+# The music slice's modules.
+MUSIC_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
+    "models.convtasnet_music", "serve.convtasnet_music_int8", "data.musdb", "train.recipes_music",
+    "train.validate_musdb"))
 
 
 def jax_package_imports(path: str) -> list[str]:
@@ -83,7 +87,7 @@ def test_port_and_chip_smoke_import_no_jax_flax_or_yaml():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
-    for mod in TRAINING_MODULES + SERVING_MODULES:
+    for mod in TRAINING_MODULES + SERVING_MODULES + MUSIC_MODULES:
         assert f"'{mod}'" in proc.stdout, mod
 
 
@@ -146,6 +150,23 @@ def test_chip_smoke_sepformer_model_cfg_equals_the_config_file():
         sys.path.remove(REPO)
     with open(os.path.join(REPO, "configs", "sepformer_2spks_8k.yaml")) as f:
         assert chip_smoke.SEPFORMER_CFG == yaml.safe_load(f)["model_cfg"]
+
+
+def test_chip_smoke_music_model_cfg_equals_the_config_file():
+    import yaml
+
+    sys.path.insert(0, REPO)
+    try:
+        import chip_smoke
+    finally:
+        sys.path.remove(REPO)
+    with open(os.path.join(REPO, "configs", "convtasnet_music.yaml")) as f:
+        conf = yaml.safe_load(f)
+    assert chip_smoke.MUSIC_CFG == conf["model_cfg"]
+    assert chip_smoke.MUSIC_SEG == conf["testing_cfg"]["segment_samples"]
+    assert chip_smoke.MUSIC_SR == conf["dataset_cfg"]["sample_rate"]
+    assert chip_smoke.MUSIC_TRAIN_SEG == conf["dataset_cfg"]["segment"] * conf["dataset_cfg"]["sample_rate"]
+    assert chip_smoke.MUSIC_AUGMENT == conf["dataset_cfg"]["augmentation"]
 
 
 def test_chip_smoke_without_a_card_fails_and_prints_no_result():

@@ -131,4 +131,4 @@ def test_train_cli_help_and_one_epoch_on_the_mini_set(mini_librimix, tmp_path, c
     assert "Training done" in proc.stdout
     assert (tmp_path / "run" / "best_model.pt").exists() and (tmp_path / "run" / "checkpoints" / "epoch_0.pt").exists()
     with pytest.raises(NotImplementedError, match="not ported yet"):
-        main(["-env", "tasnet", "-y", str(cfg), "--device", "cpu"])
+        main(["-env", "htdemucs", "-y", str(cfg), "--device", "cpu"])

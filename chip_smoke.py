@@ -16,7 +16,8 @@ fused fake-quant matmul (K3) of their bias-free 1x1 convs, streaming serving
 and ``--engine auto`` for all three models, then bf16 compute
 (``compute_dtype: bfloat16``) on the three models' serving path with the bf16
 routes of K5, K3 and K8, then ConvTasNet-music (``configs/convtasnet_music.yaml``)
-serving through every engine, its evaluation, KD training and recipe; all with
+serving through every engine, its evaluation, KD training and recipe, then HTDemucs
+(``configs/htdemucs.yaml``) serving through every engine and its evaluation; all with
 n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one line per phase and lets any
 failure propagate:
 
@@ -271,6 +272,35 @@ failure propagate:
     (its step on the stems times (1 + 2^-22), by MUSIC_FLOOR_RULE).
 53. one epoch of ``python -m fqss_tpu_torch.train -env tasnet`` with the
     full-width model on a mini MUSDB at 44.1 kHz (JSON config).
+54. the full-width HTDemucs of ``configs/htdemucs.yaml`` (HTDEMUCS_CFG),
+    ranges from the config's 50-step observer window on 2 x 2 s of stems,
+    one forward of 8 x 343,980 (``testing_cfg.segment_samples``) with
+    ``train=False``, which pads to 441,000: output [8, 4, 2, 343980],
+    finite; K1 = the act quantizers but the QDense layers' and the
+    attentions' no-op and head sites, one grouped weight launch, K5 10
+    (linear2), K5's GELU route 10 (linear1), K8 10 (6 self-attention at
+    3448 and 1723 tokens, 4 cross-attention 3448 x 1723 and 1723 x 3448,
+    BH 64, d 48 on the D 64 instantiation); peak memory.
+55. card vs CPU on one chunk: within the card's own floor (its forward on
+    the input times 1 + 2^-22, MUSIC_FLOOR_RULE); >= 20 dB at one
+    transformer layer (HTD_SHALLOW).
+56. folded: bitwise equal to the fake-quant forward, no weight launch.
+57. the int8 engines (float32, bfloat16 float products): K4 44 (10 with the
+    GELU epilogue), K8 10 (its bf16 route in bf16), K1 for the folded conv
+    branches' act quantizers only; against the fake-quant forward by the
+    floor rule of phase 13 at phase 55's floor; card vs CPU on one chunk at
+    the card's own floor.
+58. throughput and peak memory of fake_quant, folded, int8 f32 and bf16 at
+    8 x 343,980.
+59. K8 (both routes) at the four attention shapes of phase 54's forward
+    against its plain version (phase 24's and 43's rules) with SDPA + K1
+    beside it; K5 and its GELU route at linear2's and linear1's shapes
+    (phase 31's rules, the GELU route's bound GELU_SLOPE times larger) with
+    addmm (+ F.gelu) + K1; K4 and its GELU epilogue at the int8 engine's
+    shapes, bitwise, with torch._int_mm; times per forward.
+60. ``python -m fqss_tpu_torch.val`` (MUSDB NSDR), fake_quant and int8, in
+    subprocesses on a MUSDB-layout split of two 12 s synthetic tracks:
+    finite, int8 within EVAL_NSDR_DB of fake_quant.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -300,6 +330,7 @@ from fqss_tpu_torch.data.synthetic import synth_batch, synth_music_batch
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
 from fqss_tpu_torch.models.convtasnet_music import ConvTasNetMusic
 from fqss_tpu_torch.models.dptnet import DPTNet, split_segments
+from fqss_tpu_torch.models.htdemucs import HTDemucs
 from fqss_tpu_torch.models.sepformer import Sepformer, TransformerLayer
 from fqss_tpu_torch.models.factory import create_model, create_model_and_teacher, create_pretrained_model
 from fqss_tpu_torch.nn.attention import QMultiheadAttention
@@ -550,6 +581,23 @@ EVAL_NSDR_DB = 0.5  # int8 vs fake_quant mean NSDR on the same weights (phase 50
 MUSIC_TRAIN_SEG, MUSIC_TRAIN_WINDOW, MUSIC_TRAIN_MEMORY = 6 * MUSIC_SR, 3, 0.9
 MUSIC_AUGMENT = {"enable": True, "shift": 8192, "flip": True, "scale": True, "remix_group_size": 0}
 MUSIC_RECIPE_SECONDS = 2.0  # the mini MUSDB of phase 53: 2 training tracks and 1 test track of this length
+# The HTDemucs slice (phases 54-60): configs/htdemucs.yaml's model_cfg, written out as MODEL_CFG is, with the JAX
+# factory's defaults for every key it leaves out: channels 48, growth 2, depth 4, nfft 4096, 5 transformer layers of 8
+# heads (d 48), hidden scale 4, segment 10 s at 44.1 kHz.
+HTDEMUCS_CFG = {"name": "HTDemucs", "model_path": None, "sources": MUSIC_CFG["sources"], "audio_channels": 2,
+                "quantization": MUSIC_CFG["quantization"]}
+# The serving forward: one OLA batch as val gives it, 8 chunks of testing_cfg.segment_samples, which train=False pads
+# to the 441,000-sample training segment: 431 frames of 2048 bins, 8 x 431 = 3,448 frequency tokens and 1,723 time
+# tokens at E 384 in the transformer.
+HTD_SR, HTD_BATCH, HTD_SEG = 44100, 8, 343980
+HTD_OBSERVE = (2, 2 * HTD_SR, 50)  # ranges: the config's 50-step observer window over 2 x 2 s of stems (train=True)
+# Card vs CPU (phase 55) on one chunk: the full-depth forward is held to its own floor (the card against itself on
+# the input times 1 + 2^-22, MUSIC_FLOOR_RULE); >= 20 dB where the floor allows, at HTD_SHALLOW (the same width with
+# one transformer layer).
+HTD_SHALLOW = {"t_layers": 1}
+# The gelu routes against their plain versions (phase 59): |gelu(a) - gelu(b)| <= 1.13 |a - b| (the largest slope of
+# the exact GELU, 1.1289), so K5's GELU route is held to phase 31's DENSE_RTOL of its pre-GELU bound times this.
+GELU_SLOPE = 1.13
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8, float32, TF32 and bf16 rates.
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, TF32_OPS_S, BF16_OPS_S = 3.35e12, 1.979e15, 67e12, 495e12, 989e12
 # The route K5, K5-bwd and K3 take: three TF32 tensor-core products for each float32 one.
@@ -642,7 +690,8 @@ def dense_kernel_report(build_log: str) -> None:
 
 def attention_kernel_report(build_log: str) -> None:
     """Phase 1: ptxas's registers and spill stores of each K8 instantiation (the head width it pads d to, the rows
-    of a warp); raises if one of the main path's (d 16 and 32) spills."""
+    of a warp); raises if one of the main path's (d 16 and 32, and HTDemucs's 48 on the D 64 instantiations)
+    spills."""
     lines = build_log.splitlines()
     spilled = []
     for i, line in enumerate(lines):
@@ -655,7 +704,7 @@ def attention_kernel_report(build_log: str) -> None:
         log_line = (f"[1] attention_kernel{' (bf16 route)' if bf16 else ''} d <= {dim}, {16 * mt} rows a warp "
                     f"({k8.max_warps(dim, mt)} warps a block at most): {regs} registers, {spill} bytes spill stores")
         log(log_line)
-        if spill and dim <= 32:
+        if spill and dim <= 64:
             spilled.append(log_line)
     if spilled:
         raise AssertionError(f"attention_kernel instantiations of the main path spill: {spilled}")
@@ -849,15 +898,17 @@ def check_weight_bwd_kernel(dev) -> dict:
 
 
 def weight_group_models(dev) -> dict:
-    """The four models' full-width module trees on the card (phase 3's ConvTasNet, DPTNET_CFG's, SEPFORMER_CFG's
-    and MUSIC_CFG's), in train() mode, with seeded random weights: their weight quantizers are the groups of phases
+    """The five models' full-width module trees on the card (phase 3's ConvTasNet, DPTNET_CFG's, SEPFORMER_CFG's,
+    MUSIC_CFG's and HTDEMUCS_CFG's), in train() mode, with seeded random weights: their weight quantizers are the
+    groups of phases
     2 and 8."""
     conv = ConvTasNet(n_srcs=2, kernel_size=16, stride=8, q=dataclasses.replace(SPEC, observer=True),
                       generator=torch.Generator().manual_seed(2))
     return {"ConvTasNet": conv.to(dev),
             "DPTNet": create_model(DPTNET_CFG, generator=torch.Generator().manual_seed(2)).to(dev),
             "Sepformer": create_model(SEPFORMER_CFG, generator=torch.Generator().manual_seed(2)).to(dev),
-            "ConvTasNetMusic": create_model(MUSIC_CFG, generator=torch.Generator().manual_seed(2)).to(dev)}
+            "ConvTasNetMusic": create_model(MUSIC_CFG, generator=torch.Generator().manual_seed(2)).to(dev),
+            "HTDemucs": create_model(HTDEMUCS_CFG, generator=torch.Generator().manual_seed(2)).to(dev)}
 
 
 def group_of(model) -> fq.WeightGroup:
@@ -1530,19 +1581,23 @@ def int8_bound(m: int, k: int, n: int) -> tuple[int, int]:
     return m * (k + n) + n * k + 8 * n, 2 * m * k * n
 
 
-def check_int8_cases(dev, phase: int, engine: str, cases: list[tuple], seed: int) -> dict:
-    """Phases 22 and 29: K4 against its plain version, bitwise, at an int8 engine's ``cases``; its time, rate and
-    share of the bytes bound at each; summed per forward (the cases' launches)."""
+def check_int8_cases(dev, phase: int, engine: str, cases: list[tuple], seed: int, plain: bool = False) -> dict:
+    """Phases 22, 29, 49 and 59: K4 against its plain version, bitwise, at an int8 engine's ``cases``; its time, rate
+    and share of the bytes bound at each (``plain``: the plain version's time too); summed per forward (the cases'
+    launches)."""
     gen = torch.Generator(device=dev).manual_seed(seed)
-    total = {"ms": 0.0, "bytes": 0, "ops": 0, "launches": 0}
+    total = {"ms": 0.0, "bytes": 0, "ops": 0, "launches": 0, "max_abs_err": 0.0, **({"plain_ms": 0.0} if plain else {})}
     for m, k, n_out, nl, alpha, grids, what, per_forward in cases:
         xs, w, scale, corr = int8_case(dev, m, k, n_out, gen)
         if nl != "prelu":  # products spread over the nonlinearity's working range, not only its saturated ends
             scale = scale * 0.05
         args = (xs, w, scale, corr, alpha, *grids)
-        compare(f"int8_matmul_requant {what} [{m},{k}]x[{n_out},{k}] {nl}", im.int8_matmul_requant(*args, nl=nl),
-                im.int8_matmul_requant_ref(*args, nl=nl))
+        total["max_abs_err"] = max(total["max_abs_err"], compare(
+            f"int8_matmul_requant {what} [{m},{k}]x[{n_out},{k}] {nl}", im.int8_matmul_requant(*args, nl=nl).float(),
+            im.int8_matmul_requant_ref(*args, nl=nl).float()))
         ms = cuda_ms(lambda: im.int8_matmul_requant(*args, nl=nl), 10)
+        if plain:
+            total["plain_ms"] += per_forward * cuda_ms(lambda: im.int8_matmul_requant_ref(*args, nl=nl), 3)
         moved, ops = int8_bound(m, k, n_out)
         b = bound_of(moved, ops, INT8_OPS_S)
         log(f"[{phase}] int8_matmul_requant at the {engine} engine's {what} [{m},{k}] x [{n_out},{k}], {nl}"
@@ -1557,7 +1612,7 @@ def check_int8_cases(dev, phase: int, engine: str, cases: list[tuple], seed: int
     total.update(bound_of(total["bytes"], total["ops"], INT8_OPS_S))
     log(f"[{phase}] one {engine} int8 forward's {total['launches']} K4 launches: {total['ms']:.3f} ms against a "
         f"{total['bound_ms']:.3f} ms bound by {total['bound_by']} ({total['bound_ms'] / total['ms']:.1%}), "
-        f"{total['bytes'] / 1e9:.3f} GB")
+        f"{total['bytes'] / 1e9:.3f} GB" + (f"; plain {total['plain_ms']:.3f} ms" if plain else ""))
     return total
 
 
@@ -1759,15 +1814,17 @@ def heads_of(packed: torch.Tensor, h: int) -> torch.Tensor:
     return packed.reshape(B, lq, h, E // h).transpose(1, 2).reshape(B * h, lq, E // h)
 
 
-def check_attention_kernel(dev, shapes: list[tuple]) -> dict:
-    """Phase 24: K8 through both entries against its plain version at ``shapes`` and ATTN_ODD; its times per
-    Sepformer and per DPTNet forward."""
-    gen = torch.Generator(device=dev).manual_seed(24)
+def check_attention_kernel(dev, shapes: list[tuple], phase: int = 24, models: tuple = ("Sepformer", "DPTNet"),
+                           odd: bool = True) -> dict:
+    """Phase 24 (and 59): K8 through both entries against its plain version at ``shapes`` (and ATTN_ODD with
+    ``odd``); its times per forward of each of ``models``, the first one's keys unprefixed, the others' prefixed by
+    the model's name."""
+    gen = torch.Generator(device=dev).manual_seed(phase)
     keys = ("ms", "plain_ms", "library_ms", "moved", "ops")
-    sums = {model: dict.fromkeys(keys, 0.0) for model in ("Sepformer", "DPTNet")}
+    sums = {model: dict.fromkeys(keys, 0.0) for model in models}
     launches = {model: 0 for model in sums}
     results = {"max_abs_err": 0.0}
-    for name, bh, lq, lk, d, per_forward, model, h in [*shapes, ("odd", *ATTN_ODD, 0, None, 1)]:
+    for name, bh, lq, lk, d, per_forward, model, h in [*shapes, *([("odd", *ATTN_ODD, 0, None, 1)] if odd else [])]:
         qs = torch.randn(bh, lq, d, device=dev, generator=gen) * 0.3
         qs[:, 0] *= ATTN_PLANT
         k, v = (torch.randn(bh, lk, d, device=dev, generator=gen) for _ in range(2))
@@ -1809,7 +1866,7 @@ def check_attention_kernel(dev, shapes: list[tuple]) -> dict:
             raise AssertionError(f"K8 {name}: quantized heads {diff.max().item() / step:.3f} steps from the plain "
                                  f"version's, {share:.2e} of them a step apart (at most {ATTN_GRID_SHARE})")
         results["max_abs_err"] = max(results["max_abs_err"], err)
-        line = (f"[24] K8 {name} BH {bh} x Lq {lq} x Lk {lk} x d {d} ({k8.plan(bh, lq, lk, d)}): float heads max "
+        line = (f"[{phase}] K8 {name} BH {bh} x Lq {lq} x Lk {lk} x d {d} ({k8.plan(bh, lq, lk, d)}): float heads max "
                 f"|kernel - plain| {err:.3g} ({err / scale:.2e} of max |heads| {scale:.3g}, <= {ATTN_REL_TOL}), the "
                 f"planted rows {planted_vs_plain / scale:.2e}; the planted rows from the float64 attention: kernel "
                 f"{planted / scale:.2e}, plain {planted_plain / scale:.2e}, the exact logits rounded once to float32 "
@@ -1856,17 +1913,18 @@ def check_attention_kernel(dev, shapes: list[tuple]) -> dict:
     for model, t in sums.items():
         b, tb = bound_of(t["moved"], t["ops"], F32_OPS_S), route_bound(t["moved"], t["ops"])
         rb = attention_route_bound(t["moved"], t["ops"])
-        log(f"[24] one {model} forward's {launches[model]} K8 launches: {t['ms']:.3f} ms against a "
+        log(f"[{phase}] one {model} forward's {launches[model]} K8 launches: {t['ms']:.3f} ms against a "
             f"{b['bound_ms']:.3f} ms float32 bound by {b['bound_by']} ({b['bound_ms'] / t['ms']:.1%}), the 3xTF32 "
             f"bound {tb['route_bound_ms']:.3f} ms ({tb['route_bound_ms'] / t['ms']:.1%}) and its route's "
             f"{rb['route_bound_ms']:.3f} ms ({rb['route_bound_ms'] / t['ms']:.1%}), plain "
             f"{t['plain_ms']:.2f} ms, scaled_dot_product_attention + K1 {t['library_ms']:.3f} ms")
-        if model == "Sepformer":
+        if model == models[0]:
             results.update(ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"], **b, **rb)
         else:
-            results.update(dptnet_ms=t["ms"], dptnet_plain_ms=t["plain_ms"], dptnet_library_ms=t["library_ms"],
-                           dptnet_bound_ms=b["bound_ms"], dptnet_route_bound_ms=rb["route_bound_ms"],
-                           dptnet_launches=launches[model])
+            prefix = f"{model.lower()}_"
+            results.update({f"{prefix}ms": t["ms"], f"{prefix}plain_ms": t["plain_ms"],
+                            f"{prefix}library_ms": t["library_ms"], f"{prefix}bound_ms": b["bound_ms"],
+                            f"{prefix}route_bound_ms": rb["route_bound_ms"], f"{prefix}launches": launches[model]})
     return results
 
 
@@ -2073,17 +2131,17 @@ def dense_args(case: tuple, flags: dict) -> tuple:
             8, 8, flag(flags.get("w_obs")), flag(flags.get("a_obs")))
 
 
-def check_dense_forward(name: str, args: tuple, bf16: bool = False) -> float:
-    """K5 (``bf16``: its bf16 route) against its plain version (module note of DENSE_RTOL), two runs bitwise equal;
-    returns the largest |pre - plain| / bound."""
+def check_dense_forward(name: str, args: tuple, bf16: bool = False, gelu: bool = False) -> float:
+    """K5 (``bf16``: its bf16 route; ``gelu``: its GELU route, the bound GELU_SLOPE times larger) against its plain
+    version (module note of DENSE_RTOL), two runs bitwise equal; returns the largest |pre - plain| / bound."""
     x, w, b, w_mn, w_mx, a_mn, a_mx, _, _, w_obs, a_obs = args
-    y = qd.qat_dense(*args, bf16=bf16)
-    if not torch.equal(qd.qat_dense(*args, bf16=bf16), y):
+    y = qd.qat_dense(*args, bf16=bf16, gelu=gelu)
+    if not torch.equal(qd.qat_dense(*args, bf16=bf16, gelu=gelu), y):
         raise AssertionError(f"K5 {name}: two runs differ")
-    pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None, bf16=bf16)
+    pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None, bf16=bf16, gelu=gelu)
     xr, wq = qd.operands(x, qd._weight_q(w, w_mn, w_mx, 8, w_obs), bf16)
-    bound = xr.abs() @ wq.abs().t() + b.abs()
-    plain = qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None, bf16=bf16)
+    bound = (xr.abs() @ wq.abs().t() + b.abs()) * (GELU_SLOPE if gelu else 1.0)
+    plain = qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None, bf16=bf16, gelu=gelu)
     err = ((pre - plain).abs() / bound).max().item()
     if not err <= DENSE_RTOL:
         raise AssertionError(f"K5 {name}: pre-activation {err:.3g} of sum |term| from the plain version's")
@@ -2094,7 +2152,7 @@ def check_dense_forward(name: str, args: tuple, bf16: bool = False) -> float:
     if not torch.equal(y, fq.act_fake_quant_ref(pre, a_mn, a_mx, 8)):
         raise AssertionError(f"K5 {name}: the epilogue is not K1's plain grid of the kernel's own pre-activation")
     step = (a_mx - a_mn).item() / 255
-    diff = (y - qd.qat_dense_ref(*args, bf16=bf16)).abs()
+    diff = (y - qd.qat_dense_ref(*args, bf16=bf16, gelu=gelu)).abs()
     share = (diff > 0.5 * step).float().mean().item()
     if diff.max().item() > step * (1 + 1e-4) or share > DENSE_GRID_SHARE:
         raise AssertionError(f"K5 {name}: {diff.max().item() / step:.3f} steps from the plain version, {share:.2e} "
@@ -2880,18 +2938,20 @@ def check_bf16_dense(dev, k5_shapes: list[tuple], k3_shapes: list[tuple]) -> tup
     return out["K5"], out["K3"]
 
 
-def check_bf16_attention(dev, shapes: list[tuple]) -> dict:
-    """Phase 43 (K8): the bf16 route through both entries against its plain version at the bf16 forwards' attention
-    shapes and ATTN_ODD, the first query of every head planted (ATTN_BF16_TIE_ULPS's rule; the quantized heads by
-    phase 24's); times of the packed entry on the bf16 route and on the float32 route, the bf16 plain version
-    (median of ATTN_PLAIN_REPS), per Sepformer and per DPTNet forward, with the bf16 bound."""
-    gen = torch.Generator(device=dev).manual_seed(143)
+def check_bf16_attention(dev, shapes: list[tuple], phase: int = 43, models: tuple = ("Sepformer", "DPTNet"),
+                         odd: bool = True) -> dict:
+    """Phase 43 (and 59) (K8): the bf16 route through both entries against its plain version at the bf16 forwards'
+    attention shapes (and ATTN_ODD with ``odd``), the first query of every head planted (ATTN_BF16_TIE_ULPS's rule;
+    the quantized heads by phase 24's); times of the packed entry on the bf16 route and on the float32 route, the
+    bf16 plain version (median of ATTN_PLAIN_REPS), per forward of each of ``models`` (the first one's keys
+    unprefixed), with the bf16 bound."""
+    gen = torch.Generator(device=dev).manual_seed(100 + phase)
     keys = ("ms", "f32_ms", "plain_ms", "moved", "ops")
-    sums = {model: dict.fromkeys(keys, 0.0) for model in ("Sepformer", "DPTNet")}
+    sums = {model: dict.fromkeys(keys, 0.0) for model in models}
     launches = {model: 0 for model in sums}
     results = {"max_abs_err": 0.0}
     tie_rows = [0, 0]
-    for name, bh, lq, lk, d, count, model, h in [*shapes, ("odd", *ATTN_ODD, 0, None, 1)]:
+    for name, bh, lq, lk, d, count, model, h in [*shapes, *([("odd", *ATTN_ODD, 0, None, 1)] if odd else [])]:
         qs = torch.randn(bh, lq, d, device=dev, generator=gen) * 0.3
         qs[:, 0] *= ATTN_PLANT
         k, v = (torch.randn(bh, lk, d, device=dev, generator=gen) for _ in range(2))
@@ -2934,7 +2994,7 @@ def check_bf16_attention(dev, shapes: list[tuple]) -> dict:
             raise AssertionError(f"K8 bf16 {name}: quantized heads {diff.max().item() / step:.3f} steps from the plain "
                                  f"version's, {share:.2e} of them a step apart (at most {ATTN_GRID_SHARE})")
         results["max_abs_err"] = max(results["max_abs_err"], err)
-        line = (f"[43] K8 bf16 route {name} BH {bh} x Lq {lq} x Lk {lk} x d {d} ({k8.plan(bh, lq, lk, d, True)}): "
+        line = (f"[{phase}] K8 bf16 route {name} BH {bh} x Lq {lq} x Lk {lk} x d {d} ({k8.plan(bh, lq, lk, d, True)}): "
                 f"float heads max |kernel - plain| {err:.3g} ({err / scale:.2e} of max |heads| {scale:.3g}); rows "
                 f"with no softmax weight within {ATTN_BF16_TIE_ULPS} ulps of a bf16 tie {clean / scale:.2e} (<= "
                 f"{ATTN_REL_TOL}); {n_tie} rows of {n_rows} ({n_tie / n_rows:.2e}) with such a weight, each within "
@@ -2959,14 +3019,16 @@ def check_bf16_attention(dev, shapes: list[tuple]) -> dict:
         torch.cuda.empty_cache()
     for model, t in sums.items():
         b = bound_of(t["moved"], t["ops"], BF16_OPS_S)
-        log(f"[43] one {model} bf16 forward's {launches[model]} K8 launches: bf16 route {t['ms']:.3f} ms against a "
+        log(f"[{phase}] one {model} bf16 forward's {launches[model]} K8 launches: bf16 route {t['ms']:.3f} ms against "
+            f"a "
             f"{b['bound_ms']:.3f} ms bf16 bound by {b['bound_by']} ({b['bound_ms'] / t['ms']:.1%}), float32 route "
             f"{t['f32_ms']:.3f} ms, bf16 plain {t['plain_ms']:.2f} ms")
-        prefix = "" if model == "Sepformer" else "dptnet_"
+        prefix = "" if model == models[0] else f"{model.lower()}_"
         results.update({f"{prefix}ms": t["ms"], f"{prefix}f32_ms": t["f32_ms"], f"{prefix}plain_ms": t["plain_ms"],
                         f"{prefix}bound_ms": b["bound_ms"], f"{prefix}launches": launches[model]})
     results["tie_rows"], results["rows"] = tie_rows
-    log(f"[43] K8 bf16: {tie_rows[0]} rows of {tie_rows[1]} ({tie_rows[0] / tie_rows[1]:.2e}) held by the tie rule")
+    log(f"[{phase}] K8 bf16: {tie_rows[0]} rows of {tie_rows[1]} ({tie_rows[0] / tie_rows[1]:.2e}) held by the tie "
+        f"rule")
     return results
 
 
@@ -3344,6 +3406,368 @@ def serve_music(dev, smi: str) -> dict:
             "throughput": throughput}
 
 
+def htdemucs_mix(seed: int, batch: int, length: int) -> np.ndarray:
+    """Stereo mixtures [B, 2, T]: the sums of seeded synthetic stems (``synth_music_batch``) at HTD_SR."""
+    return synth_music_batch(np.random.default_rng(seed), batch, length, sample_rate=HTD_SR).sum(axis=1)
+
+
+def build_served_htdemucs(dev, **arch) -> HTDemucs:
+    """The full-width HTDemucs of HTDEMUCS_CFG (``arch``: model_cfg keys that change its depth) from a seeded
+    generator, its ranges from the config's observer window over HTD_OBSERVE's stems (train=True, their own length
+    the segment), returned in eval() mode with the observer off."""
+    batch, length, steps = HTD_OBSERVE
+    cfg = {**HTDEMUCS_CFG, **arch}
+    model = create_model(cfg, generator=torch.Generator().manual_seed(54)).to(dev).train()
+    if model.q.max_observations != steps:
+        raise AssertionError(f"the config's observer window is {model.q.max_observations} steps, not {steps}")
+    x = torch.from_numpy(htdemucs_mix(54, batch, length)).to(dev)
+    with torch.no_grad():
+        for _ in range(steps):
+            model(x)
+    served = create_model(cfg, dataclasses.replace(model.q, observer=False))
+    served.load_state_dict(model.state_dict())
+    return served.to(dev).eval()
+
+
+def htdemucs_on_cpu(served: HTDemucs, **arch) -> HTDemucs:
+    """The served model on the CPU: the same weights and ranges, in eval() mode."""
+    cpu_model = create_model({**HTDEMUCS_CFG, **arch}, served.q)
+    cpu_model.load_state_dict(state_on_cpu(served))
+    return cpu_model.eval()
+
+
+def htdemucs_serving_launches(model: HTDemucs) -> dict:
+    """A serving forward's launches: K1 per act quantizer module but the QDense layers' (K5 applies their grids) and
+    each attention's no-op sites (off in eval()) and head site (K8's epilogue applies it), one grouped weight launch,
+    K5 per QDense (linear1 on its GELU route), K8 per attention."""
+    attn = sum(isinstance(m, QMultiheadAttention) for m in model.modules())
+    dense, gelu = dense_quantizers(model), sum(isinstance(m, QDense) and m.gelu for m in model.modules())
+    return no_launches(act=count_quantizers(model.modules())["act"] - dense["act"] - 3 * attn, weight=1,
+                       dense=dense["dense"] - gelu, dense_gelu=gelu, attention=attn)
+
+
+def htdemucs_int8_launches(model: HTDemucs, bf16: bool) -> tuple[dict, int]:
+    """The int8 engine's launches: K1 per act quantizer of the folded conv branches (the transformer block's grids
+    are the engine's requantizations), K4 per transformer projection (self-attention layers: the in-projection, the
+    out-projection, linear1, linear2; cross-attention layers: Q and K/V apart) and channel sampler, K8 per attention
+    (its bf16 route in bf16); and the K4 launches with the GELU epilogue (every linear1)."""
+    block = ("crosstransformer", "channel_upsampler", "channel_downsampler")
+    act = sum(isinstance(m, ActQuantizer) for n, m in model.named_modules() if not n.startswith(block))
+    layers = [layer for pair in model.crosstransformer.layers for layer in pair]
+    sites = sum(5 if hasattr(layer, "cross_attn") else 4 for layer in layers) + (4 if model.bottom_channels else 0)
+    attention = "attention_bf16" if bf16 else "attention"
+    return no_launches(act=act, int8_mm=sites, **{attention: len(layers)}), len(layers)
+
+
+def record_htdemucs_shapes(model: HTDemucs) -> tuple[list, list]:
+    """Hooks on ``model``'s attention and QDense layers that record, per call, ("attention", B, Lq, Lk, E, heads) and
+    ("dense", M, K, N, gelu); returns the list and the hooks' handles."""
+    seen = []
+
+    def attention(mod, args):
+        seen.append(("attention", args[0].shape[0], args[0].shape[1], args[1].shape[1], mod.embed_dim, mod.num_heads))
+
+    def dense(mod, args):
+        seen.append(("dense", args[0].numel() // args[0].shape[-1], *mod.weight.shape[::-1], mod.gelu))
+
+    handles = [m.register_forward_pre_hook(attention if isinstance(m, QMultiheadAttention) else dense)
+               for m in model.modules() if isinstance(m, (QMultiheadAttention, QDense))]
+    return seen, handles
+
+
+def htdemucs_attention_shapes(records: list) -> list[tuple]:
+    """(name, BH, Lq, Lk, d, launches per forward, model, heads) of a forward's attention calls, as phase 24 takes
+    them."""
+    calls = [r[1:] for r in records if r[0] == "attention"]
+    shapes = []
+    for (b, lq, lk, e, h), n in ((c, calls.count(c)) for c in dict.fromkeys(calls)):
+        kind = "self" if lq == lk else "cross"
+        shapes.append((f"HTDemucs {kind} {lq} x {lk}", b * h, lq, lk, e // h, n, "HTDemucs", h))
+    return shapes
+
+
+def htdemucs_int8_cases(records: list, gelu: bool) -> list[tuple]:
+    """(M, K, N, nl, alpha, grids, what, launches per forward) of the int8 engine's K4 launches at a forward's
+    attention and QDense shapes: each self-attention's in-projection (three output grids) and each cross-attention's
+    Q and K/V in-projections (one and two grids), every out-projection, linear2 (``gelu`` False) or linear1, with the
+    GELU (``gelu``)."""
+    one, calls = (INT8_TIE_DELTA, INT8_TIE_MN), []
+    for r in records:
+        if r[0] == "dense" and r[4] == gelu:
+            calls.append((r[1], r[2], r[3], "gelu" if gelu else "prelu", 1.0, one, "linear1" if gelu else "linear2"))
+        elif r[0] == "attention" and not gelu:
+            b, lq, lk, e, _ = r[1:]
+            if lq == lk:
+                calls.append((b * lq, e, 3 * e, "prelu", 1.0, QKV_GRIDS, "self-attention in-projection"))
+            else:
+                calls += [(b * lq, e, e, "prelu", 1.0, one, "cross-attention Q projection"),
+                          (b * lk, e, 2 * e, "prelu", 1.0, ([INT8_TIE_DELTA, 0.013], [INT8_TIE_MN, -2.5]),
+                           "cross-attention K/V projection (two output grids)")]
+            calls.append((b * lq, e, e, "prelu", 1.0, one, "out-projection"))
+    keyed = [(c, tuple(map(str, c))) for c in calls]
+    unique = dict.fromkeys(k for _, k in keyed)
+    return [(*next(c for c, kk in keyed if kk == k), sum(kk == k for _, kk in keyed)) for k in unique]
+
+
+def htdemucs_forwards(dev, smi: str) -> dict:
+    """Phases 54-58, the HTDemucs serving path at full width: the fake-quant forward, card vs CPU, folded, the int8
+    engines, throughput and peak memory. Returns what phase 59 and the kernels line need."""
+    served = build_served_htdemucs(dev)
+    x = torch.from_numpy(htdemucs_mix(55, HTD_BATCH, HTD_SEG)).to(dev)
+    n_params = sum(p.numel() for n, p in served.named_parameters() if "fake_quantize" not in n)
+    want = htdemucs_serving_launches(served)
+    records, handles = record_htdemucs_shapes(served)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = served(x, train=False)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    for h in handles:
+        h.remove()
+    shape = (HTD_BATCH, served.n_srcs, served.audio_channels, HTD_SEG)
+    if tuple(y.shape) != shape or not torch.isfinite(y).all():
+        raise AssertionError(f"HTDemucs forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
+    if launches != want:
+        raise AssertionError(f"HTDemucs forward launches {launches} != {want}")
+    attn_shapes = htdemucs_attention_shapes(records)
+    log(f"[54] HTDemucs at full width ({n_params} parameters; ranges from the config's {HTD_OBSERVE[2]}-step observer "
+        f"window over {HTD_OBSERVE[0]} x {HTD_OBSERVE[1]} stereo samples): {tuple(x.shape)} (train=False: padded to "
+        f"{int(served.segment * served.samplerate)}) -> {tuple(y.shape)}, finite, first call {first_s:.2f} s, peak "
+        f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{', '.join(f'{k}={v}' for k, v in launches.items() if v)} (K1 = act quantizers but the QDense layers' and "
+        f"the attentions' no-op and head sites, one grouped weight launch, K5 = linear2, K5-gelu = linear1, K8 = the "
+        f"attentions: " + "; ".join(f"{s[0]} BH {s[1]} d {s[4]} x{s[5]}" for s in attn_shapes) + "), all others 0")
+
+    # 55. card vs CPU on one chunk: at the model's own floor at full depth, >= 20 dB at HTD_SHALLOW
+    x1, cpu_model = x[:1], htdemucs_on_cpu(served)
+    with torch.inference_mode():
+        y_card, y_own = served(x1, train=False).cpu(), served(x1 * (1 + MUSIC_PERTURB), train=False).cpu()
+        t0 = time.perf_counter()
+        y_cpu = cpu_model(x1.cpu(), train=False)
+        cpu_s = time.perf_counter() - t0
+    snr, own, lsb = snr_db(y_cpu, y_card), snr_db(y_card, y_own), htdemucs_out_step(served)
+    floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / lsb)
+    own_mean = (y_own - y_card).abs().mean().item() / lsb
+    snr_min, mean_max = own.min().item() - MUSIC_FLOOR_RULE[0], own_mean * MUSIC_FLOOR_RULE[1]
+    if floor[0] < snr_min or floor[1] > mean_max:
+        raise AssertionError(f"HTDemucs card vs CPU: SNR {snr.tolist()} dB (minimum {snr_min:.2f}), mean "
+                             f"{floor[1]:.3f} output steps (maximum {mean_max:.3f})")
+    log(f"[55] HTDemucs card vs CPU on one chunk {tuple(x1.shape)} (the CPU's forward {cpu_s:.1f} s): SNR "
+        f"{snr.min().item():.2f}-{snr.max().item():.2f} dB, mean {floor[1]:.4f} output steps; the card against itself "
+        f"on the input times (1 + 2^-22): {own.min().item():.2f}-{own.max().item():.2f} dB, mean {own_mean:.4f} steps: "
+        f"card vs CPU within that floor (SNR >= {snr_min:.2f}, mean <= {mean_max:.3f})")
+    shallow = build_served_htdemucs(dev, **HTD_SHALLOW)
+    with torch.inference_mode():
+        y_card, y_cpu = shallow(x1, train=False).cpu(), htdemucs_on_cpu(shallow, **HTD_SHALLOW)(x1.cpu(), train=False)
+    snr = snr_db(y_cpu, y_card)
+    if not bool((snr >= 20).all()):
+        raise AssertionError(f"HTDemucs card vs CPU at {HTD_SHALLOW}: SNR {snr.tolist()} dB < 20 dB")
+    log(f"[55] the same width at {HTD_SHALLOW}: card vs CPU SNR {snr.min().item():.2f}-{snr.max().item():.2f} dB "
+        f"(>= 20)")
+    del shallow, y_own
+
+    # 56. folded
+    folded = fold_quantized_weights(served)
+    reset_all_launches()
+    with torch.inference_mode():
+        y_folded = folded(x, train=False)
+    torch.cuda.synchronize()
+    if all_launches() != {**want, "weight": 0} or not torch.equal(y_folded, y):
+        raise AssertionError(f"HTDemucs folded: launches {all_launches()}, max |diff| {(y_folded - y).abs().max()}")
+    log(f"[56] HTDemucs folded engine: bitwise equal to fake-quant; no weight-kernel launch, K5 {want['dense']} + "
+        f"{want['dense_gelu']} GELU with their weight grids off, K8 {want['attention']}")
+    del y_folded
+
+    # 57. the int8 engines: launches = the module tree's, the floor rule against fake-quant, card vs CPU
+    engines, gelu_launches, int8_launches = {}, {}, {}
+    for dtype, (snr_margin, mean_factor) in INT8_FLOOR.items():
+        engine = engines[dtype] = make_int8_engine(served, compute_dtype=dtype)
+        want8, layers = htdemucs_int8_launches(served, dtype == "bfloat16")
+        reset_all_launches()
+        with torch.inference_mode():
+            y8 = engine(x, train=False)
+        torch.cuda.synchronize()
+        got, gelu_launches[dtype] = all_launches(), im.GELU_LAUNCHES["int8_mm"]
+        int8_launches[dtype] = got
+        if got != want8 or gelu_launches[dtype] != layers:  # every layer's linear1
+            raise AssertionError(f"HTDemucs int8 engine ({dtype}) launches {got} ({gelu_launches[dtype]} with the "
+                                 f"GELU) != {want8}")
+        diff = (y8 - y).abs()
+        snr8, mean_lsb = snr_db(y, y8), diff.mean().item() / lsb
+        snr_min, mean_max = floor[0] - snr_margin, floor[1] * mean_factor
+        if snr8.min().item() < snr_min or mean_lsb > mean_max or not torch.isfinite(y8).all():
+            raise AssertionError(f"HTDemucs int8 engine ({dtype}) vs fake-quant: SNR {snr8.min().item():.2f} dB "
+                                 f"(minimum {snr_min:.2f}), mean {mean_lsb:.3f} output steps (maximum {mean_max:.3f})")
+        log(f"[57] HTDemucs int8 engine ({dtype} float products) {tuple(x.shape)}: finite; launches "
+            f"{', '.join(f'{k}={v}' for k, v in got.items() if v)} ({gelu_launches[dtype]} K4 launches with the GELU "
+            f"epilogue), all others 0; vs fake-quant SNR {snr8.min().item():.2f}-{snr8.max().item():.2f} dB (>= "
+            f"{snr_min:.2f}, phase 55's card-vs-CPU floor), mean {mean_lsb:.4f} output steps (<= {mean_max:.3f}), max "
+            f"{diff.max().item() / lsb:.2f}")
+        del y8, diff
+    for dtype in INT8_CARD_VS_CPU:
+        with torch.inference_mode():
+            y_card = engines[dtype](x1, train=False).cpu()
+            y_own = engines[dtype](x1 * (1 + MUSIC_PERTURB), train=False).cpu()
+            y_cpu = make_int8_engine(cpu_model, compute_dtype=dtype)(x1.cpu(), train=False)
+        snr8, own = snr_db(y_cpu, y_card), snr_db(y_card, y_own)
+        mean8, own_mean = (y_card - y_cpu).abs().mean().item() / lsb, (y_own - y_card).abs().mean().item() / lsb
+        snr_min, mean_max = own.min().item() - MUSIC_FLOOR_RULE[0], own_mean * MUSIC_FLOOR_RULE[1]
+        if snr8.min().item() < snr_min or mean8 > mean_max:
+            raise AssertionError(f"HTDemucs int8 engine ({dtype}) card vs CPU: SNR {snr8.tolist()} dB (minimum "
+                                 f"{snr_min:.2f}), mean {mean8:.3f} output steps (maximum {mean_max:.3f})")
+        log(f"[57] HTDemucs int8 engine ({dtype}) card vs CPU on one chunk: SNR {snr8.min().item():.2f}-"
+            f"{snr8.max().item():.2f} dB, mean {mean8:.4f} output steps; the card against itself on the input times "
+            f"(1 + 2^-22): {own.min().item():.2f}-{own.max().item():.2f} dB, mean {own_mean:.4f}: within that floor "
+            f"(SNR >= {snr_min:.2f}, mean <= {mean_max:.3f})")
+    del cpu_model
+
+    # 58. throughput and peak memory of every engine
+    audio_s = HTD_BATCH * HTD_SEG / HTD_SR
+    throughput = {}
+    for name, engine in (("fake_quant", served), ("folded", folded), ("int8 float32", engines["float32"]),
+                         ("int8 bfloat16", engines["bfloat16"])):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated() / 2**30  # the four engines' weights, the input, phase 54's output
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: engine(x, train=False), 3)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        throughput[name] = {"ms": ms, "peak_gib": peak}
+        log(f"[58] HTDemucs throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
+            f"{HTD_BATCH} x {HTD_SEG / HTD_SR:g} s stereo, padded to 10 s), peak memory {peak:.2f} GiB of which "
+            f"{resident:.2f} resident before the forwards, on {smi}")
+    return {"launches": launches, "records": records, "attn_shapes": attn_shapes, "throughput": throughput,
+            "int8_launches": int8_launches["float32"], "gelu_launches": gelu_launches["float32"],
+            "state": state_on_cpu(served)}
+
+
+def htdemucs_out_step(model: HTDemucs) -> float:
+    """The output grid's step of the last frequency decoder (the combiner's first plane)."""
+    aq = model.decoders[-1].conv_tr.activation_fake_quantize
+    return (aq.max_range - aq.min_range).item() / 255
+
+
+def check_htdemucs_dense(dev, records: list) -> tuple[dict, dict]:
+    """Phase 59 (K5): linear2 on K5 and linear1 on its GELU route against their plain versions at a forward's
+    shapes, every grid and observing-flag combination with planted ties (phase 31's rules; the GELU route's bound
+    GELU_SLOPE times its pre-GELU one); times per forward of the serving call (act grid on, the weight grid off: the
+    weight pass's), the plain version and the library call (addmm [+ F.gelu] + K1)."""
+    gen = torch.Generator(device=dev).manual_seed(59)
+    calls = [r[1:] for r in records if r[0] == "dense"]
+    results = {g: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "launches": 0, "moved": 0,
+                   "ops": 0} for g in (False, True)}
+    for (m, k, n, gelu), count in ((c, calls.count(c)) for c in dict.fromkeys(calls)):
+        case = dense_case(dev, m, k, n, gen)
+        res = results[gelu]
+        for flags in DENSE_FLAGS:
+            res["max_abs_err"] = max(res["max_abs_err"], check_dense_forward(f"HTDemucs [{m},{k}]x[{n},{k}] {flags}",
+                                                                             dense_args(case, flags), gelu=gelu))
+        x, w, b, _, _, a_mn, a_mx = case
+        act = (lambda v: F.gelu(v)) if gelu else (lambda v: v)
+        ms = cuda_ms(lambda: qd.qat_dense(x, w, b, a_mn=a_mn, a_mx=a_mx, gelu=gelu), 10)
+        plain = cuda_ms(lambda: qd.qat_dense_ref(x, w, b, a_mn=a_mn, a_mx=a_mx, gelu=gelu), 10)
+        lib = cuda_ms(lambda: fq.act_fake_quant(act(torch.addmm(b, x, w.t())), a_mn, a_mx, 8), 10)
+        # the GELU's cost: the same call without it
+        plain_route = cuda_ms(lambda: qd.qat_dense(x, w, b, a_mn=a_mn, a_mx=a_mx), 10) if gelu else ms
+        res["no_gelu_ms"] = res.get("no_gelu_ms", 0.0) + count * plain_route
+        (fb, fo), _ = dense_bounds(m, k, n)
+        log(f"[59] K5{' GELU route' if gelu else ''} at HTDemucs's {'linear1' if gelu else 'linear2'} [{m},{k}] x "
+            f"[{n},{k}]: every grid and observing-flag combination ({len(DENSE_FLAGS)}) within its bounds, planted ties "
+            f"and clip extremes included; {ms:.4f} ms ({rate_and_shares(fb, fo, ms)}), plain {plain:.4f}, addmm"
+            f"{' + F.gelu' if gelu else ''} + K1 {lib:.4f}"
+            f"{f', K5 without the GELU at this shape {plain_route:.4f}' if gelu else ''}; {count} a forward")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("moved", fb), ("ops", fo)):
+            res[key] += count * val
+        res["launches"] += count
+        del case, x, w
+    for gelu, res in results.items():
+        res.update(bound_of(res["moved"], res["ops"], F32_OPS_S), **route_bound(res["moved"], res["ops"]))
+        without = f", without the GELU {res['no_gelu_ms']:.3f}" if gelu else ""
+        log(f"[59] one HTDemucs forward's {res['launches']} K5{' GELU route' if gelu else ''} launches: "
+            f"{res['ms']:.3f} ms ({rate_and_shares(res['moved'], res['ops'], res['ms'])}), plain {res['plain_ms']:.3f}, "
+            f"library {res['library_ms']:.3f}{without}")
+    return results[False], results[True]
+
+
+def check_htdemucs_int8(dev, records: list) -> tuple[dict, dict]:
+    """Phase 59 (K4): bitwise against its plain version at the int8 engine's shapes (phase 22's rule), the GELU
+    epilogue apart; per forward, with torch._int_mm's time (the product alone) beside them."""
+    out = []
+    for gelu in (False, True):
+        cases = htdemucs_int8_cases(records, gelu)
+        res = check_int8_cases(dev, 59, f"HTDemucs{' GELU' if gelu else ''}", cases, 59 + gelu, plain=True)
+        gen = torch.Generator(device=dev).manual_seed(60)
+        res["int_mm_ms"] = res["no_gelu_ms"] = 0.0
+        for m, k, n, *_, count in cases:
+            xs, w, scale, corr = int8_case(dev, m, k, n, gen)
+            wt = w.t()
+            res["int_mm_ms"] += count * cuda_ms(lambda: torch._int_mm(xs, wt), 10)
+            if gelu:  # the GELU's cost: the same launch with the identity epilogue
+                args = (xs, w, scale * 0.05, corr, 1.0, INT8_TIE_DELTA, INT8_TIE_MN)
+                res["no_gelu_ms"] += count * cuda_ms(lambda: im.int8_matmul_requant(*args), 10)
+        log(f"[59] torch._int_mm at the same shapes, the product alone: {res['int_mm_ms']:.3f} ms a forward"
+            + (f"; K4 with the identity epilogue there {res['no_gelu_ms']:.3f} ms" if gelu else ""))
+        out.append(res)
+    return out[0], out[1]
+
+
+def htdemucs_evaluation(dev, state: dict) -> dict:
+    """Phase 60: ``python -m fqss_tpu_torch.val`` (MUSDB NSDR) with the fake_quant and int8 engines, each in its own
+    process on the card, on a MUSDB-layout test split of two 12 s tracks of synthetic stems at HTD_SR, the model
+    centre-padding each chunk to segment_samples."""
+    stems = synth_music_batch(np.random.default_rng(60), 2, 12 * HTD_SR, sample_rate=HTD_SR)
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for i, track in enumerate(stems):
+            d = os.path.join(tmp, "test", f"track_{i}")
+            save_audio(os.path.join(d, "mixture.wav"), np.clip(track.sum(0), -0.99, 0.99), HTD_SR)
+            for s, name in enumerate(HTDEMUCS_CFG["sources"]):
+                save_audio(os.path.join(d, f"{name}.wav"), track[s], HTD_SR)
+        ckpt = os.path.join(tmp, "htdemucs_fqss8bit.pt")
+        torch.save(state, ckpt)
+        cfg = os.path.join(tmp, "htdemucs.json")
+        with open(cfg, "w") as f:
+            json.dump({"model_cfg": {**HTDEMUCS_CFG, "model_path": ckpt}, "dataset_cfg": {"name": "musdbhq"},
+                       "testing_cfg": {"test_dir": tmp, "NSDR": True, "segment_samples": HTD_SEG, "overlap": 0.25}}, f)
+        for engine in ("fake_quant", "int8"):
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "fqss_tpu_torch.val", "-y", cfg, "--engine", engine],
+                                  capture_output=True, text=True, timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"val --engine {engine} failed: {proc.stderr[-2000:]}")
+            line = proc.stdout.strip().splitlines()[-1]
+            results[engine] = {k.lower(): float(v) for k, v in (kv.split("=") for kv in line.split(","))}
+            log(f"[60] python -m fqss_tpu_torch.val --engine {engine} (MUSDB NSDR over 2 synthetic tracks of 12 s, "
+                f"on the card): {line} in {time.perf_counter() - t0:.1f} s")
+    for engine, m in results.items():
+        if not np.isfinite(list(m.values())).all():
+            raise AssertionError(f"HTDemucs evaluation of {engine}: non-finite metrics {m}")
+    gap = abs(results["int8"]["nsdr"] - results["fake_quant"]["nsdr"])
+    if gap > EVAL_NSDR_DB:
+        raise AssertionError(f"HTDemucs int8 mean NSDR {gap:.3f} dB from fake_quant's (bound {EVAL_NSDR_DB})")
+    log(f"[60] HTDemucs int8 vs fake_quant mean NSDR: {gap:.4f} dB apart (<= {EVAL_NSDR_DB})")
+    return results
+
+
+def serve_htdemucs(dev, smi: str) -> dict:
+    """Phases 54-60, the HTDemucs serving slice; returns what the kernels line needs."""
+    out = htdemucs_forwards(dev, smi)  # 54-58.
+    torch.cuda.empty_cache()
+    records = out["records"]
+    out["attn"] = check_attention_kernel(dev, out["attn_shapes"], phase=59, models=("HTDemucs",), odd=False)  # 59.
+    torch.cuda.empty_cache()
+    out["attn16"] = check_bf16_attention(dev, out["attn_shapes"], phase=59, models=("HTDemucs",), odd=False)
+    torch.cuda.empty_cache()
+    out["k5"], out["k5_gelu"] = check_htdemucs_dense(dev, records)
+    out["k4"], out["k4_gelu"] = check_htdemucs_int8(dev, records)
+    torch.cuda.empty_cache()
+    htdemucs_evaluation(dev, out.pop("state"))  # 60.
+    return out
+
+
 def main() -> None:
     # 0. device
     if not torch.cuda.is_available():
@@ -3510,6 +3934,11 @@ def main() -> None:
     # 44-53. the ConvTasNet-music slice (launch counts set to 0 inside before each run they check)
     music = serve_music(dev, smi)
     music_k3, music_k4, music_train = music["qmm"], music["k4"], music["train"]
+    torch.cuda.empty_cache()
+
+    # 54-60. the HTDemucs serving slice (launch counts set to 0 inside before each run they check)
+    htd = serve_htdemucs(dev, smi)
+    htd_launches, htd_attn, htd_attn16 = htd["launches"], htd["attn"], htd["attn16"]
 
     def bf16_keys(res: dict, launches: int, route: str) -> dict:
         """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
@@ -3523,16 +3952,18 @@ def main() -> None:
     kernels = [
         dict(name="act_fake_quant", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:87",
-             launches=launches["act"], library_ms=None, **act, music_launches=music["launches"]["act"]),
+             launches=launches["act"], library_ms=None, **act, music_launches=music["launches"]["act"],
+             htdemucs_launches=htd_launches["act"], htdemucs_int8_launches=htd["int8_launches"]["act"]),
         # ms, plain_ms, bound_ms: the grouped launch of the ConvTasNet's 101 weight quantizers (phase 2, eval);
         # dptnet_*, sepformer_*: the other two models' full weight sets; per_tensor_ms: the per-tensor kernel that
         # the fold and a layer outside a model's pass take, at [1024, 128, 1]. launches: phase 3's forward.
         dict(name="weight_fake_quant", route="cuda", route_detail=GROUP_ROUTE, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:204", launches=launches["weight"], library_ms=None,
              **groups["ConvTasNet"], **{f"{m.lower()}_{k}": groups[m][k]
-                                        for m in ("DPTNet", "Sepformer", "ConvTasNetMusic") for k in ("ms", "bound_ms")},
+                                        for m in ("DPTNet", "Sepformer", "ConvTasNetMusic", "HTDemucs")
+                                        for k in ("ms", "bound_ms")},
              per_tensor_ms=weight_per_tensor["ms"],
-             music_launches=music["launches"]["weight"]),
+             music_launches=music["launches"]["weight"], htdemucs_launches=htd_launches["weight"]),
         dict(name="act_fake_quant_bwd", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:95",
              launches=train_launches["act_bwd"], library_ms=None, **act_bwd,
@@ -3541,7 +3972,7 @@ def main() -> None:
         dict(name="weight_fake_quant_bwd", route="cuda", route_detail=GROUP_ROUTE, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:214", launches=train_launches["weight_bwd"], library_ms=None,
              **group_bwd["ConvTasNet"], **{f"{m.lower()}_{k}": group_bwd[m][k]
-                                           for m in ("DPTNet", "Sepformer", "ConvTasNetMusic")
+                                           for m in ("DPTNet", "Sepformer", "ConvTasNetMusic", "HTDemucs")
                                            for k in ("ms", "bound_ms")},
              per_tensor_ms=weight_bwd_per_tensor["ms"], music_launches=music_train["launches"]["weight_bwd"]),
         # ms, plain_ms, bound_ms: one ConvTasNet forward's 74 launches; int_mm_ms: torch._int_mm, the product alone
@@ -3552,7 +3983,15 @@ def main() -> None:
              replaces="fqss_tpu/ops/pallas_quant.py:168", launches=int8_launches, library_ms=None, **int8,
              dptnet_ms=dpt_k4["ms"], dptnet_bound_ms=dpt_k4["bound_ms"], dptnet_launches=dpt_k4["launches"],
              sepformer_ms=sep_k4["ms"], sepformer_bound_ms=sep_k4["bound_ms"], sepformer_launches=sep_k4["launches"],
-             music_ms=music_k4["ms"], music_bound_ms=music_k4["bound_ms"], music_launches=music["k4_launches"]),
+             music_ms=music_k4["ms"], music_bound_ms=music_k4["bound_ms"], music_launches=music["k4_launches"],
+             **{f"htdemucs_{k}": htd["k4"][k] for k in ("ms", "plain_ms", "bound_ms", "launches", "int_mm_ms")}),
+        # K4's GELU epilogue (nl 3): ms, plain_ms, bound_ms: one HTDemucs int8 forward's 10 launches (every linear1,
+        # phase 59); launches: phase 57's float32 engine forward. int_mm_ms: torch._int_mm, the product alone, so no
+        # library call computes this function: library_ms is null.
+        dict(name="int8_matmul_requant_gelu", route="cuda", route_detail=INT8_ROUTE + "; the exact GELU (erfcf) "
+             "between the dequantization and the requantization", source="fqss_tpu_torch/csrc/int8_matmul.cu",
+             replaces="fqss_tpu/ops/pallas_quant.py:168", launches=htd["gelu_launches"], library_ms=None,
+             **{k: htd["k4_gelu"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "int_mm_ms", "max_abs_err")}),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet forward's 12 launches (6 at the row shape, 6 at the
         # column shape); library_ms: cuDNN's bidirectional nn.LSTM on the same weights and input, its own input
         # projection included. launches: phase 18's forward.
@@ -3576,7 +4015,14 @@ def main() -> None:
              replaces="fqss_tpu/ops/pallas_attention.py:83", launches=sep_launches["attention"], **attn,
              **bf16_keys(attn16, bf16_count["attention_bf16"], BF16_ATTN_ROUTE),
              **{f"bf16_dptnet_{k}": attn16[f"dptnet_{k}"] for k in ("ms", "f32_ms", "plain_ms", "bound_ms",
-                                                                    "launches")}),
+                                                                    "launches")},
+             # htdemucs_*: one HTDemucs forward's 10 launches (6 self, 4 cross; d 48 on the D 64 instantiation) at
+             # 8 x 441,000 (phase 59); bf16_htdemucs_*: its bf16 route, which the bf16 int8 engine runs.
+             htdemucs_launches=htd_launches["attention"],
+             **{f"htdemucs_{k}": htd_attn[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "route_bound_ms",
+                                                       "max_abs_err")},
+             **{f"bf16_htdemucs_{k}": htd_attn16[k] for k in ("ms", "f32_ms", "plain_ms", "bound_ms", "launches",
+                                                              "max_abs_err")}),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer student forward's 78 QDense launches at
         # the training batch (phase 31); library_ms: torch.addmm, then K1 for the act grid. launches: phase 33's
         # 16 KD steps, student and teacher. bound_ms: the float32 CUDA-core bound (comparable with earlier runs);
@@ -3589,7 +4035,17 @@ def main() -> None:
         dict(name="qat_dense", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
              replaces="fqss_tpu/ops/pallas_qat.py:347", launches=train_model_launches["dense"], **dense_fwd,
              **bf16_keys(dense16, bf16_count["dense_bf16"], BF16_DENSE_ROUTE),
-             bf16_library_note=dense16["library_note"]),
+             bf16_library_note=dense16["library_note"], htdemucs_launches=htd_launches["dense"],
+             **{f"htdemucs_{k}": htd["k5"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "route_bound_ms",
+                                                        "max_abs_err")}),
+        # K5's GELU route (QDense(nl="gelu")): ms, plain_ms, bound_ms, library_ms: one HTDemucs forward's 10 linear1
+        # launches at 8 x 441,000 (phase 59); library_ms: torch.addmm, F.gelu, then K1. launches: phase 54's forward.
+        dict(name="qat_dense_gelu", route="cuda", route_detail=DENSE_ROUTE + "; the exact GELU (erfcf) between the "
+             "bias and the act grid", source="fqss_tpu_torch/csrc/qat_dense.cu",
+             replaces="fqss_tpu/ops/pallas_qat.py:347",
+             launches=htd_launches["dense_gelu"],
+             **{k: htd["k5_gelu"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "route_bound_ms",
+                                               "max_abs_err")}),
         # The backward of those 78 launches: the mask, dx and dwq kernels of each (and their fixed-order sums);
         # library_ms: the two products by torch.mm and K1-bwd on the pre-activation. launches: phase 33's mask
         # launches (each with one dx and one dwq launch).

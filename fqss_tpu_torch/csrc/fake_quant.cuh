@@ -1,5 +1,5 @@
 // The per-tensor uniform grid of K1 and the per-channel symmetric grid of K2
-// as device functions, shared by every kernel that applies them
+// (and the exact GELU of the K5 and K4 epilogues) as device functions, shared by every kernel that applies them
 // (fake_quant.cu's act_fake_quant_kernel and weight_fake_quant_kernel,
 // attention.cu's epilogue, qat_dense.cu's weight tiles and epilogue), so that
 // a value that reaches a grid lands on the same grid point bit for bit in all
@@ -34,6 +34,13 @@ __device__ __forceinline__ float weight_grid_step(float mn, float mx, float q) {
 
 __device__ __forceinline__ float weight_grid_value(float w, float delta, float qmin, float qmax) {
   return __fmul_rn(delta, clip(rintf(__fdiv_rn(w, delta)), qmin, qmax));
+}
+
+// The exact GELU of K5's and K4's epilogues, jax.nn.gelu(approximate=False) operation for operation:
+// 0.5 x erfc(-x sqrt(1/2)), sqrt(1/2) rounded to float32. erfcf is the function PyTorch's erfc calls on the card,
+// so the plain versions (fqss_tpu_torch/nn/nonlin.py:gelu) agree bit for bit.
+__device__ __forceinline__ float gelu(float x) {
+  return __fmul_rn(__fmul_rn(0.5f, x), erfcf(__fmul_rn(-x, 0.70710678118654752440f)));
 }
 
 }  // namespace fqss

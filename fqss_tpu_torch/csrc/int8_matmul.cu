@@ -14,11 +14,13 @@
 //                           N columns, or up to three (the Sepformer
 //                           engine's attention in-projection requantizes its
 //                           Q, K and V thirds to their own grids in one launch).
-//                           The epilogue's nonlinearity may instead be tanh or
-//                           the sigmoid 1 / (1 + exp(-v)) (nl = 1, 2): the
+//                           The epilogue's nonlinearity may instead be tanh,
+//                           the sigmoid 1 / (1 + exp(-v)) or the exact GELU
+//                           0.5 v erfc(-v sqrt(1/2)) (nl = 1, 2, 3): the
 //                           TPU kernel has only the PReLU, and the JAX
-//                           engines apply those two outside it, to the
-//                           dequantized product (DPTNet's gated output).
+//                           engines apply the others outside it, to the
+//                           dequantized product (DPTNet's gated output,
+//                           HTDemucs's FFN linear1).
 //
 // Layout: xs is [M, K] row-major (the engine's channels-last activations,
 // M = batch x time) and w is [N, K] row-major (the port's conv weight
@@ -74,6 +76,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "fake_quant.cuh"
 
 namespace {
 
@@ -148,7 +152,7 @@ __device__ __forceinline__ void load_rows(const int8_t* __restrict__ src, int64_
 
 // The epilogue's nonlinearity (fqss_int8_matmul_requant's nl), a template parameter of the kernel so that
 // each instantiation carries only its own epilogue.
-enum Nl : int { kPrelu = 0, kTanh = 1, kSigmoid = 2 };
+enum Nl : int { kPrelu = 0, kTanh = 1, kSigmoid = 2, kGelu = 3 };
 
 // The requantized output X in [0, 255] (the int8 output is X - 128, X ^ 0x80 in its low byte).
 template <int kNl>
@@ -159,6 +163,8 @@ __device__ __forceinline__ uint32_t requant(int acc, float scale, float corr, fl
     v = tanhf(v);
   } else if (kNl == kSigmoid) {
     v = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-v)));  // PyTorch's sigmoid, operation for operation
+  } else if (kNl == kGelu) {
+    v = fqss::gelu(v);  // the exact GELU (HTDemucs's FFN linear1), fake_quant.cuh
   } else {
     v = v >= 0.0f ? v : __fmul_rn(alpha, v);
   }
@@ -347,6 +353,7 @@ int launch_nl(const Launch& l) {
                  int64_t, int) =
       l.nl == kTanh      ? int8_mm_requant_kernel<kVec, kTanh, kNi, kMinBlocks>
       : l.nl == kSigmoid ? int8_mm_requant_kernel<kVec, kSigmoid, kNi, kMinBlocks>
+      : l.nl == kGelu    ? int8_mm_requant_kernel<kVec, kGelu, kNi, kMinBlocks>
                          : int8_mm_requant_kernel<kVec, kPrelu, kNi, kMinBlocks>;
   const int64_t smem = smem_bytes(16 * kNi, l.K);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -395,7 +402,7 @@ extern "C" int fqss_int8_matmul_blocks_per_sm(int64_t N, int64_t K, int* out) {
 
 // xs: [M, K] int8, w: [N, K] int8, scale and corr: [N] float32, out: [M, N] int8;
 // all contiguous on the current device, out 16-byte aligned. nl: 0 PReLU with slope alpha, 1 tanh,
-// 2 sigmoid. Output grid g = 0, 1, 2 is (delta_g, mn_g) and takes columns
+// 2 sigmoid, 3 the exact GELU. Output grid g = 0, 1, 2 is (delta_g, mn_g) and takes columns
 // [g cols, (g + 1) cols); cols = N for one grid. blocks: the persistent grid, a multiple of the N tiles
 // (ceil(N / 128), or ceil(N / 64) where N <= 64 or K > 1152). Returns the launch's CUDA error code.
 extern "C" int fqss_int8_matmul_requant(const int8_t* xs, const int8_t* w, const float* scale, const float* corr,

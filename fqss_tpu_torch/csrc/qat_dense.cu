@@ -28,6 +28,11 @@
 //                                  bias-free 1x1 convolution, so the weight is the row operand (A, [I][R]),
 //                                  x[b] the column operand stored [R][J], and blockIdx.z the batch row.
 //                                  JAX's kernel takes x [M, K] @ w [K, N]: the same products, transposed.
+//   qat_dense_kernel<kEpiForward>  K5's GELU route (QDense(nl="gelu"), HTDemucs's transformer FFN):
+//   with DenseArgs::gelu           y = act_fq(gelu(x @ wq^T + b)), the exact GELU (fake_quant.cuh:gelu)
+//                                  between the bias and the act grid; inside the observer window the
+//                                  post-GELU value. Forward only (its backward comes with HTDemucs
+//                                  training), float32 or bf16 operands.
 //   qat_dense_kernel<kEpiForward,  the bf16 routes of K5 and K3 (QuantSpec.compute_dtype "bfloat16"): both
 //   BF16 = true>                   operands rounded to bfloat16 as they leave shared memory (x as loaded,
 //                                  the weight after its grid, computed in float32 first, as JAX rounds
@@ -147,6 +152,7 @@ struct DenseArgs {
   const unsigned char* a_obs;
   int a_bits;
   float s;  // kEpiMask: the act ranges' scale_grad factor
+  bool gelu;  // kEpiForward: the exact GELU between the bias and the act grid
   const float* g;  // kEpiMask: the cotangent [I][J]
   float* out;  // y, gm, dx or the [splits][I][J] partial products
   float* act_partials;  // kEpiMask: [tiles, 2]
@@ -448,6 +454,7 @@ __global__ void __launch_bounds__(Shape<BI, BJ>::kThreads, Shape<BI, BJ>::kMinBl
             if (j0 + j >= p.J) continue;
             const float pre = acc[mt][nt][2 * h + e];
             float v = p.bias != nullptr ? __fadd_rn(pre, bias[nt][e]) : pre;
+            if (p.gelu) v = fqss::gelu(v);
             if (a_on) v = fqss::act_grid_value(v, a_mn, a_delta, aq);
             row[j] = v;
           }
@@ -680,13 +687,14 @@ namespace {
 template <bool BF16>
 int dense_forward(const float* x, const float* w, const float* b, const float* w_mn, const float* w_mx,
                   const unsigned char* w_obs, const float* a_mn, const float* a_mx, const unsigned char* a_obs,
-                  float* wq, float* y, int64_t M, int64_t K, int64_t N, int w_bits, int a_bits, void* stream) {
+                  float* wq, float* y, int64_t M, int64_t K, int64_t N, int w_bits, int a_bits, bool gelu,
+                  void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   DenseArgs p{};
   p.a = x, p.b = grid_weights(w, w_mn, w_mx, w_obs, wq, N, K, w_bits, st, &err), p.I = M, p.J = N, p.R = K;
   if (err != cudaSuccess) return static_cast<int>(err);
-  p.bias = b, p.a_mn = a_mn, p.a_mx = a_mx, p.a_obs = a_obs, p.a_bits = a_bits;
+  p.bias = b, p.a_mn = a_mn, p.a_mx = a_mx, p.a_obs = a_obs, p.a_bits = a_bits, p.gelu = gelu;
   p.out = y;
   return static_cast<int>(launch<true, true, kEpiForward, BF16>(p, 1, st));
 }
@@ -714,7 +722,8 @@ extern "C" int fqss_qat_dense(const float* x, const float* w, const float* b, co
                               const unsigned char* w_obs, const float* a_mn, const float* a_mx,
                               const unsigned char* a_obs, float* wq, float* y, int64_t M, int64_t K, int64_t N,
                               int w_bits, int a_bits, void* stream) {
-  return dense_forward<false>(x, w, b, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, M, K, N, w_bits, a_bits, stream);
+  return dense_forward<false>(x, w, b, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, M, K, N, w_bits, a_bits, false,
+                              stream);
 }
 
 // fqss_qat_dense's bf16 route: x and the weight (after its grid) rounded to bfloat16, the sums float32.
@@ -722,7 +731,25 @@ extern "C" int fqss_qat_dense_bf16(const float* x, const float* w, const float* 
                                    const float* w_mx, const unsigned char* w_obs, const float* a_mn, const float* a_mx,
                                    const unsigned char* a_obs, float* wq, float* y, int64_t M, int64_t K, int64_t N,
                                    int w_bits, int a_bits, void* stream) {
-  return dense_forward<true>(x, w, b, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, M, K, N, w_bits, a_bits, stream);
+  return dense_forward<true>(x, w, b, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, M, K, N, w_bits, a_bits, false,
+                             stream);
+}
+
+// The GELU routes of fqss_qat_dense and fqss_qat_dense_bf16: y = act_fq(gelu(x @ weight_fq(w)^T + b)).
+extern "C" int fqss_qat_dense_gelu(const float* x, const float* w, const float* b, const float* w_mn,
+                                   const float* w_mx, const unsigned char* w_obs, const float* a_mn, const float* a_mx,
+                                   const unsigned char* a_obs, float* wq, float* y, int64_t M, int64_t K, int64_t N,
+                                   int w_bits, int a_bits, void* stream) {
+  return dense_forward<false>(x, w, b, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, M, K, N, w_bits, a_bits, true,
+                              stream);
+}
+
+extern "C" int fqss_qat_dense_bf16_gelu(const float* x, const float* w, const float* b, const float* w_mn,
+                                        const float* w_mx, const unsigned char* w_obs, const float* a_mn,
+                                        const float* a_mx, const unsigned char* a_obs, float* wq, float* y, int64_t M,
+                                        int64_t K, int64_t N, int w_bits, int a_bits, void* stream) {
+  return dense_forward<true>(x, w, b, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, wq, y, M, K, N, w_bits, a_bits, true,
+                             stream);
 }
 
 // The mask pass of the backward: gm [M, N]; sums[0..1] = (dmn, dmx) of the act ranges; db [N]; wq [N, K], the

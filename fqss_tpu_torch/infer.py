@@ -70,8 +70,9 @@ def load_engine(model_cfg: Mapping[str, Any], engine: str = "fake_quant",
 def _read_mixture(conf: Mapping[str, Any], audio_path: str, normalize: bool) -> tuple[np.ndarray, int]:
     """The mixture [C, T] as the config's dataset resamples it, and its rate. Refuses a music model: its file
     separation (stereo stems, by the config's ``sources``) is not ported yet."""
-    if conf["model_cfg"]["name"] == "ConvTasNetMusic":
-        raise NotImplementedError("separating a file with ConvTasNetMusic is not ported yet (ROADMAP.md, queue 1); "
+    name = conf["model_cfg"]["name"]
+    if name in ("ConvTasNetMusic", "HTDemucs"):
+        raise NotImplementedError(f"separating a file with {name} is not ported yet (ROADMAP.md, queue 1); "
                                   "val scores it on MUSDB")
     wav, fs = read_audio(audio_path)
     resample = conf.get("dataset_cfg", {}).get("resample", 1)

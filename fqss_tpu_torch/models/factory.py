@@ -1,9 +1,9 @@
 """Model factory (``fqss_tpu/models/factory.py``): name -> quantized model with weights,
 and the student/teacher pair of KD training.
 
-The port holds ConvTasNet, DPTNet, the Sepformer and ConvTasNet-music; the
-other model names of the JAX factory raise ``NotImplementedError`` until
-their slices land (ROADMAP.md, queue 1).
+The port holds ConvTasNet, DPTNet, the Sepformer, ConvTasNet-music and
+HTDemucs; the JAX factory's legacy ``HDemucsLegacy`` raises
+``NotImplementedError`` (ROADMAP.md, queue 1).
 """
 
 from __future__ import annotations
@@ -18,16 +18,19 @@ from torch import nn
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
 from fqss_tpu_torch.models.convtasnet_music import SOURCES, ConvTasNetMusic
 from fqss_tpu_torch.models.dptnet import DPTNet
+from fqss_tpu_torch.models.htdemucs import HTDemucs
 from fqss_tpu_torch.models.sepformer import Sepformer
 from fqss_tpu_torch.nn.io_layers import expand_encoder_kernel
 from fqss_tpu_torch.quant.spec import QuantSpec
 
-MODEL_NAMES = ("ConvTasNet", "DPTNet", "Sepformer", "ConvTasNetMusic")
+MODEL_NAMES = ("ConvTasNet", "DPTNet", "Sepformer", "ConvTasNetMusic", "HTDemucs")
 _ARCH_KEYS = ("n_filters", "bn_chan", "hid_chan", "n_blocks", "n_repeats", "mask_act", "mask_kernel_size")
 _DPTNET_KEYS = ("enc_dim", "feature_dim", "hidden_dim", "layer", "segment_size")
 _SEPFORMER_KEYS = ("n_filters", "n_repeats", "n_heads", "chunk_size", "n_ffn", "n_layers")
 _MUSIC_KEYS = ("audio_channels", "n_filters", "bn_chan", "hid_chan", "conv_kernel", "n_blocks", "n_repeats",
                "mask_act")
+_HTDEMUCS_KEYS = ("audio_channels", "channels", "nfft", "depth", "t_layers", "t_heads", "t_hidden_scale",
+                  "bottom_channels", "segment", "samplerate")  # fqss_tpu/models/factory.py:104-106
 
 
 def create_model(model_cfg: Mapping[str, Any], q: QuantSpec | None = None,
@@ -51,6 +54,9 @@ def create_model(model_cfg: Mapping[str, Any], q: QuantSpec | None = None,
         return ConvTasNetMusic(sources=tuple(model_cfg.get("sources", SOURCES)),
                                kernel_size=model_cfg.get("kernel_size", 20), stride=model_cfg.get("stride", 10), q=q,
                                generator=generator, **extra)
+    if name == "HTDemucs":
+        extra = {k: model_cfg[k] for k in _HTDEMUCS_KEYS if k in model_cfg}
+        return HTDemucs(sources=tuple(model_cfg.get("sources", SOURCES)), q=q, generator=generator, **extra)
     if name != "ConvTasNet":
         raise NotImplementedError(f"model {name!r} is not ported yet; the port has {MODEL_NAMES} "
                                   "(ROADMAP.md, queue 1)")

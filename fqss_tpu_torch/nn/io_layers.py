@@ -1,8 +1,9 @@
 """Model I/O layers: splitter encoder and combiner decoder (``fqss_tpu/nn/io_layers.py``).
 
 Encoder: [in-quant] -> Conv1d [-> NL] -> act-quant, on the splitter-widened
-input. Decoders (ConvTranspose1d for ConvTasNet and the Sepformer, Linear
-for DPTNet) -> out-quant; with ``n_combiner >= 2`` a chain of
+input. Decoders (ConvTranspose1d for ConvTasNet, the Sepformer and
+HTDemucs's time branch, ConvTranspose2d for HTDemucs's frequency branch,
+Linear for DPTNet and ConvTasNet-music) -> out-quant; with ``n_combiner >= 2`` a chain of
 residual-error blocks re-encodes the quantized output, quantizes the latent
 residual ``Y - Y_q`` and decodes it (shared decoder weights, or the block's
 own with ``train_res_dec``) into more output planes, stacked
@@ -22,7 +23,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from fqss_tpu_torch.nn.layers import QConv1d, make_act_quantizer, make_weight_quantizer, mxu_operands, uniform_
+from fqss_tpu_torch.nn.layers import (
+    QConv1d,
+    QConv2d,
+    _pair,
+    make_act_quantizer,
+    make_weight_quantizer,
+    mxu_operands,
+    uniform_,
+)
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
 Tensor = torch.Tensor
@@ -94,11 +103,11 @@ class _ResidualErrorBlock1d(nn.Module):
     WEIGHT_QUANTIZERS = {"weight_fake_quantize_dec": "residual_decoder_weight"}
 
     def __init__(self, latent_features: int, out_features: int, kernel_size: int, stride: int,
-                 q: QuantSpec = FLOAT, generator: torch.Generator | None = None):
+                 q: QuantSpec = FLOAT, generator: torch.Generator | None = None, use_bias: bool = False):
         super().__init__()
         self.q, self.stride = q, stride
         self.residual_encoder = QConv1d(out_features, latent_features, kernel_size, stride=stride,
-                                        use_bias=False, q=q, act_quant=False, generator=generator)
+                                        use_bias=use_bias, q=q, act_quant=False, generator=generator)
         self.activation_fake_quantize = make_act_quantizer(q)
         if q.train_res_dec:
             wshape = (latent_features, out_features, kernel_size)
@@ -120,28 +129,30 @@ class _ResidualErrorBlock1d(nn.Module):
 
 
 class QConvTr1dDecoder(nn.Module):
-    """ConvTranspose1d decoder (no bias) -> out-quant [+ combiner residual planes]
+    """ConvTranspose1d decoder [+ bias] -> out-quant [+ combiner residual planes]
     (ConvTr1dDecoderQ, qat_layers.py:1305-1361).
 
     Input [B, Cin, M]; weight [Cin, Cout, k], quantized per out-channel
     (axis 1). Returns [B, Cout, L] when n_combiner == 1, else
-    [n_combiner, B, Cout, L].
+    [n_combiner, B, Cout, L]. ``use_bias`` (HTDemucs's last time decoder)
+    gives the decoder and the combiner's residual encoder a bias each.
     """
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
-                 q: QuantSpec = FLOAT, generator: torch.Generator | None = None):
+                 q: QuantSpec = FLOAT, generator: torch.Generator | None = None, use_bias: bool = False):
         super().__init__()
         self.q, self.stride = q, stride
         self.n_combiner = q.n_combiner
         wshape = (in_channels, out_channels, kernel_size)
         bound = 1.0 / math.sqrt(out_channels * kernel_size)
         self.weight = nn.Parameter(uniform_(torch.empty(wshape), bound, generator))
+        self.bias = nn.Parameter(uniform_(torch.empty(out_channels), bound, generator)) if use_bias else None
         self.weight_fake_quantize = make_weight_quantizer(q, wshape, ch_axis=1)
         self.activation_fake_quantize = make_act_quantizer(q, enabled=q.out_quant, n_bits=q.out_act_n_bits,
                                                            nl_quant=q.inout_nl_quant)
         if q.n_combiner > 1:
             self.residual_error_block = _ResidualErrorBlock1d(in_channels, out_channels, kernel_size, stride,
-                                                              q=q, generator=generator)
+                                                              q=q, generator=generator, use_bias=use_bias)
             self.activation_fake_quantize_residual = make_act_quantizer(q, enabled=q.out_quant,
                                                                         n_bits=q.out_act_n_bits)
 
@@ -149,7 +160,97 @@ class QConvTr1dDecoder(nn.Module):
         w_decoder = self.weight
         if self.weight_fake_quantize is not None:
             w_decoder = self.weight_fake_quantize(w_decoder)
-        x0 = F.conv_transpose1d(*mxu_operands(self.q, x, w_decoder), stride=self.stride)
+        x0 = F.conv_transpose1d(*mxu_operands(self.q, x, w_decoder), self.bias, stride=self.stride)
+        out_q = self.activation_fake_quantize
+        y = out_q(x0) if out_q is not None else x0
+        if self.n_combiner == 1:
+            return y
+        res_out_q = self.activation_fake_quantize_residual
+        outs = [y]
+        for _ in range(1, self.n_combiner):
+            x = self.residual_error_block(x, y, w_decoder)
+            y = res_out_q(x) if res_out_q is not None else x
+            outs.append(y)
+        return torch.stack(outs)
+
+
+class _ResidualErrorBlock2d(nn.Module):
+    """Combiner residual block for ConvTranspose2d decoders (ResidualErrorBlock, qat_layers.py:1147-1169,
+    1203-1217; ``fqss_tpu/nn/io_layers.py:_ResidualErrorBlock2d``). NCHW.
+
+    forward(Y, y_q, w_decoder): re-encode the quantized decoder output with a
+    Conv2d, quantize the latent residual ``Y - Y_q``, and decode it with the
+    shared (already quantized) decoder weight, or with ``train_res_dec`` with
+    a residual decoder of its own, ``residual_decoder_weight`` ``[Cin, Cout,
+    kh, kw]`` quantized per out-channel (axis 1) by
+    ``weight_fake_quantize_dec``, and its own bias ``residual_decoder_bias``
+    where the decoder has one.
+    """
+
+    WEIGHT_QUANTIZERS = {"weight_fake_quantize_dec": "residual_decoder_weight"}
+
+    def __init__(self, latent_features: int, out_features: int, kernel_size: tuple[int, int],
+                 stride: tuple[int, int], use_bias: bool = True, q: QuantSpec = FLOAT,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        kh, kw = kernel_size
+        self.q, self.stride = q, stride
+        self.residual_encoder = QConv2d(out_features, latent_features, kernel_size, stride=stride,
+                                        use_bias=use_bias, q=q, act_quant=False, generator=generator)
+        self.activation_fake_quantize = make_act_quantizer(q)
+        self.residual_decoder_weight = self.residual_decoder_bias = self.weight_fake_quantize_dec = None
+        if q.train_res_dec:
+            wshape = (latent_features, out_features, kh, kw)
+            bound = 1.0 / math.sqrt(out_features * kh * kw)
+            self.residual_decoder_weight = nn.Parameter(uniform_(torch.empty(wshape), bound, generator))
+            if use_bias:
+                self.residual_decoder_bias = nn.Parameter(uniform_(torch.empty(out_features), bound, generator))
+            self.weight_fake_quantize_dec = make_weight_quantizer(q, wshape, ch_axis=1)
+
+    def forward(self, Y: Tensor, y_q: Tensor, w_decoder: Tensor) -> Tensor:
+        Y1 = Y - self.residual_encoder(y_q)
+        if self.activation_fake_quantize is not None:
+            Y1 = self.activation_fake_quantize(Y1)
+        if self.residual_decoder_weight is not None:
+            w_decoder = self.residual_decoder_weight
+            if self.weight_fake_quantize_dec is not None:
+                w_decoder = self.weight_fake_quantize_dec(w_decoder)
+        return F.conv_transpose2d(*mxu_operands(self.q, Y1, w_decoder), self.residual_decoder_bias,
+                                  stride=self.stride)
+
+
+class QConvTr2dDecoder(nn.Module):
+    """ConvTranspose2d decoder [+ bias] -> out-quant [+ combiner planes] (ConvTr2dDecoderQ,
+    qat_layers.py:1364-1421; ``fqss_tpu/nn/io_layers.py:QConvTr2dDecoder``). NCHW.
+
+    Input [B, Cin, H, W]; weight [Cin, Cout, kh, kw] (JAX's kernel is ``(kh, kw, Cin, Cout)``), quantized per
+    out-channel (axis 1). Returns [B, Cout, H', W'] or [n_combiner, B, Cout, H', W'].
+    """
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int | tuple[int, int],
+                 stride: int | tuple[int, int], use_bias: bool = True, q: QuantSpec = FLOAT,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        k, self.stride = _pair(kernel_size), _pair(stride)
+        self.q, self.n_combiner = q, q.n_combiner
+        wshape = (in_channels, out_channels, *k)
+        bound = 1.0 / math.sqrt(out_channels * k[0] * k[1])
+        self.weight = nn.Parameter(uniform_(torch.empty(wshape), bound, generator))
+        self.bias = nn.Parameter(uniform_(torch.empty(out_channels), bound, generator)) if use_bias else None
+        self.weight_fake_quantize = make_weight_quantizer(q, wshape, ch_axis=1)
+        self.activation_fake_quantize = make_act_quantizer(q, enabled=q.out_quant, n_bits=q.out_act_n_bits,
+                                                           nl_quant=q.inout_nl_quant)
+        if q.n_combiner > 1:
+            self.residual_error_block = _ResidualErrorBlock2d(in_channels, out_channels, k, self.stride,
+                                                              use_bias=use_bias, q=q, generator=generator)
+            self.activation_fake_quantize_residual = make_act_quantizer(q, enabled=q.out_quant,
+                                                                        n_bits=q.out_act_n_bits)
+
+    def forward(self, x: Tensor) -> Tensor:
+        w_decoder = self.weight
+        if self.weight_fake_quantize is not None:
+            w_decoder = self.weight_fake_quantize(w_decoder)
+        x0 = F.conv_transpose2d(*mxu_operands(self.q, x, w_decoder), self.bias, stride=self.stride)
         out_q = self.activation_fake_quantize
         y = out_q(x0) if out_q is not None else x0
         if self.n_combiner == 1:

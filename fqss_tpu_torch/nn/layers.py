@@ -12,12 +12,13 @@ axis 0). A layer whose weight quantizers are other than one
 its parameter's in a class attribute ``WEIGHT_QUANTIZERS``, for
 :func:`fqss_tpu_torch.serve.fold.fold_quantized_weights`.
 
-The convolutions are PyTorch's (``F.conv1d``): the JAX package computes
+The convolutions are PyTorch's (``F.conv1d``, ``F.conv2d`` and their
+transposes, NCT/NCHW, weights in torch's layout): the JAX package computes
 them outside any Pallas kernel too, except that a bias-free 1x1 ``QConv1d``
 without a nonlinearity runs its forward through the fused kernel K3
 (``ops/qmatmul.py``) where no gradient is needed. ``QDense`` runs its
-product and both of its grids through the fused kernel K5
-(``ops/qat_dense.py``).
+product, its GELU where it has one, and both of its grids through the fused
+kernel K5 (``ops/qat_dense.py``).
 
 Under ``QuantSpec.compute_dtype="bfloat16"`` every product's operands are
 rounded to bfloat16 and its sums stay float32 (:func:`mxu_operands`, JAX's
@@ -91,11 +92,26 @@ def _quantize(aq: ActQuantizer | None, y: Tensor) -> Tensor:
     return aq(y) if aq is not None else y
 
 
+def _epilogue(layer: nn.Module, y: Tensor) -> Tensor:
+    """A convolution's [GroupNorm ->] [nonlinearity ->] act-quant, each where the layer has it."""
+    norm = getattr(layer, "norm", None)
+    if norm is not None:
+        y = norm(y)
+    if layer.nl is not None:
+        y = layer.nl(y)
+    return _quantize(layer.activation_fake_quantize, y)
+
+
+def _pair(v) -> tuple[int, int]:
+    return (v, v) if isinstance(v, int) else tuple(v)
+
+
 class QConv1d(nn.Module):
     """Fused fake-quant Conv1d [+NL] [+act-quant].
 
-    Covers Conv1dQ / Conv1dNlQ (qat_layers.py:124-258); the GroupNorm-fused
-    variant comes with the slices that use it.
+    Covers Conv1dQ / Conv1dNlQ / Conv1dGnNlQ (qat_layers.py:124-258): with
+    ``norm_groups`` a GroupNorm (``norm``, epsilon 1e-5) between the bias
+    and the nonlinearity (HTDemucs's DConv).
     Input/output: [B, C, T]; weight [Cout, Cin/groups, k], quantized per
     out-channel (axis 0).
 
@@ -119,7 +135,7 @@ class QConv1d(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, groups: int = 1, use_bias: bool = True,
                  nl: str | None = None, q: QuantSpec = FLOAT, act_quant: bool | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, norm_groups: int | None = None):
         super().__init__()
         self.q = q
         self.stride, self.padding, self.dilation, self.groups = stride, padding, dilation, groups
@@ -128,10 +144,11 @@ class QConv1d(nn.Module):
         self.weight = nn.Parameter(uniform_(torch.empty(wshape), bound, generator))
         self.bias = nn.Parameter(uniform_(torch.empty(out_channels), bound, generator)) if use_bias else None
         self.weight_fake_quantize = make_weight_quantizer(q, wshape, ch_axis=0)
+        self.norm = nn.GroupNorm(norm_groups, out_channels, eps=1e-5) if norm_groups is not None else None
         self.nl = Nl(nl) if nl else None
         self.activation_fake_quantize = make_act_quantizer(q, enabled=act_quant)
         self.fused = (kernel_size == 1 and groups == 1 and stride == 1 and padding == 0 and not use_bias
-                      and nl is None)
+                      and nl is None and norm_groups is None)
 
     def forward(self, x: Tensor) -> Tensor:
         if self.fused and not _needs_grad(x, *self.parameters()):
@@ -141,9 +158,7 @@ class QConv1d(nn.Module):
             w = self.weight_fake_quantize(w)
         xc, wc = mxu_operands(self.q, x, w)
         y = F.conv1d(xc, wc, self.bias, self.stride, self.padding, self.dilation, self.groups)
-        if self.nl is not None:
-            y = self.nl(y)
-        return _quantize(self.activation_fake_quantize, y)
+        return _epilogue(self, y)
 
     def _qmatmul(self, x: Tensor) -> Tensor:
         """The forward through K3: both grids, their window flags and the observers' writes, as ``QDense``."""
@@ -166,6 +181,74 @@ class QConv1d(nn.Module):
         if aq is not None:
             aq.observe(y, a_observing)
         return y
+
+
+class QConv2d(nn.Module):
+    """Fused fake-quant Conv2d [+GroupNorm] [+NL] [+act-quant] (qat_layers.py:156-293; ``fqss_tpu/nn/layers.py:
+    QConv2d``). NCHW; weight [Cout, Cin, kh, kw], quantized per out-channel (axis 0). ``F.conv2d``, as JAX
+    computes its convolution with ``lax.conv`` outside any Pallas kernel; under bf16 on rounded operands."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int | tuple[int, int],
+                 stride: int | tuple[int, int] = 1, padding: int | tuple[int, int] = 0, use_bias: bool = True,
+                 nl: str | None = None, norm_groups: int | None = None, q: QuantSpec = FLOAT,
+                 act_quant: bool | None = None, generator: torch.Generator | None = None):
+        super().__init__()
+        k = _pair(kernel_size)
+        self.q = q
+        self.stride, self.padding = _pair(stride), _pair(padding)
+        wshape = (out_channels, in_channels, *k)
+        bound = 1.0 / math.sqrt(in_channels * k[0] * k[1])
+        self.weight = nn.Parameter(uniform_(torch.empty(wshape), bound, generator))
+        self.bias = nn.Parameter(uniform_(torch.empty(out_channels), bound, generator)) if use_bias else None
+        self.weight_fake_quantize = make_weight_quantizer(q, wshape, ch_axis=0)
+        self.norm = nn.GroupNorm(norm_groups, out_channels, eps=1e-5) if norm_groups is not None else None
+        self.nl = Nl(nl) if nl else None
+        self.activation_fake_quantize = make_act_quantizer(q, enabled=act_quant)
+
+    def forward(self, x: Tensor) -> Tensor:
+        w = self.weight
+        if self.weight_fake_quantize is not None:
+            w = self.weight_fake_quantize(w)
+        xc, wc = mxu_operands(self.q, x, w)
+        return _epilogue(self, F.conv2d(xc, wc, self.bias, self.stride, self.padding))
+
+
+class QConvTranspose1d(nn.Module):
+    """Fake-quant ConvTranspose1d [+NL] [+act-quant] (qat_layers.py:296-327; ``fqss_tpu/nn/layers.py:
+    QConvTranspose1d``, without padding). NCT; weight [Cin, Cout, k] (torch's layout; JAX's kernel is ``(k, Cin,
+    Cout)``), quantized per out-channel (axis 1). ``F.conv_transpose1d`` is JAX's kernel-flipped, input-dilated
+    conv."""
+
+    _conv = staticmethod(F.conv_transpose1d)
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size, stride=1, use_bias: bool = True,
+                 nl: str | None = None, q: QuantSpec = FLOAT, act_quant: bool | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        k = tuple(kernel_size) if isinstance(kernel_size, (tuple, list)) else (kernel_size,)
+        self.q, self.stride = q, stride
+        wshape = (in_channels, out_channels, *k)
+        bound = 1.0 / math.sqrt(out_channels * math.prod(k))
+        self.weight = nn.Parameter(uniform_(torch.empty(wshape), bound, generator))
+        self.bias = nn.Parameter(uniform_(torch.empty(out_channels), bound, generator)) if use_bias else None
+        self.weight_fake_quantize = make_weight_quantizer(q, wshape, ch_axis=1)
+        self.nl = Nl(nl) if nl else None
+        self.activation_fake_quantize = make_act_quantizer(q, enabled=act_quant)
+
+    def forward(self, x: Tensor) -> Tensor:
+        w = self.weight
+        if self.weight_fake_quantize is not None:
+            w = self.weight_fake_quantize(w)
+        xc, wc = mxu_operands(self.q, x, w)
+        return _epilogue(self, self._conv(xc, wc, self.bias, self.stride))
+
+
+class QConvTranspose2d(QConvTranspose1d):
+    """Fake-quant ConvTranspose2d [+NL] [+act-quant] (qat_layers.py:330-435; ``fqss_tpu/nn/layers.py:
+    QConvTranspose2d``, without padding): ``QConvTranspose1d`` in NCHW, weight [Cin, Cout, kh, kw] (JAX's kernel is
+    ``(kh, kw, Cin, Cout)``), quantized per out-channel (axis 1)."""
+
+    _conv = staticmethod(F.conv_transpose2d)
 
 
 class QGroupNorm(nn.Module):
@@ -197,10 +280,11 @@ class QGroupNorm(nn.Module):
 
 
 class QDense(nn.Module):
-    """Fake-quant Linear with bias -> act-quant (LinearQ, qat_layers.py:521-568).
+    """Fake-quant Linear with bias [-> GELU] -> act-quant (LinearQ/LinearNlQ, qat_layers.py:521-568).
 
-    The JAX ``QDense`` at its defaults (bias, no NL, act-quant as the spec
-    says), the only form DPTNet and the Sepformer build.
+    The JAX ``QDense`` with its bias and act-quant as the spec says, and no
+    nonlinearity (DPTNet, the Sepformer) or ``nl="gelu"`` (HTDemucs's
+    transformer FFN), the exact GELU between the bias and the act grid.
 
     Over the last axis: ``[..., in] -> [..., out]``. Weight ``[out, in]``
     quantized per out-channel (axis 0; the JAX kernel is its transpose,
@@ -219,9 +303,11 @@ class QDense(nn.Module):
     """
 
     def __init__(self, in_features: int, features: int, q: QuantSpec = FLOAT,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, nl: str | None = None):
         super().__init__()
-        self.q = q
+        if nl not in (None, "gelu"):
+            raise NotImplementedError(f"QDense(nl={nl!r}): K5's epilogue has the GELU only")
+        self.q, self.gelu = q, nl == "gelu"
         bound = 1.0 / math.sqrt(in_features)
         self.weight = nn.Parameter(uniform_(torch.empty(features, in_features), bound, generator))
         self.bias = nn.Parameter(uniform_(torch.empty(features), bound, generator))
@@ -244,9 +330,9 @@ class QDense(nn.Module):
             a_args = dict(a_mn=aq.min_range, a_mx=aq.max_range, a_bits=aq.n_bits,
                           a_s=1.0 / math.sqrt((2**aq.n_bits - 1) * self.weight.shape[0]) if aq.scale_grad else 1.0)
         y = qat_dense(x.reshape(-1, x.shape[-1]).contiguous(), w, self.bias, w_observing=w_observing,
-                      a_observing=a_observing, bf16=self.q.bf16, **w_args, **a_args)
+                      a_observing=a_observing, bf16=self.q.bf16, gelu=self.gelu, **w_args, **a_args)
         if aq is not None:
-            aq.observe(y, a_observing)  # inside the window y is the pre-activation
+            aq.observe(y, a_observing)  # inside the window y is the pre-activation (after the GELU)
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
 

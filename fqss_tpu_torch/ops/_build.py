@@ -146,6 +146,10 @@ def load(path: Path) -> ctypes.CDLL:
     lib.fqss_qat_dense.restype = i32
     lib.fqss_qat_dense_bf16.argtypes = lib.fqss_qat_dense.argtypes
     lib.fqss_qat_dense_bf16.restype = i32
+    for name in ("fqss_qat_dense_gelu", "fqss_qat_dense_bf16_gelu"):  # absent from older sources a bench loads
+        if hasattr(lib, name):
+            getattr(lib, name).argtypes = lib.fqss_qat_dense.argtypes
+            getattr(lib, name).restype = i32
     lib.fqss_qat_dense_bwd_mask.argtypes = [p, p, p, p, p, p, p, p, p, p, f32, p, p, p, p, p, p, i64, i64, i64,
                                             i32, i32, p]
     lib.fqss_qat_dense_bwd_mask.restype = i32

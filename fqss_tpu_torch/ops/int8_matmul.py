@@ -6,9 +6,10 @@ int8 serving engine, ``fqss_tpu/ops/pallas_quant.py:int8_matmul_requant_pallas``
 
     out = int8(clip(round((prelu(float(xs @ w.T) * scale + corr, alpha) - mn) / delta), 0, 255) - 128)
 
-with ``nl="tanh"`` or ``nl="sigmoid"`` in the PReLU's place (the TPU kernel
-has only the PReLU; the JAX engines apply the other two to the dequantized
-product outside it, as DPTNet's gated output does).
+with ``nl="tanh"``, ``nl="sigmoid"`` or ``nl="gelu"`` (the exact GELU,
+:func:`fqss_tpu_torch.nn.nonlin.gelu`) in the PReLU's place (the TPU kernel
+has only the PReLU; the JAX engines apply the others to the dequantized
+product outside it, as DPTNet's gated output and HTDemucs's FFN do).
 
 ``xs`` is ``[M, K]`` int8 (channels-last activations, shifted by -128 from
 the ``[0, 255]`` grid), ``w`` is ``[N, K]`` int8 (the port's conv weight
@@ -29,7 +30,8 @@ A CUDA tensor launches the kernel, or the wrapper raises: there is no
 fallback. A CPU tensor takes the plain version :func:`int8_matmul_requant_ref`,
 which the kernel equals bit for bit; the wrapper holds both devices to the
 kernel's dtypes, shapes and contiguity. ``LAUNCHES["int8_mm"]`` counts the
-kernel's launches.
+kernel's launches, ``GELU_LAUNCHES["int8_mm"]`` those of them with the GELU
+epilogue.
 """
 
 from __future__ import annotations
@@ -39,17 +41,19 @@ from typing import Sequence
 
 import torch
 
+from fqss_tpu_torch.nn.nonlin import gelu
 from fqss_tpu_torch.ops import _build
 
 Tensor = torch.Tensor
 
 LAUNCHES = {"int8_mm": 0}
-NLS = ("prelu", "tanh", "sigmoid")  # the epilogue's nonlinearities, in the kernel's numbering
+GELU_LAUNCHES = {"int8_mm": 0}  # the launches of LAUNCHES["int8_mm"] with the GELU epilogue
+NLS = ("prelu", "tanh", "sigmoid", "gelu")  # the epilogue's nonlinearities, in the kernel's numbering
 MAX_GRIDS = 3  # output grids one launch takes (csrc/int8_matmul.cu:kMaxGrids)
 
 
 def reset_launches() -> None:
-    LAUNCHES["int8_mm"] = 0
+    LAUNCHES["int8_mm"] = GELU_LAUNCHES["int8_mm"] = 0
 
 
 # The kernel's tiles and shared memory (csrc/int8_matmul.cu): 128-row M tiles, N tiles of 128 columns (64 where
@@ -120,6 +124,8 @@ def int8_matmul_requant_ref(xs: Tensor, w: Tensor, scale: Tensor, corr: Tensor, 
         v = torch.tanh(v)
     elif nl == "sigmoid":
         v = torch.sigmoid(v)
+    elif nl == "gelu":
+        v = gelu(v)
     else:
         v = torch.where(v >= 0, v, alpha * v)
     if len(deltas) == 1:
@@ -177,4 +183,6 @@ def int8_matmul_requant(xs: Tensor, w: Tensor, scale: Tensor, corr: Tensor, alph
     if rc != 0:
         raise RuntimeError(f"int8_matmul_requant: CUDA launch failed with error {rc}")
     LAUNCHES["int8_mm"] += 1
+    if nl == "gelu":
+        GELU_LAUNCHES["int8_mm"] += 1
     return out

@@ -32,6 +32,13 @@ and the mask pass put the weights on their grid once, into an ``[N, K]``
 scratch that the wrapper allocates (the TPU kernel re-quantizes each weight
 tile as it loads it; ``csrc/qat_dense.cu`` says why the port does not).
 
+``gelu=True`` is the GELU route (``QDense(nl="gelu")``, HTDemucs's FFN):
+``y = act_fq(gelu(x @ weight_fq(w)^T + b))``, the exact GELU
+(:func:`fqss_tpu_torch.nn.nonlin.gelu`) between the bias and the act grid,
+and inside the act observer's window the post-GELU value, which the
+quantizer observes. It has no backward yet (HTDemucs training, ROADMAP.md
+queue 1): with a gradient needed it raises ``NotImplementedError``.
+
 ``bf16=True`` is the forward's bf16 route (``QuantSpec.compute_dtype``
 ``"bfloat16"``): ``x`` and the weight (after its grid) are rounded to
 bfloat16 as the kernel loads them, the sums stay float32 and the bias and
@@ -44,7 +51,8 @@ fallback. A CPU tensor takes the plain versions, :func:`qat_dense_ref`
 (the weight grid, ``torch.matmul``, the bias, the act grid: the composition
 the layers ran before the kernel) and :func:`qat_dense_bwd_ref` (the same
 backward in PyTorch operations). ``LAUNCHES`` counts the kernels' launches:
-``dense`` the forward (``dense_bf16`` its bf16 route), ``dense_mask``, ``dense_dx`` and ``dense_dwq`` the
+``dense`` the forward (``dense_bf16`` its bf16 route, ``dense_gelu`` and
+``dense_bf16_gelu`` the GELU routes), ``dense_mask``, ``dense_dx`` and ``dense_dwq`` the
 backward's three kernels (K2-bwd counts under
 ``fake_quant.LAUNCHES["weight_bwd"]``).
 """
@@ -55,6 +63,7 @@ import ctypes
 
 import torch
 
+from fqss_tpu_torch.nn.nonlin import gelu as gelu_ref
 from fqss_tpu_torch.ops import _build
 from fqss_tpu_torch.ops.fake_quant import (
     _check_device,
@@ -71,7 +80,8 @@ from fqss_tpu_torch.quant.fake_quant import bf16_round
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"dense": 0, "dense_bf16": 0, "dense_mask": 0, "dense_dx": 0, "dense_dwq": 0}
+LAUNCHES = {"dense": 0, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0, "dense_mask": 0, "dense_dx": 0,
+            "dense_dwq": 0}
 
 
 def reset_launches() -> None:
@@ -105,12 +115,13 @@ def operands(x: Tensor, wq: Tensor, bf16: bool) -> tuple[Tensor, Tensor]:
 
 def qat_dense_ref(x: Tensor, w: Tensor, b: Tensor, w_mn: Tensor | None = None, w_mx: Tensor | None = None,
                   a_mn: Tensor | None = None, a_mx: Tensor | None = None, w_bits: int = 8, a_bits: int = 8,
-                  w_observing: Tensor | None = None, a_observing: Tensor | None = None, bf16: bool = False) -> Tensor:
-    """Plain version: ``act_fq(x @ weight_fq(w)^T + b)``, each grid skipped where its flag is set; under ``bf16`` the
-    product's operands rounded to bfloat16 (the sums float32: TF32 off)."""
+                  w_observing: Tensor | None = None, a_observing: Tensor | None = None, bf16: bool = False,
+                  gelu: bool = False) -> Tensor:
+    """Plain version: ``act_fq([gelu](x @ weight_fq(w)^T + b))``, each grid skipped where its flag is set; under
+    ``bf16`` the product's operands rounded to bfloat16 (the sums float32: TF32 off)."""
     xc, wc = operands(x, _weight_q(w, w_mn, w_mx, w_bits, w_observing), bf16)
     pre = torch.matmul(xc, wc.t()) + b
-    return act_q(pre, a_mn, a_mx, a_bits, a_observing)
+    return act_q(gelu_ref(pre) if gelu else pre, a_mn, a_mx, a_bits, a_observing)
 
 
 def _where(flag: Tensor | None, a: Tensor, b: Tensor) -> Tensor:
@@ -197,19 +208,21 @@ def _ptr(t: Tensor | None):
     return None if t is None else t.data_ptr()
 
 
-def _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, bf16=False) -> Tensor:
+def _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, bf16=False,
+             gelu=False) -> Tensor:
     if x.device.type == "cpu":
         with torch.no_grad():
-            return qat_dense_ref(x, w, b, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing, bf16)
+            return qat_dense_ref(x, w, b, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing, bf16,
+                                 gelu)
     (M, K), N = x.shape, w.shape[0]
     y = torch.empty(M, N, device=x.device)
     if y.numel():
         wq = _weight_scratch(w, w_mn)
-        lib = _build.library()
-        _launch("qat_dense", lib.fqss_qat_dense_bf16 if bf16 else lib.fqss_qat_dense, x.device, x.data_ptr(),
-                w.data_ptr(), b.data_ptr(), _ptr(w_mn), _ptr(w_mx), _ptr(w_observing), _ptr(a_mn), _ptr(a_mx),
-                _ptr(a_observing), _ptr(wq), y.data_ptr(), M, K, N, w_bits, a_bits)
-        LAUNCHES["dense_bf16" if bf16 else "dense"] += 1
+        route = "dense" + ("_bf16" if bf16 else "") + ("_gelu" if gelu else "")
+        _launch("qat_dense", getattr(_build.library(), "fqss_qat_" + route), x.device, x.data_ptr(), w.data_ptr(),
+                b.data_ptr(), _ptr(w_mn), _ptr(w_mx), _ptr(w_observing), _ptr(a_mn), _ptr(a_mx), _ptr(a_observing),
+                _ptr(wq), y.data_ptr(), M, K, N, w_bits, a_bits)
+        LAUNCHES[route] += 1
     return y
 
 
@@ -310,19 +323,24 @@ class _QatDense(torch.autograd.Function):
 def qat_dense(x: Tensor, w: Tensor, b: Tensor, w_mn: Tensor | None = None, w_mx: Tensor | None = None,
               a_mn: Tensor | None = None, a_mx: Tensor | None = None, w_bits: int = 8, a_bits: int = 8,
               w_observing: Tensor | None = None, a_observing: Tensor | None = None, w_s: float = 1.0,
-              a_s: float = 1.0, bf16: bool = False) -> Tensor:
+              a_s: float = 1.0, bf16: bool = False, gelu: bool = False) -> Tensor:
     """``act_fq(x [M, K] @ weight_fq(w [N, K])^T + b)`` -> ``[M, N]``, differentiable in x, w, b and the ranges.
 
     ``w_mn``/``w_mx``: the weight grid's per-out-channel ranges, or None for no weight grid; ``a_mn``/``a_mx``:
     the output grid's one-element ranges, or None. ``w_observing``/``a_observing``: one-element bool tensors
     (or None): where set, that grid is skipped. ``w_s``/``a_s``: the ranges' ``scale_grad`` factors. ``bf16``: the
     product's operands rounded to bfloat16 (forward only: raises ``NotImplementedError`` where a gradient is
-    needed)."""
+    needed). ``gelu``: the exact GELU between the bias and the act grid (forward only, as ``bf16``)."""
     _check_device("qat_dense", x)
     _check(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing)
+    tensors = (x, w, b, w_mn, w_mx, a_mn, a_mx)
+    if gelu and _needs_grad(*(t for t in tensors if t is not None)):
+        raise NotImplementedError("qat_dense(gelu=True) has no backward yet: it comes with HTDemucs training "
+                                  "(ROADMAP.md, queue 1)")
     if bf16:
-        refuse_bf16_grad(x, w, b, w_mn, w_mx, a_mn, a_mx)
-        return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, bf16=True)
+        refuse_bf16_grad(*tensors)
+    if bf16 or gelu:
+        return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, bf16, gelu)
     if _needs_grad(*(t for t in (x, w, b, w_mn, w_mx, a_mn, a_mx) if t is not None)):
         return _QatDense.apply(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, w_s, a_s)
     return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits)

@@ -3,7 +3,8 @@
 All chunks of a track are cut on the host, pushed through the model in
 batches of ``chunk_batch`` on the device, and recombined on the host with
 the reference's triangular cross-fade weights (process.py:154-194). Chunks
-are batched and zero-padded exactly as the JAX function does, because the
+are batched and padded (right-zero, or centred with the mixture as context)
+exactly as the JAX function does, because the
 splitter normalises by the max-abs of the whole batch. Optional per-chunk
 PIT re-alignment against a target (``swap_channel_order``,
 process.py:105-123) matches the reference's eval behaviour.
@@ -45,12 +46,18 @@ def ola_infer(
     target: the clean sources [S, T]; each chunk's outputs are re-ordered to
     match them before the overlap-add (eval only).
 
-    Chunk sharding (``mesh``) and centred padding (``center_pad_to``) are
-    not ported yet (ROADMAP.md, queue 1) and raise ``NotImplementedError``.
+    ``center_pad_to``: demucs's TensorChunk padding (musdbhq_utils.py:86-111,
+    ``padded``; HTDemucs's evaluation): every chunk is padded to this length
+    centred on itself, with the real mixture around it as context where
+    there is one and zeros past the track's edges, and its output is cut
+    back from the centre. None: right-zero-padding (the speech reference,
+    process.py:176).
+
+    Chunk sharding (``mesh``) is not ported yet (ROADMAP.md, queue 1) and
+    raises ``NotImplementedError``.
     """
-    for name, value in (("mesh", mesh), ("center_pad_to", center_pad_to)):
-        if value is not None:
-            raise NotImplementedError(f"ola_infer({name}=...) is not ported yet (ROADMAP.md, queue 1)")
+    if mesh is not None:
+        raise NotImplementedError("ola_infer(mesh=...) is not ported yet (ROADMAP.md, queue 1)")
     mix = np.asarray(mix, np.float32)
     channels, length = mix.shape
 
@@ -69,32 +76,43 @@ def ola_infer(
     offsets = list(range(0, length, stride))
     weight = triangular_weight(segment)
 
-    # Right-zero-padded chunks (the reference speech path, process.py:176).
-    chunks = np.zeros((len(offsets), channels, segment), np.float32)
-    chunk_lens = []
+    # Right-zero-padded chunks (the reference speech path, process.py:176), or centre-padded ones with the
+    # mixture around them as context (demucs TensorChunk).
+    pad_target = max(center_pad_to or segment, segment)
+    chunks = np.zeros((len(offsets), channels, pad_target), np.float32)
+    chunk_lens, trim_lefts = [], []
     for i, off in enumerate(offsets):
         stop = min(off + segment, length)
-        chunks[i, :, : stop - off] = mix[:, off:stop]
-        chunk_lens.append(stop - off)
+        clen = stop - off
+        if center_pad_to is None:
+            chunks[i, :, :clen] = mix[:, off:stop]
+            trim_lefts.append(0)
+        else:
+            delta = pad_target - clen
+            start = off - delta // 2
+            cs, ce = max(0, start), min(length, start + pad_target)
+            chunks[i, :, cs - start : cs - start + (ce - cs)] = mix[:, cs:ce]
+            trim_lefts.append(delta // 2)
+        chunk_lens.append(clen)
 
     outs = []
     for i in range(0, len(offsets), chunk_batch):
         block = chunks[i : i + chunk_batch]
         pad_n = chunk_batch - block.shape[0]
         if pad_n:
-            block = np.concatenate([block, np.zeros((pad_n, channels, segment), np.float32)])
+            block = np.concatenate([block, np.zeros((pad_n, channels, pad_target), np.float32)])
         y = run(block[:, 0] if channels == 1 else block)
         if pad_n:
             y = y[: chunk_batch - pad_n]
-        outs.append(y[..., :segment])
-    chunk_out = np.concatenate(outs, axis=0)  # [K, S, (C,) segment]
+        outs.append(y[..., :pad_target])
+    chunk_out = np.concatenate(outs, axis=0)  # [K, S, (C,) pad_target]
 
     out_shape = (n_srcs, channels, length) if channels > 1 else (n_srcs, length)
     out = np.zeros(out_shape, np.float32)
     sum_weight = np.zeros(length, np.float32)
     for i, off in enumerate(offsets):
-        clen = chunk_lens[i]
-        co = chunk_out[i][..., :clen]
+        clen, tl = chunk_lens[i], trim_lefts[i]
+        co = chunk_out[i][..., tl : tl + clen]
         if target is not None and n_srcs > 1:
             co = swap_channel_order(co, target[..., off : off + clen])
         out[..., off : off + clen] += weight[:clen] * co

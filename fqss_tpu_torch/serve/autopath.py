@@ -40,8 +40,11 @@ from fqss_tpu_torch.serve.fold import fold_quantized_weights
 # bf16 compute is slower for every family, so the table keeps float32 (JAX's table takes bf16 where its TPU ran it
 # faster): ConvTasNet's convs stay cuDNN float32 on rounded operands, and K8's bf16 route takes three passes over
 # the keys (PERF.md section 5).
+# HTDemucs (phase 58, 8 x 343,980 stereo samples padded to 441,000): fake_quant 202.6, folded 202.3, int8 f32
+# 214.6, int8 bf16 288.2 ms. Its int8 engine runs only the transformer's products as int8 (the conv branches stay the
+# folded model's), and its requantization chains cost more than K4 saves there; bf16 adds K8's three-pass route.
 BEST_PATHS: dict[str, str] = {"ConvTasNet": "folded", "DPTNet": "fake_quant", "Sepformer": "folded",
-                              "ConvTasNetMusic": "int8"}
+                              "ConvTasNetMusic": "int8", "HTDemucs": "folded"}
 DEFAULT_PATH = "folded"  # a family the table does not name: the weight-folded fake-quant model
 INT8_COMPUTE_DTYPE = "float32"  # the int8 path's float products: float32, the faster of the two on this card
 

@@ -7,11 +7,16 @@ then the median over tracks, as museval's ``agg_frames_tracks_scores``.
 Each track is normalised by its mixture's mean and std, separated by
 overlap-add and de-normalised. The serving forward is any callable on
 tensors of ``device``: the model, its folded copy or the int8 engine.
+HTDemucs (``model_cfg.name``) is evaluated as the JAX loop evaluates it
+(``fqss_tpu/train/validate_musdb.py:45-60``): its forward with
+``train=False``, each chunk centre-padded with the mixture around it to
+``segment_samples`` (``ola_infer(center_pad_to=...)``).
 Tracks live in the musdb layout ``<root>/test/<track>/{mixture, <stem>}.wav``.
 """
 
 from __future__ import annotations
 
+import functools
 import os
 from typing import Any, Callable, Mapping
 
@@ -35,15 +40,26 @@ def list_musdb_tracks(root: str, subset: str = "test") -> list[str]:
     return [os.path.join(d, t) for t in tracks]
 
 
+def eval_forward(apply_fn: Callable, model_cfg: Mapping[str, Any]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """The forward evaluation calls: HTDemucs's (the model, its folded copy or its int8 engine) with
+    ``train=False``, every other family's as it is."""
+    return functools.partial(apply_fn, train=False) if model_cfg.get("name") == "HTDemucs" else apply_fn
+
+
 def _separate_track(apply_fn: Callable[[torch.Tensor], torch.Tensor], track_dir: str, n_srcs: int,
-                    testing_cfg: Mapping[str, Any], mesh=None, device: torch.device | str = "cpu"):
+                    testing_cfg: Mapping[str, Any], mesh=None, device: torch.device | str = "cpu",
+                    model_cfg: Mapping[str, Any] | None = None):
     """The track's stems ``[S, C, T]`` and its sample rate: OLA on the mixture normalised by its mean and std,
-    non-finite values zeroed (solver.py:325), then de-normalised."""
+    non-finite values zeroed (solver.py:325), then de-normalised. HTDemucs's chunks are centre-padded to
+    ``segment_samples`` (use_train_segment: demucs TensorChunk, musdbhq_utils.py:86-111)."""
+    model_cfg = model_cfg or {}
     mix, fs = read_audio(os.path.join(track_dir, "mixture.wav"))  # [C, T]
     ref = mix.mean(axis=0)
     mix_mean, mix_std = float(ref.mean()), float(ref.std())
-    seps = ola_infer(apply_fn, (mix - mix_mean) / mix_std, n_srcs=n_srcs, segment=testing_cfg.get("segment_samples"),
-                     overlap=testing_cfg.get("overlap", 0.25), mesh=mesh, device=device)
+    segment = testing_cfg.get("segment_samples")
+    seps = ola_infer(eval_forward(apply_fn, model_cfg), (mix - mix_mean) / mix_std, n_srcs=n_srcs, segment=segment,
+                     overlap=testing_cfg.get("overlap", 0.25), mesh=mesh, device=device,
+                     center_pad_to=segment if model_cfg.get("name") == "HTDemucs" else None)
     return np.nan_to_num(seps) * mix_std + mix_mean, fs
 
 
@@ -60,7 +76,7 @@ def val_musdbhq_nsdr(apply_fn: Callable[[torch.Tensor], torch.Tensor], model_cfg
     tracks = _tracks(testing_cfg, limit)
     sdrs = np.zeros((len(sources), len(tracks)))
     for j, track in enumerate(tracks):
-        seps, _ = _separate_track(apply_fn, track, len(sources), testing_cfg, mesh, device)
+        seps, _ = _separate_track(apply_fn, track, len(sources), testing_cfg, mesh, device, model_cfg)
         for i, src in enumerate(sources):
             ref_audio, _ = read_audio(os.path.join(track, f"{src}.wav"))
             sep = np.ascontiguousarray(seps[i][..., : ref_audio.shape[-1]])
@@ -84,7 +100,7 @@ def val_musdbhq(apply_fn: Callable[[torch.Tensor], torch.Tensor], model_cfg: Map
     keys = ("SDR", "ISR", "SIR", "SAR")
     track_scores = {k: np.zeros((len(sources), len(tracks))) for k in keys}
     for j, track in enumerate(tracks):
-        seps, fs = _separate_track(apply_fn, track, len(sources), testing_cfg, mesh, device)
+        seps, fs = _separate_track(apply_fn, track, len(sources), testing_cfg, mesh, device, model_cfg)
         refs = [read_audio(os.path.join(track, f"{src}.wav"))[0] for src in sources]
         t_len = min(min(r.shape[-1] for r in refs), seps.shape[-1])
         refs = np.stack([r[..., :t_len] for r in refs])  # [S, C, T]

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the device time of the port's serving engines goes, on one NVIDIA GPU.
 
-Usage: python3 scripts/profile_torch_engines.py [--model convtasnet|dptnet|sepformer|music] [--show OP ...]
+Usage: python3 scripts/profile_torch_engines.py [--model convtasnet|dptnet|sepformer|music|htdemucs] [--show OP ...]
 
 Builds the full-width FQSS-8bit model of ``chip_smoke.py`` (seeded weights):
 the ConvTasNet of phase 3 at 32 x 12 s, ranges from a 3-step observer pass,
@@ -10,7 +10,9 @@ observer window (``chip_smoke.DPT_OBSERVE_STEPS``), or the Sepformer of
 phase 25 at 8 x 4 s, ranges from its config's 50-step window
 (``chip_smoke.SEP_OBSERVE_STEPS``), or ConvTasNet-music of phase 44 at one
 OLA batch of 8 x 441,000 stereo samples, ranges from its config's 50-step
-window (``chip_smoke.MUSIC_OBSERVE``). Then for each engine (fake_quant,
+window (``chip_smoke.MUSIC_OBSERVE``), or HTDemucs of phase 54 at one OLA
+batch of 8 x 343,980 stereo samples (``train=False``: padded to 441,000),
+ranges from its config's 50-step window (``chip_smoke.HTD_OBSERVE``). Then for each engine (fake_quant,
 folded, int8 with float32 and with bfloat16 float products) it times
 forwards with CUDA events and traces one with ``torch.profiler``: the device
 time by the operator that launched it, the union of the kernel intervals
@@ -58,7 +60,7 @@ TOP = 15  # operators listed per engine
 
 def main() -> None:
     parser = argparse.ArgumentParser(prog="python3 scripts/profile_torch_engines.py")
-    parser.add_argument("--model", choices=("convtasnet", "dptnet", "sepformer", "music"), default="convtasnet")
+    parser.add_argument("--model", choices=("convtasnet", "dptnet", "sepformer", "music", "htdemucs"), default="convtasnet")
     parser.add_argument("--show", nargs="*", default=[], help="operators to print wherever they rank")
     args = parser.parse_args()
     model = args.model
@@ -78,11 +80,16 @@ def main() -> None:
         batch, seg = chip_smoke.SEP_BATCH, chip_smoke.SEP_SEG
         mix, _ = chip_smoke.synth_batch(np.random.default_rng(25), batch, 2, seg)
         served = chip_smoke.build_served_sepformer(dev, mix[:2])
-    else:
+    elif model == "music":
         batch, seg = chip_smoke.MUSIC_BATCH, chip_smoke.MUSIC_SEG
         mix = chip_smoke.music_mix(45, batch, seg)
         served = chip_smoke.build_served_music(dev)
-    sr = chip_smoke.MUSIC_SR if model == "music" else chip_smoke.SR
+    else:
+        batch, seg = chip_smoke.HTD_BATCH, chip_smoke.HTD_SEG
+        mix = chip_smoke.htdemucs_mix(55, batch, seg)
+        served = chip_smoke.build_served_htdemucs(dev)
+    sr = {"music": chip_smoke.MUSIC_SR, "htdemucs": chip_smoke.HTD_SR}.get(model, chip_smoke.SR)
+    kwargs = {"train": False} if model == "htdemucs" else {}  # HTDemucs serves as evaluation runs it
     x = torch.from_numpy(mix).to(dev)
     builders = {
         "fake_quant": lambda: served,
@@ -96,7 +103,7 @@ def main() -> None:
 
         def forward():
             with torch.inference_mode():
-                return engine(x)
+                return engine(x, **kwargs)
 
         ms = chip_smoke.cuda_ms(forward, 3)
         torch.cuda.synchronize()

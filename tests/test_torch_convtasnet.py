@@ -121,8 +121,8 @@ def test_ola_infer_matches_jax(calibrated):
     snr = snr_db(want, got)
     assert (snr >= 20).all(), f"port vs JAX OLA SNR {snr} dB < 20 dB"
     np.testing.assert_array_equal(triangular_weight(seg), jax_triangular_weight(seg))
-    with pytest.raises(NotImplementedError, match="center_pad_to"):
-        ola_infer(port, mix, n_srcs=2, segment=seg, center_pad_to=seg)
+    with pytest.raises(NotImplementedError, match="mesh"):
+        ola_infer(port, mix, n_srcs=2, segment=seg, mesh=object())
 
 
 def test_factory_loads_port_checkpoints_and_names_what_is_missing(calibrated, tmp_path):
@@ -138,4 +138,4 @@ def test_factory_loads_port_checkpoints_and_names_what_is_missing(calibrated, tm
     assert loaded.q.observer is False and not loaded.training
     np.testing.assert_array_equal(_port_forward(loaded, mix), _port_forward(port, mix))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model({"name": "HTDemucs"})
+        create_model({"name": "HDemucsLegacy"})

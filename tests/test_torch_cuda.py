@@ -885,7 +885,8 @@ def test_qat_dense_backward_matches_plain(dev, m, k, n):
         before = dict(qd.LAUNCHES), fq.LAUNCHES["weight_bwd"]
         got = qd.qat_dense_bwd(*args[:3], g, *args[3:])
         assert {k_: qd.LAUNCHES[k_] - before[0][k_] for k_ in qd.LAUNCHES} == {
-            "dense": 0, "dense_bf16": 0, "dense_mask": 1, "dense_dx": 1, "dense_dwq": 1}
+            "dense": 0, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0, "dense_mask": 1, "dense_dx": 1,
+            "dense_dwq": 1}
         assert fq.LAUNCHES["weight_bwd"] == before[1] + (args[3] is not None)
         _assert_dense_grads(got, args, g)
         if flags.get("a_obs"):
@@ -901,7 +902,8 @@ def test_qat_dense_autograd_runs_the_kernels(dev):
     leaves = [t.clone().requires_grad_(True) for t in args[:7]]
     qd.reset_launches()
     (qd.qat_dense(*leaves, *args[7:]) * g).sum().backward()
-    assert qd.LAUNCHES == {"dense": 1, "dense_bf16": 0, "dense_mask": 1, "dense_dx": 1, "dense_dwq": 1}
+    assert qd.LAUNCHES == {"dense": 1, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0, "dense_mask": 1,
+                           "dense_dx": 1, "dense_dwq": 1}
     _assert_dense_grads([t.grad for t in leaves], args, g)
 
 
@@ -1015,8 +1017,8 @@ def test_tiny_train_step_card_vs_cpu(dev, name):
             out.append((float(metrics["loss"]), grads, dict(qd.LAUNCHES), dict(lstm.LAUNCHES)))
         runs.append(out)
     for step, (loss_card, g_card, dense, rec), (loss_cpu, g_cpu, cpu_dense, _) in zip(TINY_TRAIN_CARD_VS_CPU, *runs):
-        assert dense == {"dense": 2 * n_dense, "dense_bf16": 0, "dense_mask": n_dense, "dense_dx": n_dense,
-                         "dense_dwq": n_dense}
+        assert dense == {"dense": 2 * n_dense, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0,
+                         "dense_mask": n_dense, "dense_dx": n_dense, "dense_dwq": n_dense}
         assert set(cpu_dense.values()) == {0}
         if name == "DPTNet":
             assert rec == {"lstm": 0, "bilstm": 2 * 4}  # student and teacher, 2 layers x row and col each
@@ -1354,3 +1356,132 @@ def test_tiny_music_kd_step_card_vs_cpu(dev):
         loss_tol, cos_min = TINY_TRAIN_CARD_VS_CPU[phase]
         db = abs(10 * math.log10(loss_card / loss_cpu))  # the L1 losses' ratio in dB, as the speech losses
         assert db <= loss_tol and cos >= cos_min, (phase, loss_card, loss_cpu, cos)
+
+
+# HTDemucs: the GELU routes of K5 and K4, K8 at head width 48 with Lq != Lk, and a tiny HTDemucs (JAX's TINY test
+# configuration) calibrated on the CPU, then served on the card against the same model on the CPU.
+HTD_CFG = {"name": "HTDemucs", "sources": ["drums", "bass", "other", "vocals"], "audio_channels": 2, "channels": 8,
+           "nfft": 512, "t_layers": 3, "t_heads": 4, "segment": 0.5, "samplerate": 8000}
+
+
+@pytest.mark.parametrize("m,k,n", [(700, 64, 256), (1000, 384, 1536), (33, 37, 65)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_qat_dense_gelu_route_matches_plain(dev, m, k, n, bf16):
+    """K5's GELU route: the pre-grid value within 1e-5 x 1.13 of sum |term| (the GELU's largest slope), on the act
+    grid the kernel's own post-GELU value on K1's grid, at most 0.1% of outputs a step from the plain version."""
+    g = torch.Generator(device=dev).manual_seed(m + n)
+    x, w = torch.randn(m, k, device=dev, generator=g), torch.randn(n, k, device=dev, generator=g) / k**0.5
+    b = torch.randn(n, device=dev, generator=g) * 0.1
+    mn, mx = torch.tensor([-0.2], device=dev), torch.tensor([-0.2 + 255 * STEP], device=dev)
+    qd.reset_launches()
+    pre = qd.qat_dense(x, w, b, gelu=True, bf16=bf16)
+    y = qd.qat_dense(x, w, b, a_mn=mn, a_mx=mx, gelu=True, bf16=bf16)
+    assert qd.LAUNCHES["dense_bf16_gelu" if bf16 else "dense_gelu"] == 2 and qd.LAUNCHES["dense"] == 0
+    xr, wr = qd.operands(x, w, bf16)
+    bound = (xr.abs() @ wr.abs().t() + b.abs()) * 1.13
+    plain = qd.qat_dense_ref(x, w, b, gelu=True, bf16=bf16)
+    assert float(((pre - plain).abs() / bound).max()) <= 1e-5
+    assert torch.equal(y, fq.act_fake_quant_ref(pre, mn, mx, 8))
+    diff = (y - qd.qat_dense_ref(x, w, b, a_mn=mn, a_mx=mx, gelu=True, bf16=bf16)).abs()
+    assert float(diff.max()) <= STEP * (1 + 1e-4) and float((diff > 0.5 * STEP).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 384, 1536), (77, 64, 256), (33, 40, 24)])
+def test_int8_gelu_epilogue_bitwise_equals_plain(dev, m, k, n):
+    from fqss_tpu_torch.ops import int8_matmul as im
+
+    g = torch.Generator(device=dev).manual_seed(m)
+    xs = torch.randint(-128, 128, (m, k), device=dev, dtype=torch.int8, generator=g)
+    w = torch.randint(-128, 128, (n, k), device=dev, dtype=torch.int8, generator=g)
+    scale = torch.rand(n, device=dev, generator=g) * 2e-4 + 1e-5
+    corr = torch.randn(n, device=dev, generator=g) * 0.3
+    im.reset_launches()
+    got = im.int8_matmul_requant(xs, w, scale, corr, 1.0, 3.0 / 255, -0.4, nl="gelu")
+    assert im.LAUNCHES["int8_mm"] == 1 and im.GELU_LAUNCHES["int8_mm"] == 1
+    assert torch.equal(got, im.int8_matmul_requant_ref(xs, w, scale, corr, 1.0, 3.0 / 255, -0.4, nl="gelu"))
+
+
+@pytest.mark.parametrize("lq,lk", [(344, 344), (344, 173), (173, 344)])
+@pytest.mark.parametrize("bf16", [False, True])
+def test_attention_at_head_width_48_self_and_cross(dev, lq, lk, bf16):
+    """K8 at d 48 (the D 64 instantiation) through the packed entry, Lq != Lk for cross-attention: float heads within
+    1e-5 of their magnitude (bf16: one bf16 step of p |v| more), bitwise equal to the [BH, L, d] entry."""
+    g = torch.Generator(device=dev).manual_seed(lq * lk)
+    q = torch.randn(2, lq, 8, 48, device=dev, generator=g) * 0.15
+    k, v = (torch.randn(2, lk, 8, 48, device=dev, generator=g) for _ in range(2))
+    k8.reset_launches()
+    got = k8.fused_attention_packed(q, k, v, quantize=False, bf16=bf16)
+    assert k8.LAUNCHES["attention_bf16" if bf16 else "attention"] == 1
+    ref = k8.fused_attention_packed_ref(q, k, v, quantize=False, bf16=bf16)
+    tol = 1e-5 * float(ref.abs().max()) + (2.0**-7 * float(v.abs().max()) if bf16 else 0.0)
+    assert float((got - ref).abs().max()) <= tol
+    heads = k8.fused_attention(k8.head_layout(q), k8.head_layout(k), k8.head_layout(v), quantize=False, bf16=bf16)
+    assert torch.equal(got, heads.reshape(2, 8, lq, 48).transpose(1, 2).reshape(2, lq, 384))
+
+
+def _tiny_htdemucs():
+    import numpy as np
+
+    from fqss_tpu_torch.data.synthetic import synth_music_batch
+    from fqss_tpu_torch.models.factory import create_model
+    from fqss_tpu_torch.quant.spec import QuantSpec
+
+    model = create_model(HTD_CFG, QuantSpec(**MUSIC_SPEC), generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(synth_music_batch(np.random.default_rng(0), 2, 4000).sum(axis=1))
+    with torch.no_grad():
+        for _ in range(3):
+            model.train()(x)
+    served = create_model(HTD_CFG, QuantSpec(observer=False, **MUSIC_SPEC))
+    served.load_state_dict(model.state_dict())
+    return served.eval(), x[..., :3500]
+
+
+def test_tiny_htdemucs_serving_launches_and_agrees_with_the_cpu(dev):
+    """Fake-quant with train=False: K1 per act quantizer but the 12 QDense layers' and the 6 attentions' three
+    sites each, one grouped weight launch, K5 6 + 6 on the GELU route, K8 6; card vs CPU >= 20 dB; folded bitwise
+    equal with no weight launch."""
+    import copy
+
+    from fqss_tpu_torch.quant.quantizers import ActQuantizer
+    from fqss_tpu_torch.serve.fold import fold_quantized_weights
+
+    cpu, x = _tiny_htdemucs()
+    card = copy.deepcopy(cpu).to(dev)
+    n_act = sum(isinstance(m, ActQuantizer) for m in cpu.modules())
+    for module in (fq, qd, k8):
+        module.reset_launches()
+    with torch.inference_mode():
+        y = card(x.to(dev), train=False)
+        want = cpu(x, train=False)
+    assert fq.LAUNCHES == {"act": n_act - 12 - 3 * 6, "weight": 1, "act_bwd": 0, "weight_bwd": 0}
+    assert (qd.LAUNCHES["dense"], qd.LAUNCHES["dense_gelu"], k8.LAUNCHES["attention"]) == (6, 6, 6)
+    snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
+    assert y.shape == (2, 4, 2, 3500) and bool((snr >= 20).all()), snr
+    folded = fold_quantized_weights(card)
+    fq.reset_launches()
+    with torch.inference_mode():
+        assert torch.equal(folded(x.to(dev), train=False), y)
+    assert fq.LAUNCHES["weight"] == 0
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_tiny_htdemucs_int8_engine_runs_k4_and_k8_and_agrees_with_the_cpu(dev, compute_dtype):
+    """26 K4 launches (3 layers: self, cross, self pairs), 6 of them with the GELU epilogue, K8 6 on the compute
+    dtype's route, no K5; card vs CPU >= 20 dB (the float conv branches flip requantization ties as the fake-quant
+    forward's do)."""
+    import copy
+
+    from fqss_tpu_torch.ops import int8_matmul as im
+    from fqss_tpu_torch.serve import make_int8_engine
+
+    cpu, x = _tiny_htdemucs()
+    want = make_int8_engine(cpu, compute_dtype=compute_dtype)(x, train=False)
+    engine = make_int8_engine(copy.deepcopy(cpu).to(dev), compute_dtype=compute_dtype)
+    for module in (im, qd, k8):
+        module.reset_launches()
+    got = engine(x.to(dev), train=False).cpu()
+    assert (im.LAUNCHES["int8_mm"], im.GELU_LAUNCHES["int8_mm"]) == (26, 6)
+    assert k8.LAUNCHES["attention_bf16" if compute_dtype == "bfloat16" else "attention"] == 6
+    assert set(qd.LAUNCHES.values()) == {0}
+    snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - got).pow(2).sum(-1).clamp_min(1e-30))
+    assert bool((snr >= 20).all()), snr

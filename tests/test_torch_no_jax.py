@@ -42,6 +42,10 @@ SERVING_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
 MUSIC_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
     "models.convtasnet_music", "serve.convtasnet_music_int8", "data.musdb", "train.recipes_music",
     "train.validate_musdb"))
+# The HTDemucs slice's modules.
+HTDEMUCS_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
+    "ops.stft", "nn.nonlin", "nn.io_layers", "models.demucs_blocks", "models.htdemucs", "serve.htdemucs_int8",
+    "separation.ola"))
 
 
 def jax_package_imports(path: str) -> list[str]:
@@ -87,7 +91,7 @@ def test_port_and_chip_smoke_import_no_jax_flax_or_yaml():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
-    for mod in TRAINING_MODULES + SERVING_MODULES + MUSIC_MODULES:
+    for mod in TRAINING_MODULES + SERVING_MODULES + MUSIC_MODULES + HTDEMUCS_MODULES:
         assert f"'{mod}'" in proc.stdout, mod
 
 

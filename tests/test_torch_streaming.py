@@ -264,7 +264,7 @@ def test_stream_cli_needs_a_segment_length(request_files, tmp_path):
 
 def test_the_table_holds_the_fastest_engine_measured_per_family():
     assert BEST_PATHS == {"ConvTasNet": "folded", "DPTNet": "fake_quant", "Sepformer": "folded",
-                          "ConvTasNetMusic": "int8"}
+                          "ConvTasNetMusic": "int8", "HTDemucs": "folded"}
     for cls, arch in ((ConvTasNet, CONVTASNET), (DPTNet, dict(enc_dim=16, feature_dim=8, hidden_dim=16, layer=1)),
                       (Sepformer, dict(n_filters=32, n_heads=4, n_repeats=1, n_layers=1, n_ffn=48))):
         assert best_path(cls(q=QuantSpec(**FQSS), **arch)) == BEST_PATHS[cls.__name__]

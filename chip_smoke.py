@@ -17,7 +17,8 @@ and ``--engine auto`` for all three models, then bf16 compute
 (``compute_dtype: bfloat16``) on the three models' serving path with the bf16
 routes of K5, K3 and K8, then ConvTasNet-music (``configs/convtasnet_music.yaml``)
 serving through every engine, its evaluation, KD training and recipe, then HTDemucs
-(``configs/htdemucs.yaml``) serving through every engine and its evaluation; all with
+(``configs/htdemucs.yaml``) serving through every engine and its evaluation, then its training (the GELU route of
+K5-bwd, the KD step, the ``-env htdemucs`` recipe); all with
 n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one line per phase and lets any
 failure propagate:
 
@@ -301,6 +302,31 @@ failure propagate:
 60. ``python -m fqss_tpu_torch.val`` (MUSDB NSDR), fake_quant and int8, in
     subprocesses on a MUSDB-layout split of two 12 s synthetic tracks:
     finite, int8 within EVAL_NSDR_DB of fake_quant.
+61. K5-bwd's GELU route (the mask pass with the GELU and its derivative,
+    then dx, dwq) against its plain version at linear1's training shapes
+    (E 384 -> 1536 at phase 62's token counts), every grid and observing-flag
+    combination, by phase 31's backward rules with the bounds GELU_SLOPE
+    times larger; its time per step beside its bound and the library call
+    (two torch.mm, torch's GELU backward and K1-bwd).
+62. the htdemucs KD step (``make_music_train_step(is_htdemucs=True)``: the
+    config's augmentation, ``train=True`` for student and teacher, the exp
+    loss with source weights, the batch EMA of decay 0.9995) at full width on
+    the config's 7.8 s windows (343,980 samples, shift 8192): batch 1's peak
+    memory, then 8 steps at the largest of 4, 2, 1 that fits, each launching
+    K1 and K1-bwd per act quantizer (no K1-bwd at the attentions' no-op
+    sites), the grouped K2 and K2-bwd once each, K5 and K5-bwd 10 each
+    (linear2; K5 10 more for the teacher), the GELU route's forward 20 and
+    backward 10 (linear1), K8 20 (student and teacher); step time and peak
+    memory.
+63. card vs CPU on one post-window htdemucs step at 1 x 1 s: the L1 losses
+    within LOSS_DB_TOL dB; the whole-gradient cosine within the two devices'
+    own floors (each one's step on the stems times (1 + 2^-22), summed, by
+    MUSIC_FLOOR_RULE; the note above HTD_RECIPE_SECONDS says why not the
+    card's alone).
+64. one epoch of ``python -m fqss_tpu_torch.train -env htdemucs`` with the
+    full-width model on a mini MUSDB at 44.1 kHz (JSON config): one batch EMA
+    and one epoch EMA, Repitch on; finite losses, the chosen model (bname)
+    printed, the best and latest exports written.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -336,6 +362,8 @@ from fqss_tpu_torch.models.factory import create_model, create_model_and_teacher
 from fqss_tpu_torch.nn.attention import QMultiheadAttention
 from fqss_tpu_torch.data.librimix import make_mini_librimix
 from fqss_tpu_torch.nn.layers import QConv1d, QDense
+from fqss_tpu_torch.nn.nonlin import gelu as gelu_ref
+from fqss_tpu_torch.nn.nonlin import gelu_grad
 from fqss_tpu_torch.nn.lstm import QLSTM
 from fqss_tpu_torch.ops import _build
 from fqss_tpu_torch.ops import attention as k8
@@ -350,7 +378,7 @@ from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.separation.ola import ola_infer
 from fqss_tpu_torch.serve import BEST_PATHS, make_int8_engine
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
-from fqss_tpu_torch.train.recipes_music import make_music_train_step
+from fqss_tpu_torch.train.recipes_music import _params_copy, make_music_optimizer, make_music_train_step
 from fqss_tpu_torch.train.state import TrainState
 from fqss_tpu_torch.train.trainer import TrainConfig, make_optimizer, make_train_step
 from fqss_tpu_torch.utils.audio import read_audio, save_audio
@@ -598,6 +626,22 @@ HTD_SHALLOW = {"t_layers": 1}
 # The gelu routes against their plain versions (phase 59): |gelu(a) - gelu(b)| <= 1.13 |a - b| (the largest slope of
 # the exact GELU, 1.1289), so K5's GELU route is held to phase 31's DENSE_RTOL of its pre-GELU bound times this.
 GELU_SLOPE = 1.13
+# The HTDemucs training slice (phases 61-64): configs/htdemucs.yaml's 7.8 s windows (dataset_cfg.segment) after its
+# 8192-sample shift, with its flips, gains and remix groups of 4; the solver's exp loss with the recipe's source
+# weights (uniform: the config lists none), its batch EMA (ema_batch 0.9995), lr 3e-4 and no clip (optim.clip_grad
+# 0); the observer window cut to MUSIC_TRAIN_WINDOW steps (phase 9's) so that the later steps train the ranges; its
+# batch of 32 cut to the largest of 4, 2, 1 whose batch-1 peak says it fits in MUSIC_TRAIN_MEMORY of the card.
+HTD_TRAIN_SEG = int(7.8 * HTD_SR)
+HTD_AUGMENT = {"enable": True, "shift": 8192, "flip": True, "scale": True, "remix_group_size": 4}
+HTD_EMA = (0.9995,)
+# Card vs CPU on one post-window htdemucs step (phase 63): the L1 losses within LOSS_DB_TOL dB, and 1 - the
+# whole-gradient cosine at most MUSIC_FLOOR_RULE[1] times the sum of the card's own and the CPU's own (each device's
+# step on the stems times (1 + 2^-22)). Phase 52's floor, the card's own alone, does not bound it here: on an H100
+# (700 W) three runs of this phase read card vs CPU 2.6e-5-3.2e-5 against the card's own 1.2e-5-1.7e-5 (1.6-2.2x)
+# and, in two of them, the CPU's own 1.1e-5-1.5e-5; scripts/htdemucs_step_floor.py read 7.3e-6 against 6.1e-6 and
+# 3.4e-6, the three distances spread over the same parameters (the time branch's outer layers lead in each; two card
+# runs agree to 1e-12). Card vs CPU is the two devices' own noise added, not a fault of either.
+HTD_RECIPE_SECONDS = 2.0  # the mini MUSDB of phase 64: 2 training tracks (one of them validation) and 1 test track
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8, float32, TF32 and bf16 rates.
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, TF32_OPS_S, BF16_OPS_S = 3.35e12, 1.979e15, 67e12, 495e12, 989e12
 # The route K5, K5-bwd and K3 take: three TF32 tensor-core products for each float32 one.
@@ -2160,26 +2204,35 @@ def check_dense_forward(name: str, args: tuple, bf16: bool = False, gelu: bool =
     return err
 
 
-def check_dense_backward(name: str, args: tuple, g: torch.Tensor) -> float:
+def check_dense_backward(name: str, args: tuple, g: torch.Tensor, gelu: bool = False) -> float:
     """K5-bwd against the plain backward at the kernel's own pre-activation (so at the same act mask): dx, dw and
     db within DENSE_RTOL of their terms' magnitudes, the act ranges' gradients within SUM_RTOL of sum |term|, the
     weight ranges' within 2 DENSE_RTOL of the magnitudes through the grid; the plain version's own pre-activation
     flips at most DENSE_GRID_SHARE of the masks. Two runs are bitwise equal, and the mask pass's gm is g times
-    the mask of the forward kernel's own pre-activation, exactly. Returns the largest error relative to its
-    bound."""
+    the mask of the forward kernel's own pre-activation, exactly. ``gelu``: the GELU route's backward, the act
+    terms at gelu(pre), the bounds GELU_SLOPE times larger (|gelu'| <= GELU_SLOPE), and gm = g mask gelu'(pre)
+    within 2^-21 of its magnitude (CUDA's erfcf and expf in both, the products in one order). Returns the largest
+    error relative to its bound."""
     x, w, b, w_mn, w_mx, a_mn, a_mx, _, _, w_obs, a_obs = args
-    got = qd.qat_dense_bwd(x, w, b, g, *args[3:])
-    for a, b_ in zip(got, qd.qat_dense_bwd(x, w, b, g, *args[3:])):
+    got = qd.qat_dense_bwd(x, w, b, g, *args[3:], gelu=gelu)
+    for a, b_ in zip(got, qd.qat_dense_bwd(x, w, b, g, *args[3:], gelu=gelu)):
         if a is not None and not torch.equal(a, b_):
             raise AssertionError(f"K5-bwd {name}: two runs differ")
     pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)
-    if a_mn is not None and not (a_obs is not None and bool(a_obs)):
-        gm = qd.mask_pass(x, w, b, g, w_mn, w_mx, a_mn, a_mx, 8, 8, w_obs, a_obs, 1.0)[0]
-        if not torch.equal(gm, fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)[0]):
+    act_in = gelu_ref if gelu else (lambda v: v)
+    grid_on = a_mn is not None and not (a_obs is not None and bool(a_obs))
+    if grid_on or gelu:
+        gm = qd.mask_pass(x, w, b, g, w_mn, w_mx, a_mn, a_mx, 8, 8, w_obs, a_obs, 1.0, gelu)[0]
+        want_gm = fq.act_bwd_terms(act_in(pre), g, a_mn, a_mx, 8, 1.0)[0] if grid_on else g
+        if gelu:
+            want_gm = want_gm * gelu_grad(pre)
+            if bool(((gm - want_gm).abs() > 2.0**-21 * want_gm.abs()).any()):
+                raise AssertionError(f"K5-bwd {name}: the GELU mask pass's gm is not g mask gelu'(pre)")
+        elif not torch.equal(gm, want_gm):
             raise AssertionError(f"K5-bwd {name}: the mask pass's pre-activation is not the forward's")
-    want = qd.qat_dense_bwd_ref(x, w, b, g, *args[3:], pre=pre)
+    want = qd.qat_dense_bwd_ref(x, w, b, g, *args[3:], pre=pre, gelu=gelu)
     wq = qd._weight_q(w, w_mn, w_mx, 8, w_obs)
-    absg = g.abs()
+    absg = g.abs() * (GELU_SLOPE if gelu else 1.0)
     a_prod = absg.t() @ x.abs()
     worst = 0.0
     for what, a, b_, bound in (("dx", got[0], want[0], absg @ wq.abs()), ("dw", got[1], want[1], a_prod),
@@ -2188,13 +2241,13 @@ def check_dense_backward(name: str, args: tuple, g: torch.Tensor) -> float:
         if not err <= 1.0:
             raise AssertionError(f"K5-bwd {name} {what}: {err:.3g} times its bound from the plain version")
         worst = max(worst, err * DENSE_RTOL)
-    if a_mn is not None and not (a_obs is not None and bool(a_obs)):
-        _, p_mn, p_mx = fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)
+    if grid_on:
+        _, p_mn, p_mx = fq.act_bwd_terms(act_in(pre), g, a_mn, a_mx, 8, 1.0)
         for got_r, terms in ((got[5], p_mn), (got[6], p_mx)):
             worst = max(worst, check_sum(f"K5-bwd {name} act range", got_r, terms.double().sum(),
                                          terms.double().abs().sum()) / terms.double().abs().sum().item())
-        flips = (fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)[0] != fq.act_bwd_terms(
-            qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None), g, a_mn, a_mx, 8, 1.0)[0])
+        flips = (fq.act_bwd_terms(act_in(pre), g, a_mn, a_mx, 8, 1.0)[0] != fq.act_bwd_terms(
+            act_in(qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)), g, a_mn, a_mx, 8, 1.0)[0])
         if flips.float().mean().item() > DENSE_GRID_SHARE:
             raise AssertionError(f"K5-bwd {name}: {flips.float().mean().item():.2e} of the act masks flip")
     if w_mn is not None:
@@ -3255,23 +3308,26 @@ def music_train_state(dev) -> TrainState:
     return new_train_state(model.to(dev), teacher.to(dev))
 
 
-def music_step_card_vs_cpu(dev, step, state: TrainState, src: np.ndarray) -> tuple[float, float, float]:
+def music_step_card_vs_cpu(dev, step, state: TrainState, src: np.ndarray, cpu_own: bool = False) -> tuple:
     """One KD step from ``state`` on the card, on the CPU and on the card again with the stems times
     (1 + MUSIC_PERTURB), each with the same augmentation draws: (the card's and the CPU's L1 losses apart in dB,
-    their whole-gradient cosine, the card's cosine against its own perturbed step)."""
+    their whole-gradient cosine, the card's cosine against its own perturbed step); ``cpu_own``: and the CPU's
+    cosine against its own perturbed step."""
     out = []
-    for device, scale in ((dev, 1.0), (torch.device("cpu"), 1.0), (dev, 1 + MUSIC_PERTURB)):
+    runs = ((dev, 1.0), (torch.device("cpu"), 1.0), (dev, 1 + MUSIC_PERTURB))
+    for device, scale in runs + (((torch.device("cpu"), 1 + MUSIC_PERTURB),) if cpu_own else ()):
         st = new_train_state(copy.deepcopy(state.model).to(device), copy.deepcopy(state.teacher).to(device))
         metrics = step(st, torch.from_numpy(src * np.float32(scale)).to(device), torch.Generator().manual_seed(52))
         grads = torch.cat([p.grad.flatten().double().cpu() for p in st.model.parameters() if p.grad is not None])
         out.append((float(metrics["loss"]), grads))
         del st
-    (loss_card, g_card), (loss_cpu, g_cpu), (_, g_own) = out
+    (loss_card, g_card), (loss_cpu, g_cpu), (_, g_own) = out[:3]
 
     def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
         return float(a @ b / (a.norm() * b.norm()))
 
-    return abs(10 * math.log10(loss_card / loss_cpu)), cosine(g_card, g_cpu), cosine(g_card, g_own)
+    cpu_cos = (cosine(g_cpu, out[3][1]),) if cpu_own else ()
+    return abs(10 * math.log10(loss_card / loss_cpu)), cosine(g_card, g_cpu), cosine(g_card, g_own), *cpu_cos
 
 
 def music_stems(seed: int, batch: int, length: int) -> np.ndarray:
@@ -3768,6 +3824,210 @@ def serve_htdemucs(dev, smi: str) -> dict:
     return out
 
 
+def htdemucs_train_state(dev, cfg: TrainConfig) -> TrainState:
+    """A full-width HTDemucs student and its float teacher from HTDEMUCS_CFG (observer window MUSIC_TRAIN_WINDOW) on
+    the card, with the recipe's optimizer (``make_music_optimizer``: the config sets no group of its own)."""
+    model_cfg = {**HTDEMUCS_CFG,
+                 "quantization": {**HTDEMUCS_CFG["quantization"], "max_observations": MUSIC_TRAIN_WINDOW}}
+    model, teacher = create_model_and_teacher(model_cfg, generator=torch.Generator().manual_seed(62))
+    model, teacher = model.to(dev), teacher.to(dev)
+    return TrainState(model, make_music_optimizer(cfg, model_cfg, model), teacher)
+
+
+def htdemucs_train_launches(model: HTDemucs, teacher: HTDemucs) -> dict:
+    """One htdemucs KD step's launches: phase 33's (train_launches) with the QDense layers split into linear2 on K5
+    and K5-bwd and linear1 on the GELU routes of both; no K3 (no bias-free 1x1 conv)."""
+    want = train_launches(model, teacher)
+    gelu = sum(isinstance(m, QDense) and m.gelu for m in model.modules())
+    t_gelu = sum(isinstance(m, QDense) and m.gelu for m in teacher.modules())
+    return {**want, "dense": want["dense"] - gelu - t_gelu, "dense_gelu": gelu + t_gelu,
+            "dense_mask": want["dense_mask"] - gelu, "dense_mask_gelu": gelu}
+
+
+def check_gelu_backward(dev, shapes: list[tuple]) -> dict:
+    """Phase 61: K5-bwd's GELU route against its plain version at ``shapes`` ((m, k, n, launches a step)), every
+    grid and observing-flag combination with planted ties (phase 31's backward rules, the bounds GELU_SLOPE times
+    larger); times a step of the call as the step makes it (the weight pass's grid: the weight grid off; the act
+    grid on, its window closed), of the plain version and of the library call: two torch.mm, torch's GELU backward
+    and K1-bwd on the forward's saved pre-activation and GELU output."""
+    gen = torch.Generator(device=dev).manual_seed(61)
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "launches": 0, "moved": 0, "ops": 0}
+    for m, k, n, count in shapes:
+        case = dense_case(dev, m, k, n, gen)
+        g = torch.randn(m, n, device=dev, generator=gen)
+        for flags in DENSE_FLAGS:
+            res["max_abs_err"] = max(res["max_abs_err"], check_dense_backward(
+                f"GELU route [{m},{k}]x[{n},{k}] {flags}", dense_args(case, flags), g, gelu=True))
+        x, w, b, _, _, a_mn, a_mx = case
+        closed = torch.tensor(False, device=dev)
+        pre = torch.addmm(b, x, w.t())
+        u = F.gelu(pre)
+        ms = cuda_ms(lambda: qd.qat_dense_bwd(x, w, b, g, a_mn=a_mn, a_mx=a_mx, a_observing=closed, gelu=True), 10)
+        plain = cuda_ms(lambda: qd.qat_dense_bwd_ref(x, w, b, g, a_mn=a_mn, a_mx=a_mx, a_observing=closed,
+                                                     gelu=True), 10)
+
+        def library():
+            gm = torch.ops.aten.gelu_backward(fq.act_fake_quant_bwd(u, g, a_mn, a_mx, 8)[0], pre)
+            return gm @ w, gm.t() @ x
+
+        lib = cuda_ms(library, 10)
+        _, (bb, bo) = dense_bounds(m, k, n)
+        log(f"[61] K5-bwd GELU route at linear1's training shape [{m},{k}] x [{n},{k}]: every grid and observing-flag "
+            f"combination ({len(DENSE_FLAGS)}) within its bounds, planted ties and clip extremes included; "
+            f"{ms:.4f} ms ({rate_and_shares(bb, bo, ms)}), plain {plain:.4f}, two mm + gelu_backward + K1-bwd "
+            f"{lib:.4f}; {count} a step")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("moved", bb), ("ops", bo)):
+            res[key] += count * val
+        res["launches"] += count
+        del case, g, x, w, pre, u
+        torch.cuda.empty_cache()
+    res.update(bound_of(res["moved"], res["ops"], F32_OPS_S), **route_bound(res["moved"], res["ops"]))
+    log(f"[61] one htdemucs step's {res['launches']} K5-bwd GELU-route launches: {res['ms']:.3f} ms "
+        f"({rate_and_shares(res['moved'], res['ops'], res['ms'])}), plain {res['plain_ms']:.3f}, library "
+        f"{res['library_ms']:.3f}")
+    return res
+
+
+def htdemucs_training(dev, smi: str) -> dict:
+    """Phases 61-63: the htdemucs KD step at full width (HTD_TRAIN_SEG windows, the config's augmentation, exp loss,
+    batch EMA): batch 1's peak memory and linear1's token counts, the GELU route's backward at those shapes (61),
+    8 steps at the largest of 4, 2, 1 that fits, each launching the module tree's kernels, their time and peak
+    memory (62), card vs CPU on one step (63). Returns the run's launches and phase 61's results."""
+    cfg = TrainConfig(lr=3e-4, grad_clip=0.0)
+    step = make_music_train_step(cfg, HTD_AUGMENT, weight_kind="exp", is_htdemucs=True,
+                                 source_weights=np.ones(len(HTDEMUCS_CFG["sources"]), np.float32),
+                                 batch_ema_decays=HTD_EMA)
+    gen = torch.Generator().manual_seed(62)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    state = htdemucs_train_state(dev, cfg)
+    emas = [_params_copy(state.model) for _ in HTD_EMA]
+    records, handles = record_htdemucs_shapes(state.model)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    step(state, torch.from_numpy(music_stems(62, 1, HTD_TRAIN_SEG)).to(dev), gen, emas)
+    per_element = torch.cuda.max_memory_allocated(dev) - base
+    for h in handles:
+        h.remove()
+    fits = [b for b in (4, 2, 1) if base + b * per_element <= MUSIC_TRAIN_MEMORY * total]
+    batch = fits[0] if fits else 1
+    log(f"[62] htdemucs KD step 1 x {HTD_TRAIN_SEG / HTD_SR:g} s: peak {per_element / 1e9:.2f} GB above the "
+        f"{base / 1e9:.2f} GB held; batch {batch} fits {MUSIC_TRAIN_MEMORY:.0%} of {total / 1e9:.1f} GB "
+        f"(batch 4 would need {(base + 4 * per_element) / 1e9:.1f} GB)")
+    del state, emas
+    torch.cuda.empty_cache()
+
+    # 61. the GELU route's backward at linear1's shapes of a step at that batch (the student's calls)
+    calls = [r[1:4] for r in records if r[0] == "dense" and r[4]]
+    shapes = [(batch * m, k, n, calls.count((m, k, n))) for m, k, n in dict.fromkeys(calls)]
+    gelu_bwd = check_gelu_backward(dev, shapes)
+
+    # 62. 8 steps at that batch, every step's launches as the module tree says
+    state = htdemucs_train_state(dev, cfg)
+    model, teacher = state.model, state.teacher
+    emas = [_params_copy(model) for _ in HTD_EMA]
+    want = htdemucs_train_launches(model, teacher)
+    losses = []
+    reset_all_launches()
+    t0 = time.perf_counter()
+    for i, seed in enumerate(range(620, 620 + TRAIN_STEPS)):
+        before = all_launches()
+        metrics = step(state, torch.from_numpy(music_stems(seed, batch, HTD_TRAIN_SEG)).to(dev), gen, emas)
+        got = {k: v - before[k] for k, v in all_launches().items()}
+        if got != want:
+            raise AssertionError(f"htdemucs train step {i}: launches {got} != {want}")
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = all_launches()
+    ema_moved = max((emas[0][n] - p.detach()).abs().max().item() for n, p in model.named_parameters())
+    if not np.isfinite(losses).all() or state.skipped or not ema_moved > 0:
+        raise AssertionError(f"htdemucs losses {losses}, skipped {state.skipped}, EMA distance {ema_moved}")
+    log(f"[62] htdemucs KD train at full width, {TRAIN_STEPS} steps of {batch} x {HTD_TRAIN_SEG / HTD_SR:g} s "
+        f"(augmented: shift {HTD_AUGMENT['shift']}, signs, channels, gains, remix in groups of "
+        f"{HTD_AUGMENT['remix_group_size']}; exp loss, batch EMA {HTD_EMA[0]}), observer window {MUSIC_TRAIN_WINDOW}, "
+        f"in {seconds:.1f} s: losses {[round(v, 4) for v in losses]}, finite, skipped 0, the EMA {ema_moved:.2e} from "
+        f"the model at most; every step launched {', '.join(f'{k}={v}' for k, v in want.items() if v)} (K5 and the "
+        f"GELU route's forward and K8 for student and teacher; no K1-bwd at the attentions' two no-op sites each)")
+    stems = torch.from_numpy(music_stems(63, batch, HTD_TRAIN_SEG)).to(dev)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ms = cuda_ms(lambda: step(state, stems, gen, emas), 3)
+    peak = torch.cuda.max_memory_allocated(dev)
+    audio_s = batch * HTD_TRAIN_SEG / HTD_SR
+    log(f"[62] htdemucs train step {batch} x {HTD_TRAIN_SEG / HTD_SR:g} s: {ms:.1f} ms per step, "
+        f"{audio_s / (ms / 1000):.2f} sec-audio trained/s; peak memory {peak / 1e9:.2f} GB on {smi}")
+    del stems, emas
+    after = TrainState(copy.deepcopy(model).cpu(), None, copy.deepcopy(teacher).cpu())
+    del state, model, teacher
+    torch.cuda.empty_cache()
+
+    # 63. card vs CPU on one post-window step at 1 x 1 s (the same augmentation draws), within the two devices' own
+    # floors (the note above HTD_RECIPE_SECONDS)
+    t0 = time.perf_counter()
+    loss_db, cos, own, cpu_own = music_step_card_vs_cpu(dev, step, after, music_stems(64, 1, HTD_SR), cpu_own=True)
+    cos_min = 1 - MUSIC_FLOOR_RULE[1] * ((1 - own) + (1 - cpu_own))
+    if not (loss_db <= LOSS_DB_TOL and cos >= cos_min):
+        raise AssertionError(f"htdemucs card vs CPU train step: loss {loss_db} dB apart (at most {LOSS_DB_TOL}), "
+                             f"gradient cosine {cos} (at least {cos_min}: the card's own {own}, the CPU's {cpu_own})")
+    log(f"[63] htdemucs card vs CPU train step at 1 x 1 s: L1 losses {loss_db:.2e} dB apart (<= {LOSS_DB_TOL}), "
+        f"whole-gradient cosine {cos:.7f} (1 - cos {1 - cos:.3e}); each device's own step on the stems times "
+        f"(1 + 2^-22): the card's cosine {own:.7f} (1 - cos {1 - own:.3e}), the CPU's {cpu_own:.7f} "
+        f"({1 - cpu_own:.3e}); "
+        f"card vs CPU within {MUSIC_FLOOR_RULE[1]} x their sum (>= {cos_min:.7f}); {time.perf_counter() - t0:.1f} s")
+    return {"launches": launches, "batch": batch, "ms": ms, "peak_gb": peak / 1e9, "gelu_bwd": gelu_bwd}
+
+
+def htdemucs_recipe_epoch() -> None:
+    """Phase 64: one epoch of ``python -m fqss_tpu_torch.train -env htdemucs`` (on the card, its default) with the
+    full-width HTDEMUCS_CFG on a mini MUSDB that ``make_mini_musdb`` writes at HTD_SR; one batch EMA and one epoch
+    EMA, Repitch on every example; the config as JSON."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = make_mini_musdb(os.path.join(tmp, "musdb"), n_train=2, n_test=1, sample_rate=HTD_SR,
+                               seconds=HTD_RECIPE_SECONDS)
+        conf = {
+            "work_dir": os.path.join(tmp, "run"),
+            "model_cfg": HTDEMUCS_CFG,
+            "dataset_cfg": {"name": "musdbhq", "musdb_root": root, "metadata_file": os.path.join(tmp, "musdb.json"),
+                            "sample_rate": HTD_SR, "segment": 1, "data_stride": 1,
+                            "augmentation": {**HTD_AUGMENT, "repitch": {"proba": 1.0, "max_tempo": 12}}},
+            "training_cfg": {"epochs": 1, "batch_size": 1, "kd_lambda": 0.1, "seed": 42,
+                             "ema": {"batch": list(HTD_EMA), "epoch": [0.9]},
+                             "optim": {"optimizer": "adam", "lr": 0.0003, "weight_decay": 0.0}},
+            "testing_cfg": {"test_dir": root, "NSDR": True, "segment_samples": HTD_SEG, "overlap": 0.25},
+        }
+        path = os.path.join(tmp, "htdemucs.json")
+        with open(path, "w") as fh:
+            json.dump(conf, fh)
+        env_vars = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "fqss_tpu_torch.train", "-env", "htdemucs", "-y", path],
+                              cwd=tmp, env=env_vars, capture_output=True, text=True, timeout=600)
+        seconds = time.perf_counter() - t0
+        done = [line for line in proc.stdout.splitlines() if line.startswith("Training done")]
+        if proc.returncode != 0 or not done:
+            raise AssertionError(f"htdemucs recipe epoch failed ({proc.returncode}):\n{proc.stdout[-2000:]}\n"
+                                 f"{proc.stderr[-4000:]}")
+        for out in ("best_model.pt", "latest_model.pt", "checkpoints/epoch_0.pt", "history.json"):
+            if not os.path.exists(os.path.join(tmp, "run", out)):
+                raise AssertionError(f"htdemucs recipe epoch wrote no {out}")
+        with open(os.path.join(tmp, "run", "history.json")) as fh:
+            history = json.load(fh)
+        with open(os.path.join(tmp, "run", "results.txt")) as fh:
+            lines = fh.read().splitlines()
+        epoch_line = [line for line in lines if line.startswith("epoch 0:")]
+        test_line = [line for line in lines if line.startswith("test epoch")]
+        if not np.isfinite([history[0]["loss"], history[0]["valid_nsdr"]]).all() or not (epoch_line and test_line):
+            raise AssertionError(f"htdemucs recipe epoch: history {history}, log {lines[-4:]}")
+    bname = epoch_line[0].split("bname=")[1].split()[0]
+    log(f"[64] python -m fqss_tpu_torch.train -env htdemucs with HTDEMUCS_CFG at full width: one epoch of 1 s windows "
+        f"(Repitch on each, cut to {int(0.88 * HTD_SR)} samples) of a {HTD_RECIPE_SECONDS:g} s track, the main model, "
+        f"one batch EMA and one epoch EMA validated on a track, the test track's NSDR, in {seconds:.1f} s (the process "
+        f"included): train loss {history[0]['loss']:.4f}, valid NSDR {history[0]['valid_nsdr']:.3f} dB, best model "
+        f"{bname}; {test_line[-1]}; {done[-1]}")
+
+
 def main() -> None:
     # 0. device
     if not torch.cuda.is_available():
@@ -3939,6 +4199,12 @@ def main() -> None:
     # 54-60. the HTDemucs serving slice (launch counts set to 0 inside before each run they check)
     htd = serve_htdemucs(dev, smi)
     htd_launches, htd_attn, htd_attn16 = htd["launches"], htd["attn"], htd["attn16"]
+    torch.cuda.empty_cache()
+
+    # 61-64. the HTDemucs training slice (launch counts set to 0 inside before each run they check)
+    htd_train = htdemucs_training(dev, smi)  # 61-63.
+    htd_train_launches = htd_train["launches"]
+    htdemucs_recipe_epoch()  # 64.
 
     def bf16_keys(res: dict, launches: int, route: str) -> dict:
         """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
@@ -3967,14 +4233,15 @@ def main() -> None:
         dict(name="act_fake_quant_bwd", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:95",
              launches=train_launches["act_bwd"], library_ms=None, **act_bwd,
-             music_launches=music_train["launches"]["act_bwd"]),
+             music_launches=music_train["launches"]["act_bwd"], htdemucs_launches=htd_train_launches["act_bwd"]),
         # The grouped backward of the same sets (phase 8); launches: phase 9's 8 train steps.
         dict(name="weight_fake_quant_bwd", route="cuda", route_detail=GROUP_ROUTE, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:214", launches=train_launches["weight_bwd"], library_ms=None,
              **group_bwd["ConvTasNet"], **{f"{m.lower()}_{k}": group_bwd[m][k]
                                            for m in ("DPTNet", "Sepformer", "ConvTasNetMusic", "HTDemucs")
                                            for k in ("ms", "bound_ms")},
-             per_tensor_ms=weight_bwd_per_tensor["ms"], music_launches=music_train["launches"]["weight_bwd"]),
+             per_tensor_ms=weight_bwd_per_tensor["ms"], music_launches=music_train["launches"]["weight_bwd"],
+             htdemucs_launches=htd_train_launches["weight_bwd"]),
         # ms, plain_ms, bound_ms: one ConvTasNet forward's 74 launches; int_mm_ms: torch._int_mm, the product alone
         # (int32 out, no epilogue), so no library call computes this function: library_ms is null. dptnet_*,
         # sepformer_*: one DPTNet and one Sepformer int8 forward's launches (phases 22 and 29).
@@ -4050,7 +4317,19 @@ def main() -> None:
         # library_ms: the two products by torch.mm and K1-bwd on the pre-activation. launches: phase 33's mask
         # launches (each with one dx and one dwq launch).
         dict(name="qat_dense_bwd", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
-             replaces="fqss_tpu/ops/pallas_qat.py:364", launches=train_model_launches["dense_mask"], **dense_bwd),
+             replaces="fqss_tpu/ops/pallas_qat.py:364", launches=train_model_launches["dense_mask"], **dense_bwd,
+             htdemucs_launches=htd_train_launches["dense_mask"]),
+        # K5-bwd's GELU route (QDense(nl="gelu") under a gradient): ms, plain_ms, bound_ms, library_ms: one htdemucs
+        # KD step's 10 linear1 backward launches at phase 62's batch (phase 61), the weight grid off (the weight
+        # pass's) and the act grid on; library_ms: two torch.mm, torch's GELU backward and K1-bwd on the forward's
+        # saved pre-activation and GELU output; the bound counts the products (the GELU's erfcf and expf are under 1%
+        # of the operations). launches: phase 62's mask launches on the route (each with one dx and one dwq launch).
+        dict(name="qat_dense_bwd_gelu", route="cuda", route_detail=DENSE_ROUTE + "; the mask pass takes the act grid's "
+             "mask at gelu(pre) and multiplies by gelu'(pre) (erfcf, expf), as JAX's autodiff of the GELU",
+             source="fqss_tpu_torch/csrc/qat_dense.cu", replaces="fqss_tpu/ops/pallas_qat.py:496",
+             launches=htd_train_launches["dense_mask_gelu"],
+             **{k: htd_train["gelu_bwd"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+                                                       "route_bound_ms", "max_abs_err")}),
         # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer serving forward's launches at 8 x 4 s
         # (DPTNet's BN, the Sepformer masker's conv1d; phase 37); library_ms: torch.matmul, then K1 for the act grid.
         # launches: phase 18's and phase 25's forwards.

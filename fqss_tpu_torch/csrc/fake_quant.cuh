@@ -43,4 +43,19 @@ __device__ __forceinline__ float gelu(float x) {
   return __fmul_rn(__fmul_rn(0.5f, x), erfcf(__fmul_rn(-x, 0.70710678118654752440f)));
 }
 
+// dy = d gelu(x) / dx as JAX's autodiff of 0.5 x erfc(-x sqrt(1/2)) computes it for a unit cotangent, operation for
+// operation (K5-bwd's GELU route): with d = -x sqrt(1/2), 0.5 erfc(d) - ((-(2 / sqrt(pi)) (0.5 x)) exp(-d^2))
+// sqrt(1/2), 2 / sqrt(pi) rounded to float32 (erfc's derivative is -(2 / sqrt(pi)) exp(-z^2)). The plain version is
+// fqss_tpu_torch/nn/nonlin.py:gelu_grad; expf and erfcf are the functions PyTorch's exp and erfc call on the card.
+// gelu(x) beside it, sharing erfc(d): the same y as gelu(x).
+__device__ __forceinline__ void gelu_with_grad(float x, float& y, float& dy) {
+  const float d = __fmul_rn(-x, 0.70710678118654752440f);
+  const float c = erfcf(d);
+  const float e = expf(-__fmul_rn(d, d));
+  const float q = __fmul_rn(__fmul_rn(__fmul_rn(-1.12837916709551257390f, __fmul_rn(0.5f, x)), e),
+                            0.70710678118654752440f);
+  y = __fmul_rn(__fmul_rn(0.5f, x), c);
+  dy = __fadd_rn(-q, __fmul_rn(0.5f, c));
+}
+
 }  // namespace fqss

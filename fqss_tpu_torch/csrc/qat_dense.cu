@@ -31,8 +31,14 @@
 //   qat_dense_kernel<kEpiForward>  K5's GELU route (QDense(nl="gelu"), HTDemucs's transformer FFN):
 //   with DenseArgs::gelu           y = act_fq(gelu(x @ wq^T + b)), the exact GELU (fake_quant.cuh:gelu)
 //                                  between the bias and the act grid; inside the observer window the
-//                                  post-GELU value. Forward only (its backward comes with HTDemucs
-//                                  training), float32 or bf16 operands.
+//                                  post-GELU value; float32 or bf16 operands.
+//   qat_dense_kernel<kEpiMask>     K5-bwd's GELU route (float32): the mask pass takes the act grid's mask
+//   with DenseArgs::gelu           and range terms at u = gelu(pre), as the forward quantizes u, and gives
+//                                  gm = g * mask(u) * gelu'(pre) (fake_quant.cuh:gelu_with_grad; g * gelu'(pre)
+//                                  where the act grid observes or is off), db its column sum. JAX computes
+//                                  this under XLA (fqss_tpu/nn/layers.py:QDense, Nl("gelu") between the
+//                                  bias and the act quantizer): no TPU kernel to replace; dx and dwq are
+//                                  the float32 route's.
 //   qat_dense_kernel<kEpiForward,  the bf16 routes of K5 and K3 (QuantSpec.compute_dtype "bfloat16"): both
 //   BF16 = true>                   operands rounded to bfloat16 as they leave shared memory (x as loaded,
 //                                  the weight after its grid, computed in float32 first, as JAX rounds
@@ -152,7 +158,7 @@ struct DenseArgs {
   const unsigned char* a_obs;
   int a_bits;
   float s;  // kEpiMask: the act ranges' scale_grad factor
-  bool gelu;  // kEpiForward: the exact GELU between the bias and the act grid
+  bool gelu;  // kEpiForward: the exact GELU between the bias and the act grid; kEpiMask: its derivative in gm
   const float* g;  // kEpiMask: the cotangent [I][J]
   float* out;  // y, gm, dx or the [splits][I][J] partial products
   float* act_partials;  // kEpiMask: [tiles, 2]
@@ -319,8 +325,8 @@ __global__ void __launch_bounds__(Shape<BI, BJ>::kThreads, Shape<BI, BJ>::kMinBl
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[mt][nt][c] = 0.0f;
 
-  // The mask kernel needs the product only where the act grid applies.
-  if (EPI != kEpiMask || a_on) {
+  // The mask kernel needs the product only where the act grid applies or the GELU stands.
+  if (EPI != kEpiMask || a_on || p.gelu) {
     const TileLoader<BI, A_RC, S::kThreads> la(p.a, p.I, p.R, i0, r_begin, r_end, p.a_vec);
     const TileLoader<BJ, B_RC, S::kThreads> lb(p.b + z * p.b_batch, p.J, p.R, j0, r_begin, r_end, p.b_vec);
     const int stages = r_end > r_begin ? static_cast<int>((r_end - r_begin + kBK - 1) / kBK) : 0;
@@ -485,15 +491,22 @@ __global__ void __launch_bounds__(Shape<BI, BJ>::kThreads, Shape<BI, BJ>::kMinBl
           if (j0 + j >= p.J) continue;
           const float gi = grow[j];
           float gm = gi;
-          if (a_on) {
+          if (a_on || p.gelu) {
             const float pre = __fadd_rn(acc[mt][nt][2 * h + e], bias[nt][e]);
-            const float u = __fdiv_rn(__fsub_rn(pre, a_mn), a_delta);
-            const float X = rintf(u);
-            const float m = tie_mask(X, 0.0f, aq);
-            const float tt = __fdiv_rn(__fsub_rn(fqss::clip(X, 0.0f, aq), __fmul_rn(m, u)), aq);
-            gm = __fmul_rn(gi, m);
-            p_mn = __fadd_rn(p_mn, __fmul_rn(gi, __fsub_rn(__fsub_rn(1.0f, m), __fmul_rn(p.s, tt))));
-            p_mx = __fadd_rn(p_mx, __fmul_rn(__fmul_rn(gi, p.s), tt));
+            // the GELU route: the act grid sees gelu(pre), and gm carries gelu'(pre) whether the grid applies,
+            // observes or is off
+            float v = pre, slope = 1.0f;
+            if (p.gelu) fqss::gelu_with_grad(pre, v, slope);
+            if (a_on) {
+              const float u = __fdiv_rn(__fsub_rn(v, a_mn), a_delta);
+              const float X = rintf(u);
+              const float m = tie_mask(X, 0.0f, aq);
+              const float tt = __fdiv_rn(__fsub_rn(fqss::clip(X, 0.0f, aq), __fmul_rn(m, u)), aq);
+              gm = __fmul_rn(gi, m);
+              p_mn = __fadd_rn(p_mn, __fmul_rn(gi, __fsub_rn(__fsub_rn(1.0f, m), __fmul_rn(p.s, tt))));
+              p_mx = __fadd_rn(p_mx, __fmul_rn(__fmul_rn(gi, p.s), tt));
+            }
+            if (p.gelu) gm = __fmul_rn(gm, slope);
           }
           row[j] = gm;
           col[nt][e] = __fadd_rn(col[nt][e], gm);
@@ -755,18 +768,18 @@ extern "C" int fqss_qat_dense_bf16_gelu(const float* x, const float* w, const fl
 // The mask pass of the backward: gm [M, N]; sums[0..1] = (dmn, dmx) of the act ranges; db [N]; wq [N, K], the
 // weights on their grid, for the dx pass (unused without a weight grid). act_partials [tiles[0] * tiles[1], 2]
 // and db_partials [tiles[0], N] are scratch (fqss_qat_dense_tiles(M, N)).
-extern "C" int fqss_qat_dense_bwd_mask(const float* x, const float* w, const float* b, const float* g,
-                                       const float* w_mn, const float* w_mx, const unsigned char* w_obs,
-                                       const float* a_mn, const float* a_mx, const unsigned char* a_obs, float s,
-                                       float* wq, float* gm, float* act_partials, float* db_partials, float* sums,
-                                       float* db, int64_t M, int64_t K, int64_t N, int w_bits, int a_bits,
-                                       void* stream) {
+namespace {
+
+int mask_pass(const float* x, const float* w, const float* b, const float* g, const float* w_mn, const float* w_mx,
+              const unsigned char* w_obs, const float* a_mn, const float* a_mx, const unsigned char* a_obs, float s,
+              float* wq, float* gm, float* act_partials, float* db_partials, float* sums, float* db, int64_t M,
+              int64_t K, int64_t N, int w_bits, int a_bits, bool gelu, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   DenseArgs p{};
   p.a = x, p.b = grid_weights(w, w_mn, w_mx, w_obs, wq, N, K, w_bits, st, &err), p.I = M, p.J = N, p.R = K;
   if (err != cudaSuccess) return static_cast<int>(err);
-  p.bias = b, p.a_mn = a_mn, p.a_mx = a_mx, p.a_obs = a_obs, p.a_bits = a_bits, p.s = s;
+  p.bias = b, p.a_mn = a_mn, p.a_mx = a_mx, p.a_obs = a_obs, p.a_bits = a_bits, p.s = s, p.gelu = gelu;
   p.g = g, p.out = gm, p.act_partials = act_partials, p.db_partials = db_partials;
   err = launch<true, true, kEpiMask>(p, 1, st);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -775,6 +788,31 @@ extern "C" int fqss_qat_dense_bwd_mask(const float* x, const float* w, const flo
   err = colsum(act_partials, tiles[0] * tiles[1], 2, sums, st);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(colsum(db_partials, tiles[0], N, db, st));
+}
+
+}  // namespace
+
+extern "C" int fqss_qat_dense_bwd_mask(const float* x, const float* w, const float* b, const float* g,
+                                       const float* w_mn, const float* w_mx, const unsigned char* w_obs,
+                                       const float* a_mn, const float* a_mx, const unsigned char* a_obs, float s,
+                                       float* wq, float* gm, float* act_partials, float* db_partials, float* sums,
+                                       float* db, int64_t M, int64_t K, int64_t N, int w_bits, int a_bits,
+                                       void* stream) {
+  return mask_pass(x, w, b, g, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, s, wq, gm, act_partials, db_partials, sums, db,
+                   M, K, N, w_bits, a_bits, false, stream);
+}
+
+// The mask pass of the GELU route's backward (y = act_fq(gelu(x @ wq^T + b))): gm = g * mask(gelu(pre)) *
+// gelu'(pre), the act ranges' sums taken at gelu(pre), db the column sums of gm; the arguments as
+// fqss_qat_dense_bwd_mask's.
+extern "C" int fqss_qat_dense_bwd_mask_gelu(const float* x, const float* w, const float* b, const float* g,
+                                            const float* w_mn, const float* w_mx, const unsigned char* w_obs,
+                                            const float* a_mn, const float* a_mx, const unsigned char* a_obs, float s,
+                                            float* wq, float* gm, float* act_partials, float* db_partials,
+                                            float* sums, float* db, int64_t M, int64_t K, int64_t N, int w_bits,
+                                            int a_bits, void* stream) {
+  return mask_pass(x, w, b, g, w_mn, w_mx, w_obs, a_mn, a_mx, a_obs, s, wq, gm, act_partials, db_partials, sums, db,
+                   M, K, N, w_bits, a_bits, true, stream);
 }
 
 // dx [M, K] = gm [M, N] @ wq [N, K] (the weights as the mask pass left them: on their grid, or w); partials:

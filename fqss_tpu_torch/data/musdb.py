@@ -9,8 +9,8 @@ run on the device inside the train step, in two pieces:
 :func:`draw_augment` draws their random values from an explicit
 ``torch.Generator`` and :func:`apply_augment` is the pure transform of a
 batch given those values, which equals JAX's ``augment_batch`` bit for bit
-when it is given the values JAX draws. ``RepitchedWavset`` (the htdemucs
-recipe's) is not ported yet.
+when it is given the values JAX draws. :class:`RepitchedWavset` is the
+htdemucs recipe's host-side pitch/tempo stretch of the training examples.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from collections import OrderedDict
 import numpy as np
 import torch
 
-from fqss_tpu_torch.utils.audio import read_audio, read_wav_segment, save_audio
+from fqss_tpu_torch.utils.audio import read_audio, read_wav_segment, resample_audio, save_audio
 
 MIXTURE = "mixture"
 EXT = ".wav"
@@ -130,6 +130,49 @@ def get_musdb_wav_datasets(musdb_root: str, data_stride: int, sample_rate: int, 
     train_set = Wavset(root, metadata_train, sources, length=samples, stride=data_stride, sample_rate=sample_rate)
     valid_set = Wavset(root, metadata_valid, (MIXTURE,) + tuple(sources), sample_rate=sample_rate)
     return train_set, valid_set
+
+
+class RepitchedWavset:
+    """The htdemucs recipe's RepitchedWrapper over a :class:`Wavset` (train_env/htdemucs_musdbhq/train.py:207-214;
+    ``fqss_tpu/data/musdb.py:RepitchedWavset``), on the host.
+
+    Every example is cut to the worst-case stretched length ``(1 - max_tempo / 100) * length``, so batch shapes
+    stay static, and with probability ``proba`` all stems of an example are resampled by the same random pitch
+    (semitones) and tempo (percent) factor: a polyphase resample by the combined rate change
+    (:func:`fqss_tpu_torch.utils.audio.resample_audio`), as the JAX package does in place of SoundTouch. The draws
+    come from ``np.random.default_rng(seed)`` in JAX's order, so the same tracks give the same examples bit for
+    bit.
+    """
+
+    def __init__(self, dataset: Wavset, proba: float = 0.2, max_pitch: int = 2, max_tempo: float = 12.0,
+                 tempo_std: float = 5.0, seed: int = 0):
+        if dataset.length is None:
+            raise ValueError("repitch needs fixed-length examples")
+        self.dataset = dataset
+        self.proba = proba
+        self.max_pitch = max_pitch
+        self.max_tempo = max_tempo
+        self.tempo_std = tempo_std
+        self.rng = np.random.default_rng(seed)
+        self.out_length = int((1 - 0.01 * max_tempo) * dataset.length)
+
+    def __len__(self) -> int:
+        return len(self.dataset)
+
+    def __getitem__(self, index: int) -> np.ndarray:
+        example = self.dataset[index]  # [S, C, T]
+        out = example[..., : self.out_length]
+        if self.rng.uniform() < self.proba:
+            semitones = int(self.rng.integers(-self.max_pitch, self.max_pitch + 1))
+            tempo = float(np.clip(self.rng.normal(0, self.tempo_std), -self.max_tempo, self.max_tempo))
+            factor = (2.0 ** (semitones / 12.0)) * (1.0 + tempo / 100.0)
+            if abs(factor - 1.0) > 1e-3:
+                stretched = resample_audio(example, 1000, max(1, int(round(1000 * factor))))
+                out = stretched[..., : self.out_length]
+                pad = self.out_length - out.shape[-1]
+                if pad > 0:
+                    out = np.pad(out, [(0, 0)] * (out.ndim - 1) + [(0, pad)])
+        return np.ascontiguousarray(out, np.float32)
 
 
 def draw_augment(generator: torch.Generator, shape: tuple[int, int, int, int], shift: int = 8192,

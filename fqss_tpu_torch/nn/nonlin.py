@@ -1,7 +1,7 @@
 """Nonlinearities of the quantized layers (``fqss_tpu/nn/nonlin.py``).
 
 ReLU, PReLU (one learnable slope, torch's init 0.25), the sigmoid, tanh,
-the exact (erf) GELU and the GLU. LeakyReLU, the one kind of the JAX
+the exact (erf) GELU (and its derivative, :func:`gelu_grad`) and the GLU. LeakyReLU, the one kind of the JAX
 module not used by a ported model, raises ``NotImplementedError``.
 """
 
@@ -13,6 +13,7 @@ import torch.nn.functional as F
 from torch import nn
 
 SQRT_HALF = float(np.float32(np.sqrt(0.5)))
+TWO_OVER_SQRT_PI = float(np.float32(2.0 / np.sqrt(np.pi)))  # erfc'(z) = -(2 / sqrt(pi)) exp(-z^2)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
@@ -20,6 +21,15 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     GELU epilogues (K5, K4) compute the same expression with CUDA's ``erfcf``, which PyTorch's ``erfc`` calls on the
     card."""
     return (0.5 * x) * torch.special.erfc(-x * SQRT_HALF)
+
+
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d gelu(x) / dx as JAX's autodiff of :func:`gelu` computes it for a unit cotangent, operation for operation:
+    with ``d = -x sqrt(1/2)``, ``0.5 erfc(d) - ((-(2 / sqrt(pi)) (0.5 x)) exp(-d^2)) sqrt(1/2)``. K5-bwd's GELU
+    route (``csrc/fake_quant.cuh:gelu_with_grad``) computes the same expression with CUDA's ``erfcf`` and ``expf``."""
+    d = -x * SQRT_HALF
+    q = ((-TWO_OVER_SQRT_PI * (0.5 * x)) * torch.exp(-(d * d))) * SQRT_HALF
+    return -q + 0.5 * torch.special.erfc(d)
 
 
 def glu(x: torch.Tensor, dim: int = 1) -> torch.Tensor:

@@ -153,6 +153,9 @@ def load(path: Path) -> ctypes.CDLL:
     lib.fqss_qat_dense_bwd_mask.argtypes = [p, p, p, p, p, p, p, p, p, p, f32, p, p, p, p, p, p, i64, i64, i64,
                                             i32, i32, p]
     lib.fqss_qat_dense_bwd_mask.restype = i32
+    if hasattr(lib, "fqss_qat_dense_bwd_mask_gelu"):  # absent from older sources a bench loads
+        lib.fqss_qat_dense_bwd_mask_gelu.argtypes = lib.fqss_qat_dense_bwd_mask.argtypes
+        lib.fqss_qat_dense_bwd_mask_gelu.restype = i32
     lib.fqss_qat_dense_dx_splits.argtypes = [i64, i64, i64]
     lib.fqss_qat_dense_dx_splits.restype = i32
     lib.fqss_qat_dense_dx.argtypes = [p, p, p, p, i64, i64, i64, i32, p]

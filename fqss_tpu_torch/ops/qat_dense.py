@@ -36,8 +36,13 @@ tile as it loads it; ``csrc/qat_dense.cu`` says why the port does not).
 ``y = act_fq(gelu(x @ weight_fq(w)^T + b))``, the exact GELU
 (:func:`fqss_tpu_torch.nn.nonlin.gelu`) between the bias and the act grid,
 and inside the act observer's window the post-GELU value, which the
-quantizer observes. It has no backward yet (HTDemucs training, ROADMAP.md
-queue 1): with a gradient needed it raises ``NotImplementedError``.
+quantizer observes. Its backward (float32) is the same three kernels with
+the GELU in the mask pass: the act grid's mask and range terms at
+``u = gelu(pre)``, as the forward quantizes ``u``, and
+``gm = g * mask(u) * gelu'(pre)`` (:func:`fqss_tpu_torch.nn.nonlin.gelu_grad`;
+``g * gelu'(pre)`` where the act grid observes or is off), ``db`` its column
+sum; JAX computes this layer under XLA (``fqss_tpu/nn/layers.py:QDense``
+with ``Nl("gelu")``), so ``jax.grad`` of that module is its reference.
 
 ``bf16=True`` is the forward's bf16 route (``QuantSpec.compute_dtype``
 ``"bfloat16"``): ``x`` and the weight (after its grid) are rounded to
@@ -53,7 +58,7 @@ the layers ran before the kernel) and :func:`qat_dense_bwd_ref` (the same
 backward in PyTorch operations). ``LAUNCHES`` counts the kernels' launches:
 ``dense`` the forward (``dense_bf16`` its bf16 route, ``dense_gelu`` and
 ``dense_bf16_gelu`` the GELU routes), ``dense_mask``, ``dense_dx`` and ``dense_dwq`` the
-backward's three kernels (K2-bwd counts under
+backward's three kernels (``dense_mask_gelu`` the GELU route's mask pass; K2-bwd counts under
 ``fake_quant.LAUNCHES["weight_bwd"]``).
 """
 
@@ -64,6 +69,7 @@ import ctypes
 import torch
 
 from fqss_tpu_torch.nn.nonlin import gelu as gelu_ref
+from fqss_tpu_torch.nn.nonlin import gelu_grad
 from fqss_tpu_torch.ops import _build
 from fqss_tpu_torch.ops.fake_quant import (
     _check_device,
@@ -80,8 +86,8 @@ from fqss_tpu_torch.quant.fake_quant import bf16_round
 
 Tensor = torch.Tensor
 
-LAUNCHES = {"dense": 0, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0, "dense_mask": 0, "dense_dx": 0,
-            "dense_dwq": 0}
+LAUNCHES = {"dense": 0, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0, "dense_mask": 0,
+            "dense_mask_gelu": 0, "dense_dx": 0, "dense_dwq": 0}
 
 
 def reset_launches() -> None:
@@ -132,24 +138,27 @@ def qat_dense_bwd_ref(x: Tensor, w: Tensor, b: Tensor, g: Tensor, w_mn: Tensor |
                       w_mx: Tensor | None = None, a_mn: Tensor | None = None, a_mx: Tensor | None = None,
                       w_bits: int = 8, a_bits: int = 8, w_observing: Tensor | None = None,
                       a_observing: Tensor | None = None, w_s: float = 1.0, a_s: float = 1.0,
-                      pre: Tensor | None = None) -> tuple:
+                      pre: Tensor | None = None, gelu: bool = False) -> tuple:
     """Plain backward of :func:`qat_dense` for the cotangent ``g [M, N]``:
     ``(dx, dw, db, dw_mn, dw_mx, da_mn, da_mx)``, a range gradient ``None`` where its grid is off.
 
     ``w_s``/``a_s``: the weight and act ranges' ``scale_grad`` factors. ``pre``: the pre-activation
-    ``x @ wq^T + b`` where the caller has it (the kernel's own, to compare its backward at the same act
-    mask), else recomputed."""
+    ``x @ wq^T + b`` (before the GELU) where the caller has it (the kernel's own, to compare its backward at the
+    same act mask), else recomputed. ``gelu``: the GELU route's backward, the act grid's terms at ``gelu(pre)``
+    and ``gm`` times ``gelu'(pre)``, inside the observer window and with the act grid off too."""
     wq = _weight_q(w, w_mn, w_mx, w_bits, w_observing)
     da_mn = da_mx = None
     gm = g
+    if pre is None and (a_mn is not None or gelu):
+        pre = torch.matmul(x, wq.t()) + b
     if a_mn is not None:
-        if pre is None:
-            pre = torch.matmul(x, wq.t()) + b
-        gm, p_mn, p_mx = act_bwd_terms(pre, g, a_mn, a_mx, a_bits, a_s)
+        gm, p_mn, p_mx = act_bwd_terms(gelu_ref(pre) if gelu else pre, g, a_mn, a_mx, a_bits, a_s)
         gm = _where(a_observing, g, gm)
         zero = torch.zeros((), device=g.device)
         da_mn = _where(a_observing, zero, p_mn.sum()).reshape(a_mn.shape)
         da_mx = _where(a_observing, zero, p_mx.sum()).reshape(a_mx.shape)
+    if gelu:
+        gm = gm * gelu_grad(pre)
     dwq = torch.matmul(gm.t(), x)
     dw, dw_mn, dw_mx = dwq, None, None
     if w_mn is not None:
@@ -233,10 +242,10 @@ def _weight_scratch(w: Tensor, w_mn: Tensor | None) -> Tensor | None:
 
 def mask_pass(x: Tensor, w: Tensor, b: Tensor, g: Tensor, w_mn: Tensor | None, w_mx: Tensor | None,
               a_mn: Tensor | None, a_mx: Tensor | None, w_bits: int, a_bits: int, w_observing: Tensor | None,
-              a_observing: Tensor | None, a_s: float) -> tuple:
+              a_observing: Tensor | None, a_s: float, gelu: bool = False) -> tuple:
     """K5-bwd's first kernel on CUDA tensors (checked by the caller): ``(gm, sums, db, wq)``, ``gm = g * mask`` at
-    the recomputed pre-activation, ``sums`` the act ranges' gradients (dmn, dmx), ``wq`` the weights on their grid
-    (None without one)."""
+    the recomputed pre-activation (``gelu``: ``g * mask(gelu(pre)) * gelu'(pre)``), ``sums`` the act ranges'
+    gradients (dmn, dmx), ``wq`` the weights on their grid (None without one)."""
     (M, K), N = x.shape, w.shape[0]
     dev = x.device
     lib = _build.library()
@@ -249,33 +258,37 @@ def mask_pass(x: Tensor, w: Tensor, b: Tensor, g: Tensor, w_mn: Tensor | None, w
     lib.fqss_qat_dense_tiles(M, N, tiles)
     act_partials = torch.empty(tiles[0] * tiles[1], 2, device=dev)
     db_partials = torch.empty(tiles[0], N, device=dev)
-    _launch("qat_dense backward (mask)", lib.fqss_qat_dense_bwd_mask, dev, x.data_ptr(), w.data_ptr(),
+    entry = lib.fqss_qat_dense_bwd_mask_gelu if gelu else lib.fqss_qat_dense_bwd_mask
+    _launch("qat_dense backward (mask)", entry, dev, x.data_ptr(), w.data_ptr(),
             b.data_ptr(), g.data_ptr(), _ptr(w_mn), _ptr(w_mx), _ptr(w_observing), _ptr(a_mn), _ptr(a_mx),
             _ptr(a_observing), a_s, _ptr(wq), gm.data_ptr(), act_partials.data_ptr(), db_partials.data_ptr(),
             sums.data_ptr(), db.data_ptr(), M, K, N, w_bits, a_bits)
-    LAUNCHES["dense_mask"] += 1
+    LAUNCHES["dense_mask_gelu" if gelu else "dense_mask"] += 1
     return gm, sums, db, wq
 
 
 def qat_dense_bwd(x: Tensor, w: Tensor, b: Tensor, g: Tensor, w_mn: Tensor | None = None,
                   w_mx: Tensor | None = None, a_mn: Tensor | None = None, a_mx: Tensor | None = None,
                   w_bits: int = 8, a_bits: int = 8, w_observing: Tensor | None = None,
-                  a_observing: Tensor | None = None, w_s: float = 1.0, a_s: float = 1.0) -> tuple:
+                  a_observing: Tensor | None = None, w_s: float = 1.0, a_s: float = 1.0,
+                  gelu: bool = False) -> tuple:
     """Backward of :func:`qat_dense` (K5-bwd) for the cotangent ``g [M, N]``:
-    ``(dx, dw, db, dw_mn, dw_mx, da_mn, da_mx)`` as :func:`qat_dense_bwd_ref` gives them.
+    ``(dx, dw, db, dw_mn, dw_mx, da_mn, da_mx)`` as :func:`qat_dense_bwd_ref` gives them (``gelu``: the GELU
+    route's).
 
     Three kernels (mask, dx, dwq), then K2-bwd for the weight grid; the plain version on the CPU."""
     _check_device("qat_dense backward", x)
     if x.device.type == "cpu":
         return qat_dense_bwd_ref(x, w, b, g, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing,
-                                 w_s, a_s)
+                                 w_s, a_s, gelu=gelu)
     _check(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing)
     if g.shape != (x.shape[0], w.shape[0]) or g.dtype != torch.float32 or not g.is_contiguous():
         raise ValueError(f"qat_dense backward: a contiguous float32 g of {(x.shape[0], w.shape[0])} expected")
     (M, K), N = x.shape, w.shape[0]
     dev = x.device
     lib = _build.library()
-    gm, sums, db, wq = mask_pass(x, w, b, g, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing, a_s)
+    gm, sums, db, wq = mask_pass(x, w, b, g, w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing, a_observing, a_s,
+                                 gelu)
     dx, dwq = torch.empty(M, K, device=dev), torch.empty(N, K, device=dev)
     if M and N and K:
         splits = lib.fqss_qat_dense_dx_splits(M, K, N)
@@ -304,20 +317,20 @@ class _QatDense(torch.autograd.Function):
     """The forward kernel (K5) and the rematerialising backward (K5-bwd), as JAX's ``qat_dense`` custom VJP."""
 
     @staticmethod
-    def forward(ctx, x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, w_s, a_s):
-        ctx.bits_and_scales = (w_bits, a_bits, w_s, a_s)
+    def forward(ctx, x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, w_s, a_s, gelu):
+        ctx.bits_and_scales = (w_bits, a_bits, w_s, a_s, gelu)
         # Copies of the ranges: the act observer writes them in place after this call.
         ranges = [r.detach().clone() if r is not None else None for r in (w_mn, w_mx, a_mn, a_mx)]
         ctx.save_for_backward(x, w, b, *ranges, w_observing, a_observing)
-        return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits)
+        return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, gelu=gelu)
 
     @staticmethod
     def backward(ctx, g):
         x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing = ctx.saved_tensors
-        w_bits, a_bits, w_s, a_s = ctx.bits_and_scales
+        w_bits, a_bits, w_s, a_s, gelu = ctx.bits_and_scales
         grads = qat_dense_bwd(x, w, b, g.contiguous(), w_mn, w_mx, a_mn, a_mx, w_bits, a_bits, w_observing,
-                              a_observing, w_s, a_s)
-        return (*(gi if need else None for gi, need in zip(grads, ctx.needs_input_grad)), *([None] * 6))
+                              a_observing, w_s, a_s, gelu)
+        return (*(gi if need else None for gi, need in zip(grads, ctx.needs_input_grad)), *([None] * 7))
 
 
 def qat_dense(x: Tensor, w: Tensor, b: Tensor, w_mn: Tensor | None = None, w_mx: Tensor | None = None,
@@ -330,17 +343,15 @@ def qat_dense(x: Tensor, w: Tensor, b: Tensor, w_mn: Tensor | None = None, w_mx:
     the output grid's one-element ranges, or None. ``w_observing``/``a_observing``: one-element bool tensors
     (or None): where set, that grid is skipped. ``w_s``/``a_s``: the ranges' ``scale_grad`` factors. ``bf16``: the
     product's operands rounded to bfloat16 (forward only: raises ``NotImplementedError`` where a gradient is
-    needed). ``gelu``: the exact GELU between the bias and the act grid (forward only, as ``bf16``)."""
+    needed). ``gelu``: the exact GELU between the bias and the act grid (float32 with its backward; with ``bf16``
+    forward only)."""
     _check_device("qat_dense", x)
     _check(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing)
     tensors = (x, w, b, w_mn, w_mx, a_mn, a_mx)
-    if gelu and _needs_grad(*(t for t in tensors if t is not None)):
-        raise NotImplementedError("qat_dense(gelu=True) has no backward yet: it comes with HTDemucs training "
-                                  "(ROADMAP.md, queue 1)")
     if bf16:
         refuse_bf16_grad(*tensors)
-    if bf16 or gelu:
         return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, bf16, gelu)
-    if _needs_grad(*(t for t in (x, w, b, w_mn, w_mx, a_mn, a_mx) if t is not None)):
-        return _QatDense.apply(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, w_s, a_s)
-    return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits)
+    if _needs_grad(*(t for t in tensors if t is not None)):
+        return _QatDense.apply(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, w_s, a_s,
+                               gelu)
+    return _forward(x, w, b, w_mn, w_mx, a_mn, a_mx, w_observing, a_observing, w_bits, a_bits, gelu=gelu)

@@ -1,6 +1,6 @@
 """Training CLI on PyTorch (the port of ``train.py``).
 
-Usage: python -m fqss_tpu_torch.train -env {asteroid,speechbrain,tasnet} -y cfg.yaml [--device cuda]
+Usage: python -m fqss_tpu_torch.train -env {asteroid,speechbrain,tasnet,htdemucs} -y cfg.yaml [--device cuda]
 
 Runs :func:`fqss_tpu_torch.train.recipes.train_speech` on ``--device``
 (default ``cuda``, which must be present; ``--device cpu`` runs the plain
@@ -9,10 +9,12 @@ ConvTasNet, DPTNet (``-env asteroid -y configs/dptnet_2spks_8k.yaml``) or
 the Sepformer (``-env speechbrain -y configs/sepformer_2spks_8k.yaml``);
 ``-env tasnet`` runs the music recipe
 :func:`fqss_tpu_torch.train.recipes_music.train_tasnet_music`
-(``-y configs/convtasnet_music.yaml``, MUSDB18-HQ). ``-y`` takes a YAML
-config, or the same config as a ``.json`` file, which needs no YAML parser.
-TF32 is turned off: it would move values off the 8-bit grids. The
-``htdemucs`` environment is not ported yet.
+(``-y configs/convtasnet_music.yaml``, MUSDB18-HQ) and ``-env htdemucs``
+:func:`fqss_tpu_torch.train.recipes_music.train_htdemucs`
+(``-y configs/htdemucs.yaml``, or a config in the reference's hydra schema).
+``-y`` takes a YAML config, or the same config as a ``.json`` file, which
+needs no YAML parser. TF32 is turned off: it would move values off the
+8-bit grids.
 """
 
 from __future__ import annotations
@@ -33,18 +35,18 @@ def argument_handler(argv=None):
 
 def main(argv=None) -> None:
     args = argument_handler(argv)
-    if args.env_name == "htdemucs":
-        raise NotImplementedError("-env htdemucs is not ported yet (the HTDemucs slice, ROADMAP.md queue 1)")
     from fqss_tpu_torch.utils.config import load_config
 
     conf = load_config(args.yml_path)
     device = resolve_device(args.device)
     disable_tf32()
-    if args.env_name == "tasnet":
-        from fqss_tpu_torch.train.recipes_music import train_tasnet_music
+    if args.env_name in ("tasnet", "htdemucs"):
+        from fqss_tpu_torch.train.recipes_music import train_htdemucs, train_tasnet_music
 
-        result = train_tasnet_music(conf, device=device)
-        print(f"Training done: best train loss {result['best_loss']:.4f} after {result['epochs_run']} epochs")
+        train = train_htdemucs if args.env_name == "htdemucs" else train_tasnet_music
+        result = train(conf, device=device)
+        print(f"Training done: best train loss {result['best_loss']:.4f} after {result['epochs_run']} epochs "
+              f"(last epoch's best model: {result['bname']})")
         return
     from fqss_tpu_torch.train.recipes import train_speech
 

@@ -5,7 +5,7 @@
   ``work_dir/checkpoints/epoch_<e>.pt``, each written to a temporary file
   and renamed, and keeps the ``keep`` best by ``val_loss`` (a save without
   one counts as worst) plus always the latest, with whatever ``extra`` the
-  recipe hands it (the music recipe's best model state). ``history.json``
+  recipe hands it (the music recipes' best model state and EMAs). ``history.json``
   holds every epoch's metrics.
 * :func:`export_model` writes the student's state dict, the file that
   ``models/factory.py:create_pretrained_model`` loads through

@@ -60,16 +60,19 @@ def _make_datasets(dataset_cfg: Mapping[str, Any], seed: int, use_speedperturb: 
     return train_set, val_set
 
 
-def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: torch.device | str = "cpu") -> dict:
-    """Run speech QAT training from a reference-schema config dict on ``device``.
+def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: torch.device | str = "cuda") -> dict:
+    """Run speech QAT training from a reference-schema config dict on ``device`` (the card by default; ``"cpu"``
+    runs the kernels' plain versions; a missing card raises).
 
     Returns ``{"best_val_loss", "epochs_run", "state"}``.
     """
+    from fqss_tpu_torch.infer import resolve_device
+
     work_dir = conf["work_dir"]
     model_cfg = conf["model_cfg"]
     dataset_cfg = conf["dataset_cfg"]
     training_cfg = conf["training_cfg"]
-    device = torch.device(device)
+    device = resolve_device(str(device))
     if training_cfg.get("wandb", False):
         raise NotImplementedError("wandb logging is not ported yet (ROADMAP.md, queue 1); set wandb: False")
 

@@ -29,6 +29,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable
 
+import numpy as np
 import torch
 
 from fqss_tpu_torch.separation.losses import fqss_kd_loss, pit_neg_sisdr_db
@@ -65,6 +66,55 @@ def make_optimizer(cfg: TrainConfig, params) -> torch.optim.Optimizer:
     if cfg.optimizer == "sgd":
         return torch.optim.SGD(params, lr=cfg.lr)
     raise ValueError(cfg.optimizer)
+
+
+class OptaxAdam(torch.optim.Optimizer):
+    """optax's ``adam`` (``adamw`` where a group's ``weight_decay`` is nonzero) element for element, with a
+    learning rate and weight decay per parameter group: the music recipe's per-module groups
+    (``optax.multi_transform`` of two such optimizers, ``fqss_tpu/train/recipes_music.py:make_music_optimizer``).
+
+    Per element, in float32 and in optax's order: ``mu = (1 - b1) g + b1 mu``, ``nu = (1 - b2) g g + b2 nu``,
+    ``u = (mu / (1 - b1^n)) / (sqrt(nu / (1 - b2^n)) + eps)``, ``u + wd p`` where the group decays, ``(-lr) u``,
+    ``p + u``; ``n`` counts the steps. A parameter without a gradient takes a zero gradient, as JAX's tree has
+    one for every leaf (with decay it still decays). torch's Adam and AdamW compute the same update up to
+    rounding; this one equals optax's run op by op (eagerly) bit for bit.
+    """
+
+    def __init__(self, params, lr: float, weight_decay: float = 0.0, betas: tuple[float, float] = (0.9, 0.999),
+                 eps: float = 1e-8):
+        super().__init__(params, dict(lr=lr, weight_decay=weight_decay, betas=betas, eps=eps))
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            params = group["params"]
+            if not params:
+                continue
+            b1, b2 = group["betas"]
+            grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+            states = [self.state[p] for p in params]
+            for p, st in zip(params, states):
+                if not st:
+                    st["count"] = 0
+                    st["mu"], st["nu"] = torch.zeros_like(p), torch.zeros_like(p)
+            mus = torch._foreach_add(torch._foreach_mul(grads, 1 - b1),
+                                     torch._foreach_mul([st["mu"] for st in states], b1))
+            nus = torch._foreach_add(torch._foreach_mul(torch._foreach_mul(grads, grads), 1 - b2),
+                                     torch._foreach_mul([st["nu"] for st in states], b2))
+            count = states[0]["count"] + 1
+            # 1 - decay^count in float32, as optax's bias_correction takes it
+            bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+            bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+            # the square root in float64, rounded once to float32: IEEE's float32 square root, which XLA takes
+            # (PyTorch's vectorised float32 one on the CPU is not correctly rounded)
+            roots = [torch.sqrt(v.double()).float() for v in torch._foreach_div(nus, bc2)]
+            denom = torch._foreach_add(roots, group["eps"])
+            updates = torch._foreach_div(torch._foreach_div(mus, bc1), denom)
+            if group["weight_decay"]:
+                updates = torch._foreach_add(updates, torch._foreach_mul(params, group["weight_decay"]))
+            torch._foreach_add_(params, torch._foreach_mul(updates, -group["lr"]))
+            for st, mu, nu in zip(states, mus, nus):
+                st["count"], st["mu"], st["nu"] = count, mu, nu
 
 
 def clip_by_global_norm_(grads: list[Tensor], max_norm: float) -> Tensor:
@@ -131,7 +181,8 @@ def backward_and_update(state: TrainState, cfg: TrainConfig, loss: Tensor) -> tu
     ok = bool(torch.isfinite(loss) & (loss < cfg.loss_upper_lim))  # the step's one wait for the device
     if ok:
         for group in state.optimizer.param_groups:
-            group["lr"] = cfg.lr * state.lr_scale  # exact lr scaling for Adam, AdamW and SGD
+            # exact lr scaling for Adam, AdamW and SGD; a group with a rate of its own keeps it as base_lr
+            group["lr"] = group.get("base_lr", cfg.lr) * state.lr_scale
         state.optimizer.step()
     else:
         state.skipped += 1

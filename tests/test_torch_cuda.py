@@ -13,6 +13,7 @@ from fqss_tpu_torch.ops import attention as k8
 from fqss_tpu_torch.ops import fake_quant as fq
 from fqss_tpu_torch.ops import qat_dense as qd
 from fqss_tpu_torch.ops import qmatmul as qm
+from fqss_tpu_torch.nn.nonlin import gelu as gelu_ref
 
 pytestmark = pytest.mark.cuda
 
@@ -783,6 +784,7 @@ def test_tiny_sepformer_serving_runs_k8_and_k4(dev, compute_dtype):
 # they round alike (chip_smoke.py's phase 31).
 DENSE_RTOL = 1e-5
 DENSE_GRID_SHARE = 1e-3
+GELU_SLOPE = 1.13  # the exact GELU's largest slope (1.1289): |gelu'(v)| <= this
 
 
 def _dense_case(dev, m, k, n, seed):
@@ -844,24 +846,26 @@ def test_qat_dense_kernel_matches_plain(dev, m, k, n):
         assert (diff > 0.5 * step).float().mean().item() <= DENSE_GRID_SHARE, flags
 
 
-def _assert_dense_grads(got, case_args, g):
+def _assert_dense_grads(got, case_args, g, gelu=False):
     """K5-bwd's gradients against the plain backward at the kernel's own pre-activation (so at the same act
     mask): dx, dw, db within DENSE_RTOL of the sums of their terms' magnitudes, the act ranges' gradients within
-    SUM_RTOL of sum |term|, the weight ranges' within twice DENSE_RTOL of the magnitudes through the grid."""
+    SUM_RTOL of sum |term|, the weight ranges' within twice DENSE_RTOL of the magnitudes through the grid.
+    ``gelu``: the GELU route's, |gm| bounded by GELU_SLOPE |g| and the act terms taken at gelu(pre)."""
     x, w, b, w_mn, w_mx, a_mn, a_mx, _, _, w_obs, a_obs = case_args
     pre = qd.qat_dense(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)  # the mask kernel recomputes it so
-    want = qd.qat_dense_bwd_ref(x, w, b, g, w_mn, w_mx, a_mn, a_mx, 8, 8, w_obs, a_obs, pre=pre)
+    want = qd.qat_dense_bwd_ref(x, w, b, g, w_mn, w_mx, a_mn, a_mx, 8, 8, w_obs, a_obs, pre=pre, gelu=gelu)
     for a, b_ in zip(got, want):
         assert (a is None) == (b_ is None) and (a is None or a.shape == b_.shape)
     dx, dw, db, dw_mn, dw_mx, da_mn, da_mx = got
     wq = qd._weight_q(w, w_mn, w_mx, 8, w_obs)
-    absg = g.abs()  # bounds |gm|
+    absg = g.abs() * (GELU_SLOPE if gelu else 1.0)  # bounds |gm|
+    act_in = (lambda v: gelu_ref(v)) if gelu else (lambda v: v)
     assert bool(((dx - want[0]).abs() <= DENSE_RTOL * (absg @ wq.abs())).all())
     a_prod = absg.t() @ x.abs()
     assert bool(((dw - want[1]).abs() <= DENSE_RTOL * a_prod).all())
     assert bool(((db - want[2]).abs() <= DENSE_RTOL * absg.sum(0)).all())
     if a_mn is not None and not (a_obs is not None and bool(a_obs)):
-        _, p_mn, p_mx = fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)
+        _, p_mn, p_mx = fq.act_bwd_terms(act_in(pre), g, a_mn, a_mx, 8, 1.0)
         _assert_sum(da_mn, p_mn)
         _assert_sum(da_mx, p_mx)
     if w_mn is not None:
@@ -870,9 +874,9 @@ def _assert_dense_grads(got, case_args, g):
         for got_r, want_r, b_r in zip((dw_mn, dw_mx), want[3:5], bound):
             assert bool(((got_r.double() - want_r.double()).abs() <= 2 * DENSE_RTOL * b_r.abs() + 1e-30).all())
     if a_mn is not None:  # the plain version's own pre-activation gives the same mask but at rounding flips
-        flips = (fq.act_bwd_terms(pre, g, a_mn, a_mx, 8, 1.0)[0]
-                 != fq.act_bwd_terms(qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None), g, a_mn,
-                                     a_mx, 8, 1.0)[0])
+        flips = (fq.act_bwd_terms(act_in(pre), g, a_mn, a_mx, 8, 1.0)[0]
+                 != fq.act_bwd_terms(act_in(qd.qat_dense_ref(x, w, b, w_mn, w_mx, None, None, 8, 8, w_obs, None)), g,
+                                     a_mn, a_mx, 8, 1.0)[0])
         assert flips.float().mean().item() <= DENSE_GRID_SHARE
 
 
@@ -885,8 +889,8 @@ def test_qat_dense_backward_matches_plain(dev, m, k, n):
         before = dict(qd.LAUNCHES), fq.LAUNCHES["weight_bwd"]
         got = qd.qat_dense_bwd(*args[:3], g, *args[3:])
         assert {k_: qd.LAUNCHES[k_] - before[0][k_] for k_ in qd.LAUNCHES} == {
-            "dense": 0, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0, "dense_mask": 1, "dense_dx": 1,
-            "dense_dwq": 1}
+            "dense": 0, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0, "dense_mask": 1,
+            "dense_mask_gelu": 0, "dense_dx": 1, "dense_dwq": 1}
         assert fq.LAUNCHES["weight_bwd"] == before[1] + (args[3] is not None)
         _assert_dense_grads(got, args, g)
         if flags.get("a_obs"):
@@ -903,7 +907,7 @@ def test_qat_dense_autograd_runs_the_kernels(dev):
     qd.reset_launches()
     (qd.qat_dense(*leaves, *args[7:]) * g).sum().backward()
     assert qd.LAUNCHES == {"dense": 1, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0, "dense_mask": 1,
-                           "dense_dx": 1, "dense_dwq": 1}
+                           "dense_mask_gelu": 0, "dense_dx": 1, "dense_dwq": 1}
     _assert_dense_grads([t.grad for t in leaves], args, g)
 
 
@@ -1018,7 +1022,7 @@ def test_tiny_train_step_card_vs_cpu(dev, name):
         runs.append(out)
     for step, (loss_card, g_card, dense, rec), (loss_cpu, g_cpu, cpu_dense, _) in zip(TINY_TRAIN_CARD_VS_CPU, *runs):
         assert dense == {"dense": 2 * n_dense, "dense_bf16": 0, "dense_gelu": 0, "dense_bf16_gelu": 0,
-                         "dense_mask": n_dense, "dense_dx": n_dense, "dense_dwq": n_dense}
+                         "dense_mask": n_dense, "dense_mask_gelu": 0, "dense_dx": n_dense, "dense_dwq": n_dense}
         assert set(cpu_dense.values()) == {0}
         if name == "DPTNet":
             assert rec == {"lstm": 0, "bilstm": 2 * 4}  # student and teacher, 2 layers x row and col each
@@ -1485,3 +1489,111 @@ def test_tiny_htdemucs_int8_engine_runs_k4_and_k8_and_agrees_with_the_cpu(dev, c
     assert set(qd.LAUNCHES.values()) == {0}
     snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - got).pow(2).sum(-1).clamp_min(1e-30))
     assert bool((snr >= 20).all()), snr
+
+
+@pytest.mark.parametrize("m,k,n", [(1000, 384, 1536), (700, 64, 256), (300, 37, 65), (5, 3, 2)])
+def test_qat_dense_gelu_backward_matches_plain(dev, m, k, n):
+    """K5-bwd's GELU route (its mask pass, then dx, dwq and K2-bwd) against the plain backward at the kernel's own
+    pre-activation, every grid and observing-flag combination: inside the act window and with the act grid off
+    ``gm = g gelu'(pre)``, not ``g``."""
+    case = _dense_case(dev, m, k, n, m + 2 * k + n)
+    g = torch.randn(m, n, device=dev, generator=torch.Generator(device=dev).manual_seed(m + n))
+    for flags in DENSE_FLAGS:
+        args = _dense_args(case, dev, **flags)
+        before = dict(qd.LAUNCHES)
+        got = qd.qat_dense_bwd(*args[:3], g, *args[3:], gelu=True)
+        assert {k_: qd.LAUNCHES[k_] - before[k_] for k_ in qd.LAUNCHES if qd.LAUNCHES[k_] != before[k_]} == {
+            "dense_mask_gelu": 1, "dense_dx": 1, "dense_dwq": 1}, flags
+        _assert_dense_grads(got, args, g, gelu=True)
+        if args[5] is None or flags.get("a_obs"):  # no act mask: db is the column sum of g gelu'(pre)
+            pre = qd.qat_dense(*args[:5], None, None, 8, 8, args[9], None)
+            want_db = (g * qd.gelu_grad(pre)).sum(0)
+            assert bool(((got[2] - want_db).abs() <= DENSE_RTOL * GELU_SLOPE * g.abs().sum(0)).all()), flags
+        if flags.get("a_obs"):
+            assert got[5].item() == got[6].item() == 0.0
+
+
+def test_qat_dense_gelu_autograd_runs_the_gelu_backward(dev):
+    case = _dense_case(dev, 600, 384, 1536, 7)
+    args = _dense_args(case, dev, w_obs=False, a_obs=False)
+    g = torch.randn(600, 1536, device=dev, generator=torch.Generator(device=dev).manual_seed(8))
+    leaves = [t.clone().requires_grad_(True) for t in args[:7]]
+    qd.reset_launches()
+    (qd.qat_dense(*leaves, *args[7:], gelu=True) * g).sum().backward()
+    assert {k_: v for k_, v in qd.LAUNCHES.items() if v} == {"dense_gelu": 1, "dense_mask_gelu": 1, "dense_dx": 1,
+                                                             "dense_dwq": 1}
+    _assert_dense_grads([t.grad for t in leaves], args, g, gelu=True)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        qd.qat_dense(*leaves, *args[7:], gelu=True, bf16=True)
+
+
+def test_weight_group_backward_at_htdemucs_full_weight_set(dev):
+    """The grouped K2-bwd over the full-width HTDemucs's 108 weight quantizers (2-D convs, transposed convs with
+    ch_axis 1, the embedding table, the transformer's linears): dw bitwise, range gradients within SUM_RTOL of
+    sum |term|, in one launch."""
+    from fqss_tpu_torch.models.factory import create_model
+    from fqss_tpu_torch.quant.quantizers import weight_quantizer_sites
+
+    cfg = {"name": "HTDemucs", "sources": ["drums", "bass", "other", "vocals"], "audio_channels": 2,
+           "quantization": {"qat": True, "n_splitter": 2, "n_combiner": 2, "out_quant": True, "observer": True}}
+    model = create_model(cfg, generator=torch.Generator().manual_seed(2)).to(dev).train()
+
+    def model_entries():
+        return [getattr(layer, q).entry(getattr(layer, w)) for layer, q, w in weight_quantizer_sites(model)]
+
+    fq._group_forward(fq.WeightGroup(model_entries()))  # the one-shot observers: every entry's ranges and flag set
+    model.eval()
+    entries = model_entries()
+    assert len(entries) == 108 and {e.ch_axis for e in entries} == {0, 1} and all(bool(e.observed) for e in entries)
+    gk = fq.WeightGroup(entries)
+    buf = fq._group_forward(gk)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    grads = [torch.randn(e.w.shape, device=dev, generator=gen) if i % 9 else None for i, e in enumerate(entries)]
+    before = fq.LAUNCHES["weight_bwd"]
+    dk = fq.weight_fake_quant_group_bwd(gk, buf, grads)
+    assert fq.LAUNCHES["weight_bwd"] == before + 1
+    dp = fq.weight_group_backward_ref(gk, buf, grads)
+    used_mn, used_mx = (gk.split_ranges(r) for r in gk.scratch(buf)[:2])
+    for i, (e, g) in enumerate(zip(entries, grads)):
+        if g is None:
+            assert dk[0][i] is None
+            continue
+        assert torch.equal(dk[0][i], dp[0][i]), i
+        dims = tuple(d for d in range(e.w.ndim) if d != e.ch_axis % e.w.ndim)
+        _, terms = fq.weight_bwd_terms(e.w, g, used_mn[i], used_mx[i], 8, e.ch_axis)
+        exact = fq.route_range_grad(terms.double().sum(dims), used_mn[i].double(), used_mx[i].double(), 8, e.s)
+        bound = fq.route_range_grad(terms.double().abs().sum(dims), used_mn[i].double(), used_mx[i].double(), 8, e.s)
+        for got, want, b in zip((dk[1][i], dk[2][i]), exact, bound):
+            assert bool(((got.double() - want).abs() <= SUM_RTOL * b.abs()).all()), i
+
+
+def test_tiny_htdemucs_kd_step_runs_the_gelu_backward(dev):
+    """A KD step of the tiny HTDemucs on the card: K5-bwd's GELU route once per linear1 (3 layers x 2), K5-bwd
+    once per linear2, one grouped K2 and K2-bwd, K8 for student and teacher; finite loss and gradients."""
+    import numpy as np
+
+    from fqss_tpu_torch.data.synthetic import synth_music_batch
+    from fqss_tpu_torch.models.factory import create_model_and_teacher
+    from fqss_tpu_torch.train.recipes_music import make_music_train_step
+    from fqss_tpu_torch.train.state import TrainState
+    from fqss_tpu_torch.train.trainer import TrainConfig, make_optimizer
+
+    cfg = {**HTD_CFG, "quantization": {**MUSIC_SPEC, "observer": True}}
+    model, teacher = create_model_and_teacher(cfg, generator=torch.Generator().manual_seed(3))
+    model, teacher = model.to(dev), teacher.to(dev)
+    state = TrainState(model, make_optimizer(TrainConfig(), [p for p in model.parameters() if p.requires_grad]),
+                       teacher)
+    step = make_music_train_step(TrainConfig(grad_clip=0.0), {"enable": False}, weight_kind="exp", is_htdemucs=True)
+    src = torch.from_numpy(synth_music_batch(np.random.default_rng(3), 2, 4000)).to(dev)
+    for i in range(MUSIC_SPEC["max_observations"] + 1):  # through the act window and one step after it
+        for module in (fq, qd, k8):
+            module.reset_launches()
+        metrics = step(state, src, None)
+        assert np.isfinite(float(metrics["loss"])) and not metrics["skipped"], i
+        assert {k_: v for k_, v in qd.LAUNCHES.items() if v} == {"dense": 6 + 6, "dense_gelu": 6 + 6,
+                                                                 "dense_mask": 6, "dense_mask_gelu": 6,
+                                                                 "dense_dx": 12, "dense_dwq": 12}, i
+        assert fq.LAUNCHES["weight"] == 1 and fq.LAUNCHES["weight_bwd"] == 1
+        assert k8.LAUNCHES["attention"] == 12
+    grads = torch.cat([p.grad.flatten() for p in model.parameters() if p.grad is not None])
+    assert bool(torch.isfinite(grads).all())

@@ -277,9 +277,9 @@ def test_dense_gelu_observes_the_post_gelu_value(observe):
     aq = pm.activation_fake_quantize
     np.testing.assert_allclose(aq.min_range.detach().numpy(), qp["min_range"], rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(aq.max_range.detach().numpy(), qp["max_range"], rtol=1e-5, atol=1e-6)
-    pm.weight.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="HTDemucs training"):
-        pm(torch.from_numpy(x))
+    pm.weight.requires_grad_(True)  # with a gradient the route takes its backward (tests/test_torch_htdemucs_grads.py)
+    pm(torch.from_numpy(x)).sum().backward()
+    assert torch.isfinite(pm.weight.grad).all() and pm.weight.grad.any()
 
 
 @pytest.mark.parametrize("lq,lk", [(70, 70), (70, 33), (33, 70)])

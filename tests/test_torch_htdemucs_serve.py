@@ -124,11 +124,17 @@ def test_gelu_routes_refuse_a_gradient_and_other_nonlinearities():
     rng = np.random.default_rng(10)
     x = torch.from_numpy(rng.standard_normal((5, 8)).astype(np.float32))
     w, b = torch.from_numpy(rng.standard_normal((6, 8)).astype(np.float32)).requires_grad_(True), torch.zeros(6)
-    with pytest.raises(NotImplementedError, match="HTDemucs training"):
-        qd.qat_dense(x, w, b, gelu=True)
+    with pytest.raises(NotImplementedError, match="bf16"):  # only the bf16 route refuses a gradient now
+        qd.qat_dense(x, w, b, gelu=True, bf16=True)
     with torch.no_grad():
         y = qd.qat_dense(x, w, b, gelu=True)
     np.testing.assert_array_equal(y.numpy(), qd.qat_dense_ref(x, w.detach(), b, gelu=True).numpy())
+    y = qd.qat_dense(x, w, b, gelu=True)  # float32 with a gradient: K5-bwd's GELU route (its plain version on CPU tensors)
+    np.testing.assert_array_equal(y.detach().numpy(), qd.qat_dense_ref(x, w.detach(), b, gelu=True).numpy())
+    y.sum().backward()
+    w2 = w.detach().clone().requires_grad_(True)
+    torch.nn.functional.gelu(x @ w2.t() + b).sum().backward()
+    np.testing.assert_allclose(w.grad.numpy(), w2.grad.numpy(), rtol=1e-5, atol=1e-6)
     with pytest.raises(NotImplementedError, match="GELU only"):
         QDense(8, 6, nl="relu")
 

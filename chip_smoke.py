@@ -18,9 +18,10 @@ and ``--engine auto`` for all three models, then bf16 compute
 routes of K5, K3 and K8, then ConvTasNet-music (``configs/convtasnet_music.yaml``)
 serving through every engine, its evaluation, KD training and recipe, then HTDemucs
 (``configs/htdemucs.yaml``) serving through every engine and its evaluation, then its training (the GELU route of
-K5-bwd, the KD step, the ``-env htdemucs`` recipe); all with
-n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one line per phase and lets any
-failure propagate:
+K5-bwd, the KD step, the ``-env htdemucs`` recipe), then checkpoint import into the five models (reference ``.pth``
+files and the JAX package's ``.npz`` exports through ``create_pretrained_model``, ``infer`` and ``pretrained:``); all
+with n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one line per phase, a ``[time]`` line
+after each group of phases, and lets any failure propagate:
 
 0. device: the card's name and power limit (nvidia-smi); TF32 off.
 1. build: compile ``fqss_tpu_torch/csrc/*.cu`` with nvcc, one process per source;
@@ -189,7 +190,7 @@ failure propagate:
     largest of 2, 4, 8 that fits.
 36. one recipe epoch of each config (``-env asteroid`` DPTNet,
     ``-env speechbrain`` the Sepformer) through ``python -m
-    fqss_tpu_torch.train`` on a mini LibriMix.
+    fqss_tpu_torch.train`` on a mini LibriMix, the two processes side by side.
 
 37. the fused fake-quant matmul (K3) vs its plain version on the card, at the
     shapes phases 18 and 25 gave it (DPTNet's BN [8, 256, 31999] -> 64, the
@@ -240,18 +241,17 @@ failure propagate:
     [8, 4, 2, 441000], finite; K1 per act quantizer module but the 41 K3
     convs', one grouped weight launch, K3 41 (the bottleneck and every
     block's pointwise).
-45. card vs CPU on one chunk (1 x 441,000): at full depth within the model's
-    own floor, the card's forward against its own forward of the chunk times
-    (1 + 2^-22), by phase 13's rule (MUSIC_FLOOR_RULE; random weights through
-    40 blocks put that floor near 18 dB); at one repeat (10 blocks) SNR >= 20
-    dB per output.
+45. on one chunk (1 x 441,000): at full depth the card's own floor, its
+    forward against its own forward of the chunk times (1 + 2^-22) (random
+    weights through 40 blocks put it near 18 dB); card vs CPU at one repeat
+    (10 blocks), SNR >= 20 dB per output.
 46. the folded model: bitwise equal to the fake-quant forward, no weight
     launch.
 47. the int8 engine, float32 and bfloat16 float products, 8 x 441,000: K4 83
     (the bottleneck, 40 conv1x1, 40 pointwise, the mask conv, the decoder)
     and no other launch; against the fake-quant forward at phase 45's floor
-    with phase 13's rule; card vs CPU at 1 x 2 s within the engine's own floor
-    (phase 45's rule; the note above MUSIC_FLOOR_RULE's use in phase 47).
+    with phase 13's rule; card vs CPU at 1 x 2 s and one repeat within the
+    engine's own floor there (MUSIC_FLOOR_RULE).
 48. throughput at 8 x 441,000 of fake_quant, folded, int8 f32 and bf16 and
     the fake_quant model in bf16 compute.
 49. K3 against its plain version at the music forward's shapes ([8, 256,
@@ -272,7 +272,8 @@ failure propagate:
     LOSS_DB_TOL dB; the whole-gradient cosine within the card's own floor
     (its step on the stems times (1 + 2^-22), by MUSIC_FLOOR_RULE).
 53. one epoch of ``python -m fqss_tpu_torch.train -env tasnet`` with the
-    full-width model on a mini MUSDB at 44.1 kHz (JSON config).
+    full-width model on a mini MUSDB at 44.1 kHz (JSON config); its process
+    runs beside phase 64's, after phase 63.
 54. the full-width HTDemucs of ``configs/htdemucs.yaml`` (HTDEMUCS_CFG),
     ranges from the config's 50-step observer window on 2 x 2 s of stems,
     one forward of 8 x 343,980 (``testing_cfg.segment_samples``) with
@@ -282,15 +283,15 @@ failure propagate:
     (linear2), K5's GELU route 10 (linear1), K8 10 (6 self-attention at
     3448 and 1723 tokens, 4 cross-attention 3448 x 1723 and 1723 x 3448,
     BH 64, d 48 on the D 64 instantiation); peak memory.
-55. card vs CPU on one chunk: within the card's own floor (its forward on
-    the input times 1 + 2^-22, MUSIC_FLOOR_RULE); >= 20 dB at one
-    transformer layer (HTD_SHALLOW).
+55. on one chunk: at full depth the card's own floor (its forward on the
+    input times 1 + 2^-22); card vs CPU >= 20 dB at one transformer layer
+    (HTD_SHALLOW).
 56. folded: bitwise equal to the fake-quant forward, no weight launch.
 57. the int8 engines (float32, bfloat16 float products): K4 44 (10 with the
     GELU epilogue), K8 10 (its bf16 route in bf16), K1 for the folded conv
     branches' act quantizers only; against the fake-quant forward by the
     floor rule of phase 13 at phase 55's floor; card vs CPU on one chunk at
-    the card's own floor.
+    HTD_SHALLOW within the engine's own floor there.
 58. throughput and peak memory of fake_quant, folded, int8 f32 and bf16 at
     8 x 343,980.
 59. K8 (both routes) at the four attention shapes of phase 54's forward
@@ -322,11 +323,32 @@ failure propagate:
     within LOSS_DB_TOL dB; the whole-gradient cosine within the two devices'
     own floors (each one's step on the stems times (1 + 2^-22), summed, by
     MUSIC_FLOOR_RULE; the note above HTD_RECIPE_SECONDS says why not the
-    card's alone).
+    card's alone); the same at HTD_STEP_SHALLOW against the card's own floor
+    alone (phase 52's rule), whose verdict it prints: that rule does not
+    hold there, and the failure stands.
 64. one epoch of ``python -m fqss_tpu_torch.train -env htdemucs`` with the
     full-width model on a mini MUSDB at 44.1 kHz (JSON config): one batch EMA
     and one epoch EMA, Repitch on; finite losses, the chosen model (bname)
-    printed, the best and latest exports written.
+    printed, the best and latest exports written; beside phase 53's process.
+65. each of the five models at full width (the configs of phases 3, 18, 25,
+    44 and 54) from a seeded float model written as a reference ``.pth``
+    (wrapped in ``state_dict``, keys under ``model.``, a stray ``fmodel.``
+    key; ``reference_state_dict``, which tests/test_torch_checkpoint_import.py
+    holds to the JAX package's key maps) through ``create_pretrained_model``
+    on the card: every float weight equal to the source's, the widened
+    encoders' MSB planes the float kernels; the load time.
+66. each model's served weights and ranges (phases 3, 18, 25, 44, 54) written
+    as a JAX ``export_model`` ``.npz`` (``models/convert.py:*_to_jax``)
+    through ``create_pretrained_model`` on the card: one serving forward
+    bitwise equal to the source model's, with the same launches; the load
+    time.
+67. ``python -m fqss_tpu_torch.infer`` with ``model_cfg.model_path`` the
+    flagship's ``.npz``, folded and int8, the two processes side by side.
+68. one KD step of ``-env asteroid`` (the flagship) and of ``-env htdemucs``
+    at batch 1 from a reference float ``.pth`` given as ``pretrained``, as the
+    recipes give it to ``create_model_and_teacher``: the teacher equal to the
+    pretrained model, the student's launches those of the module tree, a
+    finite loss.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -335,6 +357,7 @@ and prints no result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import copy
 import dataclasses
 import json
@@ -358,7 +381,9 @@ from fqss_tpu_torch.models.convtasnet_music import ConvTasNetMusic
 from fqss_tpu_torch.models.dptnet import DPTNet, split_segments
 from fqss_tpu_torch.models.htdemucs import HTDemucs
 from fqss_tpu_torch.models.sepformer import Sepformer, TransformerLayer
-from fqss_tpu_torch.models.factory import create_model, create_model_and_teacher, create_pretrained_model
+from fqss_tpu_torch.models import convert
+from fqss_tpu_torch.models.factory import (create_model, create_model_and_teacher, create_pretrained_model,
+                                           quant_spec_from_cfg)
 from fqss_tpu_torch.nn.attention import QMultiheadAttention
 from fqss_tpu_torch.data.librimix import make_mini_librimix
 from fqss_tpu_torch.nn.layers import QConv1d, QDense
@@ -378,6 +403,7 @@ from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.separation.ola import ola_infer
 from fqss_tpu_torch.serve import BEST_PATHS, make_int8_engine
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
+from fqss_tpu_torch.train.checkpoints import jax_export_entries
 from fqss_tpu_torch.train.recipes_music import _params_copy, make_music_optimizer, make_music_train_step
 from fqss_tpu_torch.train.state import TrainState
 from fqss_tpu_torch.train.trainer import TrainConfig, make_optimizer, make_train_step
@@ -588,7 +614,9 @@ MUSIC_CPU_SEG = 2 * MUSIC_SR  # the int8 engines' card-vs-CPU input, 1 x 2 s (th
 # block over the first blocks; scripts/music_noise_floor.py, PERF.md section 6). No float32 implementation meets 20 dB
 # there, so the full-depth forward is held to that own floor, measured in the same run, by phase 13's rule (SNR at
 # most 3 dB below the floor's, mean |difference| at most 1.5x the floor's); the 20 dB bound of every other model's
-# phase holds where the floor allows it, at the same width with one repeat (10 blocks; about 26 dB there).
+# phase holds where the floor allows it, at the same width with one repeat (10 blocks; about 26 dB there). The CPU
+# runs card vs CPU at that depth alone (phases 45 and 47): its full-depth forwards were the longest CPU work of the
+# run, and at full depth the card's own floor is what phase 47 holds the int8 engines to.
 MUSIC_PERTURB = 2.0**-22
 MUSIC_FLOOR_RULE = INT8_FLOOR["float32"]
 MUSIC_SHALLOW = {"n_repeats": 1}
@@ -597,7 +625,7 @@ MUSIC_SHALLOW = {"n_repeats": 1}
 # float32 engine read 55.3 dB at one block, 47.1 at 3, 37.9 at 6, 27.7 at 10, 22.4 at 20 and 18.7 at 40 (the float
 # encoder, norms and depthwise convs flip requantization ties, and the blocks amplify the flips as they do the
 # fake-quant forward's; scripts/music_noise_floor.py), and its own forward of the input times (1 + 2^-22) read 17.9 dB
-# from it at 40 (phase 47). So the engine is held to its own floor by MUSIC_FLOOR_RULE at full depth.
+# from it at 40 (phase 47). So the engine is held to its own floor by MUSIC_FLOOR_RULE, at MUSIC_SHALLOW's depth.
 # Card vs CPU on one post-window KD step (phase 52), the same rule: the L1 losses within LOSS_DB_TOL dB, and 1 - the
 # whole-gradient cosine at most MUSIC_FLOOR_RULE[1] times the card's own (its step on the stems times (1 + 2^-22)).
 # On an H100 card vs CPU read 0.998740 and the card's own 0.998815 at full depth; GRAD_COS_MIN (phase 10's bound)
@@ -619,9 +647,10 @@ HTDEMUCS_CFG = {"name": "HTDemucs", "model_path": None, "sources": MUSIC_CFG["so
 # tokens at E 384 in the transformer.
 HTD_SR, HTD_BATCH, HTD_SEG = 44100, 8, 343980
 HTD_OBSERVE = (2, 2 * HTD_SR, 50)  # ranges: the config's 50-step observer window over 2 x 2 s of stems (train=True)
-# Card vs CPU (phase 55) on one chunk: the full-depth forward is held to its own floor (the card against itself on
-# the input times 1 + 2^-22, MUSIC_FLOOR_RULE); >= 20 dB where the floor allows, at HTD_SHALLOW (the same width with
-# one transformer layer).
+# Card vs CPU (phase 55) on one chunk: >= 20 dB where the floor allows, at HTD_SHALLOW (the same width with one
+# transformer layer); the int8 engines card vs CPU there within their own floor (phase 57, MUSIC_FLOOR_RULE). At full
+# depth the card's own floor (its forward of the input times 1 + 2^-22) is what phase 57 holds the int8 engines to
+# against the fake-quant forward; the full-depth CPU forwards are left out as the music ones are.
 HTD_SHALLOW = {"t_layers": 1}
 # The gelu routes against their plain versions (phase 59): |gelu(a) - gelu(b)| <= 1.13 |a - b| (the largest slope of
 # the exact GELU, 1.1289), so K5's GELU route is held to phase 31's DENSE_RTOL of its pre-GELU bound times this.
@@ -640,7 +669,14 @@ HTD_EMA = (0.9995,)
 # (700 W) three runs of this phase read card vs CPU 2.6e-5-3.2e-5 against the card's own 1.2e-5-1.7e-5 (1.6-2.2x)
 # and, in two of them, the CPU's own 1.1e-5-1.5e-5; scripts/htdemucs_step_floor.py read 7.3e-6 against 6.1e-6 and
 # 3.4e-6, the three distances spread over the same parameters (the time branch's outer layers lead in each; two card
-# runs agree to 1e-12). Card vs CPU is the two devices' own noise added, not a fault of either.
+# runs agree to 1e-12). Card vs CPU is the two devices' own noise added, not a fault of either. A second check whose
+# rule did not move: the step at HTD_STEP_SHALLOW (one transformer layer, two encoder levels) after four steps at
+# 1 x 1 s (the MUSIC_TRAIN_WINDOW-step window and one more), against the card's own floor alone by phase 52's rule.
+# On an H100 (700 W) three runs read card vs CPU 1 - cos 9.3e-6-1.18e-5 against the card's own 1.6e-6-3.0e-6
+# (3.8-6.1x) and, in the last two, 2.1-2.9x the card's and the CPU's own floors added: at this depth the devices' own
+# floors shrink (less of the perturbation is amplified) and card vs CPU does not, so the rule fails; the phase reports
+# its verdict, the CPU's own floor and the ratio to the two floors' sum.
+HTD_STEP_SHALLOW = {"t_layers": 1, "depth": 2}
 HTD_RECIPE_SECONDS = 2.0  # the mini MUSDB of phase 64: 2 training tracks (one of them validation) and 1 test track
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8, float32, TF32 and bf16 rates.
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, TF32_OPS_S, BF16_OPS_S = 3.35e12, 1.979e15, 67e12, 495e12, 989e12
@@ -666,6 +702,23 @@ INT8_ROUTE = ("tensor cores: s8 mma.sync m16n8k32, persistent blocks with the we
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_CLOCK = {"start": time.perf_counter(), "last": time.perf_counter()}
+
+
+def clock(phases: str) -> None:
+    """Log the seconds of the phases just run and of the run so far."""
+    now = time.perf_counter()
+    log(f"[time] phases {phases}: {now - _CLOCK['last']:.1f} s; {now - _CLOCK['start']:.1f} s since the start")
+    _CLOCK["last"] = now
+
+
+def side_by_side(*calls) -> None:
+    """Run ``calls``, phases that each wait on a process of their own, in threads at once; a failure propagates."""
+    with concurrent.futures.ThreadPoolExecutor(len(calls)) as pool:
+        for future in [pool.submit(call) for call in calls]:
+            future.result()
 
 
 def cuda_ms(fn, n: int) -> float:
@@ -2538,18 +2591,24 @@ def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
     dpt = create_model(DPTNET_CFG, QuantSpec())
     check_lstm_backward(dev, dpt_lstm_shapes(1, DPT_TRAIN_SEG, dpt))  # 32.
     torch.cuda.empty_cache()
+    clock("31-32")
     launches, after_window = {}, {}
-    for name, cfg, seg, env in (("DPTNet", DPTNET_CFG, DPT_TRAIN_SEG, "asteroid"),
-                                ("Sepformer", SEPFORMER_CFG, SEP_TRAIN_SEG, "speechbrain")):
+    for name, cfg, seg in (("DPTNet", DPTNET_CFG, DPT_TRAIN_SEG), ("Sepformer", SEPFORMER_CFG, SEP_TRAIN_SEG)):
         state, run = train_model_at_full_width(dev, name, cfg, seg)  # 33.
         launches = {k: launches.get(k, 0) + v for k, v in run.items()}
         after_window[name] = TrainState(copy.deepcopy(state.model).cpu(), None, copy.deepcopy(state.teacher).cpu())
+        clock(f"33 {name}")
         train_step_times(dev, name, state, seg, smi)  # 35.
         del state
         torch.cuda.empty_cache()
-        recipe_epoch(name, env, cfg, RECIPE_SECONDS)  # 36.
+        clock(f"35 {name}")
+    # 36., the two recipes' processes side by side
+    side_by_side(lambda: recipe_epoch("DPTNet", "asteroid", DPTNET_CFG, RECIPE_SECONDS),
+                 lambda: recipe_epoch("Sepformer", "speechbrain", SEPFORMER_CFG, RECIPE_SECONDS))
+    clock("36")
     for name, cfg in (("DPTNet", DPTNET_CFG), ("Sepformer", SEPFORMER_CFG)):
         train_card_vs_cpu(dev, name, cfg, after_window[name])  # 34., from phase 33's state
+        clock(f"34 {name}")
     return dense_fwd, dense_bwd, launches
 
 
@@ -2759,12 +2818,15 @@ def per_forward(records: list[tuple]) -> list[tuple]:
     return [(*r, n) for r, n in counts.items()]
 
 
-def infer_cli_request(name: str, state: dict, model_cfg: dict, engine: str, seconds: int = 20) -> float:
+def infer_cli_request(name: str, state: dict | None, model_cfg: dict, engine: str, seconds: int = 20,
+                      model_path: str | None = None) -> float:
     """One ``seconds`` mixture through ``python -m fqss_tpu_torch.infer`` (its own process, on the card), the
-    config written as JSON with the weights and ranges of ``state``; returns the process's seconds."""
+    config written as JSON with the weights and ranges of ``state`` (or ``model_path``, a checkpoint on disk);
+    returns the process's seconds."""
     with tempfile.TemporaryDirectory() as tmp:
-        ckpt = os.path.join(tmp, "model_fqss8bit.pt")
-        torch.save(state, ckpt)
+        ckpt = model_path or os.path.join(tmp, "model_fqss8bit.pt")
+        if model_path is None:
+            torch.save(state, ckpt)
         conf = {"model_cfg": {**model_cfg, "model_path": ckpt},
                 "testing_cfg": {"segment_samples": 16000, "overlap": 0.25}}
         cfg_path, wav_path, out_dir = (os.path.join(tmp, f) for f in ("conf.json", "mixture.wav", "out"))
@@ -3166,30 +3228,27 @@ def music_forwards(dev, smi: str) -> tuple:
         f"{', '.join(f'{k}={v}' for k, v in launches.items() if v)} (K1 = act quantizers but the {want['qmatmul']} "
         f"K3 convs', one grouped weight launch, K3 = the bottleneck and the 40 pointwise convs), all others 0")
 
-    # 45. card vs CPU on one chunk: at the model's own floor at full depth, >= 20 dB at one repeat
-    x1, cpu_model = x[:1], music_on_cpu(served)
+    # 45. at full depth the card's own floor on one chunk (phase 47 holds the int8 engines to it); card vs CPU at one
+    # repeat, >= 20 dB (MUSIC_CPU_DEPTH)
+    x1 = x[:1]
     with torch.inference_mode():
-        y_card, y_cpu, y_own = served(x1).cpu(), cpu_model(x1.cpu()), served(x1 * (1 + MUSIC_PERTURB)).cpu()
-    snr, own, lsb = snr_db(y_cpu, y_card), snr_db(y_card, y_own), out_step(served)
-    floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / lsb)
-    own_mean = (y_own - y_card).abs().mean().item() / lsb
-    snr_min, mean_max = own.min().item() - MUSIC_FLOOR_RULE[0], own_mean * MUSIC_FLOOR_RULE[1]
-    if floor[0] < snr_min or floor[1] > mean_max:
-        raise AssertionError(f"music card vs CPU: SNR {snr.tolist()} dB (minimum {snr_min:.2f}), mean {floor[1]:.3f} "
-                             f"output steps (maximum {mean_max:.3f})")
-    log(f"[45] music card vs CPU on one chunk {tuple(x1.shape)}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} "
-        f"dB, mean {floor[1]:.4f} output steps; the card against itself on the input times (1 + 2^-22): "
-        f"{own.min().item():.2f}-{own.max().item():.2f} dB, mean {own_mean:.4f} steps: card vs CPU within that floor "
-        f"(SNR >= {snr_min:.2f}, mean <= {mean_max:.3f})")
+        y_card, y_own = served(x1).cpu(), served(x1 * (1 + MUSIC_PERTURB)).cpu()
+    own, lsb = snr_db(y_card, y_own), out_step(served)
+    floor = (own.min().item(), (y_own - y_card).abs().mean().item() / lsb)
+    log(f"[45] music at full depth, the card against itself on one chunk {tuple(x1.shape)} times (1 + 2^-22): "
+        f"{own.min().item():.2f}-{own.max().item():.2f} dB, mean {floor[1]:.4f} output steps (the floor of phase 47)")
     shallow = build_served_music(dev, **MUSIC_SHALLOW)
+    cpu_model = music_on_cpu(shallow)
+    t0 = time.perf_counter()
     with torch.inference_mode():
-        y_card, y_cpu = shallow(x1).cpu(), music_on_cpu(shallow)(x1.cpu())
+        y_card, y_cpu = shallow(x1).cpu(), cpu_model(x1.cpu())
+    cpu_s = time.perf_counter() - t0
     snr = snr_db(y_cpu, y_card)
     if not bool((snr >= 20).all()):
         raise AssertionError(f"music card vs CPU at {MUSIC_SHALLOW}: SNR {snr.tolist()} dB < 20 dB")
     log(f"[45] the same width at {MUSIC_SHALLOW} ({len(shallow.separator.blocks)} blocks): card vs CPU SNR "
-        f"{[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20)")
-    del shallow, y_own
+        f"{[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20); {cpu_s:.1f} s")
+    del y_own
 
     # 46. folded
     folded = fold_quantized_weights(served)
@@ -3224,24 +3283,29 @@ def music_forwards(dev, smi: str) -> tuple:
                                  f"{snr_min:.2f}), mean {mean_lsb:.3f} output steps (maximum {mean_max:.3f})")
         log(f"[47] music int8 engine ({dtype} float products) {tuple(x.shape)}: finite; launches int8_mm={sites} "
             f"(the bottleneck, 40 conv1x1, 40 pointwise, the mask conv, the decoder), all others 0; vs fake-quant "
-            f"SNR {snr8.min().item():.2f}-{snr8.max().item():.2f} dB (>= {snr_min:.2f}), mean {mean_lsb:.4f} output "
-            f"steps (<= {mean_max:.3f}), max {diff.max().item() / lsb:.2f}")
+            f"SNR {snr8.min().item():.2f}-{snr8.max().item():.2f} dB (>= {snr_min:.2f}, phase 45's floor), mean "
+            f"{mean_lsb:.4f} output steps (<= {mean_max:.3f}), max {diff.max().item() / lsb:.2f}")
         del y8, diff
     xc = x[:1, :, :MUSIC_CPU_SEG]
-    for dtype in INT8_CARD_VS_CPU:
-        y_card, y_cpu = engines[dtype](xc).cpu(), make_int8_engine(cpu_model, compute_dtype=dtype)(xc.cpu())
-        y_own = engines[dtype](xc * (1 + MUSIC_PERTURB)).cpu()
+    t0 = time.perf_counter()
+    for dtype in INT8_CARD_VS_CPU:  # at one repeat, within the engine's own floor there
+        engine = make_int8_engine(shallow, compute_dtype=dtype)
+        y_card, y_cpu = engine(xc).cpu(), make_int8_engine(cpu_model, compute_dtype=dtype)(xc.cpu())
+        y_own = engine(xc * (1 + MUSIC_PERTURB)).cpu()
         snr8, own = snr_db(y_cpu, y_card), snr_db(y_card, y_own)
-        mean8, own_mean = (y_card - y_cpu).abs().mean().item() / lsb, (y_own - y_card).abs().mean().item() / lsb
+        step_s = out_step(shallow)
+        mean8 = (y_card - y_cpu).abs().mean().item() / step_s
+        own_mean = (y_own - y_card).abs().mean().item() / step_s
         snr_min, mean_max = own.min().item() - MUSIC_FLOOR_RULE[0], own_mean * MUSIC_FLOOR_RULE[1]
         if snr8.min().item() < snr_min or mean8 > mean_max:
             raise AssertionError(f"music int8 engine ({dtype}) card vs CPU: SNR {snr8.tolist()} dB (minimum "
                                  f"{snr_min:.2f}), mean {mean8:.3f} output steps (maximum {mean_max:.3f})")
-        log(f"[47] music int8 engine ({dtype}) card vs CPU at {tuple(xc.shape)}: SNR "
+        log(f"[47] music int8 engine ({dtype}) card vs CPU at {tuple(xc.shape)}, {MUSIC_SHALLOW}: SNR "
             f"{snr8.min().item():.2f}-{snr8.max().item():.2f} dB, mean {mean8:.4f} output steps; the card against "
             f"itself on the input times (1 + 2^-22): {own.min().item():.2f}-{own.max().item():.2f} dB, mean "
             f"{own_mean:.4f}: within that floor (SNR >= {snr_min:.2f}, mean <= {mean_max:.3f})")
-    del cpu_model
+    log(f"[47] the two engines' card-vs-CPU runs in {time.perf_counter() - t0:.1f} s")
+    del cpu_model, shallow, engine
 
     # 48. throughput of every engine, bf16 compute included
     bf16 = create_model(MUSIC_CFG, dataclasses.replace(served.q, compute_dtype="bfloat16"))
@@ -3450,16 +3514,20 @@ def music_recipe_epoch() -> None:
 
 
 def serve_music(dev, smi: str) -> dict:
-    """Phases 44-53, the ConvTasNet-music slice; returns what the kernels line needs."""
+    """Phases 44-52, the ConvTasNet-music slice but its recipe epoch (53, run beside phase 64's); returns what the
+    kernels line needs."""
     launches, k3_shapes, k4_sites, throughput, state = music_forwards(dev, smi)  # 44-48.
     torch.cuda.empty_cache()
+    clock("44-48")
     qmm, k4 = music_kernels(dev, k3_shapes)  # 49.
+    clock("49")
     music_evaluation(dev, state)  # 50.
     torch.cuda.empty_cache()
+    clock("50")
     train = music_training(dev, smi)  # 51-52.
-    music_recipe_epoch()  # 53.
+    clock("51-52")
     return {"launches": launches, "k4_launches": k4_sites, "qmm": qmm, "k4": k4, "train": train,
-            "throughput": throughput}
+            "throughput": throughput, "state": state}
 
 
 def htdemucs_mix(seed: int, batch: int, length: int) -> np.ndarray:
@@ -3597,33 +3665,28 @@ def htdemucs_forwards(dev, smi: str) -> dict:
         f"the attentions' no-op and head sites, one grouped weight launch, K5 = linear2, K5-gelu = linear1, K8 = the "
         f"attentions: " + "; ".join(f"{s[0]} BH {s[1]} d {s[4]} x{s[5]}" for s in attn_shapes) + "), all others 0")
 
-    # 55. card vs CPU on one chunk: at the model's own floor at full depth, >= 20 dB at HTD_SHALLOW
-    x1, cpu_model = x[:1], htdemucs_on_cpu(served)
+    # 55. at full depth the card's own floor on one chunk (phase 57 holds the int8 engines to it); card vs CPU at
+    # HTD_SHALLOW, >= 20 dB
+    x1 = x[:1]
     with torch.inference_mode():
         y_card, y_own = served(x1, train=False).cpu(), served(x1 * (1 + MUSIC_PERTURB), train=False).cpu()
+    own, lsb = snr_db(y_card, y_own), htdemucs_out_step(served)
+    floor = (own.min().item(), (y_own - y_card).abs().mean().item() / lsb)
+    log(f"[55] HTDemucs at full depth, the card against itself on one chunk {tuple(x1.shape)} times (1 + 2^-22): "
+        f"{own.min().item():.2f}-{own.max().item():.2f} dB, mean {floor[1]:.4f} output steps (the floor of phase 57)")
+    shallow = build_served_htdemucs(dev, **HTD_SHALLOW)
+    cpu_model = htdemucs_on_cpu(shallow, **HTD_SHALLOW)
+    with torch.inference_mode():
+        y_card = shallow(x1, train=False).cpu()
         t0 = time.perf_counter()
         y_cpu = cpu_model(x1.cpu(), train=False)
         cpu_s = time.perf_counter() - t0
-    snr, own, lsb = snr_db(y_cpu, y_card), snr_db(y_card, y_own), htdemucs_out_step(served)
-    floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / lsb)
-    own_mean = (y_own - y_card).abs().mean().item() / lsb
-    snr_min, mean_max = own.min().item() - MUSIC_FLOOR_RULE[0], own_mean * MUSIC_FLOOR_RULE[1]
-    if floor[0] < snr_min or floor[1] > mean_max:
-        raise AssertionError(f"HTDemucs card vs CPU: SNR {snr.tolist()} dB (minimum {snr_min:.2f}), mean "
-                             f"{floor[1]:.3f} output steps (maximum {mean_max:.3f})")
-    log(f"[55] HTDemucs card vs CPU on one chunk {tuple(x1.shape)} (the CPU's forward {cpu_s:.1f} s): SNR "
-        f"{snr.min().item():.2f}-{snr.max().item():.2f} dB, mean {floor[1]:.4f} output steps; the card against itself "
-        f"on the input times (1 + 2^-22): {own.min().item():.2f}-{own.max().item():.2f} dB, mean {own_mean:.4f} steps: "
-        f"card vs CPU within that floor (SNR >= {snr_min:.2f}, mean <= {mean_max:.3f})")
-    shallow = build_served_htdemucs(dev, **HTD_SHALLOW)
-    with torch.inference_mode():
-        y_card, y_cpu = shallow(x1, train=False).cpu(), htdemucs_on_cpu(shallow, **HTD_SHALLOW)(x1.cpu(), train=False)
     snr = snr_db(y_cpu, y_card)
     if not bool((snr >= 20).all()):
         raise AssertionError(f"HTDemucs card vs CPU at {HTD_SHALLOW}: SNR {snr.tolist()} dB < 20 dB")
     log(f"[55] the same width at {HTD_SHALLOW}: card vs CPU SNR {snr.min().item():.2f}-{snr.max().item():.2f} dB "
-        f"(>= 20)")
-    del shallow, y_own
+        f"(>= 20; the CPU's forward {cpu_s:.1f} s)")
+    del y_own
 
     # 56. folded
     folded = fold_quantized_weights(served)
@@ -3660,25 +3723,30 @@ def htdemucs_forwards(dev, smi: str) -> dict:
         log(f"[57] HTDemucs int8 engine ({dtype} float products) {tuple(x.shape)}: finite; launches "
             f"{', '.join(f'{k}={v}' for k, v in got.items() if v)} ({gelu_launches[dtype]} K4 launches with the GELU "
             f"epilogue), all others 0; vs fake-quant SNR {snr8.min().item():.2f}-{snr8.max().item():.2f} dB (>= "
-            f"{snr_min:.2f}, phase 55's card-vs-CPU floor), mean {mean_lsb:.4f} output steps (<= {mean_max:.3f}), max "
+            f"{snr_min:.2f}, phase 55's floor), mean {mean_lsb:.4f} output steps (<= {mean_max:.3f}), max "
             f"{diff.max().item() / lsb:.2f}")
         del y8, diff
-    for dtype in INT8_CARD_VS_CPU:
+    t0 = time.perf_counter()
+    for dtype in INT8_CARD_VS_CPU:  # at HTD_SHALLOW, within the engine's own floor there
+        engine = make_int8_engine(shallow, compute_dtype=dtype)
         with torch.inference_mode():
-            y_card = engines[dtype](x1, train=False).cpu()
-            y_own = engines[dtype](x1 * (1 + MUSIC_PERTURB), train=False).cpu()
+            y_card = engine(x1, train=False).cpu()
+            y_own = engine(x1 * (1 + MUSIC_PERTURB), train=False).cpu()
             y_cpu = make_int8_engine(cpu_model, compute_dtype=dtype)(x1.cpu(), train=False)
         snr8, own = snr_db(y_cpu, y_card), snr_db(y_card, y_own)
-        mean8, own_mean = (y_card - y_cpu).abs().mean().item() / lsb, (y_own - y_card).abs().mean().item() / lsb
+        step_s = htdemucs_out_step(shallow)
+        mean8 = (y_card - y_cpu).abs().mean().item() / step_s
+        own_mean = (y_own - y_card).abs().mean().item() / step_s
         snr_min, mean_max = own.min().item() - MUSIC_FLOOR_RULE[0], own_mean * MUSIC_FLOOR_RULE[1]
         if snr8.min().item() < snr_min or mean8 > mean_max:
             raise AssertionError(f"HTDemucs int8 engine ({dtype}) card vs CPU: SNR {snr8.tolist()} dB (minimum "
                                  f"{snr_min:.2f}), mean {mean8:.3f} output steps (maximum {mean_max:.3f})")
-        log(f"[57] HTDemucs int8 engine ({dtype}) card vs CPU on one chunk: SNR {snr8.min().item():.2f}-"
-            f"{snr8.max().item():.2f} dB, mean {mean8:.4f} output steps; the card against itself on the input times "
-            f"(1 + 2^-22): {own.min().item():.2f}-{own.max().item():.2f} dB, mean {own_mean:.4f}: within that floor "
-            f"(SNR >= {snr_min:.2f}, mean <= {mean_max:.3f})")
-    del cpu_model
+        log(f"[57] HTDemucs int8 engine ({dtype}) card vs CPU on one chunk at {HTD_SHALLOW}: SNR "
+            f"{snr8.min().item():.2f}-{snr8.max().item():.2f} dB, mean {mean8:.4f} output steps; the card against "
+            f"itself on the input times (1 + 2^-22): {own.min().item():.2f}-{own.max().item():.2f} dB, mean "
+            f"{own_mean:.4f}: within that floor (SNR >= {snr_min:.2f}, mean <= {mean_max:.3f})")
+    log(f"[57] the two engines' card-vs-CPU runs in {time.perf_counter() - t0:.1f} s")
+    del cpu_model, shallow, engine
 
     # 58. throughput and peak memory of every engine
     audio_s = HTD_BATCH * HTD_SEG / HTD_SR
@@ -3820,7 +3888,7 @@ def serve_htdemucs(dev, smi: str) -> dict:
     out["k5"], out["k5_gelu"] = check_htdemucs_dense(dev, records)
     out["k4"], out["k4_gelu"] = check_htdemucs_int8(dev, records)
     torch.cuda.empty_cache()
-    htdemucs_evaluation(dev, out.pop("state"))  # 60.
+    htdemucs_evaluation(dev, out["state"])  # 60.
     return out
 
 
@@ -3976,7 +4044,40 @@ def htdemucs_training(dev, smi: str) -> dict:
         f"(1 + 2^-22): the card's cosine {own:.7f} (1 - cos {1 - own:.3e}), the CPU's {cpu_own:.7f} "
         f"({1 - cpu_own:.3e}); "
         f"card vs CPU within {MUSIC_FLOOR_RULE[1]} x their sum (>= {cos_min:.7f}); {time.perf_counter() - t0:.1f} s")
+    htdemucs_shallow_step_card_vs_cpu(dev, cfg, step)
     return {"launches": launches, "batch": batch, "ms": ms, "peak_gb": peak / 1e9, "gelu_bwd": gelu_bwd}
+
+
+def htdemucs_shallow_step_card_vs_cpu(dev, cfg: TrainConfig, step) -> None:
+    """Phase 63's second check: the htdemucs step at HTD_STEP_SHALLOW, card vs CPU against the card's own floor alone
+    (phase 52's rule, MUSIC_FLOOR_RULE), after four steps on the card at 1 x 1 s (the window and one more). The rule
+    was fixed before its first run, and it does not hold: card vs CPU read 3.8-6.1x the card's own on an H100 (the
+    note above HTD_STEP_SHALLOW). The failure stands, so the phase reports the rule's verdict, with the CPU's own
+    floor beside it, and raises only where the step is not finite or the losses leave LOSS_DB_TOL."""
+    t0 = time.perf_counter()
+    model_cfg = {**HTDEMUCS_CFG, **HTD_STEP_SHALLOW,
+                 "quantization": {**HTDEMUCS_CFG["quantization"], "max_observations": MUSIC_TRAIN_WINDOW}}
+    model, teacher = create_model_and_teacher(model_cfg, generator=torch.Generator().manual_seed(63))
+    model, teacher = model.to(dev), teacher.to(dev)
+    state = TrainState(model, make_music_optimizer(cfg, model_cfg, model), teacher)
+    gen = torch.Generator().manual_seed(63)
+    losses = [float(step(state, torch.from_numpy(music_stems(630 + i, 1, HTD_SR)).to(dev), gen)["loss"])
+              for i in range(MUSIC_TRAIN_WINDOW + 1)]
+    after = TrainState(copy.deepcopy(model).cpu(), None, copy.deepcopy(teacher).cpu())
+    del state, model, teacher
+    loss_db, cos, own, cpu_own = music_step_card_vs_cpu(dev, step, after, music_stems(64, 1, HTD_SR), cpu_own=True)
+    if not (np.isfinite(losses).all() and loss_db <= LOSS_DB_TOL):
+        raise AssertionError(f"htdemucs at {HTD_STEP_SHALLOW} card vs CPU train step: losses {losses}, loss "
+                             f"{loss_db} dB apart (at most {LOSS_DB_TOL})")
+    ratio = (1 - cos) / (1 - own)
+    verdict = ("holds" if ratio <= MUSIC_FLOOR_RULE[1] else
+               "does not hold (the failure stands: ROADMAP.md queue 3, phase 63's bound)")
+    log(f"[63] the same at {HTD_STEP_SHALLOW}: L1 losses {loss_db:.2e} dB apart (<= {LOSS_DB_TOL}), whole-gradient "
+        f"cosine {cos:.7f} (1 - cos {1 - cos:.3e}); each device's own step on the stems times (1 + 2^-22): the card's "
+        f"cosine {own:.7f} (1 - cos {1 - own:.3e}), the CPU's {cpu_own:.7f} ({1 - cpu_own:.3e}); card vs CPU "
+        f"{ratio:.2f} x the card's own: phase 52's rule ({MUSIC_FLOOR_RULE[1]} x the card's own) {verdict}; "
+        f"{(1 - cos) / ((1 - own) + (1 - cpu_own)):.2f} x the two own floors' sum; {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
 
 
 def htdemucs_recipe_epoch() -> None:
@@ -4028,7 +4129,270 @@ def htdemucs_recipe_epoch() -> None:
         f"{bname}; {test_line[-1]}; {done[-1]}")
 
 
+# The checkpoint-import slice (phases 65-69). A reference float checkpoint's key names, read backwards from the JAX
+# package's maps (fqss_tpu/models/convert.py:*_params_from_torch): for each family, rules that rename a key of the
+# port's float state dict into the reference's, applied in turn (re.sub), and the few tensors whose layout differs
+# (the LSTM's weights, which the port keeps in JAX's [C, 4H]; the 1x1 Conv2d kernels the port holds as dense ones).
+_NORM = (r"\.norm\.(weight|bias)$", r".\1")  # a LayerNorm/GroupNorm's scope: the reference's module is the norm itself
+REFERENCE_KEYS = {
+    "ConvTasNet": [
+        (r"^masker\.tcn_(\d+)_(\d+)\.", lambda m, model: f"masker.TCN.{int(m[1]) * model.n_blocks + int(m[2])}."),
+        (r"\.conv_in\.nl\.alpha$", ".shared_block.1.weight"), (r"\.conv_in\.", ".shared_block.0."),
+        (r"\.norm_in\.norm\.", ".shared_block.2."),
+        (r"\.conv_dw\.nl\.alpha$", ".shared_block.4.weight"), (r"\.conv_dw\.", ".shared_block.3."),
+        (r"\.norm_dw\.norm\.", ".shared_block.5."),
+        (r"^encoder\.conv\.", "encoder."), (r"^masker\.bottleneck_norm\.norm\.", "masker.bottleneck.0."),
+        (r"^masker\.bottleneck_conv\.", "masker.bottleneck.1."),
+        (r"^masker\.mask_prelu\.nl\.alpha$", "masker.mask_net.0.weight"),
+        (r"^masker\.mask_conv\.", "masker.mask_net.1."),
+    ],
+    "DPTNet": [
+        (r"^encoder\.conv\.", "encoder.conv1d_U."), (r"^enc_LN\.norm\.", "enc_LN."),
+        (r"^separator\.DPT\.(row|col)_(\d+)\.", r"separator.DPT.\1_transformer.\2.transformer."),
+        (r"\.self_attn\.out_proj_(weight|bias)$", r".self_attn.out_proj.\1"),
+        (r"\.lstm\.fw\.w_(ih|hh)$", r".lstm.weight_\1_l0"), (r"\.lstm\.bw\.w_(ih|hh)$", r".lstm.weight_\1_l0_reverse"),
+        (r"\.lstm\.fw\.b_(ih|hh)$", r".lstm.bias_\1_l0"), (r"\.lstm\.bw\.b_(ih|hh)$", r".lstm.bias_\1_l0_reverse"),
+        _NORM,
+        (r"^separator\.DPT\.out_prelu\.nl\.alpha$", "separator.DPT.output.0.weight"),
+        (r"^separator\.DPT\.out_conv\.", "separator.DPT.output.1."),
+        (r"^separator\.(output|output_gate)\.", r"separator.\1.0."), (r"^mask_conv1x1\.", "mask_conv1x1.0."),
+        (r"^decoder\.", "decoder.basis_signals."),
+    ],
+    "Sepformer": [
+        (r"^encoder\.conv\.", "encoder.0."), (r"^masker\.dp_(\d+)\.", r"masker.layers.\1."),
+        (r"\.layer_(\d+)\.", r".layers.\1."), (r"\.mha\.out_proj_(weight|bias)$", r".mha.out_proj.\1"),
+        (r"\.ffn_in\.", ".ffn.0."), (r"\.ffn_out\.", ".ffn.3."), _NORM,
+        (r"^masker\.prelu\.nl\.alpha$", "masker.prelu.weight"),
+        (r"^masker\.(net_out|net_gate|end_conv)\.", r"masker.\1.0."),
+    ],
+    "ConvTasNetMusic": [
+        (r"^encoder\.conv\.", "encoder.0."), (r"^separator\.layer_norm\.", "separator.network.0."),
+        (r"^separator\.bottleneck\.", "separator.network.1."), (r"^separator\.mask_conv\.", "separator.network.3."),
+        (r"^separator\.tcn_(\d+)_(\d+)\.", r"separator.network.2.\1.\2."),
+        (r"\.conv1x1\.nl\.alpha$", ".net.1.weight"), (r"\.conv1x1\.", ".net.0."),
+        (r"\.dsconv\.depthwise\.nl\.alpha$", ".net.3.net.1.weight"), (r"\.dsconv\.depthwise\.", ".net.3.net.0."),
+        (r"\.dsconv\.norm\.norm\.", ".net.3.net.2."), (r"\.dsconv\.pointwise\.", ".net.3.net.3."),
+        (r"\.norm\.norm\.", ".net.2."),
+    ],
+    "HTDemucs": [
+        (r"^(encoder|tencoder|decoder|tdecoder)_(\d+)\.", r"\1.\2."),
+        (r"\.dconv\.layer_(\d+)_conv\.norm\.", r".dconv.layers.\1.1."),
+        (r"\.dconv\.layer_(\d+)_conv\.", r".dconv.layers.\1.0."),
+        (r"\.dconv\.layer_(\d+)_mix\.norm\.", r".dconv.layers.\1.4."),
+        (r"\.dconv\.layer_(\d+)_mix\.", r".dconv.layers.\1.3."),
+        (r"\.dconv\.layer_(\d+)_scale\.", r".dconv.layers.\1.6."),
+        (r"^freq_emb\.embedding$", "freq_emb.embedding.weight"),
+        (r"^crosstransformer\.layer_t_(\d+)\.", r"crosstransformer.layers_t.\1."),
+        (r"^crosstransformer\.layer_(\d+)\.", r"crosstransformer.layers.\1."),
+        (r"\.(self_attn|cross_attn)\.out_proj_(weight|bias)$", r".\1.out_proj.\2"), _NORM,
+    ],
+}
+REFERENCE_LAYOUT = [  # (reference key, the tensor in the reference's layout)
+    (r"\.lstm\.weight_(ih|hh)_l0(_reverse)?$", lambda v: v.T),
+    (r"^(separator\.DPT\.output\.1|masker\.conv2d)\.weight$", lambda v: v[:, :, None, None]),
+]
+
+
+def reference_state_dict(name: str, model: torch.nn.Module) -> dict[str, torch.Tensor]:
+    """The reference float checkpoint of a float model of family ``name`` (its float state dict under the
+    reference's key names and layouts): what the JAX package's ``*_params_from_torch`` reads back into this model's
+    weights (``tests/test_torch_checkpoint_import.py`` holds it to JAX)."""
+    out = {}
+    for key, v in model.state_dict().items():
+        for pattern, repl in REFERENCE_KEYS[name]:
+            key = re.sub(pattern, (lambda m, r=repl: r(m, model)) if callable(repl) else repl, key)
+        for pattern, layout in REFERENCE_LAYOUT:
+            if re.search(pattern, key):
+                v = layout(v)
+        out[key] = v.detach().cpu().contiguous().clone()
+    return out
+
+
+IMPORT_CFGS = {"ConvTasNet": MODEL_CFG, "DPTNet": DPTNET_CFG, "Sepformer": SEPFORMER_CFG, "ConvTasNetMusic": MUSIC_CFG,
+               "HTDemucs": HTDEMUCS_CFG}
+TO_JAX = {"ConvTasNet": convert.convtasnet_to_jax, "DPTNet": convert.dptnet_to_jax,
+          "Sepformer": convert.sepformer_to_jax, "ConvTasNetMusic": convert.convtasnet_music_to_jax,
+          "HTDemucs": convert.htdemucs_to_jax}
+
+
+def write_reference_pth(path: str, name: str, source: torch.nn.Module) -> int:
+    """``source``'s float weights as a reference checkpoint as a KD run saves one: wrapped in ``state_dict``, every
+    key under ``model.``, with a stray ``fmodel.`` (teacher) key; returns the file's bytes."""
+    ref = reference_state_dict(name, source)
+    torch.save({"state_dict": {**{f"model.{k}": v for k, v in ref.items()}, "fmodel.encoder.weight": torch.zeros(3)}},
+               path)
+    return os.path.getsize(path)
+
+
+def write_jax_npz(path: str, name: str, state: dict) -> int:
+    """``state`` (a QAT model's weights, ranges and counters) as the JAX package's ``export_model`` writes its
+    variables: a flat ``.npz`` keyed ``collection/scope/.../name`` in JAX's layouts; returns the file's bytes."""
+    np.savez(path, **jax_export_entries(TO_JAX[name](state)))
+    return os.path.getsize(path)
+
+
+def import_input(name: str) -> torch.Tensor:
+    """Phase 66's serving input of the family: one mixture of 1 s (HTDemucs: one OLA chunk, HTD_SEG)."""
+    if name == "ConvTasNetMusic":
+        return torch.from_numpy(music_mix(66, 1, MUSIC_SR))
+    if name == "HTDemucs":
+        return torch.from_numpy(htdemucs_mix(66, 1, HTD_SEG))
+    return torch.from_numpy(synth_batch(np.random.default_rng(66), 1, 2, SR)[0])
+
+
+def import_reference(dev, name: str, tmp: str) -> None:
+    """Phase 65 for one family: a seeded float model at full width written as a reference ``.pth``, loaded through
+    ``create_pretrained_model`` on the card; every float weight equal to the source's, the splitter-widened encoder
+    holding it as its MSB plane."""
+    cfg = IMPORT_CFGS[name]
+    source = create_model(cfg, QuantSpec(), generator=torch.Generator().manual_seed(65))
+    path = os.path.join(tmp, f"{name}.pth")
+    size = write_reference_pth(path, name, source)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = create_pretrained_model({**cfg, "model_path": path}, observer=False, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    state, widened = model.state_dict(), []
+    for k, v in source.state_dict().items():
+        got = state[k].cpu()
+        if got.shape != v.shape:
+            widened.append(k)
+            got = got[:, : v.shape[1]]
+        if not torch.equal(got, v):
+            raise AssertionError(f"{name}: the imported {k} differs from the reference checkpoint's")
+    log(f"[65] {name}: a reference float checkpoint ({len(source.state_dict())} tensors under state_dict/model., one "
+        f"fmodel. key, {size / 2**20:.1f} MiB) through create_pretrained_model on the card in {load_s:.3f} s (the "
+        f"model's seeded init included): every float weight equal to the source model's, {', '.join(widened)} "
+        f"widened to {model.q.n_splitter} splitter planes with the MSB plane the float kernel; the quantizer ranges "
+        f"and the combiner's residual blocks at their init")
+
+
+def import_jax_npz(dev, name: str, state: dict, tmp: str) -> tuple[str, dict]:
+    """Phase 66 for one family: ``state`` (the QAT model an earlier phase served) written as a JAX ``.npz`` export,
+    loaded through ``create_pretrained_model`` on the card; one serving forward bitwise equal to the source model's,
+    with the same launches. Returns the file's path and the imported forward's launches."""
+    cfg = IMPORT_CFGS[name]
+    source = create_model(cfg, quant_spec_from_cfg(cfg, observer=False))
+    source.load_state_dict(state)
+    source = source.to(dev).eval()
+    path = os.path.join(tmp, f"{name}.npz")
+    size = write_jax_npz(path, name, state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = create_pretrained_model({**cfg, "model_path": path}, observer=False, device=dev)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = import_input(name).to(dev)
+    kw = {"train": False} if name == "HTDemucs" else {}
+    with torch.inference_mode():
+        reset_all_launches()
+        want_y = source(x, **kw)
+        torch.cuda.synchronize()
+        want = all_launches()
+        reset_all_launches()
+        y = model(x, **kw)
+        torch.cuda.synchronize()
+        got = all_launches()
+    if not torch.equal(y, want_y) or got != want or not any(got.values()) or not torch.isfinite(y).all():
+        raise AssertionError(f"{name}: the .npz import's forward: launches {got} (the source's {want}), max |diff| "
+                             f"{(y - want_y).abs().max().item()}")
+    with np.load(path) as f:
+        arrays = len(f.files)
+    log(f"[66] {name}: a JAX export (.npz, {arrays} arrays, {size / 2**20:.1f} MiB) of the weights "
+        f"and ranges served above, through create_pretrained_model on the card in {load_s:.3f} s: a forward "
+        f"{tuple(x.shape)} -> {tuple(y.shape)} bitwise equal to the source model's, launches "
+        f"{', '.join(f'{k}={v}' for k, v in got.items() if v)} as the source's")
+    return path, got
+
+
+def kd_step_from_pretrained(dev, env: str, tmp: str) -> dict:
+    """Phase 68 for one recipe: ``-env asteroid`` (the flagship ConvTasNet, TRAIN_CFG, 1 x TRAIN_SEG) or ``-env
+    htdemucs`` (HTDEMUCS_CFG, the recipe's step and optimizer, 1 x HTD_TRAIN_SEG): a seeded float model at full
+    width written as a reference ``.pth`` and given as ``training_cfg.pretrained`` is given,
+    ``create_model_and_teacher(model_cfg, pretrained)``; the teacher equal to the source, one KD step at batch 1
+    launching the module tree's kernels, a finite loss. Returns the step's launches."""
+    name, cfg = ("ConvTasNet", TRAIN_CFG) if env == "asteroid" else (
+        "HTDemucs", {**HTDEMUCS_CFG, "quantization": {**HTDEMUCS_CFG["quantization"],
+                                                      "max_observations": MUSIC_TRAIN_WINDOW}})
+    source = create_model(cfg, QuantSpec(), generator=torch.Generator().manual_seed(68))
+    path = os.path.join(tmp, f"{name}_teacher.pth")
+    write_reference_pth(path, name, source)
+    t0 = time.perf_counter()
+    model, teacher = create_model_and_teacher(cfg, path, generator=torch.Generator().manual_seed(0))
+    load_s = time.perf_counter() - t0
+    for k, v in source.state_dict().items():
+        if not torch.equal(teacher.state_dict()[k], v):
+            raise AssertionError(f"-env {env}: the teacher's {k} differs from the pretrained model's")
+    model, teacher = model.to(dev), teacher.to(dev)
+    if env == "asteroid":
+        state = new_train_state(model, teacher)
+        fwd, bwd = count_quantizers(model.modules()), backward_quantizers(model)
+        want = no_launches(act=fwd["act"], weight=1, act_bwd=bwd["act"], weight_bwd=1,
+                           qmatmul=fused_convs(teacher)["qmatmul"])
+        mix, src = synth_batch(np.random.default_rng(68), 1, 2, TRAIN_SEG)
+        seconds = TRAIN_SEG / SR
+
+        def run() -> dict:
+            return make_train_step(TrainConfig())(state, torch.from_numpy(mix).to(dev), torch.from_numpy(src).to(dev))
+    else:
+        tcfg = TrainConfig(lr=3e-4, grad_clip=0.0)
+        state = TrainState(model, make_music_optimizer(tcfg, cfg, model), teacher)
+        step = make_music_train_step(tcfg, HTD_AUGMENT, weight_kind="exp", is_htdemucs=True,
+                                     source_weights=np.ones(len(HTDEMUCS_CFG["sources"]), np.float32),
+                                     batch_ema_decays=HTD_EMA)
+        emas = [_params_copy(model) for _ in HTD_EMA]
+        want = htdemucs_train_launches(model, teacher)
+        stems = torch.from_numpy(music_stems(68, 1, HTD_TRAIN_SEG)).to(dev)
+        seconds = HTD_TRAIN_SEG / HTD_SR
+
+        def run() -> dict:
+            return step(state, stems, torch.Generator().manual_seed(68), emas)
+    reset_all_launches()
+    loss = float(run()["loss"])
+    torch.cuda.synchronize()
+    got = all_launches()
+    if got != want or not math.isfinite(loss) or state.skipped:
+        raise AssertionError(f"-env {env} step from pretrained: launches {got} != {want}, loss {loss}")
+    log(f"[68] -env {env}: {name} at full width from a reference float checkpoint as training_cfg.pretrained "
+        f"(create_model_and_teacher in {load_s:.2f} s, on the CPU): the teacher equal to the pretrained model; one KD "
+        f"step of 1 x {seconds:g} s on the card, loss {loss:.4f}, finite, launches "
+        f"{', '.join(f'{k}={v}' for k, v in got.items() if v)} (the module tree's)")
+    del state, model, teacher
+    torch.cuda.empty_cache()
+    return got
+
+
+def checkpoint_import(dev, states: dict) -> dict:
+    """Phases 65-68, the checkpoint-import slice at full width: reference ``.pth`` files and JAX ``.npz`` exports of
+    the five models through ``create_pretrained_model``, ``python -m fqss_tpu_torch.infer`` on the flagship's
+    ``.npz``, and a KD step of ``-env asteroid`` and ``-env htdemucs`` from a reference ``pretrained:``. Returns the
+    launches of the imported forwards and steps, summed."""
+    total: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name in IMPORT_CFGS:  # 65.
+            import_reference(dev, name, tmp)
+            torch.cuda.empty_cache()
+        paths = {}
+        for name in IMPORT_CFGS:  # 66.
+            paths[name], got = import_jax_npz(dev, name, states[name], tmp)
+            total = {k: total.get(k, 0) + v for k, v in got.items()}
+            torch.cuda.empty_cache()
+        def request(engine: str) -> None:  # 67., the two processes side by side
+            sec = infer_cli_request("ConvTasNet", None, MODEL_CFG, engine, model_path=paths["ConvTasNet"])
+            log(f"[67] python -m fqss_tpu_torch.infer --engine {engine} with model_cfg.model_path the flagship's .npz: "
+                f"a 20 s mixture -> 2 sources of 20 s, finite, in {sec:.1f} s (the process included, beside the "
+                f"other engine's)")
+
+        side_by_side(lambda: request("folded"), lambda: request("int8"))
+        for env in ("asteroid", "htdemucs"):  # 68.
+            got = kd_step_from_pretrained(dev, env, tmp)
+            total = {k: total.get(k, 0) + v for k, v in got.items()}
+    return total
+
+
 def main() -> None:
+    _CLOCK["start"] = _CLOCK["last"] = time.perf_counter()
     # 0. device
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
@@ -4049,6 +4413,8 @@ def main() -> None:
     dense_kernel_report(built.log)
     lstm_int8_kernel_report(built.log)
     attention_kernel_report(built.log)
+
+    clock("0-1")
 
     # 2. kernels vs plain versions on the card
     act = check_act_kernel(dev)
@@ -4166,21 +4532,30 @@ def main() -> None:
     del served, x, y
     torch.cuda.empty_cache()
 
+    clock("2-16")
+
     # 17-23. the DPTNet serving path (launch counts set to 0 inside before each run they check)
     k6, k7, dpt_launches, dpt_attn_shapes, dpt_k3_shapes, states["DPTNet"], dpt_k4 = serve_dptnet(dev, smi)
     torch.cuda.empty_cache()
+
+    clock("17-23")
 
     # 24-30. K8 and the Sepformer serving path (launch counts set to 0 inside before each run they check)
     attn, sep_launches, sep_k3_shapes, states["Sepformer"], sep_k4 = serve_sepformer(dev, smi, dpt_attn_shapes)
     torch.cuda.empty_cache()
 
+    clock("24-30")
+
     # 31-36. K5, K5-bwd, the LSTM backward and DPTNet and Sepformer training (launch counts set to 0 inside)
     dense_fwd, dense_bwd, train_model_launches = train_models(dev, smi)
     torch.cuda.empty_cache()
 
+
     # 37-39. K3 at the shapes of phases 18 and 25, streaming and --engine auto (launch counts set to 0 inside)
     qmm = k3_slice(dev, smi, [*dpt_k3_shapes, *sep_k3_shapes], states)
     torch.cuda.empty_cache()
+
+    clock("37-39")
 
     # 40-42. bf16 compute on the three models' serving path (launch counts set to 0 inside before each forward)
     k5_shapes, k3_shapes, attn_shapes, bf16_launches = serve_bf16(dev, smi, states)
@@ -4191,20 +4566,30 @@ def main() -> None:
     attn16 = check_bf16_attention(dev, attn_shapes)
     torch.cuda.empty_cache()
 
-    # 44-53. the ConvTasNet-music slice (launch counts set to 0 inside before each run they check)
+    # 44-52. the ConvTasNet-music slice (launch counts set to 0 inside before each run they check)
+    clock("40-43")
     music = serve_music(dev, smi)
     music_k3, music_k4, music_train = music["qmm"], music["k4"], music["train"]
+    states["ConvTasNetMusic"] = music["state"]
     torch.cuda.empty_cache()
 
     # 54-60. the HTDemucs serving slice (launch counts set to 0 inside before each run they check)
     htd = serve_htdemucs(dev, smi)
     htd_launches, htd_attn, htd_attn16 = htd["launches"], htd["attn"], htd["attn16"]
+    states["HTDemucs"] = htd["state"]
     torch.cuda.empty_cache()
+    clock("54-60")
 
     # 61-64. the HTDemucs training slice (launch counts set to 0 inside before each run they check)
     htd_train = htdemucs_training(dev, smi)  # 61-63.
     htd_train_launches = htd_train["launches"]
-    htdemucs_recipe_epoch()  # 64.
+    clock("61-63")
+    side_by_side(music_recipe_epoch, htdemucs_recipe_epoch)  # 53 and 64, the two recipes' processes side by side
+    clock("53, 64")
+
+    # 65-68. checkpoint import (launch counts set to 0 inside before each forward and step they check)
+    imported = checkpoint_import(dev, states)
+    clock("65-68")
 
     def bf16_keys(res: dict, launches: int, route: str) -> dict:
         """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
@@ -4341,6 +4726,14 @@ def main() -> None:
              bf16_library_note=qmm16["library_note"], music_launches=music["launches"]["qmatmul"],
              **{f"music_{k}": music_k3[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err")}),
     ]
+    # import_launches: the launches of phase 66's imported forwards and phase 68's KD steps from pretrained, summed.
+    rows = {"act_fake_quant": "act", "weight_fake_quant": "weight", "act_fake_quant_bwd": "act_bwd",
+            "weight_fake_quant_bwd": "weight_bwd", "int8_matmul_requant": "int8_mm", "bilstm_sequence": "bilstm",
+            "lstm_sequence": "lstm", "fused_attention": "attention", "qat_dense": "dense",
+            "qat_dense_gelu": "dense_gelu", "qat_dense_bwd": "dense_mask", "qat_dense_bwd_gelu": "dense_mask_gelu",
+            "qmatmul": "qmatmul"}
+    for row in kernels:
+        row["import_launches"] = imported.get(rows.get(row["name"]), 0)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

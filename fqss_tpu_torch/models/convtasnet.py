@@ -103,6 +103,7 @@ class ConvTasNet(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.n_srcs, self.n_filters, self.q = n_srcs, n_filters, q
+        self.n_blocks, self.n_repeats = n_blocks, n_repeats
         self.encoder = QConv1dEncoder(q.n_splitter, n_filters, kernel_size, stride=stride, q=q,
                                       generator=generator)
         self.masker = MaskGenerator(n_filters, n_srcs, mask_kernel_size, bn_chan, hid_chan, n_blocks, n_repeats,

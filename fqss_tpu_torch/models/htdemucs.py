@@ -246,6 +246,7 @@ class HTDemucs(nn.Module):
         self.n_srcs, self.audio_channels, self.nfft, self.depth = len(self.sources), audio_channels, nfft, depth
         self.samplerate, self.segment = samplerate, segment
         self.t_layers, self.t_heads, self.bottom_channels = t_layers, t_heads, bottom_channels
+        self.dconv_depth = dconv_depth
         self.freq_emb_weight = freq_emb_weight
         self.transformer_override = None
         chin_t = audio_channels * q.n_splitter

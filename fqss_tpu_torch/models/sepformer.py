@@ -177,6 +177,7 @@ class Sepformer(nn.Module):
             q = dataclasses.replace(q, train_res_dec=True)
         g = generator
         self.n_srcs, self.n_filters, self.n_heads, self.q = n_srcs, n_filters, n_heads, q
+        self.n_repeats, self.n_layers = n_repeats, n_layers
         self.encoder = QConv1dEncoder(q.n_splitter, n_filters, kernel_size, stride=stride, nl="relu", q=q,
                                       generator=g)
         self.masker = MaskGenerator(n_srcs, n_filters, n_repeats, n_heads, chunk_size, n_ffn, n_layers, q=q,

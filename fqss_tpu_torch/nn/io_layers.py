@@ -39,7 +39,8 @@ Tensor = torch.Tensor
 
 def expand_encoder_kernel(kernel: Tensor, n_splitter: int, generator: torch.Generator | None = None,
                           lsb_init: str = "gauss") -> Tensor:
-    """Widen a float encoder weight ``[Cout, Cin, k]`` to ``n_splitter * Cin`` input channels.
+    """Widen a float encoder weight ``[Cout, Cin, k]`` (or a 2-D one, ``[Cout, Cin, kh, kw]``) to ``n_splitter *
+    Cin`` input channels.
 
     The new channel groups (the LSB-plane inputs) are initialised per
     ``lsb_init``:

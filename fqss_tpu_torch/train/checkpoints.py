@@ -10,6 +10,9 @@
 * :func:`export_model` writes the student's state dict, the file that
   ``models/factory.py:create_pretrained_model`` loads through
   ``model_path`` (the reference's ``best_model.pth``).
+* :func:`restore_jax_export` reads the JAX package's ``.npz`` exports
+  (``fqss_tpu/train/checkpoints.py:export_model``) with numpy alone;
+  :func:`jax_export_entries` gives their flat keys.
 * :func:`dump_config` writes ``conf.yml`` (asteroid_librimix_trainer.py:166-171),
   :func:`save_log` appends to ``results.txt`` (utils.py:16-21).
 """
@@ -20,8 +23,10 @@ import json
 import math
 import os
 import re
+import zipfile
 from typing import Any, Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -112,6 +117,70 @@ def export_model(path: str, model: nn.Module) -> None:
     """The model's state dict on the CPU, written atomically (the 'best_model.pth' analog)."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     _atomic_save({k: v.detach().cpu() for k, v in model.state_dict().items()}, path)
+
+
+def jax_export_entries(variables: Mapping, prefix: str = "") -> dict[str, np.ndarray]:
+    """Nested variables as the flat ``collection/scope/.../name`` entries of the JAX package's ``export_model``."""
+    out: dict[str, np.ndarray] = {}
+    for k, v in variables.items():
+        if isinstance(v, Mapping):
+            out.update(jax_export_entries(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = np.asarray(v)
+    return out
+
+
+def is_npz(path: str) -> bool:
+    """True if ``path`` is a numpy ``.npz`` archive (a zip of ``.npy`` members; ``torch.save``'s zips hold a
+    pickle)."""
+    if not zipfile.is_zipfile(path):
+        return False
+    with zipfile.ZipFile(path) as z:
+        names = z.namelist()
+    return bool(names) and all(n.endswith(".npy") for n in names)
+
+
+def _pending_mse(data: Mapping[str, np.ndarray]) -> list[str]:
+    """The quantizers of an export whose MSE histogram is not calibrated yet (``fqss_tpu/quant/calibration.py:27``
+    ``has_pending_mse``)."""
+    return [k.removesuffix("/calibrated") for k in data
+            if k.startswith("qstats/") and k.endswith("/calibrated") and not bool(data[k])
+            and k.removesuffix("calibrated") + "hist" in data]
+
+
+def restore_jax_export(path: str, template: Mapping) -> dict:
+    """The variables of a JAX ``export_model`` file, nested as ``template`` (e.g. ``models/convert.py:*_to_jax`` of
+    the model's state dict) and cast to its dtypes, as ``fqss_tpu/train/checkpoints.py:restore_variables`` loads
+    them: every key of ``template`` must be in the file (``ValueError: Missing key in checkpoint: <key>``), other
+    keys of the file are not read, ``macs/`` is never persisted.
+
+    Refused by name: an orbax checkpoint directory (reading it needs orbax), and an export taken inside an MSE
+    observer window (its histograms carry no ranges yet; the JAX package calibrates them on import, which waits for
+    the port's MSE quantizer, ROADMAP.md queue 1 item 3)."""
+    if os.path.isdir(path):
+        raise ValueError(f"{path}: an orbax checkpoint directory of the JAX package; reading it needs orbax, which "
+                         "the port does not use. Export the variables with fqss_tpu.train.checkpoints.export_model "
+                         "(.npz) instead.")
+    try:
+        with np.load(path, allow_pickle=False) as f:
+            data = {k: f[k] for k in f.files}
+    except Exception as e:
+        raise ValueError(f"{path}: not readable as a .npz export of the JAX package: {e}") from e
+    pending = _pending_mse(data)
+    if pending:
+        raise ValueError(f"{path}: a JAX export taken inside an MSE observer window ({len(pending)} quantizers with "
+                         f"uncalibrated histograms, e.g. {pending[0]}); finishing that calibration needs the MSE "
+                         "quantizer, which is not ported yet (ROADMAP.md, queue 1 item 3: MSE calibration)")
+    out: dict = {}
+    for key, leaf in jax_export_entries({k: v for k, v in template.items() if k != "macs"}).items():
+        if key not in data:
+            raise ValueError(f"Missing key in checkpoint: {key}")
+        *scope, name = key.split("/")
+        node = out
+        for part in scope:
+            node = node.setdefault(part, {})
+        node[name] = data[key].astype(leaf.dtype)
+    return out
 
 
 def dump_config(work_dir: str, config: dict) -> None:

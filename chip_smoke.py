@@ -185,7 +185,8 @@ after each group of phases, and lets any failure propagate:
     act quantizer reaching the loss, the grouped weight kernels once each
     way; finite losses.
 34. card vs CPU: one post-window step at 1 x 1 s, the quantized model and its
-    float version, loss and whole-gradient cosine within TRAIN_CARD_VS_CPU.
+    float version, loss and whole-gradient cosine within TRAIN_CARD_VS_CPU
+    (DPTNet cut to the first 2 of phase 33's 6 dual-path layers).
 35. train-step time and peak memory of both models at batch 1 and the
     largest of 2, 4, 8 that fits.
 36. one recipe epoch of each config (``-env asteroid`` DPTNet,
@@ -349,6 +350,31 @@ after each group of phases, and lets any failure propagate:
     recipes give it to ``create_model_and_teacher``: the teacher equal to the
     pretrained model, the student's launches those of the module tree, a
     finite loss.
+69. the reference's other quantizers on the flagship (``in_quant``,
+    ``inout_nl_quant``: mu-law I/O grids, ``act_quantizer: mse``, a 3-step
+    window): KD steps of 16 x 3 s, 3 inside the window, the host's MSE
+    calibration (its seconds and quantizers), 5 after it, every step's
+    launches those of the module tree (the mu-law sites' inner K1 and K1-bwd
+    among them); the mu-law quantizer on the card against its plain version
+    on the CPU; one MSE quantizer fed the same five activations on the card
+    and on the CPU (bin counts, window ends and counter bitwise, the re-binned
+    histogram within MSE_HIST_L1 of the total count); the calibrated step
+    card vs CPU by phase 10's rule.
+70. phase 69's calibrated flagship served at 32 x 12 s: fake_quant and folded
+    bitwise equal, launches those of the module tree, card vs CPU >= 20 dB at
+    one repeat of the TCN, the int8 engine refused (a mu-law output grid) and
+    ``auto`` serving the folded model, the throughput of both, ``infer`` on the
+    state written as a JAX ``.npz``, and the deploy grids of
+    ``export_quantizer_grids`` by kind.
+71. DPTNet (``configs/dptnet_2spks_8k.yaml``'s model) with ``train_res_dec``
+    and ``act_quantizer: mse``: the grouped weight kernels at its 93 weight
+    quantizers against their plain versions (phases 2 and 8's rules); KD
+    steps of 1 x 3 s, 3 inside the window, the calibration, 2 after it, every
+    step's launches those of the module tree (K5/K5-bwd under the MSE flag,
+    K8 by the composition rule while the head quantizer observes); then at
+    8 x 4 s fake_quant, folded (bitwise equal) and the int8 engines with the
+    trained residual plane (phase 13's floor rule), card vs CPU (phase 19's
+    rule), ``auto`` and the throughputs.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -398,10 +424,15 @@ from fqss_tpu_torch.ops import lstm as lk
 from fqss_tpu_torch.ops import qat_dense as qd
 from fqss_tpu_torch.ops import qmatmul as qm
 from fqss_tpu_torch.quant.fake_quant import bf16_round
-from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer, weight_pass, weight_quantizer_sites
+from fqss_tpu_torch.quant import histogram
+from fqss_tpu_torch.quant.calibration import calibrate_mse_quantizers, has_pending_mse
+from fqss_tpu_torch.quant.export import export_quantizer_grids
+from fqss_tpu_torch.quant.quantizers import (ActQuantizer, MseActQuantizer, WeightQuantizer, weight_pass,
+                                             weight_quantizer_sites)
 from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.separation.ola import ola_infer
 from fqss_tpu_torch.serve import BEST_PATHS, make_int8_engine
+from fqss_tpu_torch.serve.autopath import auto_serving_model
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
 from fqss_tpu_torch.train.checkpoints import jax_export_entries
 from fqss_tpu_torch.train.recipes_music import _params_copy, make_music_optimizer, make_music_train_step
@@ -564,6 +595,9 @@ LSTM_GRAD_TOL = 1e-6  # relative to the gradient's largest magnitude
 # phase 10's bounds for the float versions, whose differences are float32 sums alone, and for the quantized
 # models, whose tie flips phase 10's ConvTasNet met with 10x room.
 TRAIN_CARD_VS_CPU = {"float": (LOSS_DB_TOL, GRAD_COS_MIN), "quantized": (LOSS_DB_TOL, GRAD_COS_MIN)}
+# Phase 34's DPTNet is cut to the first DPT_CPU_LAYERS of phase 33's dual-path layers: its CPU step at all 6 took
+# 30 s, the largest CPU run of the script.
+DPT_CPU_LAYERS = 2
 # The K3 slice (phases 37-39). K3 against its plain version (phase 37) with K5's rules (DENSE_RTOL,
 # DENSE_GRID_SHARE: the same kernel, 3xTF32 on the tensor cores), at the shapes that phases 18 and 25 gave it and
 # at odd ones (B, K, T, N): ragged tiles on every axis, rows of 37, 301, 1030 and 203 floats (not 16-byte
@@ -681,6 +715,26 @@ HTD_RECIPE_SECONDS = 2.0  # the mini MUSDB of phase 64: 2 training tracks (one o
 # The H100 SXM's published peaks (NVIDIA's data sheet): device memory, dense int8, float32, TF32 and bf16 rates.
 HBM_BYTES_S, INT8_OPS_S, F32_OPS_S, TF32_OPS_S, BF16_OPS_S = 3.35e12, 1.979e15, 67e12, 495e12, 989e12
 # The route K5, K5-bwd and K3 take: three TF32 tensor-core products for each float32 one.
+# The quantizer variants (phases 69-71): the flagship with the mu-law I/O grids and the MSE quantizer, its window cut
+# to 3 steps as phase 9's, at the train step of phase 11 (16 x 3 s); DPTNet with the trained residual decoder of its
+# Linear decoder and the MSE quantizer, at phase 33's batch of 1 x 3 s.
+VARIANT_CFG = {**TRAIN_CFG, "quantization": {**TRAIN_CFG["quantization"], "in_quant": True, "inout_nl_quant": True,
+                                             "act_quantizer": "mse", "max_observations": 3}}
+VARIANT_STEPS = (3, 5)  # KD steps inside the window, then after the calibration
+VARIANT_KEYS = ("in_quant", "inout_nl_quant", "act_quantizer", "max_observations")
+RES_DEC_CFG = {**DPTNET_CFG, "quantization": {**DPTNET_CFG["quantization"], "train_res_dec": True,
+                                              "act_quantizer": "mse", "max_observations": 3}}
+RES_DEC_STEPS = (3, 2)
+RES_DEC_WEIGHT_QUANTIZERS = 93  # DPTNet's 92 and the residual decoder's
+# The MSE observer card vs CPU (phase 69): five activations of the flagship's bottleneck width at the train step's
+# batch. The bin counts and the window are exact on both devices; the re-binned histogram is a float32 CDF
+# interpolation, which a device may sum or contract otherwise: its L1 distance within MSE_HIST_L1 of the count.
+MSE_OBSERVE_SHAPE = (TRAIN_BATCH, 128, (TRAIN_SEG - 16) // 8 + 1)
+MSE_HIST_L1 = 1e-5
+# The mu-law quantizer on the card against its plain version on the CPU (phase 69): the compress and expand steps
+# are log1p and pow of each device, which may differ by ulps; where that moves a value across a rounding tie of the
+# inner grid it moves one code, as on every act grid (DENSE_GRID_SHARE of them at most).
+MULAW_REL_TOL = 1e-5
 DENSE_ROUTE = "tensor cores: 3xTF32 mma.sync m16n8k8, 3-stage cp.async ring"
 # The routes of K7/K6 and K4.
 LSTM_ROUTE = ("CUDA cores, float32 FMA: thread-block clusters, each CTA's W_hh slice resident in shared memory, h "
@@ -1022,7 +1076,7 @@ def weight_group_bound(group: fq.WeightGroup, backward: bool) -> dict:
                     (10 if backward else 5) * group.total, F32_OPS_S)
 
 
-def check_weight_groups(dev) -> tuple[dict, dict]:
+def check_weight_groups(dev, models: dict | None = None, phase: int = 2) -> tuple[dict, dict]:
     """Phase 2: the grouped forward kernel against its plain version on the card, at each model's full weight set.
 
     The observing call in train() mode (outputs = the weights, the observers' written ranges and flags), then,
@@ -1030,7 +1084,7 @@ def check_weight_groups(dev) -> tuple[dict, dict]:
     all bitwise (``torch.equal``). Returns each model's times and bound, and the groups and buffers of the second
     call for phase 8."""
     results, pairs = {}, {}
-    for name, model in weight_group_models(dev).items():
+    for name, model in (models or weight_group_models(dev)).items():
         other = copy.deepcopy(model)
         gk, gp = group_of(model), group_of(other)
         buf = fq._group_forward(gk)
@@ -1060,7 +1114,7 @@ def check_weight_groups(dev) -> tuple[dict, dict]:
         pass_ms = weight_pass_ms(model)
         results[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "call_ms": call_ms, "pass_ms": pass_ms,
                          **weight_group_bound(gk, False)}
-        log(f"[2] grouped weight_fake_quant, {name}: {len(gk)} quantizers, {gk.channels} channels, {gk.total} "
+        log(f"[{phase}] grouped weight_fake_quant, {name}: {len(gk)} quantizers, {gk.channels} channels, {gk.total} "
             f"elements, {gk.blocks} blocks; the observing call (train) and the serving call (eval, planted ties) "
             f"bitwise equal to the plain version, written ranges and flags too; kernel {ms:.4f} ms (one launch), "
             f"bound {results[name]['bound_ms'] * 1e3:.2f} us ({results[name]['bound_ms'] / ms:.1%}); the wrapper "
@@ -1085,7 +1139,7 @@ def weight_pass_ms(model, n: int = 100) -> float:
     return (time.perf_counter() - t0) / n * 1e3
 
 
-def check_weight_group_bwd(dev, pairs: dict) -> dict:
+def check_weight_group_bwd(dev, pairs: dict, phase: int = 8) -> dict:
     """Phase 8: the grouped backward kernel against its plain version at each model's full weight set (phase 2's
     groups after their serving call): ``dw`` bitwise, range gradients within SUM_RTOL of sum |term|, with every
     seventh entry's gradient absent and the 2-D entries' gradients transposed in turn (as ``x @ w.t()`` hands them
@@ -1131,7 +1185,7 @@ def check_weight_group_bwd(dev, pairs: dict) -> dict:
         plain_ms = cuda_ms(lambda: fq.weight_group_backward_ref(gp, ref, full), 3)
         results[name] = {"ms": ms, "plain_ms": plain_ms, "max_abs_err": err, "call_ms": call_ms,
                          **weight_group_bound(gk, True)}
-        log(f"[8] grouped weight_fake_quant backward, {name}: {len(gk)} quantizers ({transposed} transposed "
+        log(f"[{phase}] grouped weight_fake_quant backward, {name}: {len(gk)} quantizers ({transposed} transposed "
             f"gradients, {sum(g is None for g in grads)} absent): dw bitwise equal, range gradients within "
             f"{SUM_RTOL} of sum |term|; the observing state (g, 0, 0); kernel {ms:.4f} ms (one launch), bound "
             f"{results[name]['bound_ms'] * 1e3:.2f} us ({results[name]['bound_ms'] / ms:.1%}); the wrapper "
@@ -1435,8 +1489,8 @@ def train_at_full_width(dev) -> tuple[TrainState, dict]:
     return state, launches
 
 
-def card_vs_cpu_step(dev, state: TrainState) -> tuple[float, float]:
-    """Phase 10: one post-window train step from the same state on the card and on the CPU.
+def card_vs_cpu_step(dev, state: TrainState, phase: int = 10) -> tuple[float, float]:
+    """Phase 10 (and 69): one post-window train step from the same state on the card and on the CPU.
 
     Returns (|loss difference| in dB, cosine of the whole clipped gradients)."""
     mix, src = synth_batch(np.random.default_rng(10), 1, 2, SR)
@@ -1453,7 +1507,7 @@ def card_vs_cpu_step(dev, state: TrainState) -> tuple[float, float]:
     if not (diff <= LOSS_DB_TOL and cos >= GRAD_COS_MIN):
         raise AssertionError(f"card vs CPU train step: loss {loss_card} vs {loss_cpu} dB (tolerance {LOSS_DB_TOL}), "
                              f"gradient cosine {cos} (minimum {GRAD_COS_MIN})")
-    log(f"[10] card vs CPU train step at 1 x {SR}: loss {loss_card:.5f} vs {loss_cpu:.5f} dB (|diff| {diff:.2e} <= "
+    log(f"[{phase}] card vs CPU train step at 1 x {SR}: loss {loss_card:.5f} vs {loss_cpu:.5f} dB (|diff| {diff:.2e} <= "
         f"{LOSS_DB_TOL}), whole-gradient cosine {cos:.6f} (>= {GRAD_COS_MIN}) over {g_card.numel()} values")
     return diff, cos
 
@@ -1714,11 +1768,13 @@ def check_int8_cases(dev, phase: int, engine: str, cases: list[tuple], seed: int
 
 
 def int8_engines_vs_fake_quant(phase: int, name: str, model, cpu_model, x: torch.Tensor, y: torch.Tensor,
-                               floor: tuple[float, float], want: dict, card_vs_cpu_db: float) -> dict:
-    """The int8 engines of ``model`` (float32, bfloat16 float products) against its fake-quant forward ``y``:
-    launches ``want``, phase 13's floor rule, card vs CPU at 1 x 1 s; returns the engines by compute dtype."""
+                               floor: tuple[float, float], want: dict, card_vs_cpu_db: float,
+                               dtypes: tuple = tuple(INT8_FLOOR)) -> dict:
+    """The int8 engines of ``model`` (``dtypes``: float32, bfloat16 float products) against its fake-quant forward
+    ``y``: launches ``want``, phase 13's floor rule, card vs CPU at 1 x 1 s; returns the engines by compute dtype."""
     lsb, engines = out_step(model), {}
-    for dtype, (snr_margin, mean_factor) in INT8_FLOOR.items():
+    for dtype in dtypes:
+        snr_margin, mean_factor = INT8_FLOOR[dtype]
         engine = engines[dtype] = make_int8_engine(model, compute_dtype=dtype)
         reset_all_launches()
         y8 = engine(x)
@@ -2583,6 +2639,20 @@ def recipe_epoch(name: str, env: str, cfg: dict, seg: float) -> None:
         f"{proc.stdout.strip().splitlines()[-1]}")
 
 
+def shallow_dptnet(state: TrainState, layers: int) -> tuple[dict, TrainState]:
+    """(the config, the state) of ``state``'s DPTNet student and teacher cut to their first ``layers`` dual-path
+    layers: the same weights, ranges and counters, the later layers left out."""
+    cfg = {**train_cfg(DPTNET_CFG), "layer": layers}
+
+    def cut(model):
+        net = create_model(cfg, model.q)
+        full = model.state_dict()
+        net.load_state_dict({k: full[k] for k in net.state_dict()})
+        return net
+
+    return cfg, TrainState(cut(state.model), None, cut(state.teacher))
+
+
 def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
     """Phases 31-36, the DPTNet and Sepformer training path (phase 34 last, on phase 33's states). Returns (K5
     results, K5-bwd results, the launches of phase 33's runs)."""
@@ -2606,9 +2676,11 @@ def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
     side_by_side(lambda: recipe_epoch("DPTNet", "asteroid", DPTNET_CFG, RECIPE_SECONDS),
                  lambda: recipe_epoch("Sepformer", "speechbrain", SEPFORMER_CFG, RECIPE_SECONDS))
     clock("36")
-    for name, cfg in (("DPTNet", DPTNET_CFG), ("Sepformer", SEPFORMER_CFG)):
-        train_card_vs_cpu(dev, name, cfg, after_window[name])  # 34., from phase 33's state
-        clock(f"34 {name}")
+    dpt_cfg, after_window["DPTNet"] = shallow_dptnet(after_window["DPTNet"], DPT_CPU_LAYERS)
+    for name, cfg in ((f"DPTNet (its first {DPT_CPU_LAYERS} dual-path layers)", dpt_cfg),
+                      ("Sepformer", SEPFORMER_CFG)):
+        train_card_vs_cpu(dev, name, cfg, after_window[name.split()[0]])  # 34., from phase 33's state
+        clock(f"34 {name.split()[0]}")
     return dense_fwd, dense_bwd, launches
 
 
@@ -3840,7 +3912,7 @@ def check_htdemucs_int8(dev, records: list) -> tuple[dict, dict]:
 
 def htdemucs_evaluation(dev, state: dict) -> dict:
     """Phase 60: ``python -m fqss_tpu_torch.val`` (MUSDB NSDR) with the fake_quant and int8 engines, each in its own
-    process on the card, on a MUSDB-layout test split of two 12 s tracks of synthetic stems at HTD_SR, the model
+    process on the card (the two at once), on a MUSDB-layout test split of two 12 s tracks of synthetic stems at HTD_SR, the model
     centre-padding each chunk to segment_samples."""
     stems = synth_music_batch(np.random.default_rng(60), 2, 12 * HTD_SR, sample_rate=HTD_SR)
     results = {}
@@ -3856,7 +3928,7 @@ def htdemucs_evaluation(dev, state: dict) -> dict:
         with open(cfg, "w") as f:
             json.dump({"model_cfg": {**HTDEMUCS_CFG, "model_path": ckpt}, "dataset_cfg": {"name": "musdbhq"},
                        "testing_cfg": {"test_dir": tmp, "NSDR": True, "segment_samples": HTD_SEG, "overlap": 0.25}}, f)
-        for engine in ("fake_quant", "int8"):
+        def run(engine: str) -> None:
             t0 = time.perf_counter()
             proc = subprocess.run([sys.executable, "-m", "fqss_tpu_torch.val", "-y", cfg, "--engine", engine],
                                   capture_output=True, text=True, timeout=600)
@@ -3865,7 +3937,9 @@ def htdemucs_evaluation(dev, state: dict) -> dict:
             line = proc.stdout.strip().splitlines()[-1]
             results[engine] = {k.lower(): float(v) for k, v in (kv.split("=") for kv in line.split(","))}
             log(f"[60] python -m fqss_tpu_torch.val --engine {engine} (MUSDB NSDR over 2 synthetic tracks of 12 s, "
-                f"on the card): {line} in {time.perf_counter() - t0:.1f} s")
+                f"on the card, the two processes side by side): {line} in {time.perf_counter() - t0:.1f} s")
+
+        side_by_side(lambda: run("fake_quant"), lambda: run("int8"))
     for engine, m in results.items():
         if not np.isfinite(list(m.values())).all():
             raise AssertionError(f"HTDemucs evaluation of {engine}: non-finite metrics {m}")
@@ -4391,6 +4465,388 @@ def checkpoint_import(dev, states: dict) -> dict:
     return total
 
 
+def quantizer_kinds(model) -> dict:
+    """How many activation quantizers of each kind ``model`` holds: linear, mu-law, MSE."""
+    kinds = {"linear": 0, "mulaw": 0, "mse": 0}
+    for m in model.modules():
+        if isinstance(m, MseActQuantizer):
+            kinds["mse"] += 1
+        elif isinstance(m, ActQuantizer):
+            kinds[m.kind] += 1
+    return kinds
+
+
+def calibrate_timed(model) -> tuple[int, float]:
+    """The host's MSE calibration of ``model``: (quantizers calibrated, seconds)."""
+    t0 = time.perf_counter()
+    n = calibrate_mse_quantizers(model)
+    return n, time.perf_counter() - t0
+
+
+def check_mulaw_quantizer(dev) -> dict:
+    """Phase 69: the mu-law quantizer (``mu`` 3, ranges (-0.8, 0.7)) on the card, its inner grid on K1 and K1-bwd,
+    against its plain version on the CPU at the flagship's splitter output (16 x 2 x 3 s): values within
+    MULAW_REL_TOL of the range but at most DENSE_GRID_SHARE of them, which move one code; the input gradient likewise,
+    the ranges' and mu's gradients (sums) within 1e-3 relative."""
+    gen = torch.Generator().manual_seed(69)
+    x = torch.randn(TRAIN_BATCH, 2, TRAIN_SEG, generator=gen) * 0.4
+    g = torch.randn(x.shape, generator=gen)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        q = ActQuantizer(kind="mulaw", observer=False).to(device)
+        with torch.no_grad():
+            q.min_range.fill_(-0.8)
+            q.max_range.fill_(0.7)
+            q.mu.fill_(3.0)
+        xd = x.to(device).requires_grad_()
+        fq.reset_launches()
+        y = q(xd)
+        (y * g.to(device)).sum().backward()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            if fq.LAUNCHES != {"act": 1, "weight": 0, "act_bwd": 1, "weight_bwd": 0}:
+                raise AssertionError(f"the mu-law quantizer launched {fq.LAUNCHES}, not K1 and K1-bwd once each")
+        out.append((y.detach().cpu(), xd.grad.cpu(), q.min_range.grad.cpu(), q.mu.grad.cpu()))
+    (y_card, dx_card, dmn_card, dmu_card), (y_cpu, dx_cpu, dmn_cpu, dmu_cpu) = out
+    far = (y_card - y_cpu).abs() > MULAW_REL_TOL * 0.8
+    dx_far = (dx_card - dx_cpu).abs() > MULAW_REL_TOL * dx_cpu.abs().max()
+    rel = [float((a - b).abs().max() / b.abs().max()) for a, b in ((dmn_card, dmn_cpu), (dmu_card, dmu_cpu))]
+    if far.float().mean() > DENSE_GRID_SHARE or dx_far.float().mean() > DENSE_GRID_SHARE or max(rel) > 1e-3:
+        raise AssertionError(f"mu-law quantizer card vs plain: {far.float().mean().item():.2e} of values and "
+                             f"{dx_far.float().mean().item():.2e} of input gradients apart, range and mu gradients "
+                             f"{rel} relative")
+    err = (y_card - y_cpu).abs().max().item()
+    log(f"[69] mu-law quantizer {tuple(x.shape)} on the card (K1 and K1-bwd inside) against its plain version on the "
+        f"CPU: {far.float().mean().item():.2e} of values a code apart (<= {DENSE_GRID_SHARE}), max |diff| {err:.3e}; "
+        f"input gradients {dx_far.float().mean().item():.2e} apart; range and mu gradients {rel[0]:.2e}, {rel[1]:.2e} "
+        f"relative (<= 1e-3)")
+    return {"max_abs_err": err}
+
+
+def check_mse_observer(dev) -> None:
+    """Phase 69: one MSE quantizer fed the same five activations on the card and on the CPU: each batch's bin counts
+    over the new window, the window's ends and the counter bitwise, the re-binned histogram within MSE_HIST_L1 of the
+    total count in L1."""
+    gen = torch.Generator().manual_seed(69)
+    q_card, q_cpu = MseActQuantizer(max_observations=5).to(dev).train(), MseActQuantizer(max_observations=5).train()
+    worst = 0.0
+    for k, (scale, shift) in enumerate(((1.0, 0.0), (0.5, 0.2), (2.0, -0.5), (1.5, 1.0), (0.2, 0.0))):
+        x = torch.randn(MSE_OBSERVE_SHAPE, generator=gen) * scale + shift
+        xd = x.to(dev)
+        with torch.no_grad():
+            q_card(xd)
+            q_cpu(x)
+            counts_card = histogram.bin_counts(xd, q_card.val_min, q_card.val_max).cpu()
+            counts_cpu = histogram.bin_counts(x, q_cpu.val_min, q_cpu.val_max)
+        for name in ("val_min", "val_max", "n_iter"):
+            if not torch.equal(getattr(q_card, name).cpu(), getattr(q_cpu, name)):
+                raise AssertionError(f"MSE observer {name} after {k + 1}: card {getattr(q_card, name).item()} vs CPU "
+                                     f"{getattr(q_cpu, name).item()}")
+        if not torch.equal(counts_card, counts_cpu):
+            raise AssertionError(f"MSE observer bin counts of batch {k}: {(counts_card != counts_cpu).sum()} bins apart")
+        l1 = float((q_card.hist.cpu() - q_cpu.hist).abs().sum() / q_cpu.hist.sum())
+        if l1 > MSE_HIST_L1:
+            raise AssertionError(f"MSE observer histogram after {k + 1}: L1 {l1:.3e} of the count > {MSE_HIST_L1}")
+        worst = max(worst, l1)
+    log(f"[69] MSE observer, five activations of {tuple(MSE_OBSERVE_SHAPE)} on the card and on the CPU: bin counts, "
+        f"window [{q_cpu.val_min.item():.4f}, {q_cpu.val_max.item():.4f}] and counter bitwise equal; re-binned "
+        f"histogram L1 at most {worst:.3e} of the count (<= {MSE_HIST_L1})")
+
+
+def variant_training(dev) -> tuple[TrainState, dict]:
+    """Phase 69: the flagship with VARIANT_CFG's quantizers trained through its window and calibrated
+    (``variant_state``); the mu-law and MSE checks; the calibrated step card vs CPU. Returns the calibrated state and
+    the launches of the steps."""
+    state, run = variant_state(dev)
+    mulaw = check_mulaw_quantizer(dev)
+    check_mse_observer(dev)
+    variant_card_vs_cpu(dev, state)
+    return state, {**run, "mulaw": mulaw}
+
+
+def variant_card_vs_cpu(dev, state: TrainState) -> None:
+    """Phase 69: one step of 1 x 1 s from the calibrated state on the card, on the CPU, and on the CPU on one thread
+    (its own sums split otherwise: the CPU's own floor). Phase 10's rule, fixed before the first run: the loss within
+    LOSS_DB_TOL raises where it fails; the whole-gradient cosine >= GRAD_COS_MIN failed at this configuration in the
+    first runs (0.99868 and 0.99886), where the CPU against itself on one thread read 0.99900
+    (``scripts/variant_step_floor.py``), so its verdict is printed beside that floor and does not raise (ROADMAP.md,
+    queue 3)."""
+    mix, src = synth_batch(np.random.default_rng(10), 1, 2, SR)
+    runs = []
+    threads = torch.get_num_threads()
+    for device, n in ((dev, threads), (torch.device("cpu"), threads), (torch.device("cpu"), 1)):
+        torch.set_num_threads(n)
+        st = new_train_state(copy.deepcopy(state.model).to(device), copy.deepcopy(state.teacher).to(device))
+        metrics = make_train_step(TrainConfig())(st, torch.from_numpy(mix).to(device), torch.from_numpy(src).to(device))
+        runs.append((float(metrics["loss"]),
+                     torch.cat([p.grad.flatten().double().cpu() for p in st.model.parameters() if p.grad is not None])))
+    torch.set_num_threads(threads)
+    (loss_card, g_card), (loss_cpu, g_cpu), (loss_one, g_one) = runs
+    cos = lambda a, b: float(a @ b / (a.norm() * b.norm()))
+    diff, card_cos, own_cos = abs(loss_card - loss_cpu), cos(g_card, g_cpu), cos(g_cpu, g_one)
+    if diff > LOSS_DB_TOL:
+        raise AssertionError(f"calibrated step card vs CPU: loss {loss_card} vs {loss_cpu} dB (tolerance "
+                             f"{LOSS_DB_TOL})")
+    log(f"[69] calibrated step card vs CPU at 1 x {SR}: loss {loss_card:.5f} vs {loss_cpu:.5f} dB (|diff| {diff:.2e} "
+        f"<= {LOSS_DB_TOL}); whole-gradient cosine {card_cos:.6f}: phase 10's rule (>= {GRAD_COS_MIN}) "
+        f"{'holds' if card_cos >= GRAD_COS_MIN else 'FAILS'}; the CPU against itself on one thread: loss "
+        f"{loss_one:.5f} dB, cosine {own_cos:.6f} (1 - cos card vs CPU {1 - card_cos:.3e}, the CPU's own "
+        f"{1 - own_cos:.3e}, {(1 - card_cos) / max(1 - own_cos, 1e-30):.2f}x) over {g_card.numel()} values")
+
+
+def variant_state(dev, cfg: dict = VARIANT_CFG) -> tuple[TrainState, dict]:
+    """Phase 69's steps: the flagship with ``cfg``'s quantizers, KD steps of 16 x 3 s through the window, the host's
+    calibration, then more steps, each with the module tree's launches. Returns the state and the run's launches,
+    calibration seconds and count."""
+    model, teacher = create_model_and_teacher(cfg, generator=torch.Generator().manual_seed(69))
+    kinds = quantizer_kinds(model)
+    state = new_train_state(model.to(dev), teacher.to(dev))
+    step = make_train_step(TrainConfig())
+    fwd, bwd = count_quantizers(model.modules()), backward_quantizers(model)
+    want = {"act": fwd["act"], "weight": 1, "act_bwd": bwd["act"], "weight_bwd": 1}
+    rng = np.random.default_rng(69)
+    inside, after = VARIANT_STEPS
+    losses, n_cal, cal_s = [], 0, 0.0
+    fq.reset_launches()
+    t0 = time.perf_counter()
+    for i in range(inside + after):
+        if i == inside and kinds["mse"]:  # the recipe's calibration, after the step at which the window closes
+            if not has_pending_mse(state.model):
+                raise AssertionError("no MSE quantizer is pending at the window's close")
+            n_cal, cal_s = calibrate_timed(state.model)
+            if n_cal != kinds["mse"] or has_pending_mse(state.model):
+                raise AssertionError(f"calibrated {n_cal} of {kinds['mse']} MSE quantizers")
+        mix, src = synth_batch(rng, TRAIN_BATCH, 2, TRAIN_SEG)
+        before = dict(fq.LAUNCHES)
+        metrics = step(state, torch.from_numpy(mix).to(dev), torch.from_numpy(src).to(dev))
+        got = {k: fq.LAUNCHES[k] - before[k] for k in fq.LAUNCHES}
+        if got != want:
+            raise AssertionError(f"variant train step {i}: launches {got} != {want}")
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = dict(fq.LAUNCHES)
+    if not np.isfinite(losses).all() or state.skipped:
+        raise AssertionError(f"variant losses {losses}, skipped {state.skipped}")
+    log(f"[69] flagship with {', '.join(f'{k} {v}' for k, v in cfg['quantization'].items() if k in VARIANT_KEYS)} "
+        f"({kinds['mse']} MSE, {kinds['mulaw']} mu-law, {kinds['linear']} linear act quantizers), KD steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEG // SR} s: {inside} in the window, the MSE calibration of {n_cal} quantizers in "
+        f"{cal_s:.2f} s (host), {after} after it; {seconds:.1f} s in all; losses {[round(v, 3) for v in losses]} dB, "
+        f"finite, skipped 0; every step launched act={want['act']} (= act quantizer modules, the mu-law sites' inner "
+        f"grids among them) act_bwd={want['act_bwd']} (= those reaching the loss) and the {fwd['weight']} weight "
+        f"quantizers in weight=1 and weight_bwd=1")
+    return state, {"launches": launches, "calibration_s": cal_s, "calibrated": n_cal}
+
+
+def serve_variants(dev, smi: str, state: dict) -> dict:
+    """Phase 70: the calibrated flagship of phase 69 (``state``) served at 32 x 12 s. Returns the forward's
+    launches."""
+    served = create_pretrained_model(VARIANT_CFG, observer=False, device=dev)
+    served.load_state_dict(state)
+    counts = count_quantizers(served.modules())
+    mix, _ = synth_batch(np.random.default_rng(70), BATCH, 2, SEG)
+    x = torch.from_numpy(mix).to(dev)
+    reset_all_launches()
+    with torch.inference_mode():
+        y = served(x)
+    torch.cuda.synchronize()
+    launches = all_launches()
+    if launches != no_launches(act=counts["act"], weight=1):
+        raise AssertionError(f"variant forward launches {launches} != {counts['act']} act and one grouped weight")
+    if tuple(y.shape) != (BATCH, 2, SEG) or not torch.isfinite(y).all():
+        raise AssertionError(f"variant forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
+    folded = fold_quantized_weights(served)
+    reset_all_launches()
+    with torch.inference_mode():
+        y_folded = folded(x)
+    torch.cuda.synchronize()
+    if all_launches() != no_launches(act=counts["act"]):
+        raise AssertionError(f"the folded variant launched {all_launches()}")
+    if not torch.equal(y_folded, y):
+        raise AssertionError(f"folded variant != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
+    log(f"[70] calibrated flagship {tuple(x.shape)} -> {tuple(y.shape)}, finite; launches act={launches['act']} (= act "
+        f"quantizer modules) weight=1 (its {counts['weight']} weight quantizers); folded bitwise equal, act "
+        f"{counts['act']}, weight 0")
+    # card vs CPU on one repeat of the TCN (the first), and at full depth for the record
+    x1 = torch.from_numpy(mix[:1, :SR])
+    snrs = {}
+    for depth, cfg in (("one repeat", {**VARIANT_CFG, "n_repeats": 1}), ("full depth", VARIANT_CFG)):
+        card = create_model(cfg, served.q)
+        card.load_state_dict({k: state[k] for k in card.state_dict()})
+        cpu = copy.deepcopy(card).eval()
+        card = card.to(dev).eval()
+        with torch.inference_mode():
+            snrs[depth] = snr_db(cpu(x1), card(x1.to(dev)).cpu())
+    if not bool((snrs["one repeat"] >= 20).all()):
+        raise AssertionError(f"variant card vs CPU at one repeat: SNR {snrs['one repeat'].tolist()} dB < 20 dB")
+    log(f"[70] card vs CPU at 1 x {SR}: one repeat SNR {[round(v, 2) for v in snrs['one repeat'].flatten().tolist()]} "
+        f"dB (>= 20); full depth {[round(v, 2) for v in snrs['full depth'].flatten().tolist()]} dB (not checked)")
+    try:
+        make_int8_engine(served)
+    except NotImplementedError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError("the int8 engine served a mu-law output grid")
+    auto = auto_serving_model(served)
+    if auto is served or auto.q.weight_quant:
+        raise AssertionError("auto did not serve the folded model")
+    audio_s = BATCH * SEG / SR
+    for name, model in (("fake_quant", served), ("folded", folded)):
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: model(x), 3)
+        log(f"[70] throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of {BATCH} x "
+            f"{SEG // SR} s) on {smi}")
+    del folded, y_folded, y, x
+    torch.cuda.empty_cache()
+    log(f"[70] int8 engine refused ({refusal}); auto serves the folded model")
+    grids = export_quantizer_grids(served)
+
+    def kinds(node):
+        if "kind" in node:
+            yield node["kind"]
+        else:
+            for v in node.values():
+                yield from kinds(v)
+
+    by_kind = {k: list(kinds(grids)).count(k) for k in ("per_tensor", "per_channel", "mulaw")}
+    if by_kind["mulaw"] != 2 or by_kind["per_channel"] != counts["weight"]:
+        raise AssertionError(f"deploy grids {by_kind}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "variant.npz")
+        size = write_jax_npz(path, "ConvTasNet", state)
+        sec = infer_cli_request("variant", None, VARIANT_CFG, "auto", model_path=path)
+    log(f"[70] deploy grids of export_quantizer_grids: {by_kind}; python -m fqss_tpu_torch.infer --engine auto on the "
+        f"state as a JAX .npz ({size / 1e6:.1f} MB): 20 s mixture -> 2 sources in {sec:.1f} s (the process included)")
+    return launches
+
+
+def res_dec_dptnet(dev, smi: str) -> dict:
+    """Phase 71: DPTNet with RES_DEC_CFG's trained residual decoder and MSE quantizer: its grouped weight kernels,
+    KD steps through the window and the calibration, then serving at 8 x 4 s. Returns the launches of the steps and
+    of the serving forward."""
+    model, teacher = create_model_and_teacher(RES_DEC_CFG, generator=torch.Generator().manual_seed(71))
+    n_weight = count_quantizers(model.modules())["weight"]
+    if n_weight != RES_DEC_WEIGHT_QUANTIZERS or len(weight_quantizer_sites(model)) != n_weight:
+        raise AssertionError(f"DPTNet with train_res_dec holds {n_weight} weight quantizers, "
+                             f"{len(weight_quantizer_sites(model))} in its pass")
+    name = "DPTNet (train_res_dec)"
+    groups, pairs = check_weight_groups(dev, {name: copy.deepcopy(model).to(dev).train()}, phase=71)
+    group_bwd = check_weight_group_bwd(dev, pairs, phase=71)
+    del pairs
+    torch.cuda.empty_cache()
+    kinds = quantizer_kinds(model)
+    state = new_train_state(model.to(dev), teacher.to(dev))
+    step = make_train_step(TrainConfig())
+    want = train_launches(model, teacher)
+    rng = np.random.default_rng(71)
+    inside, after = RES_DEC_STEPS
+    losses, n_cal, cal_s = [], 0, 0.0
+    reset_all_launches()
+    t0 = time.perf_counter()
+    for i in range(inside + after):
+        if i == inside:
+            n_cal, cal_s = calibrate_timed(state.model)
+            if n_cal != kinds["mse"] or has_pending_mse(state.model):
+                raise AssertionError(f"calibrated {n_cal} of {kinds['mse']} MSE quantizers")
+        mix, src = synth_batch(rng, 1, 2, DPT_TRAIN_SEG)
+        before = all_launches()
+        metrics = step(state, torch.from_numpy(mix).to(dev), torch.from_numpy(src).to(dev))
+        got = {k: v - before[k] for k, v in all_launches().items()}
+        if got != want:
+            raise AssertionError(f"{name} train step {i}: launches {got} != {want}")
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    train_run = all_launches()
+    if not np.isfinite(losses).all() or state.skipped:
+        raise AssertionError(f"{name} losses {losses}, skipped {state.skipped}")
+    log(f"[71] {name} with act_quantizer mse ({kinds['mse']} MSE act quantizers, {n_weight} weight quantizers), KD "
+        f"steps of 1 x {DPT_TRAIN_SEG // SR} s: {inside} in the window, the calibration of {n_cal} quantizers in "
+        f"{cal_s:.2f} s (host), {after} after it; {seconds:.1f} s in all; losses {[round(v, 3) for v in losses]} dB, "
+        f"finite, skipped 0; every step launched {', '.join(f'{k}={v}' for k, v in want.items() if v)} (student and "
+        f"teacher; K5/K5-bwd with the MSE flag, K8's head grid by the composition), all others 0")
+    calibrated = state_on_cpu(state.model)
+    del state, model, teacher
+    torch.cuda.empty_cache()
+
+    # serving at 8 x 4 s
+    dpt = create_pretrained_model(RES_DEC_CFG, observer=False, device=dev)
+    dpt.load_state_dict(calibrated)
+    counts, dense, fused = count_quantizers(dpt.modules()), dense_quantizers(dpt), fused_convs(dpt)
+    n_mha = sum(isinstance(m, QMultiheadAttention) for m in dpt.modules())
+    dmix, _ = synth_batch(np.random.default_rng(71), DPT_BATCH, 2, DPT_SEG)
+    x = torch.from_numpy(dmix).to(dev)
+    reset_all_launches()
+    with torch.inference_mode():
+        y = dpt(x)
+    torch.cuda.synchronize()
+    serve_run = all_launches()
+    serve_want = no_launches(act=counts["act"] - 3 * n_mha - dense["act"] - fused["act"], weight=1,
+                             bilstm=2 * dpt.layer, attention=n_mha, dense=dense["dense"], qmatmul=fused["qmatmul"])
+    if serve_run != serve_want:
+        raise AssertionError(f"{name} serving launches {serve_run} != {serve_want}")
+    if tuple(y.shape) != (DPT_BATCH, 2, DPT_SEG) or not torch.isfinite(y).all():
+        raise AssertionError(f"{name} forward gave shape {tuple(y.shape)}, finite={bool(torch.isfinite(y).all())}")
+    folded = fold_quantized_weights(dpt)
+    with torch.inference_mode():
+        y_folded = folded(x)
+    if not torch.equal(y_folded, y):
+        raise AssertionError(f"folded {name} != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
+    log(f"[71] {name} served {tuple(x.shape)} -> {tuple(y.shape)}, finite; launches "
+        f"{', '.join(f'{k}={v}' for k, v in serve_run.items() if v)} (phase 18's rule); folded bitwise equal")
+    cpu_dpt = create_pretrained_model(RES_DEC_CFG, observer=False)
+    cpu_dpt.load_state_dict(calibrated)
+    x1 = torch.from_numpy(dmix[:1, :SR])
+    with torch.inference_mode():
+        y_card, y_cpu = dpt(x1.to(dev)).cpu(), cpu_dpt(x1)
+    snr = snr_db(y_cpu, y_card)
+    if not bool((snr >= 20).all()):
+        raise AssertionError(f"{name} card vs CPU SNR {snr.tolist()} dB < 20 dB")
+    floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / out_step(dpt))
+    log(f"[71] {name} card vs CPU at 1 x {SR}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20), mean "
+        f"{floor[1]:.4f} output steps")
+    layers = 2 * dpt.layer
+    int8_run = no_launches(act=layers, bilstm=layers, int8_mm=dptnet_int8_sites(dpt))  # its forward launches these
+    engines = int8_engines_vs_fake_quant(71, name, dpt, cpu_dpt, x, y, floor, int8_run, DPT_INT8_CARD_VS_CPU_DB,
+                                         dtypes=("float32",))
+    if auto_serving_model(dpt) is not dpt:
+        raise AssertionError(f"auto did not serve {name}'s fake-quant model, the table's DPTNet path")
+    audio_s = DPT_BATCH * DPT_SEG / SR
+    for label, fn in (("fake_quant", dpt), ("folded", folded), ("int8 float32", engines["float32"])):
+        with torch.inference_mode():
+            ms = cuda_ms(lambda: fn(x), 3)
+        log(f"[71] {name} throughput {label}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
+            f"{DPT_BATCH} x {DPT_SEG // SR} s) on {smi}")
+    log(f"[71] {name}: auto serves the fake-quant model (the table's DPTNet path)")
+    del engines, folded, dpt, y, y_folded, x
+    torch.cuda.empty_cache()
+    return {"train": train_run, "serve": serve_run, "int8": int8_run, "groups": groups[name],
+            "group_bwd": group_bwd[name]}
+
+
+def quant_variants(dev, smi: str) -> dict:
+    """Phases 69-71. Returns each kernel counter's launches over the three phases' runs that it checks (phase 69's
+    steps, phase 70's forward, phase 71's steps, serving forward and int8 forward; each kernel of the slice's path
+    launched at least once) and phase 71's grouped weight results."""
+    state, trained = variant_training(dev)  # 69.
+    calibrated = state_on_cpu(state.model)
+    del state
+    torch.cuda.empty_cache()
+    clock("69")
+    served = serve_variants(dev, smi, calibrated)  # 70.
+    clock("70")
+    res_dec = res_dec_dptnet(dev, smi)  # 71.
+    clock("71")
+    runs = (trained["launches"], served, res_dec["train"], res_dec["serve"], res_dec["int8"])
+    launches = {k: sum(run.get(k, 0) for run in runs) for k in all_launches()}
+    path = ("act", "weight", "act_bwd", "weight_bwd", "int8_mm", "bilstm", "attention", "dense", "dense_mask",
+            "dense_dx", "dense_dwq", "qmatmul")
+    if not all(launches[k] for k in path):
+        raise AssertionError(f"phases 69-71 launched no {[k for k in path if not launches[k]]}")
+    return {"launches": launches, "res_dec": res_dec, "calibration_s": trained["calibration_s"],
+            "mulaw": trained["mulaw"]}
+
+
 def main() -> None:
     _CLOCK["start"] = _CLOCK["last"] = time.perf_counter()
     # 0. device
@@ -4591,6 +5047,9 @@ def main() -> None:
     imported = checkpoint_import(dev, states)
     clock("65-68")
 
+    # 69-71. the reference's other quantizers (launch counts set to 0 inside before each run they check)
+    variants = quant_variants(dev, smi)
+
     def bf16_keys(res: dict, launches: int, route: str) -> dict:
         """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
         phase 43 sums), its launches in phases 40-42's forwards."""
@@ -4732,8 +5191,14 @@ def main() -> None:
             "lstm_sequence": "lstm", "fused_attention": "attention", "qat_dense": "dense",
             "qat_dense_gelu": "dense_gelu", "qat_dense_bwd": "dense_mask", "qat_dense_bwd_gelu": "dense_mask_gelu",
             "qmatmul": "qmatmul"}
+    # variant_launches: the launches of phases 69-71's steps and forwards, summed.
     for row in kernels:
         row["import_launches"] = imported.get(rows.get(row["name"]), 0)
+        row["variant_launches"] = variants["launches"].get(rows.get(row["name"]), 0)
+    # the grouped weight kernels at DPTNet's 93 quantizers with the trained residual decoder (phase 71)
+    for row, res in ((kernels[1], variants["res_dec"]["groups"]), (kernels[3], variants["res_dec"]["group_bwd"])):
+        row.update({f"res_dec_{k}": res[k] for k in ("ms", "bound_ms", "plain_ms", "max_abs_err")})
+    kernels[0]["mulaw_max_abs_err"] = variants["mulaw"]["max_abs_err"]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}))

@@ -17,7 +17,9 @@ Scope names carry over unchanged; what changes is the layout:
   -> ``[Cin, Cout, kh, kw]``, ranges -> ``[1, C, 1, 1]``): a decoder's ``kernel``, and
   the combiner's trained ``residual_decoder_kernel`` (renamed
   ``residual_decoder_weight``) with its ``weight_fake_quantize_dec``, which
-  live in the scope of the residual block's encoder conv;
+  live in the scope of the residual block's encoder conv (a Linear
+  decoder's 2-D ``residual_decoder_kernel`` ``(latent, out)`` is a dense
+  kernel: -> ``[out, latent]``, ranges ``(1, C)`` -> ``[C, 1]``);
 * dense kernels ``(in, out)`` -> ``[out, in]``, and their ranges ``(1, C)``
   -> ``[C, 1]``: ``kernel``, and the attention's ``in_proj_kernel`` /
   ``out_proj_kernel`` and the Linear decoder's ``residual_encoder_kernel``,
@@ -91,8 +93,8 @@ def _from_jax(variables: Mapping, transposed_conv_scopes: Scopes,
         if name == "kernel":
             v = v.transpose(conv_order(scope, v.ndim)) if v.ndim >= 3 else v.T
             name = "weight"
-        elif name in _TRANSPOSED_CONV:
-            v, name = v.transpose(_CONV_TRANSPOSE[v.ndim]), _TRANSPOSED_CONV[name]
+        elif name in _TRANSPOSED_CONV:  # a Linear decoder's (2-D) is a dense kernel
+            v, name = v.transpose(_CONV_TRANSPOSE[v.ndim]) if v.ndim >= 3 else v.T, _TRANSPOSED_CONV[name]
         elif name in _DENSE_KERNELS:
             v = v.T
             name = name.replace("_kernel", "_weight")
@@ -149,7 +151,8 @@ def _to_jax(state: Mapping[str, torch.Tensor], transposed_conv_scopes: Scopes,
             elif name in kernels:
                 v, name = v.T, kernels[name]
             elif name in _TRANSPOSED_CONV.values():
-                v, name = undo(v, _CONV_TRANSPOSE[v.ndim]), name.replace("_weight", "_kernel")
+                v = undo(v, _CONV_TRANSPOSE[v.ndim]) if v.ndim >= 3 else v.T
+                name = name.replace("_weight", "_kernel")
         node = variables.setdefault(collection, {})
         for part in scope:
             node = node.setdefault(part, {})

@@ -30,6 +30,7 @@ from fqss_tpu_torch.models.dptnet import DPTNet
 from fqss_tpu_torch.models.htdemucs import HTDemucs
 from fqss_tpu_torch.models.sepformer import Sepformer
 from fqss_tpu_torch.nn.io_layers import expand_encoder_kernel
+from fqss_tpu_torch.quant.calibration import calibrate_mse_quantizers, has_pending_mse
 from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.train.checkpoints import is_npz, restore_jax_export
 
@@ -120,8 +121,7 @@ def load_pretrained_state(model: nn.Module, path: str,
     * a directory: an orbax checkpoint of the JAX package, refused (reading it needs orbax);
     * a ``.npz`` archive: the JAX package's ``export_model`` file, read strictly by
       :func:`~fqss_tpu_torch.train.checkpoints.restore_jax_export` (a missing key raises, as JAX's
-      ``restore_variables``; an export taken inside an MSE observer window is refused) and carried over by the
-      family's ``*_from_jax``;
+      ``restore_variables``) and carried over by the family's ``*_from_jax``;
     * anything else is read by ``torch.load(weights_only=True)``, which refuses a file holding objects other than
       tensors and plain containers (the JAX package unpickles anything). A dict whose keys are exactly
       ``model.state_dict()``'s is the port's own export (``train/checkpoints.py:export_model``, a trainer's
@@ -178,13 +178,18 @@ def create_pretrained_model(model_cfg: Mapping[str, Any], observer: bool | None 
     ``model_cfg['model_path']``: None for a seeded init (``torch.Generator``
     seeded with 0), or a checkpoint in any format of
     :func:`load_pretrained_state` (a widened encoder's LSB planes from a
-    generator seeded with 1, as JAX's ``PRNGKey(1)``).
+    generator seeded with 1, as JAX's ``PRNGKey(1)``). A state saved inside an
+    MSE observer window has its histograms calibrated here, so that serving
+    quantizes instead of running the float branch
+    (``fqss_tpu/models/factory.py:187-195``).
     """
     q = quant_spec_from_cfg(model_cfg, observer)
     model = create_model(model_cfg, q, generator=torch.Generator().manual_seed(0))
     path = model_cfg.get("model_path")
     if path is not None:
         model.load_state_dict(load_pretrained_state(model, path, generator=torch.Generator().manual_seed(1)))
+    if has_pending_mse(model):
+        calibrate_mse_quantizers(model)
     return model.to(device).eval()
 
 

@@ -293,6 +293,15 @@ def htdemucs_params_from_torch(
 # ---------------------------------------------------------------------------
 
 
+def _linear_residual_decoder(sd: Mapping[str, np.ndarray], reb: str, prm: dict, qp: dict) -> None:
+    """A Linear decoder's trained residual decoder (``train_res_dec``), where the state dict holds one: its weight
+    ``[out, latent]`` -> ``residual_decoder_kernel`` ``(latent, out)``, and ``weight_fake_quantize_dec``'s ranges.
+    The JAX package's maps leave it out (the reference configs share the decoder weight there)."""
+    if f"{reb}.residual_decoder.weight" in sd:
+        prm["residual_decoder_kernel"] = linear_w(sd[f"{reb}.residual_decoder.weight"])
+        qp["weight_fake_quantize_dec"] = _wq_ranges(sd, f"{reb}.weight_fake_quantize_dec")
+
+
 def _wq_ranges(sd: Mapping[str, np.ndarray], prefix: str, to_last_axis: bool = True) -> dict:
     """Weight-quantizer ranges: torch keepdim-on-first-axis -> ours on last."""
     mn = sd[f"{prefix}.min_range"]
@@ -544,6 +553,7 @@ def dptnet_qat_from_torch(sd: Mapping[str, np.ndarray], layer: int = 6, n_combin
             "activation_fake_quantize": _aq_ranges(sd, f"{reb}.activation_fake_quantize"),
         }
         dec_q["activation_fake_quantize_residual"] = _aq_ranges(sd, "decoder.basis_signals.activation_fake_quantize_residual")
+        _linear_residual_decoder(sd, reb, dec_p["residual_error_block"], dec_q["residual_error_block"])
     params["decoder"] = dec_p
     qparams["decoder"] = dec_q
     return params, qparams
@@ -737,6 +747,7 @@ def convtasnet_music_qat_from_torch(sd: Mapping[str, np.ndarray], n_repeats: int
             "activation_fake_quantize": _aq_ranges(sd, f"{reb}.activation_fake_quantize"),
         }
         dec_q["activation_fake_quantize_residual"] = _aq_ranges(sd, "decoder.activation_fake_quantize_residual")
+        _linear_residual_decoder(sd, reb, dec_p["residual_error_block"], dec_q["residual_error_block"])
     params["decoder"] = dec_p
     qparams["decoder"] = dec_q
     return params, qparams

@@ -16,11 +16,14 @@ every shape: K8 takes DPTNet's ``d = 16`` heads and short sequences, which
 JAX's TPU gate keeps off its kernel. The routes:
 
 * no head quantizer (the float teacher): K8 with the grid off;
-* a head quantizer without an observer (serving): K8 with the head grid in
-  its epilogue, the range read on the device;
+* a linear or MSE head quantizer without an observer (serving): K8 with
+  the head grid in its epilogue, the range read on the device (without an
+  observer the MSE quantizer is the linear grid of its ranges);
 * a head quantizer with an observer: K8 with the grid off, then the
-  quantizer module, which keeps its EMA window (JAX's default path; its
-  Pallas branch would apply the grid inside the window too);
+  quantizer module, which keeps its EMA window or its histogram and returns
+  the heads unquantized until the window closes or the MSE calibration
+  (JAX's default path; JAX's Pallas branch takes only the linear quantizer,
+  and would apply the grid inside the window too);
 * ``fix_attn_quant=True``: the plain composition, since the logits and the
   softmax are then quantized, which is not K8's function (as in JAX).
 

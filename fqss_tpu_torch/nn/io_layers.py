@@ -266,21 +266,24 @@ class QConvTr2dDecoder(nn.Module):
 
 
 class _ResidualErrorBlockDense(nn.Module):
-    """Combiner residual block for Linear decoders (qat_layers.py:1110-1121, 1179-1187).
+    """Combiner residual block for Linear decoders (qat_layers.py:1110-1121, 1179-1187; ``fqss_tpu/nn/io_layers.py:
+    _ResidualErrorBlockDense``).
 
     forward(Y, y_q, w_decoder): re-encode the quantized decoder output y_q
     ``[..., out]`` with a Linear to the latent width, quantize the latent
     residual Y - Y_q, and decode it with the shared (already quantized)
-    decoder weight ``[out, latent]``.
+    decoder weight ``[out, latent]``, or with ``train_res_dec`` with a
+    residual decoder of its own: ``residual_decoder_weight`` ``[out, latent]``
+    (JAX's ``residual_decoder_kernel`` transposed), quantized per out-channel
+    (axis 0) by ``weight_fake_quantize_dec``.
     """
 
-    WEIGHT_QUANTIZERS = {"weight_fake_quantize": "residual_encoder_weight"}
+    WEIGHT_QUANTIZERS = {"weight_fake_quantize": "residual_encoder_weight",
+                         "weight_fake_quantize_dec": "residual_decoder_weight"}
 
     def __init__(self, latent_features: int, out_features: int, use_bias: bool = True, q: QuantSpec = FLOAT,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if q.train_res_dec:
-            raise NotImplementedError("train_res_dec is not ported yet (ROADMAP.md, queue 1)")
         self.q = q
         bound = 1.0 / math.sqrt(out_features)
         wshape = (latent_features, out_features)
@@ -289,6 +292,12 @@ class _ResidualErrorBlockDense(nn.Module):
                                       if use_bias else None)
         self.weight_fake_quantize = make_weight_quantizer(q, wshape, ch_axis=0)
         self.activation_fake_quantize = make_act_quantizer(q)
+        self.residual_decoder_weight = self.weight_fake_quantize_dec = None
+        if q.train_res_dec:
+            dshape = (out_features, latent_features)
+            self.residual_decoder_weight = nn.Parameter(
+                uniform_(torch.empty(dshape), 1.0 / math.sqrt(latent_features), generator))
+            self.weight_fake_quantize_dec = make_weight_quantizer(q, dshape, ch_axis=0)
 
     def forward(self, Y: Tensor, y_q: Tensor, w_decoder: Tensor) -> Tensor:
         w_enc = self.residual_encoder_weight
@@ -301,6 +310,10 @@ class _ResidualErrorBlockDense(nn.Module):
         Y1 = Y - Y_q
         if self.activation_fake_quantize is not None:
             Y1 = self.activation_fake_quantize(Y1)
+        if self.residual_decoder_weight is not None:
+            w_decoder = self.residual_decoder_weight
+            if self.weight_fake_quantize_dec is not None:
+                w_decoder = self.weight_fake_quantize_dec(w_decoder)
         Y1c, wdc = mxu_operands(self.q, Y1, w_decoder)
         return torch.matmul(Y1c, wdc.t())
 

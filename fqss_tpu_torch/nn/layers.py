@@ -41,7 +41,7 @@ from fqss_tpu_torch.ops.fake_quant import _needs_grad, refuse_bf16_grad
 from fqss_tpu_torch.ops.qat_dense import qat_dense
 from fqss_tpu_torch.ops.qmatmul import qmatmul
 from fqss_tpu_torch.quant.fake_quant import bf16_round, weight_scale
-from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
+from fqss_tpu_torch.quant.quantizers import ActQuantizer, MseActQuantizer, WeightQuantizer
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
 Tensor = torch.Tensor
@@ -66,19 +66,19 @@ def mxu_operands(q: QuantSpec, x: Tensor, w: Tensor) -> tuple[Tensor, Tensor]:
 
 def make_act_quantizer(q: QuantSpec, *, enabled: bool | None = None, n_bits: int | None = None,
                        nl_quant: bool = False) -> ActQuantizer | None:
-    """The post-op activation quantizer, or None when disabled (qat_layers.py:49-59)."""
+    """The post-op activation quantizer, or None when disabled (qat_layers.py:49-59; ``fqss_tpu/nn/layers.py:
+    make_act_quantizer``): the mu-law one where ``nl_quant`` (the ``inout_nl_quant`` sites), the MSE-calibrated one
+    under ``act_quantizer: mse``, else the linear one (any other value, as in JAX)."""
     on = q.act_quant if enabled is None else enabled
     if not (q.qat and on):
         return None
-    if nl_quant or q.act_quantizer != "linear":
-        kind = "mu-law" if nl_quant else q.act_quantizer
-        raise NotImplementedError(f"the {kind} activation quantizer is not ported yet (ROADMAP.md, queue 1)")
-    return ActQuantizer(
-        n_bits=q.act_n_bits if n_bits is None else n_bits,
-        gradient_based=q.gradient_based,
-        observer=q.observer,
-        max_observations=q.max_observations,
-    )
+    kwargs = dict(n_bits=q.act_n_bits if n_bits is None else n_bits, gradient_based=q.gradient_based,
+                  observer=q.observer, max_observations=q.max_observations)
+    if nl_quant:
+        return ActQuantizer(kind="mulaw", **kwargs)
+    if q.act_quantizer == "mse":
+        return MseActQuantizer(**kwargs)
+    return ActQuantizer(**kwargs)
 
 
 def make_weight_quantizer(q: QuantSpec, weight_shape, ch_axis: int) -> WeightQuantizer | None:
@@ -299,7 +299,11 @@ class QDense(nn.Module):
     (:func:`fqss_tpu_torch.quant.quantizers.weight_pass`) the weight comes on
     its grid from the pass's grouped call, and K5 runs with its weight grid
     off, as for the folded model; its weight gradient goes back through the
-    pass's grouped backward.
+    pass's grouped backward. An MSE act quantizer hands the kernel "not
+    calibrated" as its flag, and observes the kernel's output, which is the
+    unquantized value until it is calibrated. No layer that fuses its act
+    grid takes a mu-law quantizer: only the I/O layers make one, and they run
+    it as a module.
     """
 
     def __init__(self, in_features: int, features: int, q: QuantSpec = FLOAT,

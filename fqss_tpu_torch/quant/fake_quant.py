@@ -31,7 +31,7 @@ import math
 
 import torch
 
-from fqss_tpu_torch.quant.ste import grad_scale, round_ste
+from fqss_tpu_torch.quant.ste import grad_scale, grad_sign, round_ste
 
 Tensor = torch.Tensor
 
@@ -119,3 +119,62 @@ def splitter_quantize(x: Tensor, threshold: float | Tensor = 1.0, n_bits: int = 
     min_val = -(2 ** (n_bits - int(sign))) if sign else 0
     max_val = 2 ** (n_bits - int(sign)) - 1
     return torch.floor(x / delta).clamp(min_val, max_val) * delta
+
+
+def mulaw_fake_quant(x: Tensor, min_range: Tensor, max_range: Tensor, mu: Tensor, n_bits: int,
+                     scale_grad: bool = False) -> Tensor:
+    """Mu-law companded fake quantization (reference qat_quant.py:150-164; ``fqss_tpu/quant/fake_quant.py:
+    mulaw_fake_quant``): normalise by ``max(|mn|, |mx|)``, compress, the uniform grid on [-1, 1], expand.
+
+    The signs pass their gradients straight through (:func:`grad_sign`), and ``mu`` is learnable. The inner grid is
+    the per-tensor uniform grid with the ranges (-1, 1), K1's function: on a CUDA tensor it runs on K1 and K1-bwd
+    (:func:`fqss_tpu_torch.ops.fake_quant.act_fake_quant`); the compress and expand steps are plain PyTorch, as JAX
+    leaves them to XLA, each operation in float32 as JAX's but ``log1p`` and ``pow``, which are taken in float64 and
+    rounded once (:func:`_exact32`): each device's float32 ``log1p`` and ``pow`` round their last bits otherwise, and
+    so the card and the CPU give the same grid values."""
+    from fqss_tpu_torch.ops.fake_quant import act_fake_quant  # that module imports this one
+
+    max_abs = torch.maximum(min_range.abs(), max_range.abs())
+    x_norm = x / max_abs
+    x_mu = grad_sign(x_norm) * _exact32(torch.log1p, mu * x_norm.abs()) / _exact32(torch.log1p, mu)
+    one = torch.ones(1, device=x.device)
+    x_mu_q = act_fake_quant(x_mu.contiguous(), -one, one, n_bits, scale_grad)
+    y_norm = grad_sign(x_mu_q) * (_exact32(torch.pow, 1.0 + mu, x_mu_q.abs()) - 1.0) / mu
+    return y_norm * max_abs
+
+
+def _exact32(fn, *args: Tensor) -> Tensor:
+    """``fn`` of float32 tensors taken in float64 and rounded to float32: the float32 value of the exact result (but
+    where float64's own rounding lands on a float32 tie), the same on every device. Differentiable."""
+    return fn(*(a.double() for a in args)).float()
+
+
+def fix_range_to_include_zero(range_min: Tensor, range_max: Tensor, n_bits: int) -> tuple[Tensor, Tensor]:
+    """Shift (min, max) so that zero lands exactly on the integer grid (reference qat_quant.py:110-122).
+
+    A range that straddles zero has its min snapped to a multiple of the step; a one-sided range is clamped at zero
+    on that side."""
+    min_positive = range_min > 0
+    max_negative = range_max < 0
+    mid_range = (~min_positive & ~max_negative).to(range_min.dtype)
+    min_positive, max_negative = min_positive.to(range_min.dtype), max_negative.to(range_min.dtype)
+    scale = (range_max - range_min) / (2**n_bits - 1)
+    min_adj = scale * torch.round(range_min / scale)
+    max_adj = range_max - range_min + min_adj
+    return min_adj * mid_range + max_negative * range_min, max_adj * mid_range + min_positive * range_max
+
+
+def torch_fake_quantize_per_tensor(x: Tensor, scale: float, zero_point: int, quant_min: int,
+                                   quant_max: int) -> Tensor:
+    """A frozen per-tensor grid replayed (reference qat_quant.py:38-53): ``torch.fake_quantize_per_tensor_affine``,
+    ``(clamp(round(x / scale) + zp, qmin, qmax) - zp) * scale``, rounding half to even."""
+    return torch.fake_quantize_per_tensor_affine(x, float(scale), int(zero_point), int(quant_min), int(quant_max))
+
+
+def torch_fake_quantize_per_channel(x: Tensor, scales: Tensor, zero_points: Tensor, axis: int, quant_min: int,
+                                    quant_max: int) -> Tensor:
+    """A frozen per-channel grid replayed (reference qat_quant.py:15-35): ``torch.fake_quantize_per_channel_affine``
+    along ``axis``."""
+    return torch.fake_quantize_per_channel_affine(x, torch.as_tensor(scales, dtype=torch.float32),
+                                                  torch.as_tensor(zero_points, dtype=torch.int32), axis,
+                                                  int(quant_min), int(quant_max))

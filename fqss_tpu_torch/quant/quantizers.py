@@ -6,7 +6,10 @@ collection) and its observer counter as a buffer (``qstats``):
 * :class:`ActQuantizer` — per-tensor uniform grid. For its first
   ``max_observations`` calls in ``train()`` mode it tracks the batch min/max
   with an EMA (alpha = 0.9) and returns the input unquantized; afterwards it
-  fake-quantizes with the ranges.
+  fake-quantizes with the ranges. ``kind='mulaw'`` is the mu-law grid
+  with a learnable ``mu``, under the same observer.
+* :class:`MseActQuantizer` — the same uniform grid, with ranges that the
+  host's MSE search sets from a histogram observed in the window.
 * :class:`WeightQuantizer` — per-channel symmetric grid. A one-shot observer
   captures the per-channel min/max on the first ``train()`` call, which
   returns the float weights once.
@@ -55,28 +58,35 @@ from fqss_tpu_torch.ops.fake_quant import (
     weight_fake_quant,
     weight_fake_quant_group,
 )
-from fqss_tpu_torch.quant.fake_quant import weight_scale
+from fqss_tpu_torch.quant import histogram
+from fqss_tpu_torch.quant.fake_quant import mulaw_fake_quant, weight_scale
 
 Tensor = torch.Tensor
 
 
 class ActQuantizer(nn.Module):
-    """Per-tensor learned activation fake-quantizer (``kind='linear'``).
+    """Per-tensor learned activation fake-quantizer.
 
-    Matches GradientActivationFakeQuantize (qat_quant.py:206-242).
+    ``kind='linear'`` matches GradientActivationFakeQuantize (qat_quant.py:206-242); ``kind='mulaw'`` matches
+    GradientNlActivationFakeQuantize (qat_quant.py:167-203), the mu-law grid
+    (:func:`~fqss_tpu_torch.quant.fake_quant.mulaw_fake_quant`) with a learnable ``mu`` (init 1.0), and the same EMA
+    observer. A caller that fuses the quantizer into its kernel's epilogue takes a linear one only.
     """
 
     ALPHA = 0.9  # EMA weight of the old range (qat_quant.py:227-242)
 
     def __init__(self, n_bits: int = 8, gradient_based: bool = True, observer: bool = True,
-                 max_observations: int = 50, scale_grad: bool = False):
+                 max_observations: int = 50, scale_grad: bool = False, kind: str = "linear"):
         super().__init__()
+        self.kind = kind
         self.n_bits = n_bits
         self.scale_grad = scale_grad
         self.observer = observer
         self.max_observations = max_observations
         self.min_range = nn.Parameter(torch.full((1,), -0.5), requires_grad=gradient_based)
         self.max_range = nn.Parameter(torch.full((1,), 0.5), requires_grad=gradient_based)
+        if kind == "mulaw":
+            self.mu = nn.Parameter(torch.ones(1), requires_grad=gradient_based)
         self.register_buffer("n_iter", torch.zeros((), dtype=torch.int32))
 
     def observing(self) -> Tensor | None:
@@ -99,15 +109,62 @@ class ActQuantizer(nn.Module):
             self.max_range.copy_(torch.where(observing, new_max, self.max_range))
             self.n_iter.add_(observing.to(torch.int32))
 
+    def quantize(self, x: Tensor) -> Tensor:
+        """``x`` on the grid of the current ranges (and ``mu``)."""
+        if self.kind == "mulaw":  # copies of the ranges, which the observer then writes in place
+            return mulaw_fake_quant(x, self.min_range.clone(), self.max_range.clone(), self.mu, self.n_bits,
+                                    self.scale_grad)
+        return act_fake_quant(x, self.min_range, self.max_range, self.n_bits, self.scale_grad)
+
     def forward(self, x: Tensor) -> Tensor:
         # Quantize with the ranges as they are before the observer's write
         # below, as the JAX module does.
-        y = act_fake_quant(x, self.min_range, self.max_range, self.n_bits, self.scale_grad)
+        y = self.quantize(x)
         observing = self.observing()
         if observing is None:
             return y
         self.observe(x, observing)
         return torch.where(observing, x, y)
+
+
+class MseActQuantizer(ActQuantizer):
+    """Histogram/MSE-calibrated activation quantizer (qat_quant.py:245-326; ``fqss_tpu/quant/quantizers.py:
+    MseActQuantizer``).
+
+    In ``train()`` mode, while ``n_iter < max_observations`` and it is not calibrated, each call adds its input to a
+    running histogram over a window that grows to the values seen (buffers ``hist [512]``, ``val_min``, ``val_max``,
+    ``n_iter``; :func:`fqss_tpu_torch.quant.histogram.observe`). With an observer it returns its input unquantized
+    until it is calibrated, after the window's end too. The host's grid search
+    (:func:`fqss_tpu_torch.quant.calibration.calibrate_mse_quantizers`) then writes the MSE-optimal ranges and sets
+    ``calibrated``, and it quantizes on the linear grid, K1's. A fused caller takes :meth:`observing`, here "not
+    calibrated", as its kernel's window flag, and :meth:`observe` with the kernel's output, which is then the
+    unquantized value.
+    """
+
+    def __init__(self, n_bits: int = 8, gradient_based: bool = True, observer: bool = True,
+                 max_observations: int = 50, scale_grad: bool = False):
+        super().__init__(n_bits, gradient_based, observer, max_observations, scale_grad)
+        self.register_buffer("hist", torch.zeros(histogram.N_BINS))
+        self.register_buffer("val_min", torch.zeros(()))
+        self.register_buffer("val_max", torch.zeros(()))
+        self.register_buffer("calibrated", torch.zeros((), dtype=torch.bool))
+
+    def observing(self) -> Tensor | None:
+        """The device-resident flag "return the input": ``not calibrated``, or None without an observer."""
+        return ~self.calibrated if self.observer else None
+
+    def observe(self, x: Tensor, observing: Tensor | None) -> None:
+        """One histogram observation of ``x`` in ``train()`` mode, kept while ``n_iter < max_observations`` and not
+        calibrated. ``observing`` is :meth:`observing` (it does not decide the write)."""
+        if observing is None or not self.training:
+            return
+        with torch.no_grad():
+            keep = (self.n_iter < self.max_observations) & ~self.calibrated
+            hist, nmin, nmax = histogram.observe(x, self.hist, self.val_min, self.val_max, self.n_iter == 0)
+            self.hist.copy_(torch.where(keep, hist, self.hist))
+            self.val_min.copy_(torch.where(keep, nmin, self.val_min))
+            self.val_max.copy_(torch.where(keep, nmax, self.val_max))
+            self.n_iter.add_(keep.to(torch.int32))
 
 
 class WeightQuantizer(nn.Module):

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 from torch import nn
 
+from fqss_tpu_torch.serve.common import mulaw_output
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
 
 # The fastest engine per family: chip_smoke.py's throughput phases 7 and 15 (ConvTasNet, 32 x 12 s), 23 (DPTNet,
@@ -59,8 +60,11 @@ def best_path(model: nn.Module) -> str:
 
 def auto_serving_model(model: nn.Module):
     """``model`` on its family's fastest path: the weight-folded copy (bitwise the fake-quant forward), the model
-    itself where the table says fake_quant, or its int8 engine (float32 products) where the table says int8."""
+    itself where the table says fake_quant, or its int8 engine (float32 products) where the table says int8 and the
+    engine serves the model (not a mu-law output grid: that one is served folded)."""
     path = best_path(model)
+    if path == "int8" and mulaw_output(model.q):  # the int8 engines refuse a mu-law output grid
+        path = DEFAULT_PATH
     if path == "fake_quant":
         return model
     if path == "int8":

@@ -251,8 +251,17 @@ def conv_transpose1d(x: Tensor, w: Tensor, stride: int, bf16: bool = False) -> T
     return F.conv_transpose1d(x, w, stride=stride)
 
 
+def mulaw_output(q) -> bool:
+    """Whether the model's output planes are on a mu-law grid (``out_quant`` with ``inout_nl_quant``)."""
+    return q.out_quant and q.inout_nl_quant
+
+
 def check_8bit_spec(q) -> None:
-    """Common engine preconditions: full fake-quant on 8-bit linear grids."""
+    """Common engine preconditions: full fake-quant on 8-bit linear grids.
+
+    A mu-law output grid is refused too: the JAX engines requantize the output planes onto the linear grid of the
+    mu-law quantizer's ranges (``fqss_tpu/serve/convtasnet_int8.py:169-170``), which is not the model's function
+    (``tests/test_torch_quant_variants.py``); ``--engine auto`` serves such a model folded."""
     if not (q.qat and q.act_quant and q.weight_quant):
         raise ValueError("int8 engine requires a fully fake-quantized model")
     if q.act_n_bits != 8 or q.weight_n_bits != 8 or q.out_act_n_bits != 8:
@@ -261,3 +270,5 @@ def check_8bit_spec(q) -> None:
         raise NotImplementedError(
             "the int8 engine's input requant assumes a linear 8-bit input grid"
         )
+    if mulaw_output(q):
+        raise NotImplementedError("the int8 engine's output requant assumes a linear grid, not inout_nl_quant's mu-law")

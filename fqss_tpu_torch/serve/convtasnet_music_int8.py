@@ -123,6 +123,9 @@ class ConvTasNetMusicInt8Engine:
             self.g_re = quantizer_grid(reb.activation_fake_quantize)
             self.g_dec_res = (quantizer_grid(dec.activation_fake_quantize_residual, q.out_act_n_bits)
                               if q.out_quant else None)
+            # the trained residual decoder (train_res_dec), else the decoder's own weight
+            self.res_dec_w = (float_weight(reb.residual_decoder_weight, reb.weight_fake_quantize_dec)
+                              if reb.residual_decoder_weight is not None else self.dec_w)
 
     def __call__(self, x: Tensor) -> Tensor:
         with torch.no_grad():
@@ -170,7 +173,7 @@ class ConvTasNetMusicInt8Engine:
             if self.re_b is not None:
                 Y_q = Y_q + self.re_b
             Y1 = requant(mq.f32 - Y_q, self.g_re).f32
-            dec1 = self._dense(Y1, self.dec_w)
+            dec1 = self._dense(Y1, self.res_dec_w)
             planes.append(requant(dec1, self.g_dec_res).f32 if self.g_dec_res is not None else dec1)
         out = torch.stack(planes).reshape(q.n_combiner, B, n_srcs, k, ac, kernel).transpose(3, 4)
         return postprocess(overlap_and_add(out, self.stride), n_combiner=q.n_combiner)

@@ -172,6 +172,9 @@ class DPTNetInt8Engine:
             self.g_re = quantizer_grid(reb.activation_fake_quantize)
             self.g_dec_res = (quantizer_grid(dec.activation_fake_quantize_residual, q.out_act_n_bits)
                               if q.out_quant else None)
+            # the trained residual decoder (train_res_dec), else the decoder's own weight
+            self.res_dec_w = (float_weight(reb.residual_decoder_weight, reb.weight_fake_quantize_dec)
+                              if reb.residual_decoder_weight is not None else self.dec_w)
 
     def __call__(self, x: Tensor) -> Tensor:
         with torch.no_grad():
@@ -253,7 +256,7 @@ class DPTNetInt8Engine:
             if self.re_b is not None:
                 Y_q = Y_q + self.re_b
             Y1 = requant(source_w - Y_q, self.g_re).f32
-            dec = self._matmul(Y1, self.dec_w.t())
+            dec = self._matmul(Y1, self.res_dec_w.t())
             planes.append(requant(dec, self.g_dec_res).f32 if self.g_dec_res is not None else dec)
         est = overlap_and_add(torch.stack(planes).reshape(q.n_combiner, B, spk, -1, W), W // 2)
         return postprocess(est.reshape(q.n_combiner, B, spk, 1, -1), n_combiner=q.n_combiner)

@@ -140,23 +140,15 @@ def is_npz(path: str) -> bool:
     return bool(names) and all(n.endswith(".npy") for n in names)
 
 
-def _pending_mse(data: Mapping[str, np.ndarray]) -> list[str]:
-    """The quantizers of an export whose MSE histogram is not calibrated yet (``fqss_tpu/quant/calibration.py:27``
-    ``has_pending_mse``)."""
-    return [k.removesuffix("/calibrated") for k in data
-            if k.startswith("qstats/") and k.endswith("/calibrated") and not bool(data[k])
-            and k.removesuffix("calibrated") + "hist" in data]
-
-
 def restore_jax_export(path: str, template: Mapping) -> dict:
     """The variables of a JAX ``export_model`` file, nested as ``template`` (e.g. ``models/convert.py:*_to_jax`` of
     the model's state dict) and cast to its dtypes, as ``fqss_tpu/train/checkpoints.py:restore_variables`` loads
     them: every key of ``template`` must be in the file (``ValueError: Missing key in checkpoint: <key>``), other
     keys of the file are not read, ``macs/`` is never persisted.
 
-    Refused by name: an orbax checkpoint directory (reading it needs orbax), and an export taken inside an MSE
-    observer window (its histograms carry no ranges yet; the JAX package calibrates them on import, which waits for
-    the port's MSE quantizer, ROADMAP.md queue 1 item 3)."""
+    Refused by name: an orbax checkpoint directory (reading it needs orbax). An export taken inside an MSE observer
+    window loads with its histograms; ``models/factory.py:create_pretrained_model`` calibrates them, as the JAX
+    package's does."""
     if os.path.isdir(path):
         raise ValueError(f"{path}: an orbax checkpoint directory of the JAX package; reading it needs orbax, which "
                          "the port does not use. Export the variables with fqss_tpu.train.checkpoints.export_model "
@@ -166,11 +158,6 @@ def restore_jax_export(path: str, template: Mapping) -> dict:
             data = {k: f[k] for k in f.files}
     except Exception as e:
         raise ValueError(f"{path}: not readable as a .npz export of the JAX package: {e}") from e
-    pending = _pending_mse(data)
-    if pending:
-        raise ValueError(f"{path}: a JAX export taken inside an MSE observer window ({len(pending)} quantizers with "
-                         f"uncalibrated histograms, e.g. {pending[0]}); finishing that calibration needs the MSE "
-                         "quantizer, which is not ported yet (ROADMAP.md, queue 1 item 3: MSE calibration)")
     out: dict = {}
     for key, leaf in jax_export_entries({k: v for k, v in template.items() if k != "macs"}).items():
         if key not in data:

@@ -24,6 +24,7 @@ import torch
 
 from fqss_tpu_torch.data.librimix import LibriMix, batch_iterator
 from fqss_tpu_torch.models.factory import create_model_and_teacher
+from fqss_tpu_torch.quant.calibration import DEFAULT_OBSERVER_WINDOW, calibrate_mse_quantizers, has_pending_mse
 from fqss_tpu_torch.train.checkpoints import CheckpointManager, dump_config, export_model, save_log
 from fqss_tpu_torch.train.state import TrainState
 from fqss_tpu_torch.train.trainer import (
@@ -131,6 +132,12 @@ def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: to
             start_epoch = last_epoch + 1
             save_log(work_dir, f"resumed from checkpoint at epoch {last_epoch}")
 
+    # MSE calibration when the observer window closes (fqss_tpu/train/recipes.py:167-196): the histograms gather on
+    # the device during the window, and the host's search runs once, after the step at which it closes. A resumed,
+    # calibrated state skips it; one resumed inside the window continues its histograms.
+    mse_window = model_cfg.get("quantization", {}).get("max_observations", DEFAULT_OBSERVER_WINDOW)
+    mse_pending = has_pending_mse(model)
+
     def to_device(mix: np.ndarray, src: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
         return torch.from_numpy(mix).to(device), torch.from_numpy(src).to(device)
 
@@ -147,6 +154,10 @@ def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: to
         for mix, src in batch_iterator(train_set, batch_size, seed=seed, epoch=epoch):
             metrics = train_step(state, *to_device(mix, src))
             losses.append(float(metrics["loss"]))
+            if mse_pending and state.step >= mse_window:
+                calibrate_mse_quantizers(model)
+                mse_pending = False
+                save_log(work_dir, f"MSE quantizer calibration at step {state.step}")
             if ckpt_interval_s and time.time() - last_ckpt_t >= ckpt_interval_s:
                 export_model(os.path.join(work_dir, "latest_model.pt"), state.model)
                 save_log(work_dir, f"interval checkpoint (epoch {epoch})")

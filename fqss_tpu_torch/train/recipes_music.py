@@ -50,6 +50,7 @@ from torch import nn
 
 from fqss_tpu_torch.data.musdb import RepitchedWavset, Wavset, apply_augment, draw_augment, get_musdb_wav_datasets
 from fqss_tpu_torch.models.factory import create_model_and_teacher
+from fqss_tpu_torch.quant.calibration import DEFAULT_OBSERVER_WINDOW, calibrate_mse_quantizers, has_pending_mse
 from fqss_tpu_torch.separation.losses import music_kd_l1_loss, nsdr_db
 from fqss_tpu_torch.separation.ola import ola_infer
 from fqss_tpu_torch.train.checkpoints import CheckpointManager, dump_config, export_model, save_log
@@ -378,6 +379,10 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
             model.load_state_dict(saved["extra"]["best_state"] if continue_best else saved["state"]["model"])
             save_log(work_dir, f"continued from {training_cfg['continue_from']}")
 
+    # MSE calibration when the observer window closes, as in the speech recipe (fqss_tpu/train/recipes_music.py:
+    # 437-469)
+    mse_window = (model_cfg.get("quantization") or {}).get("max_observations", DEFAULT_OBSERVER_WINDOW)
+    mse_pending = has_pending_mse(model)
     generator = torch.Generator().manual_seed(seed)
     epochs = training_cfg.get("epochs", 4)
     metric_history = [h[f"valid_{test_metric}"] for h in ckpt.history if f"valid_{test_metric}" in h]
@@ -393,6 +398,10 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
             batch = np.stack([train_set[int(j)] for j in order[i: i + batch_size]])  # [B, S, C, T]
             metrics = step_fn(state, torch.from_numpy(batch).to(device), generator, batch_emas)
             losses.append(float(metrics["loss"]))
+            if mse_pending and state.step >= mse_window:
+                calibrate_mse_quantizers(model)
+                mse_pending = False
+                save_log(work_dir, f"MSE quantizer calibration at step {state.step}")
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         ema_update_(epoch_emas, model, epoch_decays)  # once an epoch (solver.py:438-440)
 

@@ -18,8 +18,9 @@ init; the QAT ones are calibrated by the port's observer steps. Every check is e
   float models' bound of ``chip_smoke.py`` phase 26); the student's shared weights equal; its QAT-only entries
   (quantizer ranges and counters, the combiner's residual block) and the widened encoder's LSB planes keep each
   package's own init, so they are not compared;
-* the refusals (an orbax directory, an export taken inside an MSE observer window, a file that holds pickled
-  objects), JAX's message for a missing ``.npz`` key, and the port's own ``.pt``;
+* an export taken inside an MSE observer window, calibrated on import to the ranges JAX's ``create_pretrained_model``
+  gives; the refusals (an orbax directory, a file that holds pickled objects), JAX's message for a missing ``.npz``
+  key, and the port's own ``.pt``;
 * the merge of a float teacher into HTDemucs's splitter-widened 2-D frequency encoder;
 * the CLIs' keys: ``-env asteroid`` from a reference ``.pth`` as ``training_cfg.pretrained`` (its teacher the
   source model), ``infer`` and ``val`` on a JAX ``.npz`` as ``model_cfg.model_path`` (the same bytes and scores as
@@ -394,21 +395,30 @@ def test_missing_npz_key_raises_jaxs_message(convtasnet_npz, tmp_path):
     assert str(got.value) == str(want.value)
 
 
-def test_pending_mse_export_and_orbax_directory_are_refused(convtasnet_npz, tmp_path):
-    _, path = convtasnet_npz
-    with np.load(path) as f:
-        entries = {k: f[k] for k in f.files}
-    # what an MseActQuantizer holds inside its window (fqss_tpu/quant/quantizers.py:143-150)
-    site = "qstats/masker/bottleneck_norm/activation_fake_quantize"
-    entries.update({f"{site}/hist": np.ones(2048, np.float32), f"{site}/calibrated": np.zeros((), bool)})
+def test_pending_mse_export_and_orbax_directory_are_refused(tmp_path):
+    """An export taken inside an MSE observer window loads, and its histograms are calibrated on import to the ranges
+    that JAX's ``create_pretrained_model`` gives (``fqss_tpu/models/factory.py:187-195``); an orbax directory stays
+    refused."""
+    cfg = {**CFGS["ConvTasNet"], "quantization": {**QUANT, "act_quantizer": "mse"}}
+    model = create_model(cfg, quant_spec_from_cfg(cfg), generator=torch.Generator().manual_seed(0))
+    mix = _mixture("ConvTasNet")
+    with torch.no_grad():
+        for k in range(OBSERVE_STEPS - 1):  # the window (3) is full, nothing is calibrated yet
+            model.train()(torch.from_numpy(mix * (1 + 0.2 * k)))
     pending = str(tmp_path / "pending.npz")
-    np.savez(pending, **entries)
-    with pytest.raises(ValueError, match=r"MSE observer window.*queue 1 item 3"):
-        create_pretrained_model({**_cfg("ConvTasNet"), "model_path": pending})
-    entries[f"{site}/calibrated"] = np.ones((), bool)  # calibrated: its ranges are in qparams, nothing is pending
-    done = str(tmp_path / "done.npz")
-    np.savez(done, **entries)
-    create_pretrained_model({**_cfg("ConvTasNet"), "model_path": done})
+    export_model(pending, convert.convtasnet_to_jax(model.state_dict()))
+    _, want = jax_factory.create_pretrained_model({**cfg, "model_path": pending}, jnp.asarray(mix))
+    got = convert.convtasnet_to_jax(create_pretrained_model({**cfg, "model_path": pending}).state_dict())
+    flags = []
+    for coll in ("qparams", "qstats"):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(jax.device_get(want[coll]))[0]:
+            node = got[coll]
+            for k in path:
+                node = node[k.key]
+            np.testing.assert_array_equal(node, np.asarray(leaf), err_msg=jax.tree_util.keystr(path))
+            if path[-1].key == "calibrated":
+                flags.append(bool(leaf))
+    assert flags and all(flags)
     orbax = tmp_path / "checkpoints" / "3"
     orbax.mkdir(parents=True)
     with pytest.raises(ValueError, match=f"{re.escape(str(orbax))}: an orbax checkpoint directory"):

@@ -1597,3 +1597,88 @@ def test_tiny_htdemucs_kd_step_runs_the_gelu_backward(dev):
         assert k8.LAUNCHES["attention"] == 12
     grads = torch.cat([p.grad.flatten() for p in model.parameters() if p.grad is not None])
     assert bool(torch.isfinite(grads).all())
+
+
+def _mse_layer_pair(dev, make):
+    """(the layer on the card, the same layer on the CPU): an MSE act quantizer with a 2-step window."""
+    from fqss_tpu_torch.quant.spec import QuantSpec
+
+    cpu = make(QuantSpec(qat=True, act_quantizer="mse", max_observations=2))
+    card = make(QuantSpec(qat=True, act_quantizer="mse", max_observations=2))
+    card.load_state_dict(cpu.state_dict())
+    return card.to(dev), cpu
+
+
+@pytest.mark.parametrize("layer", ["qdense", "qconv1d"])
+def test_fused_routes_take_an_mse_quantizers_flag(dev, layer):
+    """K5 (QDense, with a gradient) and K3 (the bias-free 1x1 QConv1d, without) with an MSE act quantizer, against the
+    same layer on the CPU: inside the window and until the calibration the kernels' flag passes the pre-activation
+    (which the histogram observes: window ends within DENSE_RTOL), after it the grid on the calibrated ranges (at most
+    one step apart, DENSE_GRID_SHARE of the values)."""
+    from fqss_tpu_torch.nn.layers import QConv1d, QDense
+    from fqss_tpu_torch.quant.calibration import calibrate_mse_quantizers
+
+    if layer == "qdense":
+        card, cpu = _mse_layer_pair(dev, lambda q: QDense(256, 64, q=q, generator=torch.Generator().manual_seed(1)))
+        shape, counter, grad = (4, 300, 256), (qd, "dense"), True
+    else:
+        card, cpu = _mse_layer_pair(dev, lambda q: QConv1d(256, 64, 1, use_bias=False, q=q,
+                                                           generator=torch.Generator().manual_seed(1)))
+        shape, counter, grad = (4, 256, 300), (qm, "qmatmul"), False
+    gen = torch.Generator().manual_seed(2)
+    for k in range(4):
+        if k == 3:  # the host's calibration, on the CPU's histogram, carried to the card
+            assert calibrate_mse_quantizers(cpu) == 1
+            card.load_state_dict(cpu.state_dict())
+        x = torch.randn(shape, generator=gen) * (1 + k)
+        before = counter[0].LAUNCHES[counter[1]]
+        with torch.set_grad_enabled(grad):
+            y_card = card.train()(x.to(dev).requires_grad_(grad))
+            y_cpu = cpu.train()(x.requires_grad_(grad))
+        assert counter[0].LAUNCHES[counter[1]] == before + 1
+        aq_card, aq_cpu = card.activation_fake_quantize, cpu.activation_fake_quantize
+        if k < 3:  # the input of the grid, unquantized
+            assert torch.allclose(y_card.detach().cpu(), y_cpu.detach(), rtol=DENSE_RTOL, atol=DENSE_RTOL * 16)
+            for name in ("val_min", "val_max"):
+                assert torch.allclose(getattr(aq_card, name).cpu(), getattr(aq_cpu, name), rtol=DENSE_RTOL)
+            assert int(aq_card.n_iter) == int(aq_cpu.n_iter) == min(k + 1, 2)
+        else:
+            step = float(aq_cpu.max_range.detach() - aq_cpu.min_range.detach()) / 255
+            diff = (y_card.detach().cpu() - y_cpu.detach()).abs()
+            assert diff.max().item() <= step * (1 + 1e-4)
+            assert (diff > 0.5 * step).float().mean().item() <= DENSE_GRID_SHARE
+        if grad:
+            before = qd.LAUNCHES["dense_mask"]
+            y_card.sum().backward()
+            assert qd.LAUNCHES["dense_mask"] == before + 1
+
+
+def test_mulaw_quantizer_runs_k1_and_matches_plain(dev):
+    """The mu-law quantizer on the card (its inner grid on K1 forward and K1-bwd backward) against its plain version
+    on the CPU: values within 1e-5 of the range but at most DENSE_GRID_SHARE of them (a code apart where log1p or pow
+    rounds an ulp otherwise), gradients of mu and the ranges within 1e-3 relative."""
+    from fqss_tpu_torch.quant.quantizers import ActQuantizer
+
+    gen = torch.Generator().manual_seed(3)
+    x = torch.randn(4, 2, 5000, generator=gen) * 0.4
+    x[0, 0, :4] = torch.tensor([0.0, 1.5, -2.0, 0.7])
+    g = torch.randn(x.shape, generator=gen)
+    out = []
+    for device in (dev, torch.device("cpu")):
+        q = ActQuantizer(kind="mulaw", observer=False).to(device)
+        with torch.no_grad():
+            q.min_range.fill_(-0.8)
+            q.max_range.fill_(0.7)
+            q.mu.fill_(3.0)
+        xd = x.to(device).requires_grad_()
+        before = dict(fq.LAUNCHES)
+        y = q(xd)
+        (y * g.to(device)).sum().backward()
+        if device.type == "cuda":
+            assert fq.LAUNCHES["act"] == before["act"] + 1 and fq.LAUNCHES["act_bwd"] == before["act_bwd"] + 1
+        out.append((y.detach().cpu(), xd.grad.cpu(), q.max_range.grad.cpu(), q.mu.grad.cpu()))
+    (y_card, dx_card, dmx_card, dmu_card), (y_cpu, dx_cpu, dmx_cpu, dmu_cpu) = out
+    assert ((y_card - y_cpu).abs() > 1e-5 * 0.8).float().mean().item() <= DENSE_GRID_SHARE
+    assert ((dx_card - dx_cpu).abs() > 1e-5 * dx_cpu.abs().max()).float().mean().item() <= DENSE_GRID_SHARE
+    for a, b in ((dmx_card, dmx_cpu), (dmu_card, dmu_cpu)):
+        assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()

@@ -23,6 +23,7 @@ from fqss_tpu.data.librimix import make_mini_librimix
 from fqss_tpu.data.synthetic import synth_batch
 from fqss_tpu.utils.audio import read_audio, save_audio
 from fqss_tpu_torch import infer
+from fqss_tpu_torch.quant.quantizers import MseActQuantizer
 from fqss_tpu_torch.train.recipes import train_speech
 
 torch.set_num_threads(1)
@@ -102,9 +103,12 @@ def test_train_speech_speechbrain_env_thresholds_and_refuses_what_is_not_ported(
     with pytest.raises(NotImplementedError, match="wandb"):
         train_speech(conf, "speechbrain", device="cpu")
     conf["training_cfg"]["wandb"] = False
-    conf["model_cfg"]["quantization"]["act_quantizer"] = "mse"
-    with pytest.raises(NotImplementedError, match="mse"):
-        train_speech(conf, "speechbrain", device="cpu")
+    conf["model_cfg"]["quantization"]["act_quantizer"] = "mse"  # ported: calibrated when the window (2) closes
+    conf["work_dir"] = str(tmp_path / "sb_mse")
+    result = train_speech(conf, "speechbrain", device="cpu")
+    assert result["state"].step == 2 and all(bool(m.calibrated) for m in result["state"].model.modules()
+                                             if isinstance(m, MseActQuantizer))
+    assert "MSE quantizer calibration at step 2" in (tmp_path / "sb_mse" / "results.txt").read_text()
 
 
 def _run_cli(args, cwd):

@@ -186,9 +186,11 @@ after each group of phases, and lets any failure propagate:
     way; finite losses.
 34. card vs CPU: one post-window step at 1 x 1 s, the quantized model and its
     float version, loss and whole-gradient cosine within TRAIN_CARD_VS_CPU
-    (DPTNet cut to the first 2 of phase 33's 6 dual-path layers).
+    (DPTNet cut to the first 2 of phase 33's 6 dual-path layers, the Sepformer
+    to the first of its 2 blocks).
 35. train-step time and peak memory of both models at batch 1 and the
-    largest of 2, 4, 8 that fits.
+    largest of 2, 4, 8 that fits (DPTNet's steps timed once after a warm-up,
+    the Sepformer's three times).
 36. one recipe epoch of each config (``-env asteroid`` DPTNet,
     ``-env speechbrain`` the Sepformer) through ``python -m
     fqss_tpu_torch.train`` on a mini LibriMix, the two processes side by side.
@@ -369,12 +371,39 @@ after each group of phases, and lets any failure propagate:
 71. DPTNet (``configs/dptnet_2spks_8k.yaml``'s model) with ``train_res_dec``
     and ``act_quantizer: mse``: the grouped weight kernels at its 93 weight
     quantizers against their plain versions (phases 2 and 8's rules); KD
-    steps of 1 x 3 s, 3 inside the window, the calibration, 2 after it, every
+    steps of 1 x 3 s, 3 inside the window, the calibration, 1 after it, every
     step's launches those of the module tree (K5/K5-bwd under the MSE flag,
     K8 by the composition rule while the head quantizer observes); then at
     8 x 4 s fake_quant, folded (bitwise equal) and the int8 engines with the
     trained residual plane (phase 13's floor rule), card vs CPU (phase 19's
     rule), ``auto`` and the throughputs.
+72. the LSTM kernel's static route (``QLSTM(mode="static")``'s cell, K7 both
+    directions and K6 one) against its plain version at phase 17's shapes
+    (DPTNet's row and column, the streamed window's, LSTM_ODD), on grids the
+    window fits to each input, with the observer window closed (one launch)
+    and closing after STATIC_WINDOW steps of the call (two launches and the
+    EMA between): every output within one step of the output site's grid of
+    the plain version's, at most STATIC_SHARE more than half a step apart,
+    the ranges after the window within STATIC_RANGE_REL of each site's range
+    width; the launch plans; CUDA-event times of the route, of K7's fused
+    route on the same input and of the plain static recurrence (median), per
+    DPTNet forward against the static route's bound.
+73. DPTNet with ``lstm_mode: static``: STATIC_TRAIN_STEPS KD step(s) of 1 x 3 s
+    at its first STATIC_TRAIN_LAYERS dual-path layer(s) from a fresh state (the
+    sites' window closing in the first step's every LSTM call): the student's LSTMs
+    on the static route, one launch a call and one more a call inside the
+    window, the teacher's on K7, every other launch the module tree's, a
+    finite loss; then phase 18's weights and ranges with the sites' window
+    observed in one train-mode forward, served at 8 x 4 s: 12 static-route
+    launches a forward and no fused or plain LSTM, folded bitwise equal, the
+    int8 engine (float32 products) by phase 13's floor rule on the fake-quant
+    forward's card-vs-CPU floor (phase 19's rule), the throughputs.
+74. DPTNet with ``lstm_mode: dynamic`` (the plain loop of 12 dynamic grids a
+    step, on every device) on phase 73's weights and act ranges: one serving
+    forward at 8 x 4 s timed by CUDA events, with no LSTM kernel launch, and a
+    profile of the loop's steps (kernels and device time a step); card vs CPU by
+    phase 19's rule at its first DYNAMIC_CPU_LAYERS dual-path layers; one KD
+    step of 1 x 3 s at its first DYNAMIC_TRAIN_LAYERS, a finite loss.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -528,7 +557,7 @@ DPT_BATCH, DPT_SEG = 8, 32000
 # recurrence with swapped gates or an unflipped reverse direction reads ~1e-1.
 LSTM_TOL = 1e-5
 LSTM_ODD = (7, 3, 96)  # T, B', H: a ragged batch tile and an H the TPU kernel refuses
-LSTM_PLAIN_REPS = 7  # the plain recurrences' time is the median of this many calls
+LSTM_PLAIN_REPS = 3  # the plain recurrences' time is the median of this many calls
 # The DPTNet int8 engine card vs CPU (phase 22): its LSTMs, attention and norms are float32 sums, which flip
 # rounding ties between devices as the fake-quant forward's do (phase 19), so it is held to phase 19's bound.
 DPT_INT8_CARD_VS_CPU_DB = 20.0
@@ -724,7 +753,7 @@ VARIANT_STEPS = (3, 5)  # KD steps inside the window, then after the calibration
 VARIANT_KEYS = ("in_quant", "inout_nl_quant", "act_quantizer", "max_observations")
 RES_DEC_CFG = {**DPTNET_CFG, "quantization": {**DPTNET_CFG["quantization"], "train_res_dec": True,
                                               "act_quantizer": "mse", "max_observations": 3}}
-RES_DEC_STEPS = (3, 2)
+RES_DEC_STEPS = (3, 1)
 RES_DEC_WEIGHT_QUANTIZERS = 93  # DPTNet's 92 and the residual decoder's
 # The MSE observer card vs CPU (phase 69): five activations of the flagship's bottleneck width at the train step's
 # batch. The bin counts and the window are exact on both devices; the re-binned histogram is a float32 CDF
@@ -735,6 +764,32 @@ MSE_HIST_L1 = 1e-5
 # are log1p and pow of each device, which may differ by ulps; where that moves a value across a rounding tie of the
 # inner grid it moves one code, as on every act grid (DENSE_GRID_SHARE of them at most).
 MULAW_REL_TOL = 1e-5
+# The LSTM modes (phases 72-74): configs/dptnet_2spks_8k.yaml's model with quantization.lstm_mode set.
+STATIC_CFG = {**DPTNET_CFG, "quantization": {**DPTNET_CFG["quantization"], "lstm_mode": "static"}}
+DYNAMIC_CFG = {**DPTNET_CFG, "quantization": {**DPTNET_CFG["quantization"], "lstm_mode": "dynamic"}}
+# The static route against its plain version (phase 72; tests/test_torch_cuda.py): the route and the plain version
+# take the same grids, but the product's sums and PyTorch's transcendentals differ by ulps (phase 17), which move a
+# value across a rounding tie of a site now and then, and the step carries on through the recurrence. Every output
+# within one step of the output site's grid, at most STATIC_SHARE of them more than half a step apart (the layer
+# rule); the ranges after the window, EMAs of the float cell's extremes, within STATIC_RANGE_REL of each width.
+STATIC_SHARE = 0.01
+STATIC_RANGE_REL = 1e-6
+STATIC_WINDOW = 5  # a call that starts 5 steps before the observer window closes (site_n_iter 45)
+# The static cell's 21 quantizations a row and unit a step (ih, hh and add0 on 4 gates, the 4 gates, mul0, mul1,
+# add1, tanh1, mul2), each subtract, divide, round, two clips, multiply and add: the route's bound counts them
+# beside the product's 8H + 4 operations.
+STATIC_SITE_OPS = 21 * 7
+STATIC_PLAIN_REPS = 1  # the plain static recurrence (~150 launches a step; 0.7-0.9 s a call) timed once
+# Phase 73's KD step crosses every LSTM's window (serving then runs on closed ones) at one dual-path layer: its
+# backward recomputes the plain static cell, ~300 launches a step and direction (21 s a step at 2 layers).
+STATIC_TRAIN_STEPS = 1
+STATIC_TRAIN_LAYERS = 1
+DYNAMIC_TRAIN_LAYERS = 1  # the dynamic step: the plain loop forward and backward (26 s at 2 layers)
+# Phase 74's card vs CPU at the first DYNAMIC_CPU_LAYERS dual-path layers: the CPU's plain dynamic loop at all 6 took
+# ~40 s of the run (the card's own forward at 8 x 4 s runs all 6).
+DYNAMIC_CPU_LAYERS = 2
+# Phase 34's Sepformer at its first block (of 2): its CPU step at full depth took 24 s.
+SEP_CPU_CUT = {"n_repeats": 1}
 DENSE_ROUTE = "tensor cores: 3xTF32 mma.sync m16n8k8, 3-stage cp.async ring"
 # The routes of K7/K6 and K4.
 LSTM_ROUTE = ("CUDA cores, float32 FMA: thread-block clusters, each CTA's W_hh slice resident in shared memory, h "
@@ -861,6 +916,10 @@ def attention_kernel_report(build_log: str) -> None:
         raise AssertionError(f"attention_kernel instantiations of the main path spill: {spilled}")
 
 
+LSTM_MODES = {v: k for k, v in {"fused (K7/K6)": 0, "static route, observing window": 1,
+                                 "static route, quantized": 2}.items()}
+
+
 def lstm_int8_kernel_report(build_log: str) -> None:
     """Phase 1: ptxas's registers and spill stores of each LSTM (K7/K6) and int8 (K4) kernel instantiation, with
     the shared memory of the main path's launches; raises if one spills."""
@@ -875,10 +934,11 @@ def lstm_int8_kernel_report(build_log: str) -> None:
         regs = int(re.search(r"Used (\d+) registers", lines[i + 3]).group(1))
         args = [int(v) for v in re.findall(r"L[bi](\d+)E?", m.group(2))]
         if m.group(1) == "lstm_cluster_kernel":
-            what = (f"lstm_cluster_kernel {8 * args[0]}-row tile, {'float4' if args[1] else 'scalar'} h; shared memory "
-                    f"at H 128, cluster 2: {lk.cluster_smem(128, 2, 8 * args[0])} B")
+            what = (f"lstm_cluster_kernel {LSTM_MODES[args[2]]}, {8 * args[0]}-row tile, "
+                    f"{'float4' if args[1] else 'scalar'} h; shared memory at H 128, cluster 2: "
+                    f"{lk.cluster_smem(128, 2, 8 * args[0], args[2] == lk.MODES['static'])} B")
         elif m.group(1) == "lstm_blocks_kernel":
-            what = f"lstm_blocks_kernel {'float4' if args[0] else 'scalar'} h (H > 322)"
+            what = f"lstm_blocks_kernel {LSTM_MODES[args[1]]}, {'float4' if args[0] else 'scalar'} h (H > 322)"
         else:
             bn = 16 * args[2]
             what = (f"int8_mm_requant_kernel {'cp.async' if args[0] else 'byte'} loads, {im.NLS[args[1]]}, N tile {bn}, "
@@ -1771,7 +1831,8 @@ def int8_engines_vs_fake_quant(phase: int, name: str, model, cpu_model, x: torch
                                floor: tuple[float, float], want: dict, card_vs_cpu_db: float,
                                dtypes: tuple = tuple(INT8_FLOOR)) -> dict:
     """The int8 engines of ``model`` (``dtypes``: float32, bfloat16 float products) against its fake-quant forward
-    ``y``: launches ``want``, phase 13's floor rule, card vs CPU at 1 x 1 s; returns the engines by compute dtype."""
+    ``y``: launches ``want``, phase 13's floor rule, card vs CPU at 1 x 1 s (unless ``cpu_model`` is None); returns
+    the engines by compute dtype."""
     lsb, engines = out_step(model), {}
     for dtype in dtypes:
         snr_margin, mean_factor = INT8_FLOOR[dtype]
@@ -1798,6 +1859,8 @@ def int8_engines_vs_fake_quant(phase: int, name: str, model, cpu_model, x: torch
         del y8, diff
     x1 = x[:1, :SR]
     for dtype, engine in engines.items():
+        if cpu_model is None:
+            break
         y_card = engine(x1).cpu()
         y_cpu = make_int8_engine(cpu_model, compute_dtype=dtype)(x1.cpu())
         snr = snr_db(y_cpu, y_card)
@@ -2463,7 +2526,7 @@ def check_lstm_backward(dev, shapes: list[tuple[str, int, int, int]]) -> None:
             ((hf * g[0]).sum() + (hb * g[1]).sum() + (uni(t[2], t[5]) * g[2]).sum()).backward()
             grads.append([a.grad for a in t])
         torch.cuda.synchronize()
-        if lk.LAUNCHES != {"lstm": before["lstm"] + 1, "bilstm": before["bilstm"] + 1}:
+        if lk.LAUNCHES != {**before, "lstm": before["lstm"] + 1, "bilstm": before["bilstm"] + 1}:
             raise AssertionError(f"LSTM backward at {side}: launches {lk.LAUNCHES}, expected one K7 and one K6")
         rel = max(((a - b).abs().max() / b.abs().max()).item() for a, b in zip(*grads))
         if not rel <= LSTM_GRAD_TOL:
@@ -2565,9 +2628,9 @@ def train_card_vs_cpu(dev, name: str, cfg: dict, state: TrainState) -> None:
                                  f"gradient cosine {cos} (at least {cos_min})")
 
 
-def train_step_times(dev, name: str, state: TrainState, seg: int, smi: str) -> None:
-    """Phase 35: ms per KD step and peak device memory at batch 1, then at the largest of 2, 4 and 8 that the
-    batch-1 peak says fits in 80% of the card's memory."""
+def train_step_times(dev, name: str, state: TrainState, seg: int, smi: str, reps: int = 3) -> None:
+    """Phase 35: ms per KD step (the mean of ``reps`` after a warm-up) and peak device memory at batch 1, then at the
+    largest of 2, 4 and 8 that the batch-1 peak says fits in 80% of the card's memory."""
     step = make_train_step(TrainConfig())
     total = torch.cuda.get_device_properties(dev).total_memory
     per_element = None
@@ -2583,7 +2646,7 @@ def train_step_times(dev, name: str, state: TrainState, seg: int, smi: str) -> N
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated(dev)
         torch.cuda.reset_peak_memory_stats(dev)
-        ms = cuda_ms(lambda: step(state, x, s), 3)
+        ms = cuda_ms(lambda: step(state, x, s), reps)
         peak = torch.cuda.max_memory_allocated(dev)
         per_element = per_element or (peak - base)
         if state.skipped:
@@ -2642,15 +2705,21 @@ def recipe_epoch(name: str, env: str, cfg: dict, seg: float) -> None:
 def shallow_dptnet(state: TrainState, layers: int) -> tuple[dict, TrainState]:
     """(the config, the state) of ``state``'s DPTNet student and teacher cut to their first ``layers`` dual-path
     layers: the same weights, ranges and counters, the later layers left out."""
-    cfg = {**train_cfg(DPTNET_CFG), "layer": layers}
+    return shallow_state(DPTNET_CFG, state, layer=layers)
 
-    def cut(model):
+
+def shallow_state(cfg: dict, state: TrainState, **cut) -> tuple[dict, TrainState]:
+    """(the config, the state) of ``state``'s student and teacher cut to the depth ``cut`` gives ``cfg``: the same
+    weights, ranges and counters, the later layers left out."""
+    cfg = {**train_cfg(cfg), **cut}
+
+    def shallow(model):
         net = create_model(cfg, model.q)
         full = model.state_dict()
         net.load_state_dict({k: full[k] for k in net.state_dict()})
         return net
 
-    return cfg, TrainState(cut(state.model), None, cut(state.teacher))
+    return cfg, TrainState(shallow(state.model), None, shallow(state.teacher))
 
 
 def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
@@ -2663,12 +2732,13 @@ def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
     torch.cuda.empty_cache()
     clock("31-32")
     launches, after_window = {}, {}
-    for name, cfg, seg in (("DPTNet", DPTNET_CFG, DPT_TRAIN_SEG), ("Sepformer", SEPFORMER_CFG, SEP_TRAIN_SEG)):
+    for name, cfg, seg, reps in (("DPTNet", DPTNET_CFG, DPT_TRAIN_SEG, 1),
+                                 ("Sepformer", SEPFORMER_CFG, SEP_TRAIN_SEG, 3)):
         state, run = train_model_at_full_width(dev, name, cfg, seg)  # 33.
         launches = {k: launches.get(k, 0) + v for k, v in run.items()}
         after_window[name] = TrainState(copy.deepcopy(state.model).cpu(), None, copy.deepcopy(state.teacher).cpu())
         clock(f"33 {name}")
-        train_step_times(dev, name, state, seg, smi)  # 35.
+        train_step_times(dev, name, state, seg, smi, reps)  # 35.
         del state
         torch.cuda.empty_cache()
         clock(f"35 {name}")
@@ -2677,8 +2747,9 @@ def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
                  lambda: recipe_epoch("Sepformer", "speechbrain", SEPFORMER_CFG, RECIPE_SECONDS))
     clock("36")
     dpt_cfg, after_window["DPTNet"] = shallow_dptnet(after_window["DPTNet"], DPT_CPU_LAYERS)
+    sep_cfg, after_window["Sepformer"] = shallow_state(SEPFORMER_CFG, after_window["Sepformer"], **SEP_CPU_CUT)
     for name, cfg in ((f"DPTNet (its first {DPT_CPU_LAYERS} dual-path layers)", dpt_cfg),
-                      ("Sepformer", SEPFORMER_CFG)):
+                      (f"Sepformer (its first of {SEPFORMER_CFG.get('n_repeats', 2)} blocks)", sep_cfg)):
         train_card_vs_cpu(dev, name, cfg, after_window[name.split()[0]])  # 34., from phase 33's state
         clock(f"34 {name.split()[0]}")
     return dense_fwd, dense_bwd, launches
@@ -4847,6 +4918,359 @@ def quant_variants(dev, smi: str) -> dict:
             "mulaw": trained["mulaw"]}
 
 
+def static_bound(dirs: int, T: int, B: int, H: int) -> tuple[int, int]:
+    """Bytes and operations of a static-route launch: the fused launch's (lstm_bound), the 12 grids' ranges in, and
+    the sites' quantizations."""
+    moved, ops = lstm_bound(dirs, T, B, H)
+    return moved + 4 * dirs * 2 * len(lk.SITES), ops + dirs * T * B * H * STATIC_SITE_OPS
+
+
+def fitted_sites(ih: torch.Tensor, w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Site ranges that the observer window fits to this input: the plain version's EMA from -0.5/0.5 over its first
+    min(T, 50) steps."""
+    k = min(ih.shape[0], lk.OBSERVE_STEPS)
+    start = torch.full((len(lk.SITES),), 0.5, device=ih.device)
+    with torch.no_grad():
+        _, mn, mx = lk.lstm_static_sequence_ref(ih[:k], w, -start, start, k)
+    return mn.contiguous(), mx.contiguous()
+
+
+def static_rule(name: str, got: torch.Tensor, want: torch.Tensor, ranges, want_ranges) -> tuple[float, float, float]:
+    """Phase 72's rule on one direction's output and ranges: (max |difference| in output steps, share more than half
+    a step apart, the ranges' largest difference against their width); raises where it fails."""
+    mn, mx = want_ranges
+    step = float(mx[11] - mn[11]) / 255
+    diff = (got - want).abs()
+    steps, share = diff.max().item() / step, (diff > 0.5 * step).float().mean().item()
+    rel = max(((a - b).abs() / (mx - mn)).max().item() for a, b in zip(ranges, want_ranges))
+    if steps > 1 + 1e-4 or share > STATIC_SHARE or rel > STATIC_RANGE_REL:
+        raise AssertionError(f"static route {name}: max |kernel - plain| {steps:.3f} output steps (at most 1), "
+                             f"{share:.4f} of values half a step apart (at most {STATIC_SHARE}), ranges {rel:.3g} of "
+                             f"their width apart (at most {STATIC_RANGE_REL})")
+    return steps, share, rel
+
+
+def check_static_route(dev, shapes: list[tuple[str, int, int, int]], per_forward: int,
+                       stream_shapes: list[tuple[str, int, int, int]]) -> tuple[dict, dict]:
+    """Phase 72: the static route (K7 both directions, K6 one) against the plain static recurrence, with the window
+    closed and closing after STATIC_WINDOW steps; times per DPTNet forward (``per_forward`` launches at each of
+    ``shapes``) and, for K6, per launch at the row shape. Returns (K6 results, K7 results)."""
+    gen = torch.Generator(device=dev).manual_seed(72)
+    k6 = {"max_abs_err": 0.0}
+    k7 = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "fused_ms": 0.0, "window_ms": 0.0, "max_steps": 0.0,
+          "share": 0.0, "range_rel": 0.0}
+    moved = ops = 0
+    for side, T, B, H in [*shapes, *stream_shapes, ("odd", *LSTM_ODD)]:
+        ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(2)]
+        w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / math.sqrt(H) for _ in range(2)]
+        sites = [fitted_sites(ih[d], w[d]) for d in range(2)]
+        cases = []
+        for observe in (0, min(STATIC_WINDOW, T)):
+            before = dict(lk.LAUNCHES)
+            with torch.no_grad():
+                hf, hb, rf, rb = lk.bilstm_static_sequence(ih[0], ih[1], w[0], w[1], sites[0], sites[1], observe)
+                h1, *r1 = lk.lstm_static_sequence(ih[1], w[1], *sites[1], observe)
+                want = [lk.lstm_static_sequence_ref(ih[d], w[d], *sites[d], observe) for d in range(2)]
+            torch.cuda.synchronize()
+            n = 2 if 0 < observe < T else 1
+            expect = {**before, "lstm_static": before["lstm_static"] + n, "bilstm_static": before["bilstm_static"] + n}
+            if lk.LAUNCHES != expect:
+                raise AssertionError(f"static route {side}, window {observe}: launches {lk.LAUNCHES} != {expect}")
+            rules = [static_rule(f"{side} T {T} x B' {B} x H {H}, window {observe}", got, hs, ranges, (mn, mx))
+                     for got, ranges, (hs, mn, mx) in ((hf, rf, want[0]), (hb, rb, want[1]), (h1, r1, want[1]))]
+            err7 = max((hf - want[0][0]).abs().max().item(), (hb - want[1][0]).abs().max().item())
+            err6 = (h1 - want[1][0]).abs().max().item()
+            k6["max_abs_err"], k7["max_abs_err"] = max(k6["max_abs_err"], err6), max(k7["max_abs_err"], err7)
+            for i, key in enumerate(("max_steps", "share", "range_rel")):
+                k7[key] = max(k7[key], *(r[i] for r in rules))
+            cases.append(f"window {observe}: {n} launch(es), max {max(r[0] for r in rules):.3f} output steps, "
+                         f"{max(r[1] for r in rules):.4f} half a step apart, ranges {max(r[2] for r in rules):.2g} "
+                         f"of their width")
+            del hf, hb, h1, want
+        line = (f"[72] static route {side} T {T} x B' {B} x H {H}: K7 plan "
+                f"{lk.launch_plan(dev, B, H, 2, lk.MODES['static'])}, window launch "
+                f"{lk.launch_plan(dev, B, H, 2, lk.MODES['observe'])}; {'; '.join(cases)} (rule: <= 1 step, <= "
+                f"{STATIC_SHARE}, <= {STATIC_RANGE_REL})")
+        if side == "odd":
+            log(line)
+            continue
+        b7, b6 = bound_of(*static_bound(2, T, B, H), F32_OPS_S), bound_of(*static_bound(1, T, B, H), F32_OPS_S)
+        with torch.no_grad():
+            ms7 = cuda_ms(lambda: lk.bilstm_static_sequence(ih[0], ih[1], w[0], w[1], sites[0], sites[1]), 10)
+            ms6 = cuda_ms(lambda: lk.lstm_static_sequence(ih[0], w[0], *sites[0]), 10)
+            fused = cuda_ms(lambda: lk.bilstm_sequence(ih[0], ih[1], w[0], w[1]), 10)
+            window = cuda_ms(lambda: lk.bilstm_static_sequence(ih[0], ih[1], w[0], w[1], sites[0], sites[1],
+                                                                STATIC_WINDOW), 3)
+        if side.startswith("stream"):
+            log(f"{line}; K7 static {ms7:.4f} ms ({b7['bound_ms'] / ms7:.1%} of its {b7['bound_ms']:.4f} ms bound by "
+                f"{b7['bound_by']}), fused {fused:.4f} ms, a call inside the window {window:.4f} ms, K6 static "
+                f"{ms6:.4f} ms ({b6['bound_ms'] / ms6:.1%})")
+            continue
+        with torch.no_grad():
+            plain, lo, hi = median_ms(lambda: [lk.lstm_static_sequence_ref(ih[d], w[d], *sites[d], 0)
+                                               for d in range(2)], STATIC_PLAIN_REPS)
+            plain6 = median_ms(lambda: lk.lstm_static_sequence_ref(ih[0], w[0], *sites[0], 0), STATIC_PLAIN_REPS)[0]
+        log(f"{line}; K7 static {ms7:.3f} ms ({b7['bound_ms'] / ms7:.1%} of its {b7['bound_ms']:.3f} ms bound by "
+            f"{b7['bound_by']}), fused on the same input {fused:.3f} ms, a call inside the window {window:.3f} ms (two "
+            f"launches and the EMA), K6 static {ms6:.3f} ms ({b6['bound_ms'] / ms6:.1%} of {b6['bound_ms']:.3f}); "
+            f"plain static {plain:.1f} ms (median of {STATIC_PLAIN_REPS}, {lo:.1f}-{hi:.1f}), one direction "
+            f"{plain6:.1f} ms")
+        k7["ms"] += per_forward * ms7
+        k7["plain_ms"] += per_forward * plain
+        k7["fused_ms"] += per_forward * fused
+        k7["window_ms"] += per_forward * window
+        b_moved, b_ops = static_bound(2, T, B, H)
+        moved, ops = moved + per_forward * b_moved, ops + per_forward * b_ops
+        if side == "row":
+            k6.update(ms=ms6, plain_ms=plain6, library_ms=None, **b6)
+        del ih, w
+        torch.cuda.empty_cache()
+    k7.update(bound_of(moved, ops, F32_OPS_S), library_ms=None)
+    log(f"[72] one static DPTNet forward's {2 * per_forward} static-route launches: {k7['ms']:.2f} ms against a "
+        f"{k7['bound_ms']:.2f} ms bound by {k7['bound_by']} ({k7['bound_ms'] / k7['ms']:.1%}); K7's fused route on "
+        f"the same inputs {k7['fused_ms']:.2f} ms; every call inside the window {k7['window_ms']:.2f} ms; plain "
+        f"static {k7['plain_ms']:.1f} ms; no library call computes the quantized cell (library_ms null)")
+    return k6, k7
+
+
+def static_train(dev) -> dict:
+    """Phase 73's KD steps: a fresh static-mode DPTNet (STATIC_TRAIN_LAYERS dual-path layers) and its float teacher,
+    STATIC_TRAIN_STEPS steps of 1 x DPT_TRAIN_SEG; returns the run's launches."""
+    cfg = train_cfg({**STATIC_CFG, "layer": STATIC_TRAIN_LAYERS})
+    model, teacher = create_model_and_teacher(cfg, generator=torch.Generator().manual_seed(73))
+    lstms = [m for m in model.modules() if isinstance(m, QLSTM)]
+    if {m.mode for m in lstms} != {"static"}:
+        raise AssertionError(f"static-mode DPTNet's LSTMs take the modes {[m.mode for m in lstms]}")
+    calls = dpt_lstm_shapes(1, DPT_TRAIN_SEG, model)
+    if min(T for _, T, _, _ in calls) <= lk.OBSERVE_STEPS:
+        raise AssertionError(f"phase 73's LSTM calls {calls} do not cross the window in one step")
+    base = train_launches(model, teacher)
+    closed = {**base, "bilstm": base["bilstm"] - len(lstms), "bilstm_static": len(lstms)}
+    state = new_train_state(model.to(dev), teacher.to(dev))
+    step = make_train_step(TrainConfig())
+    rng = np.random.default_rng(73)
+    losses = []
+    reset_all_launches()
+    t0 = time.perf_counter()
+    for i in range(STATIC_TRAIN_STEPS):
+        mix, src = synth_batch(rng, 1, 2, DPT_TRAIN_SEG)
+        want = {**closed, "bilstm_static": 2 * len(lstms)} if i == 0 else closed  # a window launch a call
+        before = all_launches()
+        metrics = step(state, torch.from_numpy(mix).to(dev), torch.from_numpy(src).to(dev))
+        got = {k: v - before[k] for k, v in all_launches().items()}
+        if got != want:
+            raise AssertionError(f"static DPTNet train step {i}: launches {got} != {want}")
+        losses.append(float(metrics["loss"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = sorted({int(v) for k, v in state.model.state_dict().items() if k.endswith("site_n_iter")})
+    if not np.isfinite(losses).all() or state.skipped or counts != [lk.OBSERVE_STEPS]:
+        raise AssertionError(f"static DPTNet losses {losses}, skipped {state.skipped}, site counts {counts}")
+    log(f"[73] DPTNet lstm_mode static, its first {STATIC_TRAIN_LAYERS} dual-path layer(s), {STATIC_TRAIN_STEPS} KD "
+        f"step(s) of 1 x {DPT_TRAIN_SEG // SR} s (LSTMs {', '.join(f'{s} T {T} x B {B}' for s, T, B, _ in calls)}) in "
+        f"{seconds:.1f} s: losses {[round(v, 3) for v in losses]} dB, finite, skipped 0, every site_n_iter "
+        f"{lk.OBSERVE_STEPS}; the first step launched bilstm_static={2 * len(lstms)} ({len(lstms)} calls inside the "
+        f"window, two launches each), the second {len(lstms)}; every step "
+        f"{', '.join(f'{k}={v}' for k, v in closed.items() if v and k != 'bilstm_static')} (student and teacher: the "
+        f"teacher's LSTMs on K7), all others 0")
+    launches = all_launches()
+    del state, model, teacher
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_static(dev, smi: str, dpt_state: dict) -> dict:
+    """Phase 73's serving: phase 18's weights and ranges in a static-mode DPTNet, its sites' window observed in one
+    train-mode forward, then fake_quant, folded, int8 and card vs CPU at 8 x 4 s. Returns the forward's launches, the
+    int8 forward's and the served state."""
+    observer = create_pretrained_model(STATIC_CFG, observer=True, device=dev)
+    missing = observer.load_state_dict({k: v.to(dev) for k, v in dpt_state.items()}, strict=False).missing_keys
+    if not missing or any("site_" not in k for k in missing):
+        raise AssertionError(f"phase 18's state in the static-mode DPTNet: missing {missing}")
+    dmix, _ = synth_batch(np.random.default_rng(73), DPT_BATCH, 2, DPT_SEG)
+    x = torch.from_numpy(dmix).to(dev)
+    reset_all_launches()
+    with torch.no_grad():
+        observer.train()(x[:2])
+    n_lstm = sum(isinstance(m, QLSTM) for m in observer.modules())
+    window = all_launches()
+    if window["bilstm_static"] != 2 * n_lstm or window["bilstm"] or window["lstm_static"]:
+        raise AssertionError(f"the static DPTNet's window forward launched {window}")
+    dpt = create_pretrained_model(STATIC_CFG, observer=False, device=dev)
+    dpt.load_state_dict(observer.state_dict())
+    del observer
+    counts, dense, fused = count_quantizers(dpt.modules()), dense_quantizers(dpt), fused_convs(dpt)
+    n_mha = sum(isinstance(m, QMultiheadAttention) for m in dpt.modules())
+    want = no_launches(act=counts["act"] - 3 * n_mha - dense["act"] - fused["act"], weight=1, bilstm_static=n_lstm,
+                       attention=n_mha, dense=dense["dense"], qmatmul=fused["qmatmul"])
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = dpt(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    if launches != want:
+        raise AssertionError(f"static DPTNet launches {launches} != {want}")
+    if tuple(y.shape) != (DPT_BATCH, 2, DPT_SEG) or not torch.isfinite(y).all():
+        raise AssertionError(f"static DPTNet forward gave shape {tuple(y.shape)}, "
+                             f"finite={bool(torch.isfinite(y).all())}")
+    folded = fold_quantized_weights(dpt)
+    with torch.inference_mode():
+        y_folded = folded(x)
+    if not torch.equal(y_folded, y):
+        raise AssertionError(f"folded static DPTNet != fake-quant, max abs diff {(y_folded - y).abs().max().item()}")
+    log(f"[73] DPTNet lstm_mode static on phase 18's weights and ranges, the sites' window observed in one train-mode "
+        f"forward of 2 x {DPT_SEG // SR} s ({window['bilstm_static']} static-route launches: two a call), served "
+        f"{tuple(x.shape)} -> {tuple(y.shape)}, finite, first call {first_s:.2f} s; launches "
+        f"{', '.join(f'{k}={v}' for k, v in launches.items() if v)} (phase 18's, the LSTMs on the static route), all "
+        f"others 0; folded bitwise equal")
+    cpu_dpt = create_pretrained_model(STATIC_CFG, observer=False)
+    cpu_dpt.load_state_dict(state_on_cpu(dpt))
+    x1 = torch.from_numpy(dmix[:1, :SR])
+    with torch.inference_mode():
+        y_card, y_cpu = dpt(x1.to(dev)).cpu(), cpu_dpt(x1)
+    snr = snr_db(y_cpu, y_card)
+    if not bool((snr >= 20).all()):
+        raise AssertionError(f"static DPTNet card vs CPU SNR {snr.tolist()} dB < 20 dB")
+    floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / out_step(dpt))
+    log(f"[73] static DPTNet card vs CPU at 1 x {SR}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20), "
+        f"mean {floor[1]:.4f} output steps")
+    layers = 2 * dpt.layer
+    int8_run = no_launches(act=layers, bilstm_static=layers, int8_mm=dptnet_int8_sites(dpt))
+    # the int8 engine against the fake-quant forward's floor; its LSTMs are the forward's, so no CPU run of its own
+    engines = int8_engines_vs_fake_quant(73, "DPTNet (static)", dpt, None, x, y, floor, int8_run,
+                                         DPT_INT8_CARD_VS_CPU_DB, dtypes=("float32",))
+    audio_s = DPT_BATCH * DPT_SEG / SR
+    times = {}
+    for label, fn in (("fake_quant", dpt), ("folded", folded), ("int8 float32", engines["float32"])):
+        with torch.inference_mode():
+            times[label] = ms = cuda_ms(lambda: fn(x), 3)
+        log(f"[73] static DPTNet throughput {label}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward "
+            f"of {DPT_BATCH} x {DPT_SEG // SR} s) on {smi}")
+    state = state_on_cpu(dpt)
+    del engines, folded, dpt, y, y_folded, x
+    torch.cuda.empty_cache()
+    return {"serve": launches, "int8": int8_run, "state": state, "ms": times}
+
+
+def dynamic_step_profile(dev) -> str:
+    """Where a dynamic-mode step goes: the device kernels and device time of one step of the plain dynamic loop
+    at the row shape's batch (torch.profiler), against the step's wall time."""
+    T, B, H = 8, 2064, 128
+    gen = torch.Generator(device=dev).manual_seed(74)
+    ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(2)]
+    w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / math.sqrt(H) for _ in range(2)]
+    with torch.no_grad():
+        lk.bilstm_dynamic_sequence(ih[0], ih[1], w[0], w[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            lk.bilstm_dynamic_sequence(ih[0], ih[1], w[0], w[1])
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / T
+    events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(getattr(e, "device_time_total", 0.0) for e in events) / 1e3 / T
+    if not events or not busy:
+        return f"{wall:.2f} ms a step of wall time (the profiler saw no device time)"
+    return (f"{len(events) / T:.0f} device kernels a step, {busy:.3f} ms of device time a step against {wall:.2f} ms "
+            f"of wall time (the profiled steps, both directions at B' {B})")
+
+
+def serve_dynamic(dev, smi: str, static_state: dict) -> dict:
+    """Phase 74: a dynamic-mode DPTNet on phase 73's weights and act ranges, served at 8 x 4 s and card vs CPU, and one
+    KD step at DYNAMIC_TRAIN_LAYERS dual-path layers. Returns the launches of the forward and of the step."""
+    dyn = create_pretrained_model(DYNAMIC_CFG, observer=False, device=dev)
+    dyn.load_state_dict({k: v for k, v in static_state.items() if "site_" not in k})
+    if {m.mode for m in dyn.modules() if isinstance(m, QLSTM)} != {"dynamic"}:
+        raise AssertionError("the dynamic-mode DPTNet's LSTMs are not dynamic")
+    counts, dense, fused = count_quantizers(dyn.modules()), dense_quantizers(dyn), fused_convs(dyn)
+    n_mha = sum(isinstance(m, QMultiheadAttention) for m in dyn.modules())
+    want = no_launches(act=counts["act"] - 3 * n_mha - dense["act"] - fused["act"], weight=1, attention=n_mha,
+                       dense=dense["dense"], qmatmul=fused["qmatmul"])
+    dmix, _ = synth_batch(np.random.default_rng(74), DPT_BATCH, 2, DPT_SEG)
+    x = torch.from_numpy(dmix).to(dev)
+    reset_all_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    with torch.inference_mode():
+        y = dyn(x)
+    end.record()
+    torch.cuda.synchronize()
+    wall_s, ms = time.perf_counter() - t0, start.elapsed_time(end)  # one forward of seconds: a warm-up costs as much
+    launches = all_launches()
+    if launches != want:
+        raise AssertionError(f"dynamic DPTNet launches {launches} != {want}")
+    if tuple(y.shape) != (DPT_BATCH, 2, DPT_SEG) or not torch.isfinite(y).all():
+        raise AssertionError(f"dynamic DPTNet forward gave shape {tuple(y.shape)}, "
+                             f"finite={bool(torch.isfinite(y).all())}")
+    steps = sum(T for _, T, _, _ in dpt_lstm_shapes(DPT_BATCH, DPT_SEG, dyn)) * dyn.layer
+    log(f"[74] DPTNet lstm_mode dynamic on phase 73's weights and act ranges {tuple(x.shape)} -> {tuple(y.shape)}, "
+        f"finite; launches {', '.join(f'{k}={v}' for k, v in launches.items() if v)}, no LSTM kernel (the plain loop); "
+        f"{ms:.1f} ms per forward of {DPT_BATCH} x {DPT_SEG // SR} s ({DPT_BATCH * DPT_SEG / SR / (ms / 1000):.2f} "
+        f"sec-audio/s, CUDA events; {wall_s:.2f} s on the host clock) on {smi}: {steps} recurrence steps a forward, "
+        f"{ms / steps:.3f} ms a step; {dynamic_step_profile(dev)}")
+    shallow = {**DYNAMIC_CFG, "layer": DYNAMIC_CPU_LAYERS}
+    full = state_on_cpu(dyn)
+    card_dyn, cpu_dyn = (create_pretrained_model(shallow, observer=False, device=d) for d in (dev, "cpu"))
+    for net in (card_dyn, cpu_dyn):
+        net.load_state_dict({k: full[k] for k in net.state_dict()})
+    x1 = torch.from_numpy(dmix[:1, :SR])
+    with torch.inference_mode():
+        y_card, y_cpu = card_dyn(x1.to(dev)).cpu(), cpu_dyn(x1)
+    snr = snr_db(y_cpu, y_card)
+    if not bool((snr >= 20).all()):
+        raise AssertionError(f"dynamic DPTNet card vs CPU SNR {snr.tolist()} dB < 20 dB")
+    log(f"[74] dynamic DPTNet (its first {DYNAMIC_CPU_LAYERS} dual-path layers) card vs CPU at 1 x {SR}: SNR "
+        f"{[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20), mean "
+        f"{(y_card - y_cpu).abs().mean().item() / out_step(card_dyn):.4f} output steps")
+    del dyn, y, x, cpu_dyn, card_dyn
+    torch.cuda.empty_cache()
+    cfg = train_cfg({**DYNAMIC_CFG, "layer": DYNAMIC_TRAIN_LAYERS})
+    model, teacher = create_model_and_teacher(cfg, generator=torch.Generator().manual_seed(74))
+    base = train_launches(model, teacher)
+    n_lstm = sum(isinstance(m, QLSTM) for m in model.modules())
+    step_want = {**base, "bilstm": base["bilstm"] - n_lstm}  # the teacher's LSTMs on K7, the student's plain
+    state = new_train_state(model.to(dev), teacher.to(dev))
+    mix, src = synth_batch(np.random.default_rng(74), 1, 2, DPT_TRAIN_SEG)
+    reset_all_launches()
+    t0 = time.perf_counter()
+    metrics = make_train_step(TrainConfig())(state, torch.from_numpy(mix).to(dev), torch.from_numpy(src).to(dev))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    step_run = all_launches()
+    if step_run != step_want or not np.isfinite(float(metrics["loss"])) or state.skipped:
+        raise AssertionError(f"dynamic DPTNet KD step: launches {step_run} (want {step_want}), loss "
+                             f"{float(metrics['loss'])}, skipped {state.skipped}")
+    log(f"[74] dynamic DPTNet, its first {DYNAMIC_TRAIN_LAYERS} dual-path layer(s), one KD step of 1 x "
+        f"{DPT_TRAIN_SEG // SR} s in {seconds:.1f} s: loss {float(metrics['loss']):.3f} dB, finite, every gradient "
+        f"finite: {all(bool(torch.isfinite(p.grad).all()) for p in state.model.parameters() if p.grad is not None)}; "
+        f"launches {', '.join(f'{k}={v}' for k, v in step_run.items() if v)} (the teacher's LSTMs on K7), all others 0")
+    del state, model, teacher
+    torch.cuda.empty_cache()
+    return {"serve": launches, "train": step_run}
+
+
+def lstm_modes(dev, smi: str, dpt_state: dict) -> dict:
+    """Phases 72-74, the LSTM's static and dynamic modes. Returns phase 72's results and the launches of phases 73's
+    and 74's runs."""
+    dpt = create_model(DPTNET_CFG, QuantSpec())
+    shapes = dpt_lstm_shapes(DPT_BATCH, DPT_SEG, dpt)
+    stream_shapes = [(f"stream {side}", T, B, H) for side, T, B, H in dpt_lstm_shapes(1, STREAM_SEGMENT, dpt)]
+    k6, k7 = check_static_route(dev, shapes, dpt.layer, stream_shapes)  # 72.
+    torch.cuda.empty_cache()
+    clock("72")
+    train_run = static_train(dev)  # 73.
+    clock("73 training")
+    served = serve_static(dev, smi, dpt_state)
+    clock("73 serving")
+    dynamic = serve_dynamic(dev, smi, served["state"])  # 74.
+    clock("74")
+    return {"k6": k6, "k7": k7, "train": train_run, "serve": served["serve"], "int8": served["int8"],
+            "ms": served["ms"], "dynamic": dynamic}
+
+
 def main() -> None:
     _CLOCK["start"] = _CLOCK["last"] = time.perf_counter()
     # 0. device
@@ -5050,6 +5474,9 @@ def main() -> None:
     # 69-71. the reference's other quantizers (launch counts set to 0 inside before each run they check)
     variants = quant_variants(dev, smi)
 
+    # 72-74. the LSTM's static and dynamic modes (launch counts set to 0 inside before each run they check)
+    modes = lstm_modes(dev, smi, states["DPTNet"])
+
     def bf16_keys(res: dict, launches: int, route: str) -> dict:
         """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
         phase 43 sums), its launches in phases 40-42's forwards."""
@@ -5114,6 +5541,22 @@ def main() -> None:
         dict(name="lstm_sequence", route="cuda", route_detail=LSTM_ROUTE,
              source="fqss_tpu_torch/csrc/lstm.cu",
              replaces="fqss_tpu/ops/pallas_lstm.py:54", launches=dpt_launches["lstm"], **k6),
+        # The static route of K7 (QLSTM(mode="static")): ms, plain_ms, bound_ms: one static DPTNet forward's 12
+        # launches with the window closed (phase 72); fused_ms: K7's fused route on the same inputs; window_ms: the
+        # same forward with every call inside the observer window (two launches and the EMA a call); no library call
+        # computes the quantized cell (library_ms null). launches: phase 73's serving forward. JAX runs this cell as a
+        # lax.scan (jax_static_cell), so it replaces K7's Pallas kernel on that path.
+        dict(name="bilstm_static_sequence", route="cuda", route_detail=LSTM_ROUTE + "; the 12 sites' grids in shared "
+             "memory, each value on K1's device functions; the observer window a launch of its own (kObserve)",
+             source="fqss_tpu_torch/csrc/lstm_static.cu", replaces="fqss_tpu/ops/pallas_lstm.py:114",
+             jax_static_cell="fqss_tpu/nn/lstm.py:108-176", launches=modes["serve"]["bilstm_static"],
+             **{k: modes["k7"][k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "max_abs_err",
+                                             "fused_ms", "window_ms")},
+             train_launches=modes["train"]["bilstm_static"], int8_launches=modes["int8"]["bilstm_static"]),
+        # One direction at the row shape, per launch (phase 72); DPTNet's LSTMs are bidirectional (launches 0).
+        dict(name="lstm_static_sequence", route="cuda", route_detail=LSTM_ROUTE,
+             source="fqss_tpu_torch/csrc/lstm_static.cu", replaces="fqss_tpu/ops/pallas_lstm.py:54",
+             launches=modes["serve"]["lstm_static"], **modes["k6"]),
         # ms, plain_ms, bound_ms, library_ms: one Sepformer forward's 32 launches (16 intra-chunk, 16 inter-chunk)
         # through the packed entry, as the module calls it; library_ms: F.scaled_dot_product_attention, then K1 for
         # the head grid; route_bound_ms: Q K^T at the float32 peak beside P V as 3 TF32 products a float32 one at
@@ -5188,7 +5631,8 @@ def main() -> None:
     # import_launches: the launches of phase 66's imported forwards and phase 68's KD steps from pretrained, summed.
     rows = {"act_fake_quant": "act", "weight_fake_quant": "weight", "act_fake_quant_bwd": "act_bwd",
             "weight_fake_quant_bwd": "weight_bwd", "int8_matmul_requant": "int8_mm", "bilstm_sequence": "bilstm",
-            "lstm_sequence": "lstm", "fused_attention": "attention", "qat_dense": "dense",
+            "lstm_sequence": "lstm", "bilstm_static_sequence": "bilstm_static", "lstm_static_sequence": "lstm_static",
+            "fused_attention": "attention", "qat_dense": "dense",
             "qat_dense_gelu": "dense_gelu", "qat_dense_bwd": "dense_mask", "qat_dense_bwd_gelu": "dense_mask_gelu",
             "qmatmul": "qmatmul"}
     # variant_launches: the launches of phases 69-71's steps and forwards, summed.

@@ -67,6 +67,20 @@
 // threads one hidden unit of 8 rows (several passes for H > 128), W_hh read
 // from L2 through the read-only path at every step.
 //
+// The static route (both kernels, as templates on kMode in csrc/lstm.cuh; its quantized launch is exported from
+// csrc/lstm_static.cu): the port's own, as JAX runs its static cell as a lax.scan (fqss_tpu/nn/lstm.py:108-176).
+// The cell of QLSTM(mode="static") with its 12 quantizer sites per direction, in _cell_step's order
+// (fqss_tpu/nn/lstm.py:40-60), each a per-tensor uniform grid from the direction's (site_min, site_max) through
+// K1's device functions (fake_quant.cuh):
+//                           a = q2(q0(ih_d[t, b]) + q1(h @ W_d))   (h @ W_d summed from zero, then quantized)
+//                           i, f, g, o = q3(sigmoid(a_i)), q4(sigmoid(a_f)), q5(tanh(a_g)), q6(sigmoid(a_o))
+//                           c = q9(q7(f * c) + q8(i * g)),  h = q11(o * q10(tanh(c)))
+// The observer window is a launch of its own (kObserve): the float cell, as the fused route computes it, whose
+// warps write each step's min and max of every site over their rows and units to stats [T, partials, 12, 2]; the
+// wrapper reduces them and runs the 0.9/0.1 EMA on the device, then launches the quantized cell (kStatic) for the
+// steps after the window from the observed launch's last h (h0) and c (c0, written to c_last). The grids live in
+// shared memory; the state in and out (h0, c0, c_last) is [B, H], zero where no h0/c0 is given.
+//
 // Numerics (both kernels): the product sums k = 0 .. H-1 in order with fused
 // multiply-adds from 0 and adds ih afterwards, as ih_t + h @ w_hh groups it;
 // the gates use expf/tanhf (no fast math) and round-to-nearest intrinsics, so
@@ -76,395 +90,13 @@
 // ulp, so kernel and plain version agree to a tolerance, not bit for bit. Do
 // not build with --use_fast_math.
 
-#include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "lstm.cuh"
 
-namespace cg = cooperative_groups;
-
-namespace {
-
-constexpr int kSmemBytes = 232448;  // the most dynamic shared memory a block may have on sm_90
-
-struct Direction {
-  const float* ih;  // [T, B, 4H]
-  const float* w;   // [H, 4H]
-  float* out;       // [T, B, H]
-};
-
-__device__ __forceinline__ float sigmoid_rn(float x) { return __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-x))); }
-
-// ---------------------------------------------------------------------------------------------------------------
-// The cluster route.
-
-constexpr int kCThreads = 256;
-constexpr int kCLanes = 32;                   // unit lanes of a row group (a warp): each owns units p and p + 32
-constexpr int kCUnits = 2 * kCLanes;          // the most hidden units a CTA owns
-constexpr int kCGroups = kCThreads / kCLanes; // row groups of a CTA, one a warp
-constexpr int kMaxCluster = 8;                // the portable cluster size
-
-// Shared memory of one CTA: its W slice [H][U] float4, h of the tile in two buffers [2][rows][H], and an mbarrier
-// for each buffer and row group [2][kCGroups].
-size_t cluster_smem(int64_t H, int c, int rows) {
-  const int64_t U = (H + c - 1) / c;
-  return sizeof(float) * static_cast<size_t>(4 * H * U + 2 * rows * H) + sizeof(uint64_t) * 2 * kCGroups;
+// Largest H the blocks route takes: h (two buffers) and c of a block's 16 rows in 227 KB of shared memory (with the
+// static route's 96 bytes of grids).
+extern "C" int fqss_lstm_max_hidden() {
+  return static_cast<int>((kSmemBytes - 2 * kSites * sizeof(float)) / (3 * kTile * sizeof(float)));
 }
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Arrive (release, cluster scope) on the mbarrier at shared address `bar` of cluster rank `rank`.
-__device__ __forceinline__ void arrive_remote(uint32_t bar, int rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(bar), "r"(rank));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
-}
-
-// Wait (acquire, cluster scope) until the phase of parity `parity` of the local mbarrier `bar` has completed.
-__device__ __forceinline__ void wait_parity(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n .reg .pred p;\n mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-// kRpt: rows of a thread (the tile has kCGroups * kRpt rows); kVec: H is a multiple of 4, so every row of h in
-// shared memory is 16-byte aligned. A thread sums 2 units x 4 gates x kRpt rows: each k it reads 8 values of W and
-// kRpt of h from shared memory for 8 kRpt FMAs (at kRpt = 8, one float read a 4 FMAs, the SM's ratio of shared
-// memory bandwidth, 32 floats a clock, to its 128 FMA lanes).
-template <int kRpt, bool kVec>
-__global__ void __launch_bounds__(kCThreads, 1)
-    lstm_cluster_kernel(Direction d0, Direction d1, int64_t T, int64_t B, int H, int U) {
-  constexpr int kRows = kCGroups * kRpt;
-  extern __shared__ __align__(16) float smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int c = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  float4* w_s = reinterpret_cast<float4*>(smem);  // [H][U]: (W[k][j], W[k][H + j], W[k][2H + j], W[k][3H + j])
-  float* h_buf = smem + 4 * H * U;                 // [2][kRows][H]
-  uint64_t* full = reinterpret_cast<uint64_t*>(h_buf + 2 * kRows * H);  // [2][kCGroups]
-  const Direction d = blockIdx.y == 0 ? d0 : d1;
-  const int64_t G = 4 * static_cast<int64_t>(H);
-  const int p = threadIdx.x % kCLanes;
-  const int grp = threadIdx.x / kCLanes;
-  int j[2], uc[2];
-  bool live[2];  // the thread owns hidden unit j[q]
-#pragma unroll
-  for (int q = 0; q < 2; ++q) {
-    const int u = p + q * kCLanes;
-    j[q] = rank * U + u;
-    live[q] = u < U && j[q] < H;
-    uc[q] = u < U ? u : U - 1;  // the W column a dead unit reads (its sums are discarded)
-  }
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x / c) * kRows + grp * kRpt;
-
-  for (int i = threadIdx.x; i < H * U; i += kCThreads) {
-    const int k = i / U;
-    const int jj = rank * U + i % U;
-    float4 v = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-    if (jj < H) {
-      const float* wk = d.w + k * G + jj;
-      v = make_float4(__ldg(wk), __ldg(wk + H), __ldg(wk + 2 * H), __ldg(wk + 3 * H));
-    }
-    w_s[i] = v;
-  }
-  for (int i = threadIdx.x; i < kRows * H; i += kCThreads) h_buf[i] = 0.0f;
-  // full[b][w] completes a phase when warp w of every CTA has written its rows of buffer b and arrived: c x 32
-  // arrivals.
-  if (threadIdx.x < 2 * kCGroups) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(full + threadIdx.x)), "r"(c * kCLanes));
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-
-  float pre[kRpt][2][4];
-  float c_reg[kRpt][2];
-#pragma unroll
-  for (int r = 0; r < kRpt; ++r)
-#pragma unroll
-    for (int q = 0; q < 2; ++q) {
-      c_reg[r][q] = 0.0f;
-#pragma unroll
-      for (int g = 0; g < 4; ++g)
-        pre[r][q][g] = live[q] && row0 + r < B ? __ldg(d.ih + (row0 + r) * G + g * H + j[q]) : 0.0f;
-    }
-  // Every CTA's W slice, zeroed buffer 0 and mbarriers are in place, and its shared memory is live, before a peer
-  // reads, writes or arrives there.
-  cluster.sync();
-
-  for (int64_t t = 0; t < T; ++t) {
-    // h of step t for this warp's rows: buffer t & 1, filled at step t - 1 (its ((t - 1) >> 1)-th fill)
-    if (t > 0) wait_parity(smem_addr(full + (t & 1) * kCGroups + grp), static_cast<uint32_t>(((t - 1) >> 1) & 1));
-    const float* h_old = h_buf + (t & 1) * kRows * H + grp * kRpt * H;
-    float* h_new = h_buf + ((t + 1) & 1) * kRows * H + grp * kRpt * H;
-    float acc[kRpt][2][4];
-#pragma unroll
-    for (int r = 0; r < kRpt; ++r)
-#pragma unroll
-      for (int q = 0; q < 2; ++q)
-#pragma unroll
-        for (int g = 0; g < 4; ++g) acc[r][q][g] = 0.0f;
-    if (kVec) {
-#pragma unroll 2
-      for (int k = 0; k < H; k += 4) {
-        float4 wk[4][2];
-#pragma unroll
-        for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-          for (int q = 0; q < 2; ++q) wk[kk][q] = w_s[(k + kk) * U + uc[q]];
-#pragma unroll
-        for (int r = 0; r < kRpt; ++r) {
-          const float4 hv = *reinterpret_cast<const float4*>(h_old + r * H + k);
-          const float hk[4] = {hv.x, hv.y, hv.z, hv.w};
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int q = 0; q < 2; ++q) {
-              acc[r][q][0] = fmaf(hk[kk], wk[kk][q].x, acc[r][q][0]);
-              acc[r][q][1] = fmaf(hk[kk], wk[kk][q].y, acc[r][q][1]);
-              acc[r][q][2] = fmaf(hk[kk], wk[kk][q].z, acc[r][q][2]);
-              acc[r][q][3] = fmaf(hk[kk], wk[kk][q].w, acc[r][q][3]);
-            }
-        }
-      }
-    } else {
-      for (int k = 0; k < H; ++k) {
-        float4 wk[2];
-#pragma unroll
-        for (int q = 0; q < 2; ++q) wk[q] = w_s[k * U + uc[q]];
-#pragma unroll
-        for (int r = 0; r < kRpt; ++r) {
-          const float hv = h_old[r * H + k];
-#pragma unroll
-          for (int q = 0; q < 2; ++q) {
-            acc[r][q][0] = fmaf(hv, wk[q].x, acc[r][q][0]);
-            acc[r][q][1] = fmaf(hv, wk[q].y, acc[r][q][1]);
-            acc[r][q][2] = fmaf(hv, wk[q].z, acc[r][q][2]);
-            acc[r][q][3] = fmaf(hv, wk[q].w, acc[r][q][3]);
-          }
-        }
-      }
-    }
-    float* out_t = d.out + t * B * H;
-    // The new h goes to every CTA: at 32 and 64 rows as float4 copies of the warp's rows once they are all in place
-    // here (7% faster at DPTNet's shapes), at fewer rows cell by cell (3% faster at 8 rows).
-    const bool copy4 = kVec && kRpt >= 4 && U % 4 == 0 && (rank + 1) * U <= H;
-#pragma unroll
-    for (int r = 0; r < kRpt; ++r)
-#pragma unroll
-      for (int q = 0; q < 2; ++q) {
-        const float i_g = sigmoid_rn(__fadd_rn(pre[r][q][0], acc[r][q][0]));
-        const float f_g = sigmoid_rn(__fadd_rn(pre[r][q][1], acc[r][q][1]));
-        const float g_g = tanhf(__fadd_rn(pre[r][q][2], acc[r][q][2]));
-        const float o_g = sigmoid_rn(__fadd_rn(pre[r][q][3], acc[r][q][3]));
-        c_reg[r][q] = __fadd_rn(__fmul_rn(f_g, c_reg[r][q]), __fmul_rn(i_g, g_g));
-        const float h = __fmul_rn(o_g, tanhf(c_reg[r][q]));
-        if (live[q]) {
-          if (copy4) {
-            h_new[r * H + j[q]] = h;
-          } else {
-            for (int rk = 0; rk < c; ++rk) cluster.map_shared_rank(h_new, rk)[r * H + j[q]] = h;
-          }
-          if (row0 + r < B) out_t[(row0 + r) * H + j[q]] = h;
-        }
-      }
-    if (copy4) {
-      __syncwarp();
-      for (int rk = 0; rk < c; ++rk) {
-        if (rk == rank) continue;
-        float* peer = cluster.map_shared_rank(h_new, rk);
-        for (int i = p; i < kRpt * U / 4; i += kCLanes) {
-          const int r = i / (U / 4);
-          const int jj = rank * U + (i % (U / 4)) * 4;
-          *reinterpret_cast<float4*>(peer + r * H + jj) = *reinterpret_cast<const float4*>(h_new + r * H + jj);
-        }
-      }
-    }
-    {
-      const uint32_t bar = smem_addr(full + ((t + 1) & 1) * kCGroups + grp);
-      for (int rk = 0; rk < c; ++rk) arrive_remote(bar, rk);
-    }
-    if (t + 1 < T) {
-      const float* ih_n = d.ih + (t + 1) * B * G;
-#pragma unroll
-      for (int r = 0; r < kRpt; ++r)
-#pragma unroll
-        for (int q = 0; q < 2; ++q)
-#pragma unroll
-          for (int g = 0; g < 4; ++g)
-            pre[r][q][g] = live[q] && row0 + r < B ? __ldg(ih_n + (row0 + r) * G + g * H + j[q]) : 0.0f;
-    }
-  }
-  // No CTA exits while a peer may still write into its shared memory or arrive on its barriers.
-  cluster.sync();
-}
-
-// Launches the cluster kernel, or with max_active set only asks how many of its clusters fit co-resident.
-template <int kRpt, bool kVec>
-int cluster_launch(Direction d0, Direction d1, int dirs, int64_t T, int64_t B, int64_t H, int c, cudaStream_t stream,
-                   int* max_active) {
-  constexpr int kRows = kCGroups * kRpt;
-  auto kernel = lstm_cluster_kernel<kRpt, kVec>;
-  const size_t smem = cluster_smem(H, c, kRows);
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const int64_t tiles = max_active != nullptr ? 1 : (B + kRows - 1) / kRows;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned int>(c * tiles), static_cast<unsigned int>(max_active != nullptr ? 1 : dirs));
-  cfg.blockDim = dim3(kCThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = static_cast<unsigned int>(c);
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  if (max_active != nullptr) return static_cast<int>(cudaOccupancyMaxActiveClusters(max_active, kernel, &cfg));
-  const int U = static_cast<int>((H + c - 1) / c);
-  err = cudaLaunchKernelEx(&cfg, kernel, d0, d1, T, B, static_cast<int>(H), U);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <bool kVec>
-int cluster_dispatch(Direction d0, Direction d1, int dirs, int64_t T, int64_t B, int64_t H, int c, int rows,
-                     cudaStream_t stream, int* max_active) {
-  switch (rows) {
-    case kCGroups * 1: return cluster_launch<1, kVec>(d0, d1, dirs, T, B, H, c, stream, max_active);
-    case kCGroups * 2: return cluster_launch<2, kVec>(d0, d1, dirs, T, B, H, c, stream, max_active);
-    case kCGroups * 4: return cluster_launch<4, kVec>(d0, d1, dirs, T, B, H, c, stream, max_active);
-    case kCGroups * 8: return cluster_launch<8, kVec>(d0, d1, dirs, T, B, H, c, stream, max_active);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
-int cluster_checked(Direction d0, Direction d1, int dirs, int64_t T, int64_t B, int64_t H, int c, int rows,
-                    cudaStream_t stream, int* max_active) {
-  if (c < 1 || c > kMaxCluster || H < 1 || (H + c - 1) / c > kCUnits || cluster_smem(H, c, rows) > kSmemBytes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  return H % 4 == 0 ? cluster_dispatch<true>(d0, d1, dirs, T, B, H, c, rows, stream, max_active)
-                    : cluster_dispatch<false>(d0, d1, dirs, T, B, H, c, rows, stream, max_active);
-}
-
-// ---------------------------------------------------------------------------------------------------------------
-// The blocks route, for H above what a cluster holds.
-
-constexpr int kLanes = 128;             // hidden units one pass of a block covers
-constexpr int kGroups = 2;              // row groups of a block
-constexpr int kThreads = kLanes * kGroups;
-constexpr int kRows = 8;                // batch rows of a thread
-constexpr int kTile = kGroups * kRows;  // batch rows of a block
-
-template <bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
-    lstm_blocks_kernel(Direction d0, Direction d1, int64_t T, int64_t B, int H) {
-  extern __shared__ __align__(16) float smem[];
-  float* h_buf = smem;                // [2][kTile][H]
-  float* c_s = smem + 2 * kTile * H;  // [kTile][H]
-  const Direction d = blockIdx.y == 0 ? d0 : d1;
-  const int64_t G = 4 * static_cast<int64_t>(H);
-  const int64_t row0 = static_cast<int64_t>(blockIdx.x) * kTile;
-  const int lane = threadIdx.x % kLanes;
-  const int grp = threadIdx.x / kLanes;
-
-  for (int i = threadIdx.x; i < 3 * kTile * H; i += kThreads) smem[i] = 0.0f;
-  __syncthreads();
-
-  for (int64_t t = 0; t < T; ++t) {
-    const float* h_old = h_buf + (t & 1) * kTile * H + grp * kRows * H;
-    float* h_new = h_buf + ((t + 1) & 1) * kTile * H;
-    const float* ih_t = d.ih + t * B * G;
-    float* out_t = d.out + t * B * H;
-    for (int j = lane; j - lane < H; j += kLanes) {
-      if (j >= H) continue;
-      float pre[kRows][4];
-      float acc[kRows][4];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int64_t row = row0 + grp * kRows + r;
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          pre[r][g] = row < B ? __ldg(ih_t + row * G + g * H + j) : 0.0f;
-          acc[r][g] = 0.0f;
-        }
-      }
-      if (kVec) {
-        // not unrolled: two iterations' W values spilled past the 128 registers that two blocks an SM leave
-#pragma unroll 1
-        for (int k = 0; k < H; k += 4) {
-          float wk[4][4];
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int g = 0; g < 4; ++g) wk[kk][g] = __ldg(d.w + (k + kk) * G + g * H + j);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float4 hv = *reinterpret_cast<const float4*>(h_old + r * H + k);
-#pragma unroll
-            for (int g = 0; g < 4; ++g) {
-              acc[r][g] = fmaf(hv.x, wk[0][g], acc[r][g]);
-              acc[r][g] = fmaf(hv.y, wk[1][g], acc[r][g]);
-              acc[r][g] = fmaf(hv.z, wk[2][g], acc[r][g]);
-              acc[r][g] = fmaf(hv.w, wk[3][g], acc[r][g]);
-            }
-          }
-        }
-      } else {
-        for (int k = 0; k < H; ++k) {
-          float wk[4];
-#pragma unroll
-          for (int g = 0; g < 4; ++g) wk[g] = __ldg(d.w + k * G + g * H + j);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r) {
-            const float hv = h_old[r * H + k];
-#pragma unroll
-            for (int g = 0; g < 4; ++g) acc[r][g] = fmaf(hv, wk[g], acc[r][g]);
-          }
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int64_t row = row0 + grp * kRows + r;
-        const int idx = (grp * kRows + r) * H + j;
-        const float i_g = sigmoid_rn(__fadd_rn(pre[r][0], acc[r][0]));
-        const float f_g = sigmoid_rn(__fadd_rn(pre[r][1], acc[r][1]));
-        const float g_g = tanhf(__fadd_rn(pre[r][2], acc[r][2]));
-        const float o_g = sigmoid_rn(__fadd_rn(pre[r][3], acc[r][3]));
-        const float c = __fadd_rn(__fmul_rn(f_g, c_s[idx]), __fmul_rn(i_g, g_g));
-        const float h = __fmul_rn(o_g, tanhf(c));
-        c_s[idx] = c;
-        h_new[idx] = h;
-        if (row < B) out_t[row * H + j] = h;
-      }
-    }
-    __syncthreads();
-  }
-}
-
-template <bool kVec>
-int blocks_launch(Direction d0, Direction d1, int dirs, int64_t T, int64_t B, int64_t H, cudaStream_t stream) {
-  const size_t smem = 3 * kTile * static_cast<size_t>(H) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(lstm_blocks_kernel<kVec>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const dim3 grid(static_cast<unsigned int>((B + kTile - 1) / kTile), static_cast<unsigned int>(dirs));
-  lstm_blocks_kernel<kVec><<<grid, kThreads, smem, stream>>>(d0, d1, T, B, static_cast<int>(H));
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace
-
-// Largest H the blocks route takes: h (two buffers) and c of a block's 16 rows in 227 KB of shared memory.
-extern "C" int fqss_lstm_max_hidden() { return static_cast<int>(kSmemBytes / (3 * kTile * sizeof(float))); }
 
 // The blocks route. dirs = 1: ih0, w0 -> out0 (K6); dirs = 2: also ih1, w1 -> out1 in the same launch (K7).
 // ih: [T, B, 4H], w: [H, 4H], out: [T, B, H], float32, contiguous, on the current device;
@@ -473,8 +105,7 @@ extern "C" int fqss_lstm_recurrence(const float* ih0, const float* w0, float* ou
                                     float* out1, int dirs, int64_t T, int64_t B, int64_t H, void* stream) {
   const Direction d0{ih0, w0, out0};
   const Direction d1{ih1, w1, out1};
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return H % 4 == 0 ? blocks_launch<true>(d0, d1, dirs, T, B, H, st) : blocks_launch<false>(d0, d1, dirs, T, B, H, st);
+  return blocks_checked<kFused>(d0, d1, dirs, T, B, H, 0.0f, static_cast<cudaStream_t>(stream));
 }
 
 // The cluster route, with the operands of fqss_lstm_recurrence: clusters of `cluster` CTAs (1 to 8, with
@@ -486,13 +117,34 @@ extern "C" int fqss_lstm_cluster(const float* ih0, const float* w0, float* out0,
                                  void* stream) {
   const Direction d0{ih0, w0, out0};
   const Direction d1{ih1, w1, out1};
-  return cluster_checked(d0, d1, dirs, T, B, H, cluster, rows, static_cast<cudaStream_t>(stream), nullptr);
+  return cluster_checked<kFused>(d0, d1, dirs, T, B, H, cluster, rows, 0.0f, static_cast<cudaStream_t>(stream),
+                                 nullptr);
 }
 
 // How many clusters of the cluster route at (H, cluster, rows) fit co-resident on the current device
-// (cudaOccupancyMaxActiveClusters), into *out. Returns the CUDA error code.
-extern "C" int fqss_lstm_cluster_max_active(int64_t H, int cluster, int rows, int* out) {
+// (cudaOccupancyMaxActiveClusters), into *out; mode 0 the fused kernel, 1 the static route's observing launch (2, its
+// quantized one: fqss_lstm_static_max_active). Returns the CUDA error code.
+extern "C" int fqss_lstm_cluster_max_active(int64_t H, int cluster, int rows, int mode, int* out) {
   *out = 0;
   const Direction none{nullptr, nullptr, nullptr};
-  return cluster_checked(none, none, 1, 1, 1, H, cluster, rows, nullptr, out);
+  switch (mode) {
+    case kFused: return cluster_checked<kFused>(none, none, 1, 1, 1, H, cluster, rows, 0.0f, nullptr, out);
+    case kObserve: return cluster_checked<kObserve>(none, none, 1, 1, 1, H, cluster, rows, 0.0f, nullptr, out);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
+
+// The static route's observing launch (kObserve): the float cell over the observer window's steps. ptrs: 9 device
+// pointers a direction (ih, w, out, h0, c0, c_last, site_min, site_max, stats; h0, c0, c_last may be 0; the ranges
+// are not read), for `dirs` directions; each warp writes the min and max of every site at every step to stats
+// [T, partials, 12, 2], partials = 8 x the CTAs of a direction. cluster > 0 takes the cluster route with `rows` rows
+// a cluster (8 to 32), cluster 0 the blocks route. Returns the launch's CUDA error code.
+extern "C" int fqss_lstm_observe(const int64_t* ptrs, int dirs, int64_t T, int64_t B, int64_t H, int cluster, int rows,
+                                 void* stream) {
+  const Direction d0 = direction_of(ptrs);
+  const Direction d1 = direction_of(ptrs + (dirs > 1 ? 9 : 0));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return cluster > 0 ? cluster_checked<kObserve>(d0, d1, dirs, T, B, H, cluster, rows, 0.0f, st, nullptr)
+                     : blocks_checked<kObserve>(d0, d1, dirs, T, B, H, 0.0f, st);
+}
+

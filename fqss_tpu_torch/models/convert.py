@@ -71,7 +71,9 @@ def _leaves(tree: Mapping, path: tuple[str, ...] = ()) -> Iterator[tuple[tuple[s
 
 
 Scopes = tuple[tuple[str, ...], ...] | Callable[[tuple], bool]
-_QPARAMS = ("min_range", "max_range", "mu")  # a quantizer's learned ranges; what else it holds is qstats
+# A quantizer's learned ranges (and the static LSTM cell's, which its direction holds itself); what else they hold
+# is qstats.
+_QPARAMS = ("min_range", "max_range", "mu", "site_min", "site_max")
 _QSTATS = ("n_iter", "observed", "site_n_iter", "hist", "val_min", "val_max", "calibrated")
 
 

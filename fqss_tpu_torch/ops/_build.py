@@ -20,10 +20,10 @@ import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCES = tuple(_PKG / "csrc" / name for name in ("fake_quant.cu", "int8_matmul.cu", "lstm.cu", "attention.cu",
-                                                              "qat_dense.cu"))
+SOURCES = tuple(_PKG / "csrc" / name for name in ("fake_quant.cu", "int8_matmul.cu", "lstm.cu", "lstm_static.cu",
+                                                              "attention.cu", "qat_dense.cu"))
 # included by the sources; part of the library's hash
-HEADERS = tuple(_PKG / "csrc" / name for name in ("fake_quant.cuh", "tf32_mma.cuh"))
+HEADERS = tuple(_PKG / "csrc" / name for name in ("fake_quant.cuh", "tf32_mma.cuh", "lstm.cuh"))
 BUILD_DIR = _PKG / "build"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -130,8 +130,14 @@ def load(path: Path) -> ctypes.CDLL:
     lib.fqss_lstm_recurrence.restype = i32
     lib.fqss_lstm_cluster.argtypes = [p, p, p, p, p, p, i32, i64, i64, i64, i32, i32, p]
     lib.fqss_lstm_cluster.restype = i32
-    lib.fqss_lstm_cluster_max_active.argtypes = [i64, i32, i32, ctypes.POINTER(i32)]
+    lib.fqss_lstm_cluster_max_active.argtypes = [i64, i32, i32, i32, ctypes.POINTER(i32)]
     lib.fqss_lstm_cluster_max_active.restype = i32
+    lib.fqss_lstm_observe.argtypes = [ctypes.POINTER(i64), i32, i64, i64, i64, i32, i32, p]
+    lib.fqss_lstm_observe.restype = i32
+    lib.fqss_lstm_static.argtypes = [ctypes.POINTER(i64), i32, i64, i64, i64, i32, i32, i32, p]
+    lib.fqss_lstm_static.restype = i32
+    lib.fqss_lstm_static_max_active.argtypes = [i64, i32, i32, ctypes.POINTER(i32)]
+    lib.fqss_lstm_static_max_active.restype = i32
     lib.fqss_attention_max_dim.argtypes = []
     lib.fqss_attention_max_dim.restype = i32
     lib.fqss_attention.argtypes = [p, p, p, p, p, p, ctypes.POINTER(i64), i32, i32, p]

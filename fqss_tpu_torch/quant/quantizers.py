@@ -13,6 +13,8 @@ collection) and its observer counter as a buffer (``qstats``):
 * :class:`WeightQuantizer` — per-channel symmetric grid. A one-shot observer
   captures the per-channel min/max on the first ``train()`` call, which
   returns the float weights once.
+* :func:`dynamic_act_quant` — the stateless grid from each call's own
+  min/max, at the 12 sites of the LSTM's dynamic cell.
 
 State is written only in ``train()`` mode, and under ``torch.no_grad()``.
 In ``eval()`` mode a quantizer still inside its observer window returns its
@@ -59,7 +61,8 @@ from fqss_tpu_torch.ops.fake_quant import (
     weight_fake_quant_group,
 )
 from fqss_tpu_torch.quant import histogram
-from fqss_tpu_torch.quant.fake_quant import mulaw_fake_quant, weight_scale
+from fqss_tpu_torch.quant.fake_quant import linear_fake_quant, mulaw_fake_quant, qrange, true_div, weight_scale
+from fqss_tpu_torch.quant.ste import round_ste
 
 Tensor = torch.Tensor
 
@@ -165,6 +168,34 @@ class MseActQuantizer(ActQuantizer):
             self.val_min.copy_(torch.where(keep, nmin, self.val_min))
             self.val_max.copy_(torch.where(keep, nmax, self.val_max))
             self.n_iter.add_(keep.to(torch.int32))
+
+
+def dynamic_act_quant(x: Tensor, n_bits: int = 8, sym: bool = False, factor: float = 0.99,
+                      dims: tuple[int, ...] | None = None) -> Tensor:
+    """Stateless dynamic fake-quantizer (qat_quant.py:329-347; ``fqss_tpu/quant/quantizers.py:187-197``).
+
+    The per-call min and max of ``x`` (over ``dims``, all of them by default) times ``factor``, against outliers;
+    ``sign = min < 0`` picks the signed or unsigned window of the symmetric grid (the uniform grid ignores it); the
+    identity where ``min == max``. The gradient is the JAX function's: the STE of
+    :func:`~fqss_tpu_torch.quant.fake_quant.linear_fake_quant`, and through the min and max (``amin``/``amax``
+    split a tie evenly, as ``jnp.min``/``jnp.max`` do). Where ``min == max`` JAX's gradient is NaN (the unselected
+    branch divides 0 by a zero grid step, and ``where`` passes 0 × NaN on); here that branch takes a stand-in
+    range, so the gradient there is the identity's, as the reference's early return gives it.
+    """
+    mn = x.amin(dim=dims, keepdim=dims is not None)
+    mx = x.amax(dim=dims, keepdim=dims is not None)
+    flat = mn == mx
+    lo = torch.where(flat, torch.zeros_like(mn), factor * mn)
+    hi = torch.where(flat, torch.ones_like(mx), factor * mx)
+    if sym:  # jnp.clip(X, qmin, qmax) with the window a tensor: minimum(maximum(...)), 0.5 at a tie
+        sign = mn < 0
+        qmin = torch.where(sign, float(qrange(n_bits, True)[0]), 0.0)
+        qmax = torch.where(sign, float(qrange(n_bits, True)[1]), float(qrange(n_bits, False)[1]))
+        delta = true_div(2.0 * torch.maximum(lo.abs(), hi.abs()), 2**n_bits - 1)
+        y = delta * torch.minimum(torch.maximum(round_ste(x / delta), qmin), qmax)
+    else:
+        y = linear_fake_quant(x, lo, hi, n_bits, sym=False)
+    return torch.where(flat, x, y)
 
 
 class WeightQuantizer(nn.Module):

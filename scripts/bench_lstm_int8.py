@@ -3,13 +3,15 @@
 matmul (K4, ``csrc/int8_matmul.cu``) against other versions of those sources,
 on one NVIDIA GPU.
 
-Usage: python3 scripts/bench_lstm_int8.py --baseline DIR [--out FILE.json]
+Usage: python3 scripts/bench_lstm_int8.py --baseline DIR [--lstm-only] [--out FILE.json]
 
 ``DIR`` holds the other ``lstm.cu`` and ``int8_matmul.cu`` (for example an
 earlier commit's, from ``git show``); they are built into a library of their
 own and called through the C interface they had before the cluster and
 persistent routes: ``fqss_lstm_recurrence`` (any H) and
-``fqss_int8_matmul_requant`` without the grid argument. At the shapes of
+``fqss_int8_matmul_requant`` without the grid argument; an ``lstm.cu`` that
+has the cluster route (``fqss_lstm_cluster``) is called there, on the plan the
+current wrapper takes. At the shapes of
 ``chip_smoke.py``'s phases 12 (ConvTasNet's int8 engine), 17 (DPTNet's row and
 column LSTMs at 8 x 4 s and those of a streamed 16000-sample window at batch
 1), 22 (the DPTNet int8 engine) and 29 (the Sepformer int8 engine), it first
@@ -56,15 +58,23 @@ def baseline_library(directory: Path) -> ctypes.CDLL:
     lib.fqss_int8_matmul_requant.argtypes = [p, p, p, p, i32, f32, f32, f32, f32, f32, f32, f32, i64, p, i64, i64,
                                              i64, p]
     lib.fqss_int8_matmul_requant.restype = i32
+    if hasattr(lib, "fqss_lstm_cluster"):
+        lib.fqss_lstm_cluster.argtypes = [p, p, p, p, p, p, i32, i64, i64, i64, i32, i32, p]
+        lib.fqss_lstm_cluster.restype = i32
     return lib
 
 
 def baseline_lstm(lib: ctypes.CDLL, ih: list, w: list) -> list:
     T, B, G = ih[0].shape
     outs = [torch.empty(T, B, G // 4, device=ih[0].device) for _ in ih]
-    rc = lib.fqss_lstm_recurrence(ih[0].data_ptr(), w[0].data_ptr(), outs[0].data_ptr(), ih[-1].data_ptr(),
-                                  w[-1].data_ptr(), outs[-1].data_ptr(), len(ih), T, B, G // 4,
-                                  torch.cuda.current_stream().cuda_stream)
+    ptrs = (ih[0].data_ptr(), w[0].data_ptr(), outs[0].data_ptr(), ih[-1].data_ptr(), w[-1].data_ptr(),
+            outs[-1].data_ptr(), len(ih), T, B, G // 4)
+    stream = torch.cuda.current_stream().cuda_stream
+    if hasattr(lib, "fqss_lstm_cluster"):  # the cluster route, on the current wrapper's plan
+        p = lk.launch_plan(ih[0].device, B, G // 4, len(ih))
+        rc = lib.fqss_lstm_cluster(*ptrs, p.cluster, p.rows, stream)
+    else:
+        rc = lib.fqss_lstm_recurrence(*ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"baseline LSTM launch failed with error {rc}")
     return outs
@@ -101,6 +111,8 @@ def main() -> None:
     parser.add_argument("--baseline", type=Path, required=True, help="directory with the other lstm.cu and "
                         "int8_matmul.cu")
     parser.add_argument("--out", type=Path, help="write the readings as JSON here")
+    parser.add_argument("--lstm-only", action="store_true", help="time the LSTM kernels alone (a baseline "
+                        "int8_matmul.cu of PR 9 or later takes the grid argument, which this script does not pass)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("bench_lstm_int8: no CUDA device")
@@ -134,9 +146,10 @@ def main() -> None:
         del ih, w
         torch.cuda.empty_cache()
     one = (cs.INT8_TIE_DELTA, cs.INT8_TIE_MN)
-    int8_cases = {"ConvTasNet": [(cs.INT8_ROWS, k, n, "prelu", 0.25, one, f"{k} -> {n}", per_forward)
-                                 for k, n, per_forward in cs.INT8_SHAPES],
-                  "DPTNet": cs.dptnet_int8_cases(dpt, shapes), "Sepformer": cs.sepformer_int8_cases(sep)}
+    int8_cases = {} if args.lstm_only else {
+        "ConvTasNet": [(cs.INT8_ROWS, k, n, "prelu", 0.25, one, f"{k} -> {n}", per_forward)
+                       for k, n, per_forward in cs.INT8_SHAPES],
+        "DPTNet": cs.dptnet_int8_cases(dpt, shapes), "Sepformer": cs.sepformer_int8_cases(sep)}
     for engine, cases in int8_cases.items():
         for m, k, n, nl, alpha, grids, what, per_forward in cases:
             xs, w, scale, corr = cs.int8_case(dev, m, k, n, gen)

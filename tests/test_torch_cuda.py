@@ -397,7 +397,7 @@ def test_lstm_kernels_match_plain(dev, T, B, H):
         h1 = lstm.lstm_sequence(ih[1], w[1])
         rf, rb = lstm.bilstm_sequence_ref(ih[0], ih[1], w[0], w[1])
     torch.cuda.synchronize()
-    assert lstm.LAUNCHES == {"lstm": before["lstm"] + 1, "bilstm": before["bilstm"] + 1}
+    assert lstm.LAUNCHES == {**before, "lstm": before["lstm"] + 1, "bilstm": before["bilstm"] + 1}
     assert hf.shape == hb.shape == h1.shape == (T, B, H)
     for got, want in ((hf, rf), (hb, rb), (h1, rb)):
         assert (got - want).abs().max().item() <= LSTM_TOL
@@ -417,7 +417,7 @@ def test_lstm_wrapper_rejects_what_the_kernel_does_not_take(dev):
     before = dict(lstm.LAUNCHES)
     w.requires_grad_()
     lstm.lstm_sequence(ih, w).sum().backward()
-    assert lstm.LAUNCHES == {"lstm": before["lstm"] + 1, "bilstm": before["bilstm"]}
+    assert lstm.LAUNCHES == {**before, "lstm": before["lstm"] + 1}
     want = torch.autograd.grad(lstm.lstm_sequence_ref(ih, w).sum(), w)[0]
     assert torch.equal(w.grad, want)
 
@@ -439,6 +439,118 @@ def test_lstm_backward_equals_the_plain_gradient(dev, T, B, H):
         grads.append([a.grad for a in t])
     for got, want in zip(*grads):  # the same plain recurrence differentiated at the same saved inputs
         assert torch.equal(got, want)
+
+
+# The static route of K7/K6 (QLSTM(mode="static")) against its plain version, chip_smoke.py's rule: every output
+# within one step of the output site's (mul2's) grid of the plain version's, at most STATIC_SHARE of them more than
+# half a step apart; the ranges after an observer window within STATIC_RANGE_REL of each site's range width.
+STATIC_SHARE = 0.01
+STATIC_RANGE_REL = 1e-6
+
+
+def _static_case(dev, T, B, H, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(2)]
+    w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / H**0.5 for _ in range(2)]
+    # ranges about the cell's own: the gates in [0, 1], the sums and products a little wider
+    lo = torch.tensor([-2.0, -1.5, -3.0, 0.0, 0.0, -1.0, 0.0, -1.0, -1.0, -2.0, -1.0, -1.0], device=dev)
+    sites = [(lo * (1 + 0.1 * d), -lo.clamp(max=-1.0) * (1 + 0.1 * d)) for d in range(2)]
+    return ih, w, sites
+
+
+def _assert_static_rule(got, want, mx, mn):
+    step = float(mx[11] - mn[11]) / 255
+    diff = (got - want).abs()
+    assert diff.max().item() <= step * (1 + 1e-4), diff.max().item() / step
+    assert (diff > 0.5 * step).float().mean().item() <= STATIC_SHARE
+
+
+@pytest.mark.parametrize("T,B,H,observe", [(40, 300, 128, 0), (12, 300, 128, 5), (12, 37, 96, 12), (20, 67, 130, 7),
+                                           (9, 11, 400, 4), (6, 5, 400, 0)])
+def test_lstm_static_route_matches_plain(dev, T, B, H, observe):
+    from fqss_tpu_torch.ops import lstm
+
+    ih, w, sites = _static_case(dev, T, B, H, T * B + H + observe)
+    before = dict(lstm.LAUNCHES)
+    with torch.no_grad():
+        hf, hb, rf, rb = lstm.bilstm_static_sequence(ih[0], ih[1], w[0], w[1], sites[0], sites[1], observe)
+        h1, *r1 = lstm.lstm_static_sequence(ih[1], w[1], *sites[1], observe)
+        want = [lstm.lstm_static_sequence_ref(ih[d], w[d], *sites[d], observe) for d in range(2)]
+    torch.cuda.synchronize()
+    launches = 2 if 0 < observe < T else 1
+    assert lstm.LAUNCHES == {**before, "lstm_static": before["lstm_static"] + launches,
+                             "bilstm_static": before["bilstm_static"] + launches}
+    assert lstm.launch_plan(dev, B, H, 2, lstm.MODES["static"]).route == ("blocks" if H == 400 else "cluster")
+    for got, ranges, (hs, mn, mx) in ((hf, rf, want[0]), (hb, rb, want[1]), (h1, r1, want[1])):
+        assert got.shape == (T, B, H)
+        width = mx - mn
+        for a, b in zip(ranges, (mn, mx)):
+            assert bool(((a - b).abs() <= STATIC_RANGE_REL * width).all()), ((a - b).abs() / width).max()
+        _assert_static_rule(got, hs, mx, mn)
+    assert torch.equal(h1, hb)
+
+
+def test_lstm_static_route_backward_equals_the_plain_gradient(dev):
+    from fqss_tpu_torch.ops import lstm
+
+    ih, w, sites = _static_case(dev, 12, 40, 64, 3)
+    g = torch.randn(12, 40, 64, device=dev, generator=torch.Generator(device=dev).manual_seed(4))
+    grads = []
+    for fn in (lstm.lstm_static_sequence, lstm.lstm_static_sequence_ref):
+        t = [a.clone().requires_grad_(True) for a in (ih[0], w[0], *sites[0])]
+        before = dict(lstm.LAUNCHES)
+        (fn(*t, 5)[0] * g).sum().backward()
+        if fn is lstm.lstm_static_sequence:
+            assert lstm.LAUNCHES == {**before, "lstm_static": before["lstm_static"] + 2}
+        grads.append([a.grad for a in t])
+    for got, want in zip(*grads):  # the backward recomputes the same plain recurrence at the same saved inputs
+        assert torch.equal(got, want)
+
+
+def test_lstm_static_wrapper_rejects_what_the_kernel_does_not_take(dev):
+    from fqss_tpu_torch.ops import lstm
+
+    ih, w = torch.randn(4, 3, 32, device=dev), torch.randn(8, 32, device=dev)
+    mn, mx = torch.full((12,), -1.0, device=dev), torch.ones(12, device=dev)
+    with pytest.raises(ValueError):
+        lstm.lstm_static_sequence(ih, w, mn.cpu(), mx.cpu())
+    with pytest.raises(ValueError):
+        lstm.lstm_static_sequence(ih, w, mn[:11], mx[:11])
+    with pytest.raises(ValueError):
+        lstm.lstm_static_sequence(ih, w, mn, mx, observe=5)
+    with pytest.raises(TypeError):
+        lstm.lstm_static_sequence(ih.double(), w.double(), mn, mx)
+
+
+def test_tiny_static_dptnet_runs_the_static_route(dev):
+    """A tiny static-mode DPTNet on the card: one static-route launch a bidirectional LSTM (two where a call
+    crosses the window), no fused or plain recurrence, and the CPU's output within 20 dB."""
+    from fqss_tpu_torch.models.dptnet import DPTNet
+    from fqss_tpu_torch.ops import lstm
+    from fqss_tpu_torch.quant.spec import QuantSpec
+
+    arch = dict(n_srcs=2, kernel_size=2, enc_dim=32, feature_dim=16, hidden_dim=32, layer=2, segment_size=40)
+    spec = dict(qat=True, n_splitter=2, n_combiner=2, out_quant=True, lstm_mode="static", max_observations=2)
+    model = DPTNet(q=QuantSpec(**spec), generator=torch.Generator().manual_seed(0), **arch).to(dev)
+    x = torch.randn(1, 2000, generator=torch.Generator().manual_seed(1)) * 0.3
+    lstm.reset_launches()
+    with torch.no_grad():
+        model.train()(x.to(dev))  # the row LSTMs see T 40 (inside the window), the column ones T 102 (across it)
+    assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 0, "lstm_static": 0, "bilstm_static": 2 + 2 * 2}
+    counts = {n: int(b) for n, b in model.named_buffers() if n.endswith("site_n_iter")}
+    assert set(counts.values()) == {40, 50}
+    served = DPTNet(q=QuantSpec(**dict(spec, observer=False)), **arch)
+    served.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    card = DPTNet(q=QuantSpec(**dict(spec, observer=False)), **arch)
+    card.load_state_dict(served.state_dict())
+    card = card.to(dev).eval()
+    lstm.reset_launches()
+    with torch.inference_mode():
+        y = card(x.to(dev)).cpu()
+        want = served.eval()(x)
+    assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 0, "lstm_static": 0, "bilstm_static": 4}
+    snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y).pow(2).sum(-1).clamp_min(1e-30))
+    assert bool((snr >= 20).all()), snr
 
 
 @pytest.mark.parametrize("m,k,n", [(1, 64, 64), (1023, 64, 64), (4096, 256, 64), (300, 7, 3)])
@@ -474,7 +586,7 @@ def test_lstm_routes_match_plain_and_repeat(dev, T, B, H):
         again = lstm.bilstm_sequence(ih[0], ih[1], w[0], w[1])
         rf, rb = lstm.bilstm_sequence_ref(ih[0], ih[1], w[0], w[1])
     torch.cuda.synchronize()
-    assert lstm.LAUNCHES == {"lstm": before["lstm"] + 1, "bilstm": before["bilstm"] + 2}
+    assert lstm.LAUNCHES == {**before, "lstm": before["lstm"] + 1, "bilstm": before["bilstm"] + 2}
     for got, want in ((hf, rf), (hb, rb), (h1, rb)):
         assert (got - want).abs().max().item() <= LSTM_TOL
     assert torch.equal(hf, again[0]) and torch.equal(hb, again[1]) and torch.equal(h1, hb)
@@ -531,7 +643,7 @@ def test_tiny_dptnet_serving_runs_k7_and_k4(dev, compute_dtype):
     with torch.inference_mode():
         y = card(x.to(dev))
         want = cpu(x)
-    assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 4}
+    assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 4, "lstm_static": 0, "bilstm_static": 0}
     # 4 MHAs x 2 no-op sites; the 4 head grids are applied in K8's epilogue; the 5 QDense layers' act grids in K5,
     # BN's in K3; every weight grid in the one grouped launch
     assert fq.LAUNCHES["act"] == n_act - 8 - 4 - 5 - 1 and fq.LAUNCHES["weight"] == 1 < n_weight
@@ -1025,7 +1137,7 @@ def test_tiny_train_step_card_vs_cpu(dev, name):
                          "dense_mask": n_dense, "dense_mask_gelu": 0, "dense_dx": n_dense, "dense_dwq": n_dense}
         assert set(cpu_dense.values()) == {0}
         if name == "DPTNet":
-            assert rec == {"lstm": 0, "bilstm": 2 * 4}  # student and teacher, 2 layers x row and col each
+            assert rec == {"lstm": 0, "bilstm": 2 * 4, "lstm_static": 0, "bilstm_static": 0}  # student and teacher, 2 layers x row and col each
         cos = float(g_card @ g_cpu / (g_card.norm() * g_cpu.norm()))
         loss_tol, cos_min = TINY_TRAIN_CARD_VS_CPU[step]
         assert abs(loss_card - loss_cpu) <= loss_tol and cos >= cos_min, (step, loss_card, loss_cpu, cos)

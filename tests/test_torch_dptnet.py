@@ -210,7 +210,7 @@ def test_forward_matches_jax(calibrated):
     want = np.asarray(jax.jit(jm.apply).lower(variables, x).compile(compiler_options=ALGSIMP_OFF)(variables, x))
     lstm.reset_launches()
     got = _forward(port, mix)
-    assert lstm.LAUNCHES == {"lstm": 0, "bilstm": 0}  # CPU tensors: the plain recurrence
+    assert set(lstm.LAUNCHES.values()) == {0}  # CPU tensors: the plain recurrence
     assert got.shape == want.shape == (2, 2, 600)
     snr = _snr_db(want, got)
     assert (snr >= 20).all(), f"port vs JAX SNR {snr} dB < 20 dB"

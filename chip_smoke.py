@@ -20,7 +20,8 @@ serving through every engine, its evaluation, KD training and recipe, then HTDem
 (``configs/htdemucs.yaml``) serving through every engine and its evaluation, then its training (the GELU route of
 K5-bwd, the KD step, the ``-env htdemucs`` recipe), then checkpoint import into the five models (reference ``.pth``
 files and the JAX package's ``.npz`` exports through ``create_pretrained_model``, ``infer`` and ``pretrained:``); all
-with n_splitter = n_combiner = 2 and 8-bit weights and activations. It prints one line per phase, a ``[time]`` line
+with n_splitter = n_combiner = 2 and 8-bit weights and activations, then data parallelism on two ranks sharing the
+card. It prints one line per phase, a ``[time]`` line
 after each group of phases, and lets any failure propagate:
 
 0. device: the card's name and power limit (nvidia-smi); TF32 off.
@@ -404,6 +405,22 @@ after each group of phases, and lets any failure propagate:
     profile of the loop's steps (kernels and device time a step); card vs CPU by
     phase 19's rule at its first DYNAMIC_CPU_LAYERS dual-path layers; one KD
     step of 1 x 3 s at its first DYNAMIC_TRAIN_LAYERS, a finite loss.
+75. data parallelism (``fqss_tpu_torch/parallel/mesh.py``): two ranks, processes of this script
+    (``--ddp-worker``) sharing cuda:0 over gloo, each with its rows of every global batch; the flagship's
+    DDP_STEPS KD steps at 16 x 3 s through its observer window against one process on the same 16 rows, from the
+    ranks' learned parameters before each step: every act observer's ranges and counter after each forward bitwise
+    equal, the ranks' whole states bitwise equal, the loss within DDP_LOSS_DB, the whole-gradient cosine at least
+    DDP_GRAD_COS; the step times of both (two ranks sharing a card: not a speed-up). The ranks and the one-process
+    runs of 75-79 take cuDNN's deterministic algorithms (its default convolution backward sums with atomics).
+76. the same steps on a one-rank NCCL group (every collective run): bitwise equal to the run without a group;
+    first one step with cuDNN's defaults against itself.
+77. DPTNet with ``lstm_mode: static`` at one dual-path layer, a KD step of 2 x 3 s, one row a rank: the sites'
+    ranges and counters after the forward bitwise equal to one process's.
+78. ``ola_infer(mesh=...)`` of a 60 s mixture through phase 75's flagship, chunk_batch 8 a rank, against one process
+    at 16 (the same blocks): bitwise equal.
+79. the dynamic cell's reductions: a one-layer dynamic DPTNet's eval forward of 2 x 3 s, one row a rank, against one
+    process: its time on both; the launches of each data-parallel path (on the ranks, summed) must include its
+    kernels.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -413,6 +430,7 @@ and prints no result.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
 import dataclasses
 import json
@@ -452,6 +470,7 @@ from fqss_tpu_torch.ops import int8_matmul as im
 from fqss_tpu_torch.ops import lstm as lk
 from fqss_tpu_torch.ops import qat_dense as qd
 from fqss_tpu_torch.ops import qmatmul as qm
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.quant.fake_quant import bf16_round
 from fqss_tpu_torch.quant import histogram
 from fqss_tpu_torch.quant.calibration import calibrate_mse_quantizers, has_pending_mse
@@ -682,7 +701,8 @@ MUSIC_CPU_SEG = 2 * MUSIC_SR  # the int8 engines' card-vs-CPU input, 1 x 2 s (th
 # run, and at full depth the card's own floor is what phase 47 holds the int8 engines to.
 MUSIC_PERTURB = 2.0**-22
 MUSIC_FLOOR_RULE = INT8_FLOOR["float32"]
-MUSIC_SHALLOW = {"n_repeats": 1}
+MUSIC_SHALLOW = {"n_repeats": 1, "n_blocks": 5}  # the card-vs-CPU depth of phases 45 and 47 (5 of 40 blocks)
+MUSIC_THROUGHPUT_REPS = 1  # phase 48: one timed forward of each engine (≈ 2 s) after its warm-up
 # The int8 engines card vs CPU (phase 47) at 1 x 2 s. Phase 13's bounds (INT8_CARD_VS_CPU: the int8 products are exact
 # on both devices) hold for the tiny music model of tests/test_torch_cuda.py, not at this width: on an H100 the
 # float32 engine read 55.3 dB at one block, 47.1 at 3, 37.9 at 6, 27.7 at 10, 22.4 at 20 and 18.7 at 40 (the float
@@ -3459,7 +3479,7 @@ def music_forwards(dev, smi: str) -> tuple:
     for name, engine in (("fake_quant", served), ("folded", folded), ("int8 float32", engines["float32"]),
                          ("int8 bfloat16", engines["bfloat16"]), ("fake_quant bf16", bf16)):
         with torch.inference_mode():
-            ms = cuda_ms(lambda: engine(x), 3)
+            ms = cuda_ms(lambda: engine(x), MUSIC_THROUGHPUT_REPS)
         throughput[name] = ms
         log(f"[48] music throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
             f"{MUSIC_BATCH} x {MUSIC_SEG / MUSIC_SR:g} s stereo) on {smi}")
@@ -5271,6 +5291,340 @@ def lstm_modes(dev, smi: str, dpt_state: dict) -> dict:
             "ms": served["ms"], "dynamic": dynamic}
 
 
+# ---------------------------------------------------------------------------------------------------------------
+# 75-78. data parallelism over torch.distributed (fqss_tpu_torch/parallel/mesh.py)
+# ---------------------------------------------------------------------------------------------------------------
+
+DDP_RANKS = 2  # two processes sharing cuda:0 over gloo (NCCL takes one rank a card)
+DDP_STEPS = 3  # through TRAIN_CFG's observer window of 3 steps
+DDP_LOSS_DB = 1e-3
+DDP_GRAD_COS = 0.99999
+DDP_STATIC_CFG = {**STATIC_CFG, "layer": 1}  # phase 73's static DPTNet at one dual-path layer
+DDP_DYNAMIC_CFG = {**DYNAMIC_CFG, "layer": 1}
+DDP_DPT_BATCH = DDP_RANKS  # phases 77 and 79: one row a rank
+DDP_OLA = dict(seconds=60, segment=16000, overlap=0.25, chunk_batch=8)  # the flagship's request OLA, 60 s
+DDP_WORKER = [sys.executable, os.path.abspath(__file__)]  # a rank's command, before its arguments
+# The kernels each data-parallel path must launch (the counters of all_launches()).
+DDP_PATH_KERNELS = {"kd": ("act", "weight", "act_bwd", "weight_bwd"), "nccl": ("act", "weight", "act_bwd", "weight_bwd"),
+                    "static": ("act", "weight", "act_bwd", "weight_bwd", "bilstm_static", "bilstm", "attention",
+                               "dense", "dense_mask"),
+                    "ola": ("act", "weight")}
+
+
+def ddp_env(rank: int, world: int, port: int) -> dict:
+    """The variables torchrun gives rank ``rank`` of ``world`` on this host."""
+    env = {k: v for k, v in os.environ.items() if k not in dp.ENV + ("LOCAL_RANK",)}
+    return {**env, "RANK": str(rank), "WORLD_SIZE": str(world), "LOCAL_RANK": "0", "MASTER_ADDR": "localhost",
+            "MASTER_PORT": str(port)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def act_observers(model) -> dict:
+    """Every act quantizer's ranges and counter (what its observer writes), on the CPU."""
+    return {f"{n}.{k}": v.detach().cpu().clone() for n, m in model.named_modules() if isinstance(m, ActQuantizer)
+            for k, v in m.state_dict().items()}
+
+
+def site_observers(model) -> dict:
+    """Every static LSTM direction's site ranges and counter, on the CPU."""
+    return {f"{n}.{k}": getattr(m, k).detach().cpu().clone() for n, m in model.named_modules()
+            if "site_n_iter" in m._buffers for k in ("site_min", "site_max", "site_n_iter")}
+
+
+def learned_params(model) -> dict:
+    """The parameters that the act quantizers' observers do not write, on the CPU."""
+    acts = {f"{n}.{k}" for n, m in model.named_modules() if isinstance(m, ActQuantizer) for k, _ in
+            m.named_parameters()}
+    return {k: p.detach().cpu().clone() for k, p in model.named_parameters() if k not in acts}
+
+
+def flat_grads(model) -> torch.Tensor:
+    return torch.cat([p.grad.detach().flatten().double().cpu() for p in model.parameters() if p.grad is not None])
+
+
+def ddp_batches(batch: int, seg: int, steps: int, seed: int) -> list[tuple[torch.Tensor, torch.Tensor]]:
+    rng = np.random.default_rng(seed)
+    return [tuple(map(torch.from_numpy, synth_batch(rng, batch, 2, seg))) for _ in range(steps)]
+
+
+def ddp_kd_steps(dev, cfg: dict, seed: int, batches: list, mesh=None, forced: list | None = None,
+                 observers=act_observers) -> dict:
+    """KD steps of ``cfg``'s model and teacher from ``seed`` on ``batches`` (this rank's rows of each under
+    ``mesh``): per step the learned parameters before it, the observers' state after its forward, the loss, the
+    whole gradient, the host-clock seconds (after a synchronize); the launches of the run (counted from 0) and the
+    state after it. ``forced``: the learned parameters to take before each step (another run's)."""
+    model, teacher = create_model_and_teacher(cfg, generator=torch.Generator().manual_seed(seed))
+    state = new_train_state(model.to(dev), teacher.to(dev))
+    step = make_train_step(TrainConfig(), mesh)
+    seen = []
+    hook = state.model.register_forward_hook(lambda m, args, out: seen.append(observers(m)))
+    out = {"before": [], "loss": [], "grads": [], "seconds": []}
+    reset_all_launches()
+    for i, (mix, src) in enumerate(batches):
+        if forced is not None:
+            with torch.no_grad():
+                for k, p in state.model.named_parameters():
+                    if k in forced[i]:
+                        p.copy_(forced[i][k])
+        out["before"].append(learned_params(state.model))
+        rows = mesh.rows(len(mix)) if mesh is not None else slice(None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, mix[rows].to(dev), src[rows].to(dev))
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["loss"].append(float(metrics["loss"]))
+        out["grads"].append(flat_grads(state.model))
+    out["launches"] = all_launches()
+    hook.remove()
+    out["observed"] = seen
+    out["state"] = {k: v.detach().cpu().clone() for k, v in state.model.state_dict().items()}
+    if not np.isfinite(out["loss"]).all() or state.skipped:
+        raise AssertionError(f"KD steps: losses {out['loss']}, skipped {state.skipped}")
+    del state, model, teacher
+    torch.cuda.empty_cache()
+    return out
+
+
+def ddp_ola_mix() -> np.ndarray:
+    return synth_batch(np.random.default_rng(78), 1, 2, DDP_OLA["seconds"] * SR)[0]
+
+
+def ddp_ola(dev, state: dict, mesh, chunk_batch: int) -> tuple[np.ndarray, dict, float]:
+    """Phase 78's OLA: the flagship with ``state`` (eval mode) on the 60 s mixture, sharded over ``mesh``; the
+    separation, the launches (from 0) and the host-clock seconds."""
+    model = create_model(TRAIN_CFG, quant_spec_from_cfg(TRAIN_CFG))
+    model.load_state_dict(state)
+    model = model.to(dev).eval()
+    mix = ddp_ola_mix()
+    reset_all_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ola_infer(model, mix, n_srcs=2, segment=DDP_OLA["segment"], overlap=DDP_OLA["overlap"],
+                    chunk_batch=chunk_batch, mesh=mesh, device=dev)
+    seconds = time.perf_counter() - t0
+    return out, all_launches(), seconds
+
+
+def ddp_dynamic(dev, mesh) -> tuple[torch.Tensor, float]:
+    """Phase 79: the dynamic-cell DPTNet at one dual-path layer, an eval forward of 2 x 3 s (one row a rank under
+    ``mesh``: 12 min/max reductions over the ranks a recurrence step), gathered; and its host-clock seconds."""
+    model = create_model(DDP_DYNAMIC_CFG, quant_spec_from_cfg(DDP_DYNAMIC_CFG),
+                         generator=torch.Generator().manual_seed(79)).to(dev).eval()
+    (mix, _), = ddp_batches(DDP_DPT_BATCH, DPT_TRAIN_SEG, 1, 79)
+    rows = mesh.rows(DDP_DPT_BATCH) if mesh is not None else slice(None)
+    with torch.inference_mode(), dp.sharded(mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()  # one forward, no warm-up: the plain loop compiles nothing, and a forward is seconds
+        y = dp.gather_rows(model(mix[rows].to(dev)), DDP_DPT_BATCH)
+        torch.cuda.synchronize()
+    return y.cpu(), time.perf_counter() - t0
+
+
+def ddp_worker(out_dir: str, dev: torch.device | None = None) -> None:
+    """A rank of phases 75, 77 and 78 (``python3 chip_smoke.py --ddp-worker DIR`` with torchrun's variables):
+    gloo on cuda:0 (``dev``: another device, for a rehearsal); what it saw goes to DIR/rank<r>.pt (the learned
+    parameters and gradients on rank 0 only)."""
+    if dev is None:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
+        dev = torch.device("cuda", 0)
+    infer.disable_tf32()
+    torch.backends.cudnn.deterministic = True  # as the one-process runs it is held to (deterministic_cudnn)
+    mesh = dp.init_distributed(dev, backend="gloo")
+    try:
+        _build.library()
+        log(f"rank {mesh.rank}: in the group after {time.perf_counter() - _CLOCK['start']:.1f} s")
+        a = ddp_kd_steps(dev, TRAIN_CFG, 75, ddp_batches(TRAIN_BATCH, TRAIN_SEG, DDP_STEPS, 75), mesh)
+        clock(f"75 on rank {mesh.rank}")
+        c = ddp_kd_steps(dev, train_cfg(DDP_STATIC_CFG), 77, ddp_batches(DDP_DPT_BATCH, DPT_TRAIN_SEG, 1, 77), mesh,
+                         observers=site_observers)
+        clock(f"77 on rank {mesh.rank}")
+        ola, ola_launches, ola_s = ddp_ola(dev, a["state"], mesh, DDP_OLA["chunk_batch"])
+        dynamic, dynamic_s = ddp_dynamic(dev, mesh)
+        clock(f"78-79 on rank {mesh.rank}")
+        if mesh.rank:
+            for run in (a, c):
+                del run["before"], run["grads"]
+        torch.save({"a": a, "c": c, "ola": torch.from_numpy(ola), "ola_launches": ola_launches, "ola_s": ola_s,
+                    "dynamic": dynamic, "dynamic_s": dynamic_s}, os.path.join(out_dir, f"rank{mesh.rank}.pt"))
+    finally:
+        dp.shutdown()
+
+
+@contextlib.contextmanager
+def deterministic_cudnn():
+    """cuDNN's deterministic algorithms inside the block: its default convolution backward sums with atomics, so
+    one process's step already differs from itself in the last bits from run to run (phase 76 shows it)."""
+    before = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = before
+
+
+def same_steps(a: dict, b: dict) -> bool:
+    """Whether two runs of ddp_kd_steps gave the same losses, gradients and state, bit for bit."""
+    return (a["loss"] == b["loss"] and all(torch.equal(g, p) for g, p in zip(a["grads"], b["grads"]))
+            and all(torch.equal(a["state"][k], v) for k, v in b["state"].items()))
+
+
+def nccl_one_rank(dev) -> dict:
+    """Phase 76: the flagship's DDP_STEPS KD steps at 16 x 3 s in this process with no process group, then on a
+    one-rank NCCL group (init_process_group("nccl") at world size 1, every collective run): bitwise equal, with
+    cuDNN deterministic (first, with cuDNN's defaults, the run without a group against itself). Returns the grouped
+    run's launches."""
+    batches = ddp_batches(TRAIN_BATCH, TRAIN_SEG, DDP_STEPS, 76)
+    default = [ddp_kd_steps(dev, TRAIN_CFG, 76, batches[:1]) for _ in range(2)]
+    log(f"[76] with cuDNN's default algorithms one step without a group against itself: bitwise "
+        f"{same_steps(*default)} (whole-gradient max |diff| {float((default[0]['grads'][0] - default[1]['grads'][0]).abs().max()):.3g})")
+    del default
+    with deterministic_cudnn():
+        plain = ddp_kd_steps(dev, TRAIN_CFG, 76, batches)
+    saved = {k: os.environ.get(k) for k in dp.ENV + ("LOCAL_RANK",)}
+    os.environ.update(ddp_env(0, 1, free_port()))
+    try:
+        mesh = dp.init_distributed(dev)
+        try:
+            if mesh is None or (mesh.backend, mesh.size) != ("nccl" if dev.type == "cuda" else "gloo", 1):
+                raise AssertionError(f"a one-rank NCCL group expected, got {mesh}")
+            with deterministic_cudnn():
+                grouped = ddp_kd_steps(dev, TRAIN_CFG, 76, batches, mesh)
+        finally:
+            dp.shutdown()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    if not same_steps(grouped, plain):
+        raise AssertionError(f"the one-rank NCCL group's steps differ from the run without a group: losses "
+                             f"{grouped['loss']} against {plain['loss']}")
+    log(f"[76] the flagship's {DDP_STEPS} KD steps at {TRAIN_BATCH} x {TRAIN_SEG // SR} s on a one-rank NCCL group "
+        f"(every observer's min/max, the loss's batch means and the gradients through an all_reduce): losses, "
+        f"gradients and the whole state bitwise equal to the run without a group (cuDNN deterministic); "
+        f"{', '.join(f'{k}={v}' for k, v in grouped['launches'].items() if v)}")
+    return grouped["launches"]
+
+
+def bitwise_mismatches(got: dict, want: dict) -> list[str]:
+    if got.keys() != want.keys():
+        return ["the keys differ"]
+    return [k for k in want if not torch.equal(got[k], want[k])]
+
+
+def data_parallel(dev, smi: str) -> dict:
+    """Phases 75-79: two ranks on cuda:0 over gloo against one process, and a one-rank NCCL group. Returns each
+    path's launches."""
+    nccl = nccl_one_rank(dev)  # 76.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        port = free_port()
+        procs = [subprocess.Popen([*DDP_WORKER, "--ddp-worker", tmp],
+                                  env=ddp_env(r, DDP_RANKS, port), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for r in range(DDP_RANKS)]
+        try:
+            outs = [p.communicate(timeout=600) for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+            if p.returncode != 0:
+                raise AssertionError(f"data-parallel rank {r} failed ({p.returncode}):\n{o[-2000:]}\n{e[-4000:]}")
+        log("\n".join(f"[75-79]   {line}" for line in outs[0][0].splitlines()))
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True) for r in range(DDP_RANKS)]
+    clock("76, the ranks of 75, 77-79")
+
+    # 75. the flagship's KD steps: the ranks against one process on the same 16 rows, from the ranks' learned
+    # parameters before each step (the ranks and the one-process runs of 75-79 with cuDNN deterministic)
+    a = ranks[0]["a"]
+    with deterministic_cudnn():
+        one = ddp_kd_steps(dev, TRAIN_CFG, 75, ddp_batches(TRAIN_BATCH, TRAIN_SEG, DDP_STEPS, 75),
+                           forced=a["before"])
+    across = [k for r in ranks[1:] for k in bitwise_mismatches(r["a"]["state"], a["state"])]
+    observed = [(i, k) for i, (g, w) in enumerate(zip(a["observed"], one["observed"]))
+                for k in bitwise_mismatches(g, w)]
+    dloss = [abs(g - w) for g, w in zip(a["loss"], one["loss"])]
+    cos = [float(g @ w / (g.norm() * w.norm())) for g, w in zip(a["grads"], one["grads"])]
+    rel = [float((g - w).norm() / w.norm()) for g, w in zip(a["grads"], one["grads"])]
+    two_s = [max(r["a"]["seconds"][i] for r in ranks) for i in range(DDP_STEPS)]
+    n_obs = sum(k.endswith("n_iter") for k in a["observed"][0])
+    log(f"[75] the flagship's KD steps at {TRAIN_BATCH} x {TRAIN_SEG // SR} s through its {DDP_STEPS}-step window, "
+        f"{DDP_RANKS} ranks x {TRAIN_BATCH // DDP_RANKS} rows on cuda:0 over gloo against one process (from the "
+        f"ranks' learned parameters before each step): {n_obs} act observers' ranges and counters "
+        f"bitwise equal after every forward: {not observed} ({len(observed)} values of {len(a['observed'][0])} differ); rank 1's whole state bitwise "
+        f"rank 0's: {not across}; loss |diff| {[f'{v:.2e}' for v in dloss]} dB (<= {DDP_LOSS_DB}); whole-gradient "
+        f"cosine {[f'{v:.7f}' for v in cos]} (>= {DDP_GRAD_COS}), relative L2 {[f'{v:.2e}' for v in rel]}")
+    log(f"[75] step times, two ranks sharing one card (not a speed-up): {[round(1e3 * v, 1) for v in two_s]} ms; one "
+        f"process: {[round(1e3 * v, 1) for v in one['seconds']]} ms (host clock, each after a synchronize) on {smi}")
+    if observed or across or max(dloss) > DDP_LOSS_DB or min(cos) < DDP_GRAD_COS:
+        raise AssertionError(f"phase 75's rules: observers {observed[:5]}, across ranks {across[:5]}, loss {dloss}, "
+                             f"cosine {cos}")
+
+    # 77. DPTNet lstm_mode static at one dual-path layer, 2 x 3 s, one row a rank
+    c = ranks[0]["c"]
+    with deterministic_cudnn():
+        one_c = ddp_kd_steps(dev, train_cfg(DDP_STATIC_CFG), 77, ddp_batches(DDP_DPT_BATCH, DPT_TRAIN_SEG, 1, 77),
+                             observers=site_observers)
+    sites = bitwise_mismatches(c["observed"][0], one_c["observed"][0])
+    across_c = [k for r in ranks[1:] for k in bitwise_mismatches(r["c"]["state"], c["state"])]
+    cos_c = float(c["grads"][0] @ one_c["grads"][0] / (c["grads"][0].norm() * one_c["grads"][0].norm()))
+    log(f"[77] DPTNet lstm_mode static at one dual-path layer, a KD step of {DDP_DPT_BATCH} x {DPT_TRAIN_SEG // SR} s, "
+        f"{DDP_DPT_BATCH // DDP_RANKS} row(s) a rank: the {len(c['observed'][0])} site ranges and counters after the forward bitwise equal to one "
+        f"process's: {not sites} ({len(sites)} differ); rank 1's whole state bitwise rank 0's: {not across_c}; loss "
+        f"{c['loss'][0]:.5f} against {one_c['loss'][0]:.5f} dB, whole-gradient cosine {cos_c:.7f}; step "
+        f"{1e3 * max(r['c']['seconds'][0] for r in ranks):.1f} ms on two ranks sharing one card (not a speed-up), "
+        f"{1e3 * one_c['seconds'][0]:.1f} ms in one process, on {smi}")
+    if sites or across_c:
+        raise AssertionError(f"phase 77's rule: sites {sites[:5]}, across ranks {across_c[:5]}")
+
+    # 78. sharded OLA of 60 s through the flagship (phase 75's state after its window), chunk_batch 8 a rank,
+    # against one process at 16 (the same blocks)
+    with deterministic_cudnn():
+        want, one_launches, one_s = ddp_ola(dev, a["state"], None, DDP_RANKS * DDP_OLA["chunk_batch"])
+    got = [r["ola"].numpy() for r in ranks]
+    equal = [np.array_equal(g, want) for g in got]
+    diff = max(float(np.abs(g - want).max()) for g in got)
+    log(f"[78] sharded ola_infer of a {DDP_OLA['seconds']} s mixture through the flagship (segment "
+        f"{DDP_OLA['segment']}, overlap {DDP_OLA['overlap']}), chunk_batch {DDP_OLA['chunk_batch']} on each of "
+        f"{DDP_RANKS} ranks against one process at {DDP_RANKS * DDP_OLA['chunk_batch']}: every rank's separation "
+        f"bitwise equal: {equal} (max |diff| {diff:.3g}); {1e3 * max(r['ola_s'] for r in ranks):.1f} ms on two ranks "
+        f"sharing one card, {1e3 * one_s:.1f} ms in one process, on {smi}")
+    if not all(equal) or not np.isfinite(want).all():
+        raise AssertionError(f"phase 78's rule: bitwise {equal}, max |diff| {diff}")
+    # 79. the dynamic cell's reductions: a one-layer dynamic DPTNet forward on the ranks against one process
+    with deterministic_cudnn():
+        one_y, one_dyn_s = ddp_dynamic(dev, None)
+    if not all(torch.isfinite(r["dynamic"]).all() for r in ranks) or not torch.equal(ranks[1]["dynamic"],
+                                                                                       ranks[0]["dynamic"]):
+        raise AssertionError("phase 79: the ranks' dynamic forwards are not finite or differ between ranks")
+    log(f"[79] DPTNet lstm_mode dynamic at one dual-path layer, an eval forward of {DDP_DPT_BATCH} x "
+        f"{DPT_TRAIN_SEG // SR} s, {DDP_DPT_BATCH // DDP_RANKS} row(s) a rank (12 all_reduces of the sites' min and max a recurrence step): "
+        f"{1e3 * max(r['dynamic_s'] for r in ranks):.1f} ms on two ranks sharing one card over gloo, "
+        f"{1e3 * one_dyn_s:.1f} ms in one process, on {smi}; the ranks' output against one process's: max |diff| "
+        f"{float((ranks[0]['dynamic'] - one_y).abs().max()):.3g}, bitwise {torch.equal(ranks[0]['dynamic'], one_y)}")
+
+    sums = lambda runs: {k: sum(run[k] for run in runs) for k in runs[0]}  # noqa: E731
+    paths = {"kd": sums([r["a"]["launches"] for r in ranks]), "nccl": nccl,
+             "static": sums([r["c"]["launches"] for r in ranks]), "ola": sums([r["ola_launches"] for r in ranks])}
+    for path, names in DDP_PATH_KERNELS.items():
+        idle = [k for k in names if not paths[path][k]]
+        if idle:
+            raise AssertionError(f"the data-parallel {path} path launched no {idle}: {paths[path]}")
+    log(f"[75-78] launches on the ranks (summed), counted from 0 before each path: "
+        + "; ".join(f"{path} {', '.join(f'{k}={v}' for k, v in c.items() if v)}" for path, c in paths.items()))
+    return paths
+
+
 def main() -> None:
     _CLOCK["start"] = _CLOCK["last"] = time.perf_counter()
     # 0. device
@@ -5477,6 +5831,11 @@ def main() -> None:
     # 72-74. the LSTM's static and dynamic modes (launch counts set to 0 inside before each run they check)
     modes = lstm_modes(dev, smi, states["DPTNet"])
 
+    # 75-78. data parallelism: two ranks on the card over gloo, a one-rank NCCL group (launch counts set to 0 before
+    # each path, on each rank)
+    ddp = data_parallel(dev, smi)
+    clock("75, 77-79")
+
     def bf16_keys(res: dict, launches: int, route: str) -> dict:
         """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
         phase 43 sums), its launches in phases 40-42's forwards."""
@@ -5635,10 +5994,13 @@ def main() -> None:
             "fused_attention": "attention", "qat_dense": "dense",
             "qat_dense_gelu": "dense_gelu", "qat_dense_bwd": "dense_mask", "qat_dense_bwd_gelu": "dense_mask_gelu",
             "qmatmul": "qmatmul"}
-    # variant_launches: the launches of phases 69-71's steps and forwards, summed.
+    # variant_launches: the launches of phases 69-71's steps and forwards, summed. ddp_launches: phases 75-78's, the
+    # ranks' summed (the flagship's steps on two ranks and on the one-rank NCCL group, the static DPTNet step, the
+    # sharded OLA); the one-process comparisons are not counted.
     for row in kernels:
         row["import_launches"] = imported.get(rows.get(row["name"]), 0)
         row["variant_launches"] = variants["launches"].get(rows.get(row["name"]), 0)
+        row["ddp_launches"] = sum(path.get(rows.get(row["name"]), 0) for path in ddp.values())
     # the grouped weight kernels at DPTNet's 93 quantizers with the trained residual decoder (phase 71)
     for row, res in ((kernels[1], variants["res_dec"]["groups"]), (kernels[3], variants["res_dec"]["group_bwd"])):
         row.update({f"res_dec_{k}": res[k] for k in ("ms", "bound_ms", "plain_ms", "max_abs_err")})
@@ -5649,4 +6011,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--ddp-worker"]:
+        ddp_worker(sys.argv[2])
+    else:
+        main()

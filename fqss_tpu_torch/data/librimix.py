@@ -8,8 +8,11 @@ fixed-length segment crops, on-the-fly resampling (``resample`` factor, e.g.
 on the host in numpy and prefetched on a background thread.
 
 The metadata CSVs are read and written with the standard ``csv`` module, so
-the loader needs no pandas (the GPU machine has none). WAV crops are read
-with scipy (``utils/audio.py``). Downloading MiniLibriMix
+the loader needs no pandas (the GPU machine has none). A crop is read by
+seeking to it in the 16-bit WAV (``utils/audio.py:read_wav_segment``), as the
+JAX package's native reader does; a data-parallel rank reads its own rows of
+each batch and only draws the others' random values
+(:func:`batch_iterator`'s ``rows``). Downloading MiniLibriMix
 (``mini_download``/``mini_from_download``) needs the network and is not
 ported; :func:`make_mini_librimix` writes an equivalent mini set.
 """
@@ -27,7 +30,7 @@ import numpy as np
 
 from fqss_tpu_torch.data import augment
 from fqss_tpu_torch.data.synthetic import synth_sources
-from fqss_tpu_torch.utils.audio import read_audio, resample_audio, save_audio
+from fqss_tpu_torch.utils.audio import read_wav_segment, resample_audio, save_audio
 
 
 def read_metadata(path: str) -> list[dict[str, str]]:
@@ -111,7 +114,7 @@ class LibriMix:
         return len(self.rows)
 
     def _read(self, path: str, start: int, stop: int | None) -> np.ndarray:
-        wav = read_audio(path)[0][0, start:stop]
+        wav = read_wav_segment(path, start, -1 if stop is None else stop - start)[0][0]
         if self.resample != 1:
             wav = resample_audio(wav, self.sample_rate, int(self.resample * self.sample_rate))
         return wav
@@ -162,6 +165,16 @@ class LibriMix:
 
         return mixture.astype(np.float32), sources_arr.astype(np.float32)
 
+    def skip(self, idx: int) -> None:
+        """Draw what ``self[idx]`` draws, without reading its files where the draws do not depend on the audio
+        (the crop's start alone); with an augmentation, speed perturbation, shift or wavedrop the item is read and
+        dropped. A data-parallel rank calls it for the other ranks' rows, so that its generators stay where one
+        process's would be."""
+        if self.augmentation_cfg or self.speed_perturb or self.rand_shift or self.wavedrop:
+            self[idx]
+        elif self.seg_len is not None:
+            self.pyrng.randint(0, int(self.rows[idx]["length"]) - self.seg_len)
+
     def _apply_speed_perturb(self, sources_arr: np.ndarray, noise: np.ndarray | None):
         """Per-source random-speed resample, then mix = sum of perturbed
         sources (+ noise for noisy tasks) — speechbrain add_speed_perturb
@@ -194,11 +207,16 @@ def batch_iterator(
     drop_last: bool = True,
     prefetch: int = 2,
     epoch: int = 0,
+    rows: slice | None = None,
 ) -> Iterator[tuple[np.ndarray, np.ndarray]]:
     """Threaded prefetching batch iterator -> (mix [B, T], src [B, S, T]).
 
     The epoch-seeded shuffle mirrors DistributedSampler.set_epoch
-    (musdbhq_train.py:52-56).
+    (musdbhq_train.py:52-56). ``rows``: only these rows of each batch (a
+    data-parallel rank's, :meth:`~fqss_tpu_torch.parallel.mesh.Mesh.rows`),
+    from the same order and the same random draws as the whole batch's
+    (:meth:`LibriMix.skip` for the rest), so that the ranks' rows together
+    are the batch one process reads, as JAX's host draws it.
     """
     order = np.arange(len(dataset))
     if shuffle:
@@ -210,12 +228,21 @@ def batch_iterator(
     stop = object()
 
     def worker():
-        for i in range(0, len(order), batch_size):
-            idxs = order[i : i + batch_size]
-            items = [dataset[int(j)] for j in idxs]
-            mix = np.stack([m for m, _ in items])
-            src = np.stack([s for _, s in items])
-            q.put((mix, src))
+        mine = range(batch_size)[rows] if rows is not None else range(batch_size)
+        try:
+            for i in range(0, len(order), batch_size):
+                items = []
+                for k, j in enumerate(order[i : i + batch_size]):
+                    if k in mine:
+                        items.append(dataset[int(j)])
+                    else:
+                        dataset.skip(int(j))
+                mix = np.stack([m for m, _ in items])
+                src = np.stack([s for _, s in items])
+                q.put((mix, src))
+        except Exception as e:  # handed to the consumer, which raises it: a failed read ends the loop, not hangs it
+            q.put(e)
+            return
         q.put(stop)
 
     t = threading.Thread(target=worker, daemon=True)
@@ -224,6 +251,8 @@ def batch_iterator(
         item = q.get()
         if item is stop:
             break
+        if isinstance(item, Exception):
+            raise item
         yield item
 
 

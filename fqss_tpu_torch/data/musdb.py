@@ -69,6 +69,9 @@ class Wavset:
     def __len__(self) -> int:
         return sum(self.num_examples)
 
+    def skip(self, index: int) -> None:
+        """What ``self[index]`` draws: nothing (a data-parallel rank's call for another rank's row)."""
+
     def get_file(self, name: str, source: str) -> str:
         return os.path.join(self.root, name, f"{source}{EXT}")
 
@@ -159,12 +162,24 @@ class RepitchedWavset:
     def __len__(self) -> int:
         return len(self.dataset)
 
+    def _draw(self) -> tuple[int, float] | None:
+        """One example's pitch and tempo, or None where it is not repitched."""
+        if self.rng.uniform() < self.proba:
+            semitones = int(self.rng.integers(-self.max_pitch, self.max_pitch + 1))
+            return semitones, float(np.clip(self.rng.normal(0, self.tempo_std), -self.max_tempo, self.max_tempo))
+        return None
+
+    def skip(self, index: int) -> None:
+        """Draw what ``self[index]`` draws without reading it (a data-parallel rank's call for another rank's row):
+        the draws do not depend on the audio."""
+        self._draw()
+
     def __getitem__(self, index: int) -> np.ndarray:
         example = self.dataset[index]  # [S, C, T]
         out = example[..., : self.out_length]
-        if self.rng.uniform() < self.proba:
-            semitones = int(self.rng.integers(-self.max_pitch, self.max_pitch + 1))
-            tempo = float(np.clip(self.rng.normal(0, self.tempo_std), -self.max_tempo, self.max_tempo))
+        drawn = self._draw()
+        if drawn is not None:
+            semitones, tempo = drawn
             factor = (2.0 ** (semitones / 12.0)) * (1.0 + tempo / 100.0)
             if abs(factor - 1.0) > 1e-3:
                 stretched = resample_audio(example, 1000, max(1, int(round(1000 * factor))))

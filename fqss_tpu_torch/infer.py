@@ -17,7 +17,9 @@ with one chunk a call.
 
 :func:`load_engine`, :func:`separate_file` and :func:`stream_file` are the
 same path as a library: build the serving model once, then serve one file
-per call.
+per call. Under ``torchrun --standalone --nproc_per_node=N -m
+fqss_tpu_torch.infer ...`` the file's overlap-add is sharded over the N
+ranks and rank 0 writes the sources (a stream is one process's).
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from fqss_tpu_torch.models.factory import create_pretrained_model
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.separation.ola import ola_infer
 from fqss_tpu_torch.serve import StreamingSeparator, auto_serving_model, fold_quantized_weights, make_int8_engine
 from fqss_tpu_torch.utils.audio import normalize_audio, read_audio, resample_audio, save_audio
@@ -97,13 +100,16 @@ def _write_sources(conf: Mapping[str, Any], audio_path: str, output_dir: str | N
 
 def separate_file(apply_fn: Callable[[torch.Tensor], torch.Tensor], conf: Mapping[str, Any], audio_path: str,
                   output_dir: str | None = None, normalize: bool = False,
-                  device: torch.device | str = "cuda") -> tuple[str, np.ndarray]:
-    """Separate one WAV file with OLA; returns (output directory, [S, T] sources)."""
+                  device: torch.device | str = "cuda", mesh: dp.Mesh | None = None) -> tuple[str | None, np.ndarray]:
+    """Separate one WAV file with OLA (sharded over ``mesh``'s ranks, which all call); returns (output directory,
+    [S, T] sources). Rank 0 writes the sources; another rank returns None for the directory."""
     testing_cfg = conf.get("testing_cfg", {})
     wav, fs = _read_mixture(conf, audio_path, normalize)
     out = ola_infer(apply_fn, wav, n_srcs=conf["model_cfg"].get("n_src", 1),
                     segment=testing_cfg.get("segment_samples"), overlap=testing_cfg.get("overlap", 0.25),
-                    device=device)
+                    device=device, mesh=mesh)
+    if mesh is not None and not mesh.is_main:
+        return None, out
     return _write_sources(conf, audio_path, output_dir, out, fs), out
 
 
@@ -150,14 +156,21 @@ def argument_handler(argv=None):
 def main(argv=None) -> None:
     args = argument_handler(argv)
     conf = load_config(args.yml_path)
-    device = resolve_device(args.device)
-    apply_fn = load_engine(conf["model_cfg"], args.engine, device)
-    if args.stream is not None:
-        out_dir, _ = stream_file(apply_fn, conf, args.audio_path, args.stream, args.output_dir, args.normalize,
-                                 device)
-    else:
-        out_dir, _ = separate_file(apply_fn, conf, args.audio_path, args.output_dir, args.normalize, device)
-    print(f"Wrote {conf['model_cfg'].get('n_src', 1)} sources to {out_dir}")
+    mesh = dp.init_distributed(args.device)
+    try:
+        if mesh is not None and args.stream is not None:
+            raise SystemExit("--stream separates in one process; run it without torchrun")
+        device = mesh.device if mesh is not None else resolve_device(args.device)
+        apply_fn = load_engine(conf["model_cfg"], args.engine, device)
+        if args.stream is not None:
+            out_dir, _ = stream_file(apply_fn, conf, args.audio_path, args.stream, args.output_dir, args.normalize,
+                                     device)
+        else:
+            out_dir, _ = separate_file(apply_fn, conf, args.audio_path, args.output_dir, args.normalize, device, mesh)
+        if mesh is None or mesh.is_main:
+            print(f"Wrote {conf['model_cfg'].get('n_src', 1)} sources to {out_dir}")
+    finally:
+        dp.shutdown()
 
 
 if __name__ == "__main__":

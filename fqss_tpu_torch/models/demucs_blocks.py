@@ -35,6 +35,7 @@ from fqss_tpu_torch.nn.layers import (
     QMul,
     make_act_quantizer,
     make_weight_quantizer,
+    mark_replicated,
 )
 from fqss_tpu_torch.ops.stft import reflect_pad
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
@@ -118,6 +119,7 @@ class ScaledEmbedding(nn.Module):
         self.weight_fake_quantize = make_weight_quantizer(q, (num_embeddings, features), ch_axis=0)
         self.activation_fake_quantize = make_act_quantizer(q)
         self.mul = QMul(q=q)
+        mark_replicated(self)  # the table's rows, the same on every data-parallel rank
 
     def forward(self, idx: Tensor) -> Tensor:
         table = self.embedding

@@ -39,7 +39,7 @@ from torch import nn
 
 from fqss_tpu_torch.models.demucs_blocks import HDecLayer, HEncLayer, QLayerScale, ScaledEmbedding, pad1d_reflect
 from fqss_tpu_torch.nn.attention import QMultiheadAttention
-from fqss_tpu_torch.nn.layers import QAdd, QConst, QConv1d, QDense, QLayerNorm, QMul
+from fqss_tpu_torch.nn.layers import QAdd, QConst, QConv1d, QDense, QLayerNorm, QMul, mark_replicated
 from fqss_tpu_torch.ops.stft import ispectro, spectro
 from fqss_tpu_torch.quant.quantizers import weight_pass
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
@@ -184,10 +184,10 @@ class CrossTransformerEncoder(nn.Module):
                  generator: torch.Generator | None = None):
         super().__init__()
         self.max_period, self.weight_pos_embed = max_period, weight_pos_embed
-        self.const_pos_emb_2d = QConst(q=q)
+        self.const_pos_emb_2d = QConst(q=q, replicated=True)
         self.norm_in = QLayerNorm(dim, EPS, q=q)
         self.add_x = QAdd(q=q)
-        self.const_pos_emb = QConst(q=q)
+        self.const_pos_emb = QConst(q=q, replicated=True)
         self.norm_in_t = QLayerNorm(dim, EPS, q=q)
         self.add_xt = QAdd(q=q)
         hidden = int(dim * hidden_scale)
@@ -267,6 +267,7 @@ class HTDemucs(nn.Module):
                 self.freq_emb = ScaledEmbedding(nfft // 2 // stride, chout, scale=emb_scale, smooth=emb_smooth, q=q,
                                                 generator=g)
                 self.mul_freq = QMul(q=q)
+                mark_replicated(self.mul_freq)  # the embedding times its weight: no batch axis
                 self.add_freq = QAdd(q=q)
             chin_t = chin_f = chout
             chout = int(growth * chout)

@@ -81,7 +81,7 @@ class TransformerBlock(nn.Module):
                  q: QuantSpec = FLOAT, generator: torch.Generator | None = None):
         super().__init__()
         self.register_buffer("pe", torch.from_numpy(sinusoidal_pe(max_len, n_filters)), persistent=False)
-        self.pos_const = QConst(q=q)
+        self.pos_const = QConst(q=q, replicated=True)
         self.pos_add = QAdd(q=q)
         self.layers = []
         for i in range(num_layers):

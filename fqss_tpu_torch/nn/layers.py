@@ -413,13 +413,26 @@ class QMul(nn.Module):
         return _quantize(self.activation_fake_quantize, x1 * x2)
 
 
+def mark_replicated(*modules: nn.Module) -> None:
+    """Mark every act quantizer in ``modules`` as observing a constant, the same on every data-parallel rank (a
+    positional embedding, an embedding table's rows): it observes this rank's values alone
+    (``ActQuantizer.replicated``)."""
+    for module in modules:
+        for m in module.modules():
+            if isinstance(m, ActQuantizer):
+                m.replicated = True
+
+
 class QConst(nn.Module):
     """Identity -> act-quant: a constant's quant point (ConstQ, qat_layers.py:116-121; the Sepformer's
-    positional encoding)."""
+    positional encoding). ``replicated``: the input is a constant, the same on every data-parallel rank, which the
+    observer sees once (``ActQuantizer.replicated``)."""
 
-    def __init__(self, q: QuantSpec = FLOAT):
+    def __init__(self, q: QuantSpec = FLOAT, replicated: bool = False):
         super().__init__()
         self.activation_fake_quantize = make_act_quantizer(q)
+        if replicated:
+            mark_replicated(self)
 
     def forward(self, x: Tensor) -> Tensor:
         return _quantize(self.activation_fake_quantize, x)

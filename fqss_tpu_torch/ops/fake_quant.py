@@ -299,13 +299,15 @@ def _needs_grad(*tensors: Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
-BF16_TRAINING = ("bf16 compute is ported for serving only: a bf16 forward that needs a gradient is queued as "
-                 "'bf16 training' (ROADMAP.md, queue 1); run it under torch.no_grad()/inference_mode(), or in float32")
+BF16_TRAINING = ("bf16 compute is for serving only, and bf16 training is not supported: the JAX package cannot "
+                 "train in bf16 either (jax.grad of its bf16 convolution raises a TypeError, and so does a bf16 "
+                 "teacher's forward), so a bf16 forward that needs a gradient has no reference; run it under "
+                 "torch.no_grad()/inference_mode(), or train in float32")
 
 
 def refuse_bf16_grad(*tensors: Tensor) -> None:
-    """Raise where a bf16 product would need a gradient: its backward routes are not ported (a refusal, not a
-    fallback to float32)."""
+    """Raise where a bf16 product would need a gradient: the JAX package has no bf16 gradient to port (a refusal,
+    not a fallback to float32)."""
     if _needs_grad(*(t for t in tensors if t is not None)):
         raise NotImplementedError(BF16_TRAINING)
 

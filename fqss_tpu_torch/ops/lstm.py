@@ -51,6 +51,13 @@ reductions a step, which do not fit the kernel's clusters of one batch tile
 each. It runs as a plain loop of PyTorch ops on every device, as JAX runs it
 as a ``lax.scan``; it launches no kernel of this module and has no counter.
 
+Under a data-parallel mesh (:mod:`fqss_tpu_torch.parallel.mesh`) both cells
+take the global batch's extremes, as JAX's one program over a sharded batch
+does: the static window's per-step site extremes are reduced over the ranks
+between the observing launch and the EMA (one ``all_reduce`` a call), and the
+dynamic cell's min and max at each site and step (one ``all_reduce`` each
+forward and backward: 12 a step).
+
 A CUDA tensor launches the kernel, or the wrapper raises: there is no
 fallback. A CPU tensor takes the plain version (:func:`lstm_sequence_ref`,
 :func:`bilstm_sequence_ref`: a Python time loop of ``h @ w_hh`` and the
@@ -74,6 +81,7 @@ import torch
 
 from fqss_tpu_torch.ops import _build
 from fqss_tpu_torch.ops.fake_quant import _check_device, _needs_grad
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.quant.fake_quant import linear_fake_quant
 from fqss_tpu_torch.quant.quantizers import dynamic_act_quant
 
@@ -346,8 +354,8 @@ def lstm_static_sequence_ref(ih: Tensor, w_hh: Tensor, site_min: Tensor, site_ma
         highs.append(torch.stack([v.amax() for v in seen]))
         hs.append(h)
     mn, mx = site_min, site_max
-    if lows:
-        mn, mx = window_ranges(site_min, site_max, torch.stack(lows), torch.stack(highs))
+    if lows:  # each step's extremes over the global batch, under a mesh
+        mn, mx = window_ranges(site_min, site_max, *dp.extremes(torch.stack(lows), torch.stack(highs)))
     for ih_t in steps[observe:]:
         h, c = _cell(h, c, ih_t, w_hh, lambda s, v: linear_fake_quant(v, mn[s], mx[s], n_bits))
         hs.append(h)
@@ -442,8 +450,8 @@ def _static_launch(name: str, key: str, dirs: list[tuple[Tensor, ...]], observe:
         stats = [torch.empty(k, partials, len(SITES), 2, device=ih.device) for _ in dirs]
         launch(MODES["observe"], k, [v for d, out, cl, st in zip(dirs, outs, c_k, stats)
                                      for v in _pointers(d[0], d[1], out, None, None, cl, None, None, st)])
-        for i, st in enumerate(stats):
-            mins[i], maxs[i] = window_ranges(mins[i], maxs[i], st[..., 0].amin(1), st[..., 1].amax(1))
+        for i, st in enumerate(stats):  # each step's extremes over the global batch, under a mesh
+            mins[i], maxs[i] = window_ranges(mins[i], maxs[i], *dp.extremes(st[..., 0].amin(1), st[..., 1].amax(1)))
     if k < T:
         mins = [m.contiguous() for m in mins]
         maxs = [m.contiguous() for m in maxs]
@@ -461,7 +469,7 @@ class _StaticRecurrence(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, observe, n_bits, *flat):
-        ctx.observe, ctx.n_bits = observe, n_bits
+        ctx.observe, ctx.n_bits, ctx.mesh = observe, n_bits, dp.active()
         ctx.save_for_backward(*flat)
         dirs = [flat[i : i + 4] for i in range(0, len(flat), 4)]
         name, key = ("lstm_static_sequence", "lstm_static") if len(dirs) == 1 else ("bilstm_static_sequence",
@@ -475,7 +483,8 @@ class _StaticRecurrence(torch.autograd.Function):
     def backward(ctx, *grads):
         saved = ctx.saved_tensors
         n = len(saved) // 4
-        with torch.enable_grad():
+        # the recomputed window's extremes over the forward's ranks (the engine's thread does not see its mesh)
+        with torch.enable_grad(), dp.sharded(ctx.mesh):
             inputs = [t.detach().requires_grad_(need) for t, need in zip(saved, ctx.needs_input_grad[2:])]
             outs = [lstm_static_sequence_ref(*inputs[4 * i : 4 * i + 4], ctx.observe, ctx.n_bits)[0] for i in range(n)]
             wanted = [t for t in inputs if t.requires_grad]

@@ -1,0 +1,5 @@
+"""Parallelism over ``torch.distributed`` (``fqss_tpu/parallel/``): data parallelism (:mod:`.mesh`)."""
+
+from fqss_tpu_torch.parallel.mesh import Mesh, init_distributed, rank, rank_rows, sharded, shutdown, world_size
+
+__all__ = ["Mesh", "init_distributed", "rank", "rank_rows", "sharded", "shutdown", "world_size"]

@@ -24,6 +24,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from fqss_tpu_torch.parallel import mesh as dp
+
 Tensor = torch.Tensor
 
 N_BINS = 512
@@ -90,7 +92,7 @@ def observe(x: Tensor, hist: Tensor, val_min: Tensor, val_max: Tensor, first: Te
     histogram re-binned onto the new window by its CDF, and ``x``'s counts added. Returns ``(hist, val_min,
     val_max)``; the caller keeps them only where the quantizer observes."""
     xf = x.detach().float().reshape(-1)
-    bmin, bmax = xf.min(), xf.max()
+    bmin, bmax = dp.extremes(xf.min(), xf.max())  # the global batch's, under a mesh
     nmin = torch.where(first, bmin, torch.minimum(val_min, bmin))
     nmax = torch.where(first, bmax, torch.maximum(val_max, bmax))
     n_bins = hist.numel()
@@ -98,7 +100,7 @@ def observe(x: Tensor, hist: Tensor, val_min: Tensor, val_max: Tensor, first: Te
     new_edges = xla_linspace(nmin, nmax, n_bins + 1)
     old_cdf = torch.cat([hist.new_zeros(1), xla_cumsum(hist)])
     rebinned = torch.diff(xla_interp(new_edges, old_edges, old_cdf))
-    return rebinned + bin_counts(xf, nmin, nmax, n_bins).float(), nmin, nmax
+    return rebinned + dp.sum_counts(bin_counts(xf, nmin, nmax, n_bins)).float(), nmin, nmax
 
 
 def bin_counts(x: Tensor, lo: Tensor, hi: Tensor, n_bins: int = N_BINS) -> Tensor:

@@ -6,7 +6,9 @@ collection) and its observer counter as a buffer (``qstats``):
 * :class:`ActQuantizer` — per-tensor uniform grid. For its first
   ``max_observations`` calls in ``train()`` mode it tracks the batch min/max
   with an EMA (alpha = 0.9) and returns the input unquantized; afterwards it
-  fake-quantizes with the ranges. ``kind='mulaw'`` is the mu-law grid
+  fake-quantizes with the ranges. Under a data-parallel mesh the min/max (and
+  the MSE quantizer's counts) are the global batch's (``parallel/mesh.py``),
+  except for a ``replicated`` quantizer's constant input. ``kind='mulaw'`` is the mu-law grid
   with a learnable ``mu``, under the same observer.
 * :class:`MseActQuantizer` — the same uniform grid, with ranges that the
   host's MSE search sets from a histogram observed in the window.
@@ -60,6 +62,7 @@ from fqss_tpu_torch.ops.fake_quant import (
     weight_fake_quant,
     weight_fake_quant_group,
 )
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.quant import histogram
 from fqss_tpu_torch.quant.fake_quant import linear_fake_quant, mulaw_fake_quant, qrange, true_div, weight_scale
 from fqss_tpu_torch.quant.ste import round_ste
@@ -91,10 +94,17 @@ class ActQuantizer(nn.Module):
         if kind == "mulaw":
             self.mu = nn.Parameter(torch.ones(1), requires_grad=gradient_based)
         self.register_buffer("n_iter", torch.zeros((), dtype=torch.int32))
+        # The input is a constant, the same on every data-parallel rank (a positional embedding): observed as
+        # this rank's alone, as JAX observes a replicated array once. Else it is a batch's, reduced over the ranks.
+        self.replicated = False
 
     def observing(self) -> Tensor | None:
         """The device-resident window test (``n_iter < max_observations``), or None without an observer."""
         return self.n_iter < self.max_observations if self.observer else None
+
+    def _observed_over(self) -> contextlib.AbstractContextManager:
+        """The ranks an observation reduces over: the active mesh's, or this rank's alone for a constant."""
+        return dp.sharded(None) if self.replicated else contextlib.nullcontext()
 
     def observe(self, x: Tensor, observing: Tensor | None) -> None:
         """The observer's EMA write of ``x``'s min/max and the counter step, in ``train()`` mode only.
@@ -104,10 +114,11 @@ class ActQuantizer(nn.Module):
         may pass its output, which is ``x`` unquantized there."""
         if observing is None or not self.training:
             return
-        with torch.no_grad():
+        with torch.no_grad(), self._observed_over():
             a = self.ALPHA
-            new_min = a * self.min_range + (1.0 - a) * x.min().reshape(1)
-            new_max = a * self.max_range + (1.0 - a) * x.max().reshape(1)
+            mn, mx = dp.extremes(x.min().reshape(1), x.max().reshape(1))  # the global batch's, under a mesh
+            new_min = a * self.min_range + (1.0 - a) * mn
+            new_max = a * self.max_range + (1.0 - a) * mx
             self.min_range.copy_(torch.where(observing, new_min, self.min_range))
             self.max_range.copy_(torch.where(observing, new_max, self.max_range))
             self.n_iter.add_(observing.to(torch.int32))
@@ -161,7 +172,7 @@ class MseActQuantizer(ActQuantizer):
         calibrated. ``observing`` is :meth:`observing` (it does not decide the write)."""
         if observing is None or not self.training:
             return
-        with torch.no_grad():
+        with torch.no_grad(), self._observed_over():
             keep = (self.n_iter < self.max_observations) & ~self.calibrated
             hist, nmin, nmax = histogram.observe(x, self.hist, self.val_min, self.val_max, self.n_iter == 0)
             self.hist.copy_(torch.where(keep, hist, self.hist))
@@ -182,8 +193,13 @@ def dynamic_act_quant(x: Tensor, n_bits: int = 8, sym: bool = False, factor: flo
     branch divides 0 by a zero grid step, and ``where`` passes 0 × NaN on); here that branch takes a stand-in
     range, so the gradient there is the identity's, as the reference's early return gives it.
     """
-    mn = x.amin(dim=dims, keepdim=dims is not None)
-    mx = x.amax(dim=dims, keepdim=dims is not None)
+    if dp.active() is not None:  # the global batch's, with jnp.min's gradient
+        mn, mx = dp.batch_extremes(x, dims if dims is not None else tuple(range(x.ndim)))
+        if dims is None:
+            mn, mx = mn.reshape(()), mx.reshape(())
+    else:
+        mn = x.amin(dim=dims, keepdim=dims is not None)
+        mx = x.amax(dim=dims, keepdim=dims is not None)
     flat = mn == mx
     lo = torch.where(flat, torch.zeros_like(mn), factor * mn)
     hi = torch.where(flat, torch.ones_like(mx), factor * mx)

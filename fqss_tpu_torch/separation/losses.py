@@ -12,6 +12,10 @@
 
 Speech tensors are ``[B, S, T]``, music tensors ``[B, S, C, T]``. The best permutation is taken with ``amin``,
 whose gradient splits evenly between tied minima as JAX's ``min`` does.
+
+Every mean over the batch is the global batch's under a data-parallel mesh (``parallel/mesh.py:batch_mean``), as
+JAX's over a sharded batch: the FQSS loss is the log of batch means, so a mean of the ranks' own losses would have
+another value and gradient. The per-sample KD weights stay per sample.
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ from __future__ import annotations
 import itertools
 
 import torch
+
+from fqss_tpu_torch.parallel import mesh as dp
 
 Tensor = torch.Tensor
 
@@ -51,7 +57,7 @@ def pit_neg_sisdr_db(est: Tensor, targets: Tensor, eps: float = EPS, per_sample:
     """PIT negative SI-SDR in dB — asteroid PITLossWrapper(pairwise_neg_sisdr)."""
     pw = -10.0 * torch.log10(pairwise_sisdr_ratio(est, targets, eps=eps) + eps)
     per = _perm_matrix_reduce(pw)
-    return per if per_sample else per.mean()
+    return per if per_sample else dp.batch_mean(per)
 
 
 def pit_wsisdr_ratio(est: Tensor, targets: Tensor, weights: Tensor | None = None, eps: float = EPS,
@@ -66,7 +72,7 @@ def pit_wsisdr_ratio(est: Tensor, targets: Tensor, weights: Tensor | None = None
     if weights is not None:
         pw = pw * weights[:, None, None]
     per = _perm_matrix_reduce(pw)
-    return per if per_sample else per.mean()
+    return per if per_sample else dp.batch_mean(per)
 
 
 def kd_sensitivity_weights(est: Tensor, fest: Tensor, targets: Tensor, eps: float = EPS) -> Tensor:
@@ -123,7 +129,7 @@ def music_kd_l1_loss(wavs: Tensor, fwavs: Tensor, sources: Tensor, kd_lambda: fl
     gradient.
     """
     if kd_lambda <= 0:
-        loss_per_src = (wavs - sources).abs().mean(dim=(0, 2, 3))
+        loss_per_src = dp.batch_mean((wavs - sources).abs(), dim=(0, 2, 3))
         if source_weights is not None and weight_kind == "exp":
             sw = torch.as_tensor(source_weights, dtype=wavs.dtype, device=wavs.device)
             return (loss_per_src * sw).sum() / sw.sum()
@@ -136,16 +142,16 @@ def music_kd_l1_loss(wavs: Tensor, fwavs: Tensor, sources: Tensor, kd_lambda: fl
         nsdr_f = nsdr_db(fwavs.reshape(b, -1), tgt)
         nsdr_q = nsdr_db(sig_q.reshape(b, -1), tgt)
         w = 10.0 ** ((nsdr_f - nsdr_q) / 10.0)  # [B]
-        task = (wavs - sources).abs().mean()
-        kd = (w * (wavs - fwavs).abs().mean(dim=(1, 2, 3))).mean()
+        task = dp.batch_mean((wavs - sources).abs())
+        kd = dp.batch_mean(w * (wavs - fwavs).abs().mean(dim=(1, 2, 3)))
         return (1.0 - kd_lambda) * task + kd_lambda * kd
     if weight_kind == "exp":
         ref = sources.reshape(b * s, -1)
         nsdr_f = nsdr_db(ref, fwavs.reshape(b * s, -1)).reshape(b, s)
         nsdr_q = nsdr_db(ref, sig_q.reshape(b * s, -1)).reshape(b, s)
         w = torch.exp((nsdr_f - nsdr_q) / 10.0)  # [B, S]
-        task = (wavs - sources).abs().mean(dim=(0, 2, 3))  # [S]
-        kd = (w * (wavs - fwavs).abs().mean(dim=(2, 3))).mean(dim=0)  # [S]
+        task = dp.batch_mean((wavs - sources).abs(), dim=(0, 2, 3))  # [S]
+        kd = dp.batch_mean(w * (wavs - fwavs).abs().mean(dim=(2, 3)), dim=0)  # [S]
         loss_per_src = (1.0 - kd_lambda) * task + kd_lambda * kd
         sw = (torch.ones(s, dtype=wavs.dtype, device=wavs.device) if source_weights is None
               else torch.as_tensor(source_weights, dtype=wavs.dtype, device=wavs.device))

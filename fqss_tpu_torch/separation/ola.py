@@ -1,7 +1,8 @@
 """Overlap-add (OLA) chunked inference for long mixtures (``fqss_tpu/separation/ola.py``).
 
 All chunks of a track are cut on the host, pushed through the model in
-batches of ``chunk_batch`` on the device, and recombined on the host with
+batches of ``chunk_batch`` on the device (``chunk_batch`` a rank over a
+data-parallel mesh), and recombined on the host with
 the reference's triangular cross-fade weights (process.py:154-194). Chunks
 are batched and padded (right-zero, or centred with the mixture as context)
 exactly as the JAX function does, because the
@@ -17,6 +18,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.separation.metrics import swap_channel_order
 
 
@@ -53,19 +55,28 @@ def ola_infer(
     back from the centre. None: right-zero-padding (the speech reference,
     process.py:176).
 
-    Chunk sharding (``mesh``) is not ported yet (ROADMAP.md, queue 1) and
-    raises ``NotImplementedError``.
+    ``mesh``: a :class:`~fqss_tpu_torch.parallel.mesh.Mesh` to shard the
+    chunk batches over, as the JAX function shards them over a device mesh:
+    every rank calls with the same track, each block holds ``chunk_batch``
+    chunks a rank (the tail zero-padded, as JAX pads), rank r runs its
+    ``chunk_batch`` rows under the mesh (the splitter's max-abs is the
+    block's), and the outputs are gathered on every rank before the
+    overlap-add, so every rank returns the whole separation. The same
+    blocks without a mesh at ``chunk_batch`` times the world size give the
+    same separation.
     """
-    if mesh is not None:
-        raise NotImplementedError("ola_infer(mesh=...) is not ported yet (ROADMAP.md, queue 1)")
     mix = np.asarray(mix, np.float32)
     channels, length = mix.shape
+    step = chunk_batch * (mesh.size if mesh is not None else 1)
 
-    def run(block: np.ndarray) -> np.ndarray:
-        with torch.inference_mode():
-            return apply_fn(torch.from_numpy(block).to(device)).float().cpu().numpy()
+    def run(block: np.ndarray, on: dp.Mesh | None = None) -> np.ndarray:
+        x = torch.from_numpy(block)
+        if on is not None:
+            x = x[on.rows(len(x))]
+        with torch.inference_mode(), dp.sharded(on):
+            return dp.gather_rows(apply_fn(x.to(device)), len(block)).float().cpu().numpy()
 
-    if not segment:
+    if not segment:  # the whole track in one call on every rank, as JAX's unsharded call
         out = run(mix[None, 0] if channels == 1 else mix[None])[0]
         pad = length - out.shape[-1]
         if pad > 0:
@@ -96,14 +107,14 @@ def ola_infer(
         chunk_lens.append(clen)
 
     outs = []
-    for i in range(0, len(offsets), chunk_batch):
-        block = chunks[i : i + chunk_batch]
-        pad_n = chunk_batch - block.shape[0]
+    for i in range(0, len(offsets), step):
+        block = chunks[i : i + step]
+        pad_n = step - block.shape[0]
         if pad_n:
             block = np.concatenate([block, np.zeros((pad_n, channels, pad_target), np.float32)])
-        y = run(block[:, 0] if channels == 1 else block)
+        y = run(block[:, 0] if channels == 1 else block, mesh)
         if pad_n:
-            y = y[: chunk_batch - pad_n]
+            y = y[: step - pad_n]
         outs.append(y[..., :pad_target])
     chunk_out = np.concatenate(outs, axis=0)  # [K, S, (C,) pad_target]
 

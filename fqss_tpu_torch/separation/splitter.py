@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.quant.fake_quant import splitter_quantize
 
 Tensor = torch.Tensor
@@ -21,7 +22,8 @@ def preprocess(x: Tensor, n_splitter: int = 1, n_bits: int = 8, sign: bool = Tru
     """Split the input into MSB + residual streams (reference process.py:16-37).
 
     x: [B, T] or [B, C, T] -> [B, C * n_splitter, T]. The max-abs is taken
-    over the whole tensor (batch included), faithful to the reference. With
+    over the whole tensor (batch included), faithful to the reference, and over
+    the ranks' rows under a mesh, as JAX's over a sharded batch. With
     ``normalize`` the input is divided by it and the grid spans [-1, 1);
     without (the music model, convtasnetq_music.py:220-221) the input keeps
     its scale and the grid spans [-max_abs, max_abs), a threshold on the
@@ -31,7 +33,8 @@ def preprocess(x: Tensor, n_splitter: int = 1, n_bits: int = 8, sign: bool = Tru
         x = x[:, None, :]
     if n_splitter <= 1:
         return x
-    max_abs = torch.maximum(x.min().abs(), x.max().abs())
+    mn, mx = dp.extremes(x.min(), x.max())  # the global batch's, under a mesh
+    max_abs = torch.maximum(mn.abs(), mx.abs())
     if normalize:
         x = x / max_abs
         threshold = 1.0

@@ -15,6 +15,13 @@ the Sepformer (``-env speechbrain -y configs/sepformer_2spks_8k.yaml``);
 ``-y`` takes a YAML config, or the same config as a ``.json`` file, which
 needs no YAML parser. TF32 is turned off: it would move values off the
 8-bit grids.
+
+Data parallelism: ``torchrun --standalone --nproc_per_node=N -m
+fqss_tpu_torch.train ...`` (or ``python -m torch.distributed.run ...``)
+trains over N ranks, rank r on ``cuda:LOCAL_RANK`` over NCCL (``--device
+cpu``: gloo on the CPU); the config's ``batch_size`` is the global batch
+and must divide by N (``parallel/mesh.py``). A plain ``python -m`` runs one
+process.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from __future__ import annotations
 import argparse
 
 from fqss_tpu_torch.infer import disable_tf32, resolve_device
+from fqss_tpu_torch.parallel import mesh as dp
 
 
 def argument_handler(argv=None):
@@ -38,20 +46,26 @@ def main(argv=None) -> None:
     from fqss_tpu_torch.utils.config import load_config
 
     conf = load_config(args.yml_path)
-    device = resolve_device(args.device)
+    mesh = dp.init_distributed(args.device)
+    device = mesh.device if mesh is not None else resolve_device(args.device)
     disable_tf32()
-    if args.env_name in ("tasnet", "htdemucs"):
-        from fqss_tpu_torch.train.recipes_music import train_htdemucs, train_tasnet_music
+    try:
+        if args.env_name in ("tasnet", "htdemucs"):
+            from fqss_tpu_torch.train.recipes_music import train_htdemucs, train_tasnet_music
 
-        train = train_htdemucs if args.env_name == "htdemucs" else train_tasnet_music
-        result = train(conf, device=device)
-        print(f"Training done: best train loss {result['best_loss']:.4f} after {result['epochs_run']} epochs "
-              f"(last epoch's best model: {result['bname']})")
-        return
-    from fqss_tpu_torch.train.recipes import train_speech
+            train = train_htdemucs if args.env_name == "htdemucs" else train_tasnet_music
+            result = train(conf, device=device, mesh=mesh)
+            done = (f"Training done: best train loss {result['best_loss']:.4f} after {result['epochs_run']} epochs "
+                    f"(last epoch's best model: {result['bname']})")
+        else:
+            from fqss_tpu_torch.train.recipes import train_speech
 
-    result = train_speech(conf, env_name=args.env_name, device=device)
-    print(f"Training done: best val_loss {result['best_val_loss']:.4f} after {result['epochs_run']} epochs")
+            result = train_speech(conf, env_name=args.env_name, device=device, mesh=mesh)
+            done = f"Training done: best val_loss {result['best_val_loss']:.4f} after {result['epochs_run']} epochs"
+        if mesh is None or mesh.is_main:
+            print(done)
+    finally:
+        dp.shutdown()
 
 
 if __name__ == "__main__":

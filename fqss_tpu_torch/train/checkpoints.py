@@ -40,10 +40,15 @@ def _atomic_save(obj: Any, path: str) -> None:
 
 
 class CheckpointManager:
-    def __init__(self, work_dir: str, keep: int = 3):
+    """``write=False`` (a data-parallel rank other than 0) keeps the history in memory and writes nothing; every
+    rank reads the checkpoints that rank 0 wrote."""
+
+    def __init__(self, work_dir: str, keep: int = 3, write: bool = True):
         self.work_dir = os.path.abspath(work_dir)
         self.dir = os.path.join(self.work_dir, "checkpoints")
-        os.makedirs(self.dir, exist_ok=True)
+        self.write = write
+        if write:
+            os.makedirs(self.dir, exist_ok=True)
         self.keep = keep
         self.history_path = os.path.join(self.work_dir, "history.json")
         self.history: list[dict] = []
@@ -56,6 +61,8 @@ class CheckpointManager:
 
     def epochs(self) -> list[int]:
         """The epochs that have a checkpoint on disk, in order."""
+        if not os.path.isdir(self.dir):
+            return []
         found = (re.fullmatch(r"epoch_(\d+)\.pt", name) for name in os.listdir(self.dir))
         return sorted(int(m.group(1)) for m in found if m)
 
@@ -68,11 +75,13 @@ class CheckpointManager:
              extra: Mapping[str, Any] | None = None) -> None:
         """Checkpoint ``state`` (and ``extra``, e.g. a recipe's best model state) as epoch ``epoch``."""
         metrics = {k: float(v) for k, v in metrics.items()}
+        self.history.append({"epoch": epoch, **metrics})
+        if not self.write:
+            return
         ckpt = {"epoch": epoch, "metrics": metrics, "state": state.state_dict()}
         if extra is not None:
             ckpt["extra"] = dict(extra)
         _atomic_save(ckpt, self._path(epoch))
-        self.history.append({"epoch": epoch, **metrics})
         tmp = f"{self.history_path}.tmp"
         with open(tmp, "w") as f:
             json.dump(self.history, f, indent=1)

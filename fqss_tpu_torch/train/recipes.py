@@ -6,8 +6,11 @@ augmentation, loss thresholding and test report (speechbrain_librimix_trainer.py
 LibriMix data, KD from a float teacher into the quantized student,
 ReduceLROnPlateau (half_lr) or StepLR, EarlyStopping(30), clip 5.0,
 best/latest exports, a ``conf.yml`` dump and ``results.txt`` logging, from
-the same YAML schema as the JAX package. It runs on one device; data
-parallelism is not ported yet (ROADMAP.md, queue 1).
+the same YAML schema as the JAX package. With a data-parallel ``mesh``
+(``parallel/mesh.py``; torchrun) every rank draws the global batch in the
+same order and trains on its rows of it, the train and eval steps reduce
+over the ranks (the JAX recipe's batches sharded over a mesh), every rank
+restores and calibrates alike, and rank 0 writes the files.
 
 The data comes from the port's LibriMix loader (``data/librimix.py``, numpy,
 scipy and the standard ``csv`` module).
@@ -24,6 +27,7 @@ import torch
 
 from fqss_tpu_torch.data.librimix import LibriMix, batch_iterator
 from fqss_tpu_torch.models.factory import create_model_and_teacher
+from fqss_tpu_torch.parallel.mesh import Mesh
 from fqss_tpu_torch.quant.calibration import DEFAULT_OBSERVER_WINDOW, calibrate_mse_quantizers, has_pending_mse
 from fqss_tpu_torch.train.checkpoints import CheckpointManager, dump_config, export_model, save_log
 from fqss_tpu_torch.train.state import TrainState
@@ -61,9 +65,11 @@ def _make_datasets(dataset_cfg: Mapping[str, Any], seed: int, use_speedperturb: 
     return train_set, val_set
 
 
-def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: torch.device | str = "cuda") -> dict:
+def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: torch.device | str = "cuda",
+                 mesh: Mesh | None = None) -> dict:
     """Run speech QAT training from a reference-schema config dict on ``device`` (the card by default; ``"cpu"``
-    runs the kernels' plain versions; a missing card raises).
+    runs the kernels' plain versions; a missing card raises), or data-parallel over ``mesh`` on its device (the
+    batch size must divide by the world size).
 
     Returns ``{"best_val_loss", "epochs_run", "state"}``.
     """
@@ -73,14 +79,19 @@ def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: to
     model_cfg = conf["model_cfg"]
     dataset_cfg = conf["dataset_cfg"]
     training_cfg = conf["training_cfg"]
-    device = resolve_device(str(device))
+    device = mesh.device if mesh is not None else resolve_device(str(device))
     if training_cfg.get("wandb", False):
         raise NotImplementedError("wandb logging is not ported yet (ROADMAP.md, queue 1); set wandb: False")
+    batch_size = training_cfg.get("batch_size", 2)
+    rows = mesh.rows(batch_size) if mesh is not None else None  # raises where the batch does not divide
+    main = mesh is None or mesh.is_main
+    log = save_log if main else (lambda *_: None)
 
     seed = training_cfg.get("seed", 0)
     set_seed(seed)  # numpy and python, for the data pipeline
     torch.manual_seed(seed)
-    dump_config(work_dir, dict(conf))
+    if main:
+        dump_config(work_dir, dict(conf))
 
     is_sb = env_name == "speechbrain"
     train_set, val_set = _make_datasets(
@@ -90,7 +101,6 @@ def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: to
         shift_range=(training_cfg.get("min_shift", -8000), training_cfg.get("max_shift", 8000)),
         use_wavedrop=is_sb and training_cfg.get("use_wavedrop", False),
     )
-    batch_size = training_cfg.get("batch_size", 2)
 
     model, teacher = create_model_and_teacher(model_cfg, training_cfg.get("pretrained"),
                                               generator=torch.Generator().manual_seed(seed))
@@ -108,10 +118,10 @@ def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: to
     model.to(device)
     teacher.to(device)
     state = TrainState(model, make_optimizer(cfg, [p for p in model.parameters() if p.requires_grad]), teacher)
-    train_step = make_train_step(cfg)
-    eval_step = make_eval_step()
+    train_step = make_train_step(cfg, mesh)
+    eval_step = make_eval_step(mesh)
 
-    ckpt = CheckpointManager(work_dir)
+    ckpt = CheckpointManager(work_dir, write=main)
     # asteroid_librimix_trainer.py:95-101: half_lr -> ReduceLROnPlateau(0.5, patience); elif step_lr -> StepLR.
     if training_cfg.get("half_lr", True):
         plateau = ReduceLROnPlateau(factor=0.5, patience=training_cfg.get("patience", 5),
@@ -130,7 +140,7 @@ def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: to
         last_epoch = ckpt.restore_latest(state)
         if last_epoch is not None:
             start_epoch = last_epoch + 1
-            save_log(work_dir, f"resumed from checkpoint at epoch {last_epoch}")
+            log(work_dir, f"resumed from checkpoint at epoch {last_epoch}")
 
     # MSE calibration when the observer window closes (fqss_tpu/train/recipes.py:167-196): the histograms gather on
     # the device during the window, and the host's search runs once, after the step at which it closes. A resumed,
@@ -151,40 +161,43 @@ def train_speech(conf: Mapping[str, Any], env_name: str = "asteroid", device: to
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
         losses = []
-        for mix, src in batch_iterator(train_set, batch_size, seed=seed, epoch=epoch):
+        for mix, src in batch_iterator(train_set, batch_size, seed=seed, epoch=epoch, rows=rows):
             metrics = train_step(state, *to_device(mix, src))
             losses.append(float(metrics["loss"]))
             if mse_pending and state.step >= mse_window:
-                calibrate_mse_quantizers(model)
+                calibrate_mse_quantizers(model)  # every rank: the same histograms give the same grids
                 mse_pending = False
-                save_log(work_dir, f"MSE quantizer calibration at step {state.step}")
-            if ckpt_interval_s and time.time() - last_ckpt_t >= ckpt_interval_s:
+                log(work_dir, f"MSE quantizer calibration at step {state.step}")
+            if main and ckpt_interval_s and time.time() - last_ckpt_t >= ckpt_interval_s:
                 export_model(os.path.join(work_dir, "latest_model.pt"), state.model)
                 save_log(work_dir, f"interval checkpoint (epoch {epoch})")
                 last_ckpt_t = time.time()
 
         val_losses = [float(eval_step(state, *to_device(mix, src))["val_loss"])
-                      for mix, src in batch_iterator(val_set, batch_size, shuffle=False, seed=seed, epoch=epoch)]
+                      for mix, src in batch_iterator(val_set, batch_size, shuffle=False, seed=seed, epoch=epoch,
+                                                     rows=rows)]
         val_loss = float(np.mean(val_losses)) if val_losses else float("nan")
         train_loss = float(np.mean(losses)) if losses else float("nan")
 
-        log_metrics(work_dir, {"loss": train_loss, "val_loss": val_loss, "lr_scale": state.lr_scale,
-                               "skipped": state.skipped, "epoch_time_s": time.time() - t0}, step=epoch)
+        if main:
+            log_metrics(work_dir, {"loss": train_loss, "val_loss": val_loss, "lr_scale": state.lr_scale,
+                                   "skipped": state.skipped, "epoch_time_s": time.time() - t0}, step=epoch)
         ckpt.save(epoch, state, {"val_loss": val_loss, "loss": train_loss})
-        export_model(os.path.join(work_dir, "latest_model.pt"), state.model)
-        if val_loss < best_val:
-            best_val = val_loss
-            export_model(os.path.join(work_dir, "best_model.pt"), state.model)
+        if main:
+            export_model(os.path.join(work_dir, "latest_model.pt"), state.model)
+            if val_loss < best_val:
+                export_model(os.path.join(work_dir, "best_model.pt"), state.model)
+        best_val = min(best_val, val_loss)
         if plateau is not None:
             plateau.update(state, val_loss)
         if stopper is not None and stopper.update(val_loss):
-            save_log(work_dir, f"Early stopping at epoch {epoch}")
+            log(work_dir, f"Early stopping at epoch {epoch}")
             break
 
     # speechbrain env: per-utterance test report after training
     # (speechbrain_librimix_trainer.py:336-441 save_results -> test_results.csv)
     testing_cfg = conf.get("testing_cfg", {})
-    if is_sb and testing_cfg.get("test_dir") and os.path.isdir(testing_cfg["test_dir"]):
+    if main and is_sb and testing_cfg.get("test_dir") and os.path.isdir(testing_cfg["test_dir"]):
         avg = save_results(state.model.eval(), model_cfg, dataset_cfg, testing_cfg, work_dir,
                            limit=testing_cfg.get("limit"), device=device)
         save_log(work_dir, f"test_results.csv avg: {avg}")

@@ -27,6 +27,14 @@ schema in both spellings of the dataset keys.
   ``test.metric``, checkpoints that carry the EMAs and the best state, and
   the hydra/dora schema of the reference config (:func:`_hydra_compat`).
 
+With a data-parallel ``mesh`` (``parallel/mesh.py``; torchrun) every rank
+draws the global batch's order and augmentation values from the shared seeds
+and trains on its rows (:func:`rows_to_read`: its own rows where no Remix
+group crosses ranks, else the whole batch, augmented, then its rows); the
+step reduces over the ranks as the JAX step over a mesh does, so the EMAs and
+optimizer groups stay equal on every rank; rank 0 writes the files; every
+rank restores and validates (the validation is not sharded, as JAX's).
+
 One difference from the JAX step: where ``(T - shift - kernel_size)`` is not
 a multiple of the model's stride (the tasnet config's 6 s windows with the
 8192-sample shift: 256,408 samples against 256,400 out), the estimates are
@@ -50,6 +58,7 @@ from torch import nn
 
 from fqss_tpu_torch.data.musdb import RepitchedWavset, Wavset, apply_augment, draw_augment, get_musdb_wav_datasets
 from fqss_tpu_torch.models.factory import create_model_and_teacher
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.quant.calibration import DEFAULT_OBSERVER_WINDOW, calibrate_mse_quantizers, has_pending_mse
 from fqss_tpu_torch.separation.losses import music_kd_l1_loss, nsdr_db
 from fqss_tpu_torch.separation.ola import ola_infer
@@ -100,12 +109,45 @@ def ema_update_(emas: list[dict[str, Tensor]], model: nn.Module, decays: tuple[f
         ema.update(zip(names, new))
 
 
+def _augment_args(augment_cfg: Mapping[str, Any] | None, is_htdemucs: bool) -> dict:
+    aug = dict(augment_cfg or {})
+    return dict(shift=aug.get("shift", 8192), flip_channels=aug.get("flip", True), flip_sign=aug.get("flip", True),
+                scale=(0.25, 1.25) if aug.get("scale", True) else None,
+                remix_group_size=aug.get("remix_group_size", 4 if is_htdemucs else 0))
+
+
+def rows_to_read(batch: int, mesh: dp.Mesh | None, augment_cfg: Mapping[str, Any] | None = None,
+                 is_htdemucs: bool = False) -> slice:
+    """The rows of a global batch of ``batch`` that a rank reads for :func:`make_music_train_step`: its own, unless
+    a Remix group of the augmentation spans two ranks' rows, which needs the whole batch."""
+    if mesh is None:
+        return slice(None)
+    rows = mesh.rows(batch)
+    g = _augment_args(augment_cfg, is_htdemucs)["remix_group_size"] or batch
+    remix = dict(augment_cfg or {}).get("enable", True) and batch % g == 0 and batch > 1
+    return slice(0, batch) if remix and (rows.stop - rows.start) % g else rows
+
+
+def _rows_of(draws: dict[str, Tensor | None], rows: slice) -> dict[str, Tensor | None]:
+    """The draws of a batch's ``rows`` (whole Remix groups)."""
+    out = {k: None if v is None else v[rows] for k, v in draws.items() if k != "perm"}
+    perm = draws["perm"]
+    if perm is not None:
+        g = perm.shape[1]
+        perm = perm[rows.start // g: rows.stop // g]
+    return {**out, "perm": perm}
+
+
 def make_music_train_step(cfg: TrainConfig, augment_cfg: Mapping[str, Any] | None = None, weight_kind: str = "pow10",
-                          is_htdemucs: bool = False, source_weights=None, batch_ema_decays: tuple[float, ...] = ()
-                          ) -> Callable[..., dict]:
-    """The music KD step ``(state, sources [B, S, C, T], generator, batch_emas=()) -> metrics`` over stem batches;
-    updates ``state`` and, after the optimizer, each of ``batch_emas`` (dicts by parameter name) by its decay in
-    ``batch_ema_decays`` (solver.py:425-426).
+                          is_htdemucs: bool = False, source_weights=None, batch_ema_decays: tuple[float, ...] = (),
+                          mesh: dp.Mesh | None = None) -> Callable[..., dict]:
+    """The music KD step ``(state, sources [B, S, C, T], generator, batch_emas=(), batch=None) -> metrics`` over stem
+    batches; updates ``state`` and, after the optimizer, each of ``batch_emas`` (dicts by parameter name) by its
+    decay in ``batch_ema_decays`` (solver.py:425-426).
+
+    With ``mesh``, each rank passes the rows :func:`rows_to_read` names of a global batch of ``batch``; the
+    augmentation's values are drawn for the global batch and the rank trains on its own rows of the augmented
+    batch, and the step reduces over the ranks.
 
     The augmentation's values come from ``generator`` (a CPU generator: the same draws on every device) unless
     ``augment_cfg["enable"]`` is false; Remix groups ``remix_group_size`` rows (default 4 for HTDemucs, else 0:
@@ -115,28 +157,32 @@ def make_music_train_step(cfg: TrainConfig, augment_cfg: Mapping[str, Any] | Non
     ``grad_norm`` (before the clip) as device tensors, ``skipped`` (bool).
     """
     aug = dict(augment_cfg or {})
-    aug_args = dict(shift=aug.get("shift", 8192), flip_channels=aug.get("flip", True), flip_sign=aug.get("flip", True),
-                    scale=(0.25, 1.25) if aug.get("scale", True) else None,
-                    remix_group_size=aug.get("remix_group_size", 4 if is_htdemucs else 0))
+    aug_args = _augment_args(aug, is_htdemucs)
     kwargs = {"train": True} if is_htdemucs else {}
 
     def train_step(state: TrainState, sources: Tensor, generator: torch.Generator,
-                   batch_emas: list[dict[str, Tensor]] = ()) -> dict:
+                   batch_emas: list[dict[str, Tensor]] = (), batch: int | None = None) -> dict:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
+        batch = batch or sources.shape[0]
+        rows = mesh.rows(batch) if mesh is not None else slice(None)
+        whole = sources.shape[0] == batch  # the whole batch, of which this rank keeps its rows
         if aug.get("enable", True):
-            draws = draw_augment(generator, tuple(sources.shape), **aug_args)
-            sources = apply_augment(sources, **draws, shift=aug_args["shift"])
-        mix = sources.sum(dim=1)  # [B, C, T]
-        t_len = sources.shape[-1]
-        wavs = _pad_to(state.model(mix, **kwargs), t_len)
-        if cfg.kd_lambda > 0 and state.teacher is not None:
-            with torch.no_grad():
-                fwavs = _pad_to(state.teacher(mix, **kwargs), t_len)
-        else:
-            fwavs = wavs.detach()
-        loss = music_kd_l1_loss(wavs, fwavs, sources, cfg.kd_lambda, weight_kind, source_weights=source_weights)
-        grad_norm, ok = backward_and_update(state, cfg, loss)
+            draws = draw_augment(generator, (batch, *sources.shape[1:]), **aug_args)
+            sources = apply_augment(sources, **(draws if whole else _rows_of(draws, rows)), shift=aug_args["shift"])
+        if whole and mesh is not None:
+            sources = sources[rows]
+        with dp.sharded(mesh):
+            mix = sources.sum(dim=1)  # [B, C, T]
+            t_len = sources.shape[-1]
+            wavs = _pad_to(state.model(mix, **kwargs), t_len)
+            if cfg.kd_lambda > 0 and state.teacher is not None:
+                with torch.no_grad():
+                    fwavs = _pad_to(state.teacher(mix, **kwargs), t_len)
+            else:
+                fwavs = wavs.detach()
+            loss = music_kd_l1_loss(wavs, fwavs, sources, cfg.kd_lambda, weight_kind, source_weights=source_weights)
+            grad_norm, ok = backward_and_update(state, cfg, loss)
         ema_update_(list(batch_emas), state.model, batch_ema_decays)
         return {"loss": loss.detach(), "grad_norm": grad_norm, "skipped": not ok}
 
@@ -264,7 +310,7 @@ def _with_state(model: nn.Module, state: Mapping[str, Tensor]) -> nn.Module:
     return other.eval()
 
 
-def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) -> dict:
+def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str, mesh: dp.Mesh | None = None) -> dict:
     from fqss_tpu_torch.infer import resolve_device
 
     conf = _hydra_compat(conf)
@@ -273,12 +319,15 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
     dataset_cfg = conf.get("dataset_cfg", {})
     training_cfg = conf.get("training_cfg", {})
     testing_cfg = conf.get("testing_cfg", {})
-    device = resolve_device(str(device))
+    device = mesh.device if mesh is not None else resolve_device(str(device))
+    main = mesh is None or mesh.is_main
+    log = save_log if main else (lambda *_: None)
 
     seed = training_cfg.get("seed", 0)
     set_seed(seed)
     torch.manual_seed(seed)
-    dump_config(work_dir, dict(conf))
+    if main:
+        dump_config(work_dir, dict(conf))
 
     sources = tuple(model_cfg.get("sources", SOURCES))
     sample_rate = dataset_cfg.get("sample_rate", 44100)
@@ -307,6 +356,7 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
                                     tempo_std=repitch_cfg.get("tempo_std", 5.0), seed=seed)
 
     batch_size = training_cfg.get("batch_size", 4)
+    reads = rows_to_read(batch_size, mesh, aug_cfg, is_htd)  # raises where the batch does not divide
     model, teacher = create_model_and_teacher(model_cfg, training_cfg.get("pretrained"),
                                               generator=torch.Generator().manual_seed(seed))
     optim_cfg = training_cfg.get("optim", {})
@@ -336,7 +386,8 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
     # htdemucs applies the config's per-source weights to the train loss too (solver.py:371-372); the tasnet
     # trainer has none.
     step_fn = make_music_train_step(cfg, aug_cfg, weight_kind="exp" if is_htd else "pow10", is_htdemucs=is_htd,
-                                    source_weights=weights if is_htd else None, batch_ema_decays=batch_decays)
+                                    source_weights=weights if is_htd else None, batch_ema_decays=batch_decays,
+                                    mesh=mesh)
     test_cfg = dict(training_cfg.get("test", {}) or {})
     test_every = int(test_cfg.get("every", testing_cfg.get("every", 0) or 0))
     test_metric = str(test_cfg.get("metric", "loss"))
@@ -351,7 +402,7 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
     def on_device(emas: list[dict[str, Tensor]]) -> list[dict[str, Tensor]]:
         return [{n: v.to(device) for n, v in ema.items()} for ema in emas]
 
-    ckpt = CheckpointManager(work_dir)
+    ckpt = CheckpointManager(work_dir, write=main)
     best_state = _state_copy(model)
     # Resume (solver.py:111-122) from the latest checkpoint of work_dir: the train state, the EMAs and the best
     # model state, the metric history replayed into the log; or start from another run's model (continue_from,
@@ -367,9 +418,9 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
         epoch_emas = on_device(extra.get("epoch_emas", host(epoch_emas)))
         start_epoch = last_epoch + 1
         for h in ckpt.history:
-            save_log(work_dir, f"replay epoch {h.get('epoch')}: " + " ".join(
+            log(work_dir, f"replay epoch {h.get('epoch')}: " + " ".join(
                 f"{k}={v:.4f}" for k, v in h.items() if k != "epoch" and isinstance(v, float)))
-        save_log(work_dir, f"resumed from checkpoint at epoch {last_epoch}")
+        log(work_dir, f"resumed from checkpoint at epoch {last_epoch}")
     elif training_cfg.get("continue_from"):
         other = CheckpointManager(training_cfg["continue_from"])
         continue_best = training_cfg.get("continue_best", True)
@@ -377,7 +428,7 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
         if epoch is not None:
             saved = other.load(epoch)
             model.load_state_dict(saved["extra"]["best_state"] if continue_best else saved["state"]["model"])
-            save_log(work_dir, f"continued from {training_cfg['continue_from']}")
+            log(work_dir, f"continued from {training_cfg['continue_from']}")
 
     # MSE calibration when the observer window closes, as in the speech recipe (fqss_tpu/train/recipes_music.py:
     # 437-469)
@@ -389,19 +440,26 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
     best_loss = float("inf")
     order = np.arange(len(train_set))
     result_test, bname = None, None
+    mine = range(batch_size)[reads]
     for epoch in range(start_epoch, epochs):
         t0 = time.time()
         np.random.default_rng(seed + epoch).shuffle(order)
         losses = []
         metrics = {"grad_norm": 0.0}
         for i in range(0, (len(order) // batch_size) * batch_size, batch_size):
-            batch = np.stack([train_set[int(j)] for j in order[i: i + batch_size]])  # [B, S, C, T]
-            metrics = step_fn(state, torch.from_numpy(batch).to(device), generator, batch_emas)
+            items = []  # the rows this rank reads, [B', S, C, T]; the other rows' random draws taken in order
+            for k, j in enumerate(order[i: i + batch_size]):
+                if k in mine:
+                    items.append(train_set[int(j)])
+                else:
+                    train_set.skip(int(j))
+            batch = np.stack(items)
+            metrics = step_fn(state, torch.from_numpy(batch).to(device), generator, batch_emas, batch=batch_size)
             losses.append(float(metrics["loss"]))
             if mse_pending and state.step >= mse_window:
-                calibrate_mse_quantizers(model)
+                calibrate_mse_quantizers(model)  # every rank: the same histograms give the same grids
                 mse_pending = False
-                save_log(work_dir, f"MSE quantizer calibration at step {state.step}")
+                log(work_dir, f"MSE quantizer calibration at step {state.step}")
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         ema_update_(epoch_emas, model, epoch_decays)  # once an epoch (solver.py:438-440)
 
@@ -431,14 +489,15 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
         hist_best = functools.reduce(lambda a, b: b if _is_better(b, a, test_metric) else a, metric_history)
         if valid_loss == hist_best:
             best_state = bstate
-        save_log(work_dir, f"epoch {epoch}: loss={mean_loss:.5f} valid_loss={valid_main['loss']:.5f} "
+        log(work_dir, f"epoch {epoch}: loss={mean_loss:.5f} valid_loss={valid_main['loss']:.5f} "
                            f"valid_nsdr={valid_main['nsdr']:.3f} best={hist_best:.5f} bname={bname} "
                            f"grad_norm={float(metrics['grad_norm']):.3f} time={time.time() - t0:.1f}s")
         ckpt.save(epoch, state, {"val_loss": valid_main["loss"], "loss": mean_loss,
                                  f"valid_{test_metric}": valid_loss, "valid_nsdr": bvalid["nsdr"]},
                   extra={"best_state": best_state, "batch_emas": host(batch_emas), "epoch_emas": host(epoch_emas)})
-        export_model(os.path.join(work_dir, "latest_model.pt"), model)
-        if valid_loss == hist_best:
+        if main:
+            export_model(os.path.join(work_dir, "latest_model.pt"), model)
+        if main and valid_loss == hist_best:
             export_model(os.path.join(work_dir, "best_model.pt"), _with_state(model, best_state))
         best_loss = min(best_loss, mean_loss)
 
@@ -447,12 +506,13 @@ def _train_music(conf: Mapping[str, Any], env: str, device: torch.device | str) 
             served = _with_state(model, best_state) if test_best else model
             vals = val_musdbhq_nsdr(served, model_cfg, testing_cfg, limit=testing_cfg.get("limit"), device=device)
             result_test = {"nsdr": vals[0], **{f"nsdr_{s}": v for s, v in zip(sources, vals[1:])}}
-            save_log(work_dir, f"test epoch {epoch}: " + " ".join(f"{k}={v:.3f}" for k, v in result_test.items()))
+            log(work_dir, f"test epoch {epoch}: " + " ".join(f"{k}={v:.3f}" for k, v in result_test.items()))
     return {"best_loss": best_loss, "epochs_run": epochs, "state": state, "best_state": best_state,
             "batch_emas": host(batch_emas), "epoch_emas": host(epoch_emas), "bname": bname, "test": result_test}
 
 
-def train_tasnet_music(conf: Mapping[str, Any], device: torch.device | str = "cuda") -> dict:
+def train_tasnet_music(conf: Mapping[str, Any], device: torch.device | str = "cuda",
+                       mesh: dp.Mesh | None = None) -> dict:
     """Run the tasnet music recipe (tasnet_musdbhq_trainer.py:8 + musdbhq_train.py:170) from a reference-schema
     config dict on ``device`` (the card by default; ``"cpu"`` runs the kernels' plain versions; a missing card
     raises).
@@ -460,12 +520,13 @@ def train_tasnet_music(conf: Mapping[str, Any], device: torch.device | str = "cu
     Returns ``{"best_loss", "epochs_run", "state", "best_state", "batch_emas", "epoch_emas", "bname", "test"}``:
     the lowest epoch-mean train loss, the epochs in the config, the :class:`TrainState`, the best model state by
     ``test.metric``, the EMAs' parameters (on the CPU), the last epoch's best candidate and the last test NSDRs
-    (None without ``testing_cfg.test_dir``).
+    (None without ``testing_cfg.test_dir``). With ``mesh``: data-parallel over its ranks, on its device (the batch
+    size must divide by the world size).
     """
-    return _train_music(conf, "tasnet", device)
+    return _train_music(conf, "tasnet", device, mesh)
 
 
-def train_htdemucs(conf: Mapping[str, Any], device: torch.device | str = "cuda") -> dict:
+def train_htdemucs(conf: Mapping[str, Any], device: torch.device | str = "cuda", mesh: dp.Mesh | None = None) -> dict:
     """Run the htdemucs recipe (htdemucs_musdbhq/train.py:234-268) from a plain- or hydra-schema config dict on
-    ``device``; returns what :func:`train_tasnet_music` returns."""
-    return _train_music(conf, "htdemucs", device)
+    ``device`` (or over ``mesh``); returns what :func:`train_tasnet_music` returns."""
+    return _train_music(conf, "htdemucs", device, mesh)

@@ -22,6 +22,13 @@ One train step:
 The step reads the loss on the host once, after the backward has been
 queued, to decide on the skip. TF32 must be off for parity runs
 (``fqss_tpu_torch.infer.disable_tf32``).
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): each rank runs the step on
+its rows of the global batch, and the step is the global batch's, as JAX's
+one step over a sharded batch: the observers and the loss's batch means
+reduce over the ranks in the forward, the gradients of the global loss are
+all-reduced (the world-size factor taken once) before the clip, and every
+rank takes the same decision to skip.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.separation.losses import fqss_kd_loss, pit_neg_sisdr_db
 from fqss_tpu_torch.train.state import TrainState
 
@@ -133,11 +141,15 @@ def global_norm(grads: list[Tensor]) -> Tensor:
     return torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
 
 
-def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Tensor, Tensor], dict]:
+def make_train_step(cfg: TrainConfig, mesh: dp.Mesh | None = None) -> Callable[[TrainState, Tensor, Tensor], dict]:
     """The KD train step ``(state, mix [B, T], targets [B, S, T]) -> metrics``; updates ``state`` in place.
 
     The loss is the FQSS speech KD loss. Metrics: ``loss``, ``kd_loss``,
     ``grad_norm`` (before the clip) as device tensors, and ``skipped`` (bool).
+    With ``mesh``, every rank calls the step with its rows of the global batch
+    (:meth:`~fqss_tpu_torch.parallel.mesh.Mesh.rows`), and the step is the one
+    of the global batch: the observers, the loss's batch means and the
+    gradients reduced over the ranks (``parallel/mesh.py``).
     """
 
     def compute_loss(state: TrainState, mix: Tensor, targets: Tensor) -> tuple[Tensor, Tensor]:
@@ -151,18 +163,20 @@ def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Tensor, Tensor], 
         if cfg.threshold_byloss:
             # Keep the hard samples (loss > threshold) before the mean; with
             # none left, the unfiltered mean (speechbrain_librimix_trainer.py:138-149).
+            # Over the global batch under a mesh: the kept sum and count, and the fallback mean.
             per, kd_per = fqss_kd_loss(est, fest, targets, kd_lambda=cfg.kd_lambda, per_sample=True)
             keep = (per > cfg.threshold).to(per.dtype)
-            n_keep = keep.sum()
-            loss = torch.where(n_keep > 0, (per * keep).sum() / n_keep.clamp_min(1.0), per.mean())
-            return loss, kd_per.mean()
+            n_keep = dp.batch_sum(keep)
+            loss = torch.where(n_keep > 0, dp.batch_sum(per * keep) / n_keep.clamp_min(1.0), dp.batch_mean(per))
+            return loss, dp.batch_mean(kd_per)
         return fqss_kd_loss(est, fest, targets, kd_lambda=cfg.kd_lambda)
 
     def train_step(state: TrainState, mix: Tensor, targets: Tensor) -> dict:
         state.model.train()
         state.optimizer.zero_grad(set_to_none=True)
-        loss, kd_loss = compute_loss(state, mix, targets)
-        grad_norm, ok = backward_and_update(state, cfg, loss)
+        with dp.sharded(mesh):
+            loss, kd_loss = compute_loss(state, mix, targets)
+            grad_norm, ok = backward_and_update(state, cfg, loss)
         return {"loss": loss.detach(), "kd_loss": kd_loss.detach(), "grad_norm": grad_norm, "skipped": not ok}
 
     return train_step
@@ -171,14 +185,17 @@ def make_train_step(cfg: TrainConfig) -> Callable[[TrainState, Tensor, Tensor], 
 def backward_and_update(state: TrainState, cfg: TrainConfig, loss: Tensor) -> tuple[Tensor, bool]:
     """The step after the loss: the backward, the clip, the non-finite skip and the optimizer step.
 
-    Returns the gradients' global norm before the clip (on the device) and whether the update was applied."""
+    Under an active mesh the loss is the global batch's on every rank; the gradients are reduced over the ranks
+    before the clip, and every rank takes the same decision to skip. Returns the gradients' global norm before the
+    clip (on the device) and whether the update was applied."""
     loss.backward()
     grads = [p.grad for group in state.optimizer.param_groups for p in group["params"] if p.grad is not None]
+    dp.reduce_gradients_(grads)
     if cfg.grad_clip and cfg.grad_clip > 0:
         grad_norm = clip_by_global_norm_(grads, cfg.grad_clip)
     else:
         grad_norm = global_norm(grads)
-    ok = bool(torch.isfinite(loss) & (loss < cfg.loss_upper_lim))  # the step's one wait for the device
+    ok = dp.all_agree(bool(torch.isfinite(loss) & (loss < cfg.loss_upper_lim)))  # the step's one wait for the device
     if ok:
         for group in state.optimizer.param_groups:
             # exact lr scaling for Adam, AdamW and SGD; a group with a rate of its own keeps it as base_lr
@@ -190,12 +207,13 @@ def backward_and_update(state: TrainState, cfg: TrainConfig, loss: Tensor) -> tu
     return grad_norm, ok
 
 
-def make_eval_step() -> Callable[[TrainState, Tensor, Tensor], dict]:
-    """Validation step: PIT neg SI-SDR without KD, the student in ``eval()`` mode (mysystem.py:148-151)."""
+def make_eval_step(mesh: dp.Mesh | None = None) -> Callable[[TrainState, Tensor, Tensor], dict]:
+    """Validation step: PIT neg SI-SDR without KD, the student in ``eval()`` mode (mysystem.py:148-151); with
+    ``mesh``, of the global batch whose rows each rank holds."""
 
     def eval_step(state: TrainState, mix: Tensor, targets: Tensor) -> dict:
         state.model.eval()
-        with torch.no_grad():
+        with torch.no_grad(), dp.sharded(mesh):
             est = state.model(mix)[..., : targets.shape[-1]]
             return {"val_loss": pit_neg_sisdr_db(est, targets)}
 

@@ -17,6 +17,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.separation.bss_eval import bss_eval_images_framewise
 from fqss_tpu_torch.separation.metrics import metric_evaluation, si_snr_db
 from fqss_tpu_torch.separation.ola import ola_infer
@@ -55,10 +56,13 @@ def val_librimix(
     limit: int | None = None,
     compute_stoi: bool = True,
     device: torch.device | str = "cpu",
+    mesh: dp.Mesh | None = None,
 ) -> tuple[float, float, float, float]:
     """Returns (SI-SDR, SI-SDR improvement, SDR, STOI) means (val.py:59-92).
 
-    ``apply_fn`` is the serving forward ``[K, T] -> [K, S, T]`` on ``device``.
+    ``apply_fn`` is the serving forward ``[K, T] -> [K, S, T]`` on ``device``. With ``mesh`` every rank calls it:
+    each file's OLA is sharded over the ranks (``ola_infer(mesh=...)``), rank ``i % W`` scores file ``i``, and the
+    scores are summed over the ranks (each slot once), so every rank returns the one-process means of that OLA.
     """
     n_srcs = model_cfg.get("n_src", 1)
     mix_files, src_files = read_librimix_files(testing_cfg["test_dir"], n_srcs, dataset_cfg.get("noisy", False))
@@ -75,17 +79,20 @@ def val_librimix(
         mix_wav, fs = _resampled(mix_files[i], resample)
         clean = np.stack([_resampled(files[i], resample)[0][0] for files in src_files])
         wavs = ola_infer(apply_fn, mix_wav, n_srcs=n_srcs, segment=segment, overlap=overlap, target=clean,
-                         device=device)
+                         device=device, mesh=mesh)
+        if mesh is not None and i % mesh.size != mesh.rank:
+            continue
         sisdrs[i], sdrs[i], stois[i] = metric_evaluation(wavs, clean, sample_rate=fs, compute_stoi=compute_stoi)
         # baseline: mixture vs clean, for the improvement number
         mix_stack = torch.from_numpy(np.stack([mix_wav[0]] * n_srcs))
         sisdrs_imp[i] = sisdrs[i] - float(si_snr_db(mix_stack, torch.from_numpy(clean)).mean())
-        if (i % 500 == 0 and i > 0) or i == 1:
+        if mesh is None and ((i % 500 == 0 and i > 0) or i == 1):
             print(
                 "SI-SDR={:0.3f},SI-SDR-imp={:0.3f},SDR={:0.3f},STOI={:0.4f}".format(
                     np.mean(sisdrs[:i]), np.mean(sisdrs_imp[:i]), np.mean(sdrs[:i]), np.mean(stois[:i])
                 )
             )
+    sisdrs, sisdrs_imp, sdrs, stois = dp.host_sum(np.stack([sisdrs, sisdrs_imp, sdrs, stois]), mesh)
     return float(np.mean(sisdrs)), float(np.mean(sisdrs_imp)), float(np.mean(sdrs)), float(np.mean(stois))
 
 

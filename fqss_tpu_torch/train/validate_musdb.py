@@ -12,6 +12,10 @@ HTDemucs (``model_cfg.name``) is evaluated as the JAX loop evaluates it
 ``train=False``, each chunk centre-padded with the mixture around it to
 ``segment_samples`` (``ola_infer(center_pad_to=...)``).
 Tracks live in the musdb layout ``<root>/test/<track>/{mixture, <stem>}.wav``.
+With a data-parallel ``mesh`` every rank calls the loop: each track's OLA is
+sharded over the ranks, rank ``j % W`` scores track ``j``, and the per-track
+scores are summed over the ranks (each slot once) before the means and
+medians.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Any, Callable, Mapping
 import numpy as np
 import torch
 
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.separation.bss_eval import aggregate_frames, bss_eval_images_framewise
 from fqss_tpu_torch.separation.losses import nsdr_db
 from fqss_tpu_torch.separation.ola import ola_infer
@@ -77,16 +82,18 @@ def val_musdbhq_nsdr(apply_fn: Callable[[torch.Tensor], torch.Tensor], model_cfg
     sdrs = np.zeros((len(sources), len(tracks)))
     for j, track in enumerate(tracks):
         seps, _ = _separate_track(apply_fn, track, len(sources), testing_cfg, mesh, device, model_cfg)
+        if mesh is not None and j % mesh.size != mesh.rank:
+            continue
         for i, src in enumerate(sources):
             ref_audio, _ = read_audio(os.path.join(track, f"{src}.wav"))
             sep = np.ascontiguousarray(seps[i][..., : ref_audio.shape[-1]])
             sdrs[i, j] = float(nsdr_db(torch.from_numpy(ref_audio.reshape(1, -1)),
                                        torch.from_numpy(sep.reshape(1, -1)))[0])
-        if j % 10 == 0:
+        if j % 10 == 0 and mesh is None:
             print(f"\n****** Track {j + 1}/{len(tracks)} ******")
             for i, src in enumerate(sources):
                 print(f"{src}: NSDR={sdrs[i, j]:0.3f}")
-    per_src = sdrs.mean(axis=1)
+    per_src = dp.host_sum(sdrs, mesh).mean(axis=1)
     return (float(per_src.mean()), *[float(v) for v in per_src])
 
 
@@ -101,6 +108,8 @@ def val_musdbhq(apply_fn: Callable[[torch.Tensor], torch.Tensor], model_cfg: Map
     track_scores = {k: np.zeros((len(sources), len(tracks))) for k in keys}
     for j, track in enumerate(tracks):
         seps, fs = _separate_track(apply_fn, track, len(sources), testing_cfg, mesh, device, model_cfg)
+        if mesh is not None and j % mesh.size != mesh.rank:
+            continue
         refs = [read_audio(os.path.join(track, f"{src}.wav"))[0] for src in sources]
         t_len = min(min(r.shape[-1] for r in refs), seps.shape[-1])
         refs = np.stack([r[..., :t_len] for r in refs])  # [S, C, T]
@@ -112,10 +121,10 @@ def val_musdbhq(apply_fn: Callable[[torch.Tensor], torch.Tensor], model_cfg: Map
         agg = aggregate_frames(bss_eval_images_framewise(refs, ests, window=fs, hop=fs, filter_length=filter_length))
         for k in keys:
             track_scores[k][:, j] = agg[k]
-        if j % 10 == 0:
+        if j % 10 == 0 and mesh is None:
             print(f"track {j + 1}/{len(tracks)}: " + ", ".join(
                 f"{s} SDR={track_scores['SDR'][i, j]:0.2f}" for i, s in enumerate(sources)))
-    per_src = {k: np.nanmedian(track_scores[k], axis=1) for k in keys}
+    per_src = {k: np.nanmedian(dp.host_sum(track_scores[k], mesh), axis=1) for k in keys}
     sdr = per_src["SDR"]
     result = (float(sdr.mean()), *[float(v) for v in sdr])
     if return_full:

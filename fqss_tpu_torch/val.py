@@ -11,6 +11,11 @@ improvement over the mixture, SDR and STOI; on MUSDB18-HQ (``musdbhq``;
 ``test/<track>/``) the mean and per-stem NSDR when ``testing_cfg.NSDR`` is
 set, else BSS Eval v4's SDR and its ISR/SIR/SAR table (val.py:83-95).
 :func:`evaluate` is the same run as a library call on a config dict.
+
+Under ``torchrun --standalone --nproc_per_node=N -m fqss_tpu_torch.val ...``
+each file's overlap-add is sharded over the N ranks (``chunk_batch`` chunks
+a rank) and the files' scores are split over them and summed; rank 0
+prints. A plain ``python -m`` runs one process.
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ from typing import Any, Mapping
 import torch
 
 from fqss_tpu_torch.infer import ENGINES, load_engine, resolve_device
+from fqss_tpu_torch.parallel import mesh as dp
 from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.train.validate import val_librimix
 from fqss_tpu_torch.train.validate_musdb import SOURCES, val_musdbhq, val_musdbhq_nsdr
@@ -28,8 +34,9 @@ from fqss_tpu_torch.utils.config import load_config
 
 
 def evaluate(conf: Mapping[str, Any], engine: str = "fake_quant", device: torch.device | str = "cuda",
-             limit: int | None = None, compute_stoi: bool = True) -> dict[str, Any]:
-    """Score ``engine`` on the config's test set.
+             limit: int | None = None, compute_stoi: bool = True, mesh: dp.Mesh | None = None) -> dict[str, Any]:
+    """Score ``engine`` on the config's test set (with ``mesh``: every rank calls, the OLA sharded over the ranks,
+    on ``mesh.device``).
 
     LibriMix: ``{"si_sdr", "si_sdr_imp", "sdr", "stoi"}`` means. MUSDB18-HQ: ``{"nsdr", "nsdr_<stem>"...}`` with
     ``testing_cfg.NSDR``, else ``{"sdr", "sdr_<stem>"..., "ISR", "SIR", "SAR"}``, the last three
@@ -42,17 +49,20 @@ def evaluate(conf: Mapping[str, Any], engine: str = "fake_quant", device: torch.
         raise ValueError("No support for splitter/combiner with non QAT model.")
     if dataset_cfg["name"] not in ("librimix", "musdbhq"):
         raise ValueError("Dataset {} is not supported!".format(dataset_cfg["name"]))
+    if mesh is not None:
+        device = mesh.device
     apply_fn = load_engine(model_cfg, engine, device)
     if dataset_cfg["name"] == "musdbhq":
         sources = tuple(model_cfg.get("sources", SOURCES))
         if testing_cfg.get("NSDR", False):
-            vals = val_musdbhq_nsdr(apply_fn, model_cfg, testing_cfg, limit=limit, device=device)
+            vals = val_musdbhq_nsdr(apply_fn, model_cfg, testing_cfg, limit=limit, mesh=mesh, device=device)
             return dict(zip(("nsdr", *(f"nsdr_{s}" for s in sources)), vals))
-        vals, full = val_musdbhq(apply_fn, model_cfg, testing_cfg, limit=limit, return_full=True, device=device)
+        vals, full = val_musdbhq(apply_fn, model_cfg, testing_cfg, limit=limit, return_full=True, mesh=mesh,
+                                 device=device)
         return {**dict(zip(("sdr", *(f"sdr_{s}" for s in sources)), vals)),
                 **{k: full[k] for k in ("ISR", "SIR", "SAR")}}
     values = val_librimix(apply_fn, model_cfg, dataset_cfg, testing_cfg, limit=limit, compute_stoi=compute_stoi,
-                          device=device)
+                          device=device, mesh=mesh)
     return dict(zip(("si_sdr", "si_sdr_imp", "sdr", "stoi"), values))
 
 
@@ -85,7 +95,14 @@ def argument_handler(argv=None):
 def main(argv=None) -> None:
     args = argument_handler(argv)
     conf = load_config(args.yml_path)
-    print(report(evaluate(conf, args.engine, resolve_device(args.device), args.limit, not args.no_stoi)))
+    mesh = dp.init_distributed(args.device)
+    try:
+        device = mesh.device if mesh is not None else resolve_device(args.device)
+        result = evaluate(conf, args.engine, device, args.limit, not args.no_stoi, mesh=mesh)
+        if mesh is None or mesh.is_main:
+            print(report(result))
+    finally:
+        dp.shutdown()
 
 
 if __name__ == "__main__":

@@ -21,7 +21,13 @@ rounding.
 * ConvTasNet (n_splitter = n_combiner = 2, out_quant), DPTNet and the
   Sepformer, tiny and calibrated in JAX in bf16, against jitted JAX: SNR >= 20
   dB per output; folded ``torch.equal`` to fake_quant;
-* a bf16 forward that needs a gradient raises ``NotImplementedError``.
+* a bf16 forward that needs a gradient raises ``NotImplementedError``;
+* bf16 training has no reference: on the tiny ConvTasNet, DPTNet and
+  Sepformer of the training tests, ``jax.grad`` of JAX's bf16 student raises
+  (the VJP of a bf16 convolution with a float32 result), JAX's step with
+  ``teacher_dtype="bfloat16"`` raises (the teacher's second convolution), and
+  the port's bf16 KD step raises its refusal. These stand until JAX can take
+  them.
 """
 
 import numpy as np
@@ -58,6 +64,8 @@ from fqss_tpu_torch.ops import qmatmul as qm
 from fqss_tpu_torch.quant.fake_quant import bf16_round
 from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.serve.fold import fold_quantized_weights
+from fqss_tpu_torch.train.state import TrainState
+from fqss_tpu_torch.train.trainer import TrainConfig, make_optimizer, make_train_step
 
 torch.set_num_threads(1)
 
@@ -428,3 +436,81 @@ def test_bf16_kernel_routes_refuse_a_gradient(kernel):
             qd.qat_dense(x[0], torch.ones(3, 16), torch.zeros(3), bf16=True)
         else:
             k8.fused_attention(x, x.detach(), x.detach(), quantize=False, bf16=True)
+
+
+# ---------------------------------------------------------------------------
+# bf16 training: the JAX package cannot take a bf16 gradient either
+# ---------------------------------------------------------------------------
+
+# The tiny models of tests/test_torch_train.py and tests/test_torch_train_models.py, with their spec.
+TRAIN_MODELS = {
+    "ConvTasNet": (JaxConvTasNet, ConvTasNet,
+                   dict(n_srcs=2, kernel_size=16, stride=8, n_filters=32, bn_chan=8, hid_chan=16, n_blocks=2,
+                        n_repeats=1)),
+    "DPTNet": (JaxDPTNet, DPTNet,
+               dict(n_srcs=2, kernel_size=2, enc_dim=16, feature_dim=8, hidden_dim=16, layer=1, segment_size=20)),
+    "Sepformer": (JaxSepformer, Sepformer,
+                  dict(n_srcs=2, kernel_size=8, stride=4, n_filters=32, n_repeats=1, n_heads=4, chunk_size=20,
+                       n_ffn=48, n_layers=1)),
+}
+TRAIN_SPEC = dict(qat=True, n_splitter=2, n_combiner=2, out_quant=True, max_observations=3)
+CONV_DTYPES = "requires arguments to have the same dtypes"  # lax.conv_general_dilated's TypeError
+
+
+def _train_batch(t_len=800):
+    mix, src = synth_batch(np.random.default_rng(0), 2, 2, t_len)
+    return jnp.asarray(mix), jnp.asarray(src)
+
+
+@pytest.mark.parametrize("name", list(TRAIN_MODELS))
+def test_jax_cannot_differentiate_its_bf16_student(name):
+    """``jax.grad`` of the bf16 student's KD loss fails in the VJP of its first bf16 convolution (operands in bf16,
+    ``preferred_element_type=float32``: the cotangent comes back float32 beside a bf16 operand). Traced only."""
+    from fqss_tpu.separation.losses import fqss_kd_loss
+
+    jax_cls, _, arch = TRAIN_MODELS[name]
+    jm = jax_cls(q=JaxQuantSpec(observer=True, **TRAIN_SPEC, **BF16), **arch)
+    mix, src = _train_batch()
+    variables = jax.eval_shape(jm.init, jax.random.PRNGKey(0), mix)
+
+    def loss(params, v):
+        est, _ = jm.apply({**v, "params": params}, mix, mutable=["qparams", "qstats"])
+        return fqss_kd_loss(est[..., : src.shape[-1]], src, src, kd_lambda=0.1)[0]
+
+    with pytest.raises(TypeError, match=CONV_DTYPES):
+        jax.eval_shape(lambda v: jax.grad(loss)(v["params"], v), variables)
+
+
+@pytest.mark.parametrize("name", list(TRAIN_MODELS))
+def test_jax_cannot_step_with_a_bf16_teacher(name):
+    """JAX's ``TrainConfig(teacher_dtype="bfloat16")`` step fails in the teacher's forward: ``mxu_operands`` leaves
+    the float teacher's bf16 weight beside the float32 activation at its second convolution. Traced only."""
+    from fqss_tpu.train import TrainConfig as JaxTrainConfig
+    from fqss_tpu.train import create_train_state
+    from fqss_tpu.train import make_optimizer as jax_make_optimizer
+    from fqss_tpu.train import make_train_step as jax_make_train_step
+
+    jax_cls, _, arch = TRAIN_MODELS[name]
+    jm, jt = jax_cls(q=JaxQuantSpec(observer=True, **TRAIN_SPEC), **arch), jax_cls(**arch)
+    mix, src = _train_batch()
+    v = jax.eval_shape(jm.init, jax.random.PRNGKey(0), mix)
+    tv = jax.eval_shape(jt.init, jax.random.PRNGKey(1), mix)
+    cfg = JaxTrainConfig(teacher_dtype="bfloat16")
+    tx = jax_make_optimizer(cfg)
+    step = jax_make_train_step(jm, jt, tx, cfg, donate=False)
+    with pytest.raises(TypeError, match=CONV_DTYPES):
+        jax.eval_shape(lambda v, tp: step(create_train_state(v, tx, teacher_params=tp), mix, src), v, tv["params"])
+
+
+@pytest.mark.parametrize("name", list(TRAIN_MODELS))
+def test_port_refuses_a_bf16_kd_step(name):
+    """The port's KD step of the bf16 student raises its refusal, as JAX's gradient raises."""
+    _, cls, arch = TRAIN_MODELS[name]
+    model = cls(q=QuantSpec(observer=True, **TRAIN_SPEC, **BF16), **arch)
+    teacher = cls(**arch).requires_grad_(False).eval()
+    state = TrainState(model, make_optimizer(TrainConfig(), [p for p in model.parameters() if p.requires_grad]),
+                       teacher)
+    mix, src = (torch.from_numpy(np.array(a)) for a in _train_batch())
+    with pytest.raises(NotImplementedError, match="bf16 training"):
+        make_train_step(TrainConfig())(state, mix, src)
+    assert state.step == 0

@@ -121,8 +121,11 @@ def test_ola_infer_matches_jax(calibrated):
     snr = snr_db(want, got)
     assert (snr >= 20).all(), f"port vs JAX OLA SNR {snr} dB < 20 dB"
     np.testing.assert_array_equal(triangular_weight(seg), jax_triangular_weight(seg))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ola_infer(port, mix, n_srcs=2, segment=seg, mesh=object())
+    # sharded over a one-rank group (every collective run, each the identity): the same blocks, the same separation
+    from torch_ddp_cases import one_rank_mesh
+
+    with one_rank_mesh() as mesh:
+        np.testing.assert_array_equal(ola_infer(port, mix, n_srcs=2, segment=seg, chunk_batch=2, mesh=mesh), got)
 
 
 def test_factory_loads_port_checkpoints_and_names_what_is_missing(calibrated, tmp_path):

@@ -1794,3 +1794,55 @@ def test_mulaw_quantizer_runs_k1_and_matches_plain(dev):
     assert ((dx_card - dx_cpu).abs() > 1e-5 * dx_cpu.abs().max()).float().mean().item() <= DENSE_GRID_SHARE
     for a, b in ((dmx_card, dmx_cpu), (dmu_card, dmu_cpu)):
         assert (a - b).abs().max().item() <= 1e-3 * b.abs().max().item()
+
+
+# ---------------------------------------------------------------------------------------------------------------
+# Data parallelism: two gloo ranks sharing the card (tests/torch_ddp_cases.py) against one process
+# ---------------------------------------------------------------------------------------------------------------
+
+
+def test_two_gloo_ranks_on_the_card_equal_one_process(dev, tmp_path, monkeypatch):
+    """The KD cases of tests/test_torch_ddp.py on the card by its rules (TF32 off and cuDNN deterministic on both
+    sides): each rank's observers after every forward bit for bit the one-process run's (from the ranks' learned
+    parameters), the ranks' whole states equal, the loss within 1e-5 dB and each gradient tensor within 1e-5 of the
+    whole gradient's norm."""
+    import os
+    import socket
+    import subprocess
+    import sys
+
+    import torch_ddp_cases as cases
+
+    tests = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    env = {k: v for k, v in os.environ.items() if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = os.pathsep.join([os.path.dirname(tests), tests])
+    procs = [subprocess.Popen([sys.executable, os.path.join(tests, "torch_ddp_cases.py"), str(tmp_path), "cuda:0"],
+                              env={**env, "RANK": str(r), "WORLD_SIZE": "2", "MASTER_ADDR": "localhost",
+                                   "MASTER_PORT": str(port)}, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True) for r in range(2)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r}:\n{o}\n{e[-4000:]}"
+    ranks = [torch.load(tmp_path / f"rank{r}.pt", weights_only=True)["kd"] for r in range(2)]
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)  # as the ranks: cuDNN's default backward uses atomics
+    for name, case in cases.KD_CASES.items():
+        got = ranks[0][name]
+        want = cases.forced_run(case, got["before"], cases.batches(case), dev)
+        for i, (g, w) in enumerate(zip(got["observed"], want["observed"])):
+            bad = [k for k in w if not torch.equal(g[k], w[k])]
+            assert not bad, (f"{name} step {i + 1}: {bad[:4]}; the float model's first module whose output rows "
+                             f"differ at 2 and 4 rows on this card: {cases.first_unlike(case, dev)}")
+        assert all(torch.equal(ranks[1][name]["state"][k], v) for k, v in got["state"].items()), name
+        assert max(abs(a - b) for a, b in zip(got["loss"], want["loss"])) <= 1e-5, name
+        for i, (g, w) in enumerate(zip(got["grads"], want["grads"])):
+            whole = torch.cat([t.flatten().double() for t in w.values()]).norm()
+            worst = max(w, key=lambda k: float((g[k].double() - w[k].double()).norm()))
+            err = float((g[worst].double() - w[worst].double()).norm() / whole)
+            assert err <= 1e-5, f"{name} step {i + 1}: {worst} off by {err:.3g} of the whole gradient's norm"

@@ -57,8 +57,12 @@ def test_center_padded_ola_equals_jax(length, segment, pad_to, chunk_batch):
                     chunk_batch=chunk_batch, center_pad_to=pad_to)
     assert got.shape == want.shape == (4, 2, length)
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ola_infer(lambda x: x, mix, segment=segment, mesh=object())
+    from torch_ddp_cases import one_rank_mesh
+
+    with one_rank_mesh() as mesh:  # sharded over a one-rank group: the same blocks, the same separation
+        np.testing.assert_array_equal(ola_infer(lambda x: torch.from_numpy(_numpy_forward(x.numpy())), mix, n_srcs=4,
+                                                segment=segment, chunk_batch=chunk_batch, center_pad_to=pad_to,
+                                                mesh=mesh), got)
 
 
 def _val_conf(root, model_path, nsdr):

@@ -238,8 +238,10 @@ def test_musdb_evaluations_match_jax(served, noise_musdb):
     for metric in ("ISR", "SIR", "SAR"):  # float32 solves of 4096 unknowns: tests/test_torch_val.py's BSS rule
         np.testing.assert_allclose(list(full[metric].values()), list(want_full[metric].values()), rtol=1e-3,
                                    atol=1e-3)
-    with pytest.raises(NotImplementedError, match="mesh"):
-        val_musdbhq_nsdr(port, MODEL_CFG, testing, mesh=object())
+    from torch_ddp_cases import one_rank_mesh
+
+    with one_rank_mesh() as mesh:  # the OLA and the scores over a one-rank group: the same numbers
+        assert val_musdbhq_nsdr(port, MODEL_CFG, testing, mesh=mesh) == val_musdbhq_nsdr(port, MODEL_CFG, testing)
 
 
 def _recipe_conf(work_dir, root, epochs):

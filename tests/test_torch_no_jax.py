@@ -46,6 +46,8 @@ MUSIC_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
 HTDEMUCS_MODULES = tuple(f"fqss_tpu_torch.{m}" for m in (
     "ops.stft", "nn.nonlin", "nn.io_layers", "models.demucs_blocks", "models.htdemucs", "serve.htdemucs_int8",
     "separation.ola"))
+# The data-parallel slice's modules.
+PARALLEL_MODULES = ("fqss_tpu_torch.parallel", "fqss_tpu_torch.parallel.mesh")
 
 
 def jax_package_imports(path: str) -> list[str]:
@@ -65,8 +67,9 @@ def jax_package_imports(path: str) -> list[str]:
 
 def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
     files = sorted(glob.glob(os.path.join(REPO, "fqss_tpu_torch", "**", "*.py"), recursive=True))
-    files.append(os.path.join(REPO, "chip_smoke.py"))
+    files += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "torch_ddp_cases.py")]
     assert len(files) > 40
+    assert os.path.join(REPO, "fqss_tpu_torch", "parallel", "mesh.py") in files
     assert [hit for path in files for hit in jax_package_imports(path)] == []
 
 
@@ -91,7 +94,7 @@ def test_port_and_chip_smoke_import_no_jax_flax_or_yaml():
     proc = _run(["-c", IMPORT_ALL])
     assert proc.returncode == 0, proc.stderr
     assert "LOADED []" in proc.stdout, proc.stdout
-    for mod in TRAINING_MODULES + SERVING_MODULES + MUSIC_MODULES + HTDEMUCS_MODULES:
+    for mod in TRAINING_MODULES + SERVING_MODULES + MUSIC_MODULES + HTDEMUCS_MODULES + PARALLEL_MODULES:
         assert f"'{mod}'" in proc.stdout, mod
 
 

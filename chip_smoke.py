@@ -418,9 +418,19 @@ after each group of phases, and lets any failure propagate:
     ranges and counters after the forward bitwise equal to one process's.
 78. ``ola_infer(mesh=...)`` of a 60 s mixture through phase 75's flagship, chunk_batch 8 a rank, against one process
     at 16 (the same blocks): bitwise equal.
-79. the dynamic cell's reductions: a one-layer dynamic DPTNet's eval forward of 2 x 3 s, one row a rank, against one
-    process: its time on both; the launches of each data-parallel path (on the ranks, summed) must include its
+79. the dynamic cell's reductions: a one-layer dynamic DPTNet's eval forward of 2 x 1.5 s, one row a rank, against
+    one process: its time on both; the launches of each data-parallel path (on the ranks, summed) must include its
     kernels.
+80. tensor parallelism (``fqss_tpu_torch/parallel/tp.py``): two ranks of this script (``--tp-worker``) sharing
+    cuda:0 over gloo as a grid of tp 2, the full-width Sepformer of ``configs/sepformer_2spks_8k.yaml`` sharded
+    over them (the projections by heads, ffn_in/ffn_out column/row), 2 x 4 s replicated over tp: the float
+    forward at TP_FLOAT_DB or more against one process holding the whole weights, phase 25's calibrated QAT
+    forward above TP_QAT_DB (JAX's TP rule), and TP_STEPS KD steps through the observer window against one process
+    from the ranks' whole learned parameters before each step: each step's loss within TP_LOSS_DB and its
+    whole-gradient cosine at least TP_GRAD_COS; the share of each step in the gloo tp sums.
+81. the same on a dp 2 x tp 2 grid of four ranks, the Sepformer at one layer a block, one KD step of 2 x 4 s (one
+    row a dp rank) by the same step rule; each tensor-parallel path (the ranks' launches, summed) must launch K5,
+    K5-bwd, K8, K1, K1-bwd and the grouped K2/K2-bwd.
 
 The line before the last is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
@@ -471,6 +481,7 @@ from fqss_tpu_torch.ops import lstm as lk
 from fqss_tpu_torch.ops import qat_dense as qd
 from fqss_tpu_torch.ops import qmatmul as qm
 from fqss_tpu_torch.parallel import mesh as dp
+from fqss_tpu_torch.parallel import tp
 from fqss_tpu_torch.quant.fake_quant import bf16_round
 from fqss_tpu_torch.quant import histogram
 from fqss_tpu_torch.quant.calibration import calibrate_mse_quantizers, has_pending_mse
@@ -803,6 +814,7 @@ STATIC_PLAIN_REPS = 1  # the plain static recurrence (~150 launches a step; 0.7-
 # Phase 73's KD step crosses every LSTM's window (serving then runs on closed ones) at one dual-path layer: its
 # backward recomputes the plain static cell, ~300 launches a step and direction (21 s a step at 2 layers).
 STATIC_TRAIN_STEPS = 1
+STATIC_CPU_SEG = SR // 2  # phase 73's card vs CPU input, 0.5 s (1 s before: the phase took 19.8-66.5 s)
 STATIC_TRAIN_LAYERS = 1
 DYNAMIC_TRAIN_LAYERS = 1  # the dynamic step: the plain loop forward and backward (26 s at 2 layers)
 # Phase 74's card vs CPU at the first DYNAMIC_CPU_LAYERS dual-path layers: the CPU's plain dynamic loop at all 6 took
@@ -1753,9 +1765,13 @@ def reset_all_launches() -> None:
 
 
 def dense_quantizers(model) -> dict:
-    """The QDense layers and their quantizers, whose grids K5 applies (no K1 or K2 launch of their own)."""
+    """The QDense layers and their quantizers, whose grids K5 applies (no K1 or K2 launch of their own); ``dense``
+    also counts the attentions' projections, K5's core with both grids off: a self-attention's in- and
+    out-projection, a cross-attention's query, key (= value) and out-projection."""
     layers = [m for m in model.modules() if isinstance(m, QDense)]
-    return {"dense": len(layers), "act": sum(m.activation_fake_quantize is not None for m in layers),
+    projections = sum(3 if name.endswith("cross_attn") else 2 for name, m in model.named_modules()
+                      if isinstance(m, QMultiheadAttention))
+    return {"dense": len(layers) + projections, "act": sum(m.activation_fake_quantize is not None for m in layers),
             "weight": sum(m.weight_fake_quantize is not None for m in layers)}
 
 
@@ -1938,7 +1954,7 @@ def serve_dptnet(dev, smi: str) -> tuple:
         f"grids in K8's epilogue - {dense['act']} in K5's - {fused['act']} in K3's) weight={launches['weight']} (the "
         f"{counts['weight']} weight quantizers grouped; K5's {dense['weight']} and K3's {fused['weight']} weight "
         f"grids off) bilstm={launches['bilstm']} lstm=0 attention={launches['attention']} "
-        f"dense={launches['dense']} (= QDense layers) qmatmul={launches['qmatmul']} (= BN, K3: {k3_shapes})")
+        f"dense={launches['dense']} (= QDense layers and the attentions' projections) qmatmul={launches['qmatmul']} (= BN, K3: {k3_shapes})")
 
     # 19. card vs CPU on the same weights
     cpu_dpt = create_pretrained_model(DPTNET_CFG, observer=False)
@@ -2244,7 +2260,7 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple:
         f"launches act={launches['act']} (= {counts['act']} act quantizers - {3 * n_mha} no-op sites and head grids of "
         f"{n_mha} attentions - {dense['act']} in K5 - {fused['act']} in K3) weight={launches['weight']} (the "
         f"{counts['weight']} weight quantizers grouped; K5's {dense['weight']} and K3's {fused['weight']} weight "
-        f"grids off) attention={launches['attention']} dense={launches['dense']} (= QDense layers) "
+        f"grids off) attention={launches['attention']} dense={launches['dense']} (= QDense layers and the attentions' projections) "
         f"qmatmul={launches['qmatmul']} (= the masker's conv1d, K3: {k3_shapes})")
 
     # 26. card vs CPU on the same weights, quantized and float
@@ -2316,8 +2332,10 @@ def serve_sepformer(dev, smi: str, dpt_attn_shapes: list[tuple]) -> tuple:
 
 
 def dense_train_shapes(dpt_seg: int, sep_seg: int) -> list[tuple]:
-    """(name, M, K, N, launches per student forward) of the QDense layers of the full-width DPTNet and Sepformer
-    at the training batch (1 x dpt_seg and 1 x sep_seg samples), recomputed from the models."""
+    """(name, M, K, N, launches per student forward, grids) of K5's launches in the full-width DPTNet and Sepformer
+    at the training batch (1 x dpt_seg and 1 x sep_seg samples), recomputed from the models: the QDense layers
+    (``grids`` True: their weight and act grids) and the self-attentions' in- and out-projections (False: K5's
+    core with both grids off, the bias in the epilogue)."""
     dpt, sep = create_model(DPTNET_CFG, QuantSpec()), create_model(SEPFORMER_CFG, QuantSpec())
     segs, _ = split_segments(torch.empty(1, dpt_seg - dpt.kernel_size + 1, 1), dpt.separator.segment_size)
     dpt_tokens = segs.shape[1] * segs.shape[2]
@@ -2328,13 +2346,20 @@ def dense_train_shapes(dpt_seg: int, sep_seg: int) -> list[tuple]:
     sep_tokens = segs.shape[1] * segs.shape[2]
     ffn = sep.masker.blocks[0].intra_transformer_block.layers[0]
     n_layers = sum(isinstance(m, TransformerLayer) for m in sep.modules())
-    shapes = [("DPTNet linear", dpt_tokens, *layer.linear.weight.shape[::-1], 2 * dpt.layer),
-              ("DPTNet out_conv", dpt_tokens, *out_conv.weight.shape[::-1], 1),
-              ("Sepformer ffn_in", sep_tokens, *ffn.ffn_in.weight.shape[::-1], n_layers),
-              ("Sepformer ffn_out", sep_tokens, *ffn.ffn_out.weight.shape[::-1], n_layers),
-              ("Sepformer conv2d", sep_tokens, *sep.masker.conv2d.weight.shape[::-1], 1)]
-    if sum(per for *_, per in shapes) != sum(isinstance(m, QDense) for model in (dpt, sep) for m in model.modules()):
-        raise AssertionError(f"the QDense shapes {shapes} do not cover the models' QDense layers")
+    shapes = [("DPTNet linear", dpt_tokens, *layer.linear.weight.shape[::-1], 2 * dpt.layer, True),
+              ("DPTNet out_conv", dpt_tokens, *out_conv.weight.shape[::-1], 1, True),
+              ("Sepformer ffn_in", sep_tokens, *ffn.ffn_in.weight.shape[::-1], n_layers, True),
+              ("Sepformer ffn_out", sep_tokens, *ffn.ffn_out.weight.shape[::-1], n_layers, True),
+              ("Sepformer conv2d", sep_tokens, *sep.masker.conv2d.weight.shape[::-1], 1, True)]
+    for model, tokens in ((dpt, dpt_tokens), (sep, sep_tokens)):
+        mhas = [m for m in model.modules() if isinstance(m, QMultiheadAttention)]
+        name = type(model).__name__
+        shapes += [(f"{name} in-projection", tokens, *mhas[0].in_proj_weight.shape[::-1], len(mhas), False),
+                   (f"{name} out-projection", tokens, *mhas[0].out_proj_weight.shape[::-1], len(mhas), False)]
+    n_dense = sum(isinstance(m, QDense) for model in (dpt, sep) for m in model.modules())
+    n_mha = sum(isinstance(m, QMultiheadAttention) for model in (dpt, sep) for m in model.modules())
+    if sum(s[4] for s in shapes) != n_dense + 2 * n_mha:
+        raise AssertionError(f"the K5 shapes {shapes} do not cover the models' QDense layers and projections")
     return shapes
 
 
@@ -2460,11 +2485,12 @@ def rate_and_shares(nbytes: float, ops: float, ms: float) -> str:
             f"3xTF32 bound by {route['route_bound_by']}")
 
 
-def dense_bounds(m: int, k: int, n: int) -> tuple[tuple[int, int], tuple[int, int]]:
+def dense_bounds(m: int, k: int, n: int, grids: bool = True) -> tuple[tuple[int, int], tuple[int, int]]:
     """(bytes, operations) of K5 (x, w, b, ranges in, y out; the product) and of K5-bwd (x, w, b, g, ranges in,
-    dx, dw, db out; the pre-activation, dx and dwq products), float32."""
+    dx, dw, db out; the pre-activation where ``grids`` (the act grid's mask needs it), dx and dwq products),
+    float32."""
     fwd = 4 * (m * k + n * k + n + 2 * n + 2 + m * n), 2 * m * n * k
-    bwd = 4 * (2 * m * k + 2 * n * k + 2 * n + m * n + 2 * n + 2), 6 * m * n * k
+    bwd = 4 * (2 * m * k + 2 * n * k + 2 * n + m * n + 2 * n + 2), (6 if grids else 4) * m * n * k
     return fwd, bwd
 
 
@@ -2475,7 +2501,7 @@ def check_dense_kernels(dev, shapes: list[tuple]) -> tuple[dict, dict]:
     fwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     bwd = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
     totals = {"fwd": [0, 0], "bwd": [0, 0]}
-    for name, m, k, n, per_forward in [*shapes, *(("odd", *s, 0) for s in DENSE_ODD)]:
+    for name, m, k, n, per_forward, grids in [*shapes, *(("odd", *s, 0, True) for s in DENSE_ODD)]:
         case = dense_case(dev, m, k, n, gen)
         g = torch.randn(m, n, device=dev, generator=gen)
         for flags in DENSE_FLAGS:
@@ -2488,21 +2514,26 @@ def check_dense_kernels(dev, shapes: list[tuple]) -> tuple[dict, dict]:
             log(line)
             continue
         x, w, b, w_mn, w_mx, a_mn, a_mx = case
-        wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0)
+        if not grids:  # a projection: both grids off, timed as the layer runs it
+            w_mn = w_mx = a_mn = a_mx = None
+        wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0) if grids else w
         pre = torch.addmm(b, x, wq.t())
         times = {
             "fwd": cuda_ms(lambda: qd.qat_dense(x, w, b, w_mn, w_mx, a_mn, a_mx), 10),
             "fwd_plain": cuda_ms(lambda: qd.qat_dense_ref(x, w, b, w_mn, w_mx, a_mn, a_mx), 10),
-            "fwd_library": cuda_ms(lambda: fq.act_fake_quant(torch.addmm(b, x, wq.t()), a_mn, a_mx, 8), 10),
+            "fwd_library": cuda_ms(lambda: fq.act_fake_quant(torch.addmm(b, x, wq.t()), a_mn, a_mx, 8) if grids
+                                   else torch.addmm(b, x, w.t()), 10),
             "bwd": cuda_ms(lambda: qd.qat_dense_bwd(x, w, b, g, w_mn, w_mx, a_mn, a_mx), 10),
             "bwd_plain": cuda_ms(lambda: qd.qat_dense_bwd_ref(x, w, b, g, w_mn, w_mx, a_mn, a_mx), 10),
-            "bwd_library": cuda_ms(lambda: (g @ wq, g.t() @ x, fq.act_fake_quant_bwd(pre, g, a_mn, a_mx, 8)), 10),
+            "bwd_library": cuda_ms(lambda: (g @ wq, g.t() @ x, fq.act_fake_quant_bwd(pre, g, a_mn, a_mx, 8) if grids
+                                            else g.sum(0)), 10),
         }
-        (fb, fo), (bb, bo) = dense_bounds(m, k, n)
-        log(f"{line}; K5 {times['fwd']:.4f} ms ({rate_and_shares(fb, fo, times['fwd'])}), plain "
-            f"{times['fwd_plain']:.4f}, addmm + K1 {times['fwd_library']:.4f}; K5-bwd {times['bwd']:.4f} ms "
-            f"({rate_and_shares(bb, bo, times['bwd'])}), plain {times['bwd_plain']:.4f}, two mm + K1-bwd "
-            f"{times['bwd_library']:.4f}; {per_forward} a forward")
+        (fb, fo), (bb, bo) = dense_bounds(m, k, n, grids)
+        log(f"{line}; timed with {'both grids on' if grids else 'both grids off'}: K5 {times['fwd']:.4f} ms "
+            f"({rate_and_shares(fb, fo, times['fwd'])}), plain {times['fwd_plain']:.4f}, addmm"
+            f"{' + K1' if grids else ''} {times['fwd_library']:.4f}; K5-bwd {times['bwd']:.4f} ms "
+            f"({rate_and_shares(bb, bo, times['bwd'])}), plain {times['bwd_plain']:.4f}, two mm + "
+            f"{'K1-bwd' if grids else 'the bias sum'} {times['bwd_library']:.4f}; {per_forward} a forward")
         for key, res in (("fwd", fwd), ("bwd", bwd)):
             res["ms"] += per_forward * times[key]
             res["plain_ms"] += per_forward * times[f"{key}_plain"]
@@ -2963,13 +2994,41 @@ def bf16_cfg(cfg: dict) -> dict:
     return {**cfg, "quantization": {**cfg["quantization"], "compute_dtype": "bfloat16"}}
 
 
+class _Unwrap:
+    """A handle whose ``remove()`` takes an instance's wrapper of ``attr`` off again (as a hook's handle does)."""
+
+    def __init__(self, obj, attr: str):
+        self.obj, self.attr = obj, attr
+
+    def remove(self) -> None:
+        delattr(self.obj, self.attr)
+
+
+def record_projections(model, record) -> list:
+    """Wrap each attention's ``_project`` (its in- and out-projections: K5's core on the card) on the instance so
+    that it first calls ``record(x, w)``; returns handles that take the wrappers off."""
+    handles = []
+    for m in model.modules():
+        if isinstance(m, QMultiheadAttention):
+            def project(x, w, b, plain=m._project):
+                record(x, w)
+                return plain(x, w, b)
+
+            m._project = project
+            handles.append(_Unwrap(m, "_project"))
+    return handles
+
+
 def record_dense_inputs(model, name: str) -> tuple[list, list]:
-    """Hooks on ``model``'s QDense layers that record (name, M, K, N) of every input they take; returns the list
-    and the hooks' handles."""
+    """Hooks on ``model``'s K5 launches that record (name, M, K, N, grids) of every input they take: its QDense
+    layers' (``grids`` True) and its attentions' projections (False, both grids off); returns the list and the
+    hooks' handles."""
     seen = []
     handles = [m.register_forward_pre_hook(
-        lambda mod, args: seen.append((name, args[0].numel() // args[0].shape[-1], *mod.weight.shape[::-1])))
+        lambda mod, args: seen.append((name, args[0].numel() // args[0].shape[-1], *mod.weight.shape[::-1], True)))
         for m in model.modules() if isinstance(m, QDense)]
+    handles += record_projections(model, lambda x, w: seen.append(
+        (f"{name} projection", x.numel() // x.shape[-1], *w.shape[::-1], False)))
     return seen, handles
 
 
@@ -3163,7 +3222,10 @@ def check_bf16_dense(dev, k5_shapes: list[tuple], k3_shapes: list[tuple]) -> tup
         why_not = bf16_library(batched=kernel == "K3")
         res = {"max_abs_err": 0.0, "ms": 0.0, "f32_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "launches": 0}
         total = [0, 0]
-        for name, *shape, count in [*shapes, *(("odd", *s, 0) for s in odd)]:
+        for name, *shape, count in [*shapes, *(("odd", *s, *((True,) if kernel == "K5" else ()), 0) for s in odd)]:
+            grids = True
+            if kernel == "K5":  # (M, K, N, grids): the projections run with both grids off
+                *shape, grids = shape
             case = dense_case(dev, *shape, gen) if kernel == "K5" else qmatmul_case(dev, *shape, gen)
             for flags in DENSE_FLAGS:
                 err = (check_dense_forward(f"bf16 {name} {flags}", dense_args(case, flags), bf16=True)
@@ -3171,17 +3233,19 @@ def check_bf16_dense(dev, k5_shapes: list[tuple], k3_shapes: list[tuple]) -> tup
                 res["max_abs_err"] = max(res["max_abs_err"], err)
             line = (f"[43] {kernel} bf16 route {name} {shape}: every grid and observing-flag combination "
                     f"({len(DENSE_FLAGS)}) within its bounds (DENSE_RTOL of sum |term| of the rounded operands), "
-                    f"planted ties and clip extremes exact")
+                    f"planted ties and clip extremes exact{'' if grids else '; timed with both grids off'}")
             if count == 0:
                 log(line)
                 continue
             if kernel == "K5":
                 x, w, b, w_mn, w_mx, a_mn, a_mx = case
-                wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0)
+                if not grids:
+                    w_mn = w_mx = a_mn = a_mx = None
+                wq = fq.weight_fake_quant(w, w_mn, w_mx, 8, 0) if grids else w
                 run = lambda bf16: qd.qat_dense(x, w, b, w_mn, w_mx, a_mn, a_mx, bf16=bf16)
                 plain = lambda: qd.qat_dense_ref(x, w, b, w_mn, w_mx, a_mn, a_mx, bf16=True)
-                library = lambda: fq.act_fake_quant(torch.mm(x.bfloat16(), wq.bfloat16().t(),
-                                                             out_dtype=torch.float32).add_(b), a_mn, a_mx, 8)
+                product = lambda: torch.mm(x.bfloat16(), wq.bfloat16().t(), out_dtype=torch.float32).add_(b)
+                library = (lambda: fq.act_fake_quant(product(), a_mn, a_mx, 8)) if grids else product
                 nbytes, ops = dense_bounds(*shape)[0]
             else:
                 x, w, w_mn, w_mx, a_mn, a_mx = case
@@ -3747,8 +3811,9 @@ def htdemucs_int8_launches(model: HTDemucs, bf16: bool) -> tuple[dict, int]:
 
 
 def record_htdemucs_shapes(model: HTDemucs) -> tuple[list, list]:
-    """Hooks on ``model``'s attention and QDense layers that record, per call, ("attention", B, Lq, Lk, E, heads) and
-    ("dense", M, K, N, gelu); returns the list and the hooks' handles."""
+    """Hooks on ``model``'s attention and QDense layers that record, per call, ("attention", B, Lq, Lk, E, heads),
+    ("dense", M, K, N, gelu) and each projection of an attention, ("projection", M, K, N); returns the list and the
+    hooks' handles."""
     seen = []
 
     def attention(mod, args):
@@ -3759,6 +3824,8 @@ def record_htdemucs_shapes(model: HTDemucs) -> tuple[list, list]:
 
     handles = [m.register_forward_pre_hook(attention if isinstance(m, QMultiheadAttention) else dense)
                for m in model.modules() if isinstance(m, (QMultiheadAttention, QDense))]
+    handles += record_projections(model, lambda x, w: seen.append(("projection", x.numel() // x.shape[-1],
+                                                                   *w.shape[::-1])))
     return seen, handles
 
 
@@ -3938,33 +4005,38 @@ def htdemucs_out_step(model: HTDemucs) -> float:
 
 
 def check_htdemucs_dense(dev, records: list) -> tuple[dict, dict]:
-    """Phase 59 (K5): linear2 on K5 and linear1 on its GELU route against their plain versions at a forward's
-    shapes, every grid and observing-flag combination with planted ties (phase 31's rules; the GELU route's bound
-    GELU_SLOPE times its pre-GELU one); times per forward of the serving call (act grid on, the weight grid off: the
-    weight pass's), the plain version and the library call (addmm [+ F.gelu] + K1)."""
+    """Phase 59 (K5): linear2 and the attentions' projections on K5 and linear1 on its GELU route against their
+    plain versions at a forward's shapes, every grid and observing-flag combination with planted ties (phase 31's
+    rules; the GELU route's bound GELU_SLOPE times its pre-GELU one); times per forward of the serving call (QDense:
+    the act grid on, the weight grid off, the weight pass's; a projection: both off), the plain version and the
+    library call (addmm [+ F.gelu] [+ K1])."""
     gen = torch.Generator(device=dev).manual_seed(59)
-    calls = [r[1:] for r in records if r[0] == "dense"]
+    calls = [(*r[1:], "linear1" if r[4] else "linear2") for r in records if r[0] == "dense"]
+    calls += [(*r[1:], False, "projection") for r in records if r[0] == "projection"]
     results = {g: {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "launches": 0, "moved": 0,
                    "ops": 0} for g in (False, True)}
-    for (m, k, n, gelu), count in ((c, calls.count(c)) for c in dict.fromkeys(calls)):
+    for (m, k, n, gelu, what), count in ((c, calls.count(c)) for c in dict.fromkeys(calls)):
         case = dense_case(dev, m, k, n, gen)
         res = results[gelu]
         for flags in DENSE_FLAGS:
             res["max_abs_err"] = max(res["max_abs_err"], check_dense_forward(f"HTDemucs [{m},{k}]x[{n},{k}] {flags}",
                                                                              dense_args(case, flags), gelu=gelu))
         x, w, b, _, _, a_mn, a_mx = case
+        if what == "projection":
+            a_mn = a_mx = None
         act = (lambda v: F.gelu(v)) if gelu else (lambda v: v)
+        grid = (lambda v: v) if a_mn is None else (lambda v: fq.act_fake_quant(v, a_mn, a_mx, 8))
         ms = cuda_ms(lambda: qd.qat_dense(x, w, b, a_mn=a_mn, a_mx=a_mx, gelu=gelu), 10)
         plain = cuda_ms(lambda: qd.qat_dense_ref(x, w, b, a_mn=a_mn, a_mx=a_mx, gelu=gelu), 10)
-        lib = cuda_ms(lambda: fq.act_fake_quant(act(torch.addmm(b, x, w.t())), a_mn, a_mx, 8), 10)
+        lib = cuda_ms(lambda: grid(act(torch.addmm(b, x, w.t()))), 10)
         # the GELU's cost: the same call without it
         plain_route = cuda_ms(lambda: qd.qat_dense(x, w, b, a_mn=a_mn, a_mx=a_mx), 10) if gelu else ms
         res["no_gelu_ms"] = res.get("no_gelu_ms", 0.0) + count * plain_route
         (fb, fo), _ = dense_bounds(m, k, n)
-        log(f"[59] K5{' GELU route' if gelu else ''} at HTDemucs's {'linear1' if gelu else 'linear2'} [{m},{k}] x "
+        log(f"[59] K5{' GELU route' if gelu else ''} at HTDemucs's {what} [{m},{k}] x "
             f"[{n},{k}]: every grid and observing-flag combination ({len(DENSE_FLAGS)}) within its bounds, planted ties "
             f"and clip extremes included; {ms:.4f} ms ({rate_and_shares(fb, fo, ms)}), plain {plain:.4f}, addmm"
-            f"{' + F.gelu' if gelu else ''} + K1 {lib:.4f}"
+            f"{' + F.gelu' if gelu else ''}{'' if a_mn is None else ' + K1'} {lib:.4f}"
             f"{f', K5 without the GELU at this shape {plain_route:.4f}' if gelu else ''}; {count} a forward")
         for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("moved", fb), ("ops", fo)):
             res[key] += count * val
@@ -5147,14 +5219,14 @@ def serve_static(dev, smi: str, dpt_state: dict) -> dict:
         f"others 0; folded bitwise equal")
     cpu_dpt = create_pretrained_model(STATIC_CFG, observer=False)
     cpu_dpt.load_state_dict(state_on_cpu(dpt))
-    x1 = torch.from_numpy(dmix[:1, :SR])
+    x1 = torch.from_numpy(dmix[:1, :STATIC_CPU_SEG])  # the CPU's plain static recurrence is the phase's longest part
     with torch.inference_mode():
         y_card, y_cpu = dpt(x1.to(dev)).cpu(), cpu_dpt(x1)
     snr = snr_db(y_cpu, y_card)
     if not bool((snr >= 20).all()):
         raise AssertionError(f"static DPTNet card vs CPU SNR {snr.tolist()} dB < 20 dB")
     floor = (snr.min().item(), (y_card - y_cpu).abs().mean().item() / out_step(dpt))
-    log(f"[73] static DPTNet card vs CPU at 1 x {SR}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20), "
+    log(f"[73] static DPTNet card vs CPU at 1 x {STATIC_CPU_SEG}: SNR {[round(v, 2) for v in snr.flatten().tolist()]} dB (>= 20), "
         f"mean {floor[1]:.4f} output steps")
     layers = 2 * dpt.layer
     int8_run = no_launches(act=layers, bilstm_static=layers, int8_mm=dptnet_int8_sites(dpt))
@@ -5302,6 +5374,7 @@ DDP_GRAD_COS = 0.99999
 DDP_STATIC_CFG = {**STATIC_CFG, "layer": 1}  # phase 73's static DPTNet at one dual-path layer
 DDP_DYNAMIC_CFG = {**DYNAMIC_CFG, "layer": 1}
 DDP_DPT_BATCH = DDP_RANKS  # phases 77 and 79: one row a rank
+DDP_DYNAMIC_SEG = DPT_TRAIN_SEG // 2  # phase 79: 1.5 s (at 3 s the ranks took 12.8-14.5 s)
 DDP_OLA = dict(seconds=60, segment=16000, overlap=0.25, chunk_batch=8)  # the flagship's request OLA, 60 s
 DDP_WORKER = [sys.executable, os.path.abspath(__file__)]  # a rank's command, before its arguments
 # The kernels each data-parallel path must launch (the counters of all_launches()).
@@ -5414,11 +5487,11 @@ def ddp_ola(dev, state: dict, mesh, chunk_batch: int) -> tuple[np.ndarray, dict,
 
 
 def ddp_dynamic(dev, mesh) -> tuple[torch.Tensor, float]:
-    """Phase 79: the dynamic-cell DPTNet at one dual-path layer, an eval forward of 2 x 3 s (one row a rank under
+    """Phase 79: the dynamic-cell DPTNet at one dual-path layer, an eval forward of 2 x 1.5 s (one row a rank under
     ``mesh``: 12 min/max reductions over the ranks a recurrence step), gathered; and its host-clock seconds."""
     model = create_model(DDP_DYNAMIC_CFG, quant_spec_from_cfg(DDP_DYNAMIC_CFG),
                          generator=torch.Generator().manual_seed(79)).to(dev).eval()
-    (mix, _), = ddp_batches(DDP_DPT_BATCH, DPT_TRAIN_SEG, 1, 79)
+    (mix, _), = ddp_batches(DDP_DPT_BATCH, DDP_DYNAMIC_SEG, 1, 79)
     rows = mesh.rows(DDP_DPT_BATCH) if mesh is not None else slice(None)
     with torch.inference_mode(), dp.sharded(mesh):
         torch.cuda.synchronize()
@@ -5608,7 +5681,7 @@ def data_parallel(dev, smi: str) -> dict:
                                                                                        ranks[0]["dynamic"]):
         raise AssertionError("phase 79: the ranks' dynamic forwards are not finite or differ between ranks")
     log(f"[79] DPTNet lstm_mode dynamic at one dual-path layer, an eval forward of {DDP_DPT_BATCH} x "
-        f"{DPT_TRAIN_SEG // SR} s, {DDP_DPT_BATCH // DDP_RANKS} row(s) a rank (12 all_reduces of the sites' min and max a recurrence step): "
+        f"{DDP_DYNAMIC_SEG / SR} s, {DDP_DPT_BATCH // DDP_RANKS} row(s) a rank (12 all_reduces of the sites' min and max a recurrence step): "
         f"{1e3 * max(r['dynamic_s'] for r in ranks):.1f} ms on two ranks sharing one card over gloo, "
         f"{1e3 * one_dyn_s:.1f} ms in one process, on {smi}; the ranks' output against one process's: max |diff| "
         f"{float((ranks[0]['dynamic'] - one_y).abs().max()):.3g}, bitwise {torch.equal(ranks[0]['dynamic'], one_y)}")
@@ -5622,6 +5695,230 @@ def data_parallel(dev, smi: str) -> dict:
             raise AssertionError(f"the data-parallel {path} path launched no {idle}: {paths[path]}")
     log(f"[75-78] launches on the ranks (summed), counted from 0 before each path: "
         + "; ".join(f"{path} {', '.join(f'{k}={v}' for k, v in c.items() if v)}" for path, c in paths.items()))
+    return paths
+
+
+# Tensor parallelism (phases 80-81): gloo ranks of this script sharing cuda:0 as a (dp, tp) grid, against one process.
+TP_SIZE = 2
+TP_STEPS = 2  # through a 2-step observer window, as phase 75's steps run through theirs
+TP_CFG = {**SEPFORMER_CFG, "quantization": {**SEPFORMER_CFG["quantization"], "max_observations": TP_STEPS}}
+TP_GRID_CFG = {**TP_CFG, "n_layers": 1}  # phase 81: one layer a block (phase 80 holds the full width)
+TP_BATCH, TP_SEG = 2, 4 * SR
+TP_FLOAT_DB = 100.0
+TP_QAT_DB = 25.0
+TP_LOSS_DB = 1e-4
+TP_GRAD_COS = 0.9999
+TP_WORKER = DDP_WORKER
+# The kernels each tensor-parallel path must launch (the counters of all_launches()).
+TP_PATH_KERNELS = ("act", "weight", "act_bwd", "weight_bwd", "attention", "dense", "dense_mask", "dense_dx",
+                   "dense_dwq")
+
+
+# The count and host time of a rank's gloo sums over tp in a step (the layers' parallel/tp.py:_sum_over_tp, wrapped
+# by time_tp_sums on the ranks): the card is synchronised before and after each, so that the time is the sum's own.
+TP_SUMS = {"seconds": 0.0, "count": 0}
+
+
+def time_tp_sums() -> None:
+    """Route the layers' sums over tp through a wrapper that adds each one's count and time to TP_SUMS."""
+    plain = tp._sum_over_tp
+
+    def timed(x: torch.Tensor, group) -> torch.Tensor:
+        sync = torch.cuda.synchronize if x.is_cuda else (lambda device: None)
+        sync(x.device)
+        t0 = time.perf_counter()
+        y = plain(x, group)
+        sync(x.device)
+        TP_SUMS["seconds"] += time.perf_counter() - t0
+        TP_SUMS["count"] += 1
+        return y
+
+    tp._sum_over_tp = timed
+
+
+def tp_kd_steps(dev, cfg: dict, seed: int, batches: list, mesh=None, forced: list | None = None) -> dict:
+    """KD steps of ``cfg``'s Sepformer and float teacher from ``seed`` on ``batches``; under ``mesh`` (a grid) the
+    student sharded over its tp ranks and this rank's rows of each batch. Per step the whole learned parameters
+    before it, the loss, the whole gradient after the step's reductions and clip, the host-clock seconds (after a
+    synchronize) and the seconds of the gloo tp sums in it; the launches of the run (counted from 0).
+    ``forced``: the whole learned parameters to take before each step (another run's; one process)."""
+    model, teacher = create_model_and_teacher(cfg, generator=torch.Generator().manual_seed(seed))
+    model, teacher = model.to(dev), teacher.to(dev)
+    if mesh is not None:
+        tp.shard_model_tp(model, mesh)
+    state = new_train_state(model, teacher)
+    step = make_train_step(TrainConfig(), mesh)
+    out = {"before": [], "loss": [], "grads": [], "seconds": [], "tp_s": [], "tp_sums": []}
+    reset_all_launches()
+    for i, (mix, src) in enumerate(batches):
+        if forced is not None:
+            with torch.no_grad():
+                for k, p in state.model.named_parameters():
+                    if k in forced[i]:
+                        p.copy_(forced[i][k])
+        with dp.sharded(mesh):
+            whole = tp.whole_state_dict(state.model) if mesh is not None else state_on_cpu(state.model)
+        out["before"].append({k: whole[k] for k in learned_params(state.model)})
+        rows = mesh.rows(len(mix)) if mesh is not None else slice(None)
+        TP_SUMS.update(seconds=0.0, count=0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = step(state, mix[rows].to(dev), src[rows].to(dev))
+        torch.cuda.synchronize()
+        out["seconds"].append(time.perf_counter() - t0)
+        out["tp_s"].append(TP_SUMS["seconds"])
+        out["tp_sums"].append(TP_SUMS["count"])
+        out["loss"].append(float(metrics["loss"]))
+        with dp.sharded(mesh):
+            grads = tp.whole_gradients(state.model)
+        out["grads"].append(torch.cat([g.flatten().double() for g in grads.values()]))
+    out["launches"] = all_launches()
+    if not np.isfinite(out["loss"]).all() or state.skipped:
+        raise AssertionError(f"KD steps: losses {out['loss']}, skipped {state.skipped}")
+    del state, model, teacher
+    torch.cuda.empty_cache()
+    return out
+
+
+def tp_forwards(dev, served: dict, x: torch.Tensor, mesh=None) -> tuple[torch.Tensor, torch.Tensor, dict]:
+    """Phase 80's forwards of ``x``: the float Sepformer from seed 80 and the calibrated QAT one (``served``, phase
+    25's state), each sharded over ``mesh``'s tp ranks where given; with the launches of the QAT forward."""
+    _, fmodel = create_model_and_teacher(TP_CFG, generator=torch.Generator().manual_seed(80))
+    qmodel = create_pretrained_model(SEPFORMER_CFG, observer=False)
+    qmodel.load_state_dict(served)
+    outs = []
+    for model in (fmodel, qmodel):
+        model = model.to(dev).eval()
+        if mesh is not None:
+            tp.shard_model_tp(model, mesh)
+        reset_all_launches()
+        with torch.inference_mode(), dp.sharded(mesh):
+            outs.append(model(x.to(dev)).cpu())
+        del model
+    torch.cuda.empty_cache()
+    return outs[0], outs[1], all_launches()
+
+
+def tp_batches(seed: int, steps: int) -> list:
+    return ddp_batches(TP_BATCH, TP_SEG, steps, seed)
+
+
+def tp_worker(out_dir: str, dev: torch.device | None = None) -> None:
+    """A rank of phase 80 (a world of TP_SIZE: the grid's dp 1) or 81 (a world of 2 x TP_SIZE) (``python3
+    chip_smoke.py --tp-worker DIR`` with torchrun's variables): gloo on cuda:0; what it saw goes to DIR/rank<r>.pt
+    (the learned parameters and gradients on rank 0 only)."""
+    if dev is None:
+        if not torch.cuda.is_available():
+            raise SystemExit("chip_smoke: no CUDA device; this script runs on the GPU only")
+        dev = torch.device("cuda", 0)
+    infer.disable_tf32()
+    torch.backends.cudnn.deterministic = True  # as the one-process runs it is held to (deterministic_cudnn)
+    world = dp.init_distributed(dev, backend="gloo")
+    try:
+        mesh = dp.grid(world, TP_SIZE)
+        time_tp_sums()
+        _build.library()
+        log(f"rank {world.rank} (dp {mesh.rank} of {mesh.size}, tp {mesh.tp_rank} of {mesh.tp_size}): in the group "
+            f"after {time.perf_counter() - _CLOCK['start']:.1f} s")
+        result = {}
+        if mesh.size == 1:
+            inputs = torch.load(os.path.join(out_dir, "inputs.pt"), weights_only=True)
+            result["float"], result["qat"], result["forward_launches"] = tp_forwards(dev, inputs["served"],
+                                                                                     inputs["x"], mesh)
+            result["steps"] = tp_kd_steps(dev, TP_CFG, 80, tp_batches(80, TP_STEPS), mesh)
+        else:
+            result["steps"] = tp_kd_steps(dev, TP_GRID_CFG, 81, tp_batches(81, 1), mesh)
+        clock(f"{80 if mesh.size == 1 else 81} on rank {world.rank}")
+        if world.rank:
+            del result["steps"]["before"], result["steps"]["grads"]
+        torch.save(result, os.path.join(out_dir, f"rank{world.rank}.pt"))
+    finally:
+        dp.shutdown()
+
+
+def spawn_ranks(flag: str, world: int, tmp: str, label: str) -> list[dict]:
+    """``world`` ranks of this script with ``flag`` sharing cuda:0 over gloo; each rank's DIR/rank<r>.pt."""
+    port = free_port()
+    procs = [subprocess.Popen([*TP_WORKER, flag, tmp], env=ddp_env(r, world, port), stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True) for r in range(world)]
+    try:
+        outs = [p.communicate(timeout=600) for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"{label} rank {r} failed ({p.returncode}):\n{o[-2000:]}\n{e[-4000:]}")
+    log("\n".join(f"[{label}]   {line}" for line in outs[0][0].splitlines()))
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=True) for r in range(world)]
+
+
+def tp_share(got: dict) -> str:
+    """The share of each of ``got``'s steps (tp_kd_steps on a grid) spent in the gloo tp sums."""
+    return ", ".join(f"{100 * s / t:.1f}%" for s, t in zip(got["tp_s"], got["seconds"]))
+
+
+def tp_step_rule(phase: int, label: str, got: dict, want: dict, ranks: int, smi: str) -> None:
+    """Each step's loss within TP_LOSS_DB and whole-gradient cosine at least TP_GRAD_COS of one process's (from the
+    ranks' learned parameters); raises after the log line where a step misses."""
+    dloss = [abs(g - w) for g, w in zip(got["loss"], want["loss"])]
+    cos = [float(g @ w / (g.norm() * w.norm())) for g, w in zip(got["grads"], want["grads"])]
+    rel = [float((g - w).norm() / w.norm()) for g, w in zip(got["grads"], want["grads"])]
+    share = [f"{100 * s / t:.1f}% ({n} sums, {1e3 * s:.1f} ms)" for s, t, n in zip(got["tp_s"], got["seconds"],
+                                                                                    got["tp_sums"])]
+    log(f"[{phase}] {label}, {ranks} ranks sharing one card over gloo against one process: loss |diff| "
+        f"{[f'{v:.2e}' for v in dloss]} dB (<= {TP_LOSS_DB}), whole-gradient cosine {[f'{v:.7f}' for v in cos]} "
+        f"(>= {TP_GRAD_COS}), relative L2 {[f'{v:.2e}' for v in rel]}; step "
+        f"{[round(1e3 * v, 1) for v in got['seconds']]} ms on the ranks, of it the gloo tp sums {share} (through the "
+        f"host: not a speed finding); one process {[round(1e3 * v, 1) for v in want['seconds']]} ms, on {smi}")
+    if max(dloss) > TP_LOSS_DB or min(cos) < TP_GRAD_COS:
+        raise AssertionError(f"phase {phase}'s rule: loss |diff| {dloss}, cosine {cos}")
+
+
+def tensor_parallel(dev, smi: str, served: dict) -> dict:
+    """Phases 80-81: the Sepformer sharded over gloo ranks on cuda:0 against one process. ``served``: phase 25's
+    calibrated state. Returns each path's launches (the ranks', summed)."""
+    (x, _), = tp_batches(79, 1)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.save({"served": served, "x": x}, os.path.join(tmp, "inputs.pt"))
+        ranks = spawn_ranks("--tp-worker", TP_SIZE, tmp, "80")
+    clock("the ranks of 80")
+    # 80. the forwards against one process holding the whole weights, then the steps from the ranks' parameters
+    y_float, y_qat, one_launches = tp_forwards(dev, served, x)
+    snr_f = [snr_db(y_float, r["float"]) for r in ranks]
+    snr_q = [snr_db(y_qat, r["qat"]) for r in ranks]
+    log(f"[80] Sepformer (E 256, 8 heads, FFN 1024, 2 x 8 + 8 layers) sharded over {TP_SIZE} tp ranks sharing one "
+        f"card over gloo (each rank's {tuple(x.shape)} forward) against one process holding the whole weights: "
+        f"float SNR {[[round(v, 2) for v in t.flatten().tolist()] for t in snr_f]} dB (>= {TP_FLOAT_DB}), "
+        f"calibrated QAT (phase 25's ranges) SNR {[[round(v, 2) for v in t.flatten().tolist()] for t in snr_q]} dB "
+        f"(> {TP_QAT_DB}); launches of a rank's QAT forward "
+        f"{', '.join(f'{k}={v}' for k, v in ranks[0]['forward_launches'].items() if v)}")
+    if not all(bool((t >= TP_FLOAT_DB).all()) for t in snr_f) or not all(bool((t > TP_QAT_DB).all()) for t in snr_q):
+        raise AssertionError(f"phase 80's forward rules: float {snr_f}, QAT {snr_q}")
+    with deterministic_cudnn():
+        one = tp_kd_steps(dev, TP_CFG, 80, tp_batches(80, TP_STEPS), forced=ranks[0]["steps"]["before"])
+    tp_step_rule(80, f"{TP_STEPS} KD steps of {TP_BATCH} x {TP_SEG // SR} s through the observer window", ranks[0]["steps"],
+                 one, TP_SIZE, smi)
+    clock(f"80 (the gloo tp sums {tp_share(ranks[0]['steps'])} of its steps on rank 0)")
+    # 81. dp 2 x tp 2
+    with tempfile.TemporaryDirectory() as tmp:
+        grid = spawn_ranks("--tp-worker", 2 * TP_SIZE, tmp, "81")
+    clock("the ranks of 81")
+    with deterministic_cudnn():
+        one81 = tp_kd_steps(dev, TP_GRID_CFG, 81, tp_batches(81, 1), forced=grid[0]["steps"]["before"])
+    tp_step_rule(81, f"dp 2 x tp 2, the Sepformer at one layer a block, a KD step of {TP_BATCH} x {TP_SEG // SR} s "
+                 f"(one row a dp rank)", grid[0]["steps"], one81, 2 * TP_SIZE, smi)
+    sums = lambda runs: {k: sum(run[k] for run in runs) for k in runs[0]}  # noqa: E731
+    paths = {"80 forwards": sums([r["forward_launches"] for r in ranks]),
+             "80 steps": sums([r["steps"]["launches"] for r in ranks]),
+             "81": sums([r["steps"]["launches"] for r in grid])}
+    for path in ("80 steps", "81"):
+        idle = [k for k in TP_PATH_KERNELS if not paths[path][k]]
+        if idle:
+            raise AssertionError(f"the tensor-parallel path {path} launched no {idle}: {paths[path]}")
+    log(f"[80-81] launches on the ranks (summed), counted from 0 before each path: "
+        + "; ".join(f"{path} {', '.join(f'{k}={v}' for k, v in c.items() if v)}" for path, c in paths.items()))
+    clock(f"81 (the gloo tp sums {tp_share(grid[0]['steps'])} of its step on rank 0)")
     return paths
 
 
@@ -5836,6 +6133,10 @@ def main() -> None:
     ddp = data_parallel(dev, smi)
     clock("75, 77-79")
 
+    # 80-81. tensor parallelism: the Sepformer over tp 2 and dp 2 x tp 2 grids of gloo ranks on the card (launch
+    # counts set to 0 before each path, on each rank)
+    tensor = tensor_parallel(dev, smi, states["Sepformer"])
+
     def bf16_keys(res: dict, launches: int, route: str) -> dict:
         """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
         phase 43 sums), its launches in phases 40-42's forwards."""
@@ -5936,15 +6237,16 @@ def main() -> None:
                                                        "max_abs_err")},
              **{f"bf16_htdemucs_{k}": htd_attn16[k] for k in ("ms", "f32_ms", "plain_ms", "bound_ms", "launches",
                                                               "max_abs_err")}),
-        # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer student forward's 78 QDense launches at
-        # the training batch (phase 31); library_ms: torch.addmm, then K1 for the act grid. launches: phase 33's
-        # 16 KD steps, student and teacher. bound_ms: the float32 CUDA-core bound (comparable with earlier runs);
+        # ms, plain_ms, bound_ms, library_ms: one DPTNet and one Sepformer student forward's 166 K5 launches at the
+        # training batch (phase 31): the 78 QDense layers (library_ms: torch.addmm, then K1 for the act grid) and
+        # the 44 self-attentions' in- and out-projections (both grids off; library_ms: torch.addmm). launches:
+        # phase 33's 16 KD steps, student and teacher. htdemucs_*: phase 59's, its projections included. bound_ms: the float32 CUDA-core bound (comparable with earlier runs);
         # route_bound_ms: the bound of the route the kernel takes (3 TF32 products a float32 one), K5-bwd and K3
         # likewise.
         # bf16_*: the bf16 route (phase 43) per DPTNet + Sepformer bf16 serving forward at 8 x 4 s (phases 41-42;
-        # ConvTasNet has no QDense); bf16_library_ms:
-        # torch.mm of the operands cast to bf16 with a float32 output, the bias, then K1 (null, with
-        # bf16_library_note, where torch has no such call).
+        # ConvTasNet has no QDense), the projections included; bf16_library_ms:
+        # torch.mm of the operands cast to bf16 with a float32 output, the bias, then K1 (a projection: no K1; null,
+        # with bf16_library_note, where torch has no such call).
         dict(name="qat_dense", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
              replaces="fqss_tpu/ops/pallas_qat.py:347", launches=train_model_launches["dense"], **dense_fwd,
              **bf16_keys(dense16, bf16_count["dense_bf16"], BF16_DENSE_ROUTE),
@@ -5959,8 +6261,8 @@ def main() -> None:
              launches=htd_launches["dense_gelu"],
              **{k: htd["k5_gelu"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by", "route_bound_ms",
                                                "max_abs_err")}),
-        # The backward of those 78 launches: the mask, dx and dwq kernels of each (and their fixed-order sums);
-        # library_ms: the two products by torch.mm and K1-bwd on the pre-activation. launches: phase 33's mask
+        # The backward of those 166 launches: the mask, dx and dwq kernels of each (and their fixed-order sums);
+        # library_ms: the two products by torch.mm and K1-bwd on the pre-activation (a projection: the bias's sum). launches: phase 33's mask
         # launches (each with one dx and one dwq launch).
         dict(name="qat_dense_bwd", route="cuda", route_detail=DENSE_ROUTE, source="fqss_tpu_torch/csrc/qat_dense.cu",
              replaces="fqss_tpu/ops/pallas_qat.py:364", launches=train_model_launches["dense_mask"], **dense_bwd,
@@ -5996,11 +6298,12 @@ def main() -> None:
             "qmatmul": "qmatmul"}
     # variant_launches: the launches of phases 69-71's steps and forwards, summed. ddp_launches: phases 75-78's, the
     # ranks' summed (the flagship's steps on two ranks and on the one-rank NCCL group, the static DPTNet step, the
-    # sharded OLA); the one-process comparisons are not counted.
+    # sharded OLA); tp_launches: phases 80-81's, the ranks' summed; the one-process comparisons are not counted.
     for row in kernels:
         row["import_launches"] = imported.get(rows.get(row["name"]), 0)
         row["variant_launches"] = variants["launches"].get(rows.get(row["name"]), 0)
         row["ddp_launches"] = sum(path.get(rows.get(row["name"]), 0) for path in ddp.values())
+        row["tp_launches"] = sum(path.get(rows.get(row["name"]), 0) for path in tensor.values())
     # the grouped weight kernels at DPTNet's 93 quantizers with the trained residual decoder (phase 71)
     for row, res in ((kernels[1], variants["res_dec"]["groups"]), (kernels[3], variants["res_dec"]["group_bwd"])):
         row.update({f"res_dec_{k}": res[k] for k in ("ms", "bound_ms", "plain_ms", "max_abs_err")})
@@ -6013,5 +6316,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-worker"]:
         ddp_worker(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-worker"]:
+        tp_worker(sys.argv[2])
     else:
         main()

@@ -57,6 +57,10 @@ def sinusoidal_pe(max_len: int, d_model: int) -> np.ndarray:
 class TransformerLayer(nn.Module):
     """Pre-norm transformer layer (sepformerq.py:50-95). ``[B', L, F] -> [B', L, F]``."""
 
+    # Under tensor parallelism the modules between the column-parallel ffn_in and the row-parallel ffn_out, whose
+    # input tp shards (parallel/tp.py)
+    TP_SHARDED_BETWEEN = ("ffn_relu",)
+
     def __init__(self, n_filters: int, n_ffn: int, n_heads: int, q: QuantSpec = FLOAT,
                  generator: torch.Generator | None = None):
         super().__init__()

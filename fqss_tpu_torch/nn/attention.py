@@ -41,6 +41,16 @@ the head layout is made on that route. The plain composition of
 ``fix_attn_quant`` and the no-op sites' logits take the contiguous
 ``[B * h, L, d]`` copies, as JAX's head layout.
 
+The in- and out-projections are K5's core on the card (:func:`~fqss_tpu_torch.ops.qat_dense.qat_dense` with both
+grids off and the bias in the epilogue, its bf16 route under bf16), which computes each output row the same whatever
+the number of rows: a data-parallel rank's rows are bitwise one process's. The CPU takes ``torch.matmul``.
+
+Under tensor parallelism (``parallel/tp.py``, ``tp`` set by :func:`~fqss_tpu_torch.parallel.tp.shard_model_tp`) the
+module holds its ``h / tp`` heads: the in-projection's q, k and v rows of those heads (column-parallel, its inputs
+through :func:`~fqss_tpu_torch.parallel.tp.copy_to_tp`), K8 on them, and the out-projection's columns of them
+(row-parallel: the product without its bias, summed over tp by
+:func:`~fqss_tpu_torch.parallel.tp.reduce_from_tp`, then the bias and the output grid).
+
 Under bf16 compute the module rounds where JAX's default path rounds
 (``fqss_tpu/nn/attention.py:68-70, 117, 128, 134``): the in- and
 out-projections' operands (:func:`~fqss_tpu_torch.nn.layers.mxu_operands`),
@@ -58,6 +68,8 @@ from torch import nn
 
 from fqss_tpu_torch.nn.layers import make_act_quantizer, make_weight_quantizer, mxu_operands, uniform_
 from fqss_tpu_torch.ops.attention import fused_attention_packed, head_layout, softmax_ref
+from fqss_tpu_torch.ops.qat_dense import qat_dense
+from fqss_tpu_torch.parallel import tp
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
 Tensor = torch.Tensor
@@ -67,6 +79,7 @@ class QMultiheadAttention(nn.Module):
     """[B, Lq, E] x [B, Lk, E] x [B, Lk, E] -> [B, Lq, E]."""
 
     WEIGHT_QUANTIZERS = {"weight_fake_quantize_in": "in_proj_weight", "weight_fake_quantize_out": "out_proj_weight"}
+    TP_LAYER = "attention"
 
     def __init__(self, embed_dim: int, num_heads: int, q: QuantSpec = FLOAT, fix_attn_quant: bool = False,
                  generator: torch.Generator | None = None):
@@ -83,6 +96,19 @@ class QMultiheadAttention(nn.Module):
         for site in ("q", "k", "v", "div", "attn", "softmax", "head"):
             setattr(self, f"activation_fake_quantize_{site}", make_act_quantizer(q))
         self.activation_fake_quantize = make_act_quantizer(q)
+        self.tp: tp.Shard | None = None
+
+    def _project(self, x: Tensor, w: Tensor, b: Tensor | None) -> Tensor:
+        """``x [..., K] @ w [N, K]^T`` (``+ b``): K5's core on the card, both grids off (a missing bias is a zero
+        one), whose rows do not depend on how many there are; ``torch.matmul`` on the CPU."""
+        if not x.is_cuda:
+            xc, wc = mxu_operands(self.q, x, w)
+            y = torch.matmul(xc, wc.t())
+            return y if b is None else y + b
+        if b is None:
+            b = torch.zeros(w.shape[0], device=x.device)
+        y = qat_dense(x.reshape(-1, x.shape[-1]).contiguous(), w, b, bf16=self.q.bf16)
+        return y.reshape(*x.shape[:-1], w.shape[0])
 
     def _feed_noop_sites(self, q: Tensor, k: Tensor) -> None:
         """The reference's no-op attn/softmax sites: evaluated for their observers in ``train()`` mode, the
@@ -124,21 +150,24 @@ class QMultiheadAttention(nn.Module):
         return hq(heads) if hq is not None else heads
 
     def forward(self, query: Tensor, key: Tensor, value: Tensor) -> Tensor:
-        E, h = self.embed_dim, self.num_heads
-        d = E // h
+        shard = self.tp
+        parts = 1 if shard is None else shard.size
+        E, h = self.embed_dim // parts, self.num_heads // parts  # this rank's share of the heads
+        d = self.embed_dim // self.num_heads
         B, Lq, _ = query.shape
         w_in, w_out = self.in_proj_weight, self.out_proj_weight
         if self.weight_fake_quantize_in is not None:
             w_in, w_out = self.weight_fake_quantize_in(w_in), self.weight_fake_quantize_out(w_out)
-
-        def in_proj(x: Tensor) -> Tensor:
-            xc, wc = mxu_operands(self.q, x, w_in)
-            return torch.matmul(xc, wc.t()) + self.in_proj_bias
+        self_key, self_value = key is query, value is key
+        if shard is not None:  # the column-parallel in-projection's inputs
+            query = tp.copy_to_tp(query, shard)
+            key = query if self_key else tp.copy_to_tp(key, shard)
+            value = key if self_value else tp.copy_to_tp(value, shard)
 
         # The full in-projection of each input (self-attention computes the one product once).
-        Xq = in_proj(query)
-        Xk = Xq if key is query else in_proj(key)
-        Xv = Xk if value is key else in_proj(value)
+        Xq = self._project(query, w_in, self.in_proj_bias)
+        Xk = Xq if self_key else self._project(key, w_in, self.in_proj_bias)
+        Xv = Xk if self_value else self._project(value, w_in, self.in_proj_bias)
         if self.activation_fake_quantize_q is not None:
             Xq = self.activation_fake_quantize_q(Xq)
             Xk = self.activation_fake_quantize_k(Xk)
@@ -157,6 +186,8 @@ class QMultiheadAttention(nn.Module):
         else:
             self._feed_noop_sites(q, k)
             heads = self._core(q, k, v)
-        yc, wc = mxu_operands(self.q, heads, w_out)
-        y = torch.matmul(yc, wc.t()) + self.out_proj_bias
+        if shard is None:
+            y = self._project(heads, w_out, self.out_proj_bias)
+        else:  # row-parallel: the partial products summed over tp, then the bias
+            y = tp.reduce_from_tp(self._project(heads, w_out, None), shard) + self.out_proj_bias
         return self.activation_fake_quantize(y) if self.activation_fake_quantize is not None else y

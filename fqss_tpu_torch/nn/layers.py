@@ -40,6 +40,7 @@ from fqss_tpu_torch.nn.nonlin import Nl
 from fqss_tpu_torch.ops.fake_quant import _needs_grad, refuse_bf16_grad
 from fqss_tpu_torch.ops.qat_dense import qat_dense
 from fqss_tpu_torch.ops.qmatmul import qmatmul
+from fqss_tpu_torch.parallel import tp
 from fqss_tpu_torch.quant.fake_quant import bf16_round, weight_scale
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, MseActQuantizer, WeightQuantizer
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
@@ -304,14 +305,30 @@ class QDense(nn.Module):
     unquantized value until it is calibrated. No layer that fuses its act
     grid takes a mu-law quantizer: only the I/O layers make one, and they run
     it as a module.
+
+    Under tensor parallelism (``parallel/tp.py``: ``tp`` set by
+    :func:`~fqss_tpu_torch.parallel.tp.shard_model_tp`, the weight pass
+    required) a column-parallel layer holds its rows of the weight and bias
+    and runs K5 as it is on them, its input through
+    :func:`~fqss_tpu_torch.parallel.tp.copy_to_tp` (each output channel is
+    whole on its rank, so its per-channel weight grid is local); a
+    row-parallel layer holds its columns of the weight and runs K5's core on
+    them with the bias and both grids off (no epilogue on a partial sum),
+    sums the partial products over tp
+    (:func:`~fqss_tpu_torch.parallel.tp.reduce_from_tp`), then adds the bias
+    and applies the act quantizer as a module (K1, its STE mask at the summed
+    pre-activation in the backward).
     """
+
+    TP_LAYER = "dense"
 
     def __init__(self, in_features: int, features: int, q: QuantSpec = FLOAT,
                  generator: torch.Generator | None = None, nl: str | None = None):
         super().__init__()
         if nl not in (None, "gelu"):
             raise NotImplementedError(f"QDense(nl={nl!r}): K5's epilogue has the GELU only")
-        self.q, self.gelu = q, nl == "gelu"
+        self.q, self.gelu, self.features = q, nl == "gelu", features
+        self.tp: tp.Shard | None = None
         bound = 1.0 / math.sqrt(in_features)
         self.weight = nn.Parameter(uniform_(torch.empty(features, in_features), bound, generator))
         self.bias = nn.Parameter(uniform_(torch.empty(features), bound, generator))
@@ -322,6 +339,12 @@ class QDense(nn.Module):
         wq, aq = self.weight_fake_quantize, self.activation_fake_quantize
         w, w_args, a_args, w_observing, a_observing = self.weight, {}, {}, None, None
         grouped = wq.grouped(w) if wq is not None else None
+        if self.tp is not None:
+            if wq is not None and grouped is None:
+                wq.refuse_shard()  # a shard's weight grid is its model's weight pass's
+            if self.tp.kind == tp.ROW:
+                return self._row_parallel(x, w if grouped is None else grouped)
+            x = tp.copy_to_tp(x, self.tp)
         if grouped is not None:  # the model's weight pass put the weight on its grid: K5's weight grid stays off
             w = grouped
         elif wq is not None:
@@ -332,11 +355,21 @@ class QDense(nn.Module):
         if aq is not None:
             a_observing = aq.observing()
             a_args = dict(a_mn=aq.min_range, a_mx=aq.max_range, a_bits=aq.n_bits,
-                          a_s=1.0 / math.sqrt((2**aq.n_bits - 1) * self.weight.shape[0]) if aq.scale_grad else 1.0)
+                          a_s=1.0 / math.sqrt((2**aq.n_bits - 1) * self.features) if aq.scale_grad else 1.0)
         y = qat_dense(x.reshape(-1, x.shape[-1]).contiguous(), w, self.bias, w_observing=w_observing,
                       a_observing=a_observing, bf16=self.q.bf16, gelu=self.gelu, **w_args, **a_args)
         if aq is not None:
             aq.observe(y, a_observing)  # inside the window y is the pre-activation (after the GELU)
+        return y.reshape(*x.shape[:-1], y.shape[-1])
+
+    def _row_parallel(self, x: Tensor, w: Tensor) -> Tensor:
+        """The row-parallel route (class note): K5's core on this rank's columns, the sum over tp, the bias, the
+        act quantizer."""
+        if self.gelu:
+            raise NotImplementedError("QDense: a row-parallel layer has no GELU (its epilogue needs the whole sum)")
+        zero = torch.zeros(self.features, device=x.device)
+        y = qat_dense(x.reshape(-1, x.shape[-1]).contiguous(), w, zero, bf16=self.q.bf16)
+        y = _quantize(self.activation_fake_quantize, tp.reduce_from_tp(y, self.tp) + self.bias)
         return y.reshape(*x.shape[:-1], y.shape[-1])
 
 

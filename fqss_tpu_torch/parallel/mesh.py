@@ -15,6 +15,12 @@ one card (gloo) take the same code as ranks on cards of their own (NCCL). Min an
 observers' ranges on W ranks equal the one-process run's on the same global batch bit for bit; the float sums are
 not (another order), and the int64 counts are.
 
+A 2-D grid of ranks (:func:`grid`, for tensor parallelism: ``parallel/tp.py``) is a :class:`Mesh` whose ``rank`` and
+``size`` are the data-parallel index and extent, with its ``group`` of the ranks that share this rank's tensor-parallel
+index, and its ``tp_rank``, ``tp_size`` and ``tp_group``. The batch is sharded over dp and replicated over tp, so every
+helper here reduces over ``group``: the default group for a 1-D mesh (world size = dp), the dp group on a grid. A
+reduction over the tp ranks too (an observer of a tensor that tp shards) activates :meth:`Mesh.whole`.
+
 Gradients: :func:`all_sum`'s backward sums the ranks' upstream gradients, as ``torch.distributed.nn``'s does (the
 objective is the sum of the ranks' losses, which are equal), so the gradients of the global loss come out W times
 over on every rank, and :func:`reduce_gradients_` divides the ranks' sum by W once. The buffers (the observers'
@@ -42,18 +48,28 @@ ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """A 1-D data-parallel group over the default process group: this process's ``rank`` of ``size``, the device
-    its rows live on and the backend (``nccl`` or ``gloo``)."""
+    """A data-parallel group: this process's ``rank`` of ``size``, the device its rows live on and the backend
+    (``nccl`` or ``gloo``); ``group`` the ranks a reduction over the batch takes (None: the default group). On a
+    grid (:func:`grid`) also this process's ``tp_rank`` of ``tp_size`` in its ``tp_group``."""
 
     rank: int
     size: int
     device: torch.device
     backend: str
+    group: object = None
+    tp_rank: int = 0
+    tp_size: int = 1
+    tp_group: object = None
 
     @property
     def is_main(self) -> bool:
-        """Rank 0, which writes the run's files."""
-        return self.rank == 0
+        """Rank 0 of the world, which writes the run's files."""
+        return self.rank == 0 and self.tp_rank == 0
+
+    def whole(self) -> "Mesh":
+        """This mesh with every rank of the world as its reduction group: what an observer of a tensor sharded over
+        tp (and of a batch sharded over dp) reduces over. The mesh itself without tensor parallelism."""
+        return self if self.tp_size == 1 else dataclasses.replace(self, group=dist.group.WORLD)
 
     def rows(self, batch: int) -> slice:
         """This rank's rows of a global batch of ``batch``; the batch must divide by the world size, as the
@@ -98,6 +114,23 @@ def init_distributed(device: torch.device | str = "cuda", backend: str | None = 
     kwargs = {"device_id": device} if backend == "nccl" else {}
     dist.init_process_group(backend=backend, init_method="env://", rank=rank, world_size=size, **kwargs)
     return Mesh(rank, size, device, backend)
+
+
+def grid(world: Mesh, tp: int) -> Mesh:
+    """The 2-D (dp, tp) grid of ``world``'s ranks (a 1-D mesh over the default group, :func:`init_distributed`):
+    world rank w is tp rank ``w % tp`` of dp rank ``w // tp``, so a tp group is ``tp`` consecutive ranks. Every rank
+    creates every subgroup, the tp groups then the dp groups, in one order (``dist.new_group`` pairs them up by
+    order). ``tp`` 1 is the 1-D mesh itself."""
+    if tp < 1 or world.size % tp:
+        raise ValueError(f"a grid of tp {tp} does not divide {world.size} ranks")
+    if tp == 1:
+        return world
+    dp_size = world.size // tp
+    tp_groups = [dist.new_group([d * tp + t for t in range(tp)]) for d in range(dp_size)]
+    dp_groups = [dist.new_group([d * tp + t for d in range(dp_size)]) for t in range(tp)]
+    d, t = divmod(world.rank, tp)
+    return Mesh(d, dp_size, world.device, world.backend, group=dp_groups[t], tp_rank=t, tp_size=tp,
+                tp_group=tp_groups[d])
 
 
 def shutdown() -> None:
@@ -148,17 +181,18 @@ def extremes(mn: Tensor, mx: Tensor) -> tuple[Tensor, Tensor]:
         return mn, mx
     with torch.no_grad():
         buf = torch.cat([mn.reshape(-1).neg(), mx.reshape(-1)])
-        dist.all_reduce(buf, op=dist.ReduceOp.MAX)
+        dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=mesh.group)
         lo, hi = buf.split(mn.numel())
         return lo.neg().reshape(mn.shape), hi.reshape(mx.shape)
 
 
 def sum_counts(counts: Tensor) -> Tensor:
     """Integer counts summed over the ranks (exact)."""
-    if active() is None:
+    mesh = active()
+    if mesh is None:
         return counts
     out = counts.clone()
-    dist.all_reduce(out)
+    dist.all_reduce(out, group=mesh.group)
     return out
 
 
@@ -166,21 +200,23 @@ class _AllSum(torch.autograd.Function):
     """The sum over the ranks; its backward sums the ranks' upstream gradients."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone()
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
 def all_sum(x: Tensor) -> Tensor:
     """``x`` summed over the ranks, differentiable (the module note's convention)."""
-    return x if active() is None else _AllSum.apply(x)
+    mesh = active()
+    return x if mesh is None else _AllSum.apply(x, mesh.group)
 
 
 def batch_mean(v: Tensor, dim: int | tuple[int, ...] | None = None) -> Tensor:
@@ -204,7 +240,7 @@ class _BatchExtremes(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dims):
         mn, mx = extremes(x.amin(dims, keepdim=True), x.amax(dims, keepdim=True))
-        ctx.dims = dims
+        ctx.dims, ctx.group = dims, active().group
         ctx.save_for_backward(x, mn, mx)
         return mn, mx
 
@@ -216,7 +252,7 @@ class _BatchExtremes(torch.autograd.Function):
         g_mx = torch.zeros_like(mx) if g_mx is None else g_mx
         packed = torch.stack([g_mn.double(), g_mx.double(), at_mn.sum(ctx.dims, keepdim=True).double(),
                               at_mx.sum(ctx.dims, keepdim=True).double()])
-        dist.all_reduce(packed)
+        dist.all_reduce(packed, group=ctx.group)
         u_mn, u_mx, n_mn, n_mx = packed.to(x.dtype).unbind(0)
         return at_mn * (u_mn / n_mn) + at_mx * (u_mx / n_mx), None
 
@@ -230,26 +266,33 @@ def batch_extremes(x: Tensor, dims: tuple[int, ...]) -> tuple[Tensor, Tensor]:
 
 
 def reduce_gradients_(grads: Sequence[Tensor]) -> None:
-    """Sum the ranks' gradients and divide by the world size, in place: one ``all_reduce`` of all of them
-    flattened, per device and dtype. Nothing without an active mesh."""
+    """Sum the data ranks' gradients and divide by their number, in place (:func:`sum_flat_` over the mesh's
+    group). Nothing without an active mesh."""
     mesh = active()
     if mesh is None or not grads:
         return
+    sum_flat_(grads, mesh.group, mesh.size)
+
+
+def sum_flat_(tensors: Sequence[Tensor], group, divisor: int = 1) -> None:
+    """Sum ``tensors`` over ``group``'s ranks in place (divided by ``divisor``): one ``all_reduce`` of them
+    flattened, per device and dtype."""
     buckets: dict[tuple, list[Tensor]] = {}
-    for g in grads:
-        buckets.setdefault((g.device, g.dtype), []).append(g)
+    for t in tensors:
+        buckets.setdefault((t.device, t.dtype), []).append(t)
     for bucket in buckets.values():
-        flat = torch.cat([g.reshape(-1) for g in bucket])
-        dist.all_reduce(flat)
-        flat.div_(mesh.size)
+        flat = torch.cat([t.reshape(-1) for t in bucket])
+        dist.all_reduce(flat, group=group)
+        if divisor != 1:
+            flat.div_(divisor)
         offset = 0
-        for g in bucket:
-            g.copy_(flat[offset: offset + g.numel()].view_as(g))
-            offset += g.numel()
+        for t in bucket:
+            t.copy_(flat[offset: offset + t.numel()].view_as(t))
+            offset += t.numel()
 
 
 def all_agree(flag: bool) -> bool:
-    """True only if ``flag`` holds on every rank."""
+    """True only if ``flag`` holds on every rank of the world."""
     mesh = active()
     if mesh is None:
         return flag
@@ -267,7 +310,7 @@ def gather_rows(local: Tensor, batch: int) -> Tensor:
         return local
     full = local.new_zeros((batch, *local.shape[1:]))
     full[mesh.rows(batch)] = local
-    dist.all_reduce(full)
+    dist.all_reduce(full, group=mesh.group)
     return full
 
 
@@ -277,5 +320,5 @@ def host_sum(values: np.ndarray, mesh: Mesh | None) -> np.ndarray:
     if mesh is None:
         return values
     t = torch.from_numpy(np.ascontiguousarray(values, np.float64)).to(mesh.device)
-    dist.all_reduce(t)
+    dist.all_reduce(t, group=mesh.group)
     return t.cpu().numpy()

@@ -50,9 +50,10 @@ from __future__ import annotations
 
 import contextlib
 import weakref
-from typing import Iterator, Sequence
+from typing import Iterator, NamedTuple, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from fqss_tpu_torch.ops.fake_quant import (
@@ -97,14 +98,23 @@ class ActQuantizer(nn.Module):
         # The input is a constant, the same on every data-parallel rank (a positional embedding): observed as
         # this rank's alone, as JAX observes a replicated array once. Else it is a batch's, reduced over the ranks.
         self.replicated = False
+        # The input is sharded over the tensor-parallel ranks too (parallel/tp.py): observed over every rank of the
+        # grid, as GSPMD's observer sees the whole tensor.
+        self.tp_sharded = False
 
     def observing(self) -> Tensor | None:
         """The device-resident window test (``n_iter < max_observations``), or None without an observer."""
         return self.n_iter < self.max_observations if self.observer else None
 
     def _observed_over(self) -> contextlib.AbstractContextManager:
-        """The ranks an observation reduces over: the active mesh's, or this rank's alone for a constant."""
-        return dp.sharded(None) if self.replicated else contextlib.nullcontext()
+        """The ranks an observation reduces over: the active mesh's data ranks, every rank of the grid for a tensor
+        that tp shards, or this rank's alone for a constant."""
+        if self.replicated:
+            return dp.sharded(None)
+        mesh = dp.active()
+        if self.tp_sharded and mesh is not None:
+            return dp.sharded(mesh.whole())
+        return contextlib.nullcontext()
 
     def observe(self, x: Tensor, observing: Tensor | None) -> None:
         """The observer's EMA write of ``x``'s min/max and the counter step, in ``train()`` mode only.
@@ -214,6 +224,15 @@ def dynamic_act_quant(x: Tensor, n_bits: int = 8, sym: bool = False, factor: flo
     return torch.where(flat, x, y)
 
 
+class TpWeight(NamedTuple):
+    """A weight quantizer's weight under tensor parallelism (``parallel/tp.py``): ``column`` (the rank holds the
+    out-channels ``rows`` of the ranges' ``channels``) or ``row`` (every out-channel, a shard of its inputs)."""
+
+    kind: str
+    rows: Tensor | None
+    channels: int
+
+
 class WeightQuantizer(nn.Module):
     """Per-channel symmetric learned weight fake-quantizer.
 
@@ -237,6 +256,7 @@ class WeightQuantizer(nn.Module):
         self.max_range = nn.Parameter(torch.full(shape, 0.5), requires_grad=gradient_based)
         self.register_buffer("observed", torch.zeros((), dtype=torch.bool))
         self._pass: list | None = None  # inside a weight_pass: [weight, its entry's tensor, reached]
+        self.tp: TpWeight | None = None  # a shard's weight (parallel/tp.py): quantized in a weight pass only
 
     def observing(self) -> Tensor | None:
         """The device-resident flag ``~observed``, or None without an observer."""
@@ -258,6 +278,19 @@ class WeightQuantizer(nn.Module):
                            self.training, self.n_bits, self.ch_axis,
                            weight_scale(w.shape[self.ch_axis], self.n_bits, self.scale_grad))
 
+    def refuse_shard(self) -> None:
+        """A shard's weight takes its grid in a model's weight pass alone, where its ranges reduce over tp."""
+        if self.tp is not None:
+            raise NotImplementedError("a tensor-parallel weight quantizer runs inside its model's weight pass")
+
+    def ranges(self) -> tuple[Tensor, Tensor]:
+        """The ranges of the weight this rank holds: a column shard's rows of the whole ranges (a gather, whose
+        gradient reaches the whole ranges), else the ranges themselves."""
+        if self.tp is None or self.tp.kind != "column":
+            return self.min_range, self.max_range
+        rows = self.tp.rows.to(self.min_range.device)
+        return self.min_range.index_select(0, rows), self.max_range.index_select(0, rows)
+
     def grouped(self, w: Tensor) -> Tensor | None:
         """Inside a :func:`weight_pass`, the pass's tensor for ``w`` (the weight the pass took), or None where
         this call must take its own: outside a pass, and when the quantizer is reached again in ``train()`` mode
@@ -274,6 +307,7 @@ class WeightQuantizer(nn.Module):
         y = self.grouped(w)
         if y is not None:
             return y
+        self.refuse_shard()
         observing = self.observing()
         self.observe(w, observing)
         y = weight_fake_quant(w, self.min_range, self.max_range, self.n_bits, self.ch_axis, self.scale_grad)
@@ -295,8 +329,9 @@ def weight_quantizer_sites(model: nn.Module) -> list[tuple[nn.Module, str, str]]
 
 
 class _PassCache:
-    """A model's weight quantizer sites, and the grouped call's table with the key it was built for. The pass runs
-    on every forward, so it reads the tree through the modules' own dictionaries (``Module.__getattr__`` costs a
+    """A model's weight quantizer sites, and the grouped call's table with the key it was built for (the sites of
+    replicated weights: a tensor-parallel shard's table is built on every pass, ``_tp_pass``). The pass runs on
+    every forward, so it reads the tree through the modules' own dictionaries (``Module.__getattr__`` costs a
     microsecond a lookup)."""
 
     def __init__(self, model: nn.Module):
@@ -304,6 +339,8 @@ class _PassCache:
         self.modules = [(layer._modules, qname) for layer, qname, _ in sites]
         self.weights = [(layer, wname) for layer, _, wname in sites]
         self.quantizers = [getattr(layer, qname) for layer, qname, _ in sites]
+        self.whole = [i for i, wq in enumerate(self.quantizers) if wq.tp is None]
+        self.shards = [i for i, wq in enumerate(self.quantizers) if wq.tp is not None]
         self.key: tuple | None = None
         self.group: WeightGroup | None = None
 
@@ -315,12 +352,65 @@ class _PassCache:
         range's and flag's tensor and storage, each quantizer's mode and settings."""
         weights = [layer._parameters.get(wname) for layer, wname in self.weights]
         weights = [w if w is not None else getattr(layer, wname) for w, (layer, wname) in zip(weights, self.weights)]
-        tensors = list(weights)
-        for wq in self.quantizers:
+        tensors = [weights[i] for i in self.whole]
+        for wq in (self.quantizers[i] for i in self.whole):
             params = wq._parameters
             tensors += (params["min_range"], params["max_range"], wq._buffers["observed"])
         settings = tuple((wq.training, wq.observer, wq.n_bits, wq.ch_axis, wq.scale_grad) for wq in self.quantizers)
         return weights, (weights[0].device, tuple(map(id, tensors)), tuple(map(Tensor.data_ptr, tensors)), settings)
+
+
+def forget_weight_pass(model: nn.Module) -> None:
+    """Drop ``model``'s cached pass (its sites changed kind: ``parallel/tp.py`` sharded some)."""
+    _PASSES.pop(model, None)
+
+
+def _tp_pass(weights: list[Tensor], quantizers: list[WeightQuantizer]) -> list[Tensor]:
+    """The grouped call for tensor-parallel shards' weights (``WeightQuantizer.tp``), split in three where an
+    observer writes: observe the table (a grouped launch that writes each entry's extremes over this rank's shard
+    into copies of its ranges, where observing), reduce the extremes over the tp ranks (a column shard contributes
+    its rows, a row shard a partial extreme of every channel: one ``all_reduce`` of them all), write the whole
+    ranges where observing and set the flags; then quantize (a grouped launch on the ranges this rank's weight
+    takes, ``WeightQuantizer.ranges``, that writes nothing: an entry that was observing returns its weight),
+    differentiable as the pass's call."""
+    observing = [(w, wq) for w, wq in zip(weights, quantizers) if wq.training and wq.observer]
+    # the flags as this call found them: an entry that observes now returns its weight, as WeightQuantizer's call
+    flags = {id(wq): wq.observed.clone() for _, wq in observing}
+    if observing:
+        mesh = dp.active()
+        if mesh is None:
+            raise RuntimeError("a tensor-parallel model's forward runs inside parallel.mesh.sharded() of its grid")
+        with torch.no_grad():
+            copies = [tuple(t.detach().clone() for t in (*wq.ranges(), wq.observed)) for _, wq in observing]
+            weight_fake_quant_group(WeightGroup([WeightEntry(w.detach(), mn, mx, flag, True, wq.n_bits, wq.ch_axis, 1.0)
+                                                 for (w, wq), (mn, mx, flag) in zip(observing, copies)]))
+            lows, highs = [], []
+            for (_, wq), (mn, mx, _) in zip(observing, copies):
+                if wq.tp.kind == "column":  # the other ranks' rows: the extremes' identities
+                    rows = wq.tp.rows.to(mn.device)
+                    mn = torch.full_like(wq.min_range, float("inf")).index_copy_(0, rows, mn)
+                    mx = torch.full_like(wq.max_range, float("-inf")).index_copy_(0, rows, mx)
+                lows.append(mn.reshape(-1))
+                highs.append(mx.reshape(-1))
+            buf = torch.cat([torch.cat(lows).neg(), torch.cat(highs)])
+            if mesh.tp_size > 1:
+                dist.all_reduce(buf, op=dist.ReduceOp.MAX, group=mesh.tp_group)
+            lo, hi = buf.split(buf.numel() // 2)
+            offset = 0
+            for _, wq in observing:
+                n = wq.min_range.numel()
+                sel = ~wq.observed
+                wq.min_range.copy_(torch.where(sel, -lo[offset:offset + n].view_as(wq.min_range), wq.min_range))
+                wq.max_range.copy_(torch.where(sel, hi[offset:offset + n].view_as(wq.max_range), wq.max_range))
+                wq.observed.fill_(True)
+                offset += n
+    entries = []
+    for w, wq in zip(weights, quantizers):
+        mn, mx = wq.ranges()
+        flag = flags.get(id(wq), wq.observed) if wq.observer else None
+        entries.append(WeightEntry(w, mn, mx, flag, False, wq.n_bits, wq.ch_axis,
+                                   weight_scale(wq.tp.channels, wq.n_bits, wq.scale_grad)))
+    return weight_fake_quant_group(WeightGroup(entries))
 
 
 # Each model's cache, outside the model: a copy or a pickle of the model never carries device pointers, and the
@@ -345,10 +435,17 @@ def weight_pass(model: nn.Module) -> Iterator[None]:
         return
     weights, key = cache.current()
     quantizers = cache.quantizers
-    if key != cache.key:
-        cache.group = WeightGroup([wq.entry(w) for w, wq in zip(weights, quantizers)])
-        cache.key = key
-    outs = weight_fake_quant_group(cache.group)
+    outs: list = [None] * len(quantizers)
+    if cache.whole:
+        if key != cache.key:
+            cache.group = WeightGroup([quantizers[i].entry(weights[i]) for i in cache.whole])
+            cache.key = key
+        for i, y in zip(cache.whole, weight_fake_quant_group(cache.group)):
+            outs[i] = y
+    if cache.shards:
+        for i, y in zip(cache.shards, _tp_pass([weights[i] for i in cache.shards],
+                                               [quantizers[i] for i in cache.shards])):
+            outs[i] = y
     for w, wq, y in zip(weights, quantizers, outs):
         wq.__dict__["_pass"] = [w, y, False]
     try:

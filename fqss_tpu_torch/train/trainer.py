@@ -29,6 +29,14 @@ one step over a sharded batch: the observers and the loss's batch means
 reduce over the ranks in the forward, the gradients of the global loss are
 all-reduced (the world-size factor taken once) before the clip, and every
 rank takes the same decision to skip.
+
+On a (dp, tp) grid (``parallel/mesh.py:grid``, a model sharded by
+``parallel/tp.py:shard_model_tp``) the batch is sharded over dp and
+replicated over tp: the gradients that are partial sums over a tp shard (the
+sharded quantizers' ranges) are summed over tp, then every gradient is
+reduced over dp; the clip's global norm counts each sharded parameter's
+shards once and each replicated parameter once; the optimizer updates each
+rank's shard.
 """
 
 from __future__ import annotations
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from fqss_tpu_torch.parallel import mesh as dp
+from fqss_tpu_torch.parallel import tp
 from fqss_tpu_torch.separation.losses import fqss_kd_loss, pit_neg_sisdr_db
 from fqss_tpu_torch.train.state import TrainState
 
@@ -125,11 +134,12 @@ class OptaxAdam(torch.optim.Optimizer):
                 st["count"], st["mu"], st["nu"] = count, mu, nu
 
 
-def clip_by_global_norm_(grads: list[Tensor], max_norm: float) -> Tensor:
+def clip_by_global_norm_(grads: list[Tensor], max_norm: float, norm: Tensor | None = None) -> Tensor:
     """optax.clip_by_global_norm in place: ``g * max_norm / norm`` for all g unless norm < max_norm.
 
-    Returns the global norm before the clip. Stays on the device."""
-    norm = global_norm(grads)
+    ``norm``: the global norm where the caller has it (a grid's), else :func:`global_norm` of ``grads``. Returns
+    the global norm before the clip. Stays on the device."""
+    norm = global_norm(grads) if norm is None else norm
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale)
@@ -189,12 +199,18 @@ def backward_and_update(state: TrainState, cfg: TrainConfig, loss: Tensor) -> tu
     before the clip, and every rank takes the same decision to skip. Returns the gradients' global norm before the
     clip (on the device) and whether the update was applied."""
     loss.backward()
-    grads = [p.grad for group in state.optimizer.param_groups for p in group["params"] if p.grad is not None]
+    params = [p for group in state.optimizer.param_groups for p in group["params"] if p.grad is not None]
+    grads = [p.grad for p in params]
+    mesh = dp.active()
+    on_grid = mesh is not None and mesh.tp_size > 1
+    if on_grid:
+        tp.reduce_partial_gradients_(params)
     dp.reduce_gradients_(grads)
+    norm = tp.global_norm(params) if on_grid else None
     if cfg.grad_clip and cfg.grad_clip > 0:
-        grad_norm = clip_by_global_norm_(grads, cfg.grad_clip)
+        grad_norm = clip_by_global_norm_(grads, cfg.grad_clip, norm)
     else:
-        grad_norm = global_norm(grads)
+        grad_norm = global_norm(grads) if norm is None else norm
     ok = dp.all_agree(bool(torch.isfinite(loss) & (loss < cfg.loss_upper_lim)))  # the step's one wait for the device
     if ok:
         for group in state.optimizer.param_groups:

@@ -70,6 +70,7 @@ from fqss_tpu_torch.nn.layers import make_act_quantizer, make_weight_quantizer, 
 from fqss_tpu_torch.ops.attention import fused_attention_packed, head_layout, softmax_ref
 from fqss_tpu_torch.ops.qat_dense import qat_dense
 from fqss_tpu_torch.parallel import tp
+from fqss_tpu_torch.quant.quantizers import writes
 from fqss_tpu_torch.quant.spec import FLOAT, QuantSpec
 
 Tensor = torch.Tensor
@@ -114,7 +115,7 @@ class QMultiheadAttention(nn.Module):
         """The reference's no-op attn/softmax sites: evaluated for their observers in ``train()`` mode, the
         results discarded; skipped where they would write nothing."""
         qa, qs = self.activation_fake_quantize_attn, self.activation_fake_quantize_softmax
-        if not (self.training and any(s is not None and s.observer for s in (qa, qs))):
+        if not (writes(self) and any(s is not None and s.observer for s in (qa, qs))):
             return
         with torch.no_grad():
             Qc, Kc = mxu_operands(self.q, head_layout(q), head_layout(k))

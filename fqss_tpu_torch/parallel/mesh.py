@@ -26,6 +26,8 @@ objective is the sum of the ranks' losses, which are equal), so the gradients of
 over on every rank, and :func:`reduce_gradients_` divides the ranks' sum by W once. The buffers (the observers'
 counters, histograms and ranges) are written by every rank from the same reduced values, so they stay equal without
 DDP's buffer broadcast.
+
+:func:`spawn` starts the ranks of one host as torchrun would, where no launcher does (the dry run, the tests).
 """
 
 from __future__ import annotations
@@ -34,6 +36,10 @@ import contextlib
 import contextvars
 import dataclasses
 import os
+import socket
+import subprocess
+import tempfile
+import time
 from typing import Iterator, Sequence
 
 import numpy as np
@@ -137,6 +143,66 @@ def shutdown() -> None:
     """Leave the process group, if this process joined one."""
     if dist.is_initialized():
         dist.destroy_process_group()
+
+
+def free_port() -> int:
+    """A TCP port on localhost that is free now: a process group's rendezvous."""
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def rank_env(rank: int, world: int, port: int, base: dict | None = None) -> dict:
+    """``base`` (this process's environment when None) with the variables torchrun gives rank ``rank`` of ``world``
+    on this host, the rendezvous at ``localhost:port``."""
+    env = {k: v for k, v in (os.environ if base is None else base).items() if k not in ENV + ("LOCAL_RANK",)}
+    return {**env, "RANK": str(rank), "LOCAL_RANK": str(rank), "WORLD_SIZE": str(world), "MASTER_ADDR": "localhost",
+            "MASTER_PORT": str(port)}
+
+
+def spawn(cmd: Sequence[str], world: int, *, env: dict | None = None, cwd=None, timeout: float | None = None,
+          echo: bool = False) -> list[str]:
+    """Run ``world`` ranks of ``cmd`` on this host as torchrun would (:func:`rank_env` over this process's
+    environment updated by ``env``) and wait for them all. A rank that fails, or a run longer than ``timeout``
+    seconds, ends every rank still running, and this raises with that rank's output (rank 0's on a timeout). Returns
+    each rank's standard output; rank 0's goes to this process's own instead where ``echo`` (its entry empty)."""
+    base = {**os.environ, **(env or {})}
+    port = free_port()
+    deadline = None if timeout is None else time.monotonic() + timeout
+    with tempfile.TemporaryDirectory() as tmp:
+        files = [(open(os.path.join(tmp, f"{r}.out"), "w+"), open(os.path.join(tmp, f"{r}.err"), "w+"))
+                 for r in range(world)]
+        procs = [subprocess.Popen(list(cmd), cwd=cwd, env=rank_env(r, world, port, base),
+                                  stdout=None if echo and r == 0 else out, stderr=err)
+                 for r, (out, err) in enumerate(files)]
+        failed, late = None, False
+        try:
+            while failed is None and any(p.poll() is None for p in procs):
+                if deadline is not None and time.monotonic() > deadline:
+                    late = True
+                    break
+                time.sleep(0.1)
+                failed = next((r for r, p in enumerate(procs) if p.poll() not in (None, 0)), None)
+            if failed is None and not late:
+                failed = next((r for r, p in enumerate(procs) if p.returncode != 0), None)
+        finally:  # no rank waits alone for one that has ended
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+        texts = []
+        for out, err in files:
+            out.seek(0)
+            err.seek(0)
+            texts.append((out.read(), err.read()))
+            out.close()
+            err.close()
+    if late or failed is not None:
+        r = 0 if late else failed
+        what = f"ran past {timeout} s" if late else f"failed ({procs[r].returncode})"
+        raise RuntimeError(f"rank {r} of {world} ({' '.join(map(str, cmd))}) {what}:\n{texts[r][0][-2000:]}\n"
+                           f"{texts[r][1][-4000:]}")
+    return [out for out, _ in texts]
 
 
 def world_size() -> int:

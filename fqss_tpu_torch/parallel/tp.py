@@ -31,9 +31,9 @@ the whole tensor; a replicated one over dp alone. A weight quantizer of a sharde
 takes the weight pass's split: observe, reduce over tp, quantize (``quant/quantizers.py:weight_pass``). The range
 gradients of all of them are partial sums over a shard (K1-bwd's, K5-bwd's and K2-bwd's partials; a column shard's
 rows of a whole range tensor): such parameters carry ``tp_partial`` and :func:`reduce_partial_gradients_` sums them
-over tp before the data-parallel reduction. A sharded parameter carries ``tp_dim``, its index along it ``tp_index``
-and the whole extent ``tp_extent``: :func:`global_norm` counts its square once over the shards, and
-:func:`whole_state_dict` gathers it.
+over tp before the data-parallel reduction. A sharded parameter carries its placement (``parallel/shards.py``: the
+dim, its index along it and the whole extent, over the tp group), by which the clip's global norm counts its square
+once over the shards and the whole state is gathered.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ import torch.distributed as dist
 from torch import nn
 
 from fqss_tpu_torch.parallel import mesh as dp
+from fqss_tpu_torch.parallel import shards
 from fqss_tpu_torch.quant import quantizers as qz
 from fqss_tpu_torch.quant.quantizers import ActQuantizer, WeightQuantizer
 
@@ -156,14 +157,12 @@ def reduce_from_tp(x: Tensor, shard: Shard) -> Tensor:
     return x if shard.size == 1 else _ReduceFromTp.apply(x, group)
 
 
-def _shard_param(module: nn.Module, name: str, dim: int, index: Tensor) -> None:
-    """Replace ``module.<name>`` by its rows (``dim`` 0) or columns (1) ``index``, marked for the reductions and the
-    gather."""
+def _shard_param(module: nn.Module, name: str, dim: int, index: Tensor, group) -> None:
+    """Replace ``module.<name>`` by its rows (``dim`` 0) or columns (1) ``index``, placed over the tp ``group``."""
     whole = getattr(module, name)
     part = nn.Parameter(whole.detach().index_select(dim, index.to(whole.device)).clone(),
                         requires_grad=whole.requires_grad)
-    part.tp_dim, part.tp_index, part.tp_extent = dim, index, whole.shape[dim]
-    setattr(module, name, part)
+    setattr(module, name, shards.place(part, shards.TP, dim, index, whole.shape[dim], group))
 
 
 def _mark_act(aq: ActQuantizer | None) -> None:
@@ -204,9 +203,9 @@ def shard_model_tp(model: nn.Module, mesh: dp.Mesh) -> nn.Module:
             E = m.embed_dim
             rows = head_rows(E, m.num_heads, r, tp)
             cols = torch.arange(r * E // tp, (r + 1) * E // tp)
-            _shard_param(m, "in_proj_weight", 0, rows)
-            _shard_param(m, "in_proj_bias", 0, rows)
-            _shard_param(m, "out_proj_weight", 1, cols)
+            _shard_param(m, "in_proj_weight", 0, rows, mesh.tp_group)
+            _shard_param(m, "in_proj_bias", 0, rows, mesh.tp_group)
+            _shard_param(m, "out_proj_weight", 1, cols, mesh.tp_group)
             _mark_weight(m.weight_fake_quantize_in, COLUMN, rows, 3 * E)
             _mark_weight(m.weight_fake_quantize_out, ROW, None, E)
             for site in ("q", "k", "v", "div", "attn", "softmax", "head"):
@@ -221,8 +220,8 @@ def shard_model_tp(model: nn.Module, mesh: dp.Mesh) -> nn.Module:
             features = m.weight.shape[0]
             if specs[prefix + "weight"] == 0:
                 rows = torch.arange(r * features // tp, (r + 1) * features // tp)
-                _shard_param(m, "weight", 0, rows)
-                _shard_param(m, "bias", 0, rows)
+                _shard_param(m, "weight", 0, rows, mesh.tp_group)
+                _shard_param(m, "bias", 0, rows, mesh.tp_group)
                 _mark_weight(m.weight_fake_quantize, COLUMN, rows, features)
                 _mark_act(m.activation_fake_quantize)
                 for between in getattr(parent, "TP_SHARDED_BETWEEN", ()):
@@ -231,7 +230,7 @@ def shard_model_tp(model: nn.Module, mesh: dp.Mesh) -> nn.Module:
                 m.tp = Shard(COLUMN, r, tp)
             else:
                 k = m.weight.shape[1]
-                _shard_param(m, "weight", 1, torch.arange(r * k // tp, (r + 1) * k // tp))
+                _shard_param(m, "weight", 1, torch.arange(r * k // tp, (r + 1) * k // tp), mesh.tp_group)
                 _mark_weight(m.weight_fake_quantize, ROW, None, features)
                 m.tp = Shard(ROW, r, tp)
     qz.forget_weight_pass(model)
@@ -247,46 +246,5 @@ def reduce_partial_gradients_(params) -> None:
     dp.sum_flat_([p.grad for p in params if getattr(p, "tp_partial", False) and p.grad is not None], mesh.tp_group)
 
 
-def global_norm(params) -> Tensor:
-    """The L2 norm of the whole model's gradient on a grid: the squares of the sharded parameters' gradients summed
-    over tp, each replicated parameter's counted once (float64 sums, the norm float32)."""
-    mesh = dp.active()
-    with_grad = [p for p in params if p.grad is not None]
-    dev = with_grad[0].grad.device
-    sq = torch.zeros(2, dtype=torch.float64, device=dev)
-    for p in with_grad:
-        sq[0 if hasattr(p, "tp_dim") else 1] += p.grad.double().square().sum()
-    if mesh is not None and mesh.tp_size > 1:
-        part = sq[0:1].clone()
-        dist.all_reduce(part, group=mesh.tp_group)
-        sq[0] = part[0]
-    return sq.sum().sqrt().float()
-
-
-def _whole(p: Tensor, t: Tensor) -> Tensor:
-    """``t`` (a sharded parameter ``p``'s value or gradient) whole on every tp rank of the active grid: each rank
-    writes its shard into a zeroed tensor and the tp ranks sum them (``all_reduce``, which gloo takes on CUDA tensors
-    too). ``t`` itself where ``p`` is not sharded."""
-    if not hasattr(p, "tp_dim"):
-        return t
-    shape = list(t.shape)
-    shape[p.tp_dim] = p.tp_extent
-    whole = t.new_zeros(shape).index_copy_(p.tp_dim, p.tp_index.to(t.device), t)
-    dist.all_reduce(whole, group=dp.active().tp_group)
-    return whole
-
-
-def whole_state_dict(model: nn.Module) -> dict[str, Tensor]:
-    """``model``'s state dict with every sharded parameter gathered whole (:func:`_whole`), on the CPU."""
-    return {key: _whole(t, t.detach()).cpu().clone() for key, t in model.state_dict(keep_vars=True).items()}
-
-
-def whole_gradients(model: nn.Module) -> dict[str, Tensor]:
-    """Every parameter's gradient (those that have one), sharded ones gathered whole, on the CPU."""
-    return {key: _whole(p, p.grad.detach()).cpu().clone() for key, p in model.named_parameters()
-            if p.grad is not None}
-
-
-__all__ = ["COLUMN", "ROW", "Shard", "copy_to_tp", "global_norm", "head_rows", "leaf_spec",
-           "reduce_from_tp", "reduce_partial_gradients_", "shard_model_tp",
-           "transformer_tp_specs", "whole_gradients", "whole_state_dict"]
+__all__ = ["COLUMN", "ROW", "Shard", "copy_to_tp", "head_rows", "leaf_spec", "reduce_from_tp",
+           "reduce_partial_gradients_", "shard_model_tp", "transformer_tp_specs"]

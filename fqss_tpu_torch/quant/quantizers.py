@@ -21,7 +21,8 @@ collection) and its observer counter as a buffer (``qstats``):
 State is written only in ``train()`` mode, and under ``torch.no_grad()``.
 In ``eval()`` mode a quantizer still inside its observer window returns its
 input and writes nothing, as a JAX call without mutable collections does
-(``fqss_tpu/quant/quantizers.py:21-24``). The window test stays on the
+(``fqss_tpu/quant/quantizers.py:21-24``); inside :func:`read_only` (a
+pipeline stage, ``parallel/pp.py``) so does one in ``train()`` mode. The window test stays on the
 device (``torch.where`` on the counter): no call waits for the card.
 
 The quantize op itself is :mod:`fqss_tpu_torch.ops.fake_quant`: CUDA
@@ -49,6 +50,7 @@ by default, as on the JAX ConvTasNet path.
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import weakref
 from typing import Iterator, NamedTuple, Sequence
 
@@ -69,6 +71,27 @@ from fqss_tpu_torch.quant.fake_quant import linear_fake_quant, mulaw_fake_quant,
 from fqss_tpu_torch.quant.ste import round_ste
 
 Tensor = torch.Tensor
+
+_READ_ONLY: contextvars.ContextVar[bool] = contextvars.ContextVar("fqss_tpu_torch_read_only", default=False)
+
+
+@contextlib.contextmanager
+def read_only() -> Iterator[None]:
+    """Inside this block no quantizer writes its state, in ``train()`` mode too: each reads its ranges, flags and
+    counters and computes what it would in ``eval()`` mode (an act quantizer inside its window returns its input, an
+    unobserved weight quantizer its float weight), and the grouped pass launches no flag kernel. A JAX apply without
+    mutable collections, as ``fqss_tpu/parallel/pp.py`` applies a pipeline stage."""
+    token = _READ_ONLY.set(True)
+    try:
+        yield
+    finally:
+        _READ_ONLY.reset(token)
+
+
+def writes(module: nn.Module) -> bool:
+    """Whether ``module`` (a quantizer, or a layer that feeds observers) writes its state in this call: in
+    ``train()`` mode, outside :func:`read_only`."""
+    return module.training and not _READ_ONLY.get()
 
 
 class ActQuantizer(nn.Module):
@@ -122,7 +145,7 @@ class ActQuantizer(nn.Module):
         ``observing`` is :meth:`observing` taken before the quantize call. Only
         the values of ``x`` where ``observing`` holds are kept, so a fused caller
         may pass its output, which is ``x`` unquantized there."""
-        if observing is None or not self.training:
+        if observing is None or not writes(self):
             return
         with torch.no_grad(), self._observed_over():
             a = self.ALPHA
@@ -180,7 +203,7 @@ class MseActQuantizer(ActQuantizer):
     def observe(self, x: Tensor, observing: Tensor | None) -> None:
         """One histogram observation of ``x`` in ``train()`` mode, kept while ``n_iter < max_observations`` and not
         calibrated. ``observing`` is :meth:`observing` (it does not decide the write)."""
-        if observing is None or not self.training:
+        if observing is None or not writes(self):
             return
         with torch.no_grad(), self._observed_over():
             keep = (self.n_iter < self.max_observations) & ~self.calibrated
@@ -265,7 +288,7 @@ class WeightQuantizer(nn.Module):
     def observe(self, w: Tensor, observing: Tensor | None) -> None:
         """The one-shot observer: in ``train()`` mode, where ``observing``, the ranges become ``w``'s per-channel
         min/max, before the quantize call that uses them."""
-        if observing is None or not self.training:
+        if observing is None or not writes(self):
             return
         with torch.no_grad():
             self.min_range.copy_(torch.where(observing, w.amin(self.reduce_dims, keepdim=True), self.min_range))
@@ -275,7 +298,7 @@ class WeightQuantizer(nn.Module):
     def entry(self, w: Tensor) -> WeightEntry:
         """This quantizer on ``w`` as an entry of a grouped call."""
         return WeightEntry(w, self.min_range, self.max_range, self.observed if self.observer else None,
-                           self.training, self.n_bits, self.ch_axis,
+                           writes(self), self.n_bits, self.ch_axis,
                            weight_scale(w.shape[self.ch_axis], self.n_bits, self.scale_grad))
 
     def refuse_shard(self) -> None:
@@ -298,7 +321,7 @@ class WeightQuantizer(nn.Module):
         state = self.__dict__.get("_pass")
         if state is None or w is not state[0]:
             return None
-        if state[2] and self.training and self.observer:
+        if state[2] and writes(self) and self.observer:
             return None
         state[2] = True
         return state[1]
@@ -356,7 +379,7 @@ class _PassCache:
         for wq in (self.quantizers[i] for i in self.whole):
             params = wq._parameters
             tensors += (params["min_range"], params["max_range"], wq._buffers["observed"])
-        settings = tuple((wq.training, wq.observer, wq.n_bits, wq.ch_axis, wq.scale_grad) for wq in self.quantizers)
+        settings = tuple((writes(wq), wq.observer, wq.n_bits, wq.ch_axis, wq.scale_grad) for wq in self.quantizers)
         return weights, (weights[0].device, tuple(map(id, tensors)), tuple(map(Tensor.data_ptr, tensors)), settings)
 
 
@@ -373,7 +396,7 @@ def _tp_pass(weights: list[Tensor], quantizers: list[WeightQuantizer]) -> list[T
     ranges where observing and set the flags; then quantize (a grouped launch on the ranges this rank's weight
     takes, ``WeightQuantizer.ranges``, that writes nothing: an entry that was observing returns its weight),
     differentiable as the pass's call."""
-    observing = [(w, wq) for w, wq in zip(weights, quantizers) if wq.training and wq.observer]
+    observing = [(w, wq) for w, wq in zip(weights, quantizers) if writes(wq) and wq.observer]
     # the flags as this call found them: an entry that observes now returns its weight, as WeightQuantizer's call
     flags = {id(wq): wq.observed.clone() for _, wq in observing}
     if observing:

@@ -37,6 +37,13 @@ sharded quantizers' ranges) are summed over tp, then every gradient is
 reduced over dp; the clip's global norm counts each sharded parameter's
 shards once and each replicated parameter once; the optimizer updates each
 rank's shard.
+
+With the state sharded over dp (``parallel/fsdp.py:shard_state_fsdp``, on a
+1-D mesh or a grid) the model gathers its whole weights in its forward, and
+the gather's backward leaves on each slice the ranks' gradients summed
+already: the step divides those by the dp size and reduces the rest as
+above; the clip's norm counts each slice once, and the optimizer updates the
+slices.
 """
 
 from __future__ import annotations
@@ -48,7 +55,7 @@ import numpy as np
 import torch
 
 from fqss_tpu_torch.parallel import mesh as dp
-from fqss_tpu_torch.parallel import tp
+from fqss_tpu_torch.parallel import shards, tp
 from fqss_tpu_torch.separation.losses import fqss_kd_loss, pit_neg_sisdr_db
 from fqss_tpu_torch.train.state import TrainState
 
@@ -203,10 +210,15 @@ def backward_and_update(state: TrainState, cfg: TrainConfig, loss: Tensor) -> tu
     grads = [p.grad for p in params]
     mesh = dp.active()
     on_grid = mesh is not None and mesh.tp_size > 1
+    slices = [p.grad for p in params if shards.is_part(p, shards.DP)]
+    if slices and mesh is None:
+        raise RuntimeError("a model sharded by parallel.fsdp trains inside parallel.mesh.sharded() of its mesh")
     if on_grid:
         tp.reduce_partial_gradients_(params)
-    dp.reduce_gradients_(grads)
-    norm = tp.global_norm(params) if on_grid else None
+    dp.reduce_gradients_([p.grad for p in params if not shards.is_part(p, shards.DP)])
+    for g in slices:  # summed over the data ranks by the gather's backward: the world-size factor alone
+        g.div_(mesh.size)
+    norm = shards.global_norm(params) if on_grid or slices else None
     if cfg.grad_clip and cfg.grad_clip > 0:
         grad_norm = clip_by_global_norm_(grads, cfg.grad_clip, norm)
     else:

@@ -1999,3 +1999,55 @@ def test_weight_pass_split_on_a_shard_equals_the_per_tensor_kernel(dev, kind):
     assert torch.equal(w.grad, dw)
     got_mn = wq.min_range.grad[rows.to(dev)] if kind == "column" else wq.min_range.grad
     assert torch.allclose(got_mn.view(-1), dmn.view(-1), rtol=1e-5, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------------------------------------------
+# FSDP and pipeline parallelism: gloo ranks sharing the card (tests/torch_fsdp_cases.py, tests/torch_pp_cases.py)
+# ---------------------------------------------------------------------------------------------------------------
+
+
+def test_two_gloo_ranks_fsdp_steps_equal_their_ddp_steps_on_the_card(dev, tmp_path):
+    """tests/test_torch_fsdp.py's QAT case on the card (TF32 off, cuDNN deterministic): the ConvTasNet's steps through
+    its window with the state sharded over two ranks, each from the data-parallel run's learned parameters on the
+    same ranks: the observers, the loss and the reduced gradients before the clip bit for bit the data-parallel
+    steps', the global norm within 1e-6 relative, the state after each step bit for bit where the clip does not
+    bind, else within 1e-6 of each tensor's largest magnitude."""
+    import torch_ddp_cases as ddp_cases
+
+    for r in ddp_cases.spawn_ranks("torch_fsdp_cases.py", tmp_path, 2, "cuda:0"):
+        ddp, sharded = r["ddp"], r["fsdp"]
+        assert sharded["sharded"]
+        for i in range(ddp_cases.STEPS):
+            assert not [k for k, w in ddp["observed"][i].items() if not torch.equal(sharded["observed"][i][k], w)]
+            assert sharded["loss"][i] == ddp["loss"][i]
+            assert not [k for k, w in ddp["grads"][i].items() if not torch.equal(sharded["grads"][i][k], w)], i
+            norm = ddp["grad_norm"][i]
+            assert abs(sharded["grad_norm"][i] - norm) <= 1e-6 * norm
+            binds = not norm < 5.0
+            for k, w in ddp["after"][i].items():
+                g = sharded["after"][i][k]
+                if binds and w.is_floating_point():
+                    assert float((g - w).abs().max()) <= 1e-6 * float(w.abs().max()), (i, k)
+                else:
+                    assert torch.equal(g, w), (i, k)
+
+
+def test_two_stage_pipeline_on_the_card_meets_the_sequential_stack(dev, tmp_path):
+    """A 4-layer float TransformerLayer(16, 32, 4) stack over two gloo ranks sharing the card, 2 microbatches: every
+    rank's output within 1e-5 absolute and relative of the stack in order on the card, and the stages' gradients of
+    sum(y^2) within 2e-4 absolute and 1e-4 relative (tests/test_pp.py's rules)."""
+    import numpy as np
+    import torch_ddp_cases as ddp_cases
+    import torch_pp_cases as cases
+
+    ranks = ddp_cases.spawn_ranks("torch_pp_cases.py", tmp_path, 2, "cuda:0")
+    stack = [layer.to(dev) for layer in cases.layers(None)]
+    y = cases.sequential(stack, cases.card_input().to(dev))
+    y.square().sum().backward()
+    want = {f"{i}.{k}": p.grad.cpu() for i, layer in enumerate(stack) for k, p in layer.named_parameters()}
+    got = {k: g for r in ranks for k, g in r["grads"].items()}
+    assert got.keys() == want.keys()
+    for r in ranks:
+        np.testing.assert_allclose(r["y"].numpy(), y.detach().cpu().numpy(), atol=1e-5, rtol=1e-5)
+    for k, g in got.items():
+        np.testing.assert_allclose(g.numpy(), want[k].numpy(), atol=2e-4, rtol=1e-4, err_msg=k)

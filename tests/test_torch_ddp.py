@@ -30,7 +30,6 @@ first run:
 
 import json
 import os
-import socket
 import subprocess
 import sys
 
@@ -69,12 +68,6 @@ CLI_LOSS_DB = 1e-3
 CLI_REL = 1e-3
 
 
-def _free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def _env(**extra) -> dict:
     env = {k: v for k, v in os.environ.items() if k not in dp.ENV + ("LOCAL_RANK", "PYTHONPATH")}
     env.update(PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]), OMP_NUM_THREADS="1", **extra)
@@ -111,20 +104,7 @@ def ranks(tmp_path_factory):
               "power_src": power_src, "threshold": torch.tensor(threshold)}
     torch.save(inputs, out / "inputs.pt")
 
-    port = _free_port()
-    procs = [subprocess.Popen([sys.executable, os.path.join(REPO, "tests", "torch_ddp_cases.py"), str(out)], cwd=REPO,
-                              env=_env(RANK=str(r), WORLD_SIZE=str(WORLD), MASTER_ADDR="localhost",
-                                       MASTER_PORT=str(port)),
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for r in range(WORLD)]
-    try:
-        outs = [p.communicate(timeout=400) for p in procs]
-    finally:
-        for p in procs:
-            p.kill()
-    for r, (p, (o, e)) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} failed:\n{o}\n{e[-4000:]}"
-    results = [torch.load(out / f"rank{r}.pt", weights_only=True) for r in range(WORLD)]
+    results = cases.spawn_ranks("torch_ddp_cases.py", out, WORLD, timeout=400)
     return {"dir": out, "jax": (jm, v, tv), "inputs": inputs, "ranks": results}
 
 
@@ -198,7 +178,7 @@ def test_a_one_rank_group_takes_the_no_group_path_bit_for_bit(monkeypatch):
     monkeypatch.setenv("RANK", "0")
     monkeypatch.setenv("WORLD_SIZE", "1")
     monkeypatch.setenv("MASTER_ADDR", "localhost")
-    monkeypatch.setenv("MASTER_PORT", str(_free_port()))
+    monkeypatch.setenv("MASTER_PORT", str(dp.free_port()))
     mesh = dp.init_distributed("cpu")
     try:
         assert mesh == dp.Mesh(0, 1, torch.device("cpu"), "gloo") and dp.world_size() == 1

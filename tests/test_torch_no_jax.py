@@ -67,7 +67,7 @@ def jax_package_imports(path: str) -> list[str]:
 
 def test_port_and_chip_smoke_import_nothing_of_jax_or_the_jax_package():
     files = sorted(glob.glob(os.path.join(REPO, "fqss_tpu_torch", "**", "*.py"), recursive=True))
-    files += [os.path.join(REPO, "chip_smoke.py"), os.path.join(REPO, "tests", "torch_ddp_cases.py")]
+    files += [os.path.join(REPO, "chip_smoke.py"), *sorted(glob.glob(os.path.join(REPO, "tests", "torch_*_cases.py")))]
     assert len(files) > 40
     assert os.path.join(REPO, "fqss_tpu_torch", "parallel", "mesh.py") in files
     assert [hit for path in files for hit in jax_package_imports(path)] == []

@@ -57,13 +57,8 @@ OLA = dict(seconds=24000, segment=1600, overlap=0.25, chunk_batch=3)
 def one_rank_mesh(device: str = "cpu") -> Iterator[dp.Mesh]:
     """A one-rank gloo group in this process (torchrun's variables set for its life): every collective runs, each
     the identity."""
-    import socket
-
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
     saved = {k: os.environ.get(k) for k in dp.ENV}
-    os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    os.environ.update(RANK="0", WORLD_SIZE="1", MASTER_ADDR="localhost", MASTER_PORT=str(dp.free_port()))
     try:
         mesh = dp.init_distributed(device, backend="gloo")
         try:
@@ -76,6 +71,17 @@ def one_rank_mesh(device: str = "cpu") -> Iterator[dp.Mesh]:
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
+
+
+def spawn_ranks(script: str, out_dir, world: int, *args: str, timeout: float = 600) -> list[dict]:
+    """``world`` gloo ranks of ``tests/<script> OUT_DIR [ARGS]`` on this host (``parallel.mesh.spawn``: torchrun's
+    variables set for each; the repo and ``tests/`` on the path, one thread each), and each rank's
+    ``OUT_DIR/rank<r>.pt``; raises with a rank's output where one fails."""
+    tests = os.path.dirname(os.path.abspath(__file__))
+    repo = os.path.dirname(tests)
+    dp.spawn([sys.executable, os.path.join(tests, script), str(out_dir), *args], world, cwd=repo, timeout=timeout,
+             env={"PYTHONPATH": os.pathsep.join([repo, tests]), "OMP_NUM_THREADS": "1"})
+    return [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=True) for r in range(world)]
 
 
 def new_state(case: tuple, seed: int = 0, cfg: TrainConfig = TrainConfig(), device: str = "cpu") -> TrainState:

@@ -20,7 +20,7 @@ from fqss_tpu_torch.models.htdemucs import HTDemucs
 from fqss_tpu_torch.models.sepformer import Sepformer
 from fqss_tpu_torch.nn.attention import QMultiheadAttention
 from fqss_tpu_torch.parallel import mesh as dp
-from fqss_tpu_torch.parallel import tp
+from fqss_tpu_torch.parallel import shards, tp
 from fqss_tpu_torch.quant.calibration import calibrate_mse_quantizers
 from fqss_tpu_torch.quant.quantizers import ActQuantizer
 from fqss_tpu_torch.quant.spec import QuantSpec
@@ -69,7 +69,7 @@ def kd_step(student: torch.nn.Module, teacher: torch.nn.Module, mix, src, mesh: 
     rows = mesh.rows(len(mix)) if mesh is not None else slice(None)
     m = make_train_step(STEP_CFG, mesh)(state, mix[rows], src[rows])
     with dp.sharded(mesh):
-        whole = tp.whole_state_dict(student) if mesh is not None else {k: v.detach().clone() for k, v in
+        whole = shards.whole_state_dict(student) if mesh is not None else {k: v.detach().clone() for k, v in
                                                                         student.state_dict().items()}
     return {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
             "params": {k: whole[k] for k, _ in student.named_parameters()}}
@@ -140,7 +140,7 @@ def mse_run(mesh: dp.Mesh | None, forced: list | None = None) -> dict:
                         p.copy_(forced[i][k])
         if mesh is not None:
             with dp.sharded(mesh):
-                whole = tp.whole_state_dict(state.model)
+                whole = shards.whole_state_dict(state.model)
             out["before"].append({k: whole[k] for k in ddp_cases.learned(state.model)})
         out["loss"].append(float(step(state, mix[rows], src[rows])["loss"]))
         if i + 1 == ddp_cases.STEPS:  # the window closes: the MSE search, as the recipe runs it on every rank
@@ -150,7 +150,7 @@ def mse_run(mesh: dp.Mesh | None, forced: list | None = None) -> dict:
         out["tp_sharded"] = sorted(k for k in out["act_grads"]
                                    if getattr(state.model.get_submodule(k.rpartition(".")[0]), "tp_sharded", False))
         with dp.sharded(mesh):
-            out["state"] = tp.whole_state_dict(state.model)
+            out["state"] = shards.whole_state_dict(state.model)
     return out
 
 
@@ -167,7 +167,7 @@ def worker(out_dir: str) -> None:
                 result[name] = forward(model, inputs["x"], mesh)
                 if name == "float":
                     with dp.sharded(mesh):
-                        result["float_whole"] = tp.whole_state_dict(model)
+                        result["float_whole"] = shards.whole_state_dict(model)
             for name in ATTENTION_MODELS:
                 model = tp.shard_model_tp(attention_model(name), mesh)
                 result[name] = forward(model, inputs[name], mesh)

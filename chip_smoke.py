@@ -454,10 +454,27 @@ after each group of phases, and lets any failure propagate:
     The JAX rule's verdict on the gradient failed in every run (1-2 of 96 tensors, as does the first witness in some)
     and stands: it is printed beside the floor and repeated before the result, not raised (ROADMAP queue 3), as
     phases 63 and 69 do.
+83. the legacy hybrid Demucs (``HDemucsLegacy``, ``models/hdemucs.py``) at JAX's defaults (4 stems, stereo, 48
+    channels, depth 6, nfft 4096, dconv_comp 4, BLSTM and LocalState from index 4, cac) through ``create_model``,
+    ranges from a 3-step observer window, at 4 x 10 s stereo: the fake-quant forward, finite; its launches the module
+    tree's (K1 but the QDense layers', one grouped K2, K5 = the BLSTMs' 8 QDense, K7 = their 8 QLSTMs: H 192 on the
+    cluster route at index 4, H 384 on the blocks route at index 5) and the plan's; the folded model ``torch.equal``
+    with no weight launch; ``auto`` the folded model; each engine's median of HDL_REPS forwards by CUDA events.
+84. K7 at the forward's BLSTM shapes on both routes against its plain version (LSTM_TOL), their times, bounds and
+    cuDNN's bidirectional ``nn.LSTM``; K5 at the BLSTMs' shapes (phase 31's rules); the grouped K2 at the model's
+    weight set, bitwise.
+85. card vs CPU at full width on 1 x 2 s: SNR >= HDL_CARD_VS_CPU_DB per output, or where the card's own floor (the
+    input times 1 + 2^-22) reads below HDL_OWN_FLOOR_DB, within HDL_FLOOR_MARGIN_DB of it; both printed.
+86. ``cac`` off with the EM Wiener output stage and ``multi_freqs`` bands at full width on 1 x 10 s: finite; the
+    Wiener stage on the card against the CPU on the same complex inputs at HDL_WIENER_DB, its time.
+87. ``python -m fqss_tpu_torch.val --engine auto`` (its ``main``, in this process) on a two-track mini MUSDB: NSDR
+    finite, K7, K5 and K1 launched, the weight kernel only by the fold (auto is the folded model).
 
-The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Without a CUDA device it exits non-zero
-and prints no result.
+The CLI phases (36, 40, 53, 60, 64, 67, 70), each of which waits on processes of its own, are returned by the
+slices that prepare them and run side by side in one batch beside the ranks of 80-82; phase 76 runs beside the ranks
+of 75, 77-79, so the ranks' step times of 75-79 and the tp sums' shares of 80-81 are read on a contended card. The
+line before the last is a JSON summary of the kernels; the last line is ``{"ok": true, "device": {...}}``. Without a
+CUDA device it exits non-zero and prints no result.
 """
 
 from __future__ import annotations
@@ -466,10 +483,12 @@ import concurrent.futures
 import contextlib
 import copy
 import dataclasses
+import io
 import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -737,7 +756,8 @@ MUSIC_CPU_SEG = 2 * MUSIC_SR  # the int8 engines' card-vs-CPU input, 1 x 2 s (th
 MUSIC_PERTURB = 2.0**-22
 MUSIC_FLOOR_RULE = INT8_FLOOR["float32"]
 MUSIC_SHALLOW = {"n_repeats": 1, "n_blocks": 5}  # the card-vs-CPU depth of phases 45 and 47 (5 of 40 blocks)
-MUSIC_THROUGHPUT_REPS = 1  # phase 48: one timed forward of each engine (≈ 2 s) after its warm-up
+MUSIC_THROUGHPUT_REPS = 1  # phase 48: one timed forward of each engine (≈ 2 s), warmed by phases 44-47 but bf16
+MUSIC_STEP_REPS = 2  # phase 51: two timed KD steps (≈ 2.2 s each), warmed by its 8 steps at the same shapes
 # The int8 engines card vs CPU (phase 47) at 1 x 2 s. Phase 13's bounds (INT8_CARD_VS_CPU: the int8 products are exact
 # on both devices) hold for the tiny music model of tests/test_torch_cuda.py, not at this width: on an H100 the
 # float32 engine read 55.3 dB at one block, 47.1 at 3, 37.9 at 6, 27.7 at 10, 22.4 at 20 and 18.7 at 40 (the float
@@ -865,6 +885,11 @@ INT8_ROUTE = ("tensor cores: s8 mma.sync m16n8k32, persistent blocks with the we
               "3-stage cp.async ring, output tiles staged and stored as 16-byte rows")
 
 
+# Forwards timed after the warm-up by phases 7, 15, 70 (the flagship at 32 x 12 s, 0.58-0.99 s a forward) and 40-42
+# (in_turns): 2 (3 before; phase 7's and phase 70's readings of the same forward sat within 0.1% of each other).
+THROUGHPUT_REPS = 2
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
 
@@ -896,9 +921,11 @@ def side_by_side(*calls) -> None:
             future.result()
 
 
-def cuda_ms(fn, n: int) -> float:
-    """Mean milliseconds of ``fn()`` over n calls, by CUDA events, after a warm-up."""
-    fn()
+def cuda_ms(fn, n: int, warm: bool = True) -> float:
+    """Mean milliseconds of ``fn()`` over n calls, by CUDA events, after a warm-up (``warm=False``: ``fn`` has just
+    run at the same shapes)."""
+    if warm:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(n):
@@ -2807,9 +2834,9 @@ def shallow_state(cfg: dict, state: TrainState, **cut) -> tuple[dict, TrainState
     return cfg, TrainState(shallow(state.model), None, shallow(state.teacher))
 
 
-def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
+def train_models(dev, smi: str) -> tuple[dict, dict, dict, list]:
     """Phases 31-36, the DPTNet and Sepformer training path (phase 34 last, on phase 33's states). Returns (K5
-    results, K5-bwd results, the launches of phase 33's runs)."""
+    results, K5-bwd results, the launches of phase 33's runs, phase 36's two recipe processes for the CLI batch)."""
     shapes = dense_train_shapes(DPT_TRAIN_SEG, SEP_TRAIN_SEG)
     dense_fwd, dense_bwd = check_dense_kernels(dev, shapes)  # 31.
     dpt = create_model(DPTNET_CFG, QuantSpec())
@@ -2827,17 +2854,16 @@ def train_models(dev, smi: str) -> tuple[dict, dict, dict]:
         del state
         torch.cuda.empty_cache()
         clock(f"35 {name}")
-    # 36., the two recipes' processes side by side
-    side_by_side(lambda: recipe_epoch("DPTNet", "asteroid", DPTNET_CFG, RECIPE_SECONDS),
-                 lambda: recipe_epoch("Sepformer", "speechbrain", SEPFORMER_CFG, RECIPE_SECONDS))
-    clock("36")
+    # 36., the two recipes' processes, for the CLI batch
+    recipes = [lambda: recipe_epoch("DPTNet", "asteroid", DPTNET_CFG, RECIPE_SECONDS),
+               lambda: recipe_epoch("Sepformer", "speechbrain", SEPFORMER_CFG, RECIPE_SECONDS)]
     dpt_cfg, after_window["DPTNet"] = shallow_dptnet(after_window["DPTNet"], DPT_CPU_LAYERS)
     sep_cfg, after_window["Sepformer"] = shallow_state(SEPFORMER_CFG, after_window["Sepformer"], **SEP_CPU_CUT)
     for name, cfg in ((f"DPTNet (its first {DPT_CPU_LAYERS} dual-path layers)", dpt_cfg),
                       (f"Sepformer (its first of {SEPFORMER_CFG.get('n_repeats', 2)} blocks)", sep_cfg)):
         train_card_vs_cpu(dev, name, cfg, after_window[name.split()[0]])  # 34., from phase 33's state
         clock(f"34 {name.split()[0]}")
-    return dense_fwd, dense_bwd, launches
+    return dense_fwd, dense_bwd, launches, recipes
 
 
 def qmatmul_case(dev, b: int, k: int, t: int, n: int, gen: torch.Generator) -> tuple:
@@ -3107,12 +3133,12 @@ def infer_cli_request(name: str, state: dict | None, model_cfg: dict, engine: st
 
 
 def in_turns(models: dict, x: torch.Tensor) -> dict:
-    """ms per forward of each model (CUDA events, 3 forwards after a warm-up), in turns: the models in order, then
-    in reverse order; the mean of the two readings each."""
+    """ms per forward of each model (CUDA events, THROUGHPUT_REPS forwards after a warm-up), in turns: the models in
+    order, then in reverse order; the mean of the two readings each."""
     times = {name: [] for name in models}
     for name in [*models, *reversed(list(models))]:
         with torch.inference_mode():
-            times[name].append(cuda_ms(lambda: models[name](x), 3))
+            times[name].append(cuda_ms(lambda: models[name](x), THROUGHPUT_REPS))
     return {name: sum(t) / len(t) for name, t in times.items()}
 
 
@@ -3181,11 +3207,12 @@ def serve_bf16_model(dev, smi: str, phase: int, name: str, f32: torch.nn.Module,
     return launches
 
 
-def serve_bf16(dev, smi: str, states: dict) -> tuple[list, list, list]:
+def serve_bf16(dev, smi: str, states: dict) -> tuple[list, list, list, list, object]:
     """Phases 40-42: the flagship (ConvTasNet FQSS-8bit, bench.py's bf16 configuration) at 32 x 12 s with one
     request through python -m fqss_tpu_torch.infer, then DPTNet and the Sepformer at 8 x 4 s, each in bf16 compute
     with the weights and ranges of its float32 phases. Returns the K5 and K3 shapes the forwards gave their bf16
-    routes (name, shape..., launches a forward), the K8 shapes, and each forward's launches."""
+    routes (name, shape..., launches a forward), the K8 shapes, each forward's launches, and phase 40's request for
+    the CLI batch."""
     records, attn_shapes, launches = [], [], []
     # 40. the flagship
     mix, _ = synth_batch(np.random.default_rng(0), BATCH, 2, SEG)
@@ -3200,9 +3227,11 @@ def serve_bf16(dev, smi: str, states: dict) -> tuple[list, list, list]:
     launches.append(serve_bf16_model(dev, smi, 40, "ConvTasNet", *models, mix, want, records))
     del models
     torch.cuda.empty_cache()
-    sec = infer_cli_request("ConvTasNet", states["ConvTasNet"], bf16_cfg(MODEL_CFG), "folded")
-    log(f"[40] python -m fqss_tpu_torch.infer --engine folded with compute_dtype bfloat16: 20 s mixture -> 2 sources "
-        f"of 20 s in {sec:.1f} s (the process, the model's build and the kernels' load included)")
+    def bf16_request(state: dict = states["ConvTasNet"]) -> None:  # for the CLI batch
+        sec = infer_cli_request("ConvTasNet", state, bf16_cfg(MODEL_CFG), "folded")
+        log(f"[40] python -m fqss_tpu_torch.infer --engine folded with compute_dtype bfloat16: 20 s mixture -> 2 "
+            f"sources of 20 s in {sec:.1f} s (the process, the model's build and the kernels' load included; in the "
+            f"CLI batch)")
 
     # 41-42. DPTNet and the Sepformer
     for phase, name, cfg, batch, seg, shapes_of in ((41, "DPTNet", DPTNET_CFG, DPT_BATCH, DPT_SEG,
@@ -3230,7 +3259,7 @@ def serve_bf16(dev, smi: str, states: dict) -> tuple[list, list, list]:
         torch.cuda.empty_cache()
     k5 = per_forward([r for k5_seen, _ in records for r in k5_seen])
     k3 = per_forward([r for _, k3_seen in records for r in k3_seen])
-    return k5, k3, attn_shapes, launches
+    return k5, k3, attn_shapes, launches, bf16_request
 
 
 def bf16_library(batched: bool) -> str | None:
@@ -3576,8 +3605,8 @@ def music_forwards(dev, smi: str) -> tuple:
     throughput = {}
     for name, engine in (("fake_quant", served), ("folded", folded), ("int8 float32", engines["float32"]),
                          ("int8 bfloat16", engines["bfloat16"]), ("fake_quant bf16", bf16)):
-        with torch.inference_mode():
-            ms = cuda_ms(lambda: engine(x), MUSIC_THROUGHPUT_REPS)
+        with torch.inference_mode():  # all but the bf16 model ran on x in phases 44-47
+            ms = cuda_ms(lambda: engine(x), MUSIC_THROUGHPUT_REPS, warm=name == "fake_quant bf16")
         throughput[name] = ms
         log(f"[48] music throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
             f"{MUSIC_BATCH} x {MUSIC_SEG / MUSIC_SR:g} s stereo) on {smi}")
@@ -3710,7 +3739,7 @@ def music_training(dev, smi: str) -> dict:
     torch.cuda.synchronize()
     base = torch.cuda.memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
-    ms = cuda_ms(lambda: step(state, stems, gen), 3)
+    ms = cuda_ms(lambda: step(state, stems, gen), MUSIC_STEP_REPS, warm=False)
     peak = torch.cuda.max_memory_allocated(dev)
     audio_s = batch * MUSIC_TRAIN_SEG / MUSIC_SR
     log(f"[51] music train step {batch} x {MUSIC_TRAIN_SEG / MUSIC_SR:g} s: {ms:.1f} ms per step, "
@@ -4159,7 +4188,7 @@ def serve_htdemucs(dev, smi: str) -> dict:
     out["k5"], out["k5_gelu"] = check_htdemucs_dense(dev, records)
     out["k4"], out["k4_gelu"] = check_htdemucs_int8(dev, records)
     torch.cuda.empty_cache()
-    htdemucs_evaluation(dev, out["state"])  # 60.
+    out["cli"] = lambda state=out["state"]: htdemucs_evaluation(dev, state)  # 60., for the CLI batch
     return out
 
 
@@ -4637,11 +4666,12 @@ def kd_step_from_pretrained(dev, env: str, tmp: str) -> dict:
     return got
 
 
-def checkpoint_import(dev, states: dict) -> dict:
+def checkpoint_import(dev, states: dict, keep: str) -> tuple[dict, object]:
     """Phases 65-68, the checkpoint-import slice at full width: reference ``.pth`` files and JAX ``.npz`` exports of
     the five models through ``create_pretrained_model``, ``python -m fqss_tpu_torch.infer`` on the flagship's
     ``.npz``, and a KD step of ``-env asteroid`` and ``-env htdemucs`` from a reference ``pretrained:``. Returns the
-    launches of the imported forwards and steps, summed."""
+    launches of the imported forwards and steps, summed, and phase 67's requests for the CLI batch, which read the
+    flagship's ``.npz`` from ``keep``."""
     total: dict = {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in IMPORT_CFGS:  # 65.
@@ -4652,17 +4682,21 @@ def checkpoint_import(dev, states: dict) -> dict:
             paths[name], got = import_jax_npz(dev, name, states[name], tmp)
             total = {k: total.get(k, 0) + v for k, v in got.items()}
             torch.cuda.empty_cache()
-        def request(engine: str) -> None:  # 67., the two processes side by side
-            sec = infer_cli_request("ConvTasNet", None, MODEL_CFG, engine, model_path=paths["ConvTasNet"])
-            log(f"[67] python -m fqss_tpu_torch.infer --engine {engine} with model_cfg.model_path the flagship's .npz: "
-                f"a 20 s mixture -> 2 sources of 20 s, finite, in {sec:.1f} s (the process included, beside the "
-                f"other engine's)")
+        npz = shutil.copy(paths["ConvTasNet"], keep)  # the flagship's .npz for phase 67, run after this slice
 
-        side_by_side(lambda: request("folded"), lambda: request("int8"))
+        def requests() -> None:  # 67., the two processes side by side
+            def request(engine: str) -> None:
+                sec = infer_cli_request("ConvTasNet", None, MODEL_CFG, engine, model_path=npz)
+                log(f"[67] python -m fqss_tpu_torch.infer --engine {engine} with model_cfg.model_path the flagship's "
+                    f".npz: a 20 s mixture -> 2 sources of 20 s, finite, in {sec:.1f} s (the process included, in "
+                    f"the CLI batch)")
+
+            side_by_side(lambda: request("folded"), lambda: request("int8"))
+
         for env in ("asteroid", "htdemucs"):  # 68.
             got = kd_step_from_pretrained(dev, env, tmp)
             total = {k: total.get(k, 0) + v for k, v in got.items()}
-    return total
+    return total, requests
 
 
 def quantizer_kinds(model) -> dict:
@@ -4841,9 +4875,9 @@ def variant_state(dev, cfg: dict = VARIANT_CFG) -> tuple[TrainState, dict]:
     return state, {"launches": launches, "calibration_s": cal_s, "calibrated": n_cal}
 
 
-def serve_variants(dev, smi: str, state: dict) -> dict:
+def serve_variants(dev, smi: str, state: dict, keep: str) -> tuple[dict, object]:
     """Phase 70: the calibrated flagship of phase 69 (``state``) served at 32 x 12 s. Returns the forward's
-    launches."""
+    launches, and the request for the CLI batch, which reads the state as a JAX ``.npz`` from ``keep``."""
     served = create_pretrained_model(VARIANT_CFG, observer=False, device=dev)
     served.load_state_dict(state)
     counts = count_quantizers(served.modules())
@@ -4896,7 +4930,7 @@ def serve_variants(dev, smi: str, state: dict) -> dict:
     audio_s = BATCH * SEG / SR
     for name, model in (("fake_quant", served), ("folded", folded)):
         with torch.inference_mode():
-            ms = cuda_ms(lambda: model(x), 3)
+            ms = cuda_ms(lambda: model(x), THROUGHPUT_REPS)
         log(f"[70] throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of {BATCH} x "
             f"{SEG // SR} s) on {smi}")
     del folded, y_folded, y, x
@@ -4914,13 +4948,16 @@ def serve_variants(dev, smi: str, state: dict) -> dict:
     by_kind = {k: list(kinds(grids)).count(k) for k in ("per_tensor", "per_channel", "mulaw")}
     if by_kind["mulaw"] != 2 or by_kind["per_channel"] != counts["weight"]:
         raise AssertionError(f"deploy grids {by_kind}")
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "variant.npz")
-        size = write_jax_npz(path, "ConvTasNet", state)
+    path = os.path.join(keep, "variant.npz")
+    size = write_jax_npz(path, "ConvTasNet", state)
+
+    def request() -> None:  # for the CLI batch
         sec = infer_cli_request("variant", None, VARIANT_CFG, "auto", model_path=path)
-    log(f"[70] deploy grids of export_quantizer_grids: {by_kind}; python -m fqss_tpu_torch.infer --engine auto on the "
-        f"state as a JAX .npz ({size / 1e6:.1f} MB): 20 s mixture -> 2 sources in {sec:.1f} s (the process included)")
-    return launches
+        log(f"[70] deploy grids of export_quantizer_grids: {by_kind}; python -m fqss_tpu_torch.infer --engine auto on "
+            f"the state as a JAX .npz ({size / 1e6:.1f} MB): 20 s mixture -> 2 sources in {sec:.1f} s (the process "
+            f"included, in the CLI batch)")
+
+    return launches, request
 
 
 def res_dec_dptnet(dev, smi: str) -> dict:
@@ -5027,16 +5064,17 @@ def res_dec_dptnet(dev, smi: str) -> dict:
             "group_bwd": group_bwd[name]}
 
 
-def quant_variants(dev, smi: str) -> dict:
+def quant_variants(dev, smi: str, keep: str) -> dict:
     """Phases 69-71. Returns each kernel counter's launches over the three phases' runs that it checks (phase 69's
     steps, phase 70's forward, phase 71's steps, serving forward and int8 forward; each kernel of the slice's path
-    launched at least once) and phase 71's grouped weight results."""
+    launched at least once), phase 71's grouped weight results and phase 70's request for the CLI batch (its file in
+    ``keep``)."""
     state, trained = variant_training(dev)  # 69.
     calibrated = state_on_cpu(state.model)
     del state
     torch.cuda.empty_cache()
     clock("69")
-    served = serve_variants(dev, smi, calibrated)  # 70.
+    served, request = serve_variants(dev, smi, calibrated, keep)  # 70.
     clock("70")
     res_dec = res_dec_dptnet(dev, smi)  # 71.
     clock("71")
@@ -5047,7 +5085,7 @@ def quant_variants(dev, smi: str) -> dict:
     if not all(launches[k] for k in path):
         raise AssertionError(f"phases 69-71 launched no {[k for k in path if not launches[k]]}")
     return {"launches": launches, "res_dec": res_dec, "calibration_s": trained["calibration_s"],
-            "mulaw": trained["mulaw"]}
+            "mulaw": trained["mulaw"], "cli": request}
 
 
 def static_bound(dirs: int, T: int, B: int, H: int) -> tuple[int, int]:
@@ -5401,6 +5439,347 @@ def lstm_modes(dev, smi: str, dpt_state: dict) -> dict:
     clock("74")
     return {"k6": k6, "k7": k7, "train": train_run, "serve": served["serve"], "int8": served["int8"],
             "ms": served["ms"], "dynamic": dynamic}
+
+
+# ---------------------------------------------------------------------------------------------------------------
+# 83-87. the legacy hybrid Demucs (HDemucsLegacy, fqss_tpu_torch/models/hdemucs.py) serving slice
+# ---------------------------------------------------------------------------------------------------------------
+
+# JAX's keys and defaults (fqss_tpu/models/hdemucs.py:119-152: 4 stems, stereo, 48 channels, depth 6, nfft 4096,
+# dconv_comp 4, BLSTM and LocalState from index 4, cac, 44.1 kHz, 10 s segments) under the flagship's FQSS-8bit spec.
+HDL_CFG = {"name": "HDemucsLegacy", "model_path": None, "sources": MUSIC_CFG["sources"], "audio_channels": 2,
+           "quantization": {**MUSIC_CFG["quantization"], "max_observations": 3}}
+HDL_SR, HDL_BATCH, HDL_SEG = 44100, 4, 10 * 44100  # phase 83: 4 x 10 s stereo
+HDL_OBSERVE = (HDL_BATCH, HDL_SEG, 3)  # the ranges: a 3-step observer window over 4 x 10 s of stems
+HDL_REPS = 3  # each engine's time: the median of 3 forwards (CUDA events) after a warm-up
+# Launches a forward, from the plan: the BLSTMs sit in the two DConv layers of the encoders at indices 4 (frequency,
+# H = 768 / 4 = 192: the cluster route) and 5 (time, H = 1536 / 4 = 384: the blocks route), two QLSTMs (K7) and two
+# QDense (proj_0, linear: K5) each.
+HDL_PREDICTED = {"bilstm": 8, "dense": 8}
+HDL_CPU_SEG = 2 * HDL_SR  # phase 85: card vs CPU on 1 x 2 s
+HDL_CARD_VS_CPU_DB = 20.0  # per output
+HDL_OWN_FLOOR_DB, HDL_FLOOR_MARGIN_DB = 23.0, 3.0  # below a 23 dB own floor: card vs CPU within 3 dB of it
+# Phase 86: the magnitude model with the EM Wiener output stage and MultiWrap bands (JAX's test config,
+# tests/test_hdemucs_legacy.py:90); its band decoders take no combiner (the JAX forward raises with n_combiner 2).
+HDL_WIENER_CFG = {**HDL_CFG, "cac": False, "wiener_iters": 1, "multi_freqs": [0.5],
+                  "quantization": {**HDL_CFG["quantization"], "n_combiner": 1, "observer": False}}
+HDL_WIENER_DB = 60.0  # the Wiener stage card vs CPU on the same complex inputs
+HDL_VAL_SECONDS, HDL_VAL_SEGMENT = 6, 3 * 44100  # phase 87: two 6 s tracks, OLA chunks of 3 s
+
+
+def hdemucs_legacy_launches(model) -> dict:
+    """A serving forward's launches: K1 per act quantizer module but the QDense layers' (K5 applies their grids), one
+    grouped weight launch, K5 per QDense, K7 per QLSTM; LocalState's 1x1 convs have a bias (not K3's function)."""
+    dense = dense_quantizers(model)
+    lstms = sum(isinstance(m, QLSTM) for m in model.modules())
+    return no_launches(act=count_quantizers(model.modules())["act"] - dense["act"], weight=1, dense=dense["dense"],
+                       bilstm=lstms)
+
+
+def record_blstm_shapes(model) -> tuple[list, list]:
+    """Hooks that record, per call, ("lstm", T, B', H) of every QLSTM and ("dense", M, K, N) of every QDense."""
+    seen = []
+
+    def lstm(mod, args):
+        seen.append(("lstm", args[0].shape[1], args[0].shape[0], mod.fw.w_hh.shape[0]))
+
+    def dense(mod, args):
+        seen.append(("dense", args[0].numel() // args[0].shape[-1], *mod.weight.shape[::-1]))
+
+    handles = [m.register_forward_pre_hook(lstm if isinstance(m, QLSTM) else dense)
+               for m in model.modules() if isinstance(m, (QLSTM, QDense))]
+    return seen, handles
+
+
+def build_served_hdemucs_legacy(dev) -> torch.nn.Module:
+    """HDL_CFG's model from ``create_model`` on a seeded generator, its ranges from the config's observer window over
+    HDL_OBSERVE's stems, returned in eval() mode with the observer off."""
+    batch, length, steps = HDL_OBSERVE
+    model = create_model(HDL_CFG, generator=torch.Generator().manual_seed(83)).to(dev).train()
+    if model.q.max_observations != steps:
+        raise AssertionError(f"the config's observer window is {model.q.max_observations} steps, not {steps}")
+    x = torch.from_numpy(htdemucs_mix(83, batch, length)).to(dev)
+    with torch.no_grad():
+        for _ in range(steps):
+            model(x)
+    served = create_model(HDL_CFG, dataclasses.replace(model.q, observer=False))
+    served.load_state_dict(model.state_dict())
+    return served.to(dev).eval()
+
+
+def hdemucs_legacy_forwards(dev, smi: str) -> dict:
+    """Phase 83: the fake-quant forward, the folded model and ``auto`` at HDL_BATCH x 10 s, each timed, with the
+    launches of each against the module tree's and the plan's. Returns the served model, the recorded shapes and
+    the launches."""
+    served = build_served_hdemucs_legacy(dev)
+    want = hdemucs_legacy_launches(served)
+    predicted = {k: want[k] for k in HDL_PREDICTED}
+    if predicted != HDL_PREDICTED:
+        raise AssertionError(f"HDemucsLegacy's module tree gives {predicted}, the plan {HDL_PREDICTED}")
+    n_params = sum(p.numel() for n, p in served.named_parameters() if "fake_quantize" not in n)
+    x = torch.from_numpy(htdemucs_mix(830, HDL_BATCH, HDL_SEG)).to(dev)
+    records, handles = record_blstm_shapes(served)
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        y = served(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = all_launches()
+    for h in handles:
+        h.remove()
+    shape = (HDL_BATCH, served.n_srcs, served.audio_channels, HDL_SEG)
+    if tuple(y.shape) != shape or not torch.isfinite(y).all():
+        raise AssertionError(f"HDemucsLegacy forward gave shape {tuple(y.shape)}, "
+                             f"finite={bool(torch.isfinite(y).all())}")
+    if launches != want:
+        raise AssertionError(f"HDemucsLegacy forward launches {launches} != {want}")
+    lstm_calls = sorted({r[1:] for r in records if r[0] == "lstm"}, key=lambda s: s[2])
+    log(f"[83] HDemucsLegacy at JAX's defaults ({n_params} parameters; ranges from the config's {HDL_OBSERVE[2]}-step "
+        f"observer window over {HDL_OBSERVE[0]} x {HDL_OBSERVE[1]} stereo samples): {tuple(x.shape)} -> "
+        f"{tuple(y.shape)}, finite, first call {first_s:.2f} s, peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches "
+        f"{', '.join(f'{k}={v}' for k, v in launches.items() if v)} (K1 = act quantizers but the QDense layers', one "
+        f"grouped weight launch, K5 = the BLSTMs' proj_0 and linear, K7 = their QLSTMs at T x B' x H "
+        + ", ".join(f"{t} x {b} x {h} ({plan_text(dev, b, h, 2)})" for t, b, h in lstm_calls)
+        + f"; the plan's {HDL_PREDICTED}), all others 0")
+    with torch.inference_mode():
+        times = {"fake_quant": median_ms(lambda: served(x), HDL_REPS)}
+    folded = fold_quantized_weights(served)
+    reset_all_launches()
+    with torch.inference_mode():
+        y_folded = folded(x)
+    torch.cuda.synchronize()
+    if all_launches() != {**want, "weight": 0} or not torch.equal(y_folded, y):
+        raise AssertionError(f"HDemucsLegacy folded: launches {all_launches()}, max |diff| "
+                             f"{(y_folded - y).abs().max()}")
+    del y_folded
+    with torch.inference_mode():
+        times["folded"] = median_ms(lambda: folded(x), HDL_REPS)
+    auto = auto_serving_model(served)
+    reset_all_launches()
+    with torch.inference_mode():
+        y_auto = auto(x)
+    torch.cuda.synchronize()
+    is_folded = (type(auto) is type(served) and auto.q.weight_quant is False
+                 and not any(isinstance(m, WeightQuantizer) for m in auto.modules()))
+    if not is_folded or all_launches() != {**want, "weight": 0} or not torch.equal(y_auto, y):
+        raise AssertionError(f"HDemucsLegacy auto: folded {is_folded}, launches {all_launches()}")
+    del y_auto
+    with torch.inference_mode():
+        times["auto"] = median_ms(lambda: auto(x), HDL_REPS)
+    audio_s = HDL_BATCH * HDL_SEG / HDL_SR
+    log(f"[83] HDemucsLegacy folded: bitwise equal to fake-quant, no weight-kernel launch, K5 {want['dense']} and K7 "
+        f"{want['bilstm']}; --engine auto gives the folded model (the table names no HDemucsLegacy: "
+        f"DEFAULT_PATH), bitwise equal, the same launches")
+    log(f"[83] HDemucsLegacy at {HDL_BATCH} x {HDL_SEG // HDL_SR} s, median of {HDL_REPS} (CUDA events): " + ", ".join(
+        f"{k} {v[0]:.1f} ms ({v[1]:.1f}-{v[2]:.1f}; {audio_s / (v[0] / 1000):.1f} sec-audio/s)" for k, v in
+        times.items()) + f" on {smi}")
+    del folded, auto, y
+    torch.cuda.empty_cache()
+    return {"served": served, "records": records, "launches": launches, "times": times}
+
+
+def check_hdemucs_legacy_lstm(dev, records: list) -> dict:
+    """Phase 84 (K7): the BLSTMs' recurrences at the forward's shapes, the cluster route (H 192) and the blocks route
+    (H 384), against the plain version (LSTM_TOL); per forward, each route's time, bound, plain time and cuDNN's
+    bidirectional ``nn.LSTM`` on the same shape (its own input projection included)."""
+    gen = torch.Generator(device=dev).manual_seed(84)
+    calls = [r[1:] for r in records if r[0] == "lstm"]
+    out = {}
+    for (T, B, H), count in ((c, calls.count(c)) for c in dict.fromkeys(calls)):
+        route = lk.launch_plan(dev, B, H, 2).route
+        res = out.setdefault(route, {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "launches": 0,
+                                     "moved": 0, "ops": 0, "shapes": []})
+        ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(2)]
+        w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / math.sqrt(H) for _ in range(2)]
+        with torch.no_grad():
+            hf, hb = lk.bilstm_sequence(ih[0], ih[1], w[0], w[1])
+            rf, rb = lk.bilstm_sequence_ref(ih[0], ih[1], w[0], w[1])
+        err = max((hf - rf).abs().max().item(), (hb - rb).abs().max().item())
+        if not err <= LSTM_TOL:
+            raise AssertionError(f"K7 at HDemucsLegacy's T {T} x B' {B} x H {H}: max |kernel - plain| {err} > "
+                                 f"{LSTM_TOL}")
+        ms = cuda_ms(lambda: lk.bilstm_sequence(ih[0], ih[1], w[0], w[1]), 10)
+        plain = median_ms(lambda: lk.bilstm_sequence_ref(ih[0], ih[1], w[0], w[1]), 1)[0]
+        q_bi = QLSTM(H, H, generator=torch.Generator().manual_seed(T)).to(dev)
+        xin = torch.randn(B, T, H, device=dev, generator=gen)
+        with torch.no_grad():
+            cudnn = torch_lstm_like(q_bi)
+            lib = cuda_ms(lambda: cudnn(xin), 5)
+            qlstm_ms = cuda_ms(lambda: q_bi(xin), 5)
+        b = bound_of(*lstm_bound(2, T, B, H), F32_OPS_S)
+        log(f"[84] K7 at HDemucsLegacy's T {T} x B' {B} x H {H} ({plan_text(dev, B, H, 2)}): max |kernel - plain| "
+            f"{err:.3g} (<= {LSTM_TOL}); {ms:.3f} ms ({b['bound_ms'] / ms:.1%} of its {b['bound_ms']:.4f} ms bound by "
+            f"{b['bound_by']}), plain {plain:.1f} ms, cuDNN nn.LSTM bidirectional {lib:.3f} ms (its projection "
+            f"included), the port's QLSTM (projection + K7) {qlstm_ms:.3f} ms; {count} a forward")
+        moved, ops = lstm_bound(2, T, B, H)
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("moved", moved), ("ops", ops)):
+            res[key] += count * val
+        res["max_abs_err"] = max(res["max_abs_err"], err)
+        res["launches"] += count
+        res["shapes"].append(f"T {T} x B' {B} x H {H}")
+        del ih, w, hf, hb, rf, rb, q_bi, cudnn, xin
+    if set(out) != {"cluster", "blocks"}:
+        raise AssertionError(f"HDemucsLegacy's K7 launches took the routes {sorted(out)}, not the cluster and blocks")
+    for route, res in out.items():
+        res.update(bound_of(res.pop("moved"), res.pop("ops"), F32_OPS_S))
+        log(f"[84] one HDemucsLegacy forward's {res['launches']} K7 launches on the {route} route: {res['ms']:.3f} ms "
+            f"against a {res['bound_ms']:.4f} ms bound by {res['bound_by']} ({res['bound_ms'] / res['ms']:.1%}), plain "
+            f"{res['plain_ms']:.1f} ms, cuDNN {res['library_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    return out
+
+
+def check_hdemucs_legacy_dense(dev, records: list) -> dict:
+    """Phase 84 (K5): the BLSTMs' proj_0 and linear at the forward's shapes, every grid and observing-flag
+    combination with planted ties (phase 31's rules); per forward, the serving call's time (the act grid on, the
+    weight grid the pass's), the plain version's and the library call's (addmm + K1)."""
+    gen = torch.Generator(device=dev).manual_seed(841)
+    calls = [r[1:] for r in records if r[0] == "dense"]
+    res = {"max_abs_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "launches": 0, "moved": 0, "ops": 0}
+    for (m, k, n), count in ((c, calls.count(c)) for c in dict.fromkeys(calls)):
+        case = dense_case(dev, m, k, n, gen)
+        for flags in DENSE_FLAGS:
+            res["max_abs_err"] = max(res["max_abs_err"], check_dense_forward(
+                f"HDemucsLegacy [{m},{k}]x[{n},{k}] {flags}", dense_args(case, flags)))
+        x, w, b, _, _, a_mn, a_mx = case
+        ms = cuda_ms(lambda: qd.qat_dense(x, w, b, a_mn=a_mn, a_mx=a_mx), 10)
+        plain = cuda_ms(lambda: qd.qat_dense_ref(x, w, b, a_mn=a_mn, a_mx=a_mx), 10)
+        lib = cuda_ms(lambda: fq.act_fake_quant(torch.addmm(b, x, w.t()), a_mn, a_mx, 8), 10)
+        (fb, fo), _ = dense_bounds(m, k, n)
+        log(f"[84] K5 at HDemucsLegacy's BLSTM [{m},{k}] x [{n},{k}]: every grid and observing-flag combination "
+            f"({len(DENSE_FLAGS)}) within its bounds, planted ties and clip extremes included; {ms:.4f} ms "
+            f"({rate_and_shares(fb, fo, ms)}), plain {plain:.4f}, addmm + K1 {lib:.4f}; {count} a forward")
+        for key, val in (("ms", ms), ("plain_ms", plain), ("library_ms", lib), ("moved", fb), ("ops", fo)):
+            res[key] += count * val
+        res["launches"] += count
+        del case, x, w
+    res.update(bound_of(res["moved"], res["ops"], F32_OPS_S), **route_bound(res.pop("moved"), res.pop("ops")))
+    log(f"[84] one HDemucsLegacy forward's {res['launches']} K5 launches: {res['ms']:.3f} ms against a "
+        f"{res['bound_ms']:.4f} ms bound by {res['bound_by']} ({res['bound_ms'] / res['ms']:.1%}), plain "
+        f"{res['plain_ms']:.3f} ms, library {res['library_ms']:.3f} ms")
+    return res
+
+
+def hdemucs_legacy_card_vs_cpu(dev, served) -> dict:
+    """Phase 85: card vs CPU at full width on 1 x 2 s, SNR >= HDL_CARD_VS_CPU_DB per output; where the card's own
+    floor (the same forward on the input times 1 + 2^-22) reads below HDL_OWN_FLOOR_DB, within HDL_FLOOR_MARGIN_DB of
+    it. Both figures are printed; a miss raises."""
+    x1 = torch.from_numpy(htdemucs_mix(85, 1, HDL_CPU_SEG))
+    cpu_model = create_model(HDL_CFG, served.q)
+    cpu_model.load_state_dict(state_on_cpu(served))
+    cpu_model.eval()
+    with torch.inference_mode():
+        y_card = served(x1.to(dev)).cpu()
+        y_own = served(x1.to(dev) * (1 + MUSIC_PERTURB)).cpu()
+        t0 = time.perf_counter()
+        y_cpu = cpu_model(x1)
+        cpu_s = time.perf_counter() - t0
+    own, snr = snr_db(y_card, y_own), snr_db(y_cpu, y_card)
+    floor = own.min().item()
+    rule = HDL_CARD_VS_CPU_DB if floor >= HDL_OWN_FLOOR_DB else min(HDL_CARD_VS_CPU_DB, floor - HDL_FLOOR_MARGIN_DB)
+    log(f"[85] HDemucsLegacy card vs CPU at full width on {tuple(x1.shape)}: SNR "
+        f"{snr.min().item():.2f}-{snr.max().item():.2f} dB per output; the card against itself on the input times "
+        f"(1 + 2^-22): {floor:.2f}-{own.max().item():.2f} dB; rule: >= {HDL_CARD_VS_CPU_DB} dB, or within "
+        f"{HDL_FLOOR_MARGIN_DB} dB of an own floor below {HDL_OWN_FLOOR_DB} dB: >= {rule:.2f} dB (the CPU's forward "
+        f"{cpu_s:.1f} s)")
+    if not bool((snr >= rule).all()):
+        raise AssertionError(f"HDemucsLegacy card vs CPU: SNR {snr.flatten().tolist()} dB, rule >= {rule:.2f} dB "
+                             f"(own floor {floor:.2f} dB)")
+    return {"snr_min": snr.min().item(), "own_floor": floor}
+
+
+def hdemucs_legacy_wiener(dev, smi: str) -> dict:
+    """Phase 86: HDL_WIENER_CFG (cac off, the EM Wiener stage, MultiWrap bands) at full width on 1 x 10 s: the output
+    finite; the Wiener stage on the card against the CPU on the same complex inputs (SNR >= HDL_WIENER_DB), its
+    time."""
+    model = create_model(HDL_WIENER_CFG, generator=torch.Generator().manual_seed(86)).to(dev).eval()
+    x = torch.from_numpy(htdemucs_mix(86, 1, HDL_SEG)).to(dev)
+    seen = []
+    real = model._wiener
+    model._wiener = lambda mag, z: seen.append((mag, z)) or real(mag, z)
+    reset_all_launches()
+    try:
+        with torch.inference_mode():
+            y = model(x)
+        torch.cuda.synchronize()
+    finally:
+        del model._wiener
+    launches = all_launches()
+    if tuple(y.shape) != (1, model.n_srcs, 2, HDL_SEG) or not torch.isfinite(y).all() or len(seen) != 1:
+        raise AssertionError(f"HDemucsLegacy (Wiener, bands) gave {tuple(y.shape)}, finite "
+                             f"{bool(torch.isfinite(y).all())}, {len(seen)} Wiener calls")
+    mag, z = seen[0]
+    with torch.inference_mode():
+        card = model._wiener(mag, z)
+        cpu = model._wiener(mag.cpu(), z.cpu())
+        ms = cuda_ms(lambda: model._wiener(mag, z), 3)
+    card = card.cpu()
+    snr = 10 * math.log10(float(cpu.abs().pow(2).sum() / (card - cpu).abs().pow(2).sum()))
+    if card.dtype != torch.complex64 or not snr >= HDL_WIENER_DB:
+        raise AssertionError(f"the Wiener stage card vs CPU: {card.dtype}, SNR {snr:.2f} dB (< {HDL_WIENER_DB})")
+    log(f"[86] HDemucsLegacy with cac off, wiener_iters 1 and multi_freqs (0.5,) (n_combiner 1) at full width "
+        f"{tuple(x.shape)} -> {tuple(y.shape)}, finite; launches "
+        f"{', '.join(f'{k}={v}' for k, v in launches.items() if v)}; the EM Wiener stage (magnitudes "
+        f"{tuple(mag.shape)}, windows of 300 frames, complex64) card vs CPU on the same inputs: SNR {snr:.2f} dB (>= "
+        f"{HDL_WIENER_DB}); {ms:.2f} ms a call on the card on {smi}")
+    del model, y, mag, z, card
+    torch.cuda.empty_cache()
+    return {"wiener_ms": ms, "wiener_snr": snr}
+
+
+def hdemucs_legacy_val(dev, served) -> dict:
+    """Phase 87: ``python -m fqss_tpu_torch.val --engine auto`` (its ``main``, in this process, so that the launch
+    counters see it) on a two-track mini MUSDB that ``make_mini_musdb`` writes at HDL_SR, the served weights and
+    ranges as the config's model_path: NSDR finite, the kernels launched (K7, K5, K1), the weight kernel only by the
+    fold (one per-tensor launch a weight quantizer: auto is the folded model, whose forwards launch none)."""
+    n_weight = count_quantizers(served.modules())["weight"]
+    with tempfile.TemporaryDirectory() as tmp:
+        root = make_mini_musdb(os.path.join(tmp, "musdb"), n_train=0, n_test=2, sample_rate=HDL_SR,
+                               seconds=HDL_VAL_SECONDS, seed=87)
+        ckpt = os.path.join(tmp, "hdemucs_legacy.pt")
+        torch.save(state_on_cpu(served), ckpt)
+        cfg = os.path.join(tmp, "hdemucs_legacy.json")
+        with open(cfg, "w") as f:
+            json.dump({"model_cfg": {**HDL_CFG, "model_path": ckpt}, "dataset_cfg": {"name": "musdbhq"},
+                       "testing_cfg": {"test_dir": root, "NSDR": True, "segment_samples": HDL_VAL_SEGMENT,
+                                       "overlap": 0.25}}, f)
+        out = io.StringIO()
+        reset_all_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            val.main(["-y", cfg, "--engine", "auto"])
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+    launches = all_launches()
+    line = out.getvalue().strip().splitlines()[-1]
+    nsdr = {k.lower(): float(v) for k, v in (kv.split("=") for kv in line.split(","))}
+    idle = [k for k in ("act", "bilstm", "dense") if not launches[k]]
+    if not np.isfinite(list(nsdr.values())).all() or idle or launches["weight"] != n_weight:
+        raise AssertionError(f"HDemucsLegacy val: {line}; launches {launches} (the fold's weight launches: "
+                             f"{n_weight})")
+    log(f"[87] python -m fqss_tpu_torch.val --engine auto (main, in this process) with HDemucsLegacy on a mini MUSDB "
+        f"of 2 tracks of {HDL_VAL_SECONDS} s (chunks of {HDL_VAL_SEGMENT} samples, unpadded), on the card: {line} in "
+        f"{seconds:.1f} s; launches {', '.join(f'{k}={v}' for k, v in launches.items() if v)} (weight: the fold's "
+        f"per-tensor launches, one for each of the {n_weight} weight quantizers; the folded forwards launch none)")
+    return {"launches": launches, "nsdr": nsdr}
+
+
+def serve_hdemucs_legacy(dev, smi: str) -> dict:
+    """Phases 83-87, the legacy HDemucs serving slice; returns what the kernels line needs."""
+    out = hdemucs_legacy_forwards(dev, smi)  # 83.
+    out["k7"] = check_hdemucs_legacy_lstm(dev, out["records"])  # 84.
+    out["k5"] = check_hdemucs_legacy_dense(dev, out["records"])
+    out["groups"], _ = check_weight_groups(
+        dev, {"HDemucsLegacy": create_model(HDL_CFG, generator=torch.Generator().manual_seed(84)).to(dev)}, phase=84)
+    torch.cuda.empty_cache()
+    out["card_vs_cpu"] = hdemucs_legacy_card_vs_cpu(dev, out["served"])  # 85.
+    out["wiener"] = hdemucs_legacy_wiener(dev, smi)  # 86.
+    out["val"] = hdemucs_legacy_val(dev, out.pop("served"))  # 87.
+    torch.cuda.empty_cache()
+    return out
 
 
 # ---------------------------------------------------------------------------------------------------------------
@@ -5763,7 +6142,7 @@ def fsdp_against_ddp(ranks: list[dict], one: dict, smi: str) -> None:
         f"gather buffers {sorted(f['buffers'])}; step "
         f"{[round(1e3 * max(r['f']['seconds'][i] for r in ranks), 1) for i in range(DDP_STEPS)]} ms against the DDP "
         f"steps' {[round(1e3 * max(r['a']['seconds'][i] for r in ranks), 1) for i in range(DDP_STEPS)]} ms (two ranks "
-        f"sharing one card), on {smi}")
+        f"sharing one card; contended: phase 76 ran beside the ranks), on {smi}")
     if (observed or not all(loss_equal) or not all(grads_equal) or max(norm_rel) > FSDP_NORM_REL or not state_ok
             or across or max(dloss) > DDP_LOSS_DB or min(cos) < DDP_GRAD_COS or held != want or not names_ok):
         raise AssertionError(f"phase 75's FSDP rules: observers {observed[:5]}, loss {loss_equal}, gradients "
@@ -5774,11 +6153,13 @@ def fsdp_against_ddp(ranks: list[dict], one: dict, smi: str) -> None:
 def data_parallel(dev, smi: str) -> dict:
     """Phases 75-79: two ranks on cuda:0 over gloo against one process, and a one-rank NCCL group. Returns each
     path's launches."""
-    nccl, nccl_fsdp, nccl_pp = nccl_one_rank(dev)  # 76.
+    got: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:  # 76. in this process beside the ranks of 75, 77-79
+        side_by_side(lambda: got.update(nccl=nccl_one_rank(dev)),
+                     lambda: got.update(ranks=spawn_ranks("--ddp-worker", DDP_RANKS, tmp, "75-79")))
+    (nccl, nccl_fsdp, nccl_pp), ranks = got["nccl"], got["ranks"]
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        ranks = spawn_ranks("--ddp-worker", DDP_RANKS, tmp, "75-79")
-    clock("76, the ranks of 75, 77-79")
+    clock("76 beside the ranks of 75, 77-79")
 
     # 75. the flagship's KD steps: the ranks against one process on the same 16 rows, from the ranks' learned
     # parameters before each step (the ranks and the one-process runs of 75-79 with cuDNN deterministic)
@@ -5800,8 +6181,9 @@ def data_parallel(dev, smi: str) -> dict:
         f"bitwise equal after every forward: {not observed} ({len(observed)} values of {len(a['observed'][0])} differ); rank 1's whole state bitwise "
         f"rank 0's: {not across}; loss |diff| {[f'{v:.2e}' for v in dloss]} dB (<= {DDP_LOSS_DB}); whole-gradient "
         f"cosine {[f'{v:.7f}' for v in cos]} (>= {DDP_GRAD_COS}), relative L2 {[f'{v:.2e}' for v in rel]}")
-    log(f"[75] step times, two ranks sharing one card (not a speed-up): {[round(1e3 * v, 1) for v in two_s]} ms; one "
-        f"process: {[round(1e3 * v, 1) for v in one['seconds']]} ms (host clock, each after a synchronize) on {smi}")
+    log(f"[75] step times, two ranks sharing one card (not a speed-up; contended: phase 76 ran beside the ranks): "
+        f"{[round(1e3 * v, 1) for v in two_s]} ms; one process: {[round(1e3 * v, 1) for v in one['seconds']]} ms "
+        f"(host clock, each after a synchronize) on {smi}")
     if observed or across or max(dloss) > DDP_LOSS_DB or min(cos) < DDP_GRAD_COS:
         raise AssertionError(f"phase 75's rules: observers {observed[:5]}, across ranks {across[:5]}, loss {dloss}, "
                              f"cosine {cos}")
@@ -5819,8 +6201,8 @@ def data_parallel(dev, smi: str) -> dict:
         f"{DDP_DPT_BATCH // DDP_RANKS} row(s) a rank: the {len(c['observed'][0])} site ranges and counters after the forward bitwise equal to one "
         f"process's: {not sites} ({len(sites)} differ); rank 1's whole state bitwise rank 0's: {not across_c}; loss "
         f"{c['loss'][0]:.5f} against {one_c['loss'][0]:.5f} dB, whole-gradient cosine {cos_c:.7f}; step "
-        f"{1e3 * max(r['c']['seconds'][0] for r in ranks):.1f} ms on two ranks sharing one card (not a speed-up), "
-        f"{1e3 * one_c['seconds'][0]:.1f} ms in one process, on {smi}")
+        f"{1e3 * max(r['c']['seconds'][0] for r in ranks):.1f} ms on two ranks sharing one card (not a speed-up; "
+        f"contended: phase 76 ran beside the ranks), {1e3 * one_c['seconds'][0]:.1f} ms in one process, on {smi}")
     if sites or across_c:
         raise AssertionError(f"phase 77's rule: sites {sites[:5]}, across ranks {across_c[:5]}")
 
@@ -5835,7 +6217,7 @@ def data_parallel(dev, smi: str) -> dict:
         f"{DDP_OLA['segment']}, overlap {DDP_OLA['overlap']}), chunk_batch {DDP_OLA['chunk_batch']} on each of "
         f"{DDP_RANKS} ranks against one process at {DDP_RANKS * DDP_OLA['chunk_batch']}: every rank's separation "
         f"bitwise equal: {equal} (max |diff| {diff:.3g}); {1e3 * max(r['ola_s'] for r in ranks):.1f} ms on two ranks "
-        f"sharing one card, {1e3 * one_s:.1f} ms in one process, on {smi}")
+        f"sharing one card (contended: phase 76 ran beside the ranks), {1e3 * one_s:.1f} ms in one process, on {smi}")
     if not all(equal) or not np.isfinite(want).all():
         raise AssertionError(f"phase 78's rule: bitwise {equal}, max |diff| {diff}")
     # 79. the dynamic cell's reductions: a one-layer dynamic DPTNet forward on the ranks against one process
@@ -5846,8 +6228,9 @@ def data_parallel(dev, smi: str) -> dict:
         raise AssertionError("phase 79: the ranks' dynamic forwards are not finite or differ between ranks")
     log(f"[79] DPTNet lstm_mode dynamic at one dual-path layer, an eval forward of {DDP_DPT_BATCH} x "
         f"{DDP_DYNAMIC_SEG / SR} s, {DDP_DPT_BATCH // DDP_RANKS} row(s) a rank (12 all_reduces of the sites' min and max a recurrence step): "
-        f"{1e3 * max(r['dynamic_s'] for r in ranks):.1f} ms on two ranks sharing one card over gloo, "
-        f"{1e3 * one_dyn_s:.1f} ms in one process, on {smi}; the ranks' output against one process's: max |diff| "
+        f"{1e3 * max(r['dynamic_s'] for r in ranks):.1f} ms on two ranks sharing one card over gloo (contended: phase "
+        f"76 ran beside the ranks), {1e3 * one_dyn_s:.1f} ms in one process, on {smi}; the ranks' output against one "
+        f"process's: max |diff| "
         f"{float((ranks[0]['dynamic'] - one_y).abs().max()):.3g}, bitwise {torch.equal(ranks[0]['dynamic'], one_y)}")
 
     sums = lambda runs: {k: sum(run[k] for run in runs) for k in runs[0]}  # noqa: E731
@@ -6129,7 +6512,8 @@ def tp_step_rule(phase: int, label: str, got: dict, want: dict, ranks: int, smi:
         f"{[f'{v:.2e}' for v in dloss]} dB (<= {TP_LOSS_DB}), whole-gradient cosine {[f'{v:.7f}' for v in cos]} "
         f"(>= {TP_GRAD_COS}), relative L2 {[f'{v:.2e}' for v in rel]}; step "
         f"{[round(1e3 * v, 1) for v in got['seconds']]} ms on the ranks, of it the gloo tp sums {share} (through the "
-        f"host: not a speed finding); one process {[round(1e3 * v, 1) for v in want['seconds']]} ms, on {smi}")
+        f"host: not a speed finding; contended: the CLI batch and the other grid's ranks ran beside them); one "
+        f"process {[round(1e3 * v, 1) for v in want['seconds']]} ms, on {smi}")
     if max(dloss) > TP_LOSS_DB or min(cos) < TP_GRAD_COS:
         raise AssertionError(f"phase {phase}'s rule: loss |diff| {dloss}, cosine {cos}")
 
@@ -6164,7 +6548,7 @@ def tensor_parallel(dev, smi: str, served: dict) -> dict:
         one = tp_kd_steps(dev, TP_CFG, 80, tp_batches(80, TP_STEPS), forced=ranks[0]["steps"]["before"])
     tp_step_rule(80, f"{TP_STEPS} KD steps of {TP_BATCH} x {TP_SEG // SR} s through the observer window", ranks[0]["steps"],
                  one, TP_SIZE, smi)
-    clock(f"80 (the gloo tp sums {tp_share(ranks[0]['steps'])} of its steps on rank 0)")
+    clock(f"80 (the gloo tp sums {tp_share(ranks[0]['steps'])} of its steps on rank 0, contended)")
     # 81. dp 2 x tp 2 (the dry run's phase 1 at full width), then the dry run and 82 on the same four ranks
     with deterministic_cudnn():
         one81 = tp_kd_steps(dev, TP_GRID_CFG, 81, tp_batches(81, 1), forced=grid[0]["steps"]["before"])
@@ -6181,7 +6565,7 @@ def tensor_parallel(dev, smi: str, served: dict) -> dict:
             raise AssertionError(f"the tensor-parallel path {path} launched no {idle}: {paths[path]}")
     log(f"[80-81] launches on the ranks (summed), counted from 0 before each path: "
         + "; ".join(f"{path} {', '.join(f'{k}={v}' for k, v in c.items() if v)}" for path, c in paths.items()))
-    clock(f"81 (the gloo tp sums {tp_share(grid[0]['steps'])} of its step on rank 0)")
+    clock(f"81 (the gloo tp sums {tp_share(grid[0]['steps'])} of its step on rank 0, contended)")
     return {"tp": paths, **pipeline_checks(dev, smi, grid, inputs)}
 
 
@@ -6285,6 +6669,8 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     infer.disable_tf32()
+    # the CLI batch's .npz files (phases 67, 70); removed after the batch, or at exit if a phase raises first
+    cli_dir = tempfile.TemporaryDirectory()
     log(f"[0] device: {torch.cuda.get_device_name(0)}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
 
@@ -6366,7 +6752,7 @@ def main() -> None:
     audio_s = BATCH * SEG / SR
     for name, model in (("fake_quant", served), ("folded", folded)):
         with torch.inference_mode():
-            ms = cuda_ms(lambda: model(x), 3)
+            ms = cuda_ms(lambda: model(x), THROUGHPUT_REPS)
         log(f"[7] throughput {name}: {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per forward of "
             f"{BATCH} x {SEG // SR} s) on {smi}")
     del folded, model, y_folded
@@ -6405,7 +6791,7 @@ def main() -> None:
 
     # 15. throughput of the int8 engine
     for dtype, engine in engines.items():
-        ms = cuda_ms(lambda: engine(x), 3)
+        ms = cuda_ms(lambda: engine(x), THROUGHPUT_REPS)
         log(f"[15] throughput int8 ({dtype} float convs): {audio_s / (ms / 1000):.1f} sec-audio/s ({ms:.1f} ms per "
             f"forward of {BATCH} x {SEG // SR} s) on {smi}")
     del engines
@@ -6432,7 +6818,7 @@ def main() -> None:
     clock("24-30")
 
     # 31-36. K5, K5-bwd, the LSTM backward and DPTNet and Sepformer training (launch counts set to 0 inside)
-    dense_fwd, dense_bwd, train_model_launches = train_models(dev, smi)
+    dense_fwd, dense_bwd, train_model_launches, clis = train_models(dev, smi)
     torch.cuda.empty_cache()
 
 
@@ -6443,7 +6829,8 @@ def main() -> None:
     clock("37-39")
 
     # 40-42. bf16 compute on the three models' serving path (launch counts set to 0 inside before each forward)
-    k5_shapes, k3_shapes, attn_shapes, bf16_launches = serve_bf16(dev, smi, states)
+    k5_shapes, k3_shapes, attn_shapes, bf16_launches, bf16_request = serve_bf16(dev, smi, states)
+    clis.append(bf16_request)
     bf16_count = {k: sum(run[k] for run in bf16_launches) for k in ("dense_bf16", "qmatmul_bf16", "attention_bf16")}
     torch.cuda.empty_cache()
     # 43. the bf16 routes of K5, K3 and K8 against their plain versions at those forwards' shapes
@@ -6462,6 +6849,7 @@ def main() -> None:
     htd = serve_htdemucs(dev, smi)
     htd_launches, htd_attn, htd_attn16 = htd["launches"], htd["attn"], htd["attn16"]
     states["HTDemucs"] = htd["state"]
+    clis.append(htd["cli"])
     torch.cuda.empty_cache()
     clock("54-60")
 
@@ -6469,18 +6857,23 @@ def main() -> None:
     htd_train = htdemucs_training(dev, smi)  # 61-63.
     htd_train_launches = htd_train["launches"]
     clock("61-63")
-    side_by_side(music_recipe_epoch, htdemucs_recipe_epoch)  # 53 and 64, the two recipes' processes side by side
-    clock("53, 64")
+    clis += [music_recipe_epoch, htdemucs_recipe_epoch]  # 53 and 64, the two recipes' processes
 
     # 65-68. checkpoint import (launch counts set to 0 inside before each forward and step they check)
-    imported = checkpoint_import(dev, states)
+    imported, requests = checkpoint_import(dev, states, cli_dir.name)
+    clis.append(requests)
     clock("65-68")
 
     # 69-71. the reference's other quantizers (launch counts set to 0 inside before each run they check)
-    variants = quant_variants(dev, smi)
+    variants = quant_variants(dev, smi, cli_dir.name)
+    clis.append(variants["cli"])
 
     # 72-74. the LSTM's static and dynamic modes (launch counts set to 0 inside before each run they check)
     modes = lstm_modes(dev, smi, states["DPTNet"])
+
+    # 83-87. the legacy HDemucs serving slice (launch counts set to 0 inside before each run they check)
+    hdl = serve_hdemucs_legacy(dev, smi)
+    clock("83-87")
 
     # 75-78. data parallelism: two ranks on the card over gloo, a one-rank NCCL group (launch counts set to 0 before
     # each path, on each rank)
@@ -6489,9 +6882,14 @@ def main() -> None:
 
     # 80-82. tensor parallelism: the Sepformer over tp 2 and dp 2 x tp 2 grids of gloo ranks on the card, then on the
     # same four ranks the dry run's phases 2-4 and the full-width pipeline (launch counts set to 0 before each path,
-    # on each rank)
-    tensor = tensor_parallel(dev, smi, states["Sepformer"])
-    clock("80-82")
+    # on each rank); side by side with the CLI batch (36, 40, 53, 60, 64, 67, 70: processes that wait on the card,
+    # each process's start, imports, CUDA context and kernel load overlapping the others')
+    ran: dict = {}
+    side_by_side(lambda: ran.update(tensor=tensor_parallel(dev, smi, states["Sepformer"])),
+                 lambda: side_by_side(*clis))
+    tensor = ran["tensor"]
+    cli_dir.cleanup()
+    clock("80-82 and the CLI batch (36, 40, 53, 60, 64, 67, 70) side by side")
 
     def bf16_keys(res: dict, launches: int, route: str) -> dict:
         """A kernel's bf16 route in the kernels line: its time, bound, plain time and library time per forward (the
@@ -6506,7 +6904,8 @@ def main() -> None:
         dict(name="act_fake_quant", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:87",
              launches=launches["act"], library_ms=None, **act, music_launches=music["launches"]["act"],
-             htdemucs_launches=htd_launches["act"], htdemucs_int8_launches=htd["int8_launches"]["act"]),
+             htdemucs_launches=htd_launches["act"], htdemucs_int8_launches=htd["int8_launches"]["act"],
+             hdemucs_legacy_launches=hdl["launches"]["act"]),
         # ms, plain_ms, bound_ms: the grouped launch of the ConvTasNet's 101 weight quantizers (phase 2, eval);
         # dptnet_*, sepformer_*: the other two models' full weight sets; per_tensor_ms: the per-tensor kernel that
         # the fold and a layer outside a model's pass take, at [1024, 128, 1]. launches: phase 3's forward.
@@ -6516,7 +6915,11 @@ def main() -> None:
                                         for m in ("DPTNet", "Sepformer", "ConvTasNetMusic", "HTDemucs")
                                         for k in ("ms", "bound_ms")},
              per_tensor_ms=weight_per_tensor["ms"],
-             music_launches=music["launches"]["weight"], htdemucs_launches=htd_launches["weight"]),
+             music_launches=music["launches"]["weight"], htdemucs_launches=htd_launches["weight"],
+             # hdemucs_legacy_*: the grouped launch at HDemucsLegacy's weight set (phase 84), launches phase 83's
+             **{f"hdemucs_legacy_{k}": hdl["groups"]["HDemucsLegacy"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                                                                 "max_abs_err")},
+             hdemucs_legacy_launches=hdl["launches"]["weight"]),
         dict(name="act_fake_quant_bwd", route="cuda", route_detail=elementwise, source=source,
              replaces="fqss_tpu/ops/pallas_qat.py:95",
              launches=train_launches["act_bwd"], library_ms=None, **act_bwd,
@@ -6549,9 +6952,14 @@ def main() -> None:
         # ms, plain_ms, bound_ms, library_ms: one DPTNet forward's 12 launches (6 at the row shape, 6 at the
         # column shape); library_ms: cuDNN's bidirectional nn.LSTM on the same weights and input, its own input
         # projection included. launches: phase 18's forward.
+        # hdemucs_legacy_<route>_*: one HDemucsLegacy forward's launches at 4 x 10 s on each route (phase 84: the
+        # cluster route at H 192, the blocks route at H 384, each against its plain version and cuDNN's bidirectional
+        # nn.LSTM at the same shapes); launches: phase 83's forward.
         dict(name="bilstm_sequence", route="cuda", route_detail=LSTM_ROUTE,
              source="fqss_tpu_torch/csrc/lstm.cu",
-             replaces="fqss_tpu/ops/pallas_lstm.py:114", launches=dpt_launches["bilstm"], **k7),
+             replaces="fqss_tpu/ops/pallas_lstm.py:114", launches=dpt_launches["bilstm"], **k7,
+             hdemucs_legacy_launches=hdl["launches"]["bilstm"],
+             **{f"hdemucs_legacy_{route}_{k}": v for route, res in hdl["k7"].items() for k, v in res.items()}),
         # One direction at the row shape, per launch. DPTNet's LSTMs are bidirectional, so K6 is not launched
         # on its path (launches 0 in phase 18's forward; phase 17 checks and times it).
         dict(name="lstm_sequence", route="cuda", route_detail=LSTM_ROUTE,
@@ -6608,7 +7016,12 @@ def main() -> None:
              **bf16_keys(dense16, bf16_count["dense_bf16"], BF16_DENSE_ROUTE),
              bf16_library_note=dense16["library_note"], htdemucs_launches=htd_launches["dense"],
              **{f"htdemucs_{k}": htd["k5"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms", "route_bound_ms",
-                                                        "max_abs_err")}),
+                                                        "max_abs_err")},
+             # hdemucs_legacy_*: one HDemucsLegacy forward's 8 launches, the BLSTMs' proj_0 and linear (phase 84);
+             # library: torch.addmm, then K1
+             hdemucs_legacy_launches=hdl["launches"]["dense"],
+             **{f"hdemucs_legacy_{k}": hdl["k5"][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                              "route_bound_ms", "max_abs_err")}),
         # K5's GELU route (QDense(nl="gelu")): ms, plain_ms, bound_ms, library_ms: one HTDemucs forward's 10 linear1
         # launches at 8 x 441,000 (phase 59); library_ms: torch.addmm, F.gelu, then K1. launches: phase 54's forward.
         dict(name="qat_dense_gelu", route="cuda", route_detail=DENSE_ROUTE + "; the exact GELU (erfcf) between the "

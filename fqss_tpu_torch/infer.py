@@ -74,7 +74,7 @@ def _read_mixture(conf: Mapping[str, Any], audio_path: str, normalize: bool) -> 
     """The mixture [C, T] as the config's dataset resamples it, and its rate. Refuses a music model: its file
     separation (stereo stems, by the config's ``sources``) is not ported yet."""
     name = conf["model_cfg"]["name"]
-    if name in ("ConvTasNetMusic", "HTDemucs"):
+    if name in ("ConvTasNetMusic", "HTDemucs", "HDemucsLegacy"):
         raise NotImplementedError(f"separating a file with {name} is not ported yet (ROADMAP.md, queue 1); "
                                   "val scores it on MUSDB")
     wav, fs = read_audio(audio_path)

@@ -220,7 +220,10 @@ def htdemucs_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
 
     The ``conv_tr`` scopes hold transposed convs (1-D in the time decoders, 2-D in the frequency ones; the combiner's
     ``residual_decoder_kernel`` by name), ``gamma_*`` and ``layer_*_scale`` are LayerScales, ``freq_emb`` the
-    embedding table."""
+    embedding table. The legacy HDemucs (``models/hdemucs.py``) shares this mapping: a MultiWrap decoder's ``band_k``
+    scopes are ``conv_tr`` scopes too (their ``band_k_bias`` params keep their names), the BLSTMs' ``w_ih [C, 4H]``/
+    ``w_hh [H, 4H]`` keep JAX's layout, and their ``proj_0``/``linear`` and LocalState's 1x1 convs are dense and conv
+    kernels."""
     return _from_jax(variables, _htdemucs_transposed, layer_scale=_htdemucs_layer_scale,
                      embeddings=_htdemucs_embeddings)
 

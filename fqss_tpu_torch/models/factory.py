@@ -1,9 +1,9 @@
 """Model factory (``fqss_tpu/models/factory.py``): name -> quantized model with weights,
 and the student/teacher pair of KD training.
 
-The port holds ConvTasNet, DPTNet, the Sepformer, ConvTasNet-music and
-HTDemucs; the JAX factory's legacy ``HDemucsLegacy`` raises
-``NotImplementedError`` (ROADMAP.md, queue 1).
+The port holds the JAX factory's six families: ConvTasNet, DPTNet, the
+Sepformer, ConvTasNet-music, HTDemucs and the legacy hybrid Demucs
+(``HDemucsLegacy``, ``models/hdemucs.py``).
 
 Checkpoint formats accepted by :func:`load_pretrained_state` (through
 ``model_cfg['model_path']`` and ``training_cfg['pretrained']``), told apart
@@ -27,6 +27,7 @@ from fqss_tpu_torch.models import convert
 from fqss_tpu_torch.models.convtasnet import ConvTasNet
 from fqss_tpu_torch.models.convtasnet_music import SOURCES, ConvTasNetMusic
 from fqss_tpu_torch.models.dptnet import DPTNet
+from fqss_tpu_torch.models.hdemucs import HDemucs
 from fqss_tpu_torch.models.htdemucs import HTDemucs
 from fqss_tpu_torch.models.sepformer import Sepformer
 from fqss_tpu_torch.nn.io_layers import expand_encoder_kernel
@@ -34,7 +35,7 @@ from fqss_tpu_torch.quant.calibration import calibrate_mse_quantizers, has_pendi
 from fqss_tpu_torch.quant.spec import QuantSpec
 from fqss_tpu_torch.train.checkpoints import is_npz, restore_jax_export
 
-MODEL_NAMES = ("ConvTasNet", "DPTNet", "Sepformer", "ConvTasNetMusic", "HTDemucs")
+MODEL_NAMES = ("ConvTasNet", "DPTNet", "Sepformer", "ConvTasNetMusic", "HDemucsLegacy", "HTDemucs")
 _ARCH_KEYS = ("n_filters", "bn_chan", "hid_chan", "n_blocks", "n_repeats", "mask_act", "mask_kernel_size")
 _DPTNET_KEYS = ("enc_dim", "feature_dim", "hidden_dim", "layer", "segment_size")
 _SEPFORMER_KEYS = ("n_filters", "n_repeats", "n_heads", "chunk_size", "n_ffn", "n_layers")
@@ -42,6 +43,8 @@ _MUSIC_KEYS = ("audio_channels", "n_filters", "bn_chan", "hid_chan", "conv_kerne
                "mask_act")
 _HTDEMUCS_KEYS = ("audio_channels", "channels", "nfft", "depth", "t_layers", "t_heads", "t_hidden_scale",
                   "bottom_channels", "segment", "samplerate")  # fqss_tpu/models/factory.py:104-106
+_HDEMUCS_KEYS = ("audio_channels", "channels", "nfft", "depth", "multi_freqs", "multi_freqs_depth", "cac",
+                 "wiener_iters", "samplerate", "segment")  # fqss_tpu/models/factory.py:91-93
 
 
 def create_model(model_cfg: Mapping[str, Any], q: QuantSpec | None = None,
@@ -68,6 +71,11 @@ def create_model(model_cfg: Mapping[str, Any], q: QuantSpec | None = None,
     if name == "HTDemucs":
         extra = {k: model_cfg[k] for k in _HTDEMUCS_KEYS if k in model_cfg}
         return HTDemucs(sources=tuple(model_cfg.get("sources", SOURCES)), q=q, generator=generator, **extra)
+    if name == "HDemucsLegacy":
+        extra = {k: model_cfg[k] for k in _HDEMUCS_KEYS if k in model_cfg}
+        if "multi_freqs" in extra:
+            extra["multi_freqs"] = tuple(extra["multi_freqs"])
+        return HDemucs(sources=tuple(model_cfg.get("sources", SOURCES)), q=q, generator=generator, **extra)
     if name != "ConvTasNet":
         raise NotImplementedError(f"model {name!r} is not ported yet; the port has {MODEL_NAMES} "
                                   "(ROADMAP.md, queue 1)")
@@ -110,7 +118,17 @@ def _family(model: nn.Module) -> tuple[Callable, Callable, Callable]:
     if isinstance(model, HTDemucs):
         return (convert.htdemucs_from_jax, convert.htdemucs_to_jax,
                 lambda sd: convert.htdemucs_params_from_torch(sd, model.depth, model.t_layers, model.dconv_depth))
+    if isinstance(model, HDemucs):
+        return convert.htdemucs_from_jax, convert.htdemucs_to_jax, _no_reference_map(model)  # the same mapping
     raise NotImplementedError(f"checkpoint import is not wired for {type(model).__name__}")
+
+
+def _no_reference_map(model: nn.Module) -> Callable:
+    """A family without a reference key map: JAX's ``_torch_to_params`` raises for it
+    (``fqss_tpu/models/factory.py:178``), and so does the port, with JAX's message."""
+    def refuse(sd):
+        raise NotImplementedError(f"torch import not yet wired for {type(model).__name__}")
+    return refuse
 
 
 def load_pretrained_state(model: nn.Module, path: str,

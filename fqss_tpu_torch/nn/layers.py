@@ -412,6 +412,52 @@ class QLayerNorm(nn.Module):
         return _quantize(self.activation_fake_quantize, self.norm(x))
 
 
+class BatchNorm(nn.Module):
+    """flax's ``nn.BatchNorm`` over the channels of axis 1 (NCT/NCHW; JAX's last axis), with its arithmetic: the
+    batch statistics over every other axis, the variance as E[x²] − E[x]² (clipped at 0); in training the running
+    statistics move by ``momentum r + (1 - momentum) batch`` (the biased variance), with ``use_running_average`` the
+    running ones normalise; ``(x - mean) * (rsqrt(var + eps) * weight) + bias``. The running statistics are buffers
+    (``running_mean``, ``running_var``; JAX's ``batch_stats`` ``mean``/``var``), kept in ``train()`` mode only."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.9):
+        super().__init__()
+        self.epsilon, self.momentum = epsilon, momentum
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("running_mean", torch.zeros(features))
+        self.register_buffer("running_var", torch.ones(features))
+
+    def forward(self, x: Tensor, use_running_average: bool = True) -> Tensor:
+        shape = [-1 if i == 1 else 1 for i in range(x.ndim)]
+        if use_running_average:
+            mean, var = self.running_mean, self.running_var
+        else:
+            dims = [i for i in range(x.ndim) if i != 1]
+            mean = x.mean(dims)
+            var = torch.clamp_min((x * x).mean(dims) - mean * mean, 0.0)
+            if self.training:
+                with torch.no_grad():
+                    self.running_mean.copy_(self.momentum * self.running_mean + (1 - self.momentum) * mean)
+                    self.running_var.copy_(self.momentum * self.running_var + (1 - self.momentum) * var)
+        return (x - mean.view(shape)) * (torch.rsqrt(var + self.epsilon) * self.weight).view(shape) + \
+            self.bias.view(shape)
+
+
+class QBatchNorm(nn.Module):
+    """BatchNorm -> act-quant (BatchNormQ, qat_layers.py:472-486; ``fqss_tpu/nn/layers.py:QBatchNorm``). No model of
+    either package uses it. ``forward(x, use_running_average=True)``: pass False to normalise by the batch's
+    statistics (and, in ``train()`` mode, move the running ones)."""
+
+    def __init__(self, features: int, epsilon: float = 1e-5, momentum: float = 0.9, q: QuantSpec = FLOAT,
+                 act_n_bits: int | None = None):
+        super().__init__()
+        self.norm = BatchNorm(features, epsilon, momentum)
+        self.activation_fake_quantize = make_act_quantizer(q, n_bits=act_n_bits)
+
+    def forward(self, x: Tensor, use_running_average: bool = True) -> Tensor:
+        return _quantize(self.activation_fake_quantize, self.norm(x, use_running_average))
+
+
 class QNl(nn.Module):
     """Nonlinearity -> act-quant (NlQ, qat_layers.py:511-518)."""
 

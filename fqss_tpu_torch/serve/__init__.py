@@ -39,7 +39,9 @@ def make_int8_engine(model, compute_dtype: str = "bfloat16"):
 
     Raises NotImplementedError for families without an int8 engine (the
     port has the ConvTasNet's, the DPTNet's, the Sepformer's,
-    ConvTasNet-music's and HTDemucs's, the JAX package's five).
+    ConvTasNet-music's and HTDemucs's, the JAX package's five; the legacy
+    HDemucs serves through ``fold_quantized_weights``, as in JAX), with
+    JAX's message.
     """
     if isinstance(model, ConvTasNet):
         return ConvTasNetInt8Engine(model, compute_dtype=compute_dtype)

@@ -46,7 +46,9 @@ from fqss_tpu_torch.serve.fold import fold_quantized_weights
 # folded model's), and its requantization chains cost more than K4 saves there; bf16 adds K8's three-pass route.
 BEST_PATHS: dict[str, str] = {"ConvTasNet": "folded", "DPTNet": "fake_quant", "Sepformer": "folded",
                               "ConvTasNetMusic": "int8", "HTDemucs": "folded"}
-DEFAULT_PATH = "folded"  # a family the table does not name: the weight-folded fake-quant model
+# A family the table does not name (the legacy HDemucs): the weight-folded fake-quant model, bitwise JAX's default
+# for such a family (float32 fake-quant, fqss_tpu/serve/autopath.py:46-55) with the fold.
+DEFAULT_PATH = "folded"
 INT8_COMPUTE_DTYPE = "float32"  # the int8 path's float products: float32, the faster of the two on this card
 
 

@@ -10,7 +10,9 @@ tensors of ``device``: the model, its folded copy or the int8 engine.
 HTDemucs (``model_cfg.name``) is evaluated as the JAX loop evaluates it
 (``fqss_tpu/train/validate_musdb.py:45-60``): its forward with
 ``train=False``, each chunk centre-padded with the mixture around it to
-``segment_samples`` (``ola_infer(center_pad_to=...)``).
+``segment_samples`` (``ola_infer(center_pad_to=...)``); every other family,
+the legacy HDemucs (``HDemucsLegacy``) among them, as JAX's non-HTDemucs
+branch: its forward as it is, the chunks unpadded.
 Tracks live in the musdb layout ``<root>/test/<track>/{mixture, <stem>}.wav``.
 With a data-parallel ``mesh`` every rank calls the loop: each track's OLA is
 sharded over the ranks, rank ``j % W`` scores track ``j``, and the per-track

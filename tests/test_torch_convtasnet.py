@@ -140,5 +140,5 @@ def test_factory_loads_port_checkpoints_and_names_what_is_missing(calibrated, tm
     loaded = create_pretrained_model(cfg, observer=False)
     assert loaded.q.observer is False and not loaded.training
     np.testing.assert_array_equal(_port_forward(loaded, mix), _port_forward(port, mix))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model({"name": "HDemucsLegacy"})
+    legacy = create_model({"name": "HDemucsLegacy"})  # the JAX factory's sixth family, at JAX's defaults
+    assert type(legacy).__name__ == "HDemucs" and (legacy.nfft, legacy.depth, legacy.n_srcs) == (4096, 6, 4)

@@ -2051,3 +2051,65 @@ def test_two_stage_pipeline_on_the_card_meets_the_sequential_stack(dev, tmp_path
         np.testing.assert_allclose(r["y"].numpy(), y.detach().cpu().numpy(), atol=1e-5, rtol=1e-5)
     for k, g in got.items():
         np.testing.assert_allclose(g.numpy(), want[k].numpy(), atol=2e-4, rtol=1e-4, err_msg=k)
+
+
+# The legacy HDemucs's BLSTMs at the default model's shapes: the frequency encoder's at index 4 (T 200, 4 frames of
+# the 4-item batch, H 192: the cluster route) and the time encoder's at index 5 (T 200, 2 frames, H 384: the blocks
+# route, which reads w_hh from L2 at every step), at batch 1 and 4.
+@pytest.mark.parametrize("T,B,H", [(200, 16, 192), (200, 4, 192), (200, 8, 384), (200, 2, 384)])
+def test_lstm_routes_at_the_blstm_shapes_match_plain(dev, T, B, H):
+    from fqss_tpu_torch.ops import lstm
+
+    gen = torch.Generator(device=dev).manual_seed(T + B + H)
+    ih = [torch.randn(T, B, 4 * H, device=dev, generator=gen) * 0.5 for _ in range(2)]
+    w = [(torch.rand(H, 4 * H, device=dev, generator=gen) * 2 - 1) / H**0.5 for _ in range(2)]
+    assert lstm.launch_plan(dev, B, H, 2).route == ("blocks" if H == 384 else "cluster")
+    before = lstm.LAUNCHES["bilstm"]
+    with torch.no_grad():
+        hf, hb = lstm.bilstm_sequence(ih[0], ih[1], w[0], w[1])
+        rf, rb = lstm.bilstm_sequence_ref(ih[0], ih[1], w[0], w[1])
+    torch.cuda.synchronize()
+    assert lstm.LAUNCHES["bilstm"] == before + 1
+    for got, want in ((hf, rf), (hb, rb)):
+        assert (got - want).abs().max().item() <= LSTM_TOL
+
+
+def test_tiny_hdemucs_legacy_folded_equals_fake_quant_on_the_card(dev):
+    """The tiny HDemucsLegacy (JAX's test config) after a 3-step observer window: K1 per act quantizer but the 8
+    QDense layers', one grouped weight launch, K5 8, K7 8; folded bitwise equal with no weight launch; card vs CPU
+    >= 20 dB."""
+    import copy
+
+    from fqss_tpu_torch.models.hdemucs import HDemucs
+    from fqss_tpu_torch.ops import lstm
+    from fqss_tpu_torch.quant.quantizers import ActQuantizer
+    from fqss_tpu_torch.quant.spec import QuantSpec
+    from fqss_tpu_torch.serve.fold import fold_quantized_weights
+
+    tiny = dict(channels=4, nfft=1024, samplerate=8000, segment=0.5)
+    spec = dict(qat=True, n_splitter=2, n_combiner=2, out_quant=True, max_observations=3)
+    gen = torch.Generator().manual_seed(23)
+    x = (torch.rand(2, 2, 4000, generator=gen) - 0.5)
+    model = HDemucs(q=QuantSpec(observer=True, **spec), generator=gen, **tiny).to(dev)
+    with torch.no_grad():
+        for _ in range(3):
+            model(x.to(dev))
+    cpu = HDemucs(q=QuantSpec(observer=False, **spec), **tiny)
+    cpu.load_state_dict({k: v.cpu() for k, v in model.state_dict().items()})
+    cpu.eval()
+    card = copy.deepcopy(cpu).to(dev)
+    n_act = sum(isinstance(m, ActQuantizer) for m in cpu.modules())
+    for module in (fq, qd, lstm):
+        module.reset_launches()
+    with torch.inference_mode():
+        y = card(x.to(dev))
+        want = cpu(x)
+    assert fq.LAUNCHES == {"act": n_act - 8, "weight": 1, "act_bwd": 0, "weight_bwd": 0}
+    assert (qd.LAUNCHES["dense"], lstm.LAUNCHES["bilstm"]) == (8, 8)
+    snr = 10 * torch.log10(want.pow(2).sum(-1) / (want - y.cpu()).pow(2).sum(-1).clamp_min(1e-30))
+    assert y.shape == (2, 4, 2, 4000) and bool((snr >= 20).all()), snr
+    folded = fold_quantized_weights(card)
+    fq.reset_launches()
+    with torch.inference_mode():
+        assert torch.equal(folded(x.to(dev)), y)
+    assert fq.LAUNCHES["weight"] == 0

@@ -235,8 +235,8 @@ def test_factory_builds_htdemucs_with_the_jax_keys(models, tmp_path):
     loaded = create_pretrained_model({**cfg, "model_path": str(ckpt)}, observer=False)
     with torch.no_grad():
         assert torch.equal(loaded(torch.from_numpy(mix)), port(torch.from_numpy(mix)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        create_model({"name": "HDemucsLegacy"})
+    legacy = create_model({"name": "HDemucsLegacy"})  # the JAX factory's sixth family, at JAX's defaults
+    assert type(legacy).__name__ == "HDemucs" and (legacy.nfft, legacy.depth, legacy.n_srcs) == (4096, 6, 4)
 
 
 # ---------------------------------------------------------------------------
